@@ -1,0 +1,466 @@
+"""Chip smoke test of the PyTorch port (``singa_tpu_torch``) on one
+NVIDIA GPU: the quickest proof that the port builds, is right and
+serves on the card.
+
+Run from the repository root, with no arguments::
+
+  python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero; nothing is
+caught and carried on):
+
+  1. env     the card's name and power limit (nvidia-smi), torch and CUDA
+             versions, and the nvcc build of every kernel in
+             singa_tpu_torch/csrc/ (one nvcc per source, started together).
+  2. kernel  the paged-attention kernel, both forms, against its plain
+             PyTorch version on the card: decode (S=8, Q=1), prefill
+             (S=1, Q=64) and overlay/verify (S=8, Q=5) at head_dim 128 and
+             64, block_len 16 and 8, ragged fills with fully-masked rows.
+             Times (CUDA events, L2 flushed before each launch) of the
+             kernel, the plain version and, as a yardstick the port never
+             calls, F.scaled_dot_product_attention on the gathered dense
+             view; the bound is the larger of modeled bytes / 3.35 TB/s
+             and operations / 67 TFLOP/s (f32 without tensor cores).
+  3. serve   the d128 LM (vocab 256, d_model 256, 2 heads x 128, 2 layers,
+             d_ff 1024, max_len 2048, seeded init_lm) behind Engine +
+             Scheduler (8 slots, kv_block_len 16, prefill chunk 64): 16
+             greedy requests, ragged prompts of 32-1024 tokens, 64 new
+             tokens each, through the kernel ("fused") and through gather +
+             cache_attend ("reference") in turns: fused, reference,
+             reference, fused. Streams must be identical, the kernel's
+             launches must equal layers x (prefill chunks + decode ticks),
+             and one stream must equal the sequential ``generate`` oracle.
+  4. spec    speculative decode (spec_k 4) on the repeat workload (8
+             requests, prompt 64, 64 new tokens) against one-token ticks,
+             in turns: streams identical, the overlay form launched.
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from singa_tpu_torch import _build
+from singa_tpu_torch.device import resolve_device
+from singa_tpu_torch.models.transformer import (
+    TransformerConfig,
+    generate,
+    init_lm,
+    lm_apply,
+)
+from singa_tpu_torch.ops import paged_attention as pa
+from singa_tpu_torch.serve import Engine, EngineConfig, Request, Scheduler
+from singa_tpu_torch.tools.serve_bench import _percentile
+
+#: kernel vs plain, float32 on the card: online softmax folds the keys in
+#: another order than the plain one-pass softmax (up to 2048 keys), and
+#: the kernel's expf and the plain exp differ by a few ulps
+TOL = 1e-4
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+F32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, f32 without tensor cores
+SOURCE = "singa_tpu_torch/csrc/paged_attention.cu"
+REPLACES = "singa_tpu/ops/paged_attention.py:121"
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+# ---------------------------------------------------------------------------
+# kernel phase
+# ---------------------------------------------------------------------------
+
+
+def make_case(rs, dev, *, s, h, nq, d, bl, max_len, pos0, overlay,
+              valid=None):
+    """Random pools and queries; each sequence owns a shuffled disjoint
+    set of blocks (block 0 is the trash block)."""
+    mb = max_len // bl
+    nb = s * mb + 1
+
+    def randn(*shape):
+        return torch.from_numpy(
+            rs.standard_normal(shape).astype(np.float32)
+        ).to(dev)
+
+    tables = (1 + rs.permutation(s * mb)).reshape(s, mb).astype(np.int32)
+    positions = (np.asarray(pos0)[:, None] + np.arange(nq)[None, :])
+    case = {
+        "q": randn(s, h, nq, d),
+        "k_pool": randn(nb, h, bl, d),
+        "v_pool": randn(nb, h, bl, d),
+        "tables": torch.from_numpy(tables).to(dev),
+        "positions": torch.from_numpy(positions.astype(np.int32)).to(dev),
+    }
+    if overlay:
+        case["chunk_k"] = randn(s, h, nq, d)
+        case["chunk_v"] = randn(s, h, nq, d)
+        case["chunk_valid"] = torch.from_numpy(valid).to(dev)
+    return case
+
+
+def run_kernel(case):
+    if "chunk_k" in case:
+        return pa.paged_attention_overlay(**case)
+    return pa.paged_attention(**case)
+
+
+def run_plain(case):
+    if "chunk_k" in case:
+        return pa.paged_attention_overlay_plain(**case)
+    return pa.paged_attention_plain(**case)
+
+
+def live_per_seq(case):
+    """live_blocks of each sequence, as the kernel computes them."""
+    pos = case["positions"].cpu().numpy().astype(np.int64)
+    bl, mb = case["k_pool"].shape[2], case["tables"].shape[1]
+    last = pos[:, 0] - 1 if "chunk_k" in case else pos.max(1)
+    return pa.live_blocks(last, bl, mb)
+
+
+def visible(case, n_blocks):
+    """The kernel's (S, 1, Q, keys) visibility mask over the first
+    ``n_blocks`` table entries (and, overlay, the chunk columns)."""
+    return pa._mask(case["positions"], case["k_pool"].shape[2], n_blocks,
+                    case.get("chunk_valid"))
+
+
+def library_call(case):
+    """F.scaled_dot_product_attention over the dense view gathered to
+    the longest live length (built once, outside the timed call)."""
+    q, kp, vp, tables = case["q"], case["k_pool"], case["v_pool"], \
+        case["tables"]
+    n = max(int(live_per_seq(case).max()), 1)
+    dk = pa._gather(kp, tables[:, :n])
+    dv = pa._gather(vp, tables[:, :n])
+    mask = visible(case, n)
+    if "chunk_k" in case:
+        dk = torch.cat([dk, case["chunk_k"]], dim=2)
+        dv = torch.cat([dv, case["chunk_v"]], dim=2)
+
+    def call():
+        return F.scaled_dot_product_attention(q, dk, dv, attn_mask=mask)
+
+    return call
+
+
+def time_ms(fn, flush, iters=30):
+    """Mean device ms of one call: CUDA events around each call, the L2
+    flushed (64 MB written) before each, after 3 warm-up calls. A device
+    sleep (~1 ms) before each start event keeps the card busy while the
+    host enqueues the call, so the events time the device's work and not
+    the wrapper's Python overhead."""
+    for _ in range(3):
+        fn()
+    events = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def bound(case):
+    """(bound_ms, bound_by) from this case's inputs: the larger of the
+    modeled bytes over HBM bandwidth and the operations over the f32
+    rate. Operations count only the (query, key) pairs the mask leaves
+    visible, QK^T and PV at 2 ops per multiply-add each: causally hidden
+    keys and the tail of the last live block need no work."""
+    s, h, nq, d = case["q"].shape
+    bl = case["k_pool"].shape[2]
+    overlay = "chunk_k" in case
+    live = live_per_seq(case)
+    nbytes = pa.modeled_bytes(s, h, nq, d, bl, int(live.sum()),
+                              overlay=overlay)
+    pairs = int(visible(case, case["tables"].shape[1]).sum())
+    ops = 4 * h * d * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def kernel_phase(dev, rs):
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    max_len, s, h = 2048, 8, 2
+    errs = {"paged_attention": 0.0, "paged_attention_overlay": 0.0}
+    timed = {}
+    for d in (128, 64):
+        for bl in (16, 8):
+            # decode: ragged fills, one row at position -1 (fully masked)
+            pos0 = rs.randint(32, 1088, size=s)
+            pos0[3] = -1
+            dec = make_case(rs, dev, s=s, h=h, nq=1, d=d, bl=bl,
+                            max_len=max_len, pos0=pos0, overlay=False)
+            # prefill: one slot, a 64-token chunk deep into its prompt
+            pre = make_case(rs, dev, s=1, h=h, nq=64, d=d, bl=bl,
+                            max_len=max_len, pos0=[960], overlay=False)
+            # overlay: ragged pos0 (one at 0), ragged draft validity, one
+            # dead row with no pool entry and no valid column
+            pos0 = rs.randint(32, 1088, size=s)
+            pos0[0] = 0
+            pos0[5] = 0
+            n_draft = rs.randint(0, 5, size=s)
+            valid = (np.arange(5)[None, :] <= n_draft[:, None]).astype(
+                np.int32)
+            valid[5] = 0
+            ovl = make_case(rs, dev, s=s, h=h, nq=5, d=d, bl=bl,
+                            max_len=max_len, pos0=pos0, overlay=True,
+                            valid=valid)
+            for name, case in (("decode", dec), ("prefill", pre),
+                               ("overlay", ovl)):
+                got = run_kernel(case)
+                want = run_plain(case)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got).all()),
+                      f"kernel {name} d{d} bl{bl}: non-finite output")
+                err = float((got - want).abs().max())
+                form = ("paged_attention_overlay" if name == "overlay"
+                        else "paged_attention")
+                errs[form] = max(errs[form], err)
+                print(f"kernel {name:8s} head_dim {d:3d} block_len {bl:2d} "
+                      f"max_abs_err {err:.3e} (tol {TOL:g})")
+                check(err <= TOL, f"kernel {name} d{d} bl{bl}: max_abs_err "
+                      f"{err} > {TOL}")
+            # fully-masked rows emit zeros
+            check(bool((run_kernel(dec)[3] == 0).all()),
+                  "decode row at position -1 is not zero")
+            check(bool((run_kernel(ovl)[5] == 0).all()),
+                  "dead overlay row is not zero")
+            if (d, bl) == (128, 16):   # the serve phase's geometry
+                # the timed decode case without the masked row, fills as
+                # the serve phase's requests reach them
+                dec = make_case(rs, dev, s=s, h=h, nq=1, d=d, bl=bl,
+                                max_len=max_len,
+                                pos0=rs.randint(32, 1088, size=s),
+                                overlay=False)
+                timed = {"decode": dec, "prefill": pre, "overlay": ovl}
+    rows = {}
+    for name, case in timed.items():
+        b_ms, b_by = bound(case)
+        rows[name] = {
+            "ms": time_ms(lambda: run_kernel(case), flush),
+            "plain_ms": time_ms(lambda: run_plain(case), flush),
+            "library_ms": time_ms(library_call(case), flush),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "live_blocks": int(live_per_seq(case).sum()),
+            "shape": list(case["q"].shape),
+        }
+        print("kernel_timing", json.dumps({"case": name, **rows[name]}))
+    return errs, rows
+
+
+# ---------------------------------------------------------------------------
+# serve and spec phases
+# ---------------------------------------------------------------------------
+
+
+def serve(dev, params, cfg, prompts, *, impl, spec_k=0, max_new=64):
+    """One Engine + Scheduler run, warmed by a throwaway request; kernel
+    launch counts are zeroed just before the measured requests and read
+    just after. -> (scheduler, seconds, launches, {rid: tokens})."""
+    eng = Engine(params, cfg, EngineConfig(
+        slots=8, kv_block_len=16, max_prefill_chunk=64, spec_k=spec_k,
+        attend_impl=impl,
+    ), device=dev)
+    sched = Scheduler(eng)
+    sched.submit(Request(rid=-1, prompt=prompts[0][:40], max_new_tokens=4))
+    sched.serve()
+    sched.reset_counters()
+    torch.cuda.synchronize()
+    pa.paged_attention.launches = 0
+    pa.paged_attention_overlay.launches = 0
+    for i, pr in enumerate(prompts):
+        sched.submit(Request(rid=i, prompt=pr, max_new_tokens=max_new,
+                             seed=i))
+    t0 = time.perf_counter()
+    sched.serve()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {
+        "paged_attention": pa.paged_attention.launches,
+        "paged_attention_overlay": pa.paged_attention_overlay.launches,
+    }
+    streams = {r.rid: r.tokens for r in sched.finished}
+    return sched, seconds, launches, streams
+
+
+def report(tag, sched, seconds):
+    lat = sorted(r.latency_s * 1e3 for r in sched.finished)
+    tokens = sched.tokens_emitted + len(sched.finished)
+    out = {
+        "run": tag,
+        "tokens": tokens,
+        "seconds": seconds,
+        "tokens_per_s": tokens / seconds,
+        "p50_ms": _percentile(lat, 0.50),
+        "p99_ms": _percentile(lat, 0.99),
+        **sched.occupancy(),
+    }
+    print("serve", json.dumps(out))
+    return out
+
+
+def in_turns(dev, params, cfg, prompts, a, b):
+    """After an untimed run of ``a``, run configuration ``a``, ``b``,
+    ``b``, ``a`` (dicts of serve() keywords; the turns spread host noise
+    over both) and check that every run's streams equal the untimed
+    run's. -> [(tag, sched, seconds,
+    launches)] in run order."""
+    # an untimed pass of the whole workload first: the first run in a
+    # process pays allocator growth and clock ramp-up
+    _, _, _, first = serve(dev, params, cfg, prompts, **a)
+    runs = []
+    for tag, kw in (("a", a), ("b", b), ("b", b), ("a", a)):
+        sched, seconds, launches, streams = serve(dev, params, cfg,
+                                                  prompts, **kw)
+        name = kw["impl"] + (f"_spec{kw['spec_k']}" if kw.get("spec_k")
+                             else "")
+        report(name, sched, seconds)
+        check(len(streams) == len(prompts) and all(
+            len(t) == 64 and all(0 <= x < cfg.vocab for x in t)
+            for t in streams.values()
+        ), f"{name}: not every request finished with 64 in-vocabulary "
+           "tokens")
+        mism = sum(streams[i] != first.get(i) for i in streams)
+        print(f"{name}: {mism} of {len(prompts)} streams differ from the "
+              f"untimed run; launches {launches}")
+        check(mism == 0, f"{name}: greedy streams differ")
+        runs.append((tag, sched, seconds, launches))
+    return runs
+
+
+def serve_phase(dev, cfg, params):
+    rs = np.random.RandomState(1)
+    prompts = [
+        rs.randint(0, cfg.vocab, size=(int(rs.randint(32, 1025)),)).astype(
+            np.int32)
+        for _ in range(16)
+    ]
+    runs = in_turns(dev, params, cfg, prompts, {"impl": "fused"},
+                    {"impl": "reference"})
+    for tag, sched, _, launches in runs:
+        want = cfg.n_layers * (sched.prefill_chunks + sched.decode_ticks)
+        if tag == "a":
+            print(f"serve kernel launches {launches['paged_attention']} = "
+                  f"layers {cfg.n_layers} x (prefill chunks "
+                  f"{sched.prefill_chunks} + decode ticks "
+                  f"{sched.decode_ticks}) = {want}")
+            check(launches["paged_attention"] == want > 0,
+                  "serve: launches != layers x (chunks + ticks)")
+        else:
+            check(launches["paged_attention"] == 0,
+                  "reference run launched the kernel")
+    # the sequential oracle on one request, and finite logits
+    i = min(range(16), key=lambda j: len(prompts[j]))
+    prompt = torch.from_numpy(prompts[i]).to(dev)[None]
+    oracle = generate(params, prompt, cfg, 64)[0, len(prompts[i]):]
+    got = next(r for r in runs[0][1].finished if r.rid == i).tokens
+    check(oracle.tolist() == got,
+          "serve: fused stream differs from sequential generate()")
+    with torch.no_grad():
+        logits = lm_apply(params, prompt[:, :64], cfg)
+    check(tuple(logits.shape) == (1, 64, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          "lm_apply logits not finite / wrong shape")
+    print("serve oracle: request", i, "matches generate()")
+    return runs[-1][3]["paged_attention"]
+
+
+def spec_phase(dev, cfg, params):
+    rs = np.random.RandomState(2)
+    prompts = [
+        np.tile(rs.randint(0, cfg.vocab, size=(4,)), 16)[:64].astype(
+            np.int32)
+        for _ in range(8)
+    ]
+    runs = in_turns(dev, params, cfg, prompts, {"impl": "fused"},
+                    {"impl": "fused", "spec_k": 4})
+    for tag, sched, _, launches in runs:
+        if tag == "b":
+            check(launches["paged_attention_overlay"]
+                  == cfg.n_layers * sched.decode_ticks > 0,
+                  "spec: overlay launches != layers x verify ticks")
+            check(launches["paged_attention"]
+                  == cfg.n_layers * sched.prefill_chunks,
+                  "spec: write-then-read launches != layers x chunks")
+    return runs[2][3]["paged_attention_overlay"]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    dev = resolve_device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)} count "
+          f"{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    print(f"kernel build {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(logs) or 'already built'})")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
+
+    errs, rows = kernel_phase(dev, np.random.RandomState(0))
+
+    cfg = TransformerConfig(vocab=256, d_model=256, n_heads=2, n_layers=2,
+                            d_ff=1024, max_len=2048)
+    params = init_lm(torch.Generator().manual_seed(0), cfg, dev)
+    launches = {
+        "paged_attention": serve_phase(dev, cfg, params),
+        "paged_attention_overlay": spec_phase(dev, cfg, params),
+    }
+
+    kernels = []
+    for name, case in (("paged_attention", "decode"),
+                       ("paged_attention_overlay", "overlay")):
+        row = rows[case]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,23 @@
+"""singa_tpu_torch: the PyTorch + CUDA port of singa_tpu for one NVIDIA
+H100.
+
+The JAX package ``singa_tpu`` stays beside this one as the reference;
+this package imports nothing of it (and never ``jax``). Module layout
+and names follow ``singa_tpu`` so each counterpart is easy to find:
+
+  ``device``                  device resolution (cuda unless asked) and
+                              the float32 precision settings
+  ``ops.attention``           dense reference attention
+  ``ops.paged_attention``     paged attention: the CUDA kernel's wrapper
+                              and its plain PyTorch version
+  ``csrc/``, ``_build``       the CUDA C++ sources and their nvcc build
+  ``models.transformer``      the decoder-only LM
+  ``serve``                   the paged-KV serving engine, scheduler,
+                              block pool and drafters
+  ``tools.serve_bench``       the serving load harness
+
+Ported so far: the single-engine serving path. Training, the prefix
+cache, distribution and the fleet come in later slices (ROADMAP.md).
+"""
+
+from .device import resolve_device  # noqa: F401
