@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch port (``singa_tpu_torch``) on one
-NVIDIA GPU: the quickest proof that the port builds, is right and
-serves on the card.
+NVIDIA GPU: the quickest proof that the port builds, is right, serves
+and trains on the card.
 
 Run from the repository root, with no arguments::
 
@@ -33,6 +33,29 @@ caught and carried on):
   4. spec    speculative decode (spec_k 4) on the repeat workload (8
              requests, prompt 64, 64 new tokens) against one-token ticks,
              in turns: streams identical, the overlay form launched.
+  5. flash   the three flash-attention kernels (forward, dQ, dK/dV)
+             against their plain PyTorch versions on the card: B*H in
+             {2, 8}, S in {256, 1024, 8192}, head_dim 64 and 128, causal
+             and not, float32 and bfloat16, plus S=32768 causal bf16
+             head_dim 128. Times at the training shape (B=1, H=2, S=8192,
+             D=128, bf16, causal) of each kernel, its plain version and,
+             as a yardstick the port never calls,
+             F.scaled_dot_product_attention forward and its autograd
+             backward; the bound is the larger of bytes / 3.35 TB/s and
+             operations / 989 TFLOP/s (bf16).
+  6. train   the port's Trainer on examples/lm/tinylm_longctx_d128.conf
+             (full width, read by the port's load_model_config) over a
+             shard of 32 synthetic 8192-token sequences: at float32, 8
+             steps through the flash kernels and 8 through dense
+             attention, in turns (flash, dense, dense, flash) from the
+             same initial params, losses agreeing and launches = layers x
+             steps (0 on dense); the same comparison failing on each
+             gradient fault of FAULTS planted in the flash backward; then
+             the conf as written (bf16) for 30 steps: finite losses, the
+             last below the first, step ms (host clock to a device sync
+             after each step) and tokens/s, and 3 more steps under
+             torch.profiler (wall and device ms per step of that window,
+             its idle share, the largest kernels).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -41,8 +64,10 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -50,6 +75,8 @@ import torch
 import torch.nn.functional as F
 
 from singa_tpu_torch import _build
+from singa_tpu_torch.config import load_model_config
+from singa_tpu_torch.data.loader import synthetic_token_arrays, write_records
 from singa_tpu_torch.device import resolve_device
 from singa_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -57,9 +84,11 @@ from singa_tpu_torch.models.transformer import (
     init_lm,
     lm_apply,
 )
+from singa_tpu_torch.ops import attention as ta
 from singa_tpu_torch.ops import paged_attention as pa
 from singa_tpu_torch.serve import Engine, EngineConfig, Request, Scheduler
 from singa_tpu_torch.tools.serve_bench import _percentile
+from singa_tpu_torch.trainer import Trainer
 
 #: kernel vs plain, float32 on the card: online softmax folds the keys in
 #: another order than the plain one-pass softmax (up to 2048 keys), and
@@ -67,8 +96,50 @@ from singa_tpu_torch.tools.serve_bench import _percentile
 TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, f32 without tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, bf16 tensor cores, dense
 SOURCE = "singa_tpu_torch/csrc/paged_attention.cu"
 REPLACES = "singa_tpu/ops/paged_attention.py:121"
+FLASH_SOURCE = "singa_tpu_torch/csrc/flash_attention.cu"
+TRAIN_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "examples", "lm", "tinylm_longctx_d128.conf")
+#: each flash kernel's wrapper, the Pallas kernel it replaces (the staged
+#: body; the streamed one is the same function), and its matrix products
+#: per visible (q, k) pair, 2*D operations each
+FLASH = {
+    "flash_fwd": (ta.flash_fwd, "singa_tpu/ops/attention.py:386", 2),
+    "flash_bwd_dq": (ta.flash_bwd_dq, "singa_tpu/ops/attention.py:419", 3),
+    "flash_bwd_dkv": (ta.flash_bwd_dkv, "singa_tpu/ops/attention.py:451", 4),
+}
+#: flash kernel vs plain, as max |kernel - plain| / max |plain| per
+#: output: float32 sums the same products in another order (4.5e-6 at
+#: worst, over 8192-term rows); bf16 outputs are rounded once to 8 bits
+#: of mantissa, 2^-8 = 3.9e-3 relative, so 2e-2 allows a few roundings
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: flash vs dense training losses at float32 over 8 steps. The kernels and
+#: cuBLAS sum attention in different orders (~1e-6 relative per call);
+#: on an H100 the sound runs' losses came out equal (0.0), and 1e-5 is
+#: ~20 float32 ulps of a loss near 5.5. Step 0's loss comes before any
+#: update, so a gradient fault shows from step 1 on: the smallest of
+#: FAULTS (dK zeroed) moved the step-1 loss by 6.2e-3 on an H100, over
+#: 600x this limit
+TRAIN_TOL = 1e-5
+#: gradient faults planted in the flash backward, each of which the
+#: flash vs dense comparison must catch: name -> what is done to the
+#: backward's (dQ, dK, dV)
+FAULTS = {
+    "dK zeroed": lambda dq, dk, dv: (dq, torch.zeros_like(dk), dv),
+    "dV zeroed": lambda dq, dk, dv: (dq, dk, torch.zeros_like(dv)),
+    "dQ unscaled": lambda dq, dk, dv: (dq * dq.shape[-1] ** 0.5, dk, dv),
+}
+#: (B*H, S, D, causal, dtype) of every kernel-vs-plain check, and the
+#: training shape the kernels are timed at (B=1, H=2, S=8192, D=128)
+FLASH_SHAPES = [
+    (bh, s, d, causal, dtype)
+    for dtype in (torch.float32, torch.bfloat16)
+    for bh in (2, 8) for s in (256, 1024, 8192) for d in (64, 128)
+    for causal in (False, True)
+] + [(2, 32768, 128, True, torch.bfloat16)]   # the TPU's streamed regime
+FLASH_TIMED = (2, 8192, 128, True, torch.bfloat16)
 
 
 class SmokeFailure(RuntimeError):
@@ -408,6 +479,241 @@ def spec_phase(dev, cfg, params):
     return runs[2][3]["paged_attention_overlay"]
 
 
+# ---------------------------------------------------------------------------
+# flash kernel phase
+# ---------------------------------------------------------------------------
+
+
+def flash_case(bh, s, d, causal, dtype, dev, gen):
+    """Random (BH, S, D) q, k, v, dO and the plain versions' out, lse,
+    delta = rowsum(dO * O) (what the backward kernels are fed)."""
+    q, k, v, do = [torch.randn(bh, s, d, device=dev, generator=gen).to(dtype)
+                   for _ in range(4)]
+    out, lse = ta.flash_fwd_plain(q, k, v, causal)
+    delta = (do.float() * out.float()).sum(-1)
+    return {"q": q, "k": k, "v": v, "do": do, "out": out, "lse": lse,
+            "delta": delta, "causal": causal}
+
+
+def flash_calls(c):
+    """name -> (kernel call, plain call) on one case."""
+    args = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
+            c["causal"])
+    return {
+        "flash_fwd": (lambda: ta.flash_fwd(c["q"], c["k"], c["v"],
+                                           c["causal"]),
+                      lambda: ta.flash_fwd_plain(c["q"], c["k"], c["v"],
+                                                 c["causal"])),
+        "flash_bwd_dq": (lambda: ta.flash_bwd_dq(*args),
+                         lambda: ta.flash_bwd_dq_plain(*args)),
+        "flash_bwd_dkv": (lambda: ta.flash_bwd_dkv(*args),
+                          lambda: ta.flash_bwd_dkv_plain(*args)),
+    }
+
+
+def flash_bound(name, c):
+    """(bound_ms, bound_by) for one kernel call: the larger of its bytes
+    (each input read once, each output written once) over HBM bandwidth
+    and its operations (2*D per product per visible (q, k) pair) over the
+    bf16 or f32 rate of the inputs' type."""
+    bh, s, d = c["q"].shape
+    item = c["q"].element_size()
+    pairs = bh * s * (s + 1) // 2 if c["causal"] else bh * s * s
+    rows, vecs = bh * s * d * item, bh * s * 4
+    nbytes = {"flash_fwd": 4 * rows + vecs,            # q k v in; out, lse
+              "flash_bwd_dq": 5 * rows + 2 * vecs,     # q k v dO lse delta; dq
+              "flash_bwd_dkv": 6 * rows + 2 * vecs}[name]
+    ops = FLASH[name][2] * 2 * d * pairs
+    rate = BF16_FLOPS_PER_S if c["q"].dtype == torch.bfloat16 \
+        else F32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_phase(dev):
+    """Each flash kernel against its plain version at every listed shape;
+    timings at the training shape. -> (max_abs_err by kernel, timing rows
+    by kernel)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {name: 0.0 for name in FLASH}
+    for bh, s, d, causal, dtype in FLASH_SHAPES:
+        c = flash_case(bh, s, d, causal, dtype, dev, gen)
+        worst = []
+        for name, (kernel, plain) in flash_calls(c).items():
+            got, want = kernel(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                check(g.dtype == w.dtype and g.shape == w.shape
+                      and bool(torch.isfinite(g).all()),
+                      f"{name} {(bh, s, d, causal, dtype)}: bad output")
+                err = float((g.float() - w.float()).abs().max())
+                rel = err / max(float(w.float().abs().max()), 1e-30)
+                errs[name] = max(errs[name], err)
+                worst.append(rel)
+                check(rel <= FLASH_TOL[dtype],
+                      f"{name} {(bh, s, d, causal, dtype)}: error {rel} > "
+                      f"{FLASH_TOL[dtype]} of the output's scale")
+        print(f"flash BH {bh} S {s:5d} D {d:3d} causal {int(causal)} "
+              f"{str(dtype)[6:]:8s} worst relative error {max(worst):.2e} "
+              f"(tol {FLASH_TOL[dtype]:g})")
+        del c
+    # timings at the training shape
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    c = flash_case(*FLASH_TIMED, dev, gen)
+    bh, s, d = c["q"].shape
+    rows = {}
+    for name, (kernel, plain) in flash_calls(c).items():
+        b_ms, b_by = flash_bound(name, c)
+        rows[name] = {"ms": time_ms(kernel, flush, iters=10),
+                      "plain_ms": time_ms(plain, flush, iters=10),
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": None}
+    # yardstick only: SDPA forward, and its autograd backward (which
+    # computes dQ, dK and dV in one call, so it stands beside neither
+    # backward kernel alone)
+    q, k, v = (c[n].reshape(1, bh, s, d).detach().requires_grad_(True)
+               for n in ("q", "k", "v"))
+    do = c["do"].reshape(1, bh, s, d)
+    rows["flash_fwd"]["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        flush, iters=10)
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    sdpa_bwd = time_ms(
+        lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True),
+        flush, iters=10)
+    for name, row in rows.items():
+        print("flash_timing", json.dumps({"kernel": name, **row,
+                                          "shape": [1, bh, s, d]}))
+    print("flash_timing", json.dumps({"library_backward_dq_dk_dv_ms":
+                                      sdpa_bwd}))
+    return errs, rows
+
+
+# ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+
+def write_shard(tmp: str) -> str:
+    """The conf's kSequenceData shard: 32 synthetic 8192-token sequences
+    from seed 0 (the port's synthetic_token_arrays)."""
+    shard = os.path.join(tmp, "shard")
+    write_records(shard, *synthetic_token_arrays(32, seq_len=8192,
+                                                 vocab=256, seed=0))
+    return shard
+
+
+def profile(tr, step0, nsteps):
+    """``nsteps`` train steps under torch.profiler -> wall ms and device
+    ms per step, both from this window, its idle share 1 - device / wall,
+    and the 10 largest device-side rows per step. The profiler slows the
+    host, so the idle share is an upper estimate of an unprofiled step's."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for step in range(step0, step0 + nsteps):
+            tr.train_one_batch(step)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / nsteps
+    tr.perf.reset()
+    # device-side rows only: an operator's row also carries the device
+    # time of the kernels it launched, which the kernels' rows hold
+    rows = [(e.key, e.self_device_time_total / 1e3 / nsteps)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(ms for _, ms in rows)
+    return {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+            "idle_share": 1.0 - device_ms / wall_ms,
+            "top": sorted(rows, key=lambda kv: -kv[1])[:10]}
+
+
+def train_run(dev, shard, *, steps, dtype, dense, tag, profile_steps=0):
+    """``steps`` steps of the port's Trainer on the conf (read by the
+    port's load_model_config) over ``shard`` at compute ``dtype``, fresh
+    params from seed 0. ``dense`` sets SINGA_TPU_DENSE_ATTN_MB (read at
+    every attention call) above the conf's 1,074 MB of scores, else to
+    its default 512, where the conf takes the flash kernels. Each step is
+    timed on the host clock to a device sync; the flash launch counts are
+    set to 0 just before the steps and read just after; then
+    ``profile_steps`` more under torch.profiler. Checked: finite losses,
+    launches = attention layers x steps on the flash path, 0 on the
+    dense one. -> the run's record."""
+    cfg = load_model_config(TRAIN_CONF)
+    cfg.compute_dtype = dtype
+    for layer in cfg.neuralnet.layer:
+        if layer.type == "kSequenceData":
+            layer.data_param.path = shard
+    os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "1e12" if dense else "512"
+    tr = Trainer(cfg, seed=0, log=lambda s: None, device=dev)
+    for fn, _, _ in FLASH.values():
+        fn.launches = 0
+    ms, losses = [], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        tr.train_one_batch(step)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(tr.perf.avg()["loss"]["loss"])
+        tr.perf.reset()
+    launches = {name: fn.launches for name, (fn, _, _) in FLASH.items()}
+    median = sorted(ms)[len(ms) // 2]
+    out = {"run": tag, "compute_dtype": dtype, "steps": steps,
+           "step_ms_median": median, "step_ms_min": min(ms),
+           "tokens_per_s": tr.tokens_per_step / median * 1e3,
+           "losses": losses, "launches": launches}
+    if profile_steps:
+        out["profile"] = profile(tr, steps, profile_steps)
+    print("train", json.dumps(out))
+    layers = sum(l.type == "kAttention" for l in cfg.neuralnet.layer)
+    check(all(np.isfinite(losses)), f"train {tag}: non-finite loss")
+    want = 0 if dense else layers * steps
+    check(all(n == want for n in launches.values()),
+          f"train {tag}: flash launches {launches} != {want}")
+    return out
+
+
+def train_phase(dev):
+    with tempfile.TemporaryDirectory() as tmp:
+        shard = write_shard(tmp)
+        runs = [train_run(dev, shard, steps=8, dtype="float32", dense=dense,
+                          tag=f"{tag}_f32")["losses"]
+                for tag, dense in (("flash", False), ("dense", True),
+                                   ("dense", True), ("flash", False))]
+        diff = max(abs(a - b) for f, d_ in ((runs[0], runs[1]),
+                                            (runs[3], runs[2]))
+                   for a, b in zip(f, d_))
+        print(f"train float32 flash vs dense: max loss difference "
+              f"{diff:.3e} over 8 steps (tol {TRAIN_TOL:g})")
+        check(diff <= TRAIN_TOL, "train: flash and dense losses differ")
+        # the same comparison must fail on a planted gradient fault
+        backward = ta._FlashAttention.backward
+        for fault, change in FAULTS.items():
+            def planted(ctx, g, change=change):
+                dq, dk, dv, _ = backward(ctx, g)
+                return (*change(dq, dk, dv), None)
+            ta._FlashAttention.backward = staticmethod(planted)
+            try:
+                losses = train_run(dev, shard, steps=8, dtype="float32",
+                                   dense=False, tag="fault_f32")["losses"]
+            finally:
+                ta._FlashAttention.backward = staticmethod(backward)
+            moved = [abs(a - b) for a, b in zip(losses, runs[1])]
+            print(f"train float32 {fault} vs dense: loss difference by "
+                  f"step {' '.join(f'{m:.3e}' for m in moved)}")
+            check(max(moved) > TRAIN_TOL,
+                  f"train: {fault} passes the flash vs dense check")
+        out = train_run(dev, shard, steps=30, dtype="bfloat16", dense=False,
+                        tag="flash_bf16", profile_steps=3)
+    check(out["losses"][-1] < out["losses"][0],
+          "train bf16: loss did not fall")
+    return out["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -441,6 +747,8 @@ def main() -> int:
         "paged_attention": serve_phase(dev, cfg, params),
         "paged_attention_overlay": spec_phase(dev, cfg, params),
     }
+    flash_errs, flash_rows = flash_phase(dev)
+    launches.update(train_phase(dev))
 
     kernels = []
     for name, case in (("paged_attention", "decode"),
@@ -450,6 +758,15 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": launches[name],
             "max_abs_err": errs[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    for name, (_, replaces, _) in FLASH.items():
+        row = flash_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": flash_errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })

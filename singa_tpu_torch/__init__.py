@@ -7,17 +7,25 @@ and names follow ``singa_tpu`` so each counterpart is easy to find:
 
   ``device``                  device resolution (cuda unless asked) and
                               the float32 precision settings
-  ``ops.attention``           dense reference attention
+  ``ops.attention``           dense attention, and flash attention
+                              forward/backward: the CUDA kernels'
+                              wrappers and their plain PyTorch versions
   ``ops.paged_attention``     paged attention: the CUDA kernel's wrapper
                               and its plain PyTorch version
   ``csrc/``, ``_build``       the CUDA C++ sources and their nvcc build
   ``models.transformer``      the decoder-only LM
   ``serve``                   the paged-KV serving engine, scheduler,
                               block pool and drafters
+  ``config``, ``data``        job confs (copies) and token shards
+  ``params``, ``optim``       param init, updaters and LR schedules
+  ``layers``, ``graph``       the conf-driven layers and net builder
+  ``trainer``, ``main``       the single-device Trainer, npz
+                              checkpoints, and the training CLI
   ``tools.serve_bench``       the serving load harness
 
-Ported so far: the single-engine serving path. Training, the prefix
-cache, distribution and the fleet come in later slices (ROADMAP.md).
+Ported so far: the single-engine serving path and single-device
+training of the conf-driven LM. The image nets, the prefix cache,
+distribution and the fleet come in later slices (ROADMAP.md).
 """
 
 from .device import resolve_device  # noqa: F401

@@ -1,0 +1,100 @@
+"""Host-side input pipeline: shard -> batched numpy arrays.
+
+Counterpart of ``singa_tpu/data/pipeline.py``, with what the training
+slice needs: :func:`load_shard_arrays` on the Python record codec and
+:class:`BatchPipeline` (the original class without the methods of the
+device cache and the scan chunks: ``advance``, ``next_indices``,
+``steps_per_epoch``). Left out: the native C++ codec the original tries
+first (``singa_tpu/native``; the Python codec here gives the same
+arrays) and ``load_lmdb_arrays`` (kLMDBData is not ported yet).
+
+Replaces the reference's DataLayer machinery
+(ShardDataLayer::ComputeFeature, src/worker/layer.cc:646-673): it
+delivers raw record batches with the reference's sequencing semantics
+(sequential reads with wraparound, one-time random_skip).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .records import decode_record
+from .shard import ShardReader
+
+
+def load_shard_arrays(folder: str) -> tuple[np.ndarray, np.ndarray]:
+    """Decode every record in a shard into (images, labels) arrays.
+
+    Images come back as float32 with the record's own shape appended after
+    the batch dim; uint8 ``pixel`` payloads are widened (the reference's
+    cast-to-uint8-then-float dance, layer.cc:390-400)."""
+    images: list[np.ndarray] = []
+    labels: list[int] = []
+    with ShardReader(folder) as reader:
+        for _, val in reader:
+            rec = decode_record(val)
+            shape = tuple(rec.shape) if rec.shape else (-1,)
+            if rec.pixel:
+                img = np.frombuffer(rec.pixel, dtype=np.uint8).astype(
+                    np.float32
+                )
+            else:
+                img = np.asarray(rec.data, dtype=np.float32)
+            images.append(img.reshape(shape))
+            labels.append(rec.label)
+    if not images:
+        raise ValueError(f"shard {folder!r} holds no records")
+    return np.stack(images), np.asarray(labels, dtype=np.int32)
+
+
+class BatchPipeline:
+    """Batched sequential iteration with wraparound.
+
+    Mirrors ShardDataLayer semantics: records are consumed in file order,
+    wrapping at the end; ``random_skip`` skips ``rand() % random_skip``
+    records once at startup (layer.cc:646-656). Single-threaded, so
+    ``seek`` works at any point in a run.
+    """
+
+    def __init__(
+        self,
+        images: np.ndarray,
+        labels: np.ndarray,
+        batchsize: int,
+        *,
+        random_skip: int = 0,
+        seed: int | None = None,
+    ):
+        if len(images) != len(labels):
+            raise ValueError("images/labels length mismatch")
+        self.images = images
+        self.labels = labels
+        self.batchsize = batchsize
+        self.n = len(images)
+        self._pos = 0  # cursor (record index of the next unread batch)
+        if random_skip:
+            rng = np.random.RandomState(seed)
+            self._pos = int(rng.randint(0, random_skip)) % self.n
+        # CONSUMED bookkeeping: position derives from batches handed out,
+        # relative to the post-skip start
+        self._start = self._pos
+        self._consumed = 0
+
+    @property
+    def position(self) -> int:
+        """Stream position (record index of the next batch). Checkpoints
+        persist this; seek() restores it. The one-time random_skip draw
+        is baked into it, so resume needs no separate RNG state."""
+        return int((self._start + self._consumed * self.batchsize) % self.n)
+
+    def seek(self, pos: int) -> None:
+        """Reposition the stream (checkpoint resume)."""
+        self._pos = int(pos) % self.n
+        self._start = self._pos
+        self._consumed = 0
+
+    def next_batch(self) -> tuple[np.ndarray, np.ndarray]:
+        idx = (self._pos + np.arange(self.batchsize)) % self.n
+        self._pos = int((self._pos + self.batchsize) % self.n)
+        self._consumed += 1
+        return self.images[idx], self.labels[idx]

@@ -1,0 +1,167 @@
+"""Neural-net DAG builder.
+
+Counterpart of ``singa_tpu/graph/builder.py`` (the reference's
+NeuralNet::ConstructNeuralNet, src/worker/neuralnet.cc:72-110, and the
+Worker's phase filtering, src/worker/worker.cc:69-95): layers are
+filtered by ``exclude`` for the requested phase, topo-sorted from their
+``srclayers`` edges, instantiated through the registry, and
+shape-inferred in order. ``Net.forward`` runs the layers eagerly.
+
+This single-device slice leaves out the JAX package's partitioning
+(a ``partition_type`` other than kNone raises), the pipeline plan and
+the Slice routing (kSlice is not ported), buffers (no stateful layer is
+ported) and the padded param storage of uneven model partitions.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from ..config.schema import ConfigError, LayerConfig, ModelConfig, NetConfig
+from ..layers import Layer, create_layer
+from ..params import ParamSpec
+from .kahn import kahn_order
+
+PHASES = ("kTrain", "kValidation", "kTest")
+
+
+def topo_sort(configs: list[LayerConfig]) -> list[LayerConfig]:
+    """Kahn's algorithm over srclayers edges, stable wrt config order
+    (the reference DFS-sorts in Graph::Sort, src/utils/graph.cc:80-101).
+    Unknown srclayers and cycles abort the build with ConfigError."""
+    by_name = {c.name: c for c in configs}
+    if len(by_name) != len(configs):
+        names = [c.name for c in configs]
+        dupes = sorted({n for n in names if names.count(n) > 1})
+        raise ConfigError(f"duplicate layer names after phase filter: {dupes}")
+    for c in configs:
+        for src in c.srclayers:
+            if src not in by_name:
+                raise ConfigError(
+                    f"layer {c.name!r} references unknown srclayer {src!r}"
+                )
+    order, residue = kahn_order(
+        [c.name for c in configs], {c.name: c.srclayers for c in configs}
+    )
+    if residue:
+        raise ConfigError(f"cycle in layer graph involving {sorted(residue)}")
+    return [by_name[n] for n in order]
+
+
+class Net:
+    """An ordered, shape-inferred layer DAG for one phase."""
+
+    def __init__(self, layers: list[Layer], phase: str):
+        self.phase = phase
+        self.layers = layers
+        self.name2layer = {l.name: l for l in layers}
+        self.datalayers = [l for l in layers if l.is_datalayer]
+        self.losslayers = [l for l in layers if l.is_losslayer]
+
+    def setup(self) -> None:
+        shapes: dict[str, tuple] = {}
+        batchsize = 0
+        for layer in self.layers:
+            src_shapes = [shapes[s] for s in layer.srclayers]
+            out = layer.setup(src_shapes, batchsize)
+            layer.validate([self.name2layer[s] for s in layer.srclayers])
+            if layer.is_datalayer:
+                batchsize = layer.batchsize
+            shapes[layer.name] = out
+            layer.out_shape = out
+        self.batchsize = batchsize
+
+    def param_specs(self) -> dict[str, ParamSpec]:
+        specs: dict[str, ParamSpec] = {}
+        for layer in self.layers:
+            for name, spec in layer.param_specs().items():
+                if name in specs:
+                    raise ConfigError(f"duplicate param name {name!r}")
+                specs[name] = spec
+        return specs
+
+    def resolve_params(self, params: dict) -> dict:
+        """The param view every forward reads: shared params resolve
+        through their owner's tensor (ParamSpec.owner)."""
+        resolved = dict(params)
+        for layer in self.layers:
+            for name, spec in layer.param_specs().items():
+                if spec.owner is not None:
+                    resolved[name] = params[spec.owner]
+        return resolved
+
+    def forward(
+        self,
+        params: dict[str, torch.Tensor],
+        batch: dict[str, Any],
+        *,
+        training: bool,
+        return_acts: bool = False,
+    ):
+        """Run all layers; returns (total_loss, {losslayer: metrics}).
+
+        ``batch`` maps each data layer's name to its input dict
+        ({"image": ..., "label": ...}). With ``return_acts`` the
+        per-layer activation dict is appended."""
+        resolved = self.resolve_params(params)
+        acts: dict[str, Any] = {}
+        total_loss = 0.0
+        metrics: dict[str, dict[str, torch.Tensor]] = {}
+        for layer in self.layers:
+            if layer.is_datalayer:
+                inputs = [batch[layer.name]]
+            else:
+                inputs = [acts[src] for src in layer.srclayers]
+            out = layer.apply(resolved, inputs, training=training)
+            if layer.is_losslayer:
+                loss, m = out
+                total_loss = total_loss + loss
+                metrics[layer.name] = m
+                acts[layer.name] = loss
+            else:
+                acts[layer.name] = out
+        if return_acts:
+            return total_loss, metrics, acts
+        return total_loss, metrics
+
+
+def active_phases(model_cfg: ModelConfig) -> list[str]:
+    """Phases this job builds nets for: kTrain always, kTest/kValidation
+    only when their step counts are set."""
+    phases = ["kTrain"]
+    if model_cfg.test_steps:
+        phases.append("kTest")
+    if model_cfg.validation_steps:
+        phases.append("kValidation")
+    return phases
+
+
+def filter_phase(net_cfg: NetConfig, phase: str) -> list[LayerConfig]:
+    """Drop layers whose ``exclude`` lists the phase (worker.cc:69-95)."""
+    if phase not in PHASES:
+        raise ConfigError(f"unknown phase {phase!r}")
+    return [l for l in net_cfg.layer if phase not in (l.exclude or [])]
+
+
+def build_net(model_cfg: ModelConfig, phase: str = "kTrain") -> Net:
+    """Config -> phase-filtered, topo-sorted, shape-inferred Net."""
+    if model_cfg.neuralnet is None:
+        raise ConfigError("model config has no neuralnet block")
+    configs = filter_phase(model_cfg.neuralnet, phase)
+    if not configs:
+        raise ConfigError(f"no layers left for phase {phase}")
+    net_partition = model_cfg.neuralnet.partition_type
+    for c in configs:
+        part = c.partition_type or net_partition
+        if part not in (None, "kNone"):
+            raise ConfigError(
+                f"layer {c.name!r}: partition_type {part!r} is not ported "
+                "to singa_tpu_torch yet (the single-device slice has no "
+                "mesh to partition over)"
+            )
+    order = topo_sort(configs)
+    net = Net([create_layer(c) for c in order], phase)
+    net.setup()
+    return net

@@ -1,0 +1,100 @@
+"""Layer abstraction.
+
+Counterpart of ``singa_tpu/layers/base.py``. A layer is static metadata
+plus a forward function: ``setup`` runs shape inference and declares
+param specs once at graph-build time; ``apply`` runs eagerly in
+PyTorch, and autograd provides the backward (the reference's
+ComputeGradient, include/worker/base_layer.h:38-258).
+
+Left out: buffers (non-trainable state such as batch-norm running
+stats), the step's random key (dropout), the partition metadata and the
+serving tier's ``decode_positionwise`` flag; the layers that need them
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import torch
+
+from ..config.schema import ConfigError, LayerConfig
+from ..params import ParamSpec
+
+Shape = tuple[int, ...]
+
+
+class Layer:
+    """Base class; subclasses set TYPE and override setup/apply."""
+
+    TYPE: str = ""
+
+    is_datalayer = False
+    is_losslayer = False
+
+    def __init__(self, cfg: LayerConfig):
+        self.cfg = cfg
+        self.name = cfg.name
+        self.srclayers: list[str] = list(cfg.srclayers)
+        self.out_shape: Shape | None = None
+        self._param_specs: dict[str, ParamSpec] = {}
+
+    # ---------------- build time ----------------
+
+    def setup(self, src_shapes: Sequence[Shape], batchsize: int) -> Shape:
+        """Infer the output shape and declare params; returns out_shape."""
+        raise NotImplementedError
+
+    def validate(self, src_layers: Sequence["Layer"]) -> None:
+        """Optional cross-layer check, called by Net.setup with the
+        actual source layer objects after this layer's setup."""
+
+    def param_specs(self) -> dict[str, ParamSpec]:
+        """Qualified-name -> spec, declared during setup."""
+        return self._param_specs
+
+    def _declare_param(
+        self,
+        idx: int,
+        default_name: str,
+        shape: Shape,
+        fan_in: int = 0,
+    ) -> str:
+        """Register param ``<layer>/<name>`` from cfg.param[idx] (if given)."""
+        cfg = self.cfg.param[idx] if idx < len(self.cfg.param) else None
+        pname = (cfg.name if cfg and cfg.name else default_name)
+        qualified = f"{self.name}/{pname}"
+        share = list(self.cfg.share_param)
+        owner = share[idx] if idx < len(share) else None
+        self._param_specs[qualified] = ParamSpec.from_config(
+            cfg,
+            qualified,
+            tuple(shape),
+            fan_in=fan_in,
+            owner=owner,
+        )
+        return qualified
+
+    # ---------------- run time ----------------
+
+    def apply(
+        self,
+        params: dict[str, torch.Tensor],
+        inputs: list[Any],
+        *,
+        training: bool,
+    ) -> Any:
+        """Forward on tensors; autograd differentiates it."""
+        raise NotImplementedError
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self.name!r}, out={self.out_shape})"
+
+
+def require_one_src(layer: Layer, src_shapes: Sequence[Shape]) -> Shape:
+    if len(src_shapes) != 1:
+        raise ConfigError(
+            f"layer {layer.name!r} ({layer.TYPE}) expects exactly one "
+            f"srclayer, got {len(src_shapes)}"
+        )
+    return src_shapes[0]

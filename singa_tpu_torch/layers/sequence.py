@@ -1,0 +1,246 @@
+"""Sequence-modeling layers: the conf-driven transformer LM vocabulary.
+
+Counterpart of ``singa_tpu/layers/sequence.py``: (B, S) tokens from
+kSequenceData, through kEmbedding -> (B, S, D), residual blocks built
+from kLayerNorm / kAttention / kDense / kAdd, into kLMLoss (next-token
+cross-entropy). kMoE waits for the distribution slice, and the serving
+tier's ``decode_step`` hooks for the slice that ports conf-driven
+decoding.
+
+Numerical points where PyTorch's defaults differ from JAX's:
+``jax.nn.gelu`` is the tanh approximation and ``jnp.var`` the
+population variance; the layers below ask for both explicitly.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from ..config.schema import ConfigError
+from ..ops.attention import attention, auto_attention
+from .base import Layer, Shape, require_one_src
+from .data import _ArrayDataLayer
+
+
+def load_token_arrays(path: str):
+    """Decode a token shard: each record's uint8 ``pixel`` bytes are one
+    fixed-length sequence (byte-level vocab), label unused. -> (tokens
+    int32 (N, S), labels int32 (N,))."""
+    from ..data.pipeline import load_shard_arrays
+
+    images, labels = load_shard_arrays(path)
+    if images.ndim != 2:
+        raise ConfigError(
+            f"token shard {path!r}: expected flat (N, S) sequences, got "
+            f"shape {images.shape}"
+        )
+    return images.astype("int32"), labels
+
+
+class SequenceDataLayer(_ArrayDataLayer):
+    """kSequenceData: batches of fixed-length token sequences."""
+
+    TYPE = "kSequenceData"
+    LOADER = staticmethod(load_token_arrays)
+
+
+class EmbeddingLayer(Layer):
+    """kEmbedding: token + learned positional embedding."""
+
+    TYPE = "kEmbedding"
+
+    def setup(self, src_shapes: Sequence[Shape], batchsize: int) -> Shape:
+        p = self.cfg.embedding_param
+        if p is None:
+            raise ConfigError(
+                f"layer {self.name!r}: embedding_param required"
+            )
+        src = require_one_src(self, src_shapes)
+        if len(src) != 2:
+            raise ConfigError(
+                f"layer {self.name!r}: expects (batch, seq) token input"
+            )
+        self.seq_len = src[1]
+        self.vocab = p.vocab_size
+        self.dim = p.embedding_dim
+        max_len = p.max_len or self.seq_len
+        if max_len < self.seq_len:
+            raise ConfigError(
+                f"layer {self.name!r}: max_len {max_len} < sequence "
+                f"length {self.seq_len}"
+            )
+        self.tok = self._declare_param(
+            0, "tok", (self.vocab, self.dim), fan_in=self.dim
+        )
+        self.pos = self._declare_param(
+            1, "pos", (max_len, self.dim), fan_in=self.dim
+        )
+        return (src[0], self.seq_len, self.dim)
+
+    def validate(self, src_layers) -> None:
+        # an out-of-range id would index past the table; catch an
+        # undersized vocab at build time, as the JAX package does
+        src = src_layers[0]
+        if getattr(src, "is_datalayer", False) and hasattr(src, "images"):
+            top = int(src.images.max())
+            if top >= self.vocab:
+                raise ConfigError(
+                    f"layer {self.name!r}: vocab_size {self.vocab} <= max "
+                    f"token id {top} in {src.name!r}'s data"
+                )
+
+    def apply(self, params, inputs, *, training):
+        tokens = inputs[0]["image"].long()
+        s = tokens.shape[1]
+        return params[self.tok][tokens] + params[self.pos][:s]
+
+
+class LayerNormLayer(Layer):
+    """kLayerNorm over the last dim; stats in fp32 under bf16 compute."""
+
+    TYPE = "kLayerNorm"
+
+    def setup(self, src_shapes: Sequence[Shape], batchsize: int) -> Shape:
+        p = self.cfg.layernorm_param
+        self.eps = p.eps if p else 1e-5
+        src = require_one_src(self, src_shapes)
+        d = src[-1]
+        self.scale = self._declare_param(0, "scale", (d,))
+        self.bias = self._declare_param(1, "bias", (d,))
+        return src
+
+    def apply(self, params, inputs, *, training):
+        x = inputs[0]
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + self.eps)
+        return (
+            y.to(x.dtype) * params[self.scale] + params[self.bias]
+        ).to(x.dtype)
+
+
+class AttentionLayer(Layer):
+    """kAttention: causal multi-head self-attention with fused QKV.
+
+    ``mode`` "flash" (and "ring", which has no sequence mesh to ride in
+    this single-device port) picks dense or the flash kernels by the
+    score footprint (``ops.attention.auto_attention``, one device);
+    anything else is dense."""
+
+    TYPE = "kAttention"
+
+    def setup(self, src_shapes: Sequence[Shape], batchsize: int) -> Shape:
+        p = self.cfg.attention_param
+        if p is None:
+            raise ConfigError(
+                f"layer {self.name!r}: attention_param required"
+            )
+        src = require_one_src(self, src_shapes)
+        if len(src) != 3:
+            raise ConfigError(
+                f"layer {self.name!r}: expects (batch, seq, dim) input"
+            )
+        d = src[-1]
+        self.heads = p.num_heads
+        if d % self.heads:
+            raise ConfigError(
+                f"layer {self.name!r}: dim {d} not divisible by "
+                f"num_heads {self.heads}"
+            )
+        self.mode = p.mode
+        self.qkv = self._declare_param(
+            0, "qkv", (d, 3 * d), fan_in=d
+        )
+        self.out = self._declare_param(
+            1, "out", (d, d), fan_in=d
+        )
+        return src
+
+    def apply(self, params, inputs, *, training):
+        x = inputs[0]
+        b, s, d = x.shape
+        w = params[self.qkv]
+        qkv = (x.to(w.dtype) @ w).reshape(
+            b, s, 3, self.heads, d // self.heads
+        )
+        q, k, v = (qkv[:, :, j].movedim(2, 1) for j in range(3))
+        if self.mode in ("flash", "ring"):
+            o = auto_attention(q, k, v, causal=True, n_devices=1)
+        else:
+            o = attention(q, k, v, causal=True)
+        o = o.movedim(1, 2).reshape(b, s, d)
+        return o.to(w.dtype) @ params[self.out]
+
+
+class DenseLayer(Layer):
+    """kDense: per-position linear map over the last dim (+ optional
+    fused activation)."""
+
+    TYPE = "kDense"
+
+    def setup(self, src_shapes: Sequence[Shape], batchsize: int) -> Shape:
+        p = self.cfg.dense_param
+        if p is None:
+            raise ConfigError(f"layer {self.name!r}: dense_param required")
+        src = require_one_src(self, src_shapes)
+        d = src[-1]
+        self.hdim = p.num_output
+        self.activation = p.activation
+        self.w = self._declare_param(
+            0, "weight", (d, self.hdim), fan_in=d
+        )
+        self.bias_term = p.bias_term
+        if self.bias_term:
+            self.b = self._declare_param(1, "bias", (self.hdim,))
+        return (*src[:-1], self.hdim)
+
+    def apply(self, params, inputs, *, training):
+        w = params[self.w]
+        out = inputs[0].to(w.dtype) @ w
+        if self.bias_term:
+            out = out + params[self.b]
+        if self.activation == "gelu":
+            out = F.gelu(out, approximate="tanh")
+        elif self.activation == "relu":
+            out = F.relu(out)
+        return out
+
+
+class LMLossLayer(Layer):
+    """kLMLoss: next-token cross-entropy over (B, S, V) logits.
+
+    srclayers: (logits, kSequenceData). Position t's logits predict token
+    t+1; the final position is dropped. Metrics: loss (mean NLL) and
+    precision (next-token top-1 accuracy)."""
+
+    TYPE = "kLMLoss"
+    is_losslayer = True
+
+    def setup(self, src_shapes: Sequence[Shape], batchsize: int) -> Shape:
+        if len(src_shapes) != 2:
+            raise ConfigError(
+                f"layer {self.name!r}: kLMLoss needs (logits, tokens) "
+                f"srclayers, got {len(src_shapes)}"
+            )
+        if len(src_shapes[0]) != 3:
+            raise ConfigError(
+                f"layer {self.name!r}: logits must be (batch, seq, vocab)"
+            )
+        return src_shapes[0]
+
+    def apply(self, params, inputs, *, training):
+        logits, feed = inputs
+        tokens = feed["image"].long()
+        logp = F.log_softmax(logits[:, :-1].float(), dim=-1)
+        targets = tokens[:, 1:]
+        ll = torch.gather(logp, -1, targets[..., None])[..., 0]
+        loss = -ll.mean()
+        hit = logp.argmax(-1) == targets
+        return loss, {
+            "loss": loss,
+            "precision": hit.float().mean(),
+        }

@@ -1,0 +1,47 @@
+"""CLI entry point: ``python -m singa_tpu_torch.main -model_conf F
+[-cluster_conf F] [-seed N] [-device cpu]``.
+
+Counterpart of ``singa_tpu/main.py`` for the single-device training
+slice: it reads the job conf, builds a :class:`Trainer` and runs it. The
+cluster conf is read only for its workspace (where checkpoints go); a
+cluster that asks for more than one worker or any parallel axis raises,
+as do the serving fleet, the resilience supervisor and the other knobs
+the trainer lists. The trainer runs on the GPU unless ``-device cpu`` is
+given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from .config import load_cluster_config, load_model_config
+from .trainer import Trainer
+
+
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(
+        prog="singa_tpu_torch", description=__doc__, add_help=True
+    )
+    ap.add_argument("-model_conf", required=True, help="ModelProto text file")
+    ap.add_argument("-cluster_conf", default=None,
+                    help="ClusterProto text file (its workspace holds the "
+                    "checkpoints)")
+    ap.add_argument("-seed", type=int, default=0, help="init RNG seed")
+    ap.add_argument("-device", default=None,
+                    help="torch device; default cuda (raises without a GPU)")
+    return ap.parse_args(argv)
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = parse_args(argv)
+    model_cfg = load_model_config(args.model_conf)
+    cluster_cfg = (
+        load_cluster_config(args.cluster_conf) if args.cluster_conf else None
+    )
+    Trainer(model_cfg, cluster_cfg, seed=args.seed, device=args.device).run()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,8 @@
-"""The port's CUDA paged-attention kernel on the card: held to its plain
-PyTorch version, its wrapper's refusals, and the serving engine's
-streams through it.
+"""The port's CUDA kernels on the card: the paged-attention kernel and
+the three flash-attention kernels (forward, dQ, dK/dV), each held to its
+plain PyTorch version, their wrappers' refusals and launch counts, the
+serving engine's streams through the paged kernel, and Trainer steps
+through the flash kernels.
 
 Every test here needs a GPU and skips without one (the kernel has no
 CPU mode). The file imports neither jax nor singa_tpu, so it runs on a
@@ -10,18 +12,31 @@ root, without the suite's conftest (which imports jax)::
   python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
+from singa_tpu_torch.config import parse_model_config
+from singa_tpu_torch.data.loader import synthetic_token_arrays, write_records
 from singa_tpu_torch.models.transformer import TransformerConfig, init_lm
+from singa_tpu_torch.ops import attention as ta
 from singa_tpu_torch.ops import paged_attention as pa
 from singa_tpu_torch.serve import Engine, EngineConfig, Request, Scheduler
+from singa_tpu_torch.trainer import Trainer
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
 
 #: kernel vs plain in float32: the kernel folds keys by online softmax in
 #: another order than the plain one-pass softmax, and expf differs from
 #: torch's exp by a few ulps
 TOL = dict(atol=1e-4, rtol=0)
+#: flash kernel vs plain, relative to the largest |plain| value: float32
+#: sums in another order (1e-4); bf16 outputs round once, 2^-8 relative
+#: (2e-2)
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+FLASH_KERNELS = (ta.flash_fwd, ta.flash_bwd_dq, ta.flash_bwd_dkv)
 
 
 @pytest.fixture
@@ -134,3 +149,87 @@ def test_speculative_streams_through_the_overlay_match(cuda_device):
     assert spec == one
     assert sched.spec_accepted > 0
     assert launches == (2 * sched.prefill_chunks, 2 * sched.decode_ticks)
+
+
+def _flash_counts():
+    return [fn.launches for fn in FLASH_KERNELS]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_match_plain(cuda_device, dtype, d, causal):
+    gen = torch.Generator().manual_seed(d + causal)
+    q, k, v, do = [torch.randn(2, 320, d, generator=gen).to(cuda_device, dtype)
+                   for _ in range(4)]
+    before = _flash_counts()
+    out, lse = ta.flash_fwd(q, k, v, causal)
+    want_out, want_lse = ta.flash_fwd_plain(q, k, v, causal)
+    delta = (do.float() * want_out.float()).sum(-1)
+    got = [out, lse, ta.flash_bwd_dq(q, k, v, do, want_lse, delta, causal),
+           *ta.flash_bwd_dkv(q, k, v, do, want_lse, delta, causal)]
+    want = [want_out, want_lse,
+            ta.flash_bwd_dq_plain(q, k, v, do, want_lse, delta, causal),
+            *ta.flash_bwd_dkv_plain(q, k, v, do, want_lse, delta, causal)]
+    torch.cuda.synchronize()
+    assert _flash_counts() == [n + 1 for n in before]
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype, name
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= FLASH_TOL[dtype] * scale, (name, err, scale)
+
+
+def test_flash_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
+    q = torch.randn(2, 256, 64, device=cuda_device)
+    bad = [
+        (q[..., :32].contiguous(),) * 3,            # head_dim 32
+        (q[:, :200].contiguous(),) * 3,             # S not a multiple of 64
+        (q.half(),) * 3,                            # float16
+        (q.transpose(0, 1).contiguous().transpose(0, 1),) * 3,  # strided
+    ]
+    before = _flash_counts()
+    for args in bad:
+        with pytest.raises(ValueError):
+            ta.flash_fwd(*args, True)
+    with pytest.raises(ValueError):
+        ta.flash_fwd(q, q.cpu(), q, True)
+    assert _flash_counts() == before
+
+
+def _train_conf(shard):
+    """tinylm_longctx_d128.conf at S = 256, batch 2, d_model 128 (2 heads
+    x 64), float32, through the flash kernels (SINGA_TPU_DENSE_ATTN_MB=0
+    is set by the caller)."""
+    txt = (REPO / "examples" / "lm" / "tinylm_longctx_d128.conf").read_text()
+    for old, new in (("examples/lm/train_shard_8k", shard),
+                     ("batchsize: 1", "batchsize: 2"),
+                     ("embedding_dim: 256", "embedding_dim: 128"),
+                     ("num_output: 1024", "num_output: 256"),
+                     ("num_output: 256 }", "num_output: 128 }"),
+                     ('compute_dtype: "bfloat16"', "")):
+        txt = txt.replace(old, new)
+    return parse_model_config(txt)
+
+
+def test_trainer_steps_through_the_flash_kernels(cuda_device, tmp_path,
+                                                monkeypatch):
+    """2 Trainer steps on the card launch each flash kernel once per
+    layer per step, and their losses match 2 CPU steps (plain versions)
+    from the same params within 1e-4."""
+    shard = str(tmp_path / "shard")
+    write_records(shard, *synthetic_token_arrays(4, seq_len=256, vocab=256))
+    monkeypatch.setenv("SINGA_TPU_DENSE_ATTN_MB", "0")
+    gpu = Trainer(_train_conf(shard), log=lambda s: None)
+    cpu = Trainer(_train_conf(shard), log=lambda s: None, device="cpu")
+    cpu.params = {n: v.cpu() for n, v in gpu.params.items()}
+    before = _flash_counts()
+    losses = []
+    for tr in (gpu, cpu):
+        for step in range(2):
+            tr.train_one_batch(step)
+            losses.append(tr.perf.avg()["loss"]["loss"])
+            tr.perf.reset()
+    assert _flash_counts() == [n + 2 * 2 for n in before]
+    assert all(np.isfinite(losses))
+    np.testing.assert_allclose(losses[:2], losses[2:], atol=1e-4)
