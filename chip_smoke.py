@@ -56,6 +56,27 @@ caught and carried on):
              after each step) and tokens/s, and 3 more steps under
              torch.profiler (wall and device ms per step of that window,
              its idle share, the largest kernels).
+  7. ring    the quant_acc kernel (the int8 gradient ring's per-hop
+             dequantize + accumulate, csrc/quant_acc.cu) against its plain
+             version bitwise at m in RING_SIZES and at a NaN scale; times
+             at m = 65536 (the path's largest chunk) and 2^24 of the
+             kernel, its plain version and, as a yardstick the port never
+             calls, torch.addcmul; the bound is (9 m + 4) bytes / 3.35
+             TB/s. Then examples/lm/tinylm_d128.conf with the q8wire tag
+             and 4 buckets (as bench.py's lm_d128_q8wire row builds it)
+             over 256 synthetic 128-token sequences, on 4 ranks of one
+             card: the ring alone (_ring_reduce_probe) on the global
+             gradient of one step, within 3.5 bucket scales of it,
+             bitwise the same on every rank and equal to the same probe
+             on the CPU, with three planted ring faults each breaking
+             that bar; float32, 8 steps in turns (ring, reference q8,
+             reference q8, ring), losses within RING_TOL and 300
+             quant_acc launches per ring step; then bf16 as written, 30
+             steps each of the flat ring (300 launches per step), q8hier
+             (100) and exact data parallel (0): finite falling losses,
+             step ms, tokens/s, 3 more flat-ring steps under
+             torch.profiler, and the probe's host time as a share of the
+             ring step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -86,6 +107,8 @@ from singa_tpu_torch.models.transformer import (
 )
 from singa_tpu_torch.ops import attention as ta
 from singa_tpu_torch.ops import paged_attention as pa
+from singa_tpu_torch.ops import quantized_collective as qc
+from singa_tpu_torch.parallel import apply_grad_comm_tag, build_mesh
 from singa_tpu_torch.serve import Engine, EngineConfig, Request, Scheduler
 from singa_tpu_torch.tools.serve_bench import _percentile
 from singa_tpu_torch.trainer import Trainer
@@ -140,6 +163,26 @@ FLASH_SHAPES = [
     for causal in (False, True)
 ] + [(2, 32768, 128, True, torch.bfloat16)]   # the TPU's streamed regime
 FLASH_TIMED = (2, 8192, 128, True, torch.bfloat16)
+RING_SOURCE = "singa_tpu_torch/csrc/quant_acc.cu"
+RING_REPLACES = "singa_tpu/ops/quantized_collective.py:341"
+RING_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "examples", "lm", "tinylm_d128.conf")
+#: quant_acc vs plain sizes (elements): ragged, the path's 64-element
+#: LayerNorm chunks, its largest chunk (65536) and a large one
+RING_SIZES = (1, 3, 64, 1000, 16384, 65536, 1 << 24)
+RING_TIMED = (65536, 1 << 24)
+RING_RANKS = 4
+#: ring vs reference q8 losses at float32, every step of 8: the JAX
+#: package's bar for the same comparison
+#: (tests/test_quantized_collective.py::test_ring_tracks_reference_q8);
+#: the ring re-quantizes at every hop where the reference quantizes once
+RING_TOL = 2e-2
+#: the probe's bar, in bucket scales (max |g| over the bucket / 127):
+#: the JAX package's (test_ring_probe_reduces_correctly)
+PROBE_BAR = 3.5
+#: quant_acc launches per step: ranks x params x quantized reduce hops
+#: (flat ring: n - 1 = 3; q8_hier with intra_degree 2: M - 1 = 1)
+RING_FORMS = {"q8wire": 3, "q8hier": 1, "exact": 0}
 
 
 class SmokeFailure(RuntimeError):
@@ -714,6 +757,229 @@ def train_phase(dev):
     return out["launches"]
 
 
+# ---------------------------------------------------------------------------
+# ring phase
+# ---------------------------------------------------------------------------
+
+
+def quant_acc_case(m, dev, gen):
+    q = torch.randint(-127, 128, (m,), device=dev, generator=gen,
+                      dtype=torch.int8)
+    local = torch.randn(m, device=dev, generator=gen)
+    scale = torch.rand((), device=dev, generator=gen) * 1e-2
+    return q, scale, local
+
+
+def quant_acc_phase(dev):
+    """quant_acc against quant_acc_plain, bitwise, at every RING_SIZES
+    and at a NaN scale; timings at RING_TIMED. -> (max_abs_err, rows by
+    m)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    err = 0.0
+    for m in RING_SIZES:
+        q, scale, local = quant_acc_case(m, dev, gen)
+        got, want = qc.quant_acc(q, scale, local), qc.quant_acc_plain(
+            q, scale, local)
+        torch.cuda.synchronize()
+        d = float((got - want).abs().max())
+        err = max(err, d)
+        print(f"quant_acc m {m:8d} max_abs_err {d:.3e} bitwise "
+              f"{bool(torch.equal(got, want))}")
+        check(torch.equal(got, want), f"quant_acc m {m}: differs from plain")
+        nan = torch.full((), float("nan"), device=dev)
+        check(bool(qc.quant_acc(q, nan, local).isnan().all()),
+              f"quant_acc m {m}: a NaN scale does not give NaN everywhere")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    for m in RING_TIMED:
+        q, scale, local = quant_acc_case(m, dev, gen)
+        t_bytes = (9 * m + 4) / HBM_BYTES_PER_S
+        t_ops = 2 * m / F32_FLOPS_PER_S
+        rows[m] = {
+            "ms": time_ms(lambda: qc.quant_acc(q, scale, local), flush),
+            "plain_ms": time_ms(lambda: qc.quant_acc_plain(q, scale, local),
+                                flush),
+            "library_ms": time_ms(lambda: torch.addcmul(local, q, scale),
+                                  flush),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        print("quant_acc_timing", json.dumps({"m": m, **rows[m]}))
+    return err, rows
+
+
+def write_ring_shard(tmp: str) -> str:
+    """256 synthetic 128-token sequences from seed 0, as bench.py's
+    tinylm rows make them."""
+    shard = os.path.join(tmp, "ring_shard")
+    write_records(shard, *synthetic_token_arrays(256, seq_len=128,
+                                                 vocab=256, seed=0))
+    return shard
+
+
+def ring_trainer(dev, shard, tag, dtype=None):
+    """The port's Trainer on tinylm_d128.conf with grad_comm tag ``tag``
+    and 4 buckets, on RING_RANKS ranks of ``dev``."""
+    cfg = load_model_config(RING_CONF)
+    if dtype is not None:
+        cfg.compute_dtype = dtype
+    for layer in cfg.neuralnet.layer:
+        if layer.type == "kSequenceData":
+            layer.data_param.path = shard
+    if tag != "exact":
+        apply_grad_comm_tag(cfg, tag)
+        cfg.grad_comm.buckets = 4
+    mesh = build_mesh(RING_RANKS, 1, [dev] * RING_RANKS)
+    return Trainer(cfg, mesh=mesh, seed=0, log=lambda s: None)
+
+
+def global_grads(tr):
+    """The gradient of one real step: the whole batch through one
+    forward and backward."""
+    batch = tr._next_batch(tr.train_net)
+    leaves = {n: p.detach().requires_grad_(True)
+              for n, p in tr.params.items()}
+    loss, _ = tr.train_net.forward(leaves, batch, training=True)
+    loss.backward()
+    return {n: leaves[n].grad.detach() for n in leaves}
+
+
+def probe(tr, grads):
+    """_ring_reduce_probe on ``grads`` with zero residuals -> (per-rank
+    reduced grads, new residuals, worst error in bucket scales, worst
+    residual in bucket scales)."""
+    res = {f"__gradres__/{n}": torch.zeros_like(g) for n, g in grads.items()}
+    outs, new_res = tr._ring_reduce_probe(grads, res)
+    worst = worst_res = 0.0
+    for bucket in tr._buckets(grads):
+        scale = max(float(grads[n].abs().max()) for n in bucket) / 127.0
+        for n in bucket:
+            for out in outs:
+                worst = max(worst, float((out[n].to(grads[n].device)
+                                          - grads[n]).abs().max()) / scale)
+            worst_res = max(worst_res, float(
+                new_res[f"__gradres__/{n}"].abs().max()) / scale)
+    return outs, new_res, worst, worst_res
+
+
+def _allgather_wrong_index(*args):
+    """A planted fault: every chunk written one index off."""
+    return [{n: torch.roll(x, 1, 0) for n, x in full.items()}
+            for full in RING_ALLGATHER(*args)]
+
+
+RING_ALLGATHER = qc._allgather
+#: planted ring faults, each of which the probe's bar must catch
+RING_FAULTS = {
+    "hop drops its scale": ("quant_acc", lambda q, s, x: q.float() + x),
+    "hop skips its local add": ("quant_acc", lambda q, s, x: q.float() * s),
+    "allgather writes the wrong index": ("_allgather",
+                                         _allgather_wrong_index),
+}
+
+
+def ring_probe_phase(dev, shard):
+    tr = ring_trainer(dev, shard, "q8wire", "float32")
+    grads = global_grads(tr)
+    outs, new_res, worst, worst_res = probe(tr, grads)
+    torch.cuda.synchronize()
+    same = all(torch.equal(o[n], outs[0][n]) for o in outs for n in grads)
+    print(f"ring probe: worst error {worst:.3f} bucket scales (bar "
+          f"{PROBE_BAR}), worst residual {worst_res:.3f} scales, ranks "
+          f"bitwise equal {same}")
+    check(worst <= PROBE_BAR, "ring probe: reduced grads off the bar")
+    check(worst_res <= 1.0, "ring probe: residual above one scale")
+    check(same, "ring probe: reduced grads differ between ranks")
+    # the same probe on the CPU from the same inputs
+    cpu = ring_trainer(torch.device("cpu"), shard, "q8wire", "float32")
+    host = {n: g.cpu() for n, g in grads.items()}
+    c_outs, c_res, _, _ = probe(cpu, host)
+    diff = max(float((a.cpu() - b).abs().max())
+               for a, b in [(outs[0][n], c_outs[0][n]) for n in grads]
+               + [(new_res[k], c_res[k]) for k in c_res])
+    print(f"ring probe: card vs CPU max difference {diff:.3e}")
+    for fault, (name, fn) in RING_FAULTS.items():
+        real = getattr(qc, name)
+        setattr(qc, name, fn)
+        try:
+            bad = probe(tr, grads)[2]
+        finally:
+            setattr(qc, name, real)
+        print(f"ring probe with fault '{fault}': worst error {bad:.3f} "
+              f"bucket scales")
+        check(bad > PROBE_BAR, f"ring probe: fault '{fault}' passes")
+    return diff
+
+
+def ring_run(dev, shard, tag, *, steps, dtype, profile_steps=0):
+    """``steps`` steps of one form on 4 ranks; the quant_acc count set to
+    0 just before the steps and read just after; then ``profile_steps``
+    more under torch.profiler. -> the run's record."""
+    tr = ring_trainer(dev, shard, tag, dtype)
+    qc.quant_acc.launches = 0
+    ms, losses = [], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        tr.train_one_batch(step)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(tr.perf.avg()["loss"]["loss"])
+        tr.perf.reset()
+    launches = qc.quant_acc.launches
+    median = sorted(ms)[len(ms) // 2]
+    out = {"run": tag, "compute_dtype": dtype, "ranks": RING_RANKS,
+           "steps": steps, "step_ms_median": median, "step_ms_min": min(ms),
+           "tokens_per_s": tr.tokens_per_step / median * 1e3,
+           "losses": losses, "quant_acc_launches": launches}
+    if profile_steps:
+        out["profile"] = profile(tr, steps, profile_steps)
+    print("ring_train", json.dumps(out))
+    want = RING_RANKS * len(tr.params) * RING_FORMS.get(tag, 0) * steps
+    check(all(np.isfinite(losses)), f"ring {tag}: non-finite loss")
+    check(launches == want, f"ring {tag}: quant_acc launches {launches} "
+          f"!= {want}")
+    out["trainer"] = tr
+    return out
+
+
+def ring_phase(dev):
+    """-> (max_abs_err, timing rows by m, launches of the bf16 flat ring)."""
+    err, rows = quant_acc_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        shard = write_ring_shard(tmp)
+        ring_probe_phase(dev, shard)
+        runs = [ring_run(dev, shard, tag, steps=8, dtype="float32")
+                for tag in ("q8wire", "q8", "q8", "q8wire")]
+        diff = max(abs(a - b) for ring, ref in ((runs[0], runs[1]),
+                                                (runs[3], runs[2]))
+                   for a, b in zip(ring["losses"], ref["losses"]))
+        print(f"ring float32 ring vs reference q8: max loss difference "
+              f"{diff:.3e} over 8 steps (tol {RING_TOL:g})")
+        check(diff <= RING_TOL, "ring: ring and reference q8 losses differ")
+        bf16 = {tag: ring_run(dev, shard, tag, steps=30, dtype=None,
+                              profile_steps=3 if tag == "q8wire" else 0)
+                for tag in ("q8wire", "q8hier", "exact")}
+        for tag, run in bf16.items():
+            check(run["losses"][-1] < run["losses"][0],
+                  f"ring bf16 {tag}: loss did not fall")
+        # the reduction alone on the host clock, as a share of the step
+        tr = bf16["q8wire"]["trainer"]
+        grads = {n: torch.randn_like(p) * 1e-3 for n, p in tr.params.items()}
+        res = {k: torch.zeros_like(v) for k, v in tr.buffers.items()}
+        tr._ring_reduce_probe(grads, res)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            tr._ring_reduce_probe(grads, res)
+        torch.cuda.synchronize()
+        reduce_ms = (time.perf_counter() - t0) * 1e3 / 10
+        print("ring_reduce", json.dumps({
+            "reduce_ms": reduce_ms,
+            "ring_step_ms": bf16["q8wire"]["step_ms_median"],
+            "share": reduce_ms / bf16["q8wire"]["step_ms_median"]}))
+    return err, rows[RING_TIMED[0]], bf16["q8wire"]["quant_acc_launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -749,6 +1015,7 @@ def main() -> int:
     }
     flash_errs, flash_rows = flash_phase(dev)
     launches.update(train_phase(dev))
+    ring_err, ring_row, launches["quant_acc"] = ring_phase(dev)
 
     kernels = []
     for name, case in (("paged_attention", "decode"),
@@ -770,6 +1037,14 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    kernels.append({
+        "name": "quant_acc", "route": "cuda", "source": RING_SOURCE,
+        "replaces": RING_REPLACES, "launches": launches["quant_acc"],
+        "max_abs_err": ring_err, "ms": ring_row["ms"],
+        "plain_ms": ring_row["plain_ms"], "bound_ms": ring_row["bound_ms"],
+        "bound_by": ring_row["bound_by"],
+        "library_ms": ring_row["library_ms"],
+    })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

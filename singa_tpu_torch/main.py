@@ -1,13 +1,15 @@
 """CLI entry point: ``python -m singa_tpu_torch.main -model_conf F
 [-cluster_conf F] [-seed N] [-device cpu]``.
 
-Counterpart of ``singa_tpu/main.py`` for the single-device training
-slice: it reads the job conf, builds a :class:`Trainer` and runs it. The
-cluster conf is read only for its workspace (where checkpoints go); a
-cluster that asks for more than one worker or any parallel axis raises,
-as do the serving fleet, the resilience supervisor and the other knobs
-the trainer lists. The trainer runs on the GPU unless ``-device cpu`` is
-given.
+Counterpart of ``singa_tpu/main.py`` for synchronous data-parallel
+training: it reads the job conf, builds a :class:`Trainer` and runs it.
+The cluster conf gives the workspace (where checkpoints go) and the
+data-parallel width: ``nworkers`` worker groups become ranks over the
+visible GPUs, or over the one ``-device`` named, repeated (``-device
+cpu``: that many CPU ranks). A parallel axis other than the data axis
+raises, as do the serving fleet, the resilience supervisor and the
+other knobs the trainer lists. The trainer runs on the GPU unless
+``-device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("-model_conf", required=True, help="ModelProto text file")
     ap.add_argument("-cluster_conf", default=None,
                     help="ClusterProto text file (its workspace holds the "
-                    "checkpoints)")
+                    "checkpoints; nworkers sets the data-parallel width)")
     ap.add_argument("-seed", type=int, default=0, help="init RNG seed")
     ap.add_argument("-device", default=None,
                     help="torch device; default cuda (raises without a GPU)")

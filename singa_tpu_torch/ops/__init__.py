@@ -1,1 +1,2 @@
-"""Ops of the port: dense attention and paged attention."""
+"""Ops of the port: dense and flash attention, paged attention, and the
+quantized gradient ring."""

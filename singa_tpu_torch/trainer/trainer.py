@@ -1,29 +1,53 @@
-"""The training engine, single-device synchronous path.
+"""The training engine: synchronous data-parallel training.
 
 Counterpart of ``singa_tpu/trainer/trainer.py``: the reference's
 worker-side stack (Worker::Start/Run/RunOneBatch,
 src/worker/worker.cc:14-106,187-213, and Executor::TrainOneBatch,
 :304-316) as an eager PyTorch step driven by the same cadence loop.
-A step is one forward over the float32 master params cast to the
-compute dtype (so autograd returns float32 grads), ``backward``, and
-the updater's elementwise update.
+
+The data axis is a :class:`~singa_tpu_torch.parallel.Mesh`, rank ->
+device (one rank on one device by default; ``mesh=`` or a cluster with
+``nworkers`` gives more, and ranks may share a card). Each rank runs
+one forward over the float32 master params cast to the compute dtype
+(so autograd returns float32 grads) and ``backward`` on its contiguous
+slice of the batch, and divides its grads by the width n. Then one of
+three reductions:
+
+  exact      the ranks' grads are summed (the JAX package's GSPMD psum);
+  reference  ``grad_comm { mode: quantized }``: the sum goes through the
+             quantize/dequantize seam with error feedback
+             (``parallel.collectives.reduce_gradients``);
+  ring       ``kernels { grad_allreduce: quantized_ring | q8_hier }``:
+             the int8 ring of ``ops/quantized_collective.py`` reduces
+             the per-rank grads, every reduce hop through the
+             ``quant_acc`` kernel on the card.
+
+The reduced grads are the same bits for every rank, so the updater's
+elementwise update runs once per distinct device (params and updater
+state exist once per device). Loss and metrics are averaged over the
+ranks. Error-feedback residuals live in ``buffers`` under
+``__gradres__/<param>`` as whole arrays, chunk r (along the ring's chunk
+dim) belonging to rank r: the layout and ``b|`` checkpoint keys of the
+JAX Trainer.
 
 Cadence semantics match the reference's predicates exactly
 (include/worker/worker.h:118-158): XNow(step) = freq > 0 and
 step >= after and (step - after) % freq == 0; tests/validation run
 *before* the train step of the step they trigger on (worker.cc:190-200).
 
-What this slice leaves out, and refuses with a ConfigError that names
-it rather than ignoring: a mesh (a cluster with more than one worker or
-any parallel axis), ``zero_update``, ``grad_comm``, ``kernels``,
-``ring``, ``resilience``, ``fleet``, ``pipeline_microbatches``, the
-sharded checkpoint format, and the contrastive-divergence and replica
-engines. Also left out: the device-resident dataset, scan chunks, input
-prefetch and telemetry (the step here is one dispatch per batch).
+What the port leaves out, and refuses with a ConfigError that names
+it rather than ignoring: any parallel axis but the data axis,
+``zero_update``, the named-axes ``ring { intra_axis/inter_axis }``,
+``kernels`` fields other than ``grad_allreduce`` and ``interpret``,
+``resilience``, ``fleet``, ``pipeline_microbatches``, the sharded
+checkpoint format, and the contrastive-divergence and replica engines.
+Also left out: the device-resident dataset, scan chunks, input prefetch
+and telemetry (the step here is one dispatch per batch per rank).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Callable
 
@@ -34,7 +58,17 @@ from ..config.schema import ClusterConfig, ConfigError, ModelConfig
 from ..data.pipeline import BatchPipeline
 from ..device import resolve_device
 from ..graph.builder import Net, active_phases, build_net
+from ..ops import quantized_collective as qc
 from ..optim import make_updater
+from ..parallel import (
+    GradCommSpec,
+    build_mesh,
+    init_residuals,
+    mesh_from_cluster,
+    reduce_gradients,
+    residual_key,
+    reverse_topo_buckets,
+)
 from ..params import init_params
 from ..utils import Performance, Timers
 from .checkpoint import load_stream_positions, restore_into, save_checkpoint
@@ -52,9 +86,15 @@ def unsupported(model_cfg: ModelConfig,
                 cluster_cfg: ClusterConfig | None) -> list[str]:
     """The conf knobs this engine does not port yet, by name."""
     out = []
-    for knob in ("grad_comm", "kernels", "ring", "resilience", "fleet"):
+    for knob in ("resilience", "fleet"):
         if getattr(model_cfg, knob, None) is not None:
             out.append(knob)
+    kernels = model_cfg.kernels
+    if kernels is not None and kernels.paged_attention != "reference":
+        out.append(f"kernels paged_attention {kernels.paged_attention!r}")
+    ring = model_cfg.ring
+    if ring is not None and (ring.intra_axis or ring.inter_axis):
+        out.append("ring { intra_axis/inter_axis } (the named-axes form)")
     if model_cfg.zero_update:
         out.append("zero_update")
     if model_cfg.pipeline_microbatches:
@@ -64,8 +104,6 @@ def unsupported(model_cfg: ModelConfig,
     if model_cfg.alg != "kBackPropagation":
         out.append(f"alg {model_cfg.alg!r}")
     if cluster_cfg is not None:
-        if (cluster_cfg.nworkers or 1) > 1:
-            out.append(f"cluster nworkers {cluster_cfg.nworkers}")
         if cluster_cfg.nservers:
             out.append(f"cluster nservers {cluster_cfg.nservers}")
         for axis in ("nprocs_per_group", "nseq_per_group",
@@ -76,26 +114,39 @@ def unsupported(model_cfg: ModelConfig,
 
 
 class Trainer:
-    """Builds nets, owns params/updater state, runs the cadence loop on
-    one device (``device=None`` is the GPU; pass ``"cpu"`` for the
-    CPU)."""
+    """Builds nets, owns params/updater state, runs the cadence loop
+    over the ranks of a data-parallel mesh. Without ``mesh``: one rank on
+    ``device`` (``None`` is the GPU; pass ``"cpu"`` for the CPU), or, for
+    a cluster with ``nworkers``, one rank per worker group over the
+    visible GPUs (over ``device`` repeated when one is given)."""
 
     def __init__(
         self,
         model_cfg: ModelConfig,
         cluster_cfg: ClusterConfig | None = None,
         *,
+        mesh=None,
         seed: int = 0,
         log: Callable[[str], None] = print,
         device=None,
     ):
-        self.device = resolve_device(device)
+        dev = resolve_device(device) if mesh is None else None
         missing = unsupported(model_cfg, cluster_cfg)
         if missing:
             raise ConfigError(
-                "not ported to singa_tpu_torch yet (single-device "
-                f"synchronous training only): {', '.join(missing)}"
+                "not ported to singa_tpu_torch yet (synchronous "
+                f"data-parallel training only): {', '.join(missing)}"
             )
+        if mesh is None and (cluster_cfg is None or not cluster_cfg.nworkers):
+            mesh = build_mesh(1, 1, [dev])
+        elif mesh is None:
+            mesh = mesh_from_cluster(
+                cluster_cfg,
+                None if device is None else [dev] * cluster_cfg.nworkers,
+            )
+        self.mesh = mesh
+        #: where params, state and buffers live (rank 0's device)
+        self.device = mesh.devices[0]
         self.cfg = model_cfg
         self.cluster = cluster_cfg
         self.log = log
@@ -120,6 +171,26 @@ class Trainer:
             raise ConfigError("model config has no updater block")
         self.updater = make_updater(model_cfg.updater)
         self._init_gen = torch.Generator().manual_seed(seed)
+
+        # --- gradient collectives (grad_comm + kernels.grad_allreduce) ---
+        self._comm = GradCommSpec.from_config(
+            model_cfg.grad_comm, model_cfg.kernels, model_cfg.ring
+        )
+        #: the ring's chunk dim per param (0 for every param: the update
+        #: is replicated) and q8_hier's (K, M); None off the ring
+        self._ring_chunk_dims: dict[str, int] | None = None
+        self._ring_hier: tuple[int, int] | None = None
+        ndata = len(mesh.devices)
+        if self._comm is not None and self._comm.ring:
+            self._setup_ring_collective()
+        elif self.train_net.batchsize % ndata:
+            raise ConfigError(
+                f"data-parallel training needs the data-axis width "
+                f"({ndata}: the mesh's ranks, or the cluster's nworkers "
+                f"worker groups) to divide the batch "
+                f"({self.train_net.batchsize}): each rank takes a "
+                "contiguous slice of it"
+            )
 
         self.start_step = model_cfg.step
         self._materialize_params()
@@ -177,11 +248,12 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _materialize_params(self) -> None:
-        """Initialize params + updater slots on the device and overlay
-        the resume checkpoint (fills Worker::Resume, worker.cc:65-67)."""
+        """Initialize params + updater slots on every device of the mesh
+        and the error-feedback residuals, and overlay the resume
+        checkpoint (fills Worker::Resume, worker.cc:65-67)."""
         params = init_params(self._init_gen, self.specs, self.device)
         state = self.updater.init_state(params)
-        buffers: dict = {}
+        buffers = init_residuals(params, self._comm)
         self._resume_streams: dict[str, int] = {}
         if self.cfg.checkpoint:
             ck_step, params, state, buffers = restore_into(
@@ -192,9 +264,37 @@ class Trainer:
             self.log(
                 f"resumed from {self.cfg.checkpoint} at step {self.start_step}"
             )
+        #: device -> {"params", "state"}: one copy per distinct device
+        self._replicas: dict[torch.device, dict] = {
+            dev: {} for dev in self.mesh.devices
+        }
         self.params = params
         self.state = state
         self.buffers = buffers
+
+    @property
+    def params(self) -> dict:
+        """The params (rank 0's device's copy; every device holds the
+        same values). Assigning them sets every device's copy."""
+        return self._replicas[self.device]["params"]
+
+    @params.setter
+    def params(self, value: dict) -> None:
+        for dev, rep in self._replicas.items():
+            rep["params"] = {n: v.to(dev) for n, v in value.items()}
+
+    @property
+    def state(self) -> dict:
+        """The updater slots (rank 0's device's copy), like ``params``."""
+        return self._replicas[self.device]["state"]
+
+    @state.setter
+    def state(self, value: dict) -> None:
+        for dev, rep in self._replicas.items():
+            rep["state"] = {
+                n: {s: v.to(dev) for s, v in slots.items()}
+                for n, slots in value.items()
+            }
 
     def _seek_resumed_streams(self) -> None:
         for net in self._nets():
@@ -220,25 +320,218 @@ class Trainer:
             return tree.to(self._compute_dtype)
         return tree
 
+    def _rank_batch(self, batch: dict, r: int) -> dict:
+        """Rank r's contiguous slice of the global batch, on its device
+        (the JAX package's batch sharding over the data axis)."""
+        n = len(self.mesh.devices)
+        dev = self.mesh.devices[r]
+        out = {}
+        for name, feed in batch.items():
+            out[name] = {}
+            for k, v in feed.items():
+                b = v.shape[0] // n
+                out[name][k] = v[r * b:(r + 1) * b].to(dev)
+        return out
+
     def _step_core(self, step: int, batch: dict) -> dict:
-        """One forward + backward + update; -> the step's metrics."""
+        """One forward + backward per rank, the reduction, the update on
+        every device; -> the step's metrics, averaged over the ranks."""
+        n = len(self.mesh.devices)
         names = list(self.params)
-        leaves = {n: self.params[n].detach().requires_grad_(True)
-                  for n in names}
-        loss, metrics = self.train_net.forward(
-            self._cast_compute(leaves), self._cast_compute(batch),
-            training=True,
-        )
-        loss.backward()
-        grads = {
-            n: (leaves[n].grad if leaves[n].grad is not None
-                else torch.zeros_like(leaves[n]))
-            for n in names
+        grads, metrics = [], []
+        for r, dev in enumerate(self.mesh.devices):
+            params = self._replicas[dev]["params"]
+            leaves = {nm: params[nm].detach().requires_grad_(True)
+                      for nm in names}
+            loss, m = self.train_net.forward(
+                self._cast_compute(leaves),
+                self._cast_compute(self._rank_batch(batch, r)),
+                training=True,
+            )
+            loss.backward()
+            # each rank's loss is its local batch mean: / n makes the sum
+            # over ranks the global mean gradient
+            grads.append({
+                nm: (leaves[nm].grad if leaves[nm].grad is not None
+                     else torch.zeros_like(leaves[nm])) / n
+                for nm in names
+            })
+            metrics.append(m)
+        if self._ring_chunk_dims is not None:
+            reduced, res = self._ring_reduce(grads, self.buffers)
+            # the reduced grads are the same bits on every rank: take the
+            # first rank on each device
+            by_dev = {dev: reduced[self.mesh.devices.index(dev)]
+                      for dev in self._replicas}
+        else:
+            summed = {nm: functools.reduce(
+                torch.add, (g[nm].to(self.device) for g in grads))
+                for nm in names}
+            res = {}
+            if self._comm is not None:
+                summed, res = reduce_gradients(
+                    summed, self.buffers, self._comm, self._buckets(names)
+                )
+            by_dev = {dev: {nm: g.to(dev) for nm, g in summed.items()}
+                      for dev in self._replicas}
+        self.buffers = {**self.buffers, **res}
+        for dev, rep in self._replicas.items():
+            rep["params"], rep["state"] = self.updater.apply(
+                step, rep["params"], by_dev[dev], rep["state"], self.specs
+            )
+        return {
+            layer: {k: functools.reduce(torch.add, (
+                torch.as_tensor(m[layer][k], device=self.device)
+                for m in metrics)) / n for k in ms}
+            for layer, ms in metrics[0].items()
         }
-        self.params, self.state = self.updater.apply(
-            step, self.params, grads, self.state, self.specs
+
+    # ------------------------------------------------------------------
+    # gradient collectives (grad_comm, kernels.grad_allreduce)
+    # ------------------------------------------------------------------
+
+    @property
+    def comm_mode(self) -> str:
+        """``quantized`` (a scaled int8/bf16 wire cast with error
+        feedback) or ``exact`` (float32)."""
+        return ("quantized" if self._comm is not None and self._comm.quantized
+                else "exact")
+
+    @property
+    def comm_dtype(self) -> str:
+        """Wire dtype of the quantized reduction ("" when exact)."""
+        if self._comm is not None and self._comm.quantized:
+            return self._comm.dtype
+        return ""
+
+    @property
+    def grad_wire_impl(self) -> str:
+        """``reference``, ``quantized_ring`` or ``q8_hier`` ("" with no
+        grad_comm machinery)."""
+        return "" if self._comm is None else self._comm.wire_impl
+
+    def _buckets(self, names) -> tuple:
+        return reverse_topo_buckets(
+            self.train_net, frozenset(names), self._comm.buckets, self.specs
         )
-        return metrics
+
+    def _setup_ring_collective(self) -> None:
+        """Resolve the ring's geometry and refuse what it cannot run, with
+        the JAX Trainer's messages (the JAX package's zero_update branch
+        has no counterpart: the port refuses zero_update by name)."""
+        impl = self._comm.wire_impl
+        if self._comm.hier:
+            geom = qc.hier_ring_geometry(self.mesh.shape, self._comm)
+            if isinstance(geom, str):
+                raise ConfigError(
+                    f"kernels {{ grad_allreduce: q8_hier }} cannot "
+                    f"run: {geom}"
+                )
+            self._ring_hier = geom[2:]
+        ndata = len(self.mesh.devices)
+        bs = self.train_net.batchsize
+        if bs % ndata:
+            raise ConfigError(
+                f"{impl} needs the data-reduction width ({ndata}) to "
+                f"divide the batch ({bs}): each shard computes its own "
+                "local partial gradients"
+            )
+        shapes = {n: s.shape for n, s in self.specs.items()
+                  if s.owner is None}
+        chunk_dims = {n: 0 for n in shapes}
+        reason = qc.ring_reducible(shapes, ndata, chunk_dims)
+        if reason is not None:
+            raise ConfigError(
+                f"kernels.grad_allreduce {impl} cannot run: {reason}"
+            )
+        if not self._comm.interpret:
+            reason = qc.ring_fusable(shapes, ndata, chunk_dims,
+                                     interpret=False)
+            if reason is not None:
+                raise ConfigError(
+                    f"kernels.grad_allreduce {impl} with "
+                    f"interpret off cannot run: {reason}"
+                )
+        self._ring_chunk_dims = chunk_dims
+
+    def _ring_reduce(self, grads: list, buffers: dict):
+        """Per-rank local partials (already divided by n) through the
+        ring -> (per-rank reduced grads, residual updates as whole
+        arrays on rank 0's device). Rank r adds and banks chunk r of each
+        residual."""
+        n = len(grads)
+        dims = self._ring_chunk_dims
+        res = [{} for _ in range(n)]
+        if self._comm.wants_residuals:
+            for nm in grads[0]:
+                key = residual_key(nm)
+                for r, part in enumerate(buffers[key].chunk(n, dim=dims[nm])):
+                    res[r][key] = part.to(self.mesh.devices[r])
+        out, new_res = qc.ring_reduce_gradients(
+            grads, res, self._buckets(grads[0]),
+            chunk_dims=dims,
+            dtype=self._comm.dtype,
+            error_feedback=self._comm.error_feedback,
+            residual_key=residual_key,
+            hier=self._ring_hier,
+        )
+        whole = {
+            key: torch.cat([nr[key].to(self.device) for nr in new_res],
+                           dim=dims[nm])
+            for nm in grads[0] if (key := residual_key(nm)) in new_res[0]
+        }
+        return out, whole
+
+    def _ring_reduce_probe(self, grads: dict, res: dict):
+        """The ring reduction alone, no forward: every rank takes
+        ``grads`` (whole arrays) as its local partial, divided by n, so
+        the reduction gives ``grads`` back; ``res`` holds whole residual
+        arrays. -> (per-rank reduced grads, new residuals). The JAX
+        Trainer's probe returns the reduced grads once, replicated; here
+        every rank's copy comes back, so a caller can hold them equal."""
+        n = len(self.mesh.devices)
+        local = [{nm: g.to(dev) / n for nm, g in grads.items()}
+                 for dev in self.mesh.devices]
+        return self._ring_reduce(local, res)
+
+    def wire_bytes_model(self) -> dict | None:
+        """Per-rank bytes one step sends across the data axis, as
+        ``{"reference": .., "quantized_ring": .., "ndata": ..}``: the
+        float32 ring all-reduce of the same grads against the int8 ring's
+        payloads (None with no grad_comm machinery). Under ``q8_hier``
+        the dict also carries ``intra``, ``inter``, ``intra_degree`` and
+        the same-width ``flat_ring``, and ``quantized_ring`` is the
+        hierarchical total."""
+        if self._comm is None:
+            return None
+        n = len(self.mesh.devices)
+        sizes = {nm: int(np.prod(s.shape, dtype=np.int64))
+                 for nm, s in self.specs.items()}
+        buckets = self._buckets(sizes)
+        out = {
+            "reference": qc.reference_wire_bytes(sizes, n),
+            "quantized_ring": qc.modeled_wire_bytes(
+                sizes, buckets, n, dtype=self._comm.dtype),
+            "ndata": n,
+        }
+        if self._ring_hier is not None:
+            k = self._ring_hier[0]
+            out["flat_ring"] = out["quantized_ring"]
+            levels = qc.modeled_wire_bytes_levels(
+                sizes, buckets, n, intra_degree=k, dtype=self._comm.dtype)
+            out["quantized_ring"] = levels["total"]
+            out["intra"] = levels["intra"]
+            out["inter"] = levels["inter"]
+            out["intra_degree"] = k
+        return out
+
+    def modeled_wire_bytes_per_step(self) -> int:
+        """Per-rank bytes the active reduction sends per step (0 with no
+        machinery or one rank)."""
+        model = self.wire_bytes_model()
+        if model is None:
+            return 0
+        return model["quantized_ring" if self._comm.ring else "reference"]
 
     def _next_batch(self, net: Net) -> dict:
         """Host batch assembly + transfer for ``net``'s data layers."""

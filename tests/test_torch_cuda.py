@@ -1,8 +1,9 @@
-"""The port's CUDA kernels on the card: the paged-attention kernel and
-the three flash-attention kernels (forward, dQ, dK/dV), each held to its
-plain PyTorch version, their wrappers' refusals and launch counts, the
-serving engine's streams through the paged kernel, and Trainer steps
-through the flash kernels.
+"""The port's CUDA kernels on the card: the paged-attention kernel, the
+three flash-attention kernels (forward, dQ, dK/dV) and the gradient
+ring's quant_acc, each held to its plain PyTorch version, their
+wrappers' refusals and launch counts, the serving engine's streams
+through the paged kernel, Trainer steps through the flash kernels, and
+the 4-rank quantized ring on the card against the same ring on the CPU.
 
 Every test here needs a GPU and skips without one (the kernel has no
 CPU mode). The file imports neither jax nor singa_tpu, so it runs on a
@@ -23,6 +24,7 @@ from singa_tpu_torch.data.loader import synthetic_token_arrays, write_records
 from singa_tpu_torch.models.transformer import TransformerConfig, init_lm
 from singa_tpu_torch.ops import attention as ta
 from singa_tpu_torch.ops import paged_attention as pa
+from singa_tpu_torch.ops import quantized_collective as qc
 from singa_tpu_torch.serve import Engine, EngineConfig, Request, Scheduler
 from singa_tpu_torch.trainer import Trainer
 
@@ -233,3 +235,66 @@ def test_trainer_steps_through_the_flash_kernels(cuda_device, tmp_path,
     assert _flash_counts() == [n + 2 * 2 for n in before]
     assert all(np.isfinite(losses))
     np.testing.assert_allclose(losses[:2], losses[2:], atol=1e-4)
+
+
+@pytest.mark.parametrize("m", [1, 3, 64, 1000, 16384, 65536, 1 << 24])
+def test_quant_acc_matches_plain_bitwise(cuda_device, m):
+    """The kernel rounds the product and the sum separately, as the plain
+    version does: equal to the bit at every length, the vector body and
+    the scalar tail, aligned or not (an offset of one element)."""
+    gen = torch.Generator().manual_seed(m)
+    q = torch.randint(-127, 128, (m + 1,), generator=gen,
+                      dtype=torch.int8).to(cuda_device)
+    local = torch.randn(m + 1, generator=gen).to(cuda_device)
+    scale = torch.tensor(0.0123, device=cuda_device)
+    before = qc.quant_acc.launches
+    for a, b in ((q[:m], local[:m]), (q[1:], local[1:])):
+        got = qc.quant_acc(a, scale, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, qc.quant_acc_plain(a, scale, b))
+    assert qc.quant_acc.launches == before + 2
+
+
+def test_quant_acc_nan_scale_and_refusals(cuda_device):
+    q = torch.zeros(1000, dtype=torch.int8, device=cuda_device)
+    local = torch.randn(1000, device=cuda_device)
+    nan = torch.tensor(float("nan"), device=cuda_device)
+    assert bool(qc.quant_acc(q, nan, local).isnan().all())
+    before = qc.quant_acc.launches
+    strided = torch.zeros(1000, 2, dtype=torch.int8, device=cuda_device)[:, 0]
+    with pytest.raises(ValueError, match="contiguous"):
+        qc.quant_acc(strided, nan, local)
+    with pytest.raises(ValueError, match="different devices"):
+        qc.quant_acc(q, nan.cpu(), local)
+    assert qc.quant_acc.launches == before
+
+
+@pytest.mark.parametrize("hier", [None, (2, 2)])
+def test_ring_on_the_card_equals_the_ring_on_the_cpu(cuda_device, hier):
+    """4 ranks on the card and 4 on the CPU, the same partials and
+    residual chunks: the same reduced grads and residuals to the bit, and
+    one launch per rank, param and quantized reduce hop."""
+    rs = np.random.RandomState(0)
+    shapes = {"w": (256, 64), "b": (64,), "ln": (8, 4, 4)}
+    grads = [{k: rs.randn(*v).astype(np.float32) for k, v in shapes.items()}
+             for _ in range(4)]
+    res = [{"r/" + k: (rs.randn(*v) * 1e-3).astype(np.float32)[:v[0] // 4]
+            for k, v in shapes.items()} for _ in range(4)]
+    outs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        before = qc.quant_acc.launches
+        outs[dev.type] = qc.ring_reduce_gradients(
+            [{k: torch.from_numpy(v).to(dev) for k, v in g.items()}
+             for g in grads],
+            [{k: torch.from_numpy(v.copy()).to(dev) for k, v in r.items()}
+             for r in res],
+            (("w",), ("b", "ln")), chunk_dims={k: 0 for k in shapes},
+            residual_key=lambda k: "r/" + k, hier=hier,
+        )
+        hops = 3 if hier is None else 1
+        want = 4 * len(shapes) * hops if dev.type == "cuda" else 0
+        assert qc.quant_acc.launches == before + want
+    for got, ref in zip(outs["cuda"], outs["cpu"]):
+        for r in range(4):
+            for k, v in ref[r].items():
+                assert torch.equal(got[r][k].cpu(), v), (r, k)
