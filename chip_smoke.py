@@ -11,7 +11,9 @@ caught and carried on):
 
   1. env     the card's name and power limit (nvidia-smi), torch and CUDA
              versions, and the nvcc build of every kernel in
-             singa_tpu_torch/csrc/ (one nvcc per source, started together).
+             singa_tpu_torch/csrc/ (one nvcc per source, started together),
+             with ptxas's register and spill lines; the tensor-core
+             backward (flash_attention_bwd.cu) must report no spills.
   2. kernel  the paged-attention kernel, both forms, against its plain
              PyTorch version on the card: decode (S=8, Q=1), prefill
              (S=1, Q=64) and overlay/verify (S=8, Q=5) at head_dim 128 and
@@ -37,12 +39,18 @@ caught and carried on):
              against their plain PyTorch versions on the card: B*H in
              {2, 8}, S in {256, 1024, 8192}, head_dim 64 and 128, causal
              and not, float32 and bfloat16, plus S=32768 causal bf16
-             head_dim 128. Times at the training shape (B=1, H=2, S=8192,
-             D=128, bf16, causal) of each kernel, its plain version and,
-             as a yardstick the port never calls,
+             head_dim 128 and B*H 3 at S=192 (bf16; S a multiple of 64
+             but not of 128). The bf16 backward runs on the tensor cores
+             (csrc/flash_attention_bwd.cu); at the training shape each of
+             its kernels, launched twice on the same inputs, must give
+             bitwise-equal outputs. Times at the training shape (B=1,
+             H=2, S=8192, D=128, bf16, causal) of each kernel, its plain
+             version and, as a yardstick the port never calls,
              F.scaled_dot_product_attention forward and its autograd
-             backward; the bound is the larger of bytes / 3.35 TB/s and
-             operations / 989 TFLOP/s (bf16).
+             backward, with each kernel's achieved TFLOP/s and the
+             backward pair's ratio to SDPA's backward; the bound is the
+             larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s
+             (bf16).
   6. train   the port's Trainer on examples/lm/tinylm_longctx_d128.conf
              (full width, read by the port's load_model_config) over a
              shard of 32 synthetic 8192-token sequences: at float32, 8
@@ -86,6 +94,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -122,7 +131,6 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, f32 without tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, bf16 tensor cores, dense
 SOURCE = "singa_tpu_torch/csrc/paged_attention.cu"
 REPLACES = "singa_tpu/ops/paged_attention.py:121"
-FLASH_SOURCE = "singa_tpu_torch/csrc/flash_attention.cu"
 TRAIN_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "examples", "lm", "tinylm_longctx_d128.conf")
 #: each flash kernel's wrapper, the Pallas kernel it replaces (the staged
@@ -161,8 +169,20 @@ FLASH_SHAPES = [
     for dtype in (torch.float32, torch.bfloat16)
     for bh in (2, 8) for s in (256, 1024, 8192) for d in (64, 128)
     for causal in (False, True)
-] + [(2, 32768, 128, True, torch.bfloat16)]   # the TPU's streamed regime
+] + [(2, 32768, 128, True, torch.bfloat16),   # the TPU's streamed regime
+      # S a multiple of 64 but not 128 and an odd B*H: the tensor-core
+      # backward's odd tile count and its pipeline tail
+      (3, 192, 128, True, torch.bfloat16), (3, 192, 64, False, torch.bfloat16)]
 FLASH_TIMED = (2, 8192, 128, True, torch.bfloat16)
+#: each flash kernel's source at the training shape's dtype (the main
+#: path's): the bf16 backward is the tensor-core file
+FLASH_SOURCES = {
+    name: "singa_tpu_torch/csrc/"
+          f"{ta.kernel_source(name, FLASH_TIMED[4])[0]}.cu"
+    for name in FLASH
+}
+#: the library whose ptxas report must show no spills
+SPILL_FREE = "flash_attention_bwd"
 RING_SOURCE = "singa_tpu_torch/csrc/quant_acc.cu"
 RING_REPLACES = "singa_tpu/ops/quantized_collective.py:341"
 RING_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -554,6 +574,14 @@ def flash_calls(c):
     }
 
 
+def flash_ops(name, c):
+    """Operations of one kernel call: its products (FLASH) x 2*D per
+    visible (q, k) pair."""
+    bh, s, d = c["q"].shape
+    pairs = bh * s * (s + 1) // 2 if c["causal"] else bh * s * s
+    return FLASH[name][2] * 2 * d * pairs
+
+
 def flash_bound(name, c):
     """(bound_ms, bound_by) for one kernel call: the larger of its bytes
     (each input read once, each output written once) over HBM bandwidth
@@ -561,12 +589,11 @@ def flash_bound(name, c):
     bf16 or f32 rate of the inputs' type."""
     bh, s, d = c["q"].shape
     item = c["q"].element_size()
-    pairs = bh * s * (s + 1) // 2 if c["causal"] else bh * s * s
     rows, vecs = bh * s * d * item, bh * s * 4
     nbytes = {"flash_fwd": 4 * rows + vecs,            # q k v in; out, lse
               "flash_bwd_dq": 5 * rows + 2 * vecs,     # q k v dO lse delta; dq
               "flash_bwd_dkv": 6 * rows + 2 * vecs}[name]
-    ops = FLASH[name][2] * 2 * d * pairs
+    ops = flash_ops(name, c)
     rate = BF16_FLOPS_PER_S if c["q"].dtype == torch.bfloat16 \
         else F32_FLOPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
@@ -609,11 +636,21 @@ def flash_phase(dev):
     bh, s, d = c["q"].shape
     rows = {}
     for name, (kernel, plain) in flash_calls(c).items():
+        if name != "flash_fwd":   # the tensor-core backward: deterministic
+            first, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            first = first if isinstance(first, tuple) else (first,)
+            again = again if isinstance(again, tuple) else (again,)
+            check(all(torch.equal(a, b) for a, b in zip(first, again)),
+                  f"{name}: two launches on the same inputs differ")
+            print(f"flash {name}: two launches bitwise equal")
         b_ms, b_by = flash_bound(name, c)
-        rows[name] = {"ms": time_ms(kernel, flush, iters=10),
+        ms = time_ms(kernel, flush, iters=10)
+        rows[name] = {"ms": ms,
                       "plain_ms": time_ms(plain, flush, iters=10),
                       "bound_ms": b_ms, "bound_by": b_by,
-                      "library_ms": None}
+                      "library_ms": None,
+                      "tflops": flash_ops(name, c) / ms / 1e9}
     # yardstick only: SDPA forward, and its autograd backward (which
     # computes dQ, dK and dV in one call, so it stands beside neither
     # backward kernel alone)
@@ -630,8 +667,11 @@ def flash_phase(dev):
     for name, row in rows.items():
         print("flash_timing", json.dumps({"kernel": name, **row,
                                           "shape": [1, bh, s, d]}))
-    print("flash_timing", json.dumps({"library_backward_dq_dk_dv_ms":
-                                      sdpa_bwd}))
+    pair_ms = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
+    print("flash_timing", json.dumps({
+        "library_backward_dq_dk_dv_ms": sdpa_bwd,
+        "backward_pair_ms": pair_ms,
+        "backward_pair_over_library": pair_ms / sdpa_bwd}))
     return errs, rows
 
 
@@ -980,6 +1020,44 @@ def ring_phase(dev):
     return err, rows[RING_TIMED[0]], bf16["q8wire"]["quant_acc_launches"]
 
 
+def short_kernel_name(mangled: str) -> str:
+    """'_ZN12_GLOBAL__N_124flash_bwd_dq_bf16_kernelILi128ELb1EEEv...' ->
+    'flash_bwd_dq_bf16_kernel<128,1>' (the last name of the nested name,
+    its type argument, then its integer and bool arguments)."""
+    i, name = (3 if mangled.startswith("_ZN") else 2), mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        n = re.match(r"\d+", mangled[i:]).group()
+        i += len(n)
+        name = mangled[i:i + int(n)]
+        i += int(n)
+    tmpl = mangled[i:]
+    if not tmpl.startswith("I"):
+        return name
+    args = re.findall(r"L[ib](\d+)E", tmpl.split("EE")[0] + "E")
+    kind = ("bf16," if tmpl.startswith("I13__nv_bfloat16")
+            else "f32," if tmpl.startswith("If") else "")
+    return f"{name}<{kind}{','.join(args)}>"
+
+
+def ptxas_report(logs):
+    """Print each kernel's register and spill lines from the nvcc logs
+    (``-Xptxas -v``) -> {library: [kernels that spill]}."""
+    spills = {}
+    for lib, log in logs.items():
+        spills[lib], kernel = [], "?"
+        for line in log.splitlines():
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            if entry:
+                kernel = short_kernel_name(entry.group(1))
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {lib} {kernel}: {line.strip()}")
+            stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", line)
+            if stores and (int(stores.group(1)) or int(stores.group(2))):
+                spills[lib].append(kernel)
+    return spills
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -999,10 +1077,11 @@ def main() -> int:
     logs = _build.build_all()
     print(f"kernel build {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'already built'})")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+    spills = ptxas_report(logs)
+    check(SPILL_FREE in logs, f"{SPILL_FREE}: no ptxas report (not built "
+          "by this run)")
+    check(not spills[SPILL_FREE],
+          f"{SPILL_FREE}: ptxas reports spills in {spills[SPILL_FREE]}")
 
     errs, rows = kernel_phase(dev, np.random.RandomState(0))
 
@@ -1031,7 +1110,7 @@ def main() -> int:
     for name, (_, replaces, _) in FLASH.items():
         row = flash_rows[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "name": name, "route": "cuda", "source": FLASH_SOURCES[name],
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": flash_errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

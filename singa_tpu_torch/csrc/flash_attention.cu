@@ -1,6 +1,15 @@
-// Flash attention for Hopper (sm_90a): forward, dQ and dK/dV, causal or
-// full, over (batch * heads, S, D) rows in float32 or bfloat16 with float32
-// accumulation everywhere.
+// Flash attention for Hopper (sm_90a) on the CUDA cores: the forward in
+// float32 or bfloat16 and the backward (dQ, dK/dV) in float32, causal or
+// full, over (batch * heads, S, D) rows with float32 accumulation
+// everywhere.
+//
+// Which kernel serves which dtype:
+//   flash_fwd           float32 and bfloat16 (this file)
+//   flash_bwd_dq/_dkv   float32 (this file); bfloat16 runs on the tensor
+//                       cores in flash_attention_bwd.cu. The float32
+//                       backward stays here: TF32 tensor cores would break
+//                       the float32 flash-vs-dense training bar (1e-5) and
+//                       the port's no-TF32 contract (device.py).
 //
 // Replaces the six Pallas TPU kernels of singa_tpu/ops/attention.py:
 //   flash_fwd     <- _flash_kernel_staged (:386) and _flash_kernel (:210),
@@ -51,11 +60,14 @@
 //     two accumulations have the same pv_tile shape as the forward's P V.
 // Known limits: no tensor cores, no asynchronous copies (each tile load is a
 // full memory round trip between two barriers), one thread block per SM at
-// D = 128 (shared memory). mma/wgmma, TMA and pipelining are later work.
+// D = 128 (shared memory). For the float32 backward that is the price of
+// full float32 products; the bf16 backward has left this file for the
+// tensor cores (flash_attention_bwd.cu); the forward's redesign is next.
 //
 // C interface, bound with ctypes: every pointer and the stream are void*,
-// dtype 0 = float32 and 1 = bfloat16, the launch is on the given stream, and
-// each function returns cudaGetLastError() (0 = launched).
+// dtype 0 = float32 and 1 = bfloat16 (the backward entries take 0 only),
+// the launch is on the given stream, and each function returns
+// cudaGetLastError() (0 = launched).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -470,8 +482,9 @@ struct Tag {
 template <int N>
 using IntC = std::integral_constant<int, N>;
 
-// call f(Tag<T>, IntC<D>, bool_constant<causal>) for the runtime choice
-template <typename F>
+// call f(Tag<T>, IntC<D>, bool_constant<causal>) for the runtime choice;
+// BF16 = false takes float32 only (the backward: bf16 has its own kernels)
+template <bool BF16 = true, typename F>
 int dispatch(int dtype, int D, int causal, F f) {
   auto by_d = [&](auto t) -> int {
     if (D == 64)
@@ -483,7 +496,8 @@ int dispatch(int dtype, int D, int causal, F f) {
     return (int)cudaErrorInvalidValue;
   };
   if (dtype == 0) return by_d(Tag<float>{});
-  if (dtype == 1) return by_d(Tag<__nv_bfloat16>{});
+  if constexpr (BF16)
+    if (dtype == 1) return by_d(Tag<__nv_bfloat16>{});
   return (int)cudaErrorInvalidValue;
 }
 
@@ -529,7 +543,7 @@ extern "C" int singa_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   void* stream) {
   if (bad_shape(BH, S)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, D, causal, [&](auto t, auto d, auto c) -> int {
+  auto f32_only = [&](auto t, auto d, auto c) -> int {
     using T = typename decltype(t)::type;
     constexpr int DD = decltype(d)::value;
     constexpr bool C = decltype(c)::value;
@@ -544,7 +558,8 @@ extern "C" int singa_flash_bwd_dq(const void* q, const void* k, const void* v,
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<T*>(dq), S, scale);
     return (int)cudaGetLastError();
-  });
+  };
+  return dispatch<false>(dtype, D, causal, f32_only);
 }
 
 extern "C" int singa_flash_bwd_dkv(const void* q, const void* k,
@@ -555,7 +570,7 @@ extern "C" int singa_flash_bwd_dkv(const void* q, const void* k,
                                    void* stream) {
   if (bad_shape(BH, S)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, D, causal, [&](auto t, auto d, auto c) -> int {
+  auto f32_only = [&](auto t, auto d, auto c) -> int {
     using T = typename decltype(t)::type;
     constexpr int DD = decltype(d)::value;
     constexpr bool C = decltype(c)::value;
@@ -570,5 +585,6 @@ extern "C" int singa_flash_bwd_dkv(const void* q, const void* k,
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<T*>(dk), static_cast<T*>(dv), S, scale);
     return (int)cudaGetLastError();
-  });
+  };
+  return dispatch<false>(dtype, D, causal, f32_only);
 }

@@ -1,12 +1,17 @@
 """Attention ops: the dense reference attention, the online-softmax
 block primitives, and flash attention (forward and backward) on the
-CUDA kernels of ``csrc/flash_attention.cu``.
+CUDA kernels of ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu``.
 
 Counterpart of ``singa_tpu/ops/attention.py``, whose six Pallas kernels
-(staged and streamed forward, dQ and dK/dV) become three Hopper kernels
-here: ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``. The TPU's
-staged/streamed split is a VMEM budget (``_variant`` there); on the GPU
-one kernel streams its tiles through shared memory for every S.
+(staged and streamed forward, dQ and dK/dV) become three Hopper kernel
+entry points here: ``flash_fwd``, ``flash_bwd_dq`` and
+``flash_bwd_dkv``. The TPU's staged/streamed split is a VMEM budget
+(``_variant`` there); on the GPU one kernel streams its tiles through
+shared memory for every S. The bf16 backward runs on the tensor cores
+(``flash_attention_bwd.cu``: P and dS are rounded once to bf16 before
+their products); the forward and the float32 backward run on the CUDA
+cores (``kernel_source``).
 
 Each kernel wrapper takes flattened ``(B*H, S, D)`` rows (the layout of
 the Pallas calls) with ``lse`` and ``delta`` laid out ``(B*H, S)`` in
@@ -244,13 +249,24 @@ def fusable(seq_len: int, head_dim: int, dtype) -> str | None:
     return None
 
 
+def kernel_source(name: str, dtype) -> tuple[str, str]:
+    """(source under ``csrc/``, C symbol) of kernel ``name`` for inputs of
+    ``dtype``: the bf16 backward runs on the tensor cores
+    (``flash_attention_bwd.cu``); the forward, and the float32 backward,
+    on the CUDA cores (``flash_attention.cu``)."""
+    if dtype == torch.bfloat16 and name != "flash_fwd":
+        return "flash_attention_bwd", f"singa_{name}_bf16"
+    return "flash_attention", f"singa_{name}"
+
+
 @functools.cache
-def _entry(name: str):
-    """One C entry point of ``csrc/flash_attention.cu`` (built at first
-    use), with its argument types declared."""
+def _entry(name: str, dtype):
+    """The C entry point of kernel ``name`` for ``dtype`` (its library
+    built at first use), with its argument types declared."""
     from .. import _build
 
-    fn = getattr(_build.load("flash_attention"), f"singa_{name}")
+    source, symbol = kernel_source(name, dtype)
+    fn = getattr(_build.load(source), symbol)
     n_ptr = {"flash_fwd": 5, "flash_bwd_dq": 7, "flash_bwd_dkv": 8}[name]
     fn.argtypes = (
         [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
@@ -290,7 +306,7 @@ def _launch(name, rows, floats, outs, causal):
                              "(the kernel loads 16 bytes at a time)")
     if bh == 0:
         return
-    err = _entry(name)(
+    err = _entry(name, rows[0].dtype)(
         *(t.data_ptr() for t in (*rows, *floats, *outs)),
         bh, s, d, KERNEL_DTYPES[rows[0].dtype], int(bool(causal)),
         ctypes.c_float(1.0 / math.sqrt(d)),

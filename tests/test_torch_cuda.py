@@ -160,9 +160,14 @@ def _flash_counts():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_kernels_match_plain(cuda_device, dtype, d, causal):
+@pytest.mark.parametrize("bh,s", [(2, 320), (3, 192)])
+def test_flash_kernels_match_plain(cuda_device, dtype, d, causal, bh, s):
+    """Each kernel against its plain version at S a multiple of 64 but
+    not of 128 (an odd count of 64-row tiles) and at an odd B*H, and the
+    backward deterministic: a second launch on the same inputs gives
+    bitwise-equal outputs."""
     gen = torch.Generator().manual_seed(d + causal)
-    q, k, v, do = [torch.randn(2, 320, d, generator=gen).to(cuda_device, dtype)
+    q, k, v, do = [torch.randn(bh, s, d, generator=gen).to(cuda_device, dtype)
                    for _ in range(4)]
     before = _flash_counts()
     out, lse = ta.flash_fwd(q, k, v, causal)
@@ -180,6 +185,11 @@ def test_flash_kernels_match_plain(cuda_device, dtype, d, causal):
         scale = float(b.float().abs().max())
         err = float((a.float() - b.float()).abs().max())
         assert err <= FLASH_TOL[dtype] * scale, (name, err, scale)
+    again = [ta.flash_bwd_dq(q, k, v, do, want_lse, delta, causal),
+             *ta.flash_bwd_dkv(q, k, v, do, want_lse, delta, causal)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got[2:], again):
+        assert torch.equal(a, b), name
 
 
 def test_flash_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):

@@ -241,8 +241,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_gpu):
 
 def test_kernel_build_needs_nvcc_and_starts_only_on_use(monkeypatch,
                                                         tmp_path):
-    assert _build.sources() == ["flash_attention", "paged_attention",
-                                "quant_acc"]
+    assert _build.sources() == ["flash_attention", "flash_attention_bwd",
+                                "paged_attention", "quant_acc"]
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "nowhere"))
