@@ -13,16 +13,24 @@ caught and carried on):
              versions, and the nvcc build of every kernel in
              singa_tpu_torch/csrc/ (one nvcc per source, started together),
              with ptxas's register and spill lines; the tensor-core
-             backward (flash_attention_bwd.cu) must report no spills.
+             flash kernels (flash_attention_bf16.cu) and the paged kernel
+             (paged_attention.cu) must report no spills.
   2. kernel  the paged-attention kernel, both forms, against its plain
              PyTorch version on the card: decode (S=8, Q=1), prefill
              (S=1, Q=64) and overlay/verify (S=8, Q=5) at head_dim 128 and
-             64, block_len 16 and 8, ragged fills with fully-masked rows.
+             64, block_len 16 and 8, ragged fills with fully-masked rows;
+             then the key-range split's edge cases at the serve geometry
+             (sequences shorter than one split, more splits than live
+             tiles, a prefill chunk from position 0, the position -1 row
+             and the dead overlay row, both exact zeros), each form
+             launched twice on the same inputs (bitwise equal), and the
+             thread blocks of a decode call (at least one per SM).
              Times (CUDA events, L2 flushed before each launch) of the
-             kernel, the plain version and, as a yardstick the port never
-             calls, F.scaled_dot_product_attention on the gathered dense
-             view; the bound is the larger of modeled bytes / 3.35 TB/s
-             and operations / 67 TFLOP/s (f32 without tensor cores).
+             kernel (a wrapper call: the split kernel and its combine),
+             the plain version and, as a yardstick the port never calls,
+             F.scaled_dot_product_attention on the gathered dense view;
+             the bound is the larger of modeled bytes / 3.35 TB/s and
+             operations / 67 TFLOP/s (f32 without tensor cores).
   3. serve   the d128 LM (vocab 256, d_model 256, 2 heads x 128, 2 layers,
              d_ff 1024, max_len 2048, seeded init_lm) behind Engine +
              Scheduler (8 slots, kv_block_len 16, prefill chunk 64): 16
@@ -40,15 +48,17 @@ caught and carried on):
              {2, 8}, S in {256, 1024, 8192}, head_dim 64 and 128, causal
              and not, float32 and bfloat16, plus S=32768 causal bf16
              head_dim 128 and B*H 3 at S=192 (bf16; S a multiple of 64
-             but not of 128). The bf16 backward runs on the tensor cores
-             (csrc/flash_attention_bwd.cu); at the training shape each of
-             its kernels, launched twice on the same inputs, must give
-             bitwise-equal outputs. Times at the training shape (B=1,
-             H=2, S=8192, D=128, bf16, causal) of each kernel, its plain
-             version and, as a yardstick the port never calls,
-             F.scaled_dot_product_attention forward and its autograd
-             backward, with each kernel's achieved TFLOP/s and the
-             backward pair's ratio to SDPA's backward; the bound is the
+             but not of 128). bf16 runs on the tensor cores
+             (csrc/flash_attention_bf16.cu); the forward's lse is held to
+             the plain version's at LSE_TOL at every shape (the backward
+             reads it); at the training shape each kernel, launched twice
+             on the same inputs, must give bitwise-equal outputs. Times at
+             the training shape (B=1, H=2, S=8192, D=128, bf16, causal) of
+             each kernel, its plain version and, as a yardstick the port
+             never calls, F.scaled_dot_product_attention forward and its
+             autograd backward, with each kernel's achieved TFLOP/s, the
+             forward's ratio to SDPA's forward and the backward pair's to
+             SDPA's backward; the bound is the
              larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s
              (bf16).
   6. train   the port's Trainer on examples/lm/tinylm_longctx_d128.conf
@@ -146,6 +156,12 @@ FLASH = {
 #: worst, over 8192-term rows); bf16 outputs are rounded once to 8 bits
 #: of mantissa, 2^-8 = 3.9e-3 relative, so 2e-2 allows a few roundings
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: the forward's lse vs plain, |err| / max(1, |lse|) per row: both are
+#: float32 m + log(l) over the same float32 scores, summed in other
+#: orders, with ex2.approx on the tensor-core path (~2 ulp); a wrong exp
+#: base or scale moves it by O(1), which the backward (P = exp(S * scale -
+#: lse)) would turn into wrong gradients
+LSE_TOL = 1e-4
 #: flash vs dense training losses at float32 over 8 steps. The kernels and
 #: cuBLAS sum attention in different orders (~1e-6 relative per call);
 #: on an H100 the sound runs' losses came out equal (0.0), and 1e-5 is
@@ -175,14 +191,14 @@ FLASH_SHAPES = [
       (3, 192, 128, True, torch.bfloat16), (3, 192, 64, False, torch.bfloat16)]
 FLASH_TIMED = (2, 8192, 128, True, torch.bfloat16)
 #: each flash kernel's source at the training shape's dtype (the main
-#: path's): the bf16 backward is the tensor-core file
+#: path's): bf16 is the tensor-core file
 FLASH_SOURCES = {
     name: "singa_tpu_torch/csrc/"
           f"{ta.kernel_source(name, FLASH_TIMED[4])[0]}.cu"
     for name in FLASH
 }
-#: the library whose ptxas report must show no spills
-SPILL_FREE = "flash_attention_bwd"
+#: the libraries whose ptxas reports must show no spills
+SPILL_FREE = ("flash_attention_bf16", "paged_attention")
 RING_SOURCE = "singa_tpu_torch/csrc/quant_acc.cu"
 RING_REPLACES = "singa_tpu/ops/quantized_collective.py:341"
 RING_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -334,6 +350,53 @@ def bound(case):
                                        else "operations")
 
 
+def split_edges(dev, rs, errs):
+    """The key-range split's edge cases at the serve geometry (head_dim
+    128, block_len 16, table width 128): decode with sequences shorter
+    than one split (1 and 3 keys: one live tile for ~17 splits), a full
+    table and the position -1 row; a prefill chunk from position 0 (2
+    live tiles, more splits than tiles); an overlay with a dead row and
+    an empty pool. Each against the plain version, masked rows exact
+    zeros, each launched twice (bitwise equal); prints the thread blocks
+    of a decode call. Updates ``errs`` in place."""
+    max_len, s, h, d, bl = 2048, 8, 2, 128, 16
+    dec = make_case(rs, dev, s=s, h=h, nq=1, d=d, bl=bl, max_len=max_len,
+                    pos0=np.array([0, 2, 2047, -1, 31, 32, 700, 1500]),
+                    overlay=False)
+    pre = make_case(rs, dev, s=1, h=h, nq=64, d=d, bl=bl, max_len=max_len,
+                    pos0=[0], overlay=False)
+    valid = np.ones((s, 5), np.int32)
+    valid[2] = 0
+    ovl = make_case(rs, dev, s=s, h=h, nq=5, d=d, bl=bl, max_len=max_len,
+                    pos0=np.array([0, 3, 0, 1, 2040, 33, 64, 500]),
+                    overlay=True, valid=valid)
+    for name, case, dead in (("decode", dec, 3), ("prefill", pre, None),
+                             ("overlay", ovl, 2)):
+        got, again = run_kernel(case), run_kernel(case)
+        want = run_plain(case)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        form = "paged_attention_overlay" if name == "overlay" \
+            else "paged_attention"
+        errs[form] = max(errs[form], err)
+        s_, h_, nq, _ = case["q"].shape
+        _, splits, blocks = pa.launch_geometry(
+            s_, h_, nq, case["tables"].shape[1], bl, pa._sm_count(dev.index))
+        print(f"kernel split edge {name:8s} splits {splits} blocks {blocks} "
+              f"max_abs_err {err:.3e} (tol {TOL:g}) bitwise repeat "
+              f"{bool(torch.equal(got, again))}")
+        check(err <= TOL, f"split edge {name}: max_abs_err {err} > {TOL}")
+        check(torch.equal(got, again),
+              f"split edge {name}: two launches on the same inputs differ")
+        if dead is not None:
+            check(bool((got[dead] == 0).all()),
+                  f"split edge {name}: fully masked row is not zero")
+    n_sms = pa._sm_count(dev.index)
+    blocks = pa.launch_geometry(s, h, 1, max_len // bl, bl, n_sms)[2]
+    print(f"kernel decode call: {blocks} thread blocks on {n_sms} SMs")
+    check(blocks >= n_sms, f"decode launches {blocks} blocks < {n_sms} SMs")
+
+
 def kernel_phase(dev, rs):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     max_len, s, h = 2048, 8, 2
@@ -389,6 +452,7 @@ def kernel_phase(dev, rs):
                                 pos0=rs.randint(32, 1088, size=s),
                                 overlay=False)
                 timed = {"decode": dec, "prefill": pre, "overlay": ovl}
+    split_edges(dev, rs, errs)
     rows = {}
     for name, case in timed.items():
         b_ms, b_by = bound(case)
@@ -607,6 +671,7 @@ def flash_phase(dev):
     by kernel)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {name: 0.0 for name in FLASH}
+    lse_worst = 0.0
     for bh, s, d, causal, dtype in FLASH_SHAPES:
         c = flash_case(bh, s, d, causal, dtype, dev, gen)
         worst = []
@@ -626,24 +691,33 @@ def flash_phase(dev):
                 check(rel <= FLASH_TOL[dtype],
                       f"{name} {(bh, s, d, causal, dtype)}: error {rel} > "
                       f"{FLASH_TOL[dtype]} of the output's scale")
+            if name == "flash_fwd":
+                lse_err = float(((got[1] - want[1]).abs()
+                                 / want[1].abs().clamp(min=1.0)).max())
+                lse_worst = max(lse_worst, lse_err)
+                check(lse_err <= LSE_TOL,
+                      f"flash_fwd {(bh, s, d, causal, dtype)}: lse error "
+                      f"{lse_err} > {LSE_TOL}")
         print(f"flash BH {bh} S {s:5d} D {d:3d} causal {int(causal)} "
               f"{str(dtype)[6:]:8s} worst relative error {max(worst):.2e} "
               f"(tol {FLASH_TOL[dtype]:g})")
         del c
+    print(f"flash_fwd lse: worst relative error {lse_worst:.2e} over all "
+          f"shapes (tol {LSE_TOL:g})")
     # timings at the training shape
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     c = flash_case(*FLASH_TIMED, dev, gen)
     bh, s, d = c["q"].shape
     rows = {}
     for name, (kernel, plain) in flash_calls(c).items():
-        if name != "flash_fwd":   # the tensor-core backward: deterministic
-            first, again = kernel(), kernel()
-            torch.cuda.synchronize()
-            first = first if isinstance(first, tuple) else (first,)
-            again = again if isinstance(again, tuple) else (again,)
-            check(all(torch.equal(a, b) for a, b in zip(first, again)),
-                  f"{name}: two launches on the same inputs differ")
-            print(f"flash {name}: two launches bitwise equal")
+        # deterministic: each block owns its output rows
+        first, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        first = first if isinstance(first, tuple) else (first,)
+        again = again if isinstance(again, tuple) else (again,)
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"{name}: two launches on the same inputs differ")
+        print(f"flash {name}: two launches bitwise equal")
         b_ms, b_by = flash_bound(name, c)
         ms = time_ms(kernel, flush, iters=10)
         rows[name] = {"ms": ms,
@@ -671,7 +745,9 @@ def flash_phase(dev):
     print("flash_timing", json.dumps({
         "library_backward_dq_dk_dv_ms": sdpa_bwd,
         "backward_pair_ms": pair_ms,
-        "backward_pair_over_library": pair_ms / sdpa_bwd}))
+        "backward_pair_over_library": pair_ms / sdpa_bwd,
+        "forward_over_library":
+            rows["flash_fwd"]["ms"] / rows["flash_fwd"]["library_ms"]}))
     return errs, rows
 
 
@@ -1078,10 +1154,11 @@ def main() -> int:
     print(f"kernel build {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'already built'})")
     spills = ptxas_report(logs)
-    check(SPILL_FREE in logs, f"{SPILL_FREE}: no ptxas report (not built "
-          "by this run)")
-    check(not spills[SPILL_FREE],
-          f"{SPILL_FREE}: ptxas reports spills in {spills[SPILL_FREE]}")
+    for lib in SPILL_FREE:
+        check(lib in logs, f"{lib}: no ptxas report (not built by this "
+              "run)")
+        check(not spills[lib],
+              f"{lib}: ptxas reports spills in {spills[lib]}")
 
     errs, rows = kernel_phase(dev, np.random.RandomState(0))
 

@@ -1,17 +1,13 @@
-// Flash attention for Hopper (sm_90a) on the CUDA cores: the forward in
-// float32 or bfloat16 and the backward (dQ, dK/dV) in float32, causal or
-// full, over (batch * heads, S, D) rows with float32 accumulation
-// everywhere.
+// Flash attention for Hopper (sm_90a) on the CUDA cores, in float32: the
+// forward and the backward (dQ, dK/dV), causal or full, over
+// (batch * heads, S, D) rows with float32 accumulation everywhere.
 //
-// Which kernel serves which dtype:
-//   flash_fwd           float32 and bfloat16 (this file)
-//   flash_bwd_dq/_dkv   float32 (this file); bfloat16 runs on the tensor
-//                       cores in flash_attention_bwd.cu. The float32
-//                       backward stays here: TF32 tensor cores would break
-//                       the float32 flash-vs-dense training bar (1e-5) and
-//                       the port's no-TF32 contract (device.py).
+// bfloat16 runs on the tensor cores in flash_attention_bf16.cu. float32
+// stays here: TF32 tensor cores would break the float32 flash-vs-dense
+// training bar (1e-5) and the port's no-TF32 contract (device.py).
 //
-// Replaces the six Pallas TPU kernels of singa_tpu/ops/attention.py:
+// Replaces, for float32 inputs, the six Pallas TPU kernels of
+// singa_tpu/ops/attention.py:
 //   flash_fwd     <- _flash_kernel_staged (:386) and _flash_kernel (:210),
 //                    launched by _flash_fwd_impl (:552)
 //   flash_bwd_dq  <- _flash_bwd_dq_staged (:419) and _flash_bwd_dq_kernel (:268)
@@ -34,19 +30,18 @@
 //            Each thread block owns its dK/dV rows: no atomics, so the result
 //            is deterministic.
 //
-// Bound on the H100: operations. At the training shape (B*H = 2, S = 8192,
-// D = 128, causal) a call moves ~17 MB (0.005 ms at 3.35 TB/s) but does
-// 2 (forward), 3 (dQ) or 4 (dK/dV) products of 2*D operations per visible
-// (q, k) pair: 34-69 GFLOP, 0.035-0.069 ms on the bf16 tensor cores and
-// 0.5-1.0 ms at the 67 TFLOP/s float32 rate without them.
+// Bound on the H100: operations. At B*H = 2, S = 8192, D = 128, causal, a
+// call moves ~34 MB (0.010 ms at 3.35 TB/s) but does 2 (forward), 3 (dQ)
+// or 4 (dK/dV) products of 2*D operations per visible (q, k) pair:
+// 34-69 GFLOP, 0.5-1.0 ms at the 67 TFLOP/s float32 rate.
 //
-// Design (right and simple first; these kernels use CUDA-core FMAs, not the
-// tensor cores, so they sit near the float32 rate at best):
+// Design (right and simple first; CUDA-core FMAs, so they sit near the
+// float32 rate at best):
 //   * One thread block of 256 threads per (64-row tile, batch * head). The
 //     TPU grid's sequential K axis becomes a loop inside the block. Causal
 //     blocks skip every tile above the diagonal; the heaviest tiles get the
 //     lowest block indices, so they start first and the tail is short.
-//   * Tiles are converted to float32 into shared memory, rows padded to
+//   * Tiles are copied into shared memory, rows padded to
 //     D + 4 floats so float4 reads of 8 different rows hit distinct banks.
 //     At D = 128 that is up to 170 KB: dynamic shared memory, enabled with
 //     cudaFuncSetAttribute.
@@ -60,16 +55,12 @@
 //     two accumulations have the same pv_tile shape as the forward's P V.
 // Known limits: no tensor cores, no asynchronous copies (each tile load is a
 // full memory round trip between two barriers), one thread block per SM at
-// D = 128 (shared memory). For the float32 backward that is the price of
-// full float32 products; the bf16 backward has left this file for the
-// tensor cores (flash_attention_bwd.cu); the forward's redesign is next.
+// D = 128 (shared memory): the price of full float32 products.
 //
 // C interface, bound with ctypes: every pointer and the stream are void*,
-// dtype 0 = float32 and 1 = bfloat16 (the backward entries take 0 only),
-// the launch is on the given stream, and each function returns
-// cudaGetLastError() (0 = launched).
+// dtype must be 0 (float32), the launch is on the given stream, and each
+// function returns cudaGetLastError() (0 = launched).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -102,31 +93,6 @@ struct Vec<float> {
   }
   __device__ static void store4(float* p, const float* f) {
     *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* f) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      __nv_bfloat162 h;
-      *reinterpret_cast<unsigned*>(&h) = w[i];
-      const float2 t = __bfloat1622float2(h);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-  __device__ static void store4(__nv_bfloat16* p, const float* f) {
-    __nv_bfloat162 a = __floats2bfloat162_rn(f[0], f[1]);
-    __nv_bfloat162 b = __floats2bfloat162_rn(f[2], f[3]);
-    uint2 u;
-    u.x = *reinterpret_cast<unsigned*>(&a);
-    u.y = *reinterpret_cast<unsigned*>(&b);
-    *reinterpret_cast<uint2*>(p) = u;
   }
 };
 
@@ -482,22 +448,18 @@ struct Tag {
 template <int N>
 using IntC = std::integral_constant<int, N>;
 
-// call f(Tag<T>, IntC<D>, bool_constant<causal>) for the runtime choice;
-// BF16 = false takes float32 only (the backward: bf16 has its own kernels)
-template <bool BF16 = true, typename F>
+// call f(Tag<float>, IntC<D>, bool_constant<causal>) for the runtime
+// choice; dtype 0 (float32) only: bfloat16 has its own kernels
+template <typename F>
 int dispatch(int dtype, int D, int causal, F f) {
-  auto by_d = [&](auto t) -> int {
-    if (D == 64)
-      return causal ? f(t, IntC<64>{}, std::true_type{})
-                    : f(t, IntC<64>{}, std::false_type{});
-    if (D == 128)
-      return causal ? f(t, IntC<128>{}, std::true_type{})
-                    : f(t, IntC<128>{}, std::false_type{});
-    return (int)cudaErrorInvalidValue;
-  };
-  if (dtype == 0) return by_d(Tag<float>{});
-  if constexpr (BF16)
-    if (dtype == 1) return by_d(Tag<__nv_bfloat16>{});
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const Tag<float> t{};
+  if (D == 64)
+    return causal ? f(t, IntC<64>{}, std::true_type{})
+                  : f(t, IntC<64>{}, std::false_type{});
+  if (D == 128)
+    return causal ? f(t, IntC<128>{}, std::true_type{})
+                  : f(t, IntC<128>{}, std::false_type{});
   return (int)cudaErrorInvalidValue;
 }
 
@@ -543,7 +505,7 @@ extern "C" int singa_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   void* stream) {
   if (bad_shape(BH, S)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto f32_only = [&](auto t, auto d, auto c) -> int {
+  return dispatch(dtype, D, causal, [&](auto t, auto d, auto c) -> int {
     using T = typename decltype(t)::type;
     constexpr int DD = decltype(d)::value;
     constexpr bool C = decltype(c)::value;
@@ -558,8 +520,7 @@ extern "C" int singa_flash_bwd_dq(const void* q, const void* k, const void* v,
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<T*>(dq), S, scale);
     return (int)cudaGetLastError();
-  };
-  return dispatch<false>(dtype, D, causal, f32_only);
+  });
 }
 
 extern "C" int singa_flash_bwd_dkv(const void* q, const void* k,
@@ -570,7 +531,7 @@ extern "C" int singa_flash_bwd_dkv(const void* q, const void* k,
                                    void* stream) {
   if (bad_shape(BH, S)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto f32_only = [&](auto t, auto d, auto c) -> int {
+  return dispatch(dtype, D, causal, [&](auto t, auto d, auto c) -> int {
     using T = typename decltype(t)::type;
     constexpr int DD = decltype(d)::value;
     constexpr bool C = decltype(c)::value;
@@ -585,6 +546,5 @@ extern "C" int singa_flash_bwd_dkv(const void* q, const void* k,
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<T*>(dk), static_cast<T*>(dv), S, scale);
     return (int)cudaGetLastError();
-  };
-  return dispatch<false>(dtype, D, causal, f32_only);
+  });
 }

@@ -1,63 +1,95 @@
-// Flash attention backward in bfloat16 on Hopper's tensor cores (sm_90a):
-// dQ and dK/dV, causal or full, over (batch * heads, S, D) rows, D 64 or
-// 128, any S that is a multiple of 64.
+// Flash attention in bfloat16 on Hopper's tensor cores (sm_90a): the
+// forward and the backward (dQ, dK/dV), causal or full, over
+// (batch * heads, S, D) rows, D 64 or 128, any S that is a multiple of 64.
+// The three kernels share one set of primitives below (cp.async, ldmatrix,
+// mma.sync, the swizzle), so they live in one file: the build hashes each
+// .cu alone, and a shared header would load stale libraries.
 //
 // Replaces, for bfloat16 inputs, the Pallas TPU kernels of
 // singa_tpu/ops/attention.py:
+//   flash_fwd_bf16     <- _flash_kernel_staged (:386) and _flash_kernel (:210),
+//                         launched by _flash_fwd_impl (:552, sites :570, :589)
 //   flash_bwd_dq_bf16  <- _flash_bwd_dq_staged (:419) and _flash_bwd_dq_kernel (:268)
 //   flash_bwd_dkv_bf16 <- _flash_bwd_dkv_staged (:451) and _flash_bwd_dkv_kernel (:316)
-// both launched by _flash_bwd (:615, sites :644, :655, :673, :690). The
-// float32 backward stays on the CUDA-core kernels of flash_attention.cu
-// (TF32 tensor cores would break the float32 tolerances and the port's
-// no-TF32 contract); the forward stays there for both types.
+// the last two launched by _flash_bwd (:615, sites :644, :655, :673, :690).
+// Float32 stays on the CUDA-core kernels of flash_attention.cu (TF32 tensor
+// cores would break the float32 tolerances and the port's no-TF32
+// contract).
 //
 // What each computes (scale = 1/sqrt(D); masked probabilities exactly 0):
+//   forward: O = softmax(Q K^T * scale) V by online softmax over the live
+//            key tiles; lse = m + log(l) in float32, (BH, S), natural log
+//            (what the backward reads); a row with l == 0 emits 0.
 //   P  = exp(S * scale - lse), S = Q K^T
 //   dS = P * (dO V^T - delta), delta = rowsum(dO * O) computed outside
 //   dQ = scale * dS K;  dV = P^T dO;  dK = scale * dS^T Q
-// S and dP = dO V^T are float32 sums of bf16 products. P and dS are formed
-// in float32 in the accumulator fragments and rounded ONCE to bf16 to feed
-// the next product (FlashAttention-2 does the same; the JAX kernel keeps
-// them in float32, so this is a documented difference, bounded on the CPU
-// by tests/test_torch_flash_bwd.py). dP - delta is taken in float32 before
-// that one rounding. Every other sum is float32.
+// S and dP = dO V^T are float32 sums of bf16 products. P (forward and
+// backward) and dS are formed in float32 in the accumulator fragments and
+// rounded ONCE to bf16 to feed the next product (FlashAttention-2 does the
+// same; the JAX kernels keep them in float32, so this is a documented
+// difference, bounded on the CPU by tests/test_torch_flash_fwd.py and
+// tests/test_torch_flash_bwd.py). The forward's running max m and sum l
+// are float32, l summed from the float32 P before that rounding; dP -
+// delta is taken in float32 before the rounding of dS. Every other sum is
+// float32.
 //
-// Bound on the H100: operations. dQ does 3 and dK/dV 4 products of 2*D
-// operations per visible (q, k) pair; at B*H = 2, S = 8192, D = 128,
-// causal that is 52 and 69 GFLOP, 0.052 and 0.069 ms at 989 TFLOP/s, while
-// the bytes (each input read once, each output written once) take 0.006 ms
-// at 3.35 TB/s.
+// Bound on the H100: operations. The forward does 2, dQ 3 and dK/dV 4
+// products of 2*D operations per visible (q, k) pair; at B*H = 2, S =
+// 8192, D = 128, causal that is 35, 52 and 69 GFLOP, 0.035, 0.052 and
+// 0.069 ms at 989 TFLOP/s, while the bytes (each input read once, each
+// output written once) take 0.005-0.006 ms at 3.35 TB/s.
 //
 // Design (mma.sync, the simple right start; wgmma/TMA/warp specialisation
 // are later work):
 //   * All products on the tensor cores: mma.sync.m16n8k16 bf16 x bf16 ->
 //     f32, operands from shared memory by ldmatrix (.trans where the B
-//     operand is stored row-major over its k dimension: K in dS K, dO in
-//     P^T dO, Q in dS^T Q). The m16n8 f32 score fragments of two adjacent
-//     8-column tiles are exactly the A fragment of a k16 step, so P and dS
-//     go from the accumulators into the next product in registers, with no
-//     shared-memory round trip.
+//     operand is stored row-major over its k dimension: V in P V, K in
+//     dS K, dO in P^T dO, Q in dS^T Q). The m16n8 f32 score fragments of
+//     two adjacent 8-column tiles are exactly the A fragment of a k16
+//     step, so P and dS go from the accumulators into the next product in
+//     registers, with no shared-memory round trip.
 //   * bf16 tiles in shared memory (64 x D: 16 KB at D = 128), 16-byte
 //     chunks XOR-swizzled by row (chunk ^ (row & 7)), so the 8 rows that
 //     one ldmatrix phase reads hit 8 distinct bank groups.
-//   * cp.async.cg 16-byte copies, double-buffered: the next K/V tile (dQ)
-//     or Q/dO/lse/delta tile (dK/dV) lands while this one computes.
-//   * 8 warps per block of 64 rows: warp (wm, wn) owns rows 16wm..16wm+15
-//     and columns 32wn..32wn+31 of each 64 x 64 score tile, and
-//     accumulates a partial dQ (or dK, dV) over its 32 columns for all D.
-//     The two partials of a row are summed once per output tile, through
-//     shared memory, in a fixed order: no atomics, so two launches on the
-//     same inputs give bitwise-equal outputs. This keeps the per-thread
-//     accumulators at 4*D/8 floats each (dK/dV: 2 x 64 at D = 128), so one
-//     256-thread block holds its rows in registers without spills.
-//   * Causal balance: one block per 64-row tile, heaviest first (dQ: the
-//     last query tile, which sees every key tile; dK/dV: key tile 0). At
-//     ~250 registers a thread one block fills an SM, and the next tile
-//     goes to whichever SM frees first: a longest-first schedule. Pairing
-//     tiles i and nt-1-i in one block (nt + 1 steps each) measured 1-5%
-//     slower on an H100 (B*H 2-8, S 8192-32768, D 64 and 128;
-//     tools/flash_bwd_variants.py, variant paired).
-//   * Shared memory: 96 KB (dQ) and 97 KB (dK/dV) at D = 128.
+//   * cp.async.cg 16-byte copies, double-buffered: the next K/V tile
+//     (forward, dQ) or Q/dO/lse/delta tile (dK/dV) lands while this one
+//     computes.
+//   * Forward: a block owns 64 query rows; each of its kFwdGroups key
+//     groups is 4 warps, a warp owning 16 rows across the whole 64-key
+//     tile, its Q fragments held in registers, and group u folds key
+//     tiles u, u + G, ... A row's max and sum reduce over the 4 lanes of
+//     a quad (__shfl_xor_sync 1, 2) with no shared-memory exchange; l is
+//     kept per lane and reduced once at the end, after the groups' (o, m,
+//     l) merge in group order through shared memory. Two groups halve the
+//     heaviest causal tile's path: at B*H 2, S 8192 every block is
+//     resident at once, and one group a block left the SMs that hold the
+//     heaviest tiles with twice the mean work (H100, B*H 2, S 8192, D
+//     128, causal: two groups 0.153 ms; one group 0.270-0.273; 8 warps
+//     over 128 rows 0.281; tools/flash_bwd_variants.py). Two groups lose
+//     8-9% where many waves balance the load anyway (S 32768; non-causal
+//     B*H 8): they keep one block per SM (144 KB of shared memory).
+//     Causal: a warp skips a key tile wholly above its rows and masks
+//     only a tile that crosses its diagonal. 2^x by fast_exp2 with scale *
+//     log2(e) folded into one FMA; lse = m * scale + log(l), natural log.
+//   * Backward: 8 warps per block of 64 rows: warp (wm, wn) owns rows
+//     16wm..16wm+15 and columns 32wn..32wn+31 of each 64 x 64 score
+//     tile, and accumulates a partial dQ (or dK, dV) over its 32 columns
+//     for all D. The two partials of a row are summed once per output
+//     tile, through shared memory, in a fixed order. This keeps the
+//     per-thread accumulators at 4*D/8 floats each (dK/dV: 2 x 64 at
+//     D = 128), so one 256-thread block holds its rows in registers
+//     without spills.
+//   * No atomics anywhere: each block owns its output rows, so two
+//     launches on the same inputs give bitwise-equal outputs.
+//   * Causal balance: one block per row tile, heaviest first (forward, dQ:
+//     the last query tile, which sees every key tile; dK/dV: key tile 0).
+//     The next tile goes to whichever SM frees first: a longest-first
+//     schedule. Pairing tiles i and nt-1-i in one block (nt + 1 steps
+//     each) measured 1-5% slower for the backward on an H100 (B*H 2-8, S
+//     8192-32768, D 64 and 128; tools/flash_bwd_variants.py, variant
+//     paired).
+//   * Shared memory at D = 128: forward 16 + 64 * kFwdGroups KB (Q, and
+//     each group's K and V double-buffered); dQ 96 KB; dK/dV 97 KB.
 //
 // C interface, bound with ctypes, the same argument list as the entries of
 // flash_attention.cu: every pointer and the stream are void*, dtype must be
@@ -74,8 +106,12 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kTile = 64;      // query rows and key rows per tile
-constexpr int kThreads = 256;  // 8 warps: (wm, wn) = (warp & 3, warp >> 2)
+constexpr int kThreads = 256;  // backward: 8 warps, (wm, wn) = (warp & 3, warp >> 2)
+// forward: key groups of a block; each group is 4 warps over the block's
+// 64 query rows and folds every G-th key tile
+constexpr int kFwdGroups = 2;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegInf = -1e30f;  // masked score, as the JAX kernels
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -99,15 +135,16 @@ __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// (64, D) bf16 rows at src (row stride D) -> swizzled tile at base
-template <int D>
+// (ROWS, D) bf16 rows at src (row stride D) -> swizzled tile at base,
+// copied by the block's THREADS threads
+template <int D, int ROWS = kTile, int THREADS = kThreads>
 __device__ __forceinline__ void load_tile(unsigned base,
                                           const bf16* __restrict__ src) {
   constexpr int CH = D / 8;
-  static_assert(kTile * CH % kThreads == 0, "tile must split evenly");
+  static_assert(ROWS * CH % THREADS == 0, "tile must split evenly");
 #pragma unroll
-  for (int i = 0; i < kTile * CH / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
+  for (int i = 0; i < ROWS * CH / THREADS; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
     const int r = idx / CH, ch = idx % CH;
     cp_async16(chunk_addr<D>(base, r, ch), src + (size_t)r * D + ch * 8);
   }
@@ -272,6 +309,176 @@ __device__ __forceinline__ void store_rows(bf16* dst, int r0,
     *reinterpret_cast<unsigned*>(dst + (size_t)(r0 + g + 8) * D + col) =
         pack(acc[n][2] * mul, acc[n][3] * mul);
   }
+}
+
+template <int D, bool CAUSAL, int G>
+__global__ void __launch_bounds__(128 * G, 1) flash_fwd_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ out,
+    float* __restrict__ lse, int S, float scale) {
+  constexpr int NT = 128 * G;      // threads: G key groups of 4 warps
+  constexpr int TILE = kTile * D;  // bf16 elements of a tile
+  extern __shared__ uint4 smem[];
+  const unsigned Qs = smem_u32(smem);
+  // double-buffered stages of G key tiles, one per group, by index
+  // (arithmetic, so they stay in registers)
+  auto Ks = [&](int b, int gg) {
+    return Qs + (1 + 2 * (b * G + gg)) * TILE * 2;
+  };
+  auto Vs = [&](int b, int gg) { return Ks(b, gg) + TILE * 2; };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = warp >> 2, wq = warp & 3;  // key group, row quarter
+  const size_t base = (size_t)blockIdx.y * S * D;
+  const float scale_log2 = scale * kLog2e;
+
+  const int q0 = (S / kTile - 1 - (int)blockIdx.x) * kTile;  // heaviest first
+  const int w0 = q0 + 16 * wq;  // this warp's first row
+  const int nlive = CAUSAL ? q0 / kTile + 1 : S / kTile;
+  const int nsteps = (nlive + G - 1) / G;
+  // step i: group gg folds key tile i * G + gg
+  auto load_step = [&](int i, int b) {
+#pragma unroll
+    for (int gg = 0; gg < G; ++gg) {
+      const int kt = i * G + gg;
+      if (kt < nlive) {
+        load_tile<D, kTile, NT>(Ks(b, gg), k + base + (size_t)kt * TILE);
+        load_tile<D, kTile, NT>(Vs(b, gg), v + base + (size_t)kt * TILE);
+      }
+    }
+  };
+  load_tile<D, kTile, NT>(Qs, q + base + (size_t)q0 * D);
+  load_step(0, 0);
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+  unsigned qf[D / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    ldsm_x4(a_addr<D>(Qs, 16 * wq, 2 * ks), qf[ks]);
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  // running max (raw scores) and this lane's share of the sum of rows
+  // w0 + g (index 0) and w0 + g + 8 (index 1), over this group's tiles
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int step = 0; step < nsteps; ++step) {
+    const int buf = step & 1;
+    if (step + 1 < nsteps) load_step(step + 1, buf ^ 1);  // lands meanwhile
+    cp_commit();
+    const int k0 = (step * G + grp) * kTile;
+    // causal: a tile wholly above this warp's rows adds nothing; only a
+    // tile that crosses the warp's diagonal is masked
+    if (k0 < nlive * kTile && (!CAUSAL || k0 <= w0 + 15)) {
+      const bool diag = CAUSAL && k0 + kTile - 1 > w0;
+      auto visible = [&](int j, int e) {
+        return !diag || k0 + 8 * j + 2 * t + (e & 1) <= w0 + g + (e >> 1) * 8;
+      };
+      float s[8][4];
+      auto a_of = [&](int ks, unsigned a[4]) {
+        for (int e = 0; e < 4; ++e) a[e] = qf[ks][e];
+      };
+      scores<D>(s, a_of, Ks(buf, grp), 0);
+      scores<D>(s + 4, a_of, Ks(buf, grp), 32);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!visible(j, e)) s[j][e] = kNegInf;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+      float neg[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // the row's max over its quad
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float alpha = fast_exp2((m[r] - mx[r]) * scale_log2);
+        m[r] = mx[r];
+        neg[r] = -mx[r] * scale_log2;
+        l[r] *= alpha;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[n][2 * r] *= alpha;
+          o[n][2 * r + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p =
+              visible(j, e)
+                  ? fast_exp2(fmaf(s[j][e], scale_log2, neg[e >> 1]))
+                  : 0.f;
+          l[e >> 1] += p;  // the float32 P, before its bf16 rounding
+          s[j][e] = p;
+        }
+      accumulate<D>(o, s, Vs(buf, grp), 0);
+      accumulate<D>(o, s + 4, Vs(buf, grp), 32);
+    }
+    cp_wait_all();
+    __syncthreads();
+  }
+  // merge the groups into group 0 in group order (the tile buffers are
+  // free now): each thread of group u > 0 leaves its fragments at its
+  // (row quarter, lane) slot
+  if (G > 1) {
+    constexpr int REC = D / 2 + 4;  // floats per thread: o, then m and l
+    float* red = reinterpret_cast<float*>(smem) + kTile * D / 2;
+    const int slot = threadIdx.x & 127;
+    if (grp > 0) {
+      float* rec = red + ((grp - 1) * 128 + slot) * REC;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) rec[4 * n + e] = o[n][e];
+      rec[D / 2] = m[0];
+      rec[D / 2 + 1] = m[1];
+      rec[D / 2 + 2] = l[0];
+      rec[D / 2 + 3] = l[1];
+    }
+    __syncthreads();
+    if (grp > 0) return;
+#pragma unroll
+    for (int u = 1; u < G; ++u) {
+      const float* rec = red + ((u - 1) * 128 + slot) * REC;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mu = rec[D / 2 + r];
+        const float mx = fmaxf(m[r], mu);
+        const float a0 = fast_exp2((m[r] - mx) * scale_log2);
+        const float a1 = fast_exp2((mu - mx) * scale_log2);
+        m[r] = mx;
+        l[r] = l[r] * a0 + rec[D / 2 + 2 + r] * a1;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[n][2 * r] = o[n][2 * r] * a0 + rec[4 * n + 2 * r] * a1;
+          o[n][2 * r + 1] =
+              o[n][2 * r + 1] * a0 + rec[4 * n + 2 * r + 1] * a1;
+        }
+      }
+    }
+  }
+  float* lrow = lse + (size_t)blockIdx.y * S + w0 + g;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (t == 0)
+      lrow[8 * r] = l[r] == 0.f ? kNegInf : m[r] * scale + logf(l[r]);
+    const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][2 * r] *= inv;
+      o[n][2 * r + 1] *= inv;
+    }
+  }
+  store_rows<D>(out + base, w0, o, 1.f);
 }
 
 template <int D, bool CAUSAL>
@@ -491,6 +698,29 @@ bool bad_shape(int BH, int S) {
 
 
 }  // namespace
+
+extern "C" int singa_flash_fwd_bf16(const void* q, const void* k,
+                                    const void* v, void* out, void* lse,
+                                    int BH, int S, int D, int dtype,
+                                    int causal, float scale, void* stream) {
+  if (bad_shape(BH, S)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dispatch(dtype, D, causal, [&](auto d, auto c) -> int {
+    constexpr int DD = decltype(d)::value;
+    constexpr bool C = decltype(c)::value;
+    constexpr int G = kFwdGroups;
+    // Q, then two stages of G (K, V) tiles
+    constexpr size_t smem = (1 + 4 * G) * kTile * DD * sizeof(bf16);
+    auto kern = flash_fwd_bf16_kernel<DD, C, G>;
+    const int e = allow_smem(kern, smem);
+    if (e != 0) return e;
+    kern<<<dim3(S / kTile, BH), 128 * G, smem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(out),
+        static_cast<float*>(lse), S, scale);
+    return (int)cudaGetLastError();
+  });
+}
 
 extern "C" int singa_flash_bwd_dq_bf16(const void* q, const void* k,
                                        const void* v, const void* dout,

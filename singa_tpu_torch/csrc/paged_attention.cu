@@ -15,36 +15,48 @@
 // (and the chunk) once and writes O once -- modeled_bytes() in
 // ops/paged_attention.py -- at 3.35 TB/s. Operations are 4 * Q * D per key
 // per (sequence, head), far below the f32 rate for any Q the engine uses,
-// so bytes bound every call shape.
+// so bytes bound every call shape. Float32 on the CUDA cores throughout:
+// the pools are float32 and the port takes no TF32.
 //
-// Design (right and simple first):
-//   * One thread block (4 warps) per (sequence * head, tile of 4 query
-//     rows); each warp owns one query row. The TPU grid's sequential block
-//     axis becomes a loop inside the thread block, and the scalar prefetch
-//     becomes the block's own loads of its table row and positions.
-//   * Only the live blocks are read: the block computes
-//     live_blocks(max position) itself and loops over ceil(live * BL / 32)
-//     tiles of 32 key positions. Each position looks up its own pool block,
-//     so any block length works and all 32 lanes are busy for BL < 32.
-//   * A tile's K and V (32 x D floats each) are staged in shared memory by
-//     the whole thread block, so the 4 query rows share one read of every
-//     live K/V byte. Each thread issues all its float4 loads of a tile
-//     before storing any, from key-row offsets that were looked up in the
-//     table one tile ahead: a tile costs one memory round trip. Shared rows
-//     are padded to D + 1 floats: lane j reads key row j without bank
-//     conflicts.
-//   * Scores: lane j computes the dot product of its row's query with key
-//     j. Online softmax statistics (m, l) and the output accumulator
-//     (D / 32 columns per lane) stay in registers for the whole loop;
-//     masked keys score NEG_INF and get probability exactly 0; a row
-//     with l == 0 emits zeros.
-// Known limit: decode at 8 slots x 2 heads launches 16 thread blocks on
-// 132 SMs, with one busy warp each. Splitting the key range over blocks
-// (a second reduction pass) is the fix, left to a later change.
+// Design:
+//   * The key range is split across thread blocks. The grid is (sequence
+//     * head, tile of R query rows, split); the wrapper picks the split
+//     count from shapes alone (S, H, Q, the table width, the SM count),
+//     never from positions, so a call adds no device-to-host copy. Each
+//     block computes its sequence's live key count from positions
+//     (live_blocks of the last attended position) and takes an equal share
+//     of that range's 32-key tiles; a block whose share is empty writes
+//     m = NEG_INF, l = 0.
+//   * Every warp is busy at any Q: a block has 4 warps and R = 4 / P rows
+//     (R = 1 at decode, 2 at Q = 2, else 4); the P warps of a row each
+//     take KW = 32 / P keys of every tile, P lanes to a key, each lane
+//     D / P of its dimensions (the partial dot products summed by
+//     __shfl_xor_sync). Each warp keeps its own online-softmax state (m,
+//     l, D / 32 output columns a lane); at the end the P warps of a row
+//     merge in a fixed order through shared memory.
+//   * Tiles of 32 keys (K rows padded to D + 4 floats, so the 8 rows one
+//     float4 phase reads hit 8 distinct bank groups; V unpadded, read by
+//     row) are copied by cp.async and double-buffered: the next tile lands
+//     while this one is folded. Each key looks up its own pool block, so
+//     any block length works. Keys past the live range are zero-filled,
+//     so a masked key's probability, exactly 0, meets a finite V.
+//   * With one split the block writes the normalized output. With more,
+//     each split writes its unnormalized (acc, m, l) to float32 scratch
+//     (the wrapper's torch.empty) and a second small launch merges the
+//     splits of each row in split order: no atomics, so two calls on the
+//     same inputs give bitwise-equal outputs. A row with no visible key in
+//     any split emits zeros.
+//   * The overlay's fresh chunk is folded once, by the last split, after
+//     its share of the pool.
+//   * Block-shared memory is one extern __shared__ array (two K/V tile
+//     buffers, the block's query rows, the live key count): 68 KB at
+//     D = 128, dynamic, so three blocks fit an SM.
 //
 // C interface, bound with ctypes: every pointer and the stream are void*,
 // the launch is on the given stream, and the function returns
 // cudaGetLastError() (0 = launched).
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -52,8 +64,24 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = 32;  // key positions per staged tile: one per lane
+constexpr int kTile = 32;  // key positions per staged tile
 constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// every group but the newest has landed
+__device__ __forceinline__ void cp_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
@@ -66,8 +94,19 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D, bool OVERLAY>
-__global__ void __launch_bounds__(kThreads) paged_attention_kernel(
+// floats of one K/V tile buffer: K (kTile x (D + 4)) then V (kTile x D)
+__host__ __device__ constexpr int tile_buffer(int D) {
+  return kTile * (2 * D + 4);
+}
+
+// bytes of block-shared memory: two tile buffers, the block's query rows
+// and the live key count
+constexpr size_t smem_bytes(int D, int rows) {
+  return (2 * tile_buffer(D) + rows * D + 1) * sizeof(float);
+}
+
+template <int D, bool OVERLAY, int P>
+__global__ void __launch_bounds__(kThreads, 1) paged_attention_kernel(
     const float* __restrict__ q,            // (S, H, Q, D)
     const float* __restrict__ k_pool,       // (NB, H, BL, D)
     const float* __restrict__ v_pool,       // (NB, H, BL, D)
@@ -76,34 +115,41 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const float* __restrict__ chunk_k,      // (S, H, Q, D), overlay only
     const float* __restrict__ chunk_v,      // (S, H, Q, D), overlay only
     const int* __restrict__ chunk_valid,    // (S, Q), overlay only
-    float* __restrict__ out,                // (S, H, Q, D)
-    int H, int Q, int n_blocks, int BL, int MB, float scale) {
-  constexpr int DL = D / 32;  // output columns per lane
-  constexpr int D4 = D / 4;   // float4 per key row
-  constexpr int KS = D + 1;   // padded shared-memory row stride
-
-  __shared__ float q_s[kWarps][D];
-  __shared__ float k_s[kTile][KS];
-  __shared__ float v_s[kTile][KS];
-  __shared__ int kpos_s[kTile];  // chunk tiles: each column's position
-  __shared__ int kok_s[kTile];   // chunk tiles: column is real
-  __shared__ long long koff_s[2][kTile];  // key row offsets, double-buffered
-  __shared__ int n_keys_s;
+    float* __restrict__ out,                // (S, H, Q, D), one split
+    float* __restrict__ part,               // (S, H, Q, splits, D + 2)
+    int H, int Q, int n_blocks, int BL, int MB, int n_splits, float scale) {
+  constexpr int R = kWarps / P;  // query rows of the block
+  constexpr int KW = kTile / P;  // keys of a tile per warp
+  constexpr int NCH = D / P / 4; // float4 chunks of a key per lane
+  constexpr int DL = D / 32;     // output columns per lane
+  constexpr int KS = D + 4;      // padded K row stride
+  constexpr int D4 = D / 4;
+  constexpr int BUF = tile_buffer(D);
+  extern __shared__ uint4 smem[];
+  float* sm = reinterpret_cast<float*>(smem);
+  auto k_s = [&](int b) { return sm + b * BUF; };
+  auto v_s = [&](int b) { return sm + b * BUF + kTile * KS; };
+  float* q_s = sm + 2 * BUF;  // [R][D]
+  int* n_keys_s = reinterpret_cast<int*>(q_s + R * D);
 
   const int sh = blockIdx.x;  // sequence * H + head
   const int s = sh / H;
   const int h = sh - s * H;
+  const int z = blockIdx.z;   // split
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int row = blockIdx.y * kWarps + warp;  // this warp's query row
+  const int rl = warp / P, sub = warp % P;  // the warp's row, key sub-slice
+  const int row = blockIdx.y * R + rl;
   const bool active = row < Q;
+  const int key = sub * KW + lane / P;  // this lane's key in a tile
+  const int slice = lane % P;           // and its part of that key's dims
   const int* pos_row = positions + (size_t)s * Q;
   const int* tab_row = tables + (size_t)s * MB;
 
-  for (int e = tid; e < kWarps * D; e += kThreads) {
-    const int r = blockIdx.y * kWarps + e / D;
-    q_s[e / D][e % D] = r < Q ? q[((size_t)sh * Q + r) * D + e % D] : 0.f;
+  for (int e = tid; e < R * D; e += kThreads) {
+    const int r = blockIdx.y * R + e / D;
+    q_s[e] = r < Q ? q[((size_t)sh * Q + r) * D + e % D] : 0.f;
   }
   if (tid == 0) {
     // live_blocks(): the last pool position this sequence attends
@@ -115,173 +161,269 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       for (int j = 1; j < Q; ++j) last = max(last, pos_row[j]);
     }
     const int live = last >= 0 ? min(last / BL + 1, MB) : 0;
-    n_keys_s = live * BL;
+    *n_keys_s = live * BL;
   }
   __syncthreads();
-  const int n_keys = n_keys_s;
+  const int n_keys = *n_keys_s;
   const int qpos = active ? pos_row[row] : 0;
   const int pos0 = pos_row[0];
+  // this split's equal share of the live tiles; then, overlay, the last
+  // split folds the fresh chunk's tiles
+  const int nt = (n_keys + kTile - 1) / kTile;
+  const int tb = (int)((long long)z * nt / n_splits);
+  const int np = (int)((long long)(z + 1) * nt / n_splits) - tb;
+  const int n = np + (OVERLAY && z == n_splits - 1 ? (Q + kTile - 1) / kTile
+                                                   : 0);
+
+  // float offset of key j of tile i in its source (pool or chunk); -1 = no
+  // key there
+  auto key_row = [&](int i, int j) -> long long {
+    if (i < np) {
+      const int t = (tb + i) * kTile + j;
+      if (t >= n_keys) return -1;
+      const int b = t / BL;
+      // table entries are allocator-issued block ids; the clamp only
+      // guards memory against a corrupt table
+      const int phys = min(max(tab_row[b], 0), n_blocks - 1);
+      return (((long long)phys * H + h) * BL + (t - b * BL)) * D;
+    }
+    const int c = (i - np) * kTile + j;
+    return c < Q ? ((long long)sh * Q + c) * D : -1;
+  };
+  // key j of tile i is visible to a query at position p iff limit <= p
+  auto key_limit = [&](int i, int j) -> int {
+    if (i < np) {
+      const int t = (tb + i) * kTile + j;
+      if (t >= n_keys) return INT_MAX;
+      if (OVERLAY) return t < pos0 ? INT_MIN : INT_MAX;
+      return t;
+    }
+    const int c = (i - np) * kTile + j;
+    return c < Q && chunk_valid[(size_t)s * Q + c] != 0 ? pos_row[c]
+                                                        : INT_MAX;
+  };
+  // tile i into buffer b: cp.async for real keys, zeros for the rest
+  auto stage = [&](int i, int b) {
+    const float* ksrc = i < np ? k_pool : chunk_k;
+    const float* vsrc = i < np ? v_pool : chunk_v;
+    for (int e = tid; e < kTile * D4; e += kThreads) {
+      const int j = e / D4, c = 4 * (e - j * D4);
+      float* kd = k_s(b) + j * KS + c;
+      float* vd = v_s(b) + j * D + c;
+      const long long r = key_row(i, j);
+      if (r >= 0) {
+        cp_async16(smem_u32(kd), ksrc + r + c);
+        cp_async16(smem_u32(vd), vsrc + r + c);
+      } else {
+        *reinterpret_cast<float4*>(kd) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(vd) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  };
 
   float m = kNegInf, l = 0.f, acc[DL];
 #pragma unroll
   for (int c = 0; c < DL; ++c) acc[c] = 0.f;
 
-  // fold the staged tile into (m, l, acc); ok = this lane's key is visible
-  auto fold = [&](bool ok) {
-    // four partial sums: independent FMA chains instead of one of length D
-    float part[4] = {0.f, 0.f, 0.f, 0.f};
+  // fold this warp's KW keys of tile i (buffer b) into (m, l, acc)
+  auto fold = [&](int i, int b) {
+    const float* kr = k_s(b) + key * KS;
+    const float* qr = q_s + rl * D;
+    // four partial sums: independent FMA chains; the chunk order is
+    // rotated by slice so the P lanes of a key read distinct bank groups
+    float part4[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int d = 0; d < D; d += 4) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        part[u] += q_s[warp][d + u] * k_s[lane][d + u];
+    for (int u = 0; u < NCH; ++u) {
+      const int col = slice * (D / P) + 4 * ((u + slice * (8 / P)) % NCH);
+      const float4 kv = *reinterpret_cast<const float4*>(kr + col);
+      const float4 qv = *reinterpret_cast<const float4*>(qr + col);
+      part4[0] += qv.x * kv.x;
+      part4[1] += qv.y * kv.y;
+      part4[2] += qv.z * kv.z;
+      part4[3] += qv.w * kv.w;
     }
-    const float dot = (part[0] + part[1]) + (part[2] + part[3]);
+    float dot = (part4[0] + part4[1]) + (part4[2] + part4[3]);
+#pragma unroll
+    for (int o = 1; o < P; o <<= 1)
+      dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    const bool ok = key_limit(i, key) <= qpos;
     const float sc = ok ? dot * scale : kNegInf;
     const float m_new = fmaxf(m, warp_max(sc));
     const float alpha = expf(m - m_new);
     const float p = ok ? expf(sc - m_new) : 0.f;
-    l = l * alpha + warp_sum(p);
+    l = l * alpha + warp_sum(slice == 0 ? p : 0.f);
     m = m_new;
 #pragma unroll
     for (int c = 0; c < DL; ++c) acc[c] *= alpha;
+    const float* vr = v_s(b) + sub * KW * D;
 #pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      const float pj = __shfl_sync(0xffffffffu, p, j);
+    for (int kk = 0; kk < KW; ++kk) {
+      const float pk = __shfl_sync(0xffffffffu, p, kk * P);
 #pragma unroll
-      for (int c = 0; c < DL; ++c) acc[c] += pj * v_s[j][lane + 32 * c];
+      for (int c = 0; c < DL; ++c) acc[c] += pk * vr[kk * D + lane + 32 * c];
     }
   };
 
-  // Staging a tile of 32 keys: each thread issues all of its kLoads float4
-  // loads of K and V before it stores any, so a tile costs one memory round
-  // trip and not one per load. The key rows' pool offsets come from
-  // koff_s, filled one tile ahead (row offset in floats, -1 = no key).
-  constexpr int kLoads = kTile * D4 / kThreads;
-  static_assert(kTile * D4 % kThreads == 0, "tile must split evenly");
-  float4 kr[kLoads], vr[kLoads];
-  auto load_tile = [&](const float* ksrc, const float* vsrc,
-                       const long long* rows) {
-#pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
-      const int e = tid + i * kThreads;
-      const int j = e / D4, c4 = e - j * D4;
-      const long long r = rows[j];
-      kr[i] = vr[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r >= 0) {
-        kr[i] = *reinterpret_cast<const float4*>(ksrc + r + 4 * c4);
-        vr[i] = *reinterpret_cast<const float4*>(vsrc + r + 4 * c4);
-      }
-    }
-  };
-  auto store_tile = [&]() {
-#pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
-      const int e = tid + i * kThreads;
-      const int j = e / D4, c = 4 * (e - j * D4);
-      k_s[j][c] = kr[i].x; k_s[j][c + 1] = kr[i].y;
-      k_s[j][c + 2] = kr[i].z; k_s[j][c + 3] = kr[i].w;
-      v_s[j][c] = vr[i].x; v_s[j][c + 1] = vr[i].y;
-      v_s[j][c + 2] = vr[i].z; v_s[j][c + 3] = vr[i].w;
-    }
-  };
-  // offset of pool key position t: block tab_row[t / BL], slot t % BL
-  auto pool_row = [&](int t) -> long long {
-    if (t >= n_keys) return -1;
-    const int b = t / BL;
-    // table entries are allocator-issued block ids; the clamp only guards
-    // memory against a corrupt table
-    const int phys = min(max(tab_row[b], 0), n_blocks - 1);
-    return (((long long)phys * H + h) * BL + (t - b * BL)) * D;
-  };
-
-  // pool tiles
-  if (tid < kTile) koff_s[0][tid] = pool_row(tid);
-  for (int t0 = 0, buf = 0; t0 < n_keys; t0 += kTile, buf ^= 1) {
-    __syncthreads();  // koff_s[buf] written; the previous tile fully read
-    load_tile(k_pool, v_pool, koff_s[buf]);
-    if (tid < kTile) koff_s[buf ^ 1][tid] = pool_row(t0 + kTile + tid);
-    store_tile();
-    __syncthreads();
-    if (active) {
-      const int t = t0 + lane;
-      fold(t < n_keys && (OVERLAY ? t < pos0 : t <= qpos));
-    }
+  if (n > 0) stage(0, 0);
+  cp_commit();
+  for (int i = 0; i < n; ++i) {
+    const int b = i & 1;
+    if (i + 1 < n) stage(i + 1, b ^ 1);  // lands while tile i is folded
+    cp_commit();
+    cp_wait_one();
+    __syncthreads();  // tile i is in buffer b for every thread
+    if (active) fold(i, b);
+    __syncthreads();  // buffer b is free for tile i + 2
   }
 
-  if (OVERLAY) {
-    // the fresh chunk, folded last: column j sits at positions[s, j]
-    for (int t0 = 0; t0 < Q; t0 += kTile) {
-      __syncthreads();
-      if (tid < kTile) {
-        const int t = t0 + tid;
-        koff_s[0][tid] = t < Q ? ((long long)sh * Q + t) * D : -1;
-        kpos_s[tid] = t < Q ? pos_row[t] : 0;
-        kok_s[tid] = t < Q ? (chunk_valid[(size_t)s * Q + t] != 0) : 0;
-      }
-      __syncthreads();
-      load_tile(chunk_k, chunk_v, koff_s[0]);
-      store_tile();
-      __syncthreads();
-      if (active) fold(kok_s[lane] && kpos_s[lane] <= qpos);
-    }
-  }
-
-  if (active) {
-    const float safe = l == 0.f ? 1.f : l;
-    float* o = out + ((size_t)sh * Q + row) * D;
+  // merge the P warps of each row in warp order (the tile buffers are
+  // free now): red[warp][D] partial outputs, then m and l by warp
+  float* red = sm;
+  float* red_m = red + kWarps * D;
+  float* red_l = red_m + kWarps;
 #pragma unroll
-    for (int c = 0; c < DL; ++c) o[lane + 32 * c] = acc[c] / safe;
+  for (int c = 0; c < DL; ++c) red[warp * D + lane + 32 * c] = acc[c];
+  if (lane == 0) {
+    red_m[warp] = m;
+    red_l[warp] = l;
+  }
+  __syncthreads();
+  if (!active || sub != 0) return;
+  float mx = kNegInf, sum = 0.f, o[DL];
+#pragma unroll
+  for (int u = 0; u < P; ++u) mx = fmaxf(mx, red_m[warp + u]);
+#pragma unroll
+  for (int c = 0; c < DL; ++c) o[c] = 0.f;
+#pragma unroll
+  for (int u = 0; u < P; ++u) {
+    const float w = expf(red_m[warp + u] - mx);
+    sum += red_l[warp + u] * w;
+#pragma unroll
+    for (int c = 0; c < DL; ++c)
+      o[c] += red[(warp + u) * D + lane + 32 * c] * w;
+  }
+  const size_t r = (size_t)sh * Q + row;
+  if (n_splits == 1) {
+    const float safe = sum == 0.f ? 1.f : sum;
+#pragma unroll
+    for (int c = 0; c < DL; ++c) out[r * D + lane + 32 * c] = o[c] / safe;
+    return;
+  }
+  float* rec = part + (r * n_splits + z) * (D + 2);
+#pragma unroll
+  for (int c = 0; c < DL; ++c) rec[lane + 32 * c] = o[c];
+  if (lane == 0) {
+    rec[D] = mx;
+    rec[D + 1] = sum;
   }
 }
 
+// One warp per query row: merge its splits' (acc, m, l) in split order
 template <int D>
-void launch(bool overlay, dim3 grid, cudaStream_t st, const float* q,
-            const float* kp, const float* vp, const int* tab, const int* pos,
-            const float* ck, const float* cv, const int* cvalid, float* out,
-            int H, int Q, int NB, int BL, int MB, float scale) {
-  if (overlay)
-    paged_attention_kernel<D, true><<<grid, kThreads, 0, st>>>(
-        q, kp, vp, tab, pos, ck, cv, cvalid, out, H, Q, NB, BL, MB, scale);
-  else
-    paged_attention_kernel<D, false><<<grid, kThreads, 0, st>>>(
-        q, kp, vp, tab, pos, ck, cv, cvalid, out, H, Q, NB, BL, MB, scale);
+__global__ void __launch_bounds__(kThreads) paged_combine_kernel(
+    const float* __restrict__ part, float* __restrict__ out, int rows,
+    int n_splits) {
+  constexpr int DL = D / 32;
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;
+  const float* pr = part + (size_t)r * n_splits * (D + 2);
+  float mx = kNegInf, sum = 0.f, o[DL];
+  for (int z = 0; z < n_splits; ++z) mx = fmaxf(mx, pr[z * (D + 2) + D]);
+#pragma unroll
+  for (int c = 0; c < DL; ++c) o[c] = 0.f;
+  for (int z = 0; z < n_splits; ++z) {
+    const float* rec = pr + z * (D + 2);
+    const float w = expf(rec[D] - mx);
+    sum += rec[D + 1] * w;
+#pragma unroll
+    for (int c = 0; c < DL; ++c) o[c] += rec[lane + 32 * c] * w;
+  }
+  const float safe = sum == 0.f ? 1.f : sum;
+#pragma unroll
+  for (int c = 0; c < DL; ++c) out[(size_t)r * D + lane + 32 * c] = o[c] / safe;
+}
+
+struct Args {
+  const float *q, *kp, *vp;
+  const int *tab, *pos;
+  const float *ck, *cv;
+  const int* cvalid;
+  float *out, *part;
+  int S, H, Q, NB, BL, MB, splits;
+  float scale;
+};
+
+template <int D, bool OVERLAY, int P>
+int launch(const Args& a, cudaStream_t st) {
+  constexpr int R = kWarps / P;
+  constexpr size_t smem = smem_bytes(D, R);
+  {
+    auto kern = paged_attention_kernel<D, OVERLAY, P>;
+    const int e = (int)cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != 0) return e;
+    const dim3 grid((unsigned)(a.S * a.H), (unsigned)((a.Q + R - 1) / R),
+                    (unsigned)a.splits);
+    kern<<<grid, kThreads, smem, st>>>(
+        a.q, a.kp, a.vp, a.tab, a.pos, a.ck, a.cv, a.cvalid, a.out, a.part,
+        a.H, a.Q, a.NB, a.BL, a.MB, a.splits, a.scale);
+    const int err = (int)cudaGetLastError();
+    if (err != 0 || a.splits == 1) return err;
+  }
+  const int rows = a.S * a.H * a.Q;
+  auto kern = paged_combine_kernel<D>;
+  kern<<<dim3((unsigned)((rows + kWarps - 1) / kWarps)), kThreads, 0, st>>>(
+      a.part, a.out, rows, a.splits);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_d(bool overlay, int rows, const Args& a, cudaStream_t st) {
+  switch (rows * 2 + (overlay ? 1 : 0)) {
+    case 2: return launch<D, false, 4>(a, st);
+    case 3: return launch<D, true, 4>(a, st);
+    case 4: return launch<D, false, 2>(a, st);
+    case 5: return launch<D, true, 2>(a, st);
+    case 8: return launch<D, false, 1>(a, st);
+    case 9: return launch<D, true, 1>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
+// rows_per_block (1, 2 or 4) and n_splits come from the wrapper
+// (ops/paged_attention.launch_geometry); part holds S * H * Q * n_splits *
+// (D + 2) floats when n_splits > 1 and may be null otherwise.
 extern "C" int singa_paged_attention(
     const void* q, const void* k_pool, const void* v_pool, const void* tables,
     const void* positions, const void* chunk_k, const void* chunk_v,
-    const void* chunk_valid, void* out, int S, int H, int Q, int D,
-    int n_blocks, int BL, int MB, int overlay, float scale, void* stream) {
-  if (S <= 0 || H <= 0 || Q <= 0 || BL <= 0 || MB <= 0 || n_blocks <= 0)
+    const void* chunk_valid, void* out, void* part, int S, int H, int Q,
+    int D, int n_blocks, int BL, int MB, int overlay, int rows_per_block,
+    int n_splits, float scale, void* stream) {
+  if (S <= 0 || H <= 0 || Q <= 0 || BL <= 0 || MB <= 0 || n_blocks <= 0 ||
+      n_splits <= 0 || n_splits > 65535 || (long long)S * H > 2147483647)
     return (int)cudaErrorInvalidValue;
   if (overlay && (chunk_k == nullptr || chunk_v == nullptr ||
                   chunk_valid == nullptr))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(S * H), (unsigned)((Q + kWarps - 1) / kWarps));
+  if (n_splits > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+  const Args a{static_cast<const float*>(q),
+               static_cast<const float*>(k_pool),
+               static_cast<const float*>(v_pool),
+               static_cast<const int*>(tables),
+               static_cast<const int*>(positions),
+               static_cast<const float*>(chunk_k),
+               static_cast<const float*>(chunk_v),
+               static_cast<const int*>(chunk_valid),
+               static_cast<float*>(out),
+               static_cast<float*>(part),
+               S, H, Q, n_blocks, BL, MB, n_splits, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k_pool);
-  const auto* vf = static_cast<const float*>(v_pool);
-  const auto* tb = static_cast<const int*>(tables);
-  const auto* ps = static_cast<const int*>(positions);
-  const auto* ckf = static_cast<const float*>(chunk_k);
-  const auto* cvf = static_cast<const float*>(chunk_v);
-  const auto* cvl = static_cast<const int*>(chunk_valid);
-  auto* of = static_cast<float*>(out);
   switch (D) {
-    case 64:
-      launch<64>(overlay != 0, grid, st, qf, kf, vf, tb, ps, ckf, cvf, cvl,
-                 of, H, Q, n_blocks, BL, MB, scale);
-      break;
-    case 128:
-      launch<128>(overlay != 0, grid, st, qf, kf, vf, tb, ps, ckf, cvf, cvl,
-                  of, H, Q, n_blocks, BL, MB, scale);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 64: return launch_d<64>(overlay != 0, rows_per_block, a, st);
+    case 128: return launch_d<128>(overlay != 0, rows_per_block, a, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -1,17 +1,16 @@
 """Attention ops: the dense reference attention, the online-softmax
 block primitives, and flash attention (forward and backward) on the
-CUDA kernels of ``csrc/flash_attention.cu`` and
-``csrc/flash_attention_bwd.cu``.
+CUDA kernels of ``csrc/flash_attention.cu`` (float32) and
+``csrc/flash_attention_bf16.cu`` (bfloat16).
 
 Counterpart of ``singa_tpu/ops/attention.py``, whose six Pallas kernels
 (staged and streamed forward, dQ and dK/dV) become three Hopper kernel
 entry points here: ``flash_fwd``, ``flash_bwd_dq`` and
 ``flash_bwd_dkv``. The TPU's staged/streamed split is a VMEM budget
 (``_variant`` there); on the GPU one kernel streams its tiles through
-shared memory for every S. The bf16 backward runs on the tensor cores
-(``flash_attention_bwd.cu``: P and dS are rounded once to bf16 before
-their products); the forward and the float32 backward run on the CUDA
-cores (``kernel_source``).
+shared memory for every S. bf16 runs on the tensor cores
+(``flash_attention_bf16.cu``: P and dS are rounded once to bf16 before
+their products); float32 runs on the CUDA cores (``kernel_source``).
 
 Each kernel wrapper takes flattened ``(B*H, S, D)`` rows (the layout of
 the Pallas calls) with ``lse`` and ``delta`` laid out ``(B*H, S)`` in
@@ -41,8 +40,8 @@ import torch
 #: masked score: finite, so ``exp(m - m)`` stays 1 on fully-masked rows
 NEG_INF = -1e30
 
-#: head widths the kernels are instantiated for (each thread owns D/16
-#: output columns in registers)
+#: head widths the kernels are instantiated for (each thread keeps its
+#: share of D output columns in registers)
 KERNEL_HEAD_DIMS = (64, 128)
 #: query and key rows per kernel tile: S must be a multiple
 KERNEL_TILE = 64
@@ -251,11 +250,10 @@ def fusable(seq_len: int, head_dim: int, dtype) -> str | None:
 
 def kernel_source(name: str, dtype) -> tuple[str, str]:
     """(source under ``csrc/``, C symbol) of kernel ``name`` for inputs of
-    ``dtype``: the bf16 backward runs on the tensor cores
-    (``flash_attention_bwd.cu``); the forward, and the float32 backward,
-    on the CUDA cores (``flash_attention.cu``)."""
-    if dtype == torch.bfloat16 and name != "flash_fwd":
-        return "flash_attention_bwd", f"singa_{name}_bf16"
+    ``dtype``: bf16 runs on the tensor cores (``flash_attention_bf16.cu``),
+    float32 on the CUDA cores (``flash_attention.cu``)."""
+    if dtype == torch.bfloat16:
+        return "flash_attention_bf16", f"singa_{name}_bf16"
     return "flash_attention", f"singa_{name}"
 
 

@@ -32,7 +32,11 @@ the kernel's rule, not ``cache_attend``'s.
 Dispatch is by device and nothing else: a CUDA tensor launches the
 kernel (``csrc/paged_attention.cu``) or raises; a CPU tensor takes the
 plain version. Each wrapper counts its kernel launches in its
-``launches`` attribute (CPU calls do not count).
+``launches`` attribute (CPU calls do not count). The kernel splits each
+sequence's key range across thread blocks (``launch_geometry``, from
+shapes alone); with more than one split a wrapper call is two launches,
+the attention kernel and a small combine that merges the splits in a
+fixed order, and counts as one.
 
 Tables and positions must be int32 (the JAX package's index dtype, and
 what the kernel reads).
@@ -52,6 +56,11 @@ from .attention import NEG_INF
 #: head widths the kernel is instantiated for: each of a warp's 32 lanes
 #: owns head_dim / 32 output columns, kept in registers
 KERNEL_HEAD_DIMS = (64, 128)
+#: warps of a thread block, and key positions of a staged tile
+KERNEL_WARPS = 4
+KERNEL_TILE = 32
+#: thread blocks the split aims for per SM
+BLOCKS_PER_SM = 2
 
 
 def fusable(block_len: int, head_dim: int):
@@ -82,6 +91,28 @@ def live_blocks(last_position, block_len, max_blocks):
     if isinstance(n, torch.Tensor):
         return n.clamp(0, max_blocks)
     return np.clip(n, 0, max_blocks)
+
+
+def launch_geometry(n_seqs: int, n_heads: int, n_queries: int,
+                    max_blocks: int, block_len: int, n_sms: int):
+    """-> (rows per block, key-range splits, thread blocks) of one kernel
+    call, from shapes alone (never positions: reading them would add a
+    device-to-host copy per call).
+
+    A block's 4 warps share R query rows (1 at Q = 1, 2 at Q = 2, else
+    4), so every warp has work at decode. The splits aim for
+    ``BLOCKS_PER_SM`` blocks per SM, capped by the table's 32-key tiles
+    (more splits than tiles would only add empty ones)."""
+    rows = 1 if n_queries == 1 else 2 if n_queries == 2 else KERNEL_WARPS
+    base = n_seqs * n_heads * -(-n_queries // rows)
+    tiles = -(-max_blocks * block_len // KERNEL_TILE)
+    splits = max(1, min(-(-BLOCKS_PER_SM * n_sms // base), tiles))
+    return rows, splits, base * splits
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def modeled_bytes(
@@ -222,7 +253,7 @@ def _kernel():
 
     fn = _build.load("paged_attention").singa_paged_attention
     fn.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
         + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -263,12 +294,18 @@ def _launch(q, k_pool, v_pool, tables, positions, chunk):
         cvalid = valid.data_ptr()
     else:
         ck = cv = cvalid = None
+    mb = tables.shape[1]
+    rows, splits, _ = launch_geometry(s, h, nq, mb, bl,
+                                      _sm_count(q.device.index))
+    # each split's unnormalized (acc, m, l) per query row
+    part = (torch.empty(s * h * nq * splits * (d + 2), device=q.device)
+            if splits > 1 else None)
     err = _kernel()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), positions.data_ptr(), ck, cv, cvalid,
-        out.data_ptr(), s, h, nq, d, nb, bl, tables.shape[1],
-        1 if chunk is not None else 0,
-        ctypes.c_float(1.0 / math.sqrt(d)),
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        s, h, nq, d, nb, bl, mb, 1 if chunk is not None else 0, rows,
+        splits, ctypes.c_float(1.0 / math.sqrt(d)),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:

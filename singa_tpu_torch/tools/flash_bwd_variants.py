@@ -1,6 +1,6 @@
-"""Time design variants of the tensor-core flash backward
-(``csrc/flash_attention_bwd.cu``) against the source as it stands, on
-the card, in turns.
+"""Time design variants of the tensor-core flash kernels (forward, dQ
+and dK/dV of ``csrc/flash_attention_bf16.cu``) against the source as it
+stands, on the card, in turns.
 
 Each variant is the source with a few text substitutions (``VARIANTS``):
 
@@ -10,10 +10,13 @@ Each variant is the source with a few text substitutions (``VARIANTS``):
   exp2f      exp2f in place of the bare ex2.approx.ftz (``fast_exp2``)
   diag_mask  the causal mask applied on the diagonal tile only: a masked
              and an unmasked copy of the elementwise step
+  fwd_groups the forward with one key group (4 warps) a block where the
+             source has two (8 warps; each folds every other key tile)
 
-Every library is built with the port's nvcc flags; every variant's dQ,
-dK and dV are held to the plain versions (chip_smoke's bf16 bar,
-``FLASH_TOL``) and compared bitwise with the source's; then each kernel
+Every library is built with the port's nvcc flags; every variant's
+outputs (out and lse, dQ, dK and dV) are held to the plain versions
+(chip_smoke's bf16 bar, ``FLASH_TOL``) and compared bitwise with the
+source's; then each kernel
 is timed at each shape with chip_smoke's ``time_ms`` (CUDA events, the
 L2 flushed before each launch) in the order source, variants, variants
 reversed, source. One JSON line per (shape, kernel); the first line is
@@ -45,8 +48,10 @@ from .. import _build
 from ..device import resolve_device
 from ..ops import attention as ta
 
-SOURCE = "flash_attention_bwd"
-KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+SOURCE = "flash_attention_bf16"
+#: kernel -> its pointer arguments (inputs and outputs)
+KERNELS = {"flash_fwd": 5, "flash_bwd_dq": 7, "flash_bwd_dkv": 8}
+_FWD_GROUPS = "constexpr int kFwdGroups = 2;"
 _DQ_TILE = ("  const int qt = nt - 1 - (int)blockIdx.x;"
             "  // heaviest causal tiles first\n")
 _DKV_TILE = ("  const int kt = (int)blockIdx.x;"
@@ -90,6 +95,7 @@ VARIANTS = {
         ("const bool ok = !CAUSAL || col",
          "const bool ok = !decltype(masked)::value || col", 2),
     ],
+    "fwd_groups": [(_FWD_GROUPS, _FWD_GROUPS.replace("2", "1"), 1)],
 }
 DEFAULT_SHAPES = ("2x8192x128x1", "8x8192x128x1", "2x32768x128x1",
                   "2x8192x64x1")
@@ -108,7 +114,8 @@ def variant_source(name: str, src: str) -> str:
 
 def build(names):
     """nvcc for the source and each variant, all at once -> {name:
-    (dQ entry, dK/dV entry)}; 'source' is the source as it stands."""
+    (forward, dQ, dK/dV entries)}; 'source' is the source as it
+    stands."""
     with open(os.path.join(_build.CSRC_DIR, f"{SOURCE}.cu")) as f:
         src = f.read()
     texts = {"source": src, **{n: variant_source(n, src) for n in names}}
@@ -131,7 +138,7 @@ def build(names):
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
         dll = ctypes.CDLL(lib)
         fns = []
-        for kernel, n_ptr in zip(KERNELS, (7, 8)):
+        for kernel, n_ptr in KERNELS.items():
             fn = getattr(dll, ta.kernel_source(kernel, torch.bfloat16)[1])
             fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
                            + [ctypes.c_float, ctypes.c_void_p])
@@ -144,10 +151,15 @@ def build(names):
 def caller(fn, kernel, c):
     """A closure launching one library's ``kernel`` on chip_smoke's
     flash case ``c`` -> its outputs."""
-    ins = [c[n] for n in ("q", "k", "v", "do", "lse", "delta")]
     bh, s, d = c["q"].shape
-    outs = [torch.empty_like(c["q"])
-            for _ in range(1 if kernel == "flash_bwd_dq" else 2)]
+    if kernel == "flash_fwd":
+        ins = [c[n] for n in ("q", "k", "v")]
+        outs = [torch.empty_like(c["q"]),
+                torch.empty((bh, s), device=c["q"].device)]
+    else:
+        ins = [c[n] for n in ("q", "k", "v", "do", "lse", "delta")]
+        outs = [torch.empty_like(c["q"])
+                for _ in range(1 if kernel == "flash_bwd_dq" else 2)]
 
     def call():
         err = fn(*(t.data_ptr() for t in (*ins, *outs)), bh, s, d, 1,

@@ -1,16 +1,19 @@
-// CPU emulation of the CUDA primitives that
-// singa_tpu_torch/csrc/flash_attention_bwd.cu uses, so that its kernel
-// code (tile loads, swizzled ldmatrix addressing, mma fragment layouts,
-// masks, reductions) runs on a machine without a GPU. The test that uses
-// it (tests/test_torch_flash_bwd.py) compiles the kernel source with g++
-// after swapping each inline-assembly primitive for the emu_* function
-// of the same meaning and each <<<grid, block, smem, stream>>> launch for
+// CPU emulation of the CUDA primitives that the kernel sources
+// singa_tpu_torch/csrc/flash_attention_bf16.cu and paged_attention.cu
+// use, so that their kernel code (tile loads, swizzled ldmatrix
+// addressing, mma fragment layouts, shuffles, masks, reductions) runs on a
+// machine without a GPU. The tests that use it
+// (tests/test_torch_flash_bwd.py, test_torch_flash_fwd.py,
+// test_torch_paged_split.py) compile a kernel source with g++ after
+// swapping each inline-assembly primitive for the emu_* function of the
+// same meaning and each <<<grid, block, smem, stream>>> launch for
 // emu_launch.
 //
 // One std::thread per CUDA thread; the blocks of a grid run one after
 // another, each in the one shared-memory array `smem` (filled with 0xff
 // first, since shared memory starts undefined). __syncthreads is a
-// barrier of the block's threads; each warp-collective operation writes
+// barrier of the block's threads; each warp-collective operation (ldmatrix,
+// mma, __shfl_sync, __shfl_xor_sync) writes
 // its lanes' operands, meets the warp's other lanes at a barrier, computes
 // its lane's result from all of them, and meets them again before the
 // operands are reused. cp.async copies synchronously. The mma sums its 16
@@ -18,7 +21,9 @@
 // differently within a step, well inside the tests' bf16 bar).
 #pragma once
 
+#include <algorithm>
 #include <barrier>
+#include <climits>
 #include <cmath>
 #include <cstddef>
 #include <cstring>
@@ -26,6 +31,7 @@
 #include <vector>
 
 #define __device__
+#define __host__
 #define __global__
 #define __shared__
 #define __forceinline__ inline
@@ -44,6 +50,15 @@ struct uint4 {
 struct float2 {
   float x, y;
 };
+struct float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+
+using std::max;
+using std::min;
 
 inline thread_local uint3_ threadIdx;
 inline uint3_ blockIdx;
@@ -96,6 +111,7 @@ inline unsigned char* emu_smem() { return (unsigned char*)smem; }
 struct EmuWarp {
   unsigned addr[32];
   unsigned a[32][4], b[32][2];
+  float f[32];
 };
 inline EmuWarp emu_warp[32];
 
@@ -159,23 +175,42 @@ inline void emu_mma(float c[4], const unsigned a[4], unsigned b0,
   warp_barrier[w]->arrive_and_wait();
 }
 
+// a warp shuffle: lane l receives the value of lane src(l)
+template <typename Src>
+inline float emu_shfl(float v, Src src) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  EmuWarp& x = emu_warp[w];
+  x.f[l] = v;
+  warp_barrier[w]->arrive_and_wait();
+  const float r = x.f[src(l) & 31];
+  warp_barrier[w]->arrive_and_wait();
+  return r;
+}
+inline float __shfl_xor_sync(unsigned, float v, int mask) {
+  return emu_shfl(v, [mask](int l) { return l ^ mask; });
+}
+inline float __shfl_sync(unsigned, float v, int src) {
+  return emu_shfl(v, [src](int) { return src; });
+}
+
 template <typename K, typename... A>
 void emu_launch(K kernel, dim3 grid, int threads, A... args) {
   std::barrier<> block(threads);
   block_barrier = &block;
   for (int w = 0; w < threads / 32; ++w)
     warp_barrier[w] = new std::barrier<>(32);
-  for (unsigned y = 0; y < grid.y; ++y)
-    for (unsigned x = 0; x < grid.x; ++x) {
-      blockIdx = {x, y, 0};
-      std::memset(smem, 0xff, sizeof(smem));
-      std::vector<std::thread> pool;
-      for (int i = 0; i < threads; ++i)
-        pool.emplace_back([&, i] {
-          threadIdx = {(unsigned)i, 0, 0};
-          kernel(args...);
-        });
-      for (auto& th : pool) th.join();
-    }
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x = 0; x < grid.x; ++x) {
+        blockIdx = {x, y, z};
+        std::memset(smem, 0xff, sizeof(smem));
+        std::vector<std::thread> pool;
+        for (int i = 0; i < threads; ++i)
+          pool.emplace_back([&, i] {
+            threadIdx = {(unsigned)i, 0, 0};
+            kernel(args...);
+          });
+        for (auto& th : pool) th.join();
+      }
   for (int w = 0; w < threads / 32; ++w) delete warp_barrier[w];
 }

@@ -95,6 +95,29 @@ def test_kernel_matches_plain(cuda_device, overlay, bl, d, nq):
     torch.testing.assert_close(got, plain(**case), **TOL)
 
 
+@pytest.mark.parametrize("overlay", [False, True])
+def test_kernel_split_edges_and_repeat(cuda_device, overlay):
+    """At the serving geometry (table width 128 blocks of 16) the wrapper
+    splits the key range: sequences shorter than one split, more splits
+    than live tiles and fully masked rows (position -1; the dead overlay
+    row) still match the plain version, masked rows are exact zeros, and
+    a second call gives bitwise-equal outputs."""
+    nq = 5 if overlay else 1
+    case = make_case(cuda_device, 3, s=4, nq=nq, bl=16, d=128,
+                     max_len=2048, pos0=[0, 2, 2040, -1 if nq == 1 else 0],
+                     overlay=overlay)
+    fn, plain = (
+        (pa.paged_attention_overlay, pa.paged_attention_overlay_plain)
+        if overlay else (pa.paged_attention, pa.paged_attention_plain)
+    )
+    assert pa.launch_geometry(4, 2, nq, 128, 16, 132)[1] > 1
+    got, again = fn(**case), fn(**case)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, plain(**case), **TOL)
+    assert torch.equal(got, again)
+    assert not got[-1].any()
+
+
 def test_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
     case = make_case(cuda_device, 0, s=2, nq=1, bl=16, d=128, max_len=64,
                      pos0=[3, 9], overlay=False)
@@ -163,8 +186,8 @@ def _flash_counts():
 @pytest.mark.parametrize("bh,s", [(2, 320), (3, 192)])
 def test_flash_kernels_match_plain(cuda_device, dtype, d, causal, bh, s):
     """Each kernel against its plain version at S a multiple of 64 but
-    not of 128 (an odd count of 64-row tiles) and at an odd B*H, and the
-    backward deterministic: a second launch on the same inputs gives
+    not of 128 (an odd count of 64-row tiles) and at an odd B*H, and
+    every kernel deterministic: a second launch on the same inputs gives
     bitwise-equal outputs."""
     gen = torch.Generator().manual_seed(d + causal)
     q, k, v, do = [torch.randn(bh, s, d, generator=gen).to(cuda_device, dtype)
@@ -185,10 +208,11 @@ def test_flash_kernels_match_plain(cuda_device, dtype, d, causal, bh, s):
         scale = float(b.float().abs().max())
         err = float((a.float() - b.float()).abs().max())
         assert err <= FLASH_TOL[dtype] * scale, (name, err, scale)
-    again = [ta.flash_bwd_dq(q, k, v, do, want_lse, delta, causal),
+    again = [*ta.flash_fwd(q, k, v, causal),
+             ta.flash_bwd_dq(q, k, v, do, want_lse, delta, causal),
              *ta.flash_bwd_dkv(q, k, v, do, want_lse, delta, causal)]
     torch.cuda.synchronize()
-    for name, a, b in zip(("dq", "dk", "dv"), got[2:], again):
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, again):
         assert torch.equal(a, b), name
 
 

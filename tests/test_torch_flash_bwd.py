@@ -1,5 +1,5 @@
 """The bf16 flash backward's rounding on the tensor cores
-(singa_tpu_torch/csrc/flash_attention_bwd.cu), modelled in PyTorch on
+(singa_tpu_torch/csrc/flash_attention_bf16.cu), modelled in PyTorch on
 the CPU and held to the JAX package's float32 backward.
 
 The CUDA kernels cannot run here. What they change against the JAX
@@ -134,16 +134,19 @@ def test_tensor_core_rounding_within_half_the_card_bar(bh, s, d, causal):
                                   "flash_bwd_dkv"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_source_routes_only_the_bf16_backward(name, dtype):
-    """The bf16 backward's two entry points come from the tensor-core
-    source; the forward (both types) and the float32 backward from the
-    CUDA-core one, under the C names their sources export."""
+    """Every bf16 kernel (forward, dQ, dK/dV) comes from the tensor-core
+    source and every float32 kernel from the CUDA-core one, under the C
+    names their sources export; the CUDA-core source exports no bf16
+    entry."""
     source, symbol = ta.kernel_source(name, dtype)
-    tensor_cores = dtype == torch.bfloat16 and name != "flash_fwd"
-    assert source == ("flash_attention_bwd" if tensor_cores
+    tensor_cores = dtype == torch.bfloat16
+    assert source == ("flash_attention_bf16" if tensor_cores
                       else "flash_attention")
     assert symbol == f"singa_{name}" + ("_bf16" if tensor_cores else "")
     with open(os.path.join(_build.CSRC_DIR, f"{source}.cu")) as f:
         assert f'extern "C" int {symbol}(' in f.read()
+    with open(os.path.join(_build.CSRC_DIR, "flash_attention.cu")) as f:
+        assert "bf16" not in f.read().replace("flash_attention_bf16", "")
 
 
 #: kernel vs plain at bf16, relative to the output's max: the card's bar
@@ -165,15 +168,16 @@ EMU_PRIMITIVES = {
 }
 
 
-def _emulated_source(src: str) -> str:
+def _emulated_source(src: str, primitives=EMU_PRIMITIVES) -> str:
     """The kernel source with cuda_emu.h for the CUDA headers, each
-    primitive of EMU_PRIMITIVES for its emulation, and each
+    primitive of ``primitives`` for its emulation, and each
     ``kern<<<grid, block, smem, stream>>>(args)`` for
     ``emu_launch(kern, grid, block, args)``."""
-    src = src.replace("#include <cuda_bf16.h>", '#include "cuda_emu.h"')
-    src = src.replace("#include <cuda_runtime.h>", "")
+    src = src.replace("#include <cuda_bf16.h>", "")
+    src = '#include "cuda_emu.h"\n' + src.replace(
+        "#include <cuda_runtime.h>", "")
     src = src.replace("extern __shared__ uint4 smem[];", "")
-    for name, body in EMU_PRIMITIVES.items():
+    for name, body in primitives.items():
         m = re.search(r"__device__ __forceinline__ (\w+) " + name
                       + r"\([^)]*\) \{", src)
         assert m, f"primitive {name} not found in the kernel source"
@@ -201,15 +205,20 @@ def _emulated_source(src: str) -> str:
     return src
 
 
-def _source():
-    with open(os.path.join(_build.CSRC_DIR, "flash_attention_bwd.cu")) as f:
+def read_source(name: str) -> str:
+    """The text of ``csrc/<name>.cu``."""
+    with open(os.path.join(_build.CSRC_DIR, f"{name}.cu")) as f:
         return f.read()
 
 
-def _emulate(src: str, tmp):
+def _source():
+    return read_source("flash_attention_bf16")
+
+
+def build_emulated(src: str, tmp, primitives=EMU_PRIMITIVES):
     """Kernel source ``src`` built for the CPU on cuda_emu.h in directory
-    ``tmp`` -> {name: C entry point}."""
-    (tmp / "kernels.cpp").write_text(_emulated_source(src))
+    ``tmp`` -> the loaded library."""
+    (tmp / "kernels.cpp").write_text(_emulated_source(src, primitives))
     lib = tmp / "libkernels.so"
     subprocess.run(
         ["g++", "-std=c++20", "-O2", "-pthread", "-shared", "-fPIC",
@@ -217,9 +226,19 @@ def _emulate(src: str, tmp):
          "-o", str(lib), str(tmp / "kernels.cpp")],
         check=True, capture_output=True, text=True,
     )
-    dll = ctypes.CDLL(str(lib))
+    return ctypes.CDLL(str(lib))
+
+
+#: each flash kernel's pointer arguments (before BH, S, D, dtype, causal)
+FLASH_POINTERS = {"flash_fwd": 5, "flash_bwd_dq": 7, "flash_bwd_dkv": 8}
+
+
+def emulated_flash_entries(src: str, tmp):
+    """The bf16 flash source ``src`` emulated -> {name: C entry point}
+    for every kernel of FLASH_POINTERS."""
+    dll = build_emulated(src, tmp)
     entries = {}
-    for name, n_ptr in (("flash_bwd_dq", 7), ("flash_bwd_dkv", 8)):
+    for name, n_ptr in FLASH_POINTERS.items():
         fn = getattr(dll, ta.kernel_source(name, torch.bfloat16)[1])
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
@@ -228,22 +247,31 @@ def _emulate(src: str, tmp):
     return entries
 
 
+
 @pytest.fixture(scope="module")
 def emulated_kernels(tmp_path_factory):
-    """csrc/flash_attention_bwd.cu built for the CPU on cuda_emu.h."""
-    return _emulate(_source(), tmp_path_factory.mktemp("flash_bwd_emu"))
+    """csrc/flash_attention_bf16.cu built for the CPU on cuda_emu.h."""
+    return emulated_flash_entries(_source(),
+                                  tmp_path_factory.mktemp("flash_bwd_emu"))
 
 
-def _check_against_plain(entries, bh, s, d, causal):
-    """Run the emulated dQ and dK/dV kernels on seeded bf16 inputs and
-    hold them to the plain versions at EMU_TOL."""
-    gen = torch.Generator().manual_seed(bh * s + d + int(causal))
-    q, k, v, do = [torch.randn(bh, s, d, generator=gen).to(torch.bfloat16)
-                   for _ in range(4)]
+def _check_against_plain(entries, bh, s, d, causal, inputs=None,
+                         forward=None):
+    """Run the emulated dQ and dK/dV kernels on seeded bf16 inputs (or
+    ``inputs`` = q, k, v, dO) and hold them to the plain versions at
+    EMU_TOL. The kernels get ``forward`` = (out, lse) if given, the plain
+    versions always the plain forward's."""
+    if inputs is None:
+        gen = torch.Generator().manual_seed(bh * s + d + int(causal))
+        inputs = [torch.randn(bh, s, d, generator=gen).to(torch.bfloat16)
+                  for _ in range(4)]
+    q, k, v, do = inputs
     out, lse = ta.flash_fwd_plain(q, k, v, causal)
     delta = (do.float() * out.float()).sum(-1)
+    k_out, k_lse = forward if forward is not None else (out, lse)
+    k_delta = (do.float() * k_out.float()).sum(-1)
     dq, dk, dv = (torch.full_like(q, float("nan")) for _ in range(3))
-    ins = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    ins = [t.data_ptr() for t in (q, k, v, do, k_lse, k_delta)]
     tail = (bh, s, d, 1, int(causal), ctypes.c_float(1 / math.sqrt(d)), None)
     assert entries["flash_bwd_dq"](*ins, dq.data_ptr(), *tail) == 0
     assert entries["flash_bwd_dkv"](
@@ -275,4 +303,5 @@ def test_timed_design_variants_build_and_match_plain(variant, tmp_path):
     leaves a middle tile alone."""
     src = fv.variant_source(variant, _source())
     assert src != _source()
-    _check_against_plain(_emulate(src, tmp_path), 3, 192, 64, True)
+    _check_against_plain(emulated_flash_entries(src, tmp_path), 3, 192, 64,
+                         True)
