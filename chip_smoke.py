@@ -60,7 +60,9 @@ caught and carried on):
              forward's ratio to SDPA's forward and the backward pair's to
              SDPA's backward; the bound is the
              larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s
-             (bf16).
+             (bf16). The same times at the same shape in float32, the
+             CUDA-core route (csrc/flash_attention.cu), against 67
+             TFLOP/s and SDPA in float32 with TF32 off.
   6. train   the port's Trainer on examples/lm/tinylm_longctx_d128.conf
              (full width, read by the port's load_model_config) over a
              shard of 32 synthetic 8192-token sequences: at float32, 8
@@ -75,26 +77,35 @@ caught and carried on):
              torch.profiler (wall and device ms per step of that window,
              its idle share, the largest kernels).
   7. ring    the quant_acc kernel (the int8 gradient ring's per-hop
-             dequantize + accumulate, csrc/quant_acc.cu) against its plain
-             version bitwise at m in RING_SIZES and at a NaN scale; times
-             at m = 65536 (the path's largest chunk) and 2^24 of the
-             kernel, its plain version and, as a yardstick the port never
-             calls, torch.addcmul; the bound is (9 m + 4) bytes / 3.35
-             TB/s. Then examples/lm/tinylm_d128.conf with the q8wire tag
-             and 4 buckets (as bench.py's lm_d128_q8wire row builds it)
-             over 256 synthetic 128-token sequences, on 4 ranks of one
-             card: the ring alone (_ring_reduce_probe) on the global
-             gradient of one step, within 3.5 bucket scales of it,
-             bitwise the same on every rank and equal to the same probe
-             on the CPU, with three planted ring faults each breaking
-             that bar; float32, 8 steps in turns (ring, reference q8,
-             reference q8, ring), losses within RING_TOL and 300
-             quant_acc launches per ring step; then bf16 as written, 30
-             steps each of the flat ring (300 launches per step), q8hier
-             (100) and exact data parallel (0): finite falling losses,
-             step ms, tokens/s, 3 more flat-ring steps under
-             torch.profiler, and the probe's host time as a share of the
-             ring step.
+             dequantize + accumulate over a flat bucket row, with the next
+             hop's max-abs from the same pass, csrc/quant_acc.cu) against
+             its plain version, out and amax bitwise, at m in RING_SIZES
+             (the bucket chunks among them), on row 1 of a ragged (4,
+             1001) tensor, with a NaN partial and a NaN scale; times with
+             and without amax at m = 147648 (the path's largest bucket
+             chunk), 65536 and 2^24 of the kernel, its plain version and,
+             as a yardstick the port never calls, torch.addcmul; the bound
+             is (9 m + 4) bytes / 3.35 TB/s (+ 4 with amax). Then
+             examples/lm/tinylm_d128.conf with the q8wire tag and 4
+             buckets (as bench.py's lm_d128_q8wire row builds it) over 256
+             synthetic 128-token
+             sequences, on 4 ranks of one card: the ring alone
+             (_ring_reduce_probe) on the global gradient of one step,
+             within 3.5 bucket scales of it, bitwise the same on every
+             rank and equal to the same probe on the CPU, with four
+             planted ring faults each breaking that bar; float32, 8 steps
+             in turns (ring, reference q8, reference q8, ring), losses
+             within RING_TOL and 48 quant_acc launches per ring step
+             (ranks x buckets x hops); then bf16 as written, 30 steps each
+             of the flat ring (48 launches per step), q8hier (16) and
+             exact data parallel (0): finite falling losses, step ms,
+             tokens/s, 3 more flat-ring steps under torch.profiler, and
+             the probe's host time as a share of the ring step; last, the
+             flat ring with the next hop's max-abs fused into quant_acc
+             and without it (a pass of its own per scale) on one trainer:
+             the probe's outputs equal to the bit, then 10 pairs in
+             alternating order of the probe's host ms and the median of
+             5 synced steps.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -190,12 +201,15 @@ FLASH_SHAPES = [
       # backward's odd tile count and its pipeline tail
       (3, 192, 128, True, torch.bfloat16), (3, 192, 64, False, torch.bfloat16)]
 FLASH_TIMED = (2, 8192, 128, True, torch.bfloat16)
+#: the float32 route (csrc/flash_attention.cu, CUDA cores) timed at the
+#: same shape; the train phase's float32 runs go through it
+FLASH_TIMED_F32 = FLASH_TIMED[:4] + (torch.float32,)
 #: each flash kernel's source at the training shape's dtype (the main
 #: path's): bf16 is the tensor-core file
 FLASH_SOURCES = {
-    name: "singa_tpu_torch/csrc/"
-          f"{ta.kernel_source(name, FLASH_TIMED[4])[0]}.cu"
-    for name in FLASH
+    (name, dtype): "singa_tpu_torch/csrc/"
+                   f"{ta.kernel_source(name, dtype)[0]}.cu"
+    for name in FLASH for dtype in (torch.bfloat16, torch.float32)
 }
 #: the libraries whose ptxas reports must show no spills
 SPILL_FREE = ("flash_attention_bf16", "paged_attention")
@@ -203,10 +217,15 @@ RING_SOURCE = "singa_tpu_torch/csrc/quant_acc.cu"
 RING_REPLACES = "singa_tpu/ops/quantized_collective.py:341"
 RING_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "examples", "lm", "tinylm_d128.conf")
-#: quant_acc vs plain sizes (elements): ragged, the path's 64-element
-#: LayerNorm chunks, its largest chunk (65536) and a large one
-RING_SIZES = (1, 3, 64, 1000, 16384, 65536, 1 << 24)
-RING_TIMED = (65536, 1 << 24)
+#: the main path's bucket chunks (elements per rank and bucket row) on
+#: tinylm_d128.conf with 4 buckets on 4 ranks, largest first
+RING_BUCKETS = (147648, 131584, 115136, 41088)
+#: quant_acc vs plain sizes (elements): ragged, a 64-element LayerNorm
+#: chunk, the largest param chunk (65536), the bucket chunks, a large one
+RING_SIZES = (1, 3, 64, 1000, 16384, 65536) + RING_BUCKETS + (1 << 24,)
+#: timed: the largest bucket chunk, the previous design's shape (one
+#: param's chunk) and 2^24
+RING_TIMED = (147648, 65536, 1 << 24)
 RING_RANKS = 4
 #: ring vs reference q8 losses at float32, every step of 8: the JAX
 #: package's bar for the same comparison
@@ -216,8 +235,9 @@ RING_TOL = 2e-2
 #: the probe's bar, in bucket scales (max |g| over the bucket / 127):
 #: the JAX package's (test_ring_probe_reduces_correctly)
 PROBE_BAR = 3.5
-#: quant_acc launches per step: ranks x params x quantized reduce hops
-#: (flat ring: n - 1 = 3; q8_hier with intra_degree 2: M - 1 = 1)
+#: quant_acc launches per step: ranks x buckets x quantized reduce hops
+#: (flat ring: n - 1 = 3; q8_hier with intra_degree 2: M - 1 = 1), so
+#: 48, 16 and 0 per step with 4 buckets on 4 ranks
 RING_FORMS = {"q8wire": 3, "q8hier": 1, "exact": 0}
 
 
@@ -665,12 +685,65 @@ def flash_bound(name, c):
                                        else "operations")
 
 
+def flash_timings(c, flush):
+    """Times at one timed case ``c``: each kernel (after two launches on
+    the same inputs, which must be bitwise equal), its plain version and,
+    as yardsticks the port never calls, SDPA's forward and its autograd
+    backward on the same inputs. -> timing rows by kernel."""
+    bh, s, d = c["q"].shape
+    dtype = str(c["q"].dtype)[6:]
+    rows = {}
+    for name, (kernel, plain) in flash_calls(c).items():
+        # deterministic: each block owns its output rows
+        first, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        first = first if isinstance(first, tuple) else (first,)
+        again = again if isinstance(again, tuple) else (again,)
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"{name} {dtype}: two launches on the same inputs differ")
+        print(f"flash {name} {dtype}: two launches bitwise equal")
+        b_ms, b_by = flash_bound(name, c)
+        ms = time_ms(kernel, flush, iters=10)
+        rows[name] = {"ms": ms,
+                      "plain_ms": time_ms(plain, flush, iters=10),
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": None,
+                      "tflops": flash_ops(name, c) / ms / 1e9}
+    # yardstick only: SDPA forward, and its autograd backward (which
+    # computes dQ, dK and dV in one call, so it stands beside neither
+    # backward kernel alone); float32 runs with TF32 off (device.py)
+    q, k, v = (c[n].reshape(1, bh, s, d).detach().requires_grad_(True)
+               for n in ("q", "k", "v"))
+    do = c["do"].reshape(1, bh, s, d)
+    rows["flash_fwd"]["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        flush, iters=10)
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    sdpa_bwd = time_ms(
+        lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True),
+        flush, iters=10)
+    for name, row in rows.items():
+        print("flash_timing", json.dumps({"kernel": name, "dtype": dtype,
+                                          **row, "shape": [1, bh, s, d]}))
+    pair_ms = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
+    print("flash_timing", json.dumps({
+        "dtype": dtype,
+        "library_backward_dq_dk_dv_ms": sdpa_bwd,
+        "backward_pair_ms": pair_ms,
+        "backward_pair_over_library": pair_ms / sdpa_bwd,
+        "forward_over_library":
+            rows["flash_fwd"]["ms"] / rows["flash_fwd"]["library_ms"]}))
+    return rows
+
+
 def flash_phase(dev):
     """Each flash kernel against its plain version at every listed shape;
-    timings at the training shape. -> (max_abs_err by kernel, timing rows
-    by kernel)."""
+    timings at the training shape in bf16 (the main path's route) and in
+    float32 (the CUDA-core route). -> (max_abs_err by dtype and kernel,
+    timing rows by dtype and kernel)."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {name: 0.0 for name in FLASH}
+    errs = {dt: {name: 0.0 for name in FLASH}
+            for dt in (torch.float32, torch.bfloat16)}
     lse_worst = 0.0
     for bh, s, d, causal, dtype in FLASH_SHAPES:
         c = flash_case(bh, s, d, causal, dtype, dev, gen)
@@ -686,7 +759,7 @@ def flash_phase(dev):
                       f"{name} {(bh, s, d, causal, dtype)}: bad output")
                 err = float((g.float() - w.float()).abs().max())
                 rel = err / max(float(w.float().abs().max()), 1e-30)
-                errs[name] = max(errs[name], err)
+                errs[dtype][name] = max(errs[dtype][name], err)
                 worst.append(rel)
                 check(rel <= FLASH_TOL[dtype],
                       f"{name} {(bh, s, d, causal, dtype)}: error {rel} > "
@@ -704,50 +777,12 @@ def flash_phase(dev):
         del c
     print(f"flash_fwd lse: worst relative error {lse_worst:.2e} over all "
           f"shapes (tol {LSE_TOL:g})")
-    # timings at the training shape
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    c = flash_case(*FLASH_TIMED, dev, gen)
-    bh, s, d = c["q"].shape
     rows = {}
-    for name, (kernel, plain) in flash_calls(c).items():
-        # deterministic: each block owns its output rows
-        first, again = kernel(), kernel()
-        torch.cuda.synchronize()
-        first = first if isinstance(first, tuple) else (first,)
-        again = again if isinstance(again, tuple) else (again,)
-        check(all(torch.equal(a, b) for a, b in zip(first, again)),
-              f"{name}: two launches on the same inputs differ")
-        print(f"flash {name}: two launches bitwise equal")
-        b_ms, b_by = flash_bound(name, c)
-        ms = time_ms(kernel, flush, iters=10)
-        rows[name] = {"ms": ms,
-                      "plain_ms": time_ms(plain, flush, iters=10),
-                      "bound_ms": b_ms, "bound_by": b_by,
-                      "library_ms": None,
-                      "tflops": flash_ops(name, c) / ms / 1e9}
-    # yardstick only: SDPA forward, and its autograd backward (which
-    # computes dQ, dK and dV in one call, so it stands beside neither
-    # backward kernel alone)
-    q, k, v = (c[n].reshape(1, bh, s, d).detach().requires_grad_(True)
-               for n in ("q", "k", "v"))
-    do = c["do"].reshape(1, bh, s, d)
-    rows["flash_fwd"]["library_ms"] = time_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-        flush, iters=10)
-    out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-    sdpa_bwd = time_ms(
-        lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True),
-        flush, iters=10)
-    for name, row in rows.items():
-        print("flash_timing", json.dumps({"kernel": name, **row,
-                                          "shape": [1, bh, s, d]}))
-    pair_ms = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
-    print("flash_timing", json.dumps({
-        "library_backward_dq_dk_dv_ms": sdpa_bwd,
-        "backward_pair_ms": pair_ms,
-        "backward_pair_over_library": pair_ms / sdpa_bwd,
-        "forward_over_library":
-            rows["flash_fwd"]["ms"] / rows["flash_fwd"]["library_ms"]}))
+    for shape in (FLASH_TIMED, FLASH_TIMED_F32):
+        c = flash_case(*shape, dev, gen)
+        rows[shape[4]] = flash_timings(c, flush)
+        del c
     return errs, rows
 
 
@@ -837,12 +872,15 @@ def train_run(dev, shard, *, steps, dtype, dense, tag, profile_steps=0):
 
 
 def train_phase(dev):
+    """-> (flash launches of the bf16 run, of the first float32 flash
+    run)."""
     with tempfile.TemporaryDirectory() as tmp:
         shard = write_shard(tmp)
-        runs = [train_run(dev, shard, steps=8, dtype="float32", dense=dense,
-                          tag=f"{tag}_f32")["losses"]
+        recs = [train_run(dev, shard, steps=8, dtype="float32", dense=dense,
+                          tag=f"{tag}_f32")
                 for tag, dense in (("flash", False), ("dense", True),
                                    ("dense", True), ("flash", False))]
+        runs = [r["losses"] for r in recs]
         diff = max(abs(a - b) for f, d_ in ((runs[0], runs[1]),
                                             (runs[3], runs[2]))
                    for a, b in zip(f, d_))
@@ -870,7 +908,7 @@ def train_phase(dev):
                         tag="flash_bf16", profile_steps=3)
     check(out["losses"][-1] < out["losses"][0],
           "train bf16: loss did not fall")
-    return out["launches"]
+    return out["launches"], recs[0]["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -886,38 +924,75 @@ def quant_acc_case(m, dev, gen):
     return q, scale, local
 
 
+def same_bits(got, want) -> bool:
+    """Bitwise equal, a NaN matching any NaN (its payload is the
+    hardware's)."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)) and bool(torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
+def quant_acc_parity(q, scale, local, what):
+    """quant_acc (out, amax) and out alone against quant_acc_plain,
+    bitwise. -> max |out - plain| over the non-NaN elements."""
+    want, want_max = qc.quant_acc_plain(q, scale, local, amax=True)
+    got, got_max = qc.quant_acc(q, scale, local, amax=True)
+    bare = qc.quant_acc(q, scale, local)
+    torch.cuda.synchronize()
+    ok = (same_bits(got, want) and same_bits(got_max, want_max)
+          and same_bits(bare, want))
+    live = ~torch.isnan(want)
+    err = (float((got[live] - want[live]).abs().max())
+           if bool(live.any()) else 0.0)
+    print(f"quant_acc {what}: out and amax bitwise {ok}")
+    check(ok, f"quant_acc {what}: differs from plain")
+    return err
+
+
 def quant_acc_phase(dev):
-    """quant_acc against quant_acc_plain, bitwise, at every RING_SIZES
-    and at a NaN scale; timings at RING_TIMED. -> (max_abs_err, rows by
-    m)."""
+    """quant_acc against quant_acc_plain, out and amax bitwise: at every
+    RING_SIZES, on an unaligned row of a flat (4, 1001) bucket tensor,
+    with a NaN partial and with a NaN scale; then times at RING_TIMED
+    with and without amax. -> (max_abs_err, rows by m)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     err = 0.0
     for m in RING_SIZES:
         q, scale, local = quant_acc_case(m, dev, gen)
-        got, want = qc.quant_acc(q, scale, local), qc.quant_acc_plain(
-            q, scale, local)
-        torch.cuda.synchronize()
-        d = float((got - want).abs().max())
-        err = max(err, d)
-        print(f"quant_acc m {m:8d} max_abs_err {d:.3e} bitwise "
-              f"{bool(torch.equal(got, want))}")
-        check(torch.equal(got, want), f"quant_acc m {m}: differs from plain")
+        err = max(err, quant_acc_parity(q, scale, local, f"m {m}"))
         nan = torch.full((), float("nan"), device=dev)
-        check(bool(qc.quant_acc(q, nan, local).isnan().all()),
+        out, mx = qc.quant_acc(q, nan, local, amax=True)
+        check(bool(out.isnan().all()) and bool(mx.isnan()),
               f"quant_acc m {m}: a NaN scale does not give NaN everywhere")
+    # a ragged flat bucket tensor: row 1 starts 1001 bytes / 4004 bytes in
+    q, scale, local = quant_acc_case(4 * 1001, dev, gen)
+    err = max(err, quant_acc_parity(q.view(4, 1001)[1],
+                                    scale, local.view(4, 1001)[1],
+                                    "row 1 of (4, 1001)"))
+    # a NaN partial: NaN in its place and in amax
+    q, scale, local = quant_acc_case(RING_BUCKETS[0], dev, gen)
+    local[12345] = float("nan")
+    err = max(err, quant_acc_parity(q, scale, local, "NaN partial"))
+    check(bool(qc.quant_acc(q, scale, local, amax=True)[1].isnan()),
+          "quant_acc: a NaN partial does not give a NaN amax")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = {}
     for m in RING_TIMED:
         q, scale, local = quant_acc_case(m, dev, gen)
-        t_bytes = (9 * m + 4) / HBM_BYTES_PER_S
-        t_ops = 2 * m / F32_FLOPS_PER_S
+        t_bytes, t_ops = (9 * m + 4) / HBM_BYTES_PER_S, 2 * m / F32_FLOPS_PER_S
         rows[m] = {
             "ms": time_ms(lambda: qc.quant_acc(q, scale, local), flush),
+            "amax_ms": time_ms(
+                lambda: qc.quant_acc(q, scale, local, amax=True), flush),
             "plain_ms": time_ms(lambda: qc.quant_acc_plain(q, scale, local),
                                 flush),
+            "amax_plain_ms": time_ms(
+                lambda: qc.quant_acc_plain(q, scale, local, amax=True),
+                flush),
             "library_ms": time_ms(lambda: torch.addcmul(local, q, scale),
                                   flush),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
+            # amax adds one 4-byte write
+            "amax_bound_ms": max(t_bytes + 4 / HBM_BYTES_PER_S, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
         print("quant_acc_timing", json.dumps({"m": m, **rows[m]}))
@@ -979,18 +1054,36 @@ def probe(tr, grads):
 
 
 def _allgather_wrong_index(*args):
-    """A planted fault: every chunk written one index off."""
-    return [{n: torch.roll(x, 1, 0) for n, x in full.items()}
-            for full in RING_ALLGATHER(*args)]
+    """A planted fault: every chunk row written one index off."""
+    return [torch.roll(full, 1, 0) for full in RING_ALLGATHER(*args)]
+
+
+def _hop_fault(change):
+    """A planted quant_acc fault: ``change(q, s, x)`` for the sum, its
+    max-abs taken from that sum."""
+    def planted(q, s, x, *, amax=False):
+        out = change(q, s, x)
+        return (out, out.abs().max()) if amax else out
+    return planted
+
+
+def _amax_halved(q, s, x, *, amax=False):
+    """A planted fault: the fused max-abs reads half the max (the kernel
+    launched directly: a planted run counts no launches)."""
+    got = qc._launch(q, s, x, amax)
+    return (got[0], got[1] / 2) if amax else got
 
 
 RING_ALLGATHER = qc._allgather
 #: planted ring faults, each of which the probe's bar must catch
 RING_FAULTS = {
-    "hop drops its scale": ("quant_acc", lambda q, s, x: q.float() + x),
-    "hop skips its local add": ("quant_acc", lambda q, s, x: q.float() * s),
+    "hop drops its scale": ("quant_acc",
+                            _hop_fault(lambda q, s, x: q.float() + x)),
+    "hop skips its local add": ("quant_acc",
+                                _hop_fault(lambda q, s, x: q.float() * s)),
     "allgather writes the wrong index": ("_allgather",
                                          _allgather_wrong_index),
+    "the fused amax reads half the max": ("quant_acc", _amax_halved),
 }
 
 
@@ -1050,7 +1143,8 @@ def ring_run(dev, shard, tag, *, steps, dtype, profile_steps=0):
     if profile_steps:
         out["profile"] = profile(tr, steps, profile_steps)
     print("ring_train", json.dumps(out))
-    want = RING_RANKS * len(tr.params) * RING_FORMS.get(tag, 0) * steps
+    buckets = len(tr._buckets(tr.params)) if tag != "exact" else 0
+    want = RING_RANKS * buckets * RING_FORMS.get(tag, 0) * steps
     check(all(np.isfinite(losses)), f"ring {tag}: non-finite loss")
     check(launches == want, f"ring {tag}: quant_acc launches {launches} "
           f"!= {want}")
@@ -1058,8 +1152,73 @@ def ring_run(dev, shard, tag, *, steps, dtype, profile_steps=0):
     return out
 
 
+def reduce_ms(tr, reps=10) -> float:
+    """The ring's reduction alone (_ring_reduce_probe on random grads and
+    zero residuals) on the host clock to a device sync: ms per call, the
+    mean of ``reps`` after one warm-up call."""
+    grads = {n: torch.randn_like(p) * 1e-3 for n, p in tr.params.items()}
+    res = {k: torch.zeros_like(v) for k, v in tr.buffers.items()}
+    tr._ring_reduce_probe(grads, res)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tr._ring_reduce_probe(grads, res)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+RING_HOP = qc._hop
+
+
+def _unfused_hop(*args, **kw):
+    """The ring's hop without the fused max-abs: every next scale from a
+    pass of its own over the row (symmetric_scale)."""
+    return RING_HOP(*args, **{**kw, "fused": False})
+
+
+def ring_fusion(dev, shard, pairs=10):
+    """The bf16 flat ring with the next hop's max-abs fused into quant_acc
+    and without it, on one trainer: the probe's reduced grads and
+    residuals must be equal to the bit (the two give the same scales);
+    then ``pairs`` pairs, the order alternating (fused first in even
+    pairs), each side the probe's host ms (reduce_ms) and the median ms
+    of 5 synced train steps."""
+    tr = ring_trainer(dev, shard, "q8wire")
+    grads = {n: torch.randn_like(p) * 1e-3 for n, p in tr.params.items()}
+    res = {k: torch.zeros_like(v) for k, v in tr.buffers.items()}
+    times = {form: {"reduce_ms": [], "step_ms": []}
+             for form in ("fused", "unfused")}
+    got, step = {}, 0
+    for i in range(pairs):
+        for form in ("fused", "unfused")[::1 if i % 2 == 0 else -1]:
+            qc._hop = RING_HOP if form == "fused" else _unfused_hop
+            try:
+                got[form] = tr._ring_reduce_probe(grads, res)
+                times[form]["reduce_ms"].append(reduce_ms(tr))
+                ms = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    tr.train_one_batch(step)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    tr.perf.reset()
+                    step += 1
+                times[form]["step_ms"].append(sorted(ms)[2])
+            finally:
+                qc._hop = RING_HOP
+    (outs, new_res), (u_outs, u_res) = got["fused"], got["unfused"]
+    check(all(torch.equal(a[n], b[n]) for a, b in zip(outs, u_outs)
+              for n in a)
+          and all(torch.equal(new_res[k], u_res[k]) for k in new_res),
+          "ring: fused and unfused max-abs reduce differently")
+    print("ring_fusion", json.dumps({"pairs": pairs, **{
+        f"{form}_{key}": v for form, t in times.items()
+        for key, v in t.items()}}))
+
+
 def ring_phase(dev):
-    """-> (max_abs_err, timing rows by m, launches of the bf16 flat ring)."""
+    """-> (max_abs_err, the timing row at the largest bucket chunk,
+    launches of the bf16 flat ring)."""
     err, rows = quant_acc_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         shard = write_ring_shard(tmp)
@@ -1079,20 +1238,12 @@ def ring_phase(dev):
             check(run["losses"][-1] < run["losses"][0],
                   f"ring bf16 {tag}: loss did not fall")
         # the reduction alone on the host clock, as a share of the step
-        tr = bf16["q8wire"]["trainer"]
-        grads = {n: torch.randn_like(p) * 1e-3 for n, p in tr.params.items()}
-        res = {k: torch.zeros_like(v) for k, v in tr.buffers.items()}
-        tr._ring_reduce_probe(grads, res)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            tr._ring_reduce_probe(grads, res)
-        torch.cuda.synchronize()
-        reduce_ms = (time.perf_counter() - t0) * 1e3 / 10
+        ms = reduce_ms(bf16["q8wire"]["trainer"])
         print("ring_reduce", json.dumps({
-            "reduce_ms": reduce_ms,
+            "reduce_ms": ms,
             "ring_step_ms": bf16["q8wire"]["step_ms_median"],
-            "share": reduce_ms / bf16["q8wire"]["step_ms_median"]}))
+            "share": ms / bf16["q8wire"]["step_ms_median"]}))
+        ring_fusion(dev, shard)
     return err, rows[RING_TIMED[0]], bf16["q8wire"]["quant_acc_launches"]
 
 
@@ -1170,7 +1321,8 @@ def main() -> int:
         "paged_attention_overlay": spec_phase(dev, cfg, params),
     }
     flash_errs, flash_rows = flash_phase(dev)
-    launches.update(train_phase(dev))
+    flash_launches, f32_launches = train_phase(dev)
+    launches.update(flash_launches)
     ring_err, ring_row, launches["quant_acc"] = ring_phase(dev)
 
     kernels = []
@@ -1184,15 +1336,21 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
-    for name, (_, replaces, _) in FLASH.items():
-        row = flash_rows[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": FLASH_SOURCES[name],
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": flash_errs[name], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-        })
+    # the bf16 route (the main path's), then the float32 route, whose
+    # launches are those of the train phase's first float32 flash run
+    for dtype, suffix, counts in ((torch.bfloat16, "", launches),
+                                  (torch.float32, "_f32", f32_launches)):
+        for name, (_, replaces, _) in FLASH.items():
+            row = flash_rows[dtype][name]
+            kernels.append({
+                "name": name + suffix, "route": "cuda",
+                "source": FLASH_SOURCES[name, dtype], "replaces": replaces,
+                "launches": counts[name],
+                "max_abs_err": flash_errs[dtype][name], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+            })
     kernels.append({
         "name": "quant_acc", "route": "cuda", "source": RING_SOURCE,
         "replaces": RING_REPLACES, "launches": launches["quant_acc"],
@@ -1200,6 +1358,8 @@ def main() -> int:
         "plain_ms": ring_row["plain_ms"], "bound_ms": ring_row["bound_ms"],
         "bound_by": ring_row["bound_by"],
         "library_ms": ring_row["library_ms"],
+        "m": RING_TIMED[0], "amax_ms": ring_row["amax_ms"],
+        "amax_bound_ms": ring_row["amax_bound_ms"],
     })
     print(smi)
     print(json.dumps({"kernels": kernels}))

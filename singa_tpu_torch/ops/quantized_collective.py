@@ -12,14 +12,23 @@ rank r receives what rank (r - 1) mod n sent, copied to rank r's device
 another's tensor). A process-per-GPU transport replaces that one
 function and leaves the ring as it is.
 
-  reduce-scatter   each param's gradient is chunked over the n ranks
-                   (``chunk_dims``); at hop t every rank quantizes its
-                   accumulated chunks to int8 with one symmetric max-abs
-                   scale per bucket, sends the bytes and the scale one
-                   hop, and :func:`quant_acc` dequantizes what arrived and
-                   adds the rank's own float32 partial of that chunk
-                   (rank r starts at chunk r-1 and adds chunk r-t-2 at
-                   hop t, so after n-1 hops it holds the sum of chunk r).
+  bucket rows      each param's gradient is chunked over the n ranks
+                   (``chunk_dims``), and a bucket's chunks are laid out
+                   once per rank as one float32 (n, C) tensor: row j
+                   holds chunk j of every param of the bucket, flattened,
+                   in bucket order. Every step below runs on whole rows,
+                   so a hop is one quantize, one send and one
+                   :func:`quant_acc` launch per rank and bucket, whatever
+                   the number of params in the bucket.
+  reduce-scatter   at hop t every rank quantizes its accumulated row to
+                   int8 with one symmetric max-abs scale, sends the bytes
+                   and the scale one hop, and :func:`quant_acc`
+                   dequantizes what arrived and adds the rank's own
+                   float32 row of that chunk (rank r starts at chunk r-1
+                   and adds chunk r-t-2 at hop t, so after n-1 hops it
+                   holds the sum of chunk r). Where the sum feeds another
+                   scale, the same launch returns its max-abs, so the next
+                   scale needs no pass of its own over the row.
   owner quantize   the owner adds its error-feedback residual in float32,
                    quantizes the finished sum once and banks the exact
                    quantization error as the next step's residual (the
@@ -38,7 +47,10 @@ then a two-level allgather of the bytes. Chunk granularity stays n, so
 residual layouts are those of the flat ring of the same width.
 
 Scales stay device tensors from end to end: nothing here reads a value
-back to the host, so the ring never waits for the device.
+back to the host, so the ring never waits for the device. The scale is
+one per bucket, max is exact, and every element goes through the same
+operations as on per-param chunks, so the row layout changes no bit of
+the result and no byte on the wire.
 
 Dispatch of :func:`quant_acc` is by device and nothing else: a CUDA
 tensor launches the kernel of ``csrc/quant_acc.cu`` or raises; a CPU
@@ -51,6 +63,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -72,10 +85,24 @@ _SUBLANE, _LANE = 8, 128
 
 
 def _const(like: torch.Tensor, value: float) -> torch.Tensor:
-    """A float32 scalar on ``like``'s device. Dividing by a Python number
-    would let PyTorch's CUDA division multiply by its reciprocal, which
-    rounds differently from the CPU's true division."""
-    return torch.full((), value, dtype=torch.float32, device=like.device)
+    """A float32 scalar on ``like``'s device (made once per device and
+    value; nothing writes to it). Dividing by a Python number would let
+    PyTorch's CUDA division multiply by its reciprocal, which rounds
+    differently from the CPU's true division."""
+    return _const_on(like.device, value)
+
+
+@functools.cache
+def _const_on(device: torch.device, value: float) -> torch.Tensor:
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def scale_from_amax(amax: torch.Tensor) -> torch.Tensor:
+    """The symmetric int8 scale of a bucket whose max-abs is ``amax`` (a
+    float32 0-d tensor): floored away from zero, over 127. A NaN max
+    gives a NaN scale (``torch.maximum`` propagates NaN)."""
+    return (torch.maximum(amax, _const(amax, _SCALE_FLOOR))
+            / _const(amax, INT8_MAX))
 
 
 def symmetric_scale(arrays) -> torch.Tensor:
@@ -83,11 +110,9 @@ def symmetric_scale(arrays) -> torch.Tensor:
     in it, floored away from zero. Max is exactly associative, so the
     scale does not depend on layout; a NaN/Inf element poisons it
     (``torch.maximum`` propagates NaN), the guard's contract."""
-    amax = functools.reduce(
+    return scale_from_amax(functools.reduce(
         torch.maximum, (a.float().abs().max() for a in arrays)
-    )
-    return (torch.maximum(amax, _const(amax, _SCALE_FLOOR))
-            / _const(amax, INT8_MAX))
+    ))
 
 
 def quantize_int8(e: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -270,10 +295,17 @@ def hier_ring_geometry(widths, ring, *, data_axis: str = "data"):
 
 
 def quant_acc_plain(q: torch.Tensor, scale: torch.Tensor,
-                    local: torch.Tensor) -> torch.Tensor:
+                    local: torch.Tensor, *, amax: bool = False):
     """``dequantize_int8(q, scale) + local``: the multiply and the add
-    rounded separately, as the kernel does them."""
-    return q.float() * scale + local
+    rounded separately, as the kernel does them. With ``amax``, also
+    max |out| as a float32 0-d tensor (0 for an empty ``out``; NaN if any
+    element is NaN) -> ``(out, amax)``."""
+    out = q.float() * scale + local
+    if not amax:
+        return out
+    if out.numel() == 0:
+        return out, torch.zeros((), dtype=torch.float32, device=out.device)
+    return out, out.abs().max()
 
 
 @functools.cache
@@ -283,20 +315,39 @@ def _kernel():
     from .. import _build
 
     fn = _build.load("quant_acc").singa_quant_acc
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong,
                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def quant_acc(q: torch.Tensor, scale: torch.Tensor,
-              local: torch.Tensor) -> torch.Tensor:
+def _launch(q: torch.Tensor, scale: torch.Tensor, local: torch.Tensor,
+            amax: bool):
+    """One launch of the kernel on CUDA operands that :func:`quant_acc`
+    has checked -> ``out`` or ``(out, amax)``."""
+    out = torch.empty_like(local)
+    mx = (torch.empty((), dtype=torch.float32, device=local.device)
+          if amax else None)
+    err = _kernel()(
+        q.data_ptr(), scale.data_ptr(), local.data_ptr(), out.data_ptr(),
+        None if mx is None else mx.data_ptr(), local.numel(),
+        torch.cuda.current_stream(local.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"quant_acc kernel launch failed: CUDA error {err}")
+    return out if mx is None else (out, mx)
+
+
+def quant_acc(q: torch.Tensor, scale: torch.Tensor, local: torch.Tensor,
+              *, amax: bool = False):
     """``float(q) * scale + local`` elementwise -> a new float32 tensor
     of ``local``'s shape: the ring's per-hop step. ``q`` int8 and
     ``local`` float32 of one shape, both contiguous; ``scale`` a
-    one-element float32 tensor; all on one device. A CUDA tensor
-    launches the kernel (one read of the int8 chunk and of the local
-    partial, one write); a CPU tensor takes :func:`quant_acc_plain`."""
+    one-element float32 tensor; all on one device. With ``amax``, also
+    max |out| as a float32 0-d tensor on that device, from the same pass
+    -> ``(out, amax)``. A CUDA tensor launches the kernel (one read of
+    the int8 chunk and of the local partial, one write); a CPU tensor
+    takes :func:`quant_acc_plain`."""
     if q.dtype != torch.int8 or local.dtype != torch.float32:
         raise ValueError(f"quant_acc: q must be int8 and local float32, got "
                          f"{q.dtype} and {local.dtype}")
@@ -310,18 +361,12 @@ def quant_acc(q: torch.Tensor, scale: torch.Tensor,
     if not (q.is_contiguous() and local.is_contiguous()):
         raise ValueError("quant_acc: q and local must be contiguous")
     if local.device.type == "cpu":
-        return quant_acc_plain(q, scale, local)
+        return quant_acc_plain(q, scale, local, amax=amax)
     if local.device.type != "cuda":
         raise ValueError(f"quant_acc: no path for {local.device}")
-    out = torch.empty_like(local)
-    err = _kernel()(
-        q.data_ptr(), scale.data_ptr(), local.data_ptr(), out.data_ptr(),
-        local.numel(), torch.cuda.current_stream(local.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"quant_acc kernel launch failed: CUDA error {err}")
+    got = _launch(q, scale, local, amax)
     quant_acc.launches += 1
-    return out
+    return got
 
 
 quant_acc.launches = 0
@@ -367,22 +412,52 @@ def _unchunk(y: torch.Tensor, d: int, shape) -> torch.Tensor:
     return torch.movedim(z, 0, d).reshape(shape)
 
 
-def _hop(acc: list, local: list, perm, dtype: str, level: str) -> list:
-    """One reduce hop for every rank: quantize the accumulated chunks
-    (one scale per rank over its bucket), send bytes and scale along
-    ``perm``, then dequantize what arrived and add the local partial."""
-    scales = [symmetric_scale(a.values()) if dtype == "int8" else None
-              for a in acc]
-    wires = [{nm: wire_cast(x, s, dtype) for nm, x in a.items()}
-             for a, s in zip(acc, scales)]
-    moved = {nm: ppermute([w[nm] for w in wires], perm, level)
-             for nm in acc[0]}
-    if dtype == "int8":
-        scales = ppermute(scales, perm, level)
-        return [{nm: quant_acc(moved[nm][r], scales[r], loc[nm])
-                 for nm in loc} for r, loc in enumerate(local)]
-    return [{nm: wire_uncast(moved[nm][r], None, dtype) + loc[nm]
-             for nm in loc} for r, loc in enumerate(local)]
+def _bucket_table(grads: dict, bucket, chunk_dims: dict, n: int) -> list:
+    """Where each param of ``bucket`` lies in a bucket row: ``[(name,
+    offset, size, chunk shape)]`` in bucket order, the chunk shape that of
+    ``_chunked(g, d, n)[j]``."""
+    table, offset = [], 0
+    for nm in bucket:
+        shape = list(grads[nm].shape)
+        d = chunk_dims[nm]
+        chunk = (shape[d] // n,) + tuple(shape[:d] + shape[d + 1:])
+        size = math.prod(chunk)
+        table.append((nm, offset, size, chunk))
+        offset += size
+    return table
+
+
+def _bucket_rows(grads: dict, table: list, chunk_dims: dict,
+                 n: int) -> torch.Tensor:
+    """One rank's bucket as a float32 (n, C) tensor: row j holds chunk j
+    of every param of ``table``, flattened, in table order."""
+    return torch.cat([_chunked(grads[nm], chunk_dims[nm], n)
+                      .reshape(n, -1).float() for nm, *_ in table], dim=1)
+
+
+def _hop(acc: list, local: list, perm, dtype: str, level: str,
+         scales: list | None = None, fused: bool = False):
+    """One reduce hop for every rank: quantize the accumulated row (one
+    scale per rank: ``scales`` if given, else its max-abs), send bytes
+    and scale along ``perm``, then dequantize what arrived and add the
+    local row. -> (new rows, next scales): with ``fused`` the kernel also
+    returns each new row's max-abs and the next hop's scales come from it
+    (bitwise those :func:`symmetric_scale` would give), else None."""
+    if dtype != "int8":
+        moved = ppermute([wire_cast(a, None, dtype) for a in acc], perm,
+                         level)
+        return [wire_uncast(w, None, dtype) + x
+                for w, x in zip(moved, local)], None
+    if scales is None:
+        scales = [symmetric_scale([a]) for a in acc]
+    moved = ppermute([wire_cast(a, s, dtype) for a, s in zip(acc, scales)],
+                     perm, level)
+    scales = ppermute(scales, perm, level)
+    got = [quant_acc(w, s, x, amax=fused)
+           for w, s, x in zip(moved, scales, local)]
+    if not fused:
+        return got, None
+    return [o for o, _ in got], [scale_from_amax(m) for _, m in got]
 
 
 def _hier_perms(K: int, M: int):
@@ -396,121 +471,102 @@ def _hier_perms(K: int, M: int):
     return intra, inter
 
 
-def _hier_reduce_scatter(chunks: list, K: int, M: int, dtype: str) -> list:
-    """Two-level reduce-scatter over already-chunked grads -> each rank's
-    sum of its own chunk g*K + p, the flat ring's post-scatter state.
+def _hier_reduce_scatter(rows: list, K: int, M: int, dtype: str,
+                         fuse_last: bool):
+    """Two-level reduce-scatter over bucket rows (per rank (n, C)) ->
+    (each rank's sum of its own chunk g*K + p, the flat ring's
+    post-scatter state; that sum's scales if the last hop fused them).
 
-    Level 1 (intra, float32 on the wire): view the n = K*M chunks
-    piece-major as (K, M, c, ...), piece j holding every chunk at intra
-    position j, and reduce-scatter the K pieces within the group: after
-    K-1 hops rank (g, p) holds the group's sum of piece p, an (M, c, ...)
-    plane. Level 2 (inter, int8 on the wire): the flat ring's hop over
-    the M entries of that plane."""
+    Level 1 (intra, float32 on the wire): view the n = K*M rows
+    piece-major as (K, M, C), piece j holding every row at intra position
+    j, and reduce-scatter the K pieces within the group: after K-1 hops
+    rank (g, p) holds the group's sum of piece p, an (M, C) plane. Level
+    2 (inter, int8 on the wire): the flat ring's hop over the M rows of
+    that plane; every hop but the last fuses the next scale, the last
+    one too with ``fuse_last``."""
     iperm, xperm = _hier_perms(K, M)
-    pieces = [
-        {nm: torch.swapaxes(c.reshape((M, K) + tuple(c.shape[1:])), 0, 1)
-         .float().contiguous() for nm, c in ch.items()}
-        for ch in chunks
-    ]
-    acc = [{nm: pc[(r % K - 1) % K] for nm, pc in pcs.items()}
-           for r, pcs in enumerate(pieces)]
+    pieces = [torch.swapaxes(x.reshape(M, K, -1), 0, 1).contiguous()
+              for x in rows]
+    acc = [pc[(r % K - 1) % K] for r, pc in enumerate(pieces)]
     for t in range(K - 1):
-        moved = {nm: ppermute([a[nm] for a in acc], iperm, "intra")
-                 for nm in acc[0]}
-        acc = [{nm: moved[nm][r] + pcs[nm][(r % K - t - 2) % K]
-                for nm in pcs} for r, pcs in enumerate(pieces)]
-    out = [{nm: a[(r // K - 1) % M] for nm, a in ac.items()}
-           for r, ac in enumerate(acc)]
+        moved = ppermute(acc, iperm, "intra")
+        acc = [moved[r] + pc[(r % K - t - 2) % K]
+               for r, pc in enumerate(pieces)]
+    out = [a[(r // K - 1) % M] for r, a in enumerate(acc)]
+    scales = None
     for t in range(M - 1):
-        local = [{nm: a[(r // K - t - 2) % M] for nm, a in ac.items()}
-                 for r, ac in enumerate(acc)]
-        out = _hop(out, local, xperm, dtype, "inter")
-    return out
+        local = [a[(r // K - t - 2) % M] for r, a in enumerate(acc)]
+        out, scales = _hop(out, local, xperm, dtype, "inter", scales,
+                           fused=t < M - 2 or fuse_last)
+    return out, scales
 
 
 def _allgather(fq: list, fscale: list, deq: list, dtype: str) -> list:
-    """Flat allgather of the owner-quantized (bytes, scale) pairs ->
-    per rank {name: (n, c, ...) float32} in chunk order. Rank r writes
-    what arrives at hop t into chunk (r - t - 1) mod n."""
+    """Flat allgather of the owner-quantized (bytes, scale) rows -> per
+    rank the (n, C) float32 bucket rows in chunk order. Rank r writes what
+    arrives at hop t into row (r - t - 1) mod n."""
     n = len(fq)
     perm = [(j, (j + 1) % n) for j in range(n)]
-    bufs = [{nm: [None] * n for nm in q} for q in fq]
+    bufs = [[None] * n for _ in range(n)]
     for r in range(n):
-        for nm, x in deq[r].items():
-            bufs[r][nm][r] = x
+        bufs[r][r] = deq[r]
     w, s = fq, fscale
     for t in range(n - 1):
-        moved = {nm: ppermute([x[nm] for x in w], perm) for nm in w[0]}
-        w = [{nm: moved[nm][r] for nm in moved} for r in range(n)]
+        w = ppermute(w, perm)
         if dtype == "int8":
             s = ppermute(s, perm)
         for r in range(n):
-            for nm, x in w[r].items():
-                bufs[r][nm][(r - t - 1) % n] = wire_uncast(x, s[r], dtype)
-    return [{nm: torch.stack(b) for nm, b in buf.items()} for buf in bufs]
+            bufs[r][(r - t - 1) % n] = wire_uncast(w[r], s[r], dtype)
+    return [torch.stack(b) for b in bufs]
 
 
 def _hier_allgather(fq: list, fscale: list, K: int, M: int,
                     dtype: str) -> list:
-    """Two-level allgather of the owner-quantized (bytes, scale) pairs:
-    the inter ring collects the M chunk planes at this rank's intra
-    position, then the intra ring carries the (M, c, ...) byte plane and
-    its M scales around the group whole. Every rank dequantizes the same
-    bytes with the same scales. -> per rank {name: (n, c, ...) float32}
-    in chunk order."""
+    """Two-level allgather of the owner-quantized (bytes, scale) rows:
+    the inter ring collects the M rows at this rank's intra position,
+    then the intra ring carries the (M, C) byte plane and its M scales
+    around the group whole. Every rank dequantizes the same bytes with
+    the same scales. -> per rank the (n, C) float32 bucket rows in chunk
+    order."""
     n = K * M
     iperm, xperm = _hier_perms(K, M)
     int8 = dtype == "int8"
-    planes = [{nm: [None] * M for nm in q} for q in fq]
+    planes = [[None] * M for _ in range(n)]
     scales = [[None] * M for _ in range(n)]
     for r in range(n):
-        for nm, x in fq[r].items():
-            planes[r][nm][r // K] = x
+        planes[r][r // K] = fq[r]
         scales[r][r // K] = fscale[r]
     w, s = fq, fscale
     for t in range(M - 1):
-        moved = {nm: ppermute([x[nm] for x in w], xperm, "inter")
-                 for nm in w[0]}
-        w = [{nm: moved[nm][r] for nm in moved} for r in range(n)]
+        w = ppermute(w, xperm, "inter")
         if int8:
             s = ppermute(s, xperm, "inter")
         for r in range(n):
             idx = (r // K - t - 1) % M
-            for nm, x in w[r].items():
-                planes[r][nm][idx] = x
+            planes[r][idx] = w[r]
             scales[r][idx] = s[r]
-    w = [{nm: torch.stack(p) for nm, p in pl.items()} for pl in planes]
+    w = [torch.stack(p) for p in planes]
     s = [torch.stack(sc) for sc in scales] if int8 else [None] * n
-    big = [{nm: [None] * K for nm in x} for x in w]
+    big = [[None] * K for _ in range(n)]
     bigs = [[None] * K for _ in range(n)]
     for r in range(n):
-        for nm, x in w[r].items():
-            big[r][nm][r % K] = x
+        big[r][r % K] = w[r]
         bigs[r][r % K] = s[r]
     for t in range(K - 1):
-        moved = {nm: ppermute([x[nm] for x in w], iperm, "intra")
-                 for nm in w[0]}
-        w = [{nm: moved[nm][r] for nm in moved} for r in range(n)]
+        w = ppermute(w, iperm, "intra")
         if int8:
             s = ppermute(s, iperm, "intra")
         for r in range(n):
             idx = (r % K - t - 1) % K
-            for nm, x in w[r].items():
-                big[r][nm][idx] = x
+            big[r][idx] = w[r]
             bigs[r][idx] = s[r]
     out = []
     for r in range(n):
-        full = {}
-        for nm, parts in big[r].items():
-            arr = torch.stack(parts)  # (K, M, c, ...) wire dtype
-            f = arr.float()
-            if int8:
-                f = f * torch.stack(bigs[r]).reshape(
-                    (K, M) + (1,) * (arr.ndim - 2))
-            # [j, g] holds chunk g*K + j -> chunk-index order (n, c, ...)
-            full[nm] = torch.swapaxes(f, 0, 1).reshape(
-                (n,) + tuple(arr.shape[2:]))
-        out.append(full)
+        f = torch.stack(big[r]).float()  # (K, M, C)
+        if int8:
+            f = f * torch.stack(bigs[r]).reshape(K, M, 1)
+        # [j, g] holds row g*K + j -> chunk-index order (n, C)
+        out.append(torch.swapaxes(f, 0, 1).reshape(n, -1))
     return out
 
 
@@ -537,7 +593,9 @@ def ring_reduce_gradients(
     ``parallel.collectives.reverse_topo_buckets``: one wire scale per
     bucket per hop. Buckets run in their order, which in eager PyTorch is
     the issue order; the JAX package's optimization_barrier chain has
-    nothing to add here.
+    nothing to add here. Inside the ring each bucket is one (n, C) row
+    tensor per rank (the module's docstring); grads and residuals go in
+    and come out per param.
 
     The reduced grads are dequantized from the same (bytes, scale) pairs
     on every rank, so they are bitwise identical across ranks.
@@ -548,47 +606,58 @@ def ring_reduce_gradients(
         raise ValueError(f"hier geometry {hier[0]}x{hier[1]} does not "
                          f"match {n} ranks")
     banks = error_feedback and residual_key is not None
+    int8 = dtype == "int8"
     out = [{} for _ in range(n)]
     new_res = [{} for _ in range(n)]
     for bucket in buckets:
-        chunks = [{nm: _chunked(g[nm], chunk_dims[nm], n) for nm in bucket}
-                  for g in grads]
+        table = _bucket_table(grads[0], bucket, chunk_dims, n)
+        rows = [_bucket_rows(g, table, chunk_dims, n) for g in grads]
+        # the owner scales the finished sum as it is unless it adds a
+        # residual first: then the last reduce hop's max-abs is of use
         if hier is not None:
-            acc = _hier_reduce_scatter(chunks, *hier, dtype)
+            acc, scales = _hier_reduce_scatter(rows, *hier, dtype,
+                                               fuse_last=not banks)
         else:
-            acc = [{nm: c[(r - 1) % n] for nm, c in ch.items()}
-                   for r, ch in enumerate(chunks)]
+            acc = [x[(r - 1) % n] for r, x in enumerate(rows)]
+            scales = None
             for t in range(n - 1):
-                local = [{nm: c[(r - t - 2) % n] for nm, c in ch.items()}
-                         for r, ch in enumerate(chunks)]
-                acc = _hop(acc, local, perm, dtype, "data")
+                local = [x[(r - t - 2) % n] for r, x in enumerate(rows)]
+                acc, scales = _hop(acc, local, perm, dtype, "data", scales,
+                                   fused=t < n - 2 or not banks)
         if banks:
-            acc = [{nm: a + torch.movedim(
-                        residuals[r][residual_key(nm)].float(),
-                        chunk_dims[nm], 0)
-                    for nm, a in ac.items()} for r, ac in enumerate(acc)]
-        fscale = [symmetric_scale(a.values()) if dtype == "int8" else None
-                  for a in acc]
-        fq = [{nm: wire_cast(x, s, dtype) for nm, x in a.items()}
-              for a, s in zip(acc, fscale)]
-        deq = [{nm: wire_uncast(w, s, dtype) for nm, w in q.items()}
-               for q, s in zip(fq, fscale)]
+            acc = [a + torch.cat([
+                       torch.movedim(residuals[r][residual_key(nm)].float(),
+                                     chunk_dims[nm], 0).reshape(-1)
+                       for nm, *_ in table])
+                   for r, a in enumerate(acc)]
+            scales = None
+        if not int8:
+            fscale = [None] * n
+        elif scales is not None:
+            fscale = scales
+        else:
+            fscale = [symmetric_scale([a]) for a in acc]
+        fq = [wire_cast(a, s, dtype) for a, s in zip(acc, fscale)]
+        deq = [wire_uncast(w, s, dtype) for w, s in zip(fq, fscale)]
         if banks:
             for r in range(n):
-                for nm in bucket:
+                err = acc[r] - deq[r]
+                for nm, off, size, chunk in table:
                     new_res[r][residual_key(nm)] = torch.movedim(
-                        acc[r][nm] - deq[r][nm], 0, chunk_dims[nm])
+                        err[off:off + size].reshape(chunk), 0,
+                        chunk_dims[nm])
         if n == 1:
-            full = [{nm: x[None] for nm, x in deq[0].items()}]
+            full = [deq[0][None]]
         elif hier is not None:
             full = _hier_allgather(fq, fscale, *hier, dtype)
         else:
             full = _allgather(fq, fscale, deq, dtype)
         for r in range(n):
-            for nm in bucket:
+            for nm, off, size, chunk in table:
                 g = grads[r][nm]
-                out[r][nm] = _unchunk(full[r][nm], chunk_dims[nm],
-                                      g.shape).to(g.dtype)
+                out[r][nm] = _unchunk(
+                    full[r][:, off:off + size].reshape((n,) + chunk),
+                    chunk_dims[nm], g.shape).to(g.dtype)
     return out, new_res
 
 

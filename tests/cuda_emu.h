@@ -1,10 +1,11 @@
 // CPU emulation of the CUDA primitives that the kernel sources
-// singa_tpu_torch/csrc/flash_attention_bf16.cu and paged_attention.cu
-// use, so that their kernel code (tile loads, swizzled ldmatrix
-// addressing, mma fragment layouts, shuffles, masks, reductions) runs on a
-// machine without a GPU. The tests that use it
+// singa_tpu_torch/csrc/flash_attention_bf16.cu, paged_attention.cu and
+// quant_acc.cu use, so that their kernel code (tile loads, swizzled
+// ldmatrix addressing, mma fragment layouts, shuffles, masks, reductions,
+// atomics) runs on a machine without a GPU. The tests that use it
 // (tests/test_torch_flash_bwd.py, test_torch_flash_fwd.py,
-// test_torch_paged_split.py) compile a kernel source with g++ after
+// test_torch_paged_split.py, test_torch_quant_acc.py) compile a kernel
+// source with g++ after
 // swapping each inline-assembly primitive for the emu_* function of the
 // same meaning and each <<<grid, block, smem, stream>>> launch for
 // emu_launch.
@@ -19,9 +20,13 @@
 // operands are reused. cp.async copies synchronously. The mma sums its 16
 // products in float32 in k order (the card's tensor cores may round
 // differently within a step, well inside the tests' bf16 bar).
+// __fmul_rn and __fadd_rn round each result to float32 on its own (a
+// volatile store, so g++ cannot contract them into an FMA); atomicMax is
+// a compare-and-swap loop; the device reports emu_sm_count SMs.
 #pragma once
 
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <climits>
 #include <cmath>
@@ -62,6 +67,7 @@ using std::min;
 
 inline thread_local uint3_ threadIdx;
 inline uint3_ blockIdx;
+inline dim3 gridDim, blockDim;
 inline uint4 smem[1 << 15];  // 512 KB, above the card's 227 KB a block
 inline std::barrier<>* block_barrier;
 inline std::barrier<>* warp_barrier[32];
@@ -79,6 +85,46 @@ cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int bytes) {
   return bytes <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return cudaSuccess;
+}
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline int emu_sm_count = 132;  // an H100's
+extern "C" void emu_set_sm_count(int n) { emu_sm_count = n; }
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = emu_sm_count;
+  return cudaSuccess;
+}
+
+template <typename T>
+inline T __ldg(const T* p) {
+  return *p;
+}
+inline float __fmul_rn(float a, float b) {
+  volatile float r = a * b;
+  return r;
+}
+inline float __fadd_rn(float a, float b) {
+  volatile float r = a + b;
+  return r;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  std::atomic_ref<unsigned> a(*p);
+  unsigned old = a.load();
+  while (old < v && !a.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
 
 struct __nv_bfloat16 {
   unsigned short x;
@@ -112,6 +158,7 @@ struct EmuWarp {
   unsigned addr[32];
   unsigned a[32][4], b[32][2];
   float f[32];
+  unsigned u[32];
 };
 inline EmuWarp emu_warp[32];
 
@@ -192,11 +239,22 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
 inline float __shfl_sync(unsigned, float v, int src) {
   return emu_shfl(v, [src](int) { return src; });
 }
+inline unsigned __shfl_xor_sync(unsigned, unsigned v, int mask) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  EmuWarp& x = emu_warp[w];
+  x.u[l] = v;
+  warp_barrier[w]->arrive_and_wait();
+  const unsigned r = x.u[(l ^ mask) & 31];
+  warp_barrier[w]->arrive_and_wait();
+  return r;
+}
 
 template <typename K, typename... A>
 void emu_launch(K kernel, dim3 grid, int threads, A... args) {
   std::barrier<> block(threads);
   block_barrier = &block;
+  gridDim = grid;
+  blockDim = dim3(threads);
   for (int w = 0; w < threads / 32; ++w)
     warp_barrier[w] = new std::barrier<>(32);
   for (unsigned z = 0; z < grid.z; ++z)

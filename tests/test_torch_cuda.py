@@ -271,22 +271,29 @@ def test_trainer_steps_through_the_flash_kernels(cuda_device, tmp_path,
     np.testing.assert_allclose(losses[:2], losses[2:], atol=1e-4)
 
 
-@pytest.mark.parametrize("m", [1, 3, 64, 1000, 16384, 65536, 1 << 24])
+@pytest.mark.parametrize("m", [1, 3, 64, 1000, 16384, 65536, 41088,
+                               147648, 1 << 24])
 def test_quant_acc_matches_plain_bitwise(cuda_device, m):
     """The kernel rounds the product and the sum separately, as the plain
-    version does: equal to the bit at every length, the vector body and
-    the scalar tail, aligned or not (an offset of one element)."""
+    version does: out and the fused amax equal to the bit at every length
+    (the ring's bucket chunks among them), the vector body and the scalar
+    tail, aligned or not (offsets of one and of four elements)."""
     gen = torch.Generator().manual_seed(m)
-    q = torch.randint(-127, 128, (m + 1,), generator=gen,
+    q = torch.randint(-127, 128, (m + 4,), generator=gen,
                       dtype=torch.int8).to(cuda_device)
-    local = torch.randn(m + 1, generator=gen).to(cuda_device)
+    local = torch.randn(m + 4, generator=gen).to(cuda_device)
     scale = torch.tensor(0.0123, device=cuda_device)
     before = qc.quant_acc.launches
-    for a, b in ((q[:m], local[:m]), (q[1:], local[1:])):
+    for a, b in ((q[:m], local[:m]), (q[1:m + 1], local[1:m + 1]),
+                 (q[4:], local[4:])):
         got = qc.quant_acc(a, scale, b)
+        fused, amax = qc.quant_acc(a, scale, b, amax=True)
         torch.cuda.synchronize()
-        assert torch.equal(got, qc.quant_acc_plain(a, scale, b))
-    assert qc.quant_acc.launches == before + 2
+        want, want_max = qc.quant_acc_plain(a, scale, b, amax=True)
+        assert torch.equal(got, want) and torch.equal(fused, want)
+        assert amax.dtype == torch.float32 and amax.shape == ()
+        assert torch.equal(amax, want_max)
+    assert qc.quant_acc.launches == before + 6
 
 
 def test_quant_acc_nan_scale_and_refusals(cuda_device):
@@ -294,6 +301,11 @@ def test_quant_acc_nan_scale_and_refusals(cuda_device):
     local = torch.randn(1000, device=cuda_device)
     nan = torch.tensor(float("nan"), device=cuda_device)
     assert bool(qc.quant_acc(q, nan, local).isnan().all())
+    out, amax = qc.quant_acc(q, nan, local, amax=True)
+    assert bool(out.isnan().all()) and bool(amax.isnan())
+    local[500] = float("nan")
+    half = torch.tensor(0.5, device=cuda_device)
+    assert bool(qc.quant_acc(q, half, local, amax=True)[1].isnan())
     before = qc.quant_acc.launches
     strided = torch.zeros(1000, 2, dtype=torch.int8, device=cuda_device)[:, 0]
     with pytest.raises(ValueError, match="contiguous"):
@@ -307,7 +319,7 @@ def test_quant_acc_nan_scale_and_refusals(cuda_device):
 def test_ring_on_the_card_equals_the_ring_on_the_cpu(cuda_device, hier):
     """4 ranks on the card and 4 on the CPU, the same partials and
     residual chunks: the same reduced grads and residuals to the bit, and
-    one launch per rank, param and quantized reduce hop."""
+    one launch per rank, bucket and quantized reduce hop."""
     rs = np.random.RandomState(0)
     shapes = {"w": (256, 64), "b": (64,), "ln": (8, 4, 4)}
     grads = [{k: rs.randn(*v).astype(np.float32) for k, v in shapes.items()}
@@ -326,7 +338,7 @@ def test_ring_on_the_card_equals_the_ring_on_the_cpu(cuda_device, hier):
             residual_key=lambda k: "r/" + k, hier=hier,
         )
         hops = 3 if hier is None else 1
-        want = 4 * len(shapes) * hops if dev.type == "cuda" else 0
+        want = 4 * 2 * hops if dev.type == "cuda" else 0  # 2 buckets
         assert qc.quant_acc.launches == before + want
     for got, ref in zip(outs["cuda"], outs["cpu"]):
         for r in range(4):

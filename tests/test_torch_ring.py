@@ -193,7 +193,7 @@ def test_geometry_predicates_give_the_jax_verdicts(kind, args):
 SHAPES = {"a": (8, 12), "b": (16,), "c": (4, 8, 3)}
 
 
-def jax_ring(grads, res, buckets, cdims, ef, hier):
+def jax_ring(grads, res, buckets, cdims, ef, hier, shapes=SHAPES):
     """The JAX ring under shard_map: rank r's partials are grads[r], its
     residual chunk is chunk r of ``res``. -> (per-rank outputs, whole new
     residuals)."""
@@ -202,26 +202,26 @@ def jax_ring(grads, res, buckets, cdims, ef, hier):
     n = len(grads)
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:n]), ("data",))
     rkey = lambda nm: "res/" + nm  # noqa: E731
-    cspec = {k: P(*([None] * cdims[k] + ["data"])) for k in SHAPES}
-    rspec = {rkey(k): cspec[k] for k in SHAPES}
+    cspec = {k: P(*([None] * cdims[k] + ["data"])) for k in shapes}
+    rspec = {rkey(k): cspec[k] for k in shapes}
 
     def body(gs, rs):
         out, nr = jq.ring_reduce_gradients(
             {k: v[0] for k, v in gs.items()}, rs, buckets,
             axis_name="data", nshards=n, chunk_dims=cdims,
-            gather={k: True for k in SHAPES}, dtype="int8",
+            gather={k: True for k in shapes}, dtype="int8",
             error_feedback=ef, residual_key=rkey,
             hier=None if hier is None else ("data", "data", *hier))
         return {k: v[None] for k, v in out.items()}, nr
 
     fn = jq.shard_map(
         body, mesh=mesh,
-        in_specs=({k: P("data") for k in SHAPES}, rspec),
-        out_specs=({k: P("data") for k in SHAPES}, rspec if ef else {}),
+        in_specs=({k: P("data") for k in shapes}, rspec),
+        out_specs=({k: P("data") for k in shapes}, rspec if ef else {}),
         check_rep=False,
     )
     out, new_res = fn(
-        {k: jnp.asarray(np.stack([g[k] for g in grads])) for k in SHAPES},
+        {k: jnp.asarray(np.stack([g[k] for g in grads])) for k in shapes},
         {rkey(k): jnp.asarray(v) for k, v in res.items()},
     )
     return ([{k: np.asarray(v[r]) for k, v in out.items()}
@@ -239,19 +239,20 @@ RING_CASES = [
 ]
 
 
-@pytest.mark.parametrize("n,nb,ef,dim1,hier", RING_CASES)
-def test_ring_reduce_matches_jax_ring(n, nb, ef, dim1, hier):
-    rs = np.random.RandomState(n * 10 + nb)
-    grads = [{k: rs.randn(*s).astype(np.float32) for k, s in SHAPES.items()}
+def ring_inputs(seed, n, shapes=SHAPES):
+    """Seeded per-rank partials and whole residuals (numpy)."""
+    rs = np.random.RandomState(seed)
+    grads = [{k: rs.randn(*s).astype(np.float32) for k, s in shapes.items()}
              for _ in range(n)]
     res = {k: (rs.randn(*s) * 1e-3).astype(np.float32)
-           for k, s in SHAPES.items()}
-    cdims = {k: 0 for k in SHAPES}
-    if dim1:
-        cdims["a"] = 1
-    buckets = (tuple(SHAPES),) if nb == 1 else (("a",), ("b", "c"))
-    want, want_res = jax_ring(grads, res, buckets, cdims, ef, hier)
-    got, got_res = tq.ring_reduce_gradients(
+           for k, s in shapes.items()}
+    return grads, res
+
+
+def port_ring(grads, res, buckets, cdims, ef, hier):
+    """The port's ring on n CPU ranks, each given its residual chunk r."""
+    n = len(grads)
+    return tq.ring_reduce_gradients(
         [{k: torch.from_numpy(v) for k, v in g.items()} for g in grads],
         [{"res/" + k: torch.from_numpy(np.ascontiguousarray(
             np.split(v, n, axis=cdims[k])[r])) for k, v in res.items()}
@@ -259,11 +260,17 @@ def test_ring_reduce_matches_jax_ring(n, nb, ef, dim1, hier):
         buckets, chunk_dims=cdims, error_feedback=ef,
         residual_key=lambda nm: "res/" + nm, hier=hier,
     )
+
+
+def check_against_jax(grads, res, buckets, cdims, ef, hier, shapes=SHAPES):
+    n = len(grads)
+    want, want_res = jax_ring(grads, res, buckets, cdims, ef, hier, shapes)
+    got, got_res = port_ring(grads, res, buckets, cdims, ef, hier)
     # a hop's 1-ulp difference in a sum shows in the outputs and in the
     # residuals (sum - dequantized) at the sums' magnitude
     atol = n * np.spacing(max(np.abs(w).max() for w in want[0].values()))
     for r in range(n):
-        for k in SHAPES:
+        for k in shapes:
             np.testing.assert_allclose(as_np(got[r][k]), want[r][k], rtol=0,
                                        atol=atol, err_msg=(r, k))
             # every rank holds the same bits
@@ -274,6 +281,100 @@ def test_ring_reduce_matches_jax_ring(n, nb, ef, dim1, hier):
         whole = np.concatenate([as_np(g["res/" + k]) for g in got_res],
                                axis=cdims[k])
         np.testing.assert_allclose(whole, w, rtol=0, atol=atol, err_msg=k)
+
+
+@pytest.mark.parametrize("n,nb,ef,dim1,hier", RING_CASES)
+def test_ring_reduce_matches_jax_ring(n, nb, ef, dim1, hier):
+    grads, res = ring_inputs(n * 10 + nb, n)
+    cdims = {k: 0 for k in SHAPES}
+    if dim1:
+        cdims["a"] = 1
+    buckets = (tuple(SHAPES),) if nb == 1 else (("a",), ("b", "c"))
+    check_against_jax(grads, res, buckets, cdims, ef, hier)
+
+
+#: params chunked along different dims, whose per-rank chunks (21, 10, 3
+#: and 6 elements on 4 ranks) are multiples of neither 4 nor 16, so a
+#: bucket's rows (C = 31 and 9, or 40 with all four in one bucket) are
+#: ragged and each param starts at a ragged offset
+RAGGED = {"e": (4, 7, 3), "f": (5, 8), "g": (12,), "h": (2, 3, 4)}
+RAGGED_DIMS = {"e": 0, "f": 1, "g": 0, "h": 2}
+
+
+@pytest.mark.parametrize("ef,hier", [(True, None), (False, (2, 2))])
+def test_ragged_mixed_dim_bucket_matches_jax_ring(ef, hier):
+    grads, res = ring_inputs(40 + ef, 4, RAGGED)
+    check_against_jax(grads, res, (("f", "e"), ("h", "g")), RAGGED_DIMS, ef,
+                      hier, RAGGED)
+
+
+@pytest.mark.parametrize("ef", [True, False])
+@pytest.mark.parametrize("hier", [None, (2, 2), (4, 1)])
+def test_permuting_a_bucket_is_bitwise_neutral(ef, hier):
+    """The bucket's rows are laid out in bucket order, but the scale is
+    one per bucket and every element takes the same operations: any order
+    of the params gives the same outputs and residuals to the bit."""
+    grads, res = ring_inputs(7, 4, RAGGED)
+    runs = [port_ring(grads, res, (order,), RAGGED_DIMS, ef, hier)
+            for order in (("e", "f", "g", "h"), ("h", "f", "e", "g"),
+                          ("g", "h", "e", "f"))]
+    for out, new_res in runs[1:]:
+        for r in range(4):
+            for k, v in runs[0][0][r].items():
+                assert torch.equal(out[r][k], v), (r, k)
+            assert new_res[r].keys() == runs[0][1][r].keys()
+            for k, v in runs[0][1][r].items():
+                assert torch.equal(new_res[r][k], v), (r, k)
+
+
+@pytest.mark.parametrize("ef", [True, False])
+@pytest.mark.parametrize("n,nb,hier", [(4, 2, None), (2, 1, None),
+                                       (4, 2, (2, 2)), (8, 2, (2, 4))])
+def test_one_quant_acc_per_rank_bucket_and_hop(monkeypatch, n, nb, hier, ef):
+    """quant_acc runs once per rank, bucket and quantized reduce hop (n-1
+    flat, M-1 inter hops on q8_hier), whatever the params in a bucket;
+    every hop whose sum feeds another scale returns its max-abs from the
+    same call: all but the last, and the last too when no residual is
+    added before the owner's quantize."""
+    calls = []
+    real = tq.quant_acc
+
+    def counted(q, s, x, *, amax=False):
+        calls.append(amax)
+        return real(q, s, x, amax=amax)
+
+    monkeypatch.setattr(tq, "quant_acc", counted)
+    shapes = {"a": (8, 16), "b": (16,), "c": (8, 8, 3)}
+    grads, res = ring_inputs(n, n, shapes)
+    buckets = (tuple(shapes),) if nb == 1 else (("a",), ("b", "c"))
+    port_ring(grads, res, buckets, {k: 0 for k in shapes}, ef, hier)
+    hops = n - 1 if hier is None else hier[1] - 1
+    assert len(calls) == n * nb * hops
+    assert sum(calls) == n * nb * (hops - 1 if ef else hops)
+
+
+@pytest.mark.parametrize("case", sorted(HELPER_CASES) + ["inf", "-0.0"])
+def test_scale_from_the_fused_amax_equals_symmetric_scale(case):
+    """The scale the ring forms from quant_acc's amax is bitwise the one
+    symmetric_scale forms from the same sums: NaN poisons both, -0.0
+    counts as 0 and an all-zero sum takes the floor."""
+    arrays = {**HELPER_CASES, "inf": [np.array([1.0, np.inf, -3.0])],
+              "-0.0": [np.array([-0.0, 0.0, -0.0])]}[case]
+    local = torch.from_numpy(np.concatenate(
+        [np.ravel(a) for a in arrays]).astype(np.float32))
+    rs = np.random.RandomState(3)
+    q = torch.from_numpy(rs.randint(-127, 128, local.numel()).astype(np.int8))
+    if case in ("zero bucket", "-0.0"):
+        q.zero_()
+    scale = torch.tensor(np.float32(1e-3))
+    out, amax = tq.quant_acc(q, scale, local, amax=True)
+    got, want = tq.scale_from_amax(amax), tq.symmetric_scale([out])
+    assert got.dtype == want.dtype == torch.float32 and got.shape == ()
+    if case == "nan poisons":
+        assert torch.isnan(got) and torch.isnan(want)
+    else:
+        assert got.view(torch.int32) == want.view(torch.int32)
+        assert float(got) > 0
 
 
 def test_ppermute_copies_between_ranks_on_one_device():
