@@ -106,6 +106,24 @@ caught and carried on):
              the probe's outputs equal to the bit, then 10 pairs in
              alternating order of the probe's host ms and the median of
              5 synced steps.
+  8. nets    the reference's MNIST and CIFAR nets through the port's
+             Trainer, each conf as written (examples/mnist/mlp.conf,
+             batch 1000; conv.conf, LeNet, batch 64;
+             examples/cifar10/alexnet.conf, batch 100, crop 28;
+             autoencoder.conf, batch 100, its pretrained params drawn
+             from the seed) on synthetic shards (synthetic_arrays;
+             structured_rgb and its compute_mean mean file for CIFAR):
+             first the tie-sharing max-pool backward and the k² average
+             at AlexNet's pool1 shape on inputs full of ties, card vs
+             CPU, with a planted fault for each (PyTorch's single-winner
+             backward; its ceil_mode average) that must fail the same
+             check; then per net 5 float32 steps on the card and on the
+             CPU from the same seed-0 params (losses within NETS_TOL),
+             30 more on the card (finite, falling; step ms median,
+             images/s), one test batch, and 3 steps under
+             torch.profiler (device ms per step, idle share, the 5
+             largest kernels); for mlp the bound, its operations over
+             67 TFLOP/s. No kernel of csrc/ lies on this path.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -127,7 +145,13 @@ import torch.nn.functional as F
 
 from singa_tpu_torch import _build
 from singa_tpu_torch.config import load_model_config
-from singa_tpu_torch.data.loader import synthetic_token_arrays, write_records
+from singa_tpu_torch.data.loader import (
+    compute_mean,
+    structured_rgb,
+    synthetic_arrays,
+    synthetic_token_arrays,
+    write_records,
+)
 from singa_tpu_torch.device import resolve_device
 from singa_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -136,6 +160,7 @@ from singa_tpu_torch.models.transformer import (
     lm_apply,
 )
 from singa_tpu_torch.ops import attention as ta
+from singa_tpu_torch.ops import nn as tnn
 from singa_tpu_torch.ops import paged_attention as pa
 from singa_tpu_torch.ops import quantized_collective as qc
 from singa_tpu_torch.parallel import apply_grad_comm_tag, build_mesh
@@ -239,6 +264,24 @@ PROBE_BAR = 3.5
 #: (flat ring: n - 1 = 3; q8_hier with intra_degree 2: M - 1 = 1), so
 #: 48, 16 and 0 per step with 4 buckets on 4 ranks
 RING_FORMS = {"q8wire": 3, "q8hier": 1, "exact": 0}
+REPO = os.path.dirname(os.path.abspath(__file__))
+#: the image nets, each conf as written: net -> (conf, dataset, batch)
+NETS = {
+    "mlp": ("examples/mnist/mlp.conf", "mnist", 1000),
+    "lenet": ("examples/mnist/conv.conf", "mnist", 64),
+    "alexnet": ("examples/cifar10/alexnet.conf", "cifar", 100),
+    "autoencoder": ("examples/mnist/autoencoder.conf", "mnist", 100),
+}
+#: card vs CPU losses over NETS_PARITY_STEPS float32 steps, relative:
+#: the port's card-vs-JAX bar of slice 2 (TF32 off; cuBLAS, cuDNN and
+#: the CPU's kernels sum in other orders)
+NETS_TOL = 1e-4
+NETS_PARITY_STEPS = 5
+NETS_STEPS = 30
+#: pools on the card vs the CPU, max abs over outputs and input grads:
+#: integer inputs, sums of at most 4 window contributions (a planted
+#: fault moves a gradient by whole cotangent values, O(1))
+POOL_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -1247,6 +1290,161 @@ def ring_phase(dev):
     return err, rows[RING_TIMED[0]], bf16["q8wire"]["quant_acc_launches"]
 
 
+# ---------------------------------------------------------------------------
+# nets phase
+# ---------------------------------------------------------------------------
+
+
+def write_net_shards(tmp: str) -> dict:
+    """MNIST-shaped train and test shards (synthetic_arrays, templates
+    from seed 0, the test split's noise from seed 1), a CIFAR-shaped
+    train shard (structured_rgb, seed 0), its test split and the train
+    shard's mean file (compute_mean)."""
+    out = {k: os.path.join(tmp, k) for k in
+           ("mnist", "mnist_test", "cifar", "cifar_test")}
+    write_records(out["mnist"], *synthetic_arrays(2000, seed=0))
+    write_records(out["mnist_test"],
+                  *synthetic_arrays(1000, seed=0, noise_seed=1))
+    write_records(out["cifar"], *structured_rgb(1000, seed=0))
+    write_records(out["cifar_test"],
+                  *structured_rgb(200, seed=0, noise_seed=1))
+    out["mean"] = os.path.join(tmp, "mean.npy")
+    compute_mean(out["cifar"], out["mean"])
+    return out
+
+
+def net_config(name: str, shards: dict):
+    """The conf as written (widths, batch, updater), read by the port's
+    load_model_config, on the synthetic shards. The autoencoder's
+    kPretrained params, which the real job restores from an RBM-stack
+    checkpoint, are drawn kGaussain (std 0.1) from the seed instead."""
+    conf, data, _ = NETS[name]
+    cfg = load_model_config(os.path.join(REPO, conf))
+    cfg.checkpoint = None
+    for layer in cfg.neuralnet.layer:
+        if layer.type == "kShardData":
+            test = "kTrain" in (layer.exclude or [])
+            layer.data_param.path = shards[data + ("_test" if test else "")]
+        if layer.rgbimage_param is not None:
+            layer.rgbimage_param.meanfile = shards["mean"]
+        for p in layer.param:
+            if p.init_method == "kPretrained":
+                p.init_method, p.std = "kGaussain", 0.1
+    return cfg
+
+
+def net_steps(tr, step0, nsteps, timed=False):
+    """-> (losses, host ms per step synced to the device)."""
+    losses, ms = [], []
+    for step in range(step0, step0 + nsteps):
+        t0 = time.perf_counter()
+        tr.train_one_batch(step)
+        if timed:
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(tr.perf.avg()["loss"]["loss"])
+        tr.perf.reset()
+    return losses, ms
+
+
+def mlp_bound(tr):
+    """(operations of one mlp step, ms at F32_FLOPS_PER_S): each FC
+    layer's forward, dW and dX products, 2·vdim·hdim·batch each, less
+    the first layer's dX (its input is data)."""
+    fcs = [l for l in tr.train_net.layers if l.TYPE == "kInnerProduct"]
+    batch = tr.train_net.batchsize
+    ops = sum(3 * 2 * l.vdim * l.hdim * batch for l in fcs)
+    ops -= 2 * fcs[0].vdim * fcs[0].hdim * batch
+    return ops, ops / F32_FLOPS_PER_S * 1e3
+
+
+def net_run(dev, name, shards, smi):
+    """One conf at full width: NETS_PARITY_STEPS float32 steps on the card
+    and on the CPU from the same seed-0 params and batches (losses within
+    NETS_TOL relative), NETS_STEPS more timed steps on the card (finite,
+    the last below the first), one test batch, then a 3-step profile."""
+    batch = NETS[name][2]
+    card = Trainer(net_config(name, shards), seed=0, log=lambda s: None,
+                   device=dev)
+    host = Trainer(net_config(name, shards), seed=0, log=lambda s: None,
+                   device="cpu")
+    check(card.train_net.batchsize == batch,
+          f"nets {name}: batch {card.train_net.batchsize} != {batch}")
+    ours, _ = net_steps(card, 0, NETS_PARITY_STEPS)
+    ref, _ = net_steps(host, 0, NETS_PARITY_STEPS)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ours, ref))
+    print(f"nets {name}: card vs CPU over {NETS_PARITY_STEPS} float32 "
+          f"steps, max relative loss difference {rel:.3e} (tol "
+          f"{NETS_TOL:g}); card {' '.join(f'{x:.6f}' for x in ours)} "
+          f"[{smi}]")
+    check(rel <= NETS_TOL, f"nets {name}: card and CPU losses differ")
+    losses, ms = net_steps(card, NETS_PARITY_STEPS, NETS_STEPS, timed=True)
+    check(all(np.isfinite(losses)), f"nets {name}: non-finite loss")
+    check(losses[-1] < losses[0], f"nets {name}: loss did not fall")
+    test = card.evaluate(card.test_net, 1, "test", NETS_STEPS)["loss"]
+    check(all(np.isfinite(list(test.values()))),
+          f"nets {name}: non-finite test metric")
+    median = sorted(ms)[len(ms) // 2]
+    prof = profile(card, NETS_PARITY_STEPS + NETS_STEPS, 3)
+    out = {"net": name, "conf": NETS[name][0], "batch": batch,
+           "params": sum(p.numel() for p in card.params.values()),
+           "steps": NETS_STEPS, "first_loss": losses[0],
+           "last_loss": losses[-1], "test": test,
+           "step_ms_median": median, "step_ms_min": min(ms),
+           "images_per_s": batch / median * 1e3,
+           "device_ms_per_step": prof["device_ms_per_step"],
+           "profiled_wall_ms_per_step": prof["wall_ms_per_step"],
+           "idle_share": prof["idle_share"], "top5": prof["top"][:5],
+           "card": smi}
+    if name == "mlp":
+        out["bound_ops"], out["bound_ms"] = mlp_bound(card)
+    print("nets", json.dumps(out))
+    return out
+
+
+def pool_check(dev, smi):
+    """The tie-sharing max-pool backward and the k² average at AlexNet's
+    pool1 shape (100, 32, 28, 28), k 3, s 2 (the last window overhangs),
+    on integer inputs full of ties: card vs CPU, forward and backward.
+    Each planted fault (PyTorch's single-winner backward; PyTorch's
+    ceil_mode average, which divides an overhanging window by its
+    in-bounds count) must fail the same comparison."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randint(0, 3, (100, 32, 28, 28), generator=gen).float()
+    dy = torch.randn(100, 32, 14, 14, generator=gen)
+
+    def run(fn, device):
+        xd = x.to(device).clone().requires_grad_(True)
+        y = fn(xd)
+        y.backward(dy.to(device))
+        return y.detach().cpu(), xd.grad.cpu()
+
+    def err(a, b):
+        return max(float((u - v).abs().max()) for u, v in zip(a, b))
+
+    single = lambda t: F.max_pool2d(  # noqa: E731
+        F.pad(t, (0, 1, 0, 1), value=float("-inf")), 3, 2)
+    in_bounds = lambda t: F.avg_pool2d(t, 3, 2, ceil_mode=True)  # noqa
+    for kind, ours, fault in (
+            ("max", lambda t: tnn.max_pool2d(t, 3, 2), single),
+            ("avg", lambda t: tnn.avg_pool2d(t, 3, 2), in_bounds)):
+        want = run(ours, "cpu")
+        got, planted = err(run(ours, dev), want), err(run(fault, dev), want)
+        print(f"nets pool {kind}: card vs CPU max abs {got:.3e}, planted "
+              f"fault vs CPU {planted:.3e} (tol {POOL_TOL:g}) [{smi}]")
+        check(got <= POOL_TOL, f"nets pool {kind}: card and CPU differ")
+        check(planted > POOL_TOL,
+              f"nets pool {kind}: the planted fault passes the check")
+
+
+def nets_phase(dev, smi):
+    """-> {net: record} for the four confs."""
+    pool_check(dev, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        shards = write_net_shards(tmp)
+        return {name: net_run(dev, name, shards, smi) for name in NETS}
+
+
 def short_kernel_name(mangled: str) -> str:
     """'_ZN12_GLOBAL__N_124flash_bwd_dq_bf16_kernelILi128ELb1EEEv...' ->
     'flash_bwd_dq_bf16_kernel<128,1>' (the last name of the nested name,
@@ -1324,6 +1522,7 @@ def main() -> int:
     flash_launches, f32_launches = train_phase(dev)
     launches.update(flash_launches)
     ring_err, ring_row, launches["quant_acc"] = ring_phase(dev)
+    nets_phase(dev, smi)
 
     kernels = []
     for name, case in (("paged_attention", "decode"),

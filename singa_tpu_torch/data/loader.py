@@ -1,18 +1,28 @@
-"""Token datasets -> shard converter CLI: the training slice's part of
+"""Dataset -> shard converter CLI: the port's part of
 ``singa_tpu/data/loader.py``.
 
 Ported: :func:`write_records` (on the Python shard writer; the
 original tries its native C++ encoder first, which writes the same
-bytes), :func:`text_token_arrays`, :func:`synthetic_token_arrays` and
-the ``text`` and ``tokens`` subcommands. The image sources (mnist,
-cifar, digits, synthetic, imagenet), the mean file, the shard split and
-the LMDB interop wait for the slices that train on them.
+bytes), the MNIST idx and CIFAR-10 binary readers, the mean file, the
+synthetic image and token sources, and their subcommands. Left out:
+``digits`` (it needs sklearn, which the GPU machine lacks; ``synthetic``
+is the learnable stand-in), ``imagenet`` (PIL), the shard split and the
+LMDB interop (kLMDBData is not ported).
 
 Shards are opened in append mode so a crashed run resumes where it
-stopped (the reference's data_loader.cc:12-14,122). Keys are
-zero-padded record indices.
+stopped (the reference's data_loader.cc:12-14,122), and MNIST idx files
+are parsed with the same big-endian magic/meta layout
+(data_source.cc:25-95). Keys are zero-padded record indices.
+
+Mean files: ``compute-mean`` writes a per-pixel mean.npy over a shard,
+the counterpart of the reference's binaryproto image mean
+(data_source.cc:129-137); rgbimage_param.meanfile points at it.
 
 Usage:
+  python -m singa_tpu_torch.data.loader mnist --image-file f --label-file f --output DIR
+  python -m singa_tpu_torch.data.loader cifar --bin-files f1 f2 ... --output DIR
+  python -m singa_tpu_torch.data.loader synthetic --output DIR --n 1000 [--classes 10] [--size 28] [--channels 3]
+  python -m singa_tpu_torch.data.loader compute-mean --input DIR --output mean.npy
   python -m singa_tpu_torch.data.loader text --input corpus.txt --output DIR [--seq-len 256]
   python -m singa_tpu_torch.data.loader tokens --output DIR --n 1000 [--seq-len 128] [--vocab 64]
 """
@@ -21,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import struct
 import sys
 
 import numpy as np
@@ -36,7 +47,7 @@ def _key(i: int) -> str:
 def write_records(
     folder: str, images: np.ndarray, labels: np.ndarray, append: bool = True
 ) -> int:
-    """Write uint8 images (one token sequence each) + labels as Records;
+    """Write uint8 images (or token sequences) + labels as Records;
     returns #inserted. The writer's key set deduplicates against
     existing records, matching the reference loader's resume semantics."""
     images = np.asarray(images, dtype=np.uint8)
@@ -51,6 +62,119 @@ def write_records(
                 n += 1
         w.flush()
     return n
+
+
+# ---------------------------- sources ----------------------------
+
+
+def read_idx_images(path: str) -> np.ndarray:
+    """Parse an MNIST idx3-ubyte image file (data_source.cc:31-54)."""
+    with open(path, "rb") as f:
+        magic, num, h, w = struct.unpack(">IIII", f.read(16))
+        if magic != 2051:
+            raise ValueError(f"{path}: bad image magic {magic} (want 2051)")
+        buf = f.read(num * h * w)
+    return np.frombuffer(buf, dtype=np.uint8).reshape(num, h, w)
+
+
+def read_idx_labels(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        magic, num = struct.unpack(">II", f.read(8))
+        if magic != 2049:
+            raise ValueError(f"{path}: bad label magic {magic} (want 2049)")
+        buf = f.read(num)
+    return np.frombuffer(buf, dtype=np.uint8)
+
+
+def read_cifar_bins(paths: list[str]) -> tuple[np.ndarray, np.ndarray]:
+    """Parse CIFAR-10 binary batch files: each record is 1 label byte
+    followed by 3072 bytes (3 channels x 32x32, channel-major — already
+    the (C,H,W) layout our RGB records use)."""
+    rec = 1 + 3 * 32 * 32
+    images, labels = [], []
+    for path in paths:
+        buf = np.fromfile(path, dtype=np.uint8)
+        if buf.size % rec:
+            raise ValueError(
+                f"{path}: size {buf.size} is not a multiple of {rec}"
+            )
+        rows = buf.reshape(-1, rec)
+        labels.append(rows[:, 0])
+        images.append(rows[:, 1:].reshape(-1, 3, 32, 32))
+    return np.concatenate(images), np.concatenate(labels)
+
+
+def compute_mean(folder: str, out_path: str) -> np.ndarray:
+    """Per-pixel float32 mean over every record in a shard, saved as .npy
+    (the reference's mean binaryproto, data_source.cc:129-137)."""
+    from .pipeline import load_shard_arrays
+
+    images, _ = load_shard_arrays(folder)
+    mean = images.astype(np.float64).mean(axis=0).astype(np.float32)
+    np.save(out_path, mean)
+    return mean
+
+
+def synthetic_arrays(
+    n: int,
+    classes: int = 10,
+    size: int = 28,
+    seed: int = 0,
+    noise_seed: int | None = None,
+    channels: int = 0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Gaussian class-template blobs: learnable, deterministic, no IO.
+
+    ``seed`` fixes the class templates, ``noise_seed`` the per-sample noise —
+    pass different noise seeds to get disjoint train/test splits of the same
+    classification problem. ``channels`` > 0 makes (C,H,W) RGB-style
+    records (CIFAR-shaped with channels=3, size=32).
+    """
+    rng = np.random.RandomState(seed)
+    shape = (channels, size, size) if channels else (size, size)
+    templates = rng.rand(classes, *shape) * 160.0
+    labels = (np.arange(n) % classes).astype(np.uint8)
+    nrng = rng if noise_seed is None else np.random.RandomState(noise_seed)
+    noise = nrng.rand(n, *shape) * 95.0
+    images = (templates[labels] + noise).clip(0, 255).astype(np.uint8)
+    return images, labels
+
+
+def structured_rgb(
+    n: int,
+    classes: int = 10,
+    seed: int = 0,
+    noise_seed: int | None = None,
+    class_amplitude: float | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Spatially-structured synthetic RGB: kron-upsampled 8x8 class
+    templates (CIFAR-shaped 3x32x32). Weight-shared convs cannot
+    discriminate the iid-noise templates of synthetic_arrays (each pixel
+    independent), so conv-net convergence runs need low-frequency class
+    structure. ``noise_seed`` works like synthetic_arrays'.
+
+    ``class_amplitude`` (r5) controls class overlap: None keeps the
+    legacy fully-independent templates (amplitude 160, trivially
+    separable — fine for short smoke oracles but the 70k-step AlexNet
+    run saturates at 100%, a ceiling-pinned metric that cannot detect a
+    regression). A float A builds templates as shared_base + U(0, A)
+    per-class delta against the U(0, 95) pixel noise, so the task has a
+    real Bayes error: pairwise template separation is A*sqrt(3072/6) ~
+    22.6*A against sample noise sigma 27.4 along the discriminant —
+    A ~ 6 targets ~90% optimal accuracy for 10 classes (BASELINE.md r5
+    records the measured landing point of the full AlexNet run)."""
+    rng = np.random.RandomState(seed)
+    if class_amplitude is None:
+        small = rng.rand(classes, 3, 8, 8) * 160
+    else:
+        a = float(class_amplitude)
+        base = rng.rand(1, 3, 8, 8) * (160.0 - a)
+        small = base + rng.rand(classes, 3, 8, 8) * a
+    templates = np.kron(small, np.ones((1, 1, 4, 4)))
+    labels = (np.arange(n) % classes).astype(np.uint8)
+    nrng = rng if noise_seed is None else np.random.RandomState(noise_seed)
+    noise = nrng.rand(n, 3, 32, 32) * 95
+    return (templates[labels] + noise).clip(0, 255).astype(np.uint8), labels
 
 
 def text_token_arrays(
@@ -98,6 +222,27 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="singa_tpu_torch.data.loader")
     sub = ap.add_subparsers(dest="source", required=True)
 
+    p = sub.add_parser("mnist")
+    p.add_argument("--image-file", required=True)
+    p.add_argument("--label-file", required=True)
+    p.add_argument("--output", required=True)
+
+    p = sub.add_parser("cifar")
+    p.add_argument("--bin-files", nargs="+", required=True)
+    p.add_argument("--output", required=True)
+
+    p = sub.add_parser("synthetic")
+    p.add_argument("--output", required=True)
+    p.add_argument("--n", type=int, default=1000)
+    p.add_argument("--classes", type=int, default=10)
+    p.add_argument("--size", type=int, default=28)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--channels", type=int, default=0)
+
+    p = sub.add_parser("compute-mean")
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+
     p = sub.add_parser("text")
     p.add_argument("--input", required=True, help="any text/binary file")
     p.add_argument("--output", required=True)
@@ -113,7 +258,27 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--seed", type=int, default=0)
 
     args = ap.parse_args(argv)
-    if args.source == "text":
+    if args.source == "mnist":
+        images = read_idx_images(args.image_file)
+        labels = read_idx_labels(args.label_file)
+        if len(images) != len(labels):
+            raise ValueError("image/label count mismatch")
+        n = write_records(args.output, images, labels)
+    elif args.source == "cifar":
+        n = write_records(args.output, *read_cifar_bins(args.bin_files))
+    elif args.source == "synthetic":
+        n = write_records(
+            args.output,
+            *synthetic_arrays(
+                args.n, args.classes, args.size, args.seed,
+                channels=args.channels,
+            ),
+        )
+    elif args.source == "compute-mean":
+        mean = compute_mean(args.input, args.output)
+        print(f"mean {tuple(mean.shape)} -> {args.output}")
+        return 0
+    elif args.source == "text":
         n = write_records(
             args.output, *text_token_arrays(args.input, args.seq_len,
                                             args.stride)

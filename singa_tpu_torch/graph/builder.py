@@ -5,12 +5,15 @@ NeuralNet::ConstructNeuralNet, src/worker/neuralnet.cc:72-110, and the
 Worker's phase filtering, src/worker/worker.cc:69-95): layers are
 filtered by ``exclude`` for the requested phase, topo-sorted from their
 ``srclayers`` edges, instantiated through the registry, and
-shape-inferred in order. ``Net.forward`` runs the layers eagerly.
+shape-inferred in order. ``Net.forward`` runs the layers eagerly,
+routes a kSlice layer's k-th output to its k-th consumer, and hands
+each layer that draws a generator derived from the step's and its index
+(the JAX package's ``jax.random.fold_in(rng, i)``).
 
 This single-device slice leaves out the JAX package's partitioning
-(a ``partition_type`` other than kNone raises), the pipeline plan and
-the Slice routing (kSlice is not ported), buffers (no stateful layer is
-ported) and the padded param storage of uneven model partitions.
+(a ``partition_type`` other than kNone raises), the pipeline plan,
+buffers (no stateful layer is ported) and the padded param storage of
+uneven model partitions.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ import torch
 
 from ..config.schema import ConfigError, LayerConfig, ModelConfig, NetConfig
 from ..layers import Layer, create_layer
+from ..layers.connector import SliceLayer
 from ..params import ParamSpec
+from ..utils.rng import fold_in
 from .kahn import kahn_order
 
 PHASES = ("kTrain", "kValidation", "kTest")
@@ -98,23 +103,38 @@ class Net:
         batch: dict[str, Any],
         *,
         training: bool,
+        generator: torch.Generator | None = None,
         return_acts: bool = False,
     ):
         """Run all layers; returns (total_loss, {losslayer: metrics}).
 
         ``batch`` maps each data layer's name to its input dict
-        ({"image": ..., "label": ...}). With ``return_acts`` the
-        per-layer activation dict is appended."""
+        ({"image": ..., "label": ...}). ``generator`` is the step's:
+        layer i, if it ``uses_generator``, draws from ``fold_in(generator,
+        i)``; without one, layers draw nothing (the eval path). With
+        ``return_acts`` the per-layer activation dict is appended."""
         resolved = self.resolve_params(params)
         acts: dict[str, Any] = {}
+        slice_cursor: dict[str, int] = {}
         total_loss = 0.0
         metrics: dict[str, dict[str, torch.Tensor]] = {}
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
             if layer.is_datalayer:
                 inputs = [batch[layer.name]]
             else:
-                inputs = [acts[src] for src in layer.srclayers]
-            out = layer.apply(resolved, inputs, training=training)
+                inputs = []
+                for src in layer.srclayers:
+                    val = acts[src]
+                    if isinstance(self.name2layer[src], SliceLayer):
+                        k = slice_cursor.get(src, 0)
+                        slice_cursor[src] = k + 1
+                        val = val[k]
+                    inputs.append(val)
+            lgen = (fold_in(generator, i)
+                    if generator is not None and layer.uses_generator
+                    else None)
+            out = layer.apply(resolved, inputs, training=training,
+                              generator=lgen)
             if layer.is_losslayer:
                 loss, m = out
                 total_loss = total_loss + loss

@@ -2,16 +2,35 @@
 
 Counterpart of ``singa_tpu/layers/__init__.py``: a string-keyed factory
 mirroring the reference's Factory<Layer> (src/worker/neuralnet.cc:13-33).
-It registers only the types the port has: the conf-driven transformer
-LM's vocabulary and kShardData. A type the JAX package has and the port
-does not yet raises a ConfigError that says so; nothing is skipped.
+It registers the types the port has: the conf-driven transformer LM's
+vocabulary, the image nets' (neuron, loss, parser and connector
+layers) and kShardData. A type the JAX package has and the port does
+not yet raises a ConfigError that says so; nothing is skipped.
 """
 
 from __future__ import annotations
 
 from ..config.schema import ConfigError, LayerConfig
 from .base import Layer
-from .data import ShardDataLayer
+from .connector import (
+    BridgeDstLayer,
+    BridgeSrcLayer,
+    ConcateLayer,
+    SliceLayer,
+    SplitLayer,
+)
+from .data import LabelLayer, MnistImageLayer, RGBImageLayer, ShardDataLayer
+from .loss import EuclideanLossLayer, SoftmaxLossLayer
+from .neuron import (
+    ConvolutionLayer,
+    DropoutLayer,
+    InnerProductLayer,
+    LRNLayer,
+    PoolingLayer,
+    ReLULayer,
+    SigmoidLayer,
+    TanhLayer,
+)
 from .norm import AddLayer
 from .sequence import (
     AttentionLayer,
@@ -27,11 +46,7 @@ _REGISTRY: dict[str, type[Layer]] = {}
 #: the JAX package's layer types that this package does not port yet
 #: (ROADMAP.md, queue 1)
 NOT_PORTED = frozenset({
-    "kBatchNorm", "kBridgeDst", "kBridgeSrc", "kConcate", "kConvolution",
-    "kDropout", "kEuclideanLoss", "kGlobalPooling", "kInnerProduct",
-    "kLabel", "kLMDBData", "kLRN", "kMnistImage", "kMoE", "kPooling",
-    "kRBM", "kReLU", "kRGBImage", "kSigmoid", "kSlice", "kSoftmaxLoss",
-    "kSplit", "kTanh",
+    "kBatchNorm", "kGlobalPooling", "kLMDBData", "kMoE", "kRBM",
 })
 
 
@@ -71,6 +86,24 @@ for _cls in (
     DenseLayer,
     LMLossLayer,
     ShardDataLayer,
+    MnistImageLayer,
+    RGBImageLayer,
+    LabelLayer,
+    ConvolutionLayer,
+    InnerProductLayer,
+    ReLULayer,
+    TanhLayer,
+    SigmoidLayer,
+    DropoutLayer,
+    LRNLayer,
+    PoolingLayer,
+    SoftmaxLossLayer,
+    EuclideanLossLayer,
+    SliceLayer,
+    ConcateLayer,
+    SplitLayer,
+    BridgeSrcLayer,
+    BridgeDstLayer,
 ):
     register_layer(_cls)
 

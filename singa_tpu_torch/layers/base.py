@@ -6,10 +6,14 @@ param specs once at graph-build time; ``apply`` runs eagerly in
 PyTorch, and autograd provides the backward (the reference's
 ComputeGradient, include/worker/base_layer.h:38-258).
 
+``apply`` takes the layer's own ``generator`` (the JAX side's
+``rng``: ``Net.forward`` derives one per layer from the step's, see
+``utils/rng.py``, for the layers that set ``uses_generator``).
+
 Left out: buffers (non-trainable state such as batch-norm running
-stats), the step's random key (dropout), the partition metadata and the
-serving tier's ``decode_positionwise`` flag; the layers that need them
-are not ported yet.
+stats), the partition metadata and the serving tier's
+``decode_positionwise`` flag; the layers that need them are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -30,7 +34,11 @@ class Layer:
     TYPE: str = ""
 
     is_datalayer = False
+    is_parserlayer = False
     is_losslayer = False
+    #: ``apply`` draws from its generator in training (Net.forward
+    #: derives generators for these layers only)
+    uses_generator = False
 
     def __init__(self, cfg: LayerConfig):
         self.cfg = cfg
@@ -83,12 +91,22 @@ class Layer:
         inputs: list[Any],
         *,
         training: bool,
+        generator: torch.Generator | None = None,
     ) -> Any:
         """Forward on tensors; autograd differentiates it."""
         raise NotImplementedError
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.name!r}, out={self.out_shape})"
+
+
+def feature_dim(shape: Shape) -> int:
+    """Product of the non-batch dims — the reference's flatten-to-(batch,
+    vdim) convention used by FC/loss layers (layer.cc:171-176)."""
+    out = 1
+    for d in shape[1:]:
+        out *= d
+    return out
 
 
 def require_one_src(layer: Layer, src_shapes: Sequence[Shape]) -> Shape:

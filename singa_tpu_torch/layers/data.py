@@ -1,17 +1,26 @@
-"""Data layers: the host/device boundary.
+"""Data and parser layers.
 
-Counterpart of the data-layer half of ``singa_tpu/layers/data.py``: at
-build time a data layer opens its source to learn the sample shape
-(like ShardDataLayer::Setup reading one record, reference
-layer.cc:662-672), and at run time the trainer feeds its batches in.
-Its ``apply`` just forwards that input. Ported: kShardData. kLMDBData
-and the parser layers (kMnistImage, kRGBImage, kLabel) wait for the
-slice that trains the image nets.
+Counterpart of ``singa_tpu/layers/data.py``. A data layer is the
+host/device boundary: at build time it opens its source to learn the
+sample shape (like ShardDataLayer::Setup reading one record, reference
+layer.cc:662-672), and at run time the trainer feeds its batches in;
+its ``apply`` forwards that input. Ported: kShardData. kLMDBData waits
+for the native codec (ROADMAP).
+
+Parser layers (kMnistImage, kRGBImage, kLabel) are elementwise math on
+the device (the reference runs them on the prefetch thread,
+base_layer.h:469-560). Their random draws (distortion, crop offset,
+mirror flags) come from the layer's generator in training; without one
+they take the eval path.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
 
 from ..config.schema import ConfigError
 from ..data.pipeline import load_shard_arrays
@@ -38,7 +47,7 @@ class _ArrayDataLayer(Layer):
         self.sample_shape = tuple(self.images.shape[1:])
         return (self.batchsize, *self.sample_shape)
 
-    def apply(self, params, inputs, *, training):
+    def apply(self, params, inputs, *, training, generator=None):
         # inputs[0] is the externally-fed batch dict {"image","label"}
         return inputs[0]
 
@@ -48,3 +57,136 @@ class ShardDataLayer(_ArrayDataLayer):
 
     TYPE = "kShardData"
     LOADER = staticmethod(load_shard_arrays)
+
+
+class MnistImageLayer(Layer):
+    """kMnistImage (reference: layer.cc:381-473): pixels -> float
+    (x / norm_a) - norm_b, with the JAX package's two extensions:
+
+    - ``resize`` resizes bilinearly with antialiasing when it shrinks
+      (``jax.image.resize(..., "linear")``; the reference's live code
+      top-left-crops instead, layer.cc:441-448);
+    - kernel/sigma/alpha/beta/gamma drive the elastic and affine
+      distortion (``ops/distortion.py``) in training only."""
+
+    TYPE = "kMnistImage"
+    is_parserlayer = True
+    uses_generator = True
+
+    def setup(self, src_shapes: Sequence[Shape], batchsize: int) -> Shape:
+        p = self.cfg.mnist_param
+        self.norm_a = p.norm_a if p else 1.0
+        self.norm_b = p.norm_b if p else 0.0
+        self.kernel = p.kernel if p else 0
+        self.sigma = p.sigma if p else 0.0
+        self.alpha = p.alpha if p else 0.0
+        self.beta = p.beta if p else 0.0
+        self.gamma = p.gamma if p else 0.0
+        src = src_shapes[0]  # the data layer's (batch, H, W) or (b,1,H,W)
+        if len(src) < 3:
+            raise ConfigError(f"layer {self.name!r}: expects image records")
+        if len(src) == 4 and src[1] != 1:
+            raise ConfigError(
+                f"layer {self.name!r}: kMnistImage is single-channel; got "
+                f"C={src[1]} records (use kRGBImage)"
+            )
+        size = src[-1]
+        if src[-2] != size:
+            raise ConfigError(
+                f"layer {self.name!r}: MNIST images must be square")
+        self.resize = (p.resize if p else 0) or size
+        return (src[0], self.resize, self.resize)
+
+    def apply(self, params, inputs, *, training, generator=None):
+        x = inputs[0]["image"].float()
+        if x.dim() == 4 and x.shape[1] == 1:
+            # records with an explicit C=1 dim -> (N, H, W) as declared
+            x = x[:, 0]
+        if self.resize != x.shape[-1]:
+            x = F.interpolate(
+                x[:, None], size=(self.resize, self.resize),
+                mode="bilinear", antialias=True, align_corners=False,
+            )[:, 0]
+        distorting = (self.alpha and self.kernel) or self.beta or self.gamma
+        if training and generator is not None and distorting:
+            from ..ops.distortion import distort
+
+            x = distort(
+                x, generator, kernel=self.kernel, sigma=self.sigma,
+                alpha=self.alpha, beta=self.beta, gamma=self.gamma,
+            )
+        return x / self.norm_a - self.norm_b
+
+
+class RGBImageLayer(Layer):
+    """kRGBImage (reference: layer.cc:573-643): subtract the meanfile at
+    full size, crop (one random offset for the batch in training, the
+    centre in eval), mirror each sample with probability 1/2 in
+    training, then scale. The offset and flags are drawn on the CPU
+    generator, so the CPU and the card crop alike."""
+
+    TYPE = "kRGBImage"
+    is_parserlayer = True
+    uses_generator = True
+
+    def setup(self, src_shapes: Sequence[Shape], batchsize: int) -> Shape:
+        p = self.cfg.rgbimage_param
+        self.scale = p.scale if p else 1.0
+        self.cropsize = p.cropsize if p else 0
+        self.mirror = p.mirror if p else False
+        src = src_shapes[0]
+        if len(src) != 4:
+            raise ConfigError(
+                f"layer {self.name!r}: expects (N,C,H,W) records")
+        n, c, h, w = src
+        self.mean = None
+        if p and p.meanfile:
+            mean = np.load(p.meanfile)
+            if tuple(mean.shape) != (c, h, w):
+                raise ConfigError(
+                    f"layer {self.name!r}: meanfile shape {mean.shape} != "
+                    f"record shape {(c, h, w)}"
+                )
+            self.mean = torch.from_numpy(mean.astype(np.float32))
+        if self.cropsize:
+            return (n, c, self.cropsize, self.cropsize)
+        return src
+
+    def apply(self, params, inputs, *, training, generator=None):
+        x = inputs[0]["image"].float()
+        if self.mean is not None:
+            # full-size mean subtracted before the crop, like the
+            # loader-side subtraction in data_source.cc:158-173
+            self.mean = self.mean.to(x.device)
+            x = x - self.mean
+        n, c, h, w = x.shape
+        draw = training and generator is not None
+        if self.cropsize:
+            cs = self.cropsize
+            if draw:
+                hoff = int(torch.randint(0, h - cs + 1, (),
+                                         generator=generator))
+                woff = int(torch.randint(0, w - cs + 1, (),
+                                         generator=generator))
+            else:
+                hoff, woff = (h - cs) // 2, (w - cs) // 2
+            x = x[:, :, hoff:hoff + cs, woff:woff + cs]
+        if self.mirror and draw:
+            flip = (torch.rand((n,), generator=generator) < 0.5).to(x.device)
+            x = torch.where(flip[:, None, None, None], x.flip(-1), x)
+        if self.scale:
+            x = x * self.scale
+        return x
+
+
+class LabelLayer(Layer):
+    """kLabel (reference: layer.cc:217-233)."""
+
+    TYPE = "kLabel"
+    is_parserlayer = True
+
+    def setup(self, src_shapes: Sequence[Shape], batchsize: int) -> Shape:
+        return (src_shapes[0][0],)
+
+    def apply(self, params, inputs, *, training, generator=None):
+        return inputs[0]["label"].long()

@@ -1,7 +1,7 @@
 """Residual addition: kAdd, from ``singa_tpu/layers/norm.py``.
 
 kBatchNorm (with its custom backward) and kGlobalPooling wait for the
-slice that trains the image nets.
+slice that trains ResNet-50 (ROADMAP).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ class AddLayer(Layer):
                 )
         return first
 
-    def apply(self, params, inputs, *, training):
+    def apply(self, params, inputs, *, training, generator=None):
         out = inputs[0]
         for x in inputs[1:]:
             out = out + x

@@ -92,7 +92,7 @@ class EmbeddingLayer(Layer):
                     f"token id {top} in {src.name!r}'s data"
                 )
 
-    def apply(self, params, inputs, *, training):
+    def apply(self, params, inputs, *, training, generator=None):
         tokens = inputs[0]["image"].long()
         s = tokens.shape[1]
         return params[self.tok][tokens] + params[self.pos][:s]
@@ -112,7 +112,7 @@ class LayerNormLayer(Layer):
         self.bias = self._declare_param(1, "bias", (d,))
         return src
 
-    def apply(self, params, inputs, *, training):
+    def apply(self, params, inputs, *, training, generator=None):
         x = inputs[0]
         xf = x.float()
         mu = xf.mean(-1, keepdim=True)
@@ -160,7 +160,7 @@ class AttentionLayer(Layer):
         )
         return src
 
-    def apply(self, params, inputs, *, training):
+    def apply(self, params, inputs, *, training, generator=None):
         x = inputs[0]
         b, s, d = x.shape
         w = params[self.qkv]
@@ -198,7 +198,7 @@ class DenseLayer(Layer):
             self.b = self._declare_param(1, "bias", (self.hdim,))
         return (*src[:-1], self.hdim)
 
-    def apply(self, params, inputs, *, training):
+    def apply(self, params, inputs, *, training, generator=None):
         w = params[self.w]
         out = inputs[0].to(w.dtype) @ w
         if self.bias_term:
@@ -232,7 +232,7 @@ class LMLossLayer(Layer):
             )
         return src_shapes[0]
 
-    def apply(self, params, inputs, *, training):
+    def apply(self, params, inputs, *, training, generator=None):
         logits, feed = inputs
         tokens = feed["image"].long()
         logp = F.log_softmax(logits[:, :-1].float(), dim=-1)

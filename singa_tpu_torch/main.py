@@ -10,6 +10,13 @@ cpu``: that many CPU ranks). A parallel axis other than the data axis
 raises, as do the serving fleet, the resilience supervisor and the
 other knobs the trainer lists. The trainer runs on the GPU unless
 ``-device cpu`` is given.
+
+The LM confs (examples/lm/) and the image nets' (examples/mnist/mlp.conf,
+conv.conf, autoencoder.conf, examples/cifar10/alexnet.conf) run as
+written once their shards exist: ``python -m
+singa_tpu_torch.data.loader synthetic --output DIR`` makes MNIST-shaped
+ones (``--channels 3 --size 32`` CIFAR-shaped), and ``compute-mean``
+the mean file kRGBImage reads.
 """
 
 from __future__ import annotations

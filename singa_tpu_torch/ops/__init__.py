@@ -1,2 +1,3 @@
-"""Ops of the port: dense and flash attention, paged attention, and the
-quantized gradient ring."""
+"""Ops of the port: dense and flash attention, paged attention, the
+quantized gradient ring, and the image nets' convolution, pooling, LRN,
+dropout, softmax loss, activations and distortion."""

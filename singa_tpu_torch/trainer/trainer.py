@@ -30,6 +30,12 @@ ranks. Error-feedback residuals live in ``buffers`` under
 dim) belonging to rank r: the layout and ``b|`` checkpoint keys of the
 JAX Trainer.
 
+Random draws (dropout masks, crops, mirrors, distortion) come from a
+generator per step, derived from the Trainer's seed and the step
+(``utils.rng.fold_in``), then per rank and per layer (``Net.forward``):
+a step's draws do not depend on the steps before it, as the JAX
+Trainer's ``fold_in(step_key, step)`` does not. Eval passes none.
+
 Cadence semantics match the reference's predicates exactly
 (include/worker/worker.h:118-158): XNow(step) = freq > 0 and
 step >= after and (step - after) % freq == 0; tests/validation run
@@ -71,6 +77,7 @@ from ..parallel import (
 )
 from ..params import init_params
 from ..utils import Performance, Timers
+from ..utils.rng import fold_in
 from .checkpoint import load_stream_positions, restore_into, save_checkpoint
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -171,6 +178,8 @@ class Trainer:
             raise ConfigError("model config has no updater block")
         self.updater = make_updater(model_cfg.updater)
         self._init_gen = torch.Generator().manual_seed(seed)
+        #: the root of every step's generator (the JAX Trainer's step key)
+        self._step_gen = fold_in(torch.Generator().manual_seed(seed), 1)
 
         # --- gradient collectives (grad_comm + kernels.grad_allreduce) ---
         self._comm = GradCommSpec.from_config(
@@ -339,6 +348,7 @@ class Trainer:
         n = len(self.mesh.devices)
         names = list(self.params)
         grads, metrics = [], []
+        step_gen = fold_in(self._step_gen, step)
         for r, dev in enumerate(self.mesh.devices):
             params = self._replicas[dev]["params"]
             leaves = {nm: params[nm].detach().requires_grad_(True)
@@ -347,6 +357,7 @@ class Trainer:
                 self._cast_compute(leaves),
                 self._cast_compute(self._rank_batch(batch, r)),
                 training=True,
+                generator=fold_in(step_gen, r),
             )
             loss.backward()
             # each rank's loss is its local batch mean: / n makes the sum

@@ -2,8 +2,8 @@
 
   - its copies of the JAX package's framework-free modules (serve/,
     config/, data/records.py, data/shard.py, graph/kahn.py,
-    utils/timers.py) keep the originals' code, and the allocator copy
-    behaves like the original;
+    utils/timers.py) and the functions its loader copies keep the
+    originals' code, and the allocator copy behaves like the original;
   - the serve_bench tool runs on the CPU when asked;
   - nothing of it (nor chip_smoke.py) imports jax or singa_tpu;
   - its entry points run on the GPU unless the CPU is asked for, and
@@ -27,6 +27,7 @@ import singa_tpu_torch.config as t_config
 import singa_tpu_torch.graph as t_graph
 from singa_tpu.config import schema as j_schema
 from singa_tpu.config import textproto as j_textproto
+from singa_tpu.data import loader as j_loader
 from singa_tpu.data import records as j_records
 from singa_tpu.data import shard as j_shard
 from singa_tpu.graph import kahn as j_kahn
@@ -36,6 +37,7 @@ from singa_tpu.utils import timers as j_timers
 from singa_tpu_torch import _build
 from singa_tpu_torch.config import schema as t_schema
 from singa_tpu_torch.config import textproto as t_textproto
+from singa_tpu_torch.data import loader as t_loader
 from singa_tpu_torch.data import records as t_records
 from singa_tpu_torch.data import shard as t_shard
 from singa_tpu_torch.graph import kahn as t_kahn
@@ -86,6 +88,27 @@ def test_copies_keep_the_originals_code(orig, copy):
     free = FREE_DOCSTRINGS.get(copy, ())
     assert _body_without_docstring(copy.__file__, free) == \
         _body_without_docstring(orig.__file__, free)
+
+
+def _function_node(path, name):
+    for node in ast.parse(pathlib.Path(path).read_text()).body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return ast.dump(node)
+    raise AssertionError(f"{path} has no function {name}")
+
+
+@pytest.mark.parametrize("name", [
+    "read_idx_images", "read_idx_labels", "read_cifar_bins", "compute_mean",
+    "synthetic_arrays", "structured_rgb", "text_token_arrays",
+    "synthetic_token_arrays",
+])
+def test_loader_copies_keep_the_originals_code(name):
+    """The port's loader copies these functions of the JAX package's
+    loader whole (its write_records is not a copy: the original tries
+    its native encoder first; tests/test_torch_train.py holds the two
+    writers to the same bytes)."""
+    assert _function_node(t_loader.__file__, name) == \
+        _function_node(j_loader.__file__, name)
 
 
 def _drive_allocator(mod, seed):
