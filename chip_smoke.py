@@ -124,6 +124,28 @@ caught and carried on):
              torch.profiler (device ms per step, idle share, the 5
              largest kernels); for mlp the bound, its operations over
              67 TFLOP/s. No kernel of csrc/ lies on this path.
+  9. dispatch host dispatch (the device-resident dataset, multi-step
+             chunks, the step and the engine's decode and prefill as
+             CUDA graphs): the four image confs as written (float32) on
+             full-size synthetic shards (60000 MNIST-shaped records, the
+             real training set's size; 50000 CIFAR-shaped, CIFAR-10's)
+             and train_longctx as written (bf16, S 8192): 30 steps as
+             graphed chunks (windows of 10 through Trainer.train_chunk)
+             against 30 eager per-step steps on host batches from the
+             same params, window losses within DISPATCH_TOL; under
+             graphs the flash kernels' launch counts equal layers x
+             steps (each replay adds its capture's counts); step ms of
+             a 30-step graphed chunk and of 30 eager steps (synced at
+             the end), images/s or tokens/s, the graphed chunk's device
+             ms by CUDA events (unprofiled) and its idle share, and its
+             largest device rows; two planted faults of a replayed step
+             (the step counter frozen, on LeNet; the update not copied
+             back into the static params, on mlp), each of which must
+             move the losses past DISPATCH_TOL by 100x; one decode
+             engine call split into host, ATen and kernel ms, eager and
+             graphed; the 16-request serve workload with graphs and
+             without, in turns (graph, eager, eager, graph): streams
+             identical, tokens/s.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -282,6 +304,18 @@ NETS_STEPS = 30
 #: integer inputs, sums of at most 4 window contributions (a planted
 #: fault moves a gradient by whole cotangent values, O(1))
 POOL_TOL = 1e-5
+
+
+#: graphed vs eager training losses, relative, per DISPATCH_WINDOW-step
+#: window: the same kernels in the same order on the same batches give
+#: the same bits (0.0 on an H100 for all five cells), unless a kernel
+#: adds with atomics (cuDNN's wgrad_alg0_engine in AlexNet's
+#: convolutions), when two eager runs differ as much; each planted fault
+#: must move it by DISPATCH_FAULT_FACTOR times more
+DISPATCH_TOL = 1e-5
+DISPATCH_FAULT_FACTOR = 100
+DISPATCH_STEPS = 30
+DISPATCH_WINDOW = 10
 
 
 class SmokeFailure(RuntimeError):
@@ -537,14 +571,16 @@ def kernel_phase(dev, rs):
 # ---------------------------------------------------------------------------
 
 
-def serve(dev, params, cfg, prompts, *, impl, spec_k=0, max_new=64):
-    """One Engine + Scheduler run, warmed by a throwaway request; kernel
-    launch counts are zeroed just before the measured requests and read
-    just after. -> (scheduler, seconds, launches, {rid: tokens})."""
+def serve(dev, params, cfg, prompts, *, impl, spec_k=0, max_new=64,
+          graphs=True):
+    """One Engine + Scheduler run, warmed by a throwaway request (which
+    also captures the engine's graphs); kernel launch counts are zeroed
+    just before the measured requests and read just after. -> (scheduler,
+    seconds, launches, {rid: tokens})."""
     eng = Engine(params, cfg, EngineConfig(
         slots=8, kv_block_len=16, max_prefill_chunk=64, spec_k=spec_k,
         attend_impl=impl,
-    ), device=dev)
+    ), device=dev, graphs=graphs)
     sched = Scheduler(eng)
     sched.submit(Request(rid=-1, prompt=prompts[0][:40], max_new_tokens=4))
     sched.serve()
@@ -597,7 +633,8 @@ def in_turns(dev, params, cfg, prompts, a, b):
         sched, seconds, launches, streams = serve(dev, params, cfg,
                                                   prompts, **kw)
         name = kw["impl"] + (f"_spec{kw['spec_k']}" if kw.get("spec_k")
-                             else "")
+                             else "") + ("_eager" if kw.get("graphs") is False
+                                         else "")
         report(name, sched, seconds)
         check(len(streams) == len(prompts) and all(
             len(t) == 64 and all(0 <= x < cfg.vocab for x in t)
@@ -1445,6 +1482,231 @@ def nets_phase(dev, smi):
         return {name: net_run(dev, name, shards, smi) for name in NETS}
 
 
+# ---------------------------------------------------------------------------
+# dispatch phase
+# ---------------------------------------------------------------------------
+
+
+def window_losses(tr, step0=0):
+    """DISPATCH_STEPS steps from ``step0`` in windows of DISPATCH_WINDOW
+    (``train_chunk``: replays of the captured step, or eager steps) ->
+    each window's mean loss."""
+    out = []
+    for s in range(step0, step0 + DISPATCH_STEPS, DISPATCH_WINDOW):
+        tr.train_chunk(s, DISPATCH_WINDOW)
+        out.append(tr.perf.avg()["loss"]["loss"])
+        tr.perf.reset()
+    return out
+
+
+def rel_diff(got, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def chunk_ms(tr, step0, n):
+    """Host ms per step of one ``n``-step chunk, synced at its end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train_chunk(step0, n)
+    torch.cuda.synchronize()
+    tr.perf.reset()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def chunk_device_ms(tr, step0, n):
+    """Device ms per step of an unprofiled ``n``-step graphed chunk, by
+    CUDA events: a ~10 ms device sleep before the start event keeps the
+    card busy while the host uploads the chunk's args and enqueues its
+    replays, so the events time the device's work alone."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    t0 = time.perf_counter()
+    tr.train_chunk(step0, n)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    tr.perf.reset()
+    return start.elapsed_time(end) / n, enqueue_ms
+
+
+def dispatch_times(tr, eager, step0, units_per_step):
+    """Step ms of the graphed and the eager trainer (a 30-step chunk
+    each, synced at its end), the graphed chunk's unprofiled device ms
+    and idle share, and its largest device rows (10 profiled steps)."""
+    from singa_tpu_torch.tools.dispatch_turns import profiled_device_ms
+
+    g_ms = chunk_ms(tr, step0, DISPATCH_STEPS)
+    e_ms = chunk_ms(eager, step0, DISPATCH_STEPS)
+    dev_ms, enqueue_ms = chunk_device_ms(tr, step0 + DISPATCH_STEPS,
+                                         DISPATCH_STEPS)
+    prof_ms, top = profiled_device_ms(
+        lambda: tr.train_chunk(step0 + 2 * DISPATCH_STEPS, 10), 10)
+    tr.perf.reset()
+    return {"step_ms": g_ms, "eager_step_ms": e_ms,
+            "per_s": units_per_step / g_ms * 1e3,
+            "eager_per_s": units_per_step / e_ms * 1e3,
+            "device_ms_per_step": dev_ms, "idle_share": 1.0 - dev_ms / g_ms,
+            "chunk_enqueue_ms": enqueue_ms,
+            "profiled_device_ms_per_step": prof_ms, "top5": top}
+
+
+def dispatch_pair(dev, make_cfg, units, tag, smi):
+    """A graphed and an eager trainer (the eager one on host batches,
+    the per-step path of the slices before) from the same seed-0 params:
+    DISPATCH_STEPS steps each, window losses within DISPATCH_TOL, then
+    their times (``units`` per step: images, or None for the LM's
+    tokens). -> (record, the eager run's window losses)."""
+    graph = Trainer(make_cfg(), seed=0, log=lambda s: None, device=dev)
+    units = units or graph.tokens_per_step
+    eager = Trainer(make_cfg(), seed=0, log=lambda s: None, device=dev,
+                    graphs=False, device_cache=False, prefetch=False)
+    check(graph.dispatch_mode == "graph" and graph.feeder_mode == "cached",
+          f"dispatch {tag}: not a graphed step on the cached dataset "
+          f"({graph.dispatch_mode}, {graph.feeder_mode})")
+    for fn, _, _ in FLASH.values():
+        fn.launches = 0
+    g_losses = window_losses(graph)
+    launches = {name: fn.launches for name, (fn, _, _) in FLASH.items()}
+    e_losses = window_losses(eager)
+    rel = rel_diff(g_losses, e_losses)
+    print(f"dispatch {tag}: graphed vs eager, {DISPATCH_STEPS} steps in "
+          f"windows of {DISPATCH_WINDOW}, max relative loss difference "
+          f"{rel:.3e} (tol {DISPATCH_TOL:g}); graphed "
+          f"{' '.join(f'{x:.7f}' for x in g_losses)}, eager "
+          f"{' '.join(f'{x:.7f}' for x in e_losses)} [{smi}]")
+    if rel:
+        # the same kernels in the same order: a difference comes from a
+        # kernel that is not deterministic, and shows between two eager
+        # runs as well
+        again = window_losses(Trainer(
+            make_cfg(), seed=0, log=lambda s: None, device=dev,
+            graphs=False, device_cache=False, prefetch=False))
+        print(f"dispatch {tag}: eager vs eager, the same steps: max "
+              f"relative loss difference {rel_diff(again, e_losses):.3e}")
+    check(all(np.isfinite(g_losses)), f"dispatch {tag}: non-finite loss")
+    check(rel <= DISPATCH_TOL, f"dispatch {tag}: graphed and eager "
+          "losses differ")
+    check(graph._g.run.captured, f"dispatch {tag}: the step was never "
+          "captured")
+    rec = {"run": tag, "graphed_losses": g_losses, "eager_losses": e_losses,
+           "rel_diff": rel, "flash_launches": launches,
+           **dispatch_times(graph, eager, DISPATCH_STEPS, units),
+           "card": smi}
+    print("dispatch", json.dumps(rec))
+    return rec, e_losses
+
+
+def _slots_only(self, new_p, new_s, res):
+    """The planted copy-back fault: the update's slots and residuals land
+    in the static tensors, its params do not."""
+    STORE_UPDATE(self, {}, new_s, res)
+
+
+STORE_UPDATE = Trainer._store_update
+#: the two classic faults of a replayed step, planted in the step body:
+#: name -> (net, Trainer attribute, its faulty value)
+DISPATCH_FAULTS = {
+    "step counter frozen": ("lenet", "_advance_step", lambda self: None),
+    "update not copied back": ("mlp", "_store_update", _slots_only),
+}
+
+
+def dispatch_shards(tmp: str) -> dict:
+    """Full-size synthetic shards (tools/dispatch_turns.write_shards):
+    60000 MNIST-shaped records, the real training set's size, 50000
+    CIFAR-shaped (CIFAR-10's), their test splits, the mean file and the
+    LM's token shard."""
+    from singa_tpu_torch.tools.dispatch_turns import write_shards
+
+    return write_shards(tmp)
+
+
+def dispatch_phase(dev, smi, cfg, params):
+    """-> {run: record}: the four nets and train_longctx graphed vs eager,
+    the two planted faults, the engine call's split and serve with and
+    without graphs in turns."""
+    import functools
+
+    from singa_tpu_torch.data.pipeline import load_shard_arrays
+    from singa_tpu_torch.layers.data import ShardDataLayer
+    from singa_tpu_torch.tools.dispatch_turns import engine_split
+
+    out = {}
+    # every Trainer of this phase reads the same shards: decode each once
+    ShardDataLayer.LOADER = staticmethod(
+        functools.lru_cache(maxsize=None)(load_shard_arrays))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            shards = dispatch_shards(tmp)
+            eager_losses = {}
+            for name in NETS:
+                out[name], eager_losses[name] = dispatch_pair(
+                    dev, functools.partial(net_config, name, shards),
+                    NETS[name][2], name, smi)
+            for fault, (name, attr, value) in DISPATCH_FAULTS.items():
+                real = getattr(Trainer, attr)
+                setattr(Trainer, attr, value)
+                try:
+                    tr = Trainer(net_config(name, shards), seed=0,
+                                 log=lambda s: None, device=dev)
+                    losses = window_losses(tr)
+                finally:
+                    setattr(Trainer, attr, real)
+                moved = rel_diff(losses, eager_losses[name])
+                print(f"dispatch fault {fault!r} on {name}: graphed vs "
+                      f"eager relative loss difference {moved:.3e}, "
+                      f"{moved / DISPATCH_TOL:.0f}x DISPATCH_TOL")
+                check(moved >= DISPATCH_FAULT_FACTOR * DISPATCH_TOL,
+                      f"dispatch: the planted fault {fault!r} passes the "
+                      "graphed vs eager check")
+
+            def lm_cfg():
+                c = load_model_config(TRAIN_CONF)
+                for layer in c.neuralnet.layer:
+                    if layer.type == "kSequenceData":
+                        layer.data_param.path = shards["tokens"]
+                return c
+
+            os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "512"
+            out["train_longctx"], _ = dispatch_pair(
+                dev, lm_cfg, None, "train_longctx", smi)
+            layers = sum(l.type == "kAttention"
+                         for l in lm_cfg().neuralnet.layer)
+            launches = out["train_longctx"]["flash_launches"]
+            print(f"dispatch train_longctx: flash launches under graphs "
+                  f"{launches}, want layers {layers} x steps "
+                  f"{DISPATCH_STEPS}")
+            check(all(n == layers * DISPATCH_STEPS
+                      for n in launches.values()),
+                  "dispatch train_longctx: flash launches under graphs "
+                  "!= layers x steps")
+    finally:
+        ShardDataLayer.LOADER = staticmethod(load_shard_arrays)
+    for graphs in (False, True):
+        split = engine_split(Engine(params, cfg, EngineConfig(
+            slots=8, kv_block_len=16, max_prefill_chunk=64), device=dev,
+            graphs=graphs))
+        out[f"engine_split_{'graph' if graphs else 'eager'}"] = split
+        print("dispatch engine call", "graph" if graphs else "eager",
+              json.dumps(split), f"[{smi}]")
+    rs = np.random.RandomState(1)
+    prompts = [
+        rs.randint(0, cfg.vocab, size=(int(rs.randint(32, 1025)),)).astype(
+            np.int32)
+        for _ in range(16)
+    ]
+    runs = in_turns(dev, params, cfg, prompts, {"impl": "fused"},
+                    {"impl": "fused", "graphs": False})
+    out["serve"] = [
+        {"graphs": tag == "a", "tokens_per_s":
+         (sched.tokens_emitted + len(sched.finished)) / seconds}
+        for tag, sched, seconds, _ in runs]
+    return out
+
+
 def short_kernel_name(mangled: str) -> str:
     """'_ZN12_GLOBAL__N_124flash_bwd_dq_bf16_kernelILi128ELb1EEEv...' ->
     'flash_bwd_dq_bf16_kernel<128,1>' (the last name of the nested name,
@@ -1523,6 +1785,7 @@ def main() -> int:
     launches.update(flash_launches)
     ring_err, ring_row, launches["quant_acc"] = ring_phase(dev)
     nets_phase(dev, smi)
+    dispatch_phase(dev, smi, cfg, params)
 
     kernels = []
     for name, case in (("paged_attention", "decode"),

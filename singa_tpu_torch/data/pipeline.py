@@ -2,8 +2,8 @@
 
 Counterpart of ``singa_tpu/data/pipeline.py``, with what the training
 slice needs: :func:`load_shard_arrays` on the Python record codec and
-:class:`BatchPipeline` (the original class without the methods of the
-device cache and the scan chunks: ``advance``, ``next_indices``,
+:class:`BatchPipeline`, with the methods the device-resident dataset
+and the multi-step chunks drive (``advance``, ``next_indices``,
 ``steps_per_epoch``). Left out: the native C++ codec the original tries
 first (``singa_tpu/native``; the Python codec here gives the same
 arrays) and ``load_lmdb_arrays`` (kLMDBData is not ported yet).
@@ -88,13 +88,35 @@ class BatchPipeline:
         return int((self._start + self._consumed * self.batchsize) % self.n)
 
     def seek(self, pos: int) -> None:
-        """Reposition the stream (checkpoint resume)."""
+        """Reposition the stream (checkpoint resume, the chunk stager's
+        window-boundary re-sync)."""
         self._pos = int(pos) % self.n
         self._start = self._pos
         self._consumed = 0
 
-    def next_batch(self) -> tuple[np.ndarray, np.ndarray]:
+    def advance(self, nsteps: int) -> None:
+        """Skip ``nsteps`` batches: the device-side chunk consumed them
+        through on-device index math (Trainer.train_chunk)."""
+        self._pos = int((self._pos + nsteps * self.batchsize) % self.n)
+        self._consumed += nsteps
+
+    def _next_indices(self) -> np.ndarray:
         idx = (self._pos + np.arange(self.batchsize)) % self.n
         self._pos = int((self._pos + self.batchsize) % self.n)
+        return idx
+
+    def next_indices(self) -> np.ndarray:
+        """Advance the stream and return the batch's record indices
+        without materializing arrays (device-cached datasets gather on
+        the device)."""
+        idx = self._next_indices()
+        self._consumed += 1
+        return idx
+
+    def next_batch(self) -> tuple[np.ndarray, np.ndarray]:
+        idx = self._next_indices()
         self._consumed += 1
         return self.images[idx], self.labels[idx]
+
+    def steps_per_epoch(self) -> int:
+        return max(1, self.n // self.batchsize)

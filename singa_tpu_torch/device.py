@@ -13,6 +13,13 @@ Precision: the JAX package computes in full float32 (XLA's CPU and the
 TPU's f32 path), so the port turns TF32 off for both cuBLAS matmuls and
 cuDNN convolutions. A float32 matmul on the card then runs in full
 float32 (``torch.get_float32_matmul_precision() == "highest"``).
+cuDNN's autotuner stays off (``cudnn.benchmark``), so a convolution
+picks the same algorithm in an eager step and in a captured graph.
+cuDNN's deterministic mode stays off as well: its float32
+weight-gradient kernel for AlexNet's convolutions (``wgrad_alg0_engine``)
+adds with atomics, so two runs of the same step may differ in the last
+bits, and the deterministic kernel cuDNN takes instead cost 0.48 ms of
+AlexNet's 1.58 ms step on an H100, against 0.14 ms.
 """
 
 from __future__ import annotations
@@ -32,5 +39,6 @@ def resolve_device(device=None) -> torch.device:
         )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
     torch.set_float32_matmul_precision("highest")
     return dev

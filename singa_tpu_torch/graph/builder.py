@@ -111,7 +111,9 @@ class Net:
         ``batch`` maps each data layer's name to its input dict
         ({"image": ..., "label": ...}). ``generator`` is the step's:
         layer i, if it ``uses_generator``, draws from ``fold_in(generator,
-        i)``; without one, layers draw nothing (the eval path). With
+        i)``; a dict instead hands layer i its entry (the staged draws
+        of a chunk, ``layers.data.StagedDraw``); without one, layers
+        draw nothing (the eval path). With
         ``return_acts`` the per-layer activation dict is appended."""
         resolved = self.resolve_params(params)
         acts: dict[str, Any] = {}
@@ -130,9 +132,13 @@ class Net:
                         slice_cursor[src] = k + 1
                         val = val[k]
                     inputs.append(val)
-            lgen = (fold_in(generator, i)
-                    if generator is not None and layer.uses_generator
-                    else None)
+            if isinstance(generator, dict):
+                # staged draws of a multi-step chunk, by layer index
+                lgen = generator.get(i)
+            elif generator is not None and layer.uses_generator:
+                lgen = fold_in(generator, i)
+            else:
+                lgen = None
             out = layer.apply(resolved, inputs, training=training,
                               generator=lgen)
             if layer.is_losslayer:

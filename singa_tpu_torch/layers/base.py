@@ -39,6 +39,10 @@ class Layer:
     #: ``apply`` draws from its generator in training (Net.forward
     #: derives generators for these layers only)
     uses_generator = False
+    #: ``apply`` draws activation-sized values on the device in training
+    #: (``utils.rng.on_device``); a captured step would replay one draw,
+    #: so the Trainer dispatches such a net eagerly
+    draws_on_device = False
 
     def __init__(self, cfg: LayerConfig):
         self.cfg = cfg

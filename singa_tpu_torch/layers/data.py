@@ -11,7 +11,12 @@ Parser layers (kMnistImage, kRGBImage, kLabel) are elementwise math on
 the device (the reference runs them on the prefetch thread,
 base_layer.h:469-560). Their random draws (distortion, crop offset,
 mirror flags) come from the layer's generator in training; without one
-they take the eval path.
+they take the eval path. kRGBImage's draws are small and made on the
+host; a multi-step chunk draws them for every step ahead of time
+(:meth:`RGBImageLayer.staged_row`) and hands the layer a
+:class:`StagedDraw` of device tensors instead of a generator, which it
+crops and mirrors by without reading them back (a captured graph
+replays it with each step's own draws).
 """
 
 from __future__ import annotations
@@ -82,6 +87,8 @@ class MnistImageLayer(Layer):
         self.alpha = p.alpha if p else 0.0
         self.beta = p.beta if p else 0.0
         self.gamma = p.gamma if p else 0.0
+        self.draws_on_device = bool(
+            (self.alpha and self.kernel) or self.beta or self.gamma)
         src = src_shapes[0]  # the data layer's (batch, H, W) or (b,1,H,W)
         if len(src) < 3:
             raise ConfigError(f"layer {self.name!r}: expects image records")
@@ -107,8 +114,8 @@ class MnistImageLayer(Layer):
                 x[:, None], size=(self.resize, self.resize),
                 mode="bilinear", antialias=True, align_corners=False,
             )[:, 0]
-        distorting = (self.alpha and self.kernel) or self.beta or self.gamma
-        if training and generator is not None and distorting:
+        if (training and isinstance(generator, torch.Generator)
+                and self.draws_on_device):
             from ..ops.distortion import distort
 
             x = distort(
@@ -116,6 +123,16 @@ class MnistImageLayer(Layer):
                 alpha=self.alpha, beta=self.beta, gamma=self.gamma,
             )
         return x / self.norm_a - self.norm_b
+
+
+class StagedDraw:
+    """One step's kRGBImage draws as device tensors, in place of its
+    generator: ``offsets`` (2,) int64 (row, column of the crop) and
+    ``flip`` (n,) int64 mirror flags (non-zero = mirror)."""
+
+    def __init__(self, offsets: torch.Tensor, flip: torch.Tensor):
+        self.offsets = offsets
+        self.flip = flip
 
 
 class RGBImageLayer(Layer):
@@ -139,6 +156,8 @@ class RGBImageLayer(Layer):
             raise ConfigError(
                 f"layer {self.name!r}: expects (N,C,H,W) records")
         n, c, h, w = src
+        #: the records' (N, C, H, W): what the draws are made for
+        self.in_shape = (n, c, h, w)
         self.mean = None
         if p and p.meanfile:
             mean = np.load(p.meanfile)
@@ -152,6 +171,34 @@ class RGBImageLayer(Layer):
             return (n, c, self.cropsize, self.cropsize)
         return src
 
+    def draw(self, generator: torch.Generator, n: int):
+        """The training draws for a batch of ``n``, in the eager path's
+        order: (crop row, crop column) as ints, or None without a crop;
+        the (n,) bool mirror flags on the CPU, or None without mirror."""
+        _, _, h, w = self.in_shape
+        offsets = flip = None
+        if self.cropsize:
+            cs = self.cropsize
+            offsets = tuple(
+                int(torch.randint(0, size - cs + 1, (), generator=generator))
+                for size in (h, w))
+        if self.mirror:
+            flip = torch.rand((n,), generator=generator) < 0.5
+        return offsets, flip
+
+    def staged_width(self) -> int:
+        """Entries of one step's row of staged draws: the crop offsets
+        and one mirror flag per sample of the batch."""
+        return 2 + self.in_shape[0]
+
+    def staged_row(self, generator: torch.Generator) -> list[int]:
+        """One step's draws as a row of ints (``staged_width`` long), the
+        draws of :meth:`draw` with the same generator."""
+        n = self.in_shape[0]
+        offsets, flip = self.draw(generator, n)
+        row = list(offsets) if offsets else [0, 0]
+        return row + (flip.long().tolist() if flip is not None else [0] * n)
+
     def apply(self, params, inputs, *, training, generator=None):
         x = inputs[0]["image"].float()
         if self.mean is not None:
@@ -160,19 +207,26 @@ class RGBImageLayer(Layer):
             self.mean = self.mean.to(x.device)
             x = x - self.mean
         n, c, h, w = x.shape
-        draw = training and generator is not None
+        staged = training and isinstance(generator, StagedDraw)
+        draw = training and isinstance(generator, torch.Generator)
+        offsets = flip = None
+        if draw:
+            offsets, flip = self.draw(generator, n)
         if self.cropsize:
             cs = self.cropsize
-            if draw:
-                hoff = int(torch.randint(0, h - cs + 1, (),
-                                         generator=generator))
-                woff = int(torch.randint(0, w - cs + 1, (),
-                                         generator=generator))
+            if staged:
+                # a gather at the step's device offsets: the same values
+                # as the slice, with no host read
+                ar = torch.arange(cs, device=x.device)
+                x = x.index_select(2, generator.offsets[0] + ar)
+                x = x.index_select(3, generator.offsets[1] + ar)
             else:
-                hoff, woff = (h - cs) // 2, (w - cs) // 2
-            x = x[:, :, hoff:hoff + cs, woff:woff + cs]
-        if self.mirror and draw:
-            flip = (torch.rand((n,), generator=generator) < 0.5).to(x.device)
+                hoff, woff = offsets or ((h - cs) // 2, (w - cs) // 2)
+                x = x[:, :, hoff:hoff + cs, woff:woff + cs]
+        if self.mirror and staged:
+            flip = generator.flip != 0
+        if self.mirror and (draw or staged):
+            flip = flip.to(x.device)
             x = torch.where(flip[:, None, None, None], x.flip(-1), x)
         if self.scale:
             x = x * self.scale

@@ -140,6 +140,7 @@ class DropoutLayer(Layer):
 
     TYPE = "kDropout"
     uses_generator = True
+    draws_on_device = True
 
     def setup(self, src_shapes, batchsize):
         self.pdrop = (

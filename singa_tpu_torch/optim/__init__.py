@@ -18,7 +18,9 @@ Faithfulness notes (as in the JAX package):
 - AdaDelta ignores the learning rate entirely (updater.cc:164-182).
 - NesterovUpdater::Init never reads proto.momentum (a reference bug: the
   member is uninitialized C++); cfg.momentum is read here.
-- learning rates are computed in float32, as the JAX package does.
+- learning rates are computed in float32, as the JAX package does; a
+  schedule's pow is rounded once from float64 (``_pow``), so a device
+  step gives the host's bits.
 """
 
 from __future__ import annotations
@@ -32,38 +34,56 @@ Params = dict[str, torch.Tensor]
 State = dict[str, dict[str, torch.Tensor]]
 
 
+def _pow(base, exponent) -> torch.Tensor:
+    """``base ** exponent`` rounded once to float32: taken in float64,
+    whose pow is within 2 ulps on the card and on the CPU, so the
+    float32 result is the same bits on both (a float32 pow differs by an
+    ulp between the two libraries)."""
+    return torch.pow(base.double(), exponent.double()).float()
+
+
 def learning_rate(cfg: UpdaterConfig, step) -> torch.Tensor:
     """GetLearningRate (reference: src/utils/updater.cc:11-51) -> a
-    float32 scalar tensor on the CPU."""
+    float32 scalar tensor on ``step``'s device (the CPU for an int).
+
+    A device ``step`` keeps the schedule on the device, so a captured
+    step (``utils/graphs.py``) reads its own step counter; it gives the
+    same bits as the int step on the host. Constants are made with
+    ``torch.full`` on that device (a fill, which a graph can capture,
+    where ``torch.tensor`` would copy from the host), and every divisor
+    is such a tensor: the card divides by a Python number as a product
+    with its reciprocal, an ulp away from the CPU's division."""
     f32 = torch.float32
-    base = torch.tensor(cfg.base_learning_rate or 0.0, dtype=f32)
+    step = torch.as_tensor(step)
+    dev = step.device
+    step = step.to(f32)
+
+    def const(v) -> torch.Tensor:
+        return torch.full((), v, dtype=f32, device=dev)
+
+    base = const(cfg.base_learning_rate or 0.0)
     method = cfg.learning_rate_change_method
-    step = torch.as_tensor(step, dtype=f32)
     if method == "kFixed":
         return base
     if method == "kLinear":
-        r = step / cfg.learning_rate_change_frequency
+        r = step / const(cfg.learning_rate_change_frequency)
         return (1.0 - r) * base + r * cfg.final_learning_rate
     if method == "kExponential":
         # reference CHECKs base == 2*final; honor the contract
         if cfg.base_learning_rate != 2 * cfg.final_learning_rate:
             raise ConfigError("kExponential: base_learning_rate must be 2*final")
-        return base / torch.pow(
-            torch.tensor(2.0, dtype=f32),
-            step / cfg.learning_rate_change_frequency,
-        )
+        return base / _pow(
+            const(2.0), step / const(cfg.learning_rate_change_frequency))
     if method == "kInverse_t":
         if cfg.base_learning_rate != 2 * cfg.final_learning_rate:
             raise ConfigError("kInverse_t: base_learning_rate must be 2*final")
-        return base / (1.0 + step / cfg.final_learning_rate)
+        return base / (1.0 + step / const(cfg.final_learning_rate))
     if method == "kInverse":
-        return base * torch.pow(1.0 + cfg.gamma * step, -cfg.pow)
+        return base * _pow(1.0 + cfg.gamma * step, const(-cfg.pow))
     if method == "kStep":
         # integer division step/freq, per the reference's explicit comment
-        freq = cfg.learning_rate_change_frequency
-        return base * torch.pow(
-            torch.tensor(cfg.gamma, dtype=f32), torch.floor(step / freq)
-        )
+        freq = const(cfg.learning_rate_change_frequency)
+        return base * _pow(const(cfg.gamma), torch.floor(step / freq))
     raise ConfigError(f"unknown LR schedule {method!r}")
 
 
@@ -77,6 +97,7 @@ class Updater:
             if type(self) is not AdaDeltaUpdater:
                 raise ConfigError("updater requires base_learning_rate > 0")
         self.cfg = cfg
+        self._lrs: dict[float, object] = {}
 
     def init_state(self, params: Params) -> State:
         return {
@@ -96,6 +117,8 @@ class Updater:
     ) -> tuple[Params, State]:
         new_p: Params = {}
         new_s: State = {}
+        #: lr_mult -> the step's learning rate, computed once per apply
+        self._lrs = {}
         for name, p in params.items():
             spec = specs.get(name)
             lr_mult = spec.lr_mult if spec else 1.0
@@ -107,10 +130,19 @@ class Updater:
             new_s[name] = ns_
         return new_p, new_s
 
-    def _lr(self, step, lr_mult: float) -> float:
-        # float32 arithmetic, as the JAX package's; the tensors below
-        # take the float32 value as a scalar
-        return float(learning_rate(self.cfg, step) * lr_mult)
+    def _lr(self, step, lr_mult: float):
+        """float32 arithmetic, as the JAX package's. An int ``step``
+        gives a Python float (the tensors below take the float32 value
+        as a scalar); a device step tensor gives a float32 scalar tensor
+        on that device, the same bits, which a captured graph reads at
+        every replay."""
+        lr = self._lrs.get(lr_mult)
+        if lr is None:
+            lr = learning_rate(self.cfg, step) * lr_mult
+            if not isinstance(step, torch.Tensor):
+                lr = float(lr)
+            self._lrs[lr_mult] = lr
+        return lr
 
     def _wd(self, wd_mult: float) -> float:
         return self.cfg.weight_decay * wd_mult

@@ -25,8 +25,19 @@ All three run ``_block_apply``/``lm_head`` from models/transformer.py,
 the same body as ``generate``.
 
 Where JAX donated the state to a jitted program and got new arrays back,
-this engine updates the pools and lanes IN PLACE (``index_put_``): the
-pools are the largest tensors of a server and are never copied.
+this engine updates the pools and lanes IN PLACE (``index_put_``,
+``copy_``): the pools are the largest tensors of a server and are never
+copied, and the lanes keep their addresses.
+
+Dispatch: where JAX jits ``decode`` and ``prefill`` once each, here each
+is a body over static tensors run through ``utils.graphs.Graphed``: on
+the card the first call runs eagerly and the second captures a CUDA
+graph that every later call replays (one graph for every prefill
+chunk: the slot, start position, valid length and tokens go up as one
+static int64 block); on the CPU, or with ``graphs=False``, the body is
+called. Decode's graph writes the logits and each lane's greedy next
+token; a temperature slot's draw runs after the replay on those
+logits, with the slot's own generator. ``verify`` runs eagerly.
 
 ATTENTION is the ``attend_impl`` knob, with the JAX package's names:
 ``"fused"`` (the default) runs the CUDA paged-attention kernel
@@ -70,6 +81,7 @@ from ..ops.paged_attention import (
     paged_attention,
     paged_attention_overlay,
 )
+from ..utils.graphs import Graphed
 from .kv_pool import BlockAllocator, KVPool
 
 _PREFIX_SLICE = "the prefix-cache and fleet slice (ROADMAP.md)"
@@ -106,7 +118,7 @@ class Engine:
 
     def __init__(self, params: dict, cfg: TransformerConfig,
                  serving: EngineConfig | None = None, *, device=None,
-                 mesh=None, temperature: float = 0.0):
+                 mesh=None, temperature: float = 0.0, graphs: bool = True):
         self.cfg = cfg
         self.serving = serving or EngineConfig()
         self.temperature = float(temperature)
@@ -162,6 +174,20 @@ class Engine:
         self._sampling: dict[int, float] = {}
         #: blocks owned per slot, freed at retire
         self._slot_blocks: dict[int, list[int]] = {}
+        # --- the programs' static tensors and their graphs ---
+        c = self.serving.max_prefill_chunk
+        #: decode's logits (slots, vocab), the temperature draws' input
+        self._dec_logits = torch.zeros((s, cfg.vocab), dtype=dtype,
+                                       device=dev)
+        #: prefill's [slot, pos0, n_valid, chunk tokens...] and its host
+        #: mirror, uploaded in one copy per chunk
+        self._pf_host = np.zeros((3 + c,), np.int64)
+        self._pf_args = torch.zeros((3 + c,), dtype=torch.int64, device=dev)
+        self._pf_ar = torch.arange(c, device=dev)
+        #: prefill's logits at the chunk's last valid position
+        self._pf_out = torch.zeros((cfg.vocab,), dtype=dtype, device=dev)
+        self._decode_graph = Graphed(self._decode, dev, enabled=graphs)
+        self._prefill_graph = Graphed(self._prefill, dev, enabled=graphs)
 
     # ------------------------------------------------------------------
     # the programs
@@ -226,6 +252,10 @@ class Engine:
 
     @torch.no_grad()
     def _decode(self):
+        """One decode tick over the static lanes: writes each live
+        slot's K/V, attends, and leaves the logits in ``_dec_logits``,
+        each live lane's greedy next token in ``tokens`` and its
+        position advanced (dead lanes keep theirs)."""
         st = self.state
         tokens, pos, live, tables = (
             st["tokens"], st["pos"], st["live"], st["tables"]
@@ -259,23 +289,24 @@ class Engine:
                 self.params, f"blk{i}", x, mk_attend(i), self.cfg
             )
         logits = lm_head(self.params, x)[:, 0]
-        nxt = self._sample(logits, live, tokens)
-        st["tokens"] = nxt
-        st["pos"] = pos + live.to(torch.int32)
-        return torch.where(live, nxt, -1)
+        self._dec_logits.copy_(logits)
+        tokens.copy_(torch.where(live, logits.argmax(-1), tokens))
+        pos.add_(live.to(torch.int32))
 
     @torch.no_grad()
-    def _prefill(self, slot, chunk, pos0, n_valid):
-        """One (1, C) prompt chunk of ``slot`` at absolute positions
-        [pos0, pos0 + C): writes the chunk's K/V into the slot's blocks
-        (padding positions to the trash block) and returns the logits at
-        the last valid position."""
-        c = chunk.shape[0]
-        ar = torch.arange(c, device=self.device)
+    def _prefill(self):
+        """One (1, C) prompt chunk from the static args block [slot, pos0,
+        n_valid, tokens]: writes the chunk's K/V into the slot's blocks
+        at absolute positions [pos0, pos0 + C) (padding positions to the
+        trash block) and leaves the logits at the last valid position in
+        ``_pf_out``."""
+        args = self._pf_args
+        slot, pos0, n_valid, chunk = args[0], args[1], args[2], args[3:]
+        ar = self._pf_ar
         p = pos0 + ar
         valid = ar < n_valid
         x = self._embed(chunk, p)[None]
-        row = self.state["tables"][slot][None]           # (1, MB)
+        row = self.state["tables"].index_select(0, slot.view(1))  # (1, MB)
         bid, off = self._block_of(row, p[None])
         bid = torch.where(valid, bid[0], 0)
         off = off[0]
@@ -300,7 +331,8 @@ class Engine:
                 self.params, f"blk{i}", x, mk_attend(i), self.cfg
             )
         logits = lm_head(self.params, x)[0]
-        return logits[max(n_valid - 1, 0)]
+        last = (n_valid - 1).clamp(min=0).view(1)
+        self._pf_out.copy_(logits.index_select(0, last)[0])
 
     @torch.no_grad()
     def _verify(self, draft, n_draft):
@@ -396,8 +428,9 @@ class Engine:
                 self._write(
                     i, bid_keep, off, kh.transpose(1, 2), vh.transpose(1, 2)
                 )
-        st["tokens"] = torch.where(live, last_tok, tokens)
-        st["pos"] = pos + torch.where(live, acc + 1, 0).to(torch.int32)
+        # in place: the lanes keep the addresses decode's graph reads
+        tokens.copy_(torch.where(live, last_tok, tokens))
+        pos.add_(torch.where(live, acc + 1, 0).to(torch.int32))
         return emitted, torch.where(live, acc, 0)
 
     # ------------------------------------------------------------------
@@ -427,10 +460,16 @@ class Engine:
         n = len(tokens)
         if n > c:
             raise ValueError(f"prefill chunk {n} > max_prefill_chunk {c}")
-        buf = np.zeros((c,), np.int64)
-        buf[:n] = tokens
-        chunk = torch.from_numpy(buf).to(self.device)
-        return self._prefill(slot, chunk, int(pos0), n)
+        h = self._pf_host
+        h[:3] = (slot, pos0, n)
+        h[3:3 + n] = tokens
+        h[3 + n:] = 0
+        src = torch.from_numpy(h)
+        if self.device.type == "cuda":
+            src = src.pin_memory()
+        self._pf_args.copy_(src, non_blocking=True)
+        self._prefill_graph(1)
+        return self._pf_out.clone()
 
     @torch.no_grad()
     def activate(self, slot: int, last_logits, plen: int, seed: int,
@@ -455,10 +494,20 @@ class Engine:
         st["live"][slot] = True
         return int(first)
 
+    @torch.no_grad()
     def decode(self):
         """One tick: every live slot advances one token. -> emitted
-        (slots,) int64 device tensor, -1 on dead slots."""
-        return self._decode()
+        (slots,) int64 device tensor, -1 on dead slots. The graph (or
+        body) takes the greedy token; each live temperature slot then
+        draws from its own generator on the tick's logits."""
+        self._decode_graph(1)
+        st = self.state
+        for slot, temp in self._sampling.items():
+            probs = (self._dec_logits[slot] / temp).softmax(-1)
+            st["tokens"][slot] = torch.multinomial(
+                probs, 1, generator=self._gens[slot]
+            )[0]
+        return torch.where(st["live"], st["tokens"], -1)
 
     def verify(self, draft, n_draft):
         """One speculative tick: every live slot advances by its

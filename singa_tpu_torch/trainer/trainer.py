@@ -3,7 +3,7 @@
 Counterpart of ``singa_tpu/trainer/trainer.py``: the reference's
 worker-side stack (Worker::Start/Run/RunOneBatch,
 src/worker/worker.cc:14-106,187-213, and Executor::TrainOneBatch,
-:304-316) as an eager PyTorch step driven by the same cadence loop.
+:304-316) driven by the same cadence loop.
 
 The data axis is a :class:`~singa_tpu_torch.parallel.Mesh`, rank ->
 device (one rank on one device by default; ``mesh=`` or a cluster with
@@ -30,11 +30,42 @@ ranks. Error-feedback residuals live in ``buffers`` under
 dim) belonging to rank r: the layout and ``b|`` checkpoint keys of the
 JAX Trainer.
 
+Host dispatch (the JAX package's jitted step, scan chunks and
+device-resident dataset):
+
+- **The device cache.** When every net's dataset fits
+  ``SINGA_TPU_DEVICE_CACHE_MB`` (default 512) it is uploaded once
+  (byte-valued data as uint8, cast back after the gather) and batches
+  are gathered on the device (``feeder_mode`` ``cached``). Otherwise,
+  with ``prefetch`` on, a thread stages the next N batches as one block
+  (``stream``, ``data/device_prefetch.py``'s ChunkStager) or the next
+  batch (``prefetch``, its DeviceFeeder) while the card runs; ``sync``
+  assembles on the step path.
+- **Dispatch** (``dispatch_mode``). ``graph``: one rank's step is a
+  body over static tensors (params, updater slots, a step counter,
+  stream positions, the cached dataset or a static batch block, metric
+  sums) that gathers its batch with the JAX index math, runs forward,
+  backward and update, copies the new params and slots into the static
+  tensors and advances its counter; on the card it is captured once as
+  a CUDA graph (``utils/graphs.py``) and a chunk of N steps is N
+  replays with no host work between them, on the CPU it is called per
+  step. ``eager``, decided at construction by rule and logged once with
+  the rule (``dispatch: eager (<reason>)``): more than one rank (or the
+  quantized ring on one), a layer that draws on the device (kDropout,
+  kMnistImage's distortion), ``debug``, or ``graphs=False``; the step is
+  then the per-rank eager forward and backward, one step per call.
+- **Chunks.** ``run()`` advances by windows of up to ``SINGA_TPU_CHUNK``
+  (64) steps, cut at every cadence event, as the JAX ``run`` does; a
+  chunk's metrics are summed on the device and read at display.
+
 Random draws (dropout masks, crops, mirrors, distortion) come from a
 generator per step, derived from the Trainer's seed and the step
 (``utils.rng.fold_in``), then per rank and per layer (``Net.forward``):
 a step's draws do not depend on the steps before it, as the JAX
-Trainer's ``fold_in(step_key, step)`` does not. Eval passes none.
+Trainer's ``fold_in(step_key, step)`` does not. Eval passes none. A
+graphed step draws kRGBImage's crops and mirrors for its whole chunk on
+the host from the same generators and uploads them with the stream
+positions, in one copy.
 
 Cadence semantics match the reference's predicates exactly
 (include/worker/worker.h:118-158): XNow(step) = freq > 0 and
@@ -47,23 +78,27 @@ it rather than ignoring: any parallel axis but the data axis,
 ``kernels`` fields other than ``grad_allreduce`` and ``interpret``,
 ``resilience``, ``fleet``, ``pipeline_microbatches``, the sharded
 checkpoint format, and the contrastive-divergence and replica engines.
-Also left out: the device-resident dataset, scan chunks, input prefetch
-and telemetry (the step here is one dispatch per batch per rank).
+Also left out: telemetry (the JAX package attaches its recorder through
+the resilience supervisor, which is not ported), the eval-burst feeder
+of uncached eval streams, and graphs over more than one rank.
 """
 
 from __future__ import annotations
 
 import functools
 import os
+import types
 from typing import Callable
 
 import numpy as np
 import torch
 
 from ..config.schema import ClusterConfig, ConfigError, ModelConfig
+from ..data.device_prefetch import ready, to_device
 from ..data.pipeline import BatchPipeline
 from ..device import resolve_device
 from ..graph.builder import Net, active_phases, build_net
+from ..layers.data import RGBImageLayer, StagedDraw
 from ..ops import quantized_collective as qc
 from ..optim import make_updater
 from ..parallel import (
@@ -77,6 +112,7 @@ from ..parallel import (
 )
 from ..params import init_params
 from ..utils import Performance, Timers
+from ..utils.graphs import Graphed
 from ..utils.rng import fold_in
 from .checkpoint import load_stream_positions, restore_into, save_checkpoint
 
@@ -125,7 +161,12 @@ class Trainer:
     over the ranks of a data-parallel mesh. Without ``mesh``: one rank on
     ``device`` (``None`` is the GPU; pass ``"cpu"`` for the CPU), or, for
     a cluster with ``nworkers``, one rank per worker group over the
-    visible GPUs (over ``device`` repeated when one is given)."""
+    visible GPUs (over ``device`` repeated when one is given).
+
+    ``prefetch`` (default: the conf's ``prefetch``), ``device_cache``
+    (default: by the budget) and ``stream_chunks`` (default:
+    ``SINGA_TPU_STREAM_CHUNK``, on) choose ``feeder_mode`` as in the JAX
+    Trainer; ``graphs=False`` forces the eager dispatch."""
 
     def __init__(
         self,
@@ -136,6 +177,10 @@ class Trainer:
         seed: int = 0,
         log: Callable[[str], None] = print,
         device=None,
+        prefetch: bool | None = None,
+        device_cache: bool | None = None,
+        stream_chunks: bool | None = None,
+        graphs: bool | None = None,
     ):
         dev = resolve_device(device) if mesh is None else None
         missing = unsupported(model_cfg, cluster_cfg)
@@ -201,6 +246,10 @@ class Trainer:
                 "contiguous slice of it"
             )
 
+        #: the graph state of the train step and of each eval net
+        #: (built at first use; see _graph)
+        self._g = None
+        self._eval_g: dict[int, types.SimpleNamespace] = {}
         self.start_step = model_cfg.step
         self._materialize_params()
 
@@ -220,6 +269,42 @@ class Trainer:
         self._seek_resumed_streams()
         #: last step boundary reached
         self.completed_steps = self.start_step
+
+        # --- dispatch: graph or eager, by rule, decided once ---
+        self._dispatch, reason = self._dispatch_rule(graphs)
+        self.log(f"dispatch: {self._dispatch}"
+                 + (f" ({reason})" if reason else ""))
+        #: why the dispatch is eager ("" when graphed)
+        self.dispatch_reason = reason
+
+        # --- device-resident dataset (the JAX Trainer's fast path) ---
+        if prefetch is None:
+            prefetch = model_cfg.prefetch
+        self._prefetch_input = bool(prefetch)
+        #: net id -> layer -> {"image", "label"} on the device
+        self._dev_data: dict[int, dict[str, dict]] = {}
+        #: (net id, layer) -> decoded dtype of uint8-compacted device data
+        self._cache_cast: dict[tuple[int, str], torch.dtype] = {}
+        self._cached = self._maybe_cache_datasets(device_cache)
+
+        # --- double-buffered input (data/device_prefetch.py) ---
+        if stream_chunks is None:
+            stream_chunks = os.environ.get(
+                "SINGA_TPU_STREAM_CHUNK", "1"
+            ).lower() not in ("0", "off", "false")
+        self._stream_chunks = bool(stream_chunks)
+        self._feeder = None
+        self._stager = None
+        #: the side stream the feeders' host-to-device copies run on
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+        #: train-stream positions of the batches the trainer consumed
+        #: (the device feeder reads ahead; checkpoints must not skip
+        #: what the step loop never saw)
+        self._feeder_positions: dict[str, int] = {}
+        if self.feeder_mode != "stream":
+            # only the chunk stager consumes the over-budget compaction
+            self.__dict__.pop("_compact_train", None)
 
         if model_cfg.checkpoint_frequency and self._checkpoint_dir() is None:
             self.log(
@@ -281,16 +366,34 @@ class Trainer:
         self.state = state
         self.buffers = buffers
 
+    @staticmethod
+    def _assign(cur: dict | None, value: dict, dev) -> dict:
+        """``value`` (name -> tensor) as tensors the Trainer owns on
+        ``dev``: copied into ``cur``'s tensors when it holds the same
+        names, shapes and dtypes (a captured step reads them at fixed
+        addresses), else fresh copies."""
+        if cur is not None and cur.keys() == value.keys() and all(
+                cur[n].shape == v.shape and cur[n].dtype == v.dtype
+                for n, v in value.items()):
+            with torch.no_grad():
+                for n, v in value.items():
+                    cur[n].copy_(v)
+            return cur
+        return {n: v.to(dev, copy=True) for n, v in value.items()}
+
     @property
     def params(self) -> dict:
         """The params (rank 0's device's copy; every device holds the
-        same values). Assigning them sets every device's copy."""
+        same values). Assigning them copies into every device's copy."""
         return self._replicas[self.device]["params"]
 
     @params.setter
     def params(self, value: dict) -> None:
         for dev, rep in self._replicas.items():
-            rep["params"] = {n: v.to(dev) for n, v in value.items()}
+            cur = rep.get("params")
+            rep["params"] = self._assign(cur, value, dev)
+            if rep["params"] is not cur:
+                self._drop_graphs()
 
     @property
     def state(self) -> dict:
@@ -300,10 +403,18 @@ class Trainer:
     @state.setter
     def state(self, value: dict) -> None:
         for dev, rep in self._replicas.items():
-            rep["state"] = {
-                n: {s: v.to(dev) for s, v in slots.items()}
-                for n, slots in value.items()
-            }
+            cur = rep.get("state", {})
+            new = {}
+            for n, slots in value.items():
+                new[n] = self._assign(cur.get(n), slots, dev)
+                if new[n] is not cur.get(n):
+                    self._drop_graphs()
+            rep["state"] = new
+
+    def _drop_graphs(self) -> None:
+        """Forget every captured step: the tensors it read were replaced."""
+        self._g = None
+        self._eval_g = {}
 
     def _seek_resumed_streams(self) -> None:
         for net in self._nets():
@@ -313,7 +424,7 @@ class Trainer:
                     pipe.seek(pos)
 
     # ------------------------------------------------------------------
-    # the step
+    # the eager step
     # ------------------------------------------------------------------
 
     def _cast_compute(self, tree):
@@ -544,24 +655,507 @@ class Trainer:
             return 0
         return model["quantized_ring" if self._comm.ring else "reference"]
 
+    # ------------------------------------------------------------------
+    # device-resident dataset
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _compact_cache_array(images: np.ndarray):
+        """-> (storage array, original dtype) for the device cache.
+
+        Raw record pixels are byte-valued floats (uint8 widened at
+        decode, data/pipeline.py); storing them as uint8 quarters the
+        device memory the per-step gather reads. The round trip is
+        exact: values are integers in [0, 255], and the gather casts
+        back to the original dtype (so every consumer sees the host
+        path's arrays). Other data stays as it is."""
+        if images.dtype == np.uint8 or images.size == 0:
+            return images, images.dtype
+        if (
+            np.issubdtype(images.dtype, np.floating)
+            or np.issubdtype(images.dtype, np.integer)
+        ):
+            lo, hi = images.min(), images.max()
+            if 0 <= lo and hi <= 255 and np.all(images == np.trunc(images)):
+                return images.astype(np.uint8), images.dtype
+        return images, images.dtype
+
+    def _maybe_cache_datasets(self, enabled: bool | None) -> bool:
+        """Upload every net's dataset to the device when it fits
+        SINGA_TPU_DEVICE_CACHE_MB (default 512). Byte-valued data is
+        stored uint8 (see _compact_cache_array). ``device_cache=False``
+        wins."""
+        if enabled is False:
+            return False
+        compact: dict[tuple[int, str], tuple[np.ndarray, np.dtype]] = {}
+        total = 0
+        for net in self._nets():
+            for l in net.datalayers:
+                arr, orig = self._compact_cache_array(np.asarray(l.images))
+                compact[(id(net), l.name)] = (arr, orig)
+                total += arr.nbytes + l.labels.nbytes
+        if enabled is None:
+            limit = float(os.environ.get("SINGA_TPU_DEVICE_CACHE_MB", "512"))
+            if total > limit * 1e6:
+                # over budget: the stream stager wants exactly the train
+                # net's compacted arrays; hand them over
+                self._compact_train = {
+                    name: compact[(nid, name)]
+                    for nid, name in compact
+                    if nid == id(self.train_net)
+                }
+                return False
+        if total == 0:
+            return False
+        for net in self._nets():
+            self._dev_data[id(net)] = {}
+            for l in net.datalayers:
+                arr, orig = compact[(id(net), l.name)]
+                if arr.dtype != orig:
+                    self._cache_cast[(id(net), l.name)] = _torch_dtype(orig)
+                self._dev_data[id(net)][l.name] = {
+                    "image": torch.from_numpy(arr).to(self.device),
+                    "label": torch.from_numpy(
+                        np.asarray(l.labels)).to(self.device),
+                }
+        return True
+
+    def _gather(self, net: Net, name: str, data: dict, idx) -> dict:
+        """One batch of layer ``name`` from ``data`` (the cached dataset
+        or a staged block) at the record indices ``idx`` (a device
+        tensor), cast back to the decoded dtype after the gather."""
+        img = data["image"].index_select(0, idx)
+        cast = self._cache_cast.get((id(net), name))
+        if cast is not None:
+            img = img.to(cast)
+        return {"image": img, "label": data["label"].index_select(0, idx)}
+
+    # ------------------------------------------------------------------
+    # input feeders (data/device_prefetch.py)
+    # ------------------------------------------------------------------
+
+    @property
+    def feeder_mode(self) -> str:
+        """How train batches reach the device:
+
+        ``cached``    the whole dataset on the device, gathered there
+        ``stream``    staged chunk blocks, double-buffered per chunk
+        ``prefetch``  per-step double-buffered device feeder
+        ``sync``      batch assembly + copy on the step path
+        """
+        if self._cached:
+            return "cached"
+        if self._prefetch_input and self._stream_ok():
+            return "stream"
+        if self._prefetch_input:
+            return "prefetch"
+        return "sync"
+
+    def _stream_ok(self) -> bool:
+        """Streaming chunks need a graphed step (an eager step takes one
+        batch a call) and a chunk cap above 1 (SINGA_TPU_CHUNK=1 is the
+        escape hatch); SINGA_TPU_STREAM_CHUNK=0 disables just this
+        mode."""
+        if not self._stream_chunks or self._dispatch != "graph":
+            return False
+        return self._chunk_cap() > 1
+
+    def _reset_feeders(self) -> None:
+        """Discard all feeder read-ahead and park the threads (before the
+        streams are re-seeked)."""
+        for f in (self._feeder, self._stager):
+            if f is not None:
+                f.reset()
+        self._feeder_positions = {}
+
+    def _device_feeder(self):
+        """The per-step double-buffered device feeder, built at first
+        use."""
+        if self._feeder is None:
+            from ..data.device_prefetch import DeviceFeeder
+
+            self.__dict__.pop("_compact_train", None)
+            net = self.train_net
+            pipes = self._pipelines[id(net)]
+
+            def positions():
+                return {
+                    f"{net.phase}|{name}": pipe.position
+                    for name, pipe in pipes.items()
+                }
+
+            self._feeder = DeviceFeeder(
+                lambda: self._assemble_host_batch(net), positions)
+        return self._feeder
+
+    def _chunk_stager(self):
+        """The streaming-chunk block stager, built at first use.
+        Byte-valued datasets stage uint8 (the device cache's compaction,
+        decided once over the whole array); the gather casts back."""
+        if self._stager is None:
+            from ..data.device_prefetch import ChunkStager
+
+            net = self.train_net
+            pipes = self._pipelines[id(net)]
+            stash = self.__dict__.pop("_compact_train", {})
+            sources = {}
+            for name, pipe in pipes.items():
+                arr, orig = stash.get(name) or self._compact_cache_array(
+                    np.asarray(pipe.images)
+                )
+                if arr.dtype != orig:
+                    self._cache_cast[(id(net), name)] = _torch_dtype(orig)
+                sources[name] = (arr, pipe.labels, pipe.batchsize)
+            self._stager = ChunkStager(
+                sources, 1,
+                schedule=self._stream_schedule,
+                cursors=lambda: {
+                    name: pipe.position for name, pipe in pipes.items()
+                },
+                put=lambda a, name, kind: to_device(
+                    a, self.device, self._copy_stream),
+            )
+        return self._stager
+
+    def _stream_schedule(self, step: int) -> int:
+        """The stager's window-length oracle: exactly the run() loop's
+        chunk lengths (deterministic in ``step``), 0 past the end."""
+        if step >= self.cfg.train_steps:
+            return 0
+        return self._chunk_len(step)
+
+    def _step_via_chunk(self, step: int) -> bool:
+        """Whether a length-1 window in stream mode still runs through
+        train_chunk (keeping the stager's schedule unbroken)."""
+        del step
+        return True
+
     def _next_batch(self, net: Net) -> dict:
-        """Host batch assembly + transfer for ``net``'s data layers."""
+        """One batch of ``net``'s data layers on the device: a gather
+        from the cached dataset, a feeder buffer swap (prefetch mode, the
+        train net), or host assembly + copy on the calling thread."""
+        if id(net) in self._dev_data:
+            out = {}
+            for name, pipe in self._pipelines[id(net)].items():
+                idx = torch.from_numpy(pipe.next_indices()).to(self.device)
+                out[name] = self._gather(
+                    net, name, self._dev_data[id(net)][name], idx)
+            return out
+        if net is self.train_net and self.feeder_mode == "prefetch":
+            feeder = self._device_feeder()
+            batch = feeder.next()
+            self._feeder_positions = dict(feeder.consumed_positions)
+        else:
+            batch = self._assemble_host_batch(net)
+        return {name: {k: ready(v) for k, v in feed.items()}
+                for name, feed in batch.items()}
+
+    def _assemble_host_batch(self, net: Net) -> dict:
+        """Host batch assembly with its copy to the device started (the
+        synchronous path, and the body the device feeder runs on its
+        thread)."""
         out = {}
         for name, pipe in self._pipelines[id(net)].items():
             images, labels = pipe.next_batch()
             out[name] = {
-                "image": torch.from_numpy(images).to(self.device),
-                "label": torch.from_numpy(labels).to(self.device),
+                "image": to_device(images, self.device, self._copy_stream),
+                "label": to_device(labels, self.device, self._copy_stream),
             }
         return out
 
+    # ------------------------------------------------------------------
+    # dispatch: the step as a graph
+    # ------------------------------------------------------------------
+
+    def _dispatch_rule(self, graphs: bool | None) -> tuple[str, str]:
+        """-> ("graph", "") or ("eager", the rule that keeps it eager)."""
+        if graphs is False:
+            return "eager", "graphs=False"
+        n = len(self.mesh.devices)
+        if n > 1:
+            return "eager", (f"{n} ranks: the per-rank loop, the ring's "
+                             "host bucket loop and ppermute.sent_bytes")
+        if self._ring_chunk_dims is not None:
+            return "eager", "the quantized ring's host bucket loop"
+        for layer in self.train_net.layers:
+            if layer.draws_on_device:
+                return "eager", (f"layer {layer.name!r} ({layer.TYPE}) "
+                                 "draws on the device")
+        if self.cfg.debug:
+            return "eager", "debug"
+        return "graph", ""
+
+    @property
+    def dispatch_mode(self) -> str:
+        """``graph`` (the step body over static tensors: a CUDA graph on
+        the card, called per step on the CPU) or ``eager``."""
+        return self._dispatch
+
+    def _graph(self) -> types.SimpleNamespace:
+        """The train step's static tensors and its Graphed body, built at
+        first use: the step counter, the args block (step0, each data
+        layer's stream position, each step's staged kRGBImage draws),
+        each data layer's source (the cached dataset, or a static block
+        of ``rows`` records the staged or fed batches are copied into)
+        and the metric sums."""
+        if self._g is not None:
+            return self._g
+        net, dev = self.train_net, self.device
+        pipes = self._pipelines[id(net)]
+        g = types.SimpleNamespace()
+        g.cap = max(1, self._chunk_cap())
+        g.sources = {}
+        for name, pipe in pipes.items():
+            bs = pipe.batchsize
+            if self._cached:
+                data, n = self._dev_data[id(net)][name], pipe.n
+            else:
+                # the staged block's rows and dtype (uint8 when the
+                # stager compacts), or one fed batch
+                if self.feeder_mode == "stream":
+                    arr = self._chunk_stager().sources[name][0]
+                    rows = bs * g.cap
+                else:
+                    arr, rows = pipe.images, bs
+                data = {
+                    "image": torch.zeros((rows, *arr.shape[1:]),
+                                         dtype=_torch_dtype(arr.dtype),
+                                         device=dev),
+                    "label": torch.zeros(
+                        rows, dtype=_torch_dtype(pipe.labels.dtype),
+                        device=dev),
+                }
+                n = rows
+            g.sources[name] = (data, bs, n, torch.arange(bs, device=dev))
+        g.rgb = [(i, l) for i, l in enumerate(net.layers)
+                 if isinstance(l, RGBImageLayer)
+                 and (l.cropsize or l.mirror)]
+        g.width = sum(l.staged_width() for _, l in g.rgb)
+        g.head = 1 + len(pipes)
+        g.host = np.zeros(g.head + g.cap * g.width, np.int64)
+        g.args = torch.zeros(g.host.shape, dtype=torch.int64, device=dev)
+        g.step = torch.zeros((), dtype=torch.int64, device=dev)
+        g.sums = {}
+        g.run = Graphed(self._train_body, dev)
+        self._g = g
+        return g
+
+    def _write_args(self, g, step0: int, nsteps: int) -> None:
+        """Stage the draws of steps [step0, step0 + nsteps) into the args
+        block's host mirror ``g.host`` (its positions already filled),
+        upload what the window reads in one copy, and set the step
+        counter to ``step0``."""
+        g.host[0] = step0
+        self._stage_draws(g, g.host, step0, nsteps)
+        k = g.head + nsteps * g.width
+        src = torch.from_numpy(g.host[:k])
+        if g.args.device.type == "cuda":
+            src = src.pin_memory()
+        g.args[:k].copy_(src, non_blocking=True)
+        g.step.copy_(g.args[0])
+
+    def _stage_draws(self, g, host, step0: int, nsteps: int) -> None:
+        """kRGBImage's crop offsets and mirror flags for steps
+        [step0, step0 + nsteps), drawn on the host from the eager path's
+        generators (fold_in(seed, step, rank 0, layer)), into the args
+        block's rows."""
+        if not g.rgb:
+            return
+        rows = host[g.head:g.head + nsteps * g.width].reshape(nsteps, -1)
+        for k in range(nsteps):
+            rank_gen = fold_in(fold_in(self._step_gen, step0 + k), 0)
+            row = []
+            for i, layer in g.rgb:
+                row += layer.staged_row(fold_in(rank_gen, i))
+            rows[k] = row
+
+    def _train_body(self) -> None:
+        """One train step over the static tensors only: gather the batch
+        at the counter's step (the JAX chunk's index math), forward,
+        backward, the reduction seam, the update; then copy the new
+        params and slots back, add the metrics to the sums and advance
+        the counter. No host read: a CUDA graph replays it."""
+        g = self._g
+        i = g.step - g.args[0]
+        batch = {}
+        for j, (name, (data, bs, n, ar)) in enumerate(g.sources.items()):
+            idx = (g.args[1 + j] + i * bs + ar) % n
+            batch[name] = self._gather(self.train_net, name, data, idx)
+        gen = None
+        if g.rgb:
+            row = g.args[g.head:].view(g.cap, g.width).index_select(
+                0, i.view(1))[0]
+            gen, o = {}, 0
+            for li, layer in g.rgb:
+                w = layer.staged_width()
+                gen[li] = StagedDraw(row[o:o + 2], row[o + 2:o + w])
+                o += w
+        names = list(self.params)
+        leaves = {nm: self.params[nm].detach().requires_grad_(True)
+                  for nm in names}
+        loss, metrics = self.train_net.forward(
+            self._cast_compute(leaves), self._cast_compute(batch),
+            training=True, generator=gen,
+        )
+        loss.backward()
+        grads = {nm: (leaves[nm].grad if leaves[nm].grad is not None
+                      else torch.zeros_like(leaves[nm])) for nm in names}
+        res = {}
+        if self._comm is not None:
+            grads, res = reduce_gradients(
+                grads, self.buffers, self._comm, self._buckets(names))
+        new_p, new_s = self.updater.apply(
+            g.step, self.params, grads, self.state, self.specs)
+        self._store_update(new_p, new_s, res)
+        _add_sums(g.sums, metrics)
+        self._advance_step()
+
+    @torch.no_grad()
+    def _store_update(self, new_p: dict, new_s: dict, res: dict) -> None:
+        """Copy the update into the static params, slots and residuals."""
+        for nm, v in new_p.items():
+            self.params[nm].copy_(v)
+        for nm, slots in new_s.items():
+            for s, v in slots.items():
+                self.state[nm][s].copy_(v)
+        for k, v in res.items():
+            self.buffers[k].copy_(v)
+
+    def _advance_step(self) -> None:
+        self._g.step.add_(1)
+
+    def _feed_block(self, g, block: dict) -> None:
+        """Copy fed or staged batches (device tensors) into the static
+        blocks' first rows."""
+        for name, feed in block.items():
+            data = g.sources[name][0]
+            for k, v in feed.items():
+                v = ready(v)
+                data[k][:v.shape[0]].copy_(v)
+
+    # ------------------------------------------------------------------
+    # the train step and multi-step chunks
+    # ------------------------------------------------------------------
+
     def train_one_batch(self, step: int) -> None:
-        """TrainOneBatch (worker.cc:304-316): one forward+backward+update."""
+        """TrainOneBatch (worker.cc:304-316): one forward+backward+update.
+        Graphed: one replay of the step (one call of its body on the
+        CPU) on the batch at the stream's position."""
+        if self._dispatch != "graph":
+            with self.timers.phase("data"):
+                batch = self._next_batch(self.train_net)
+            with self.timers.phase("train"):
+                metrics = self._step_core(step, batch)
+            self.perf.update(metrics)
+            return
+        g = self._graph()
+        pipes = self._pipelines[id(self.train_net)]
         with self.timers.phase("data"):
-            batch = self._next_batch(self.train_net)
+            if self._cached:
+                pos = [pipe.position for pipe in pipes.values()]
+            else:
+                if self.feeder_mode == "prefetch":
+                    feeder = self._device_feeder()
+                    block = feeder.next()
+                    self._feeder_positions = dict(feeder.consumed_positions)
+                else:
+                    block = self._assemble_host_batch(self.train_net)
+                self._feed_block(g, block)
+                pos = [0] * len(pipes)
+            g.host[1:g.head] = pos
+            self._write_args(g, step, 1)
         with self.timers.phase("train"):
-            metrics = self._step_core(step, batch)
-        self.perf.update(metrics)
+            g.run(1)
+        if self._cached:
+            for pipe in pipes.values():
+                pipe.advance(1)
+        self.perf.update_summed(_take_sums(g.sums), 1)
+
+    def _can_chunk(self) -> bool:
+        """Chunking folds N steps into one dispatch window: it needs the
+        dataset on the device (batch = index math inside the step), a
+        graphed step and a chunk cap above 1."""
+        return (self._cached and self._dispatch == "graph"
+                and self._chunk_cap() > 1)
+
+    def _chunk_cap(self) -> int:
+        return int(os.environ.get("SINGA_TPU_CHUNK", "64"))
+
+    def train_chunk(self, step0: int, nsteps: int) -> None:
+        """Run ``nsteps`` consecutive train steps as one window: the same
+        steps as ``nsteps`` train_one_batch calls (the same wraparound
+        batch indices, computed on the device from the stream positions,
+        the same draws, the same updater schedule). Graphed, the
+        positions and draws go up in one copy and the step is replayed
+        ``nsteps`` times with no host work between; eager, it is
+        ``nsteps`` train_one_batch calls."""
+        if not (self._can_chunk() or self.feeder_mode == "stream"):
+            for step in range(step0, step0 + nsteps):
+                self.train_one_batch(step)
+            return
+        g = self._graph()
+        pipes = self._pipelines[id(self.train_net)]
+        streaming = self.feeder_mode == "stream"
+        done = 0
+        while done < nsteps:
+            n = min(nsteps - done, g.cap)
+            s0 = step0 + done
+            with self.timers.phase("data", steps=n):
+                if streaming:
+                    block, after = self._chunk_stager().take(s0, n)
+                    self._feed_block(g, block)
+                    g.host[1:g.head] = 0
+                else:
+                    g.host[1:g.head] = [p.position for p in pipes.values()]
+                self._write_args(g, s0, n)
+            with self.timers.phase("train", steps=n):
+                g.run(n)
+            if streaming:
+                # the stager owns the stream cursor; re-sync the
+                # pipelines at the window boundary for checkpoints
+                for name, pipe in pipes.items():
+                    pipe.seek(after[name])
+            else:
+                for pipe in pipes.values():
+                    pipe.advance(n)
+            # metrics arrive summed over the window; Performance pulls
+            # them to the host only at display
+            self.perf.update_summed(_take_sums(g.sums), n)
+            done += n
+
+    def _next_fire(self, cur: int, freq: int, after: int) -> float:
+        """Smallest s >= cur with _now(s, freq, after), or +inf."""
+        if freq <= 0:
+            return float("inf")
+        base = max(cur, after)
+        return base + (-(base - after)) % freq
+
+    def _chunk_len(self, step: int) -> int:
+        """Steps until the next cadence event bounds the chunk: val/test
+        run BEFORE their trigger step (the chunk stops short of it);
+        display/checkpoint run AFTER theirs (it may close the chunk)."""
+        cfg = self.cfg
+        n = min(cfg.train_steps - step, self._chunk_cap())
+        if self.val_net is not None:
+            fire = self._next_fire(
+                step + 1, cfg.validation_frequency, cfg.validation_after_steps
+            )
+            n = min(n, fire - step)
+        if self.test_net is not None:
+            fire = self._next_fire(
+                step + 1, cfg.test_frequency, cfg.test_after_steps
+            )
+            n = min(n, fire - step)
+        fire = self._next_fire(
+            step, cfg.display_frequency, cfg.display_after_steps
+        )
+        n = min(n, fire - step + 1)
+        # checkpoint at step s saves "done = s+1" (see _post_events)
+        fire = self._next_fire(
+            step + 1, cfg.checkpoint_frequency, cfg.checkpoint_after_steps
+        )
+        n = min(n, fire - step)
+        return max(1, int(n))
 
     # ------------------------------------------------------------------
     # eval
@@ -576,14 +1170,65 @@ class Trainer:
         )
         return metrics
 
+    def _eval_graph(self, net: Net) -> types.SimpleNamespace:
+        """A cached eval net's static tensors and Graphed body (the JAX
+        eval chunk): a batch counter, each data layer's start position
+        and the metric sums."""
+        eg = self._eval_g.get(id(net))
+        if eg is None:
+            pipes = self._pipelines[id(net)]
+            eg = types.SimpleNamespace()
+            # the train step's args layout without draws: eval draws none
+            eg.rgb, eg.width, eg.head = [], 0, 1 + len(pipes)
+            eg.host = np.zeros(eg.head, np.int64)
+            eg.args = torch.zeros(eg.host.shape, dtype=torch.int64,
+                                  device=self.device)
+            eg.step = torch.zeros((), dtype=torch.int64, device=self.device)
+            eg.sums = {}
+            eg.sources = {
+                name: (self._dev_data[id(net)][name], pipe.batchsize, pipe.n,
+                       torch.arange(pipe.batchsize, device=self.device))
+                for name, pipe in pipes.items()
+            }
+            eg.run = Graphed(functools.partial(self._eval_body, net, eg),
+                             self.device,
+                             enabled=self._dispatch == "graph")
+            self._eval_g[id(net)] = eg
+        return eg
+
+    @torch.no_grad()
+    def _eval_body(self, net: Net, eg) -> None:
+        """One eval batch over static tensors: the flat stream index
+        math from the layer's start position and the batch counter."""
+        i = eg.step - eg.args[0]
+        batch = {}
+        for j, (name, (data, bs, n, ar)) in enumerate(eg.sources.items()):
+            idx = (eg.args[1 + j] + i * bs + ar) % n
+            batch[name] = self._gather(net, name, data, idx)
+        _add_sums(eg.sums, self._eval_batch_metrics(net, batch))
+        eg.step.add_(1)
+
     def evaluate(self, net: Net, nsteps: int, phase: str, step: int) -> dict:
-        """Test/Validate (worker.cc:318-348): nsteps batches, averaged."""
+        """Test/Validate (worker.cc:318-348): nsteps batches, averaged.
+        A cached net with nsteps > 1 runs as one eval chunk (replays of
+        its eval graph, summed on the device); otherwise per batch."""
         perf = Performance()
-        with self.timers.phase("eval", steps=nsteps):
-            for _ in range(nsteps):
-                perf.update(
-                    self._eval_batch_metrics(net, self._next_batch(net))
-                )
+        if self._can_chunk() and nsteps > 1 and id(net) in self._dev_data:
+            eg = self._eval_graph(net)
+            pipes = self._pipelines[id(net)]
+            with self.timers.phase("eval", steps=nsteps):
+                eg.host[1:] = [pipe.position for pipe in pipes.values()]
+                self._write_args(eg, 0, nsteps)
+                eg.run(nsteps)
+            for pipe in pipes.values():
+                pipe.advance(nsteps)
+            perf.update_summed(_take_sums(eg.sums), nsteps)
+        else:
+            with self.timers.phase("eval", steps=nsteps):
+                for _ in range(nsteps):
+                    perf.update(
+                        self._eval_batch_metrics(net, self._next_batch(net))
+                    )
         avg = perf.avg()
         self.log(f"step {step}: {phase} {perf.to_string(avg)}")
         return avg
@@ -642,12 +1287,25 @@ class Trainer:
         self._post_events(step)
 
     def run(self) -> None:
-        """Worker::Run (worker.cc:98-106): the step-at-a-time loop."""
+        """Worker::Run (worker.cc:98-106): the training loop. With a
+        cached dataset or streaming blocks and a graphed step it advances
+        by chunks (one window per cadence interval); otherwise one step
+        at a time."""
+        streaming = self.feeder_mode == "stream"
+        chunking = self._can_chunk() or streaming
         step = self.start_step
         self.completed_steps = step
         while step < self.cfg.train_steps:
-            self.run_one_batch(step)
-            step += 1
+            n = self._chunk_len(step) if chunking else 1
+            self._pre_events(step)
+            if n > 1 or (streaming and self._step_via_chunk(step)):
+                # streaming routes length-1 windows through train_chunk
+                # too: the stager's block schedule stays unbroken
+                self.train_chunk(step, n)
+            else:
+                self.train_one_batch(step)
+            self._post_events(step + n - 1)
+            step += n
             self.completed_steps = step
         if self._checkpoint_dir() is not None:
             self.save(self.cfg.train_steps)
@@ -662,11 +1320,15 @@ class Trainer:
         return None
 
     def _stream_positions(self) -> dict[str, int]:
-        return {
+        out = {
             f"{net.phase}|{name}": pipe.position
             for net in self._nets()
             for name, pipe in self._pipelines[id(net)].items()
         }
+        # device-feeder mode: the pipelines run ahead of the trainer by
+        # the feeder's read-ahead; checkpoint the consumed positions
+        out.update(self._feeder_positions)
+        return out
 
     def save(self, step: int) -> str | None:
         """npz snapshot into ``<workspace>/checkpoints/step_<step>.npz``."""
@@ -679,3 +1341,30 @@ class Trainer:
                             self.buffers, streams=self._stream_positions())
         self.log(f"step {step}: checkpoint -> {path}")
         return path
+
+
+def _torch_dtype(np_dtype) -> torch.dtype:
+    return torch.from_numpy(np.zeros(0, np_dtype)).dtype
+
+
+def _add_sums(sums: dict, metrics: dict) -> None:
+    """Add one step's {layer: {metric: scalar}} into the static sums (the
+    first call makes them)."""
+    for layer, ms in metrics.items():
+        bucket = sums.setdefault(layer, {})
+        for k, v in ms.items():
+            v = v.detach()
+            if k in bucket:
+                bucket[k].add_(v)
+            else:
+                bucket[k] = v.clone()
+
+
+def _take_sums(sums: dict) -> dict:
+    """A copy of the static sums, which are zeroed for the next window."""
+    out = {layer: {k: v.clone() for k, v in ms.items()}
+           for layer, ms in sums.items()}
+    for ms in sums.values():
+        for v in ms.values():
+            v.zero_()
+    return out

@@ -33,6 +33,16 @@ class Performance:
                 v = v.detach() if isinstance(v, torch.Tensor) else v
                 bucket[k] = v if k not in bucket else bucket[k] + v
 
+    def update_summed(self, summed: dict[str, dict], nsteps: int) -> None:
+        """Accumulate ``nsteps`` steps whose metrics are already summed
+        on the device (a multi-step chunk's sums): no per-step host
+        transfer, the same averages. ``nsteps <= 0`` is a no-op: a
+        zero-length window carries no steps."""
+        if nsteps <= 0:
+            return
+        self.update(summed)
+        self._count += nsteps - 1
+
     @property
     def count(self) -> int:
         return self._count

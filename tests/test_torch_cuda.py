@@ -344,3 +344,116 @@ def test_ring_on_the_card_equals_the_ring_on_the_cpu(cuda_device, hier):
         for r in range(4):
             for k, v in ref[r].items():
                 assert torch.equal(got[r][k].cpu(), v), (r, k)
+
+
+# ---------------------------------------------------------------------------
+# host dispatch: the step and the engine's programs as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _mlp_conf(shard, updater=""):
+    return parse_model_config(f"""
+name: "graph-test"
+train_steps: 12
+updater {{ base_learning_rate: 0.1 momentum: 0.9 param_type: "Param"
+          learning_rate_change_method: kStep gamma: 0.9
+          learning_rate_change_frequency: 2 {updater} }}
+neuralnet {{
+  layer {{ name: "data" type: "kShardData"
+          data_param {{ path: "{shard}" batchsize: 16 }} }}
+  layer {{ name: "mnist" type: "kMnistImage" srclayers: "data"
+          mnist_param {{ norm_a: 255 norm_b: 0 }} }}
+  layer {{ name: "label" type: "kLabel" srclayers: "data" }}
+  layer {{ name: "fc1" type: "kInnerProduct" srclayers: "mnist"
+          inner_product_param {{ num_output: 64 }}
+          param {{ name: "w" init_method: "kUniformSqrtFanIn" }}
+          param {{ name: "b" init_method: "kConstant" value: 0 }} }}
+  layer {{ name: "tanh" type: "kTanh" srclayers: "fc1" }}
+  layer {{ name: "fc2" type: "kInnerProduct" srclayers: "tanh"
+          inner_product_param {{ num_output: 10 }}
+          param {{ name: "w" init_method: "kUniformSqrtFanIn" }}
+          param {{ name: "b" init_method: "kConstant" value: 0 }} }}
+  layer {{ name: "loss" type: "kSoftmaxLoss" srclayers: "fc2"
+          srclayers: "label" softmaxloss_param {{ topk: 1 }} }}
+}}
+""")
+
+
+def test_graphed_chunk_equals_eager_steps_on_the_card(cuda_device,
+                                                     tmp_path):
+    """6 steps as replays of the captured step == 6 eager per-step steps
+    on host batches, on the card: params and slots to the bit, and the
+    graph was captured once and replayed."""
+    from singa_tpu_torch.data.loader import synthetic_arrays
+
+    shard = str(tmp_path / "shard")
+    write_records(shard, *synthetic_arrays(40, seed=2))
+    a = Trainer(_mlp_conf(shard), seed=3, log=lambda s: None)
+    b = Trainer(_mlp_conf(shard), seed=3, log=lambda s: None, graphs=False,
+                device_cache=False, prefetch=False)
+    assert a.dispatch_mode == "graph"
+    a.train_chunk(0, 6)
+    for step in range(6):
+        b.train_one_batch(step)
+    torch.cuda.synchronize()
+    assert a._g.run.captured and a._g.run.replays == 5
+    for n, v in a.params.items():
+        assert torch.equal(v, b.params[n]), n
+        for slot, s in a.state[n].items():
+            assert torch.equal(s, b.state[n][slot]), (n, slot)
+    assert a.perf.avg() == b.perf.avg()
+
+
+@pytest.mark.parametrize("schedule", [
+    "kFixed", "kLinear", "kExponential", "kInverse_t", "kInverse", "kStep"])
+def test_learning_rate_on_the_card_matches_the_host_float(cuda_device,
+                                                          schedule):
+    from singa_tpu_torch.optim import learning_rate
+
+    extra = {
+        "kFixed": "",
+        "kLinear": "learning_rate_change_frequency: 10 "
+                   "final_learning_rate: 0.01",
+        "kExponential": "learning_rate_change_frequency: 3 "
+                        "final_learning_rate: 0.05",
+        "kInverse_t": "final_learning_rate: 0.05",
+        "kInverse": "gamma: 0.1 pow: 0.75",
+        "kStep": "gamma: 0.5 learning_rate_change_frequency: 2",
+    }[schedule]
+    cfg = parse_model_config(
+        f'updater {{ type: "kSGD" base_learning_rate: 0.1 '
+        f'learning_rate_change_method: "{schedule}" {extra} }}').updater
+    steps = torch.arange(201, device=cuda_device)
+    got = torch.stack([learning_rate(cfg, s) for s in steps]).cpu()
+    want = torch.stack([learning_rate(cfg, s) for s in range(201)])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_engine_graphs_give_the_eager_streams(cuda_device, temperature):
+    """decode and prefill replayed as graphs give the eager engine's
+    streams (temperature slots included), and the kernel's launch count
+    still equals layers x (prefill chunks + decode ticks)."""
+    cfg = TransformerConfig(vocab=64, d_model=128, n_heads=2, n_layers=2,
+                            d_ff=128, max_len=96)
+    params = init_lm(torch.Generator().manual_seed(0), cfg, cuda_device)
+    rs = np.random.RandomState(0)
+    reqs = [(rs.randint(0, 64, size=(int(rs.randint(3, 40)),)),
+             int(rs.randint(4, 30))) for _ in range(6)]
+    out = []
+    for graphs in (True, False):
+        eng = Engine(params, cfg, EngineConfig(
+            slots=3, kv_block_len=16, max_prefill_chunk=16,
+        ), device=cuda_device, graphs=graphs)
+        sched = Scheduler(eng)
+        for i, (p, m) in enumerate(reqs):
+            sched.submit(Request(rid=i, prompt=p.astype(np.int32),
+                                 max_new_tokens=m, seed=i,
+                                 temperature=temperature * (i % 2)))
+        before = pa.paged_attention.launches
+        sched.serve()
+        assert pa.paged_attention.launches - before == cfg.n_layers * (
+            sched.prefill_chunks + sched.decode_ticks)
+        assert eng._decode_graph.captured == graphs
+        out.append({r.rid: r.tokens for r in sched.finished})
+    assert out[0] == out[1]

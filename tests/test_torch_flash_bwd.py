@@ -40,7 +40,6 @@ import torch
 from singa_tpu.ops import attention as ja
 from singa_tpu_torch import _build
 from singa_tpu_torch.ops import attention as ta
-from singa_tpu_torch.tools import flash_bwd_variants as fv
 
 #: half of FLASH_TOL[bfloat16] (2e-2), relative to the output's max
 BAR = 1e-2
@@ -133,7 +132,7 @@ def test_tensor_core_rounding_within_half_the_card_bar(bh, s, d, causal):
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dq",
                                   "flash_bwd_dkv"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_source_routes_only_the_bf16_backward(name, dtype):
+def test_kernel_source_routes_each_dtype_to_its_file(name, dtype):
     """Every bf16 kernel (forward, dQ, dK/dV) comes from the tensor-core
     source and every float32 kernel from the CUDA-core one, under the C
     names their sources export; the CUDA-core source exports no bf16
@@ -215,18 +214,27 @@ def _source():
     return read_source("flash_attention_bf16")
 
 
+#: (source, primitives) -> the library built from them in this process:
+#: each test file that emulates a source builds it in its fixture, and a
+#: worker that runs several such files compiles it once
+_BUILT: dict = {}
+
+
 def build_emulated(src: str, tmp, primitives=EMU_PRIMITIVES):
     """Kernel source ``src`` built for the CPU on cuda_emu.h in directory
-    ``tmp`` -> the loaded library."""
-    (tmp / "kernels.cpp").write_text(_emulated_source(src, primitives))
-    lib = tmp / "libkernels.so"
-    subprocess.run(
-        ["g++", "-std=c++20", "-O2", "-pthread", "-shared", "-fPIC",
-         "-I", os.path.dirname(os.path.abspath(__file__)),
-         "-o", str(lib), str(tmp / "kernels.cpp")],
-        check=True, capture_output=True, text=True,
-    )
-    return ctypes.CDLL(str(lib))
+    ``tmp`` (once per process) -> the loaded library."""
+    key = (src, tuple(sorted(primitives.items())))
+    if key not in _BUILT:
+        (tmp / "kernels.cpp").write_text(_emulated_source(src, primitives))
+        lib = tmp / "libkernels.so"
+        subprocess.run(
+            ["g++", "-std=c++20", "-O2", "-pthread", "-shared", "-fPIC",
+             "-I", os.path.dirname(os.path.abspath(__file__)),
+             "-o", str(lib), str(tmp / "kernels.cpp")],
+            check=True, capture_output=True, text=True,
+        )
+        _BUILT[key] = ctypes.CDLL(str(lib))
+    return _BUILT[key]
 
 
 #: each flash kernel's pointer arguments (before BH, S, D, dtype, causal)
@@ -293,15 +301,3 @@ def test_emulated_kernels_match_plain(emulated_kernels, bh, s, d, causal):
     """The tensor-core kernels' code, run on the emulated primitives,
     against the plain versions on the same bf16 inputs."""
     _check_against_plain(emulated_kernels, bh, s, d, causal)
-
-
-@pytest.mark.parametrize("variant", sorted(fv.VARIANTS))
-def test_timed_design_variants_build_and_match_plain(variant, tmp_path):
-    """Each design variant that tools/flash_bwd_variants.py times against
-    the source still applies to the source as it stands, and computes the
-    same function: emulated at an odd causal tile count, where pairing
-    leaves a middle tile alone."""
-    src = fv.variant_source(variant, _source())
-    assert src != _source()
-    _check_against_plain(emulated_flash_entries(src, tmp_path), 3, 192, 64,
-                         True)

@@ -17,8 +17,8 @@ the bar measures the roundings and nothing else.
 The kernel source itself runs through the CPU emulation of its CUDA
 primitives (tests/cuda_emu.h; the helpers of test_torch_flash_bwd.py)
 and is held to the plain version ``flash_fwd_plain``: output at the
-card's bar, lse within LSE_TOL, and the emulated forward's lse fed to
-the emulated backward, which reads it.
+card's bar and lse within LSE_TOL. The emulated forward's lse fed to the
+emulated backward, which reads it, is tests/test_torch_flash_lse.py.
 """
 
 import ctypes
@@ -30,13 +30,11 @@ import torch
 
 from singa_tpu.ops import attention as ja
 from singa_tpu_torch.ops import attention as ta
-from singa_tpu_torch.tools import flash_bwd_variants as fv
 from test_torch_flash_bwd import (
     BAR,
     EMU_TOL,
     F32_BAR,
     _bf16,
-    _check_against_plain,
     _inputs,
     _source,
     emulated_flash_entries,
@@ -135,35 +133,3 @@ def test_emulated_forward_matches_plain(emulated_kernels, s, d, causal):
     assert err <= EMU_TOL * float(want_out.float().abs().max()), err
     lse_err = (lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)
     assert float(lse_err.max()) <= LSE_TOL
-
-
-@pytest.mark.parametrize("s,d,causal", [(192, 64, True), (256, 128, False)])
-def test_emulated_forward_lse_feeds_the_backward(emulated_kernels, s, d,
-                                                 causal):
-    """The backward kernels read the forward's lse (P = exp(S * scale -
-    lse)): fed the emulated forward's out and lse, the emulated dQ and
-    dK/dV still match the plain versions fed the plain forward's."""
-    gen = torch.Generator().manual_seed(7 * s + d)
-    q, k, v, do = [torch.randn(3, s, d, generator=gen).to(torch.bfloat16)
-                   for _ in range(4)]
-    out, lse = emulated_forward(emulated_kernels, q, k, v, causal)
-    _check_against_plain(emulated_kernels, 3, s, d, causal,
-                         inputs=(q, k, v, do), forward=(out, lse))
-
-
-def test_timed_forward_variant_matches_plain(tmp_path):
-    """tools/flash_bwd_variants.py's forward variant (one key group a
-    block where the source has two) still applies to the source and
-    computes the same function."""
-    src = fv.variant_source("fwd_groups", _source())
-    assert src != _source()
-    entries = emulated_flash_entries(src, tmp_path)
-    gen = torch.Generator().manual_seed(5)
-    q, k, v = [torch.randn(3, 256, 64, generator=gen).to(torch.bfloat16)
-               for _ in range(3)]
-    out, lse = emulated_forward(entries, q, k, v, True)
-    want_out, want_lse = ta.flash_fwd_plain(q, k, v, True)
-    err = float((out.float() - want_out.float()).abs().max())
-    assert err <= EMU_TOL * float(want_out.float().abs().max()), err
-    assert float(((lse - want_lse).abs()
-                  / want_lse.abs().clamp(min=1.0)).max()) <= LSE_TOL

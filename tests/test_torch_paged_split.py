@@ -13,6 +13,7 @@ a sequence shorter than one split, the decode row at position -1 and the
 overlay's dead row (exact zeros). ``launch_geometry``, the wrapper's
 split rule, is checked at the serving shapes. Speed and the real
 compiler are left to the card (chip_smoke.py, tests/test_torch_cuda.py).
+The prefill and overlay forms are tests/test_torch_paged_split_forms.py.
 """
 
 import ctypes
@@ -122,32 +123,6 @@ def test_decode_splits_match_plain(kernel, splits, bl, d):
     tiles."""
     case = make_case(splits + bl + d, s=4, nq=1, bl=bl, d=d, max_len=128,
                      pos0=[70, 2, -1, 127])
-    got = check(kernel, case, splits)
-    assert not got[2].any()
-
-
-@pytest.mark.parametrize("splits", [1, 2, 5])
-@pytest.mark.parametrize("nq", [2, 9])
-def test_prefill_splits_match_plain(kernel, splits, nq):
-    """A prefill chunk deep into one sequence: Q = 2 (two rows a block,
-    two warps to a row) and Q = 9 (four rows a block, a ragged last row
-    tile)."""
-    case = make_case(splits * nq, s=1, nq=nq, bl=8, d=64, max_len=128,
-                     pos0=[100])
-    check(kernel, case, splits)
-
-
-@pytest.mark.parametrize("splits", [1, 2, 6])
-@pytest.mark.parametrize("nq,bl", [(5, 16), (2, 8)])
-def test_overlay_splits_match_plain(kernel, splits, nq, bl):
-    """The verify form: ragged pool lengths (one at 0), ragged draft
-    validity, the fresh chunk folded once by the last split, and a dead
-    row (no pool entry and no valid column) that emits exact zeros."""
-    valid = (np.arange(nq)[None, :] <= np.array([[0], [nq], [1], [9]])
-             ).astype(np.int32)
-    valid[2] = 0
-    case = make_case(splits + nq, s=4, nq=nq, bl=bl, d=64, max_len=96,
-                     pos0=[0, 41, 0, 90], valid=valid)
     got = check(kernel, case, splits)
     assert not got[2].any()
 

@@ -264,3 +264,96 @@ def test_engine_tensors_live_on_the_engine_device():
     assert eng.state["tables"].dtype == torch.int32
     assert eng.state["pos"].dtype == torch.int32
     assert all(t.device.type == "cpu" for t in eng.state["k"])
+
+
+class EagerEngine(Engine):
+    """The engine's decode and prefill as they were before they became
+    graph bodies: Python-int prefill arguments, the sampling inside the
+    tick, the lanes rebound to fresh tensors. The oracle for the
+    restructured programs."""
+
+    @torch.no_grad()
+    def decode(self):
+        from singa_tpu_torch.models.transformer import _block_apply, lm_head
+
+        st = self.state
+        tokens, pos, live, tables = (
+            st["tokens"], st["pos"], st["live"], st["tables"])
+        x = self._embed(tokens, pos)[:, None, :]
+        bid, off = self._block_of(tables, pos[:, None])
+        bid = torch.where(live, bid[:, 0], 0)
+        off = off[:, 0]
+        pos_attend = torch.where(live, pos, -1)[:, None]
+
+        def mk_attend(i):
+            def attend(q, k, v):
+                self._write(i, bid, off, k[:, :, 0], v[:, :, 0])
+                return self._paged_attend(q, st["k"][i], st["v"][i], tables,
+                                          pos_attend), None
+            return attend
+
+        for i in range(self.cfg.n_layers):
+            x, _ = _block_apply(self.params, f"blk{i}", x, mk_attend(i),
+                                self.cfg)
+        nxt = self._sample(lm_head(self.params, x)[:, 0], live, tokens)
+        st["tokens"] = nxt
+        st["pos"] = pos + live.to(torch.int32)
+        return torch.where(live, nxt, -1)
+
+    @torch.no_grad()
+    def prefill_chunk(self, slot, tokens, pos0):
+        from singa_tpu_torch.models.transformer import _block_apply, lm_head
+
+        c, n = self.serving.max_prefill_chunk, len(tokens)
+        buf = np.zeros((c,), np.int64)
+        buf[:n] = tokens
+        chunk = torch.from_numpy(buf)
+        ar = torch.arange(c)
+        p = int(pos0) + ar
+        valid = ar < n
+        x = self._embed(chunk, p)[None]
+        row = self.state["tables"][slot][None]
+        bid, off = self._block_of(row, p[None])
+        bid = torch.where(valid, bid[0], 0)
+        off = off[0]
+
+        def mk_attend(i):
+            def attend(q, k, v):
+                self._write(i, bid, off, k[0].transpose(0, 1),
+                            v[0].transpose(0, 1))
+                return self._paged_attend(q, self.state["k"][i],
+                                          self.state["v"][i], row,
+                                          p[None]), None
+            return attend
+
+        for i in range(self.cfg.n_layers):
+            x, _ = _block_apply(self.params, f"blk{i}", x, mk_attend(i),
+                                self.cfg)
+        return lm_head(self.params, x)[0][max(n - 1, 0)]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_graph_bodies_give_the_eager_engines_streams(temperature):
+    """decode and prefill as graph bodies (static prefill args, the
+    temperature draws after the tick on its logits) give the streams of
+    the eager engine before them, temperature slots included, and the
+    greedy streams equal the JAX engine's."""
+    reqs = requests(6)
+    out = []
+    for cls in (Engine, EagerEngine):
+        eng = cls(torch_params(), TCfg(**KW), EngineConfig(
+            slots=3, kv_block_len=8, max_prefill_chunk=4,
+        ), device="cpu")
+        sched = Scheduler(eng)
+        for i, (p, m) in enumerate(reqs):
+            # every other request samples, with its own seed
+            sched.submit(Request(rid=i, prompt=p, max_new_tokens=m, seed=i,
+                                 temperature=temperature * (i % 2)))
+        sched.serve()
+        out.append({r.rid: r.tokens for r in sched.finished})
+    assert out[0] == out[1] and len(out[0]) == 6
+    if temperature == 0.0:
+        assert out[0] == serve_jax("interleaved")[1]
+    else:
+        greedy = serve_jax("interleaved")[1]
+        assert any(out[0][i] != greedy[i] for i in (1, 3, 5))
