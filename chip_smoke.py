@@ -12,9 +12,9 @@ caught and carried on):
   1. env     the card's name and power limit (nvidia-smi), torch and CUDA
              versions, and the nvcc build of every kernel in
              singa_tpu_torch/csrc/ (one nvcc per source, started together),
-             with ptxas's register and spill lines; the tensor-core
-             flash kernels (flash_attention_bf16.cu) and the paged kernel
-             (paged_attention.cu) must report no spills.
+             with ptxas's register and spill lines; the flash kernels
+             (flash_attention.cu, flash_attention_bf16.cu) and the paged
+             kernel (paged_attention.cu) must report no spills.
   2. kernel  the paged-attention kernel, both forms, against its plain
              PyTorch version on the card: decode (S=8, Q=1), prefill
              (S=1, Q=64) and overlay/verify (S=8, Q=5) at head_dim 128 and
@@ -43,33 +43,39 @@ caught and carried on):
   4. spec    speculative decode (spec_k 4) on the repeat workload (8
              requests, prompt 64, 64 new tokens) against one-token ticks,
              in turns: streams identical, the overlay form launched.
-  5. flash   the three flash-attention kernels (forward, dQ, dK/dV)
-             against their plain PyTorch versions on the card: B*H in
-             {2, 8}, S in {256, 1024, 8192}, head_dim 64 and 128, causal
-             and not, float32 and bfloat16, plus S=32768 causal bf16
-             head_dim 128 and B*H 3 at S=192 (bf16; S a multiple of 64
-             but not of 128). bf16 runs on the tensor cores
-             (csrc/flash_attention_bf16.cu); the forward's lse is held to
-             the plain version's at LSE_TOL at every shape (the backward
-             reads it); at the training shape each kernel, launched twice
-             on the same inputs, must give bitwise-equal outputs. Times at
-             the training shape (B=1, H=2, S=8192, D=128, bf16, causal) of
-             each kernel, its plain version and, as a yardstick the port
-             never calls, F.scaled_dot_product_attention forward and its
-             autograd backward, with each kernel's achieved TFLOP/s, the
-             forward's ratio to SDPA's forward and the backward pair's to
-             SDPA's backward; the bound is the
-             larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s
-             (bf16). The same times at the same shape in float32, the
-             CUDA-core route (csrc/flash_attention.cu), against 67
-             TFLOP/s and SDPA in float32 with TF32 off.
+  5. flash   the flash-attention kernels of each type (FLASH_ROUTES:
+             bf16, on the tensor cores in csrc/flash_attention_bf16.cu,
+             the forward and the dQ and dK/dV pair; float32, on the CUDA
+             cores in csrc/flash_attention.cu, the forward and the fused
+             backward) against their plain PyTorch versions on the card:
+             B*H in {2, 8}, S in {256, 1024, 8192}, head_dim 64 and 128,
+             causal and not, float32 and bfloat16, plus S=32768 causal
+             bf16 head_dim 128, B*H 3 at S=192 (S a multiple of 64 but
+             not of 128) in both types; the forward's lse is held to the
+             plain version's at LSE_TOL at every shape (the backward reads
+             it); the fused backward, launched twice, must give
+             bitwise-equal outputs at every float32 shape (its dQ is summed
+             across blocks in a fixed order), and every kernel at the
+             training shape. Times at the training shape (B=1, H=2,
+             S=8192, D=128, causal) in bf16 and in float32 of each kernel,
+             its plain version and, as a yardstick the port never calls,
+             F.scaled_dot_product_attention forward and its autograd
+             backward (float32 with TF32 off), with each kernel's achieved
+             TFLOP/s, the forward's ratio to SDPA's forward and the
+             backward's (the bf16 pair's sum, the fused float32 kernel) to
+             SDPA's backward, and the share of the fused kernel's block
+             time that its blocks spent polling the dQ counters; the bound
+             is the larger of bytes / 3.35 TB/s and operations / 989
+             TFLOP/s (bf16) or 67 TFLOP/s (float32).
   6. train   the port's Trainer on examples/lm/tinylm_longctx_d128.conf
              (full width, read by the port's load_model_config) over a
              shard of 32 synthetic 8192-token sequences: at float32, 8
              steps through the flash kernels and 8 through dense
              attention, in turns (flash, dense, dense, flash) from the
              same initial params, losses agreeing and launches = layers x
-             steps (0 on dense); the same comparison failing on each
+             steps of the float32 route's kernels (the forward and the
+             fused backward; 0 of the bf16 pair, 0 on dense); the same
+             comparison failing on each
              gradient fault of FAULTS planted in the flash backward; then
              the conf as written (bf16) for 30 steps: finite losses, the
              last below the first, step ms (host clock to a device sync
@@ -203,16 +209,21 @@ TRAIN_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "examples", "lm", "tinylm_longctx_d128.conf")
 #: each flash kernel's wrapper, the Pallas kernel it replaces (the staged
 #: body; the streamed one is the same function), and its matrix products
-#: per visible (q, k) pair, 2*D operations each
+#: per visible (q, k) pair, 2*D operations each. flash_bwd is the fused
+#: float32 backward: it replaces both backward kernels (:419 and :451)
 FLASH = {
     "flash_fwd": (ta.flash_fwd, "singa_tpu/ops/attention.py:386", 2),
     "flash_bwd_dq": (ta.flash_bwd_dq, "singa_tpu/ops/attention.py:419", 3),
     "flash_bwd_dkv": (ta.flash_bwd_dkv, "singa_tpu/ops/attention.py:451", 4),
+    "flash_bwd": (ta.flash_bwd, "singa_tpu/ops/attention.py:419", 5),
 }
+#: the kernels each type runs on the card
+FLASH_ROUTES = ta.KERNEL_NAMES
 #: flash kernel vs plain, as max |kernel - plain| / max |plain| per
-#: output: float32 sums the same products in another order (4.5e-6 at
-#: worst, over 8192-term rows); bf16 outputs are rounded once to 8 bits
-#: of mantissa, 2^-8 = 3.9e-3 relative, so 2e-2 allows a few roundings
+#: output: float32 sums the same products in another order (7.3e-6 at
+#: worst on an H100, over 8192-term rows); bf16 outputs are rounded once
+#: to 8 bits of mantissa, 2^-8 = 3.9e-3 relative, so 2e-2 allows a few
+#: roundings
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: the forward's lse vs plain, |err| / max(1, |lse|) per row: both are
 #: float32 m + log(l) over the same float32 scores, summed in other
@@ -244,22 +255,23 @@ FLASH_SHAPES = [
     for bh in (2, 8) for s in (256, 1024, 8192) for d in (64, 128)
     for causal in (False, True)
 ] + [(2, 32768, 128, True, torch.bfloat16),   # the TPU's streamed regime
-      # S a multiple of 64 but not 128 and an odd B*H: the tensor-core
-      # backward's odd tile count and its pipeline tail
-      (3, 192, 128, True, torch.bfloat16), (3, 192, 64, False, torch.bfloat16)]
+      # S a multiple of 64 but not 128 and an odd B*H: an odd tile count,
+      # the backward's pipeline tail and, in float32, the fused
+      # backward's work tiles not a multiple of its grid
+      (3, 192, 128, True, torch.bfloat16), (3, 192, 64, False, torch.bfloat16),
+      (3, 192, 128, True, torch.float32), (3, 192, 64, False, torch.float32)]
 FLASH_TIMED = (2, 8192, 128, True, torch.bfloat16)
 #: the float32 route (csrc/flash_attention.cu, CUDA cores) timed at the
 #: same shape; the train phase's float32 runs go through it
 FLASH_TIMED_F32 = FLASH_TIMED[:4] + (torch.float32,)
-#: each flash kernel's source at the training shape's dtype (the main
-#: path's): bf16 is the tensor-core file
+#: each flash kernel's source by type: bf16 is the tensor-core file
 FLASH_SOURCES = {
     (name, dtype): "singa_tpu_torch/csrc/"
                    f"{ta.kernel_source(name, dtype)[0]}.cu"
-    for name in FLASH for dtype in (torch.bfloat16, torch.float32)
+    for dtype, names in FLASH_ROUTES.items() for name in names
 }
 #: the libraries whose ptxas reports must show no spills
-SPILL_FREE = ("flash_attention_bf16", "paged_attention")
+SPILL_FREE = ("flash_attention", "flash_attention_bf16", "paged_attention")
 RING_SOURCE = "singa_tpu_torch/csrc/quant_acc.cu"
 RING_REPLACES = "singa_tpu/ops/quantized_collective.py:341"
 RING_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -723,10 +735,11 @@ def flash_case(bh, s, d, causal, dtype, dev, gen):
 
 
 def flash_calls(c):
-    """name -> (kernel call, plain call) on one case."""
+    """name -> (kernel call, plain call) on one case, for the kernels of
+    its type (FLASH_ROUTES)."""
     args = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
             c["causal"])
-    return {
+    calls = {
         "flash_fwd": (lambda: ta.flash_fwd(c["q"], c["k"], c["v"],
                                            c["causal"]),
                       lambda: ta.flash_fwd_plain(c["q"], c["k"], c["v"],
@@ -735,7 +748,10 @@ def flash_calls(c):
                          lambda: ta.flash_bwd_dq_plain(*args)),
         "flash_bwd_dkv": (lambda: ta.flash_bwd_dkv(*args),
                           lambda: ta.flash_bwd_dkv_plain(*args)),
+        "flash_bwd": (lambda: ta.flash_bwd(*args),
+                      lambda: ta.flash_bwd_plain(*args)),
     }
+    return {name: calls[name] for name in FLASH_ROUTES[c["q"].dtype]}
 
 
 def flash_ops(name, c):
@@ -756,7 +772,8 @@ def flash_bound(name, c):
     rows, vecs = bh * s * d * item, bh * s * 4
     nbytes = {"flash_fwd": 4 * rows + vecs,            # q k v in; out, lse
               "flash_bwd_dq": 5 * rows + 2 * vecs,     # q k v dO lse delta; dq
-              "flash_bwd_dkv": 6 * rows + 2 * vecs}[name]
+              "flash_bwd_dkv": 6 * rows + 2 * vecs,    # ...; dk dv
+              "flash_bwd": 7 * rows + 2 * vecs}[name]  # ...; dq dk dv
     ops = flash_ops(name, c)
     rate = BF16_FLOPS_PER_S if c["q"].dtype == torch.bfloat16 \
         else F32_FLOPS_PER_S
@@ -774,7 +791,8 @@ def flash_timings(c, flush):
     dtype = str(c["q"].dtype)[6:]
     rows = {}
     for name, (kernel, plain) in flash_calls(c).items():
-        # deterministic: each block owns its output rows
+        # deterministic: each block owns its output rows, and the fused
+        # backward sums dQ across blocks in a fixed order
         first, again = kernel(), kernel()
         torch.cuda.synchronize()
         first = first if isinstance(first, tuple) else (first,)
@@ -790,8 +808,9 @@ def flash_timings(c, flush):
                       "library_ms": None,
                       "tflops": flash_ops(name, c) / ms / 1e9}
     # yardstick only: SDPA forward, and its autograd backward (which
-    # computes dQ, dK and dV in one call, so it stands beside neither
-    # backward kernel alone); float32 runs with TF32 off (device.py)
+    # computes dQ, dK and dV in one call: the fused backward's function,
+    # and neither pair kernel's alone); float32 runs with TF32 off
+    # (device.py)
     q, k, v = (c[n].reshape(1, bh, s, d).detach().requires_grad_(True)
                for n in ("q", "k", "v"))
     do = c["do"].reshape(1, bh, s, d)
@@ -802,28 +821,53 @@ def flash_timings(c, flush):
     sdpa_bwd = time_ms(
         lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True),
         flush, iters=10)
+    extra = {}
+    if "flash_bwd" in rows:
+        rows["flash_bwd"]["library_ms"] = sdpa_bwd
+        backward_ms = rows["flash_bwd"]["ms"]
+        extra = flash_bwd_polling(c, backward_ms)
+    else:
+        backward_ms = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
     for name, row in rows.items():
         print("flash_timing", json.dumps({"kernel": name, "dtype": dtype,
                                           **row, "shape": [1, bh, s, d]}))
-    pair_ms = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
     print("flash_timing", json.dumps({
         "dtype": dtype,
         "library_backward_dq_dk_dv_ms": sdpa_bwd,
-        "backward_pair_ms": pair_ms,
-        "backward_pair_over_library": pair_ms / sdpa_bwd,
+        "backward_kernels": [n for n in rows if n != "flash_fwd"],
+        "backward_ms": backward_ms,
+        "backward_over_library": backward_ms / sdpa_bwd,
         "forward_over_library":
-            rows["flash_fwd"]["ms"] / rows["flash_fwd"]["library_ms"]}))
+            rows["flash_fwd"]["ms"] / rows["flash_fwd"]["library_ms"],
+        **extra}))
     return rows
 
 
+def flash_bwd_polling(c, ms):
+    """The fused backward's own statistics from one launch on case ``c``
+    (``ms`` its time): the share of its blocks' cycles that thread 0
+    spent polling a dQ counter (the other threads wait at the barrier
+    meanwhile), that share of ``ms``, and the blocks it ran."""
+    args = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
+            c["causal"])
+    scratch = ta.launch_flash_bwd(*args)[3]
+    torch.cuda.synchronize()
+    polled, cycles, blocks = (
+        scratch[:6].view(torch.int64).tolist())
+    share = polled / cycles
+    return {"poll_share": share, "poll_ms": share * ms, "blocks": blocks,
+            "poll_cycles": polled, "block_cycles": cycles}
+
+
 def flash_phase(dev):
-    """Each flash kernel against its plain version at every listed shape;
-    timings at the training shape in bf16 (the main path's route) and in
-    float32 (the CUDA-core route). -> (max_abs_err by dtype and kernel,
-    timing rows by dtype and kernel)."""
+    """Each flash kernel against its plain version at every listed shape
+    (the fused backward twice, bitwise equal); timings at the training
+    shape in bf16 (the main path's route) and in float32 (the CUDA-core
+    route). -> (max_abs_err by dtype and kernel, timing rows by dtype and
+    kernel)."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {dt: {name: 0.0 for name in FLASH}
-            for dt in (torch.float32, torch.bfloat16)}
+    errs = {dt: {name: 0.0 for name in names}
+            for dt, names in FLASH_ROUTES.items()}
     lse_worst = 0.0
     for bh, s, d, causal, dtype in FLASH_SHAPES:
         c = flash_case(bh, s, d, causal, dtype, dev, gen)
@@ -844,6 +888,12 @@ def flash_phase(dev):
                 check(rel <= FLASH_TOL[dtype],
                       f"{name} {(bh, s, d, causal, dtype)}: error {rel} > "
                       f"{FLASH_TOL[dtype]} of the output's scale")
+            if name == "flash_bwd":
+                again = kernel()
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"flash_bwd {(bh, s, d, causal, dtype)}: two launches "
+                      "on the same inputs differ")
             if name == "flash_fwd":
                 lse_err = float(((got[1] - want[1]).abs()
                                  / want[1].abs().clamp(min=1.0)).max())
@@ -915,8 +965,9 @@ def train_run(dev, shard, *, steps, dtype, dense, tag, profile_steps=0):
     timed on the host clock to a device sync; the flash launch counts are
     set to 0 just before the steps and read just after; then
     ``profile_steps`` more under torch.profiler. Checked: finite losses,
-    launches = attention layers x steps on the flash path, 0 on the
-    dense one. -> the run's record."""
+    launches = attention layers x steps of each kernel of the type's
+    route on the flash path (FLASH_ROUTES), 0 of every other flash
+    kernel and 0 on the dense path. -> the run's record."""
     cfg = load_model_config(TRAIN_CONF)
     cfg.compute_dtype = dtype
     for layer in cfg.neuralnet.layer:
@@ -945,10 +996,17 @@ def train_run(dev, shard, *, steps, dtype, dense, tag, profile_steps=0):
     print("train", json.dumps(out))
     layers = sum(l.type == "kAttention" for l in cfg.neuralnet.layer)
     check(all(np.isfinite(losses)), f"train {tag}: non-finite loss")
-    want = 0 if dense else layers * steps
-    check(all(n == want for n in launches.values()),
+    want = flash_launches(getattr(torch, dtype), 0 if dense
+                          else layers * steps)
+    check(launches == want,
           f"train {tag}: flash launches {launches} != {want}")
     return out
+
+
+def flash_launches(dtype, n):
+    """The flash launch counts of ``n`` forward and backward calls of
+    ``dtype``: n for each kernel of its route, 0 for the others."""
+    return {name: n if name in FLASH_ROUTES[dtype] else 0 for name in FLASH}
 
 
 def train_phase(dev):
@@ -1679,8 +1737,8 @@ def dispatch_phase(dev, smi, cfg, params):
             print(f"dispatch train_longctx: flash launches under graphs "
                   f"{launches}, want layers {layers} x steps "
                   f"{DISPATCH_STEPS}")
-            check(all(n == layers * DISPATCH_STEPS
-                      for n in launches.values()),
+            check(launches == flash_launches(torch.bfloat16,
+                                             layers * DISPATCH_STEPS),
                   "dispatch train_longctx: flash launches under graphs "
                   "!= layers x steps")
     finally:
@@ -1781,8 +1839,8 @@ def main() -> int:
         "paged_attention_overlay": spec_phase(dev, cfg, params),
     }
     flash_errs, flash_rows = flash_phase(dev)
-    flash_launches, f32_launches = train_phase(dev)
-    launches.update(flash_launches)
+    bf16_launches, f32_launches = train_phase(dev)
+    launches.update(bf16_launches)
     ring_err, ring_row, launches["quant_acc"] = ring_phase(dev)
     nets_phase(dev, smi)
     dispatch_phase(dev, smi, cfg, params)
@@ -1802,17 +1860,20 @@ def main() -> int:
     # launches are those of the train phase's first float32 flash run
     for dtype, suffix, counts in ((torch.bfloat16, "", launches),
                                   (torch.float32, "_f32", f32_launches)):
-        for name, (_, replaces, _) in FLASH.items():
+        for name in FLASH_ROUTES[dtype]:
             row = flash_rows[dtype][name]
             kernels.append({
                 "name": name + suffix, "route": "cuda",
-                "source": FLASH_SOURCES[name, dtype], "replaces": replaces,
-                "launches": counts[name],
+                "source": FLASH_SOURCES[name, dtype],
+                "replaces": FLASH[name][1], "launches": counts[name],
                 "max_abs_err": flash_errs[dtype][name], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"],
             })
+            if name == "flash_bwd":
+                kernels[-1]["replaces_also"] = (
+                    "singa_tpu/ops/attention.py:451")
     kernels.append({
         "name": "quant_acc", "route": "cuda", "source": RING_SOURCE,
         "replaces": RING_REPLACES, "launches": launches["quant_acc"],

@@ -1,6 +1,7 @@
 // Flash attention for Hopper (sm_90a) on the CUDA cores, in float32: the
-// forward and the backward (dQ, dK/dV), causal or full, over
-// (batch * heads, S, D) rows with float32 accumulation everywhere.
+// forward and one fused backward (dQ, dK and dV in one kernel), causal or
+// full, over (batch * heads, S, D) rows with float32 accumulation
+// everywhere.
 //
 // bfloat16 runs on the tensor cores in flash_attention_bf16.cu. float32
 // stays here: TF32 tensor cores would break the float32 flash-vs-dense
@@ -8,68 +9,124 @@
 //
 // Replaces, for float32 inputs, the six Pallas TPU kernels of
 // singa_tpu/ops/attention.py:
-//   flash_fwd     <- _flash_kernel_staged (:386) and _flash_kernel (:210),
-//                    launched by _flash_fwd_impl (:552)
-//   flash_bwd_dq  <- _flash_bwd_dq_staged (:419) and _flash_bwd_dq_kernel (:268)
-//   flash_bwd_dkv <- _flash_bwd_dkv_staged (:451) and _flash_bwd_dkv_kernel (:316),
-//                    launched by _flash_bwd (:615)
+//   flash_fwd  <- _flash_kernel_staged (:386) and _flash_kernel (:210),
+//                 launched by _flash_fwd_impl (:552)
+//   flash_bwd  <- _flash_bwd_dq_staged (:419), _flash_bwd_dkv_staged (:451),
+//                 _flash_bwd_dq_kernel (:268) and _flash_bwd_dkv_kernel
+//                 (:316), launched by _flash_bwd (:615): the TPU's dQ and
+//                 dK/dV kernels become one kernel here
 // The TPU's staged/streamed split is only a VMEM budget (_variant): here
 // every K/V, Q and dO tile is streamed from device memory through shared
 // memory whatever S is, so one kernel covers both variants.
 //
 // What each computes (scale = 1/sqrt(D); masked scores are NEG_INF = -1e30
 // and their probabilities exactly 0):
-//   forward: O = softmax(Q K^T * scale) V by online softmax over the live K
-//            tiles; lse = m + log(l) in float32, laid out (BH, S); a row with
-//            l == 0 emits 0 (and lse = m).
-//   dQ:      P = exp(S * scale - lse); dS = P * (dO V^T - delta);
-//            dQ = scale * dS K. delta = rowsum(dO * O) comes in, computed once
-//            outside the kernels (as _flash_bwd does).
-//   dK/dV:   dV = P^T dO; dK = scale * dS^T Q, looping over the q tiles from
-//            the first one that sees this key tile (causal) to the last.
-//            Each thread block owns its dK/dV rows: no atomics, so the result
-//            is deterministic.
+//   forward:  O = softmax(Q K^T * scale) V by online softmax over the live
+//             K tiles; lse = m + log(l) in float32, laid out (BH, S); a row
+//             with l == 0 emits 0 (and lse = m).
+//   backward: P = exp(S * scale - lse); dS = P * (dO V^T - delta);
+//             dV = P^T dO; dK = scale * dS^T Q; dQ = scale * dS K.
+//             delta = rowsum(dO * O) comes in, computed once outside the
+//             kernel (as _flash_bwd does).
 //
-// Bound on the H100: operations. At B*H = 2, S = 8192, D = 128, causal, a
-// call moves ~34 MB (0.010 ms at 3.35 TB/s) but does 2 (forward), 3 (dQ)
-// or 4 (dK/dV) products of 2*D operations per visible (q, k) pair:
-// 34-69 GFLOP, 0.5-1.0 ms at the 67 TFLOP/s float32 rate.
+// Bound on the H100: operations. At B*H = 2, S = 8192, D = 128, causal, the
+// backward moves ~59 MB (0.018 ms at 3.35 TB/s) but does 5 products of 2*D
+// operations per visible (q, k) pair, 85.9 GFLOP: 1.282 ms at the 67
+// TFLOP/s float32 rate. The forward does 2 products (0.513 ms).
 //
-// Design (right and simple first; CUDA-core FMAs, so they sit near the
-// float32 rate at best):
-//   * One thread block of 256 threads per (64-row tile, batch * head). The
-//     TPU grid's sequential K axis becomes a loop inside the block. Causal
-//     blocks skip every tile above the diagonal; the heaviest tiles get the
-//     lowest block indices, so they start first and the tail is short.
-//   * Tiles are copied into shared memory, rows padded to
-//     D + 4 floats so float4 reads of 8 different rows hit distinct banks.
-//     At D = 128 that is up to 170 KB: dynamic shared memory, enabled with
-//     cudaFuncSetAttribute.
-//   * Every product is one of two register-tiled shapes. score_tile: each
-//     thread computes a 4 x 4 block of a 64 x 64 score tile (rows ty*4+i,
-//     columns tx+16j), 16 FMAs per two float4 reads of each operand. pv_tile:
-//     each thread accumulates 4 rows x D/16 columns of a 64 x D output.
-//     Row statistics reduce over the 16 threads that share a row, all within
-//     one warp (shuffles).
-//   * The dK/dV kernel computes the transposed scores K Q^T directly, so its
-//     two accumulations have the same pv_tile shape as the forward's P V.
-// Known limits: no tensor cores, no asynchronous copies (each tile load is a
-// full memory round trip between two barriers), one thread block per SM at
-// D = 128 (shared memory): the price of full float32 products.
+// Forward design (right and simple first): one thread block of 256 threads
+// per (64-row q tile, batch * head), the TPU grid's sequential K axis a
+// loop inside the block, heaviest causal tiles first; tiles copied into
+// shared memory with rows padded to D + 4 floats; score_tile (a 4 x 4 block
+// of a 64 x 64 score tile a thread) and pv_tile (4 rows x D/16 columns of a
+// 64 x D output a thread); row statistics reduced over the 16 threads of a
+// row by shuffles. Known limits: no asynchronous copies, one block per SM
+// at D = 128.
+//
+// Backward design. The previous design was two kernels, dQ (one block per
+// q tile) and dK/dV (one block per key tile). Each recomputed S and dP, so
+// the pair did 7 products where 5 are needed; each tile load was a memory
+// round trip between two barriers; each thread had small register tiles.
+// What this kernel does about each:
+//   * 5 products. One work tile is a (key tile kt, bh) pair. K and V stay
+//     in shared memory for the tile's life. The tile walks its q tiles
+//     from the last (nt - 1) down to the first that sees it (kt when
+//     causal, 0 when not); for each it computes S^T = K Q^T and dP^T =
+//     V dO^T, then P and dS elementwise, then dV += P^T dO, dK += dS^T Q
+//     and the 64 x D dQ partial dS K. dK and dV stay in registers.
+//   * dQ summed in a fixed order, no atomics on values. dq (zeroed by the
+//     wrapper) is the accumulator, with one int32 counter per (bh, q tile),
+//     also zeroed. Tile kt adds its partial to q tile qt only when that
+//     counter equals kt (thread 0 polls with ld.acquire.gpu), with plain
+//     loads and stores that bypass L1; then __threadfence, a barrier, and
+//     the counter is released (st.release.gpu) as kt + 1. Every dQ element
+//     is thus summed over key tiles 0, 1, 2, ... in that order, and two
+//     launches give the same bits. The q tiles go downward so that every
+//     tile starts at the last q tile at once and trails its predecessor by
+//     one add; walking upward, tile kt could not start its first add until
+//     tile kt - 1 had finished its second step.
+//   * Forward progress without trusting the block scheduler's order. The
+//     grid is SMs x cudaOccupancyMaxActiveBlocksPerMultiprocessor blocks
+//     (one a SM at D = 128), each claiming work tiles in turn with
+//     atomicAdd on a zeroed ticket, heaviest first: ticket t is (kt = t /
+//     BH, bh = t % BH). The tile any wait depends on, (kt - 1, bh), has an
+//     earlier ticket, so a running block holds it or has finished it; a
+//     block that has not started holds none. Every poll is bounded
+//     (SINGA_FLASH_POLL_LIMIT, then __trap), so a design fault fails the
+//     launch instead of hanging.
+//   * Asynchronous copies. The next q tile's Q, dO, lse and delta come in
+//     with cp.async (two stages) while the current one computes.
+//   * Register tiles and shared loads. A warp's 32 threads cover 4 rows x 8
+//     columns of the 16 x 16 thread grid (ty, tx), so each operand load of
+//     a warp touches 4 or 8 distinct 16-byte chunks: one shared wavefront.
+//     Scores: thread (ty, tx) holds keys ty + 16i and queries tx + 16j,
+//     4 x 4, 8 float4 loads per 64 FMAs. dK and dV: keys ty + 16i and
+//     columns 64g + 4tx + e, 4 x D/16 each (4 x 8 at D = 128), 12 float4
+//     loads per 128 FMAs. dQ: queries 4ty + i, same columns, 3 float4 loads
+//     per 32 FMAs.
+//   * One P/dS buffer. A second Q/dO stage does not fit beside separate P
+//     and dS tiles at D = 128 (238,080 B against the 232,448 a block may
+//     use), so P and dS share one (64 keys, 64 queries) tile, row = key,
+//     padded to 68: dV's product reads P, a barrier, then dS overwrites it
+//     (the thread keeps dS in registers meanwhile). dS is read in two
+//     orientations: over queries for dK (a float4 of 4 queries for each of
+//     a thread's 4 keys) and over keys for dQ (a float4 of the thread's 4
+//     consecutive queries for each key). Both read dS as one float4 per 4
+//     of its elements, with no transposed copy. Shared memory at
+//     D = 128: K, V, two Q and two dO stages (64 x 132 floats each), the
+//     P/dS tile, lse and delta stages: 221,200 B.
+//   * Scale. P takes S * scale inside the exponent; dK is scaled once, in
+//     registers, when the tile stores it; dQ is scaled once by its last
+//     contributor (key tile qt when causal, nt - 1 when not), after the
+//     last add: one rounding a dK and dQ element, as the plain version.
+// Registers at D = 128: dK and dV (32 each) for the tile's life, the dQ
+// partial (32) and the scores (16 + 16) in turn; ptxas must report no
+// spills (chip_smoke checks).
 //
 // C interface, bound with ctypes: every pointer and the stream are void*,
 // dtype must be 0 (float32), the launch is on the given stream, and each
-// function returns cudaGetLastError() (0 = launched).
+// function returns cudaGetLastError() (0 = launched). singa_flash_bwd's
+// scratch is int32, zeroed by the caller: kScratchHead ints (three uint64
+// statistics: cycles thread 0 of each block spent polling, cycles each
+// block ran, blocks run; then the ticket), then BH * (S / 64) counters.
 
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#ifndef SINGA_FLASH_POLL_LIMIT
+// ~30 s of polling at the latency of an L2 round trip; a legal wait is one
+// predecessor's step, well under a millisecond
+#define SINGA_FLASH_POLL_LIMIT (1LL << 26)
+#endif
 
 namespace {
 
 constexpr int kTile = 64;       // query rows and key rows per tile
 constexpr int kThreads = 256;   // 16 x 16: thread (ty, tx), ty = tid / 16
 constexpr float kNegInf = -1e30f;
+constexpr int kScratchHead = 8;  // scratch ints before the counters
+constexpr int kTicket = 6;       // the ticket's index in the scratch
 
 template <int D>
 struct Geo {
@@ -114,6 +171,36 @@ __device__ __forceinline__ float sum16(float x) {
   return x;
 }
 
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without the registers (L2 only: .cg)
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// every copy group but the newest has landed
+__device__ __forceinline__ void cp_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
 // (64, D) tile of T at src (row stride D) -> float32 shared tile (stride LD).
 // Each thread issues all its 16-byte loads before it stores any.
 template <typename T, int D>
@@ -139,6 +226,21 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
     for (int e = 0; e < N; e += 4)
       *reinterpret_cast<float4*>(d + e) =
           make_float4(f[i][e], f[i][e + 1], f[i][e + 2], f[i][e + 3]);
+  }
+}
+
+// the same copy issued as cp.async (float32 only), landing at a later
+// cp_wait_one
+template <int D>
+__device__ __forceinline__ void copy_tile(const float* __restrict__ src,
+                                          float* dst) {
+  constexpr int PER_ROW = D / 4;
+  constexpr int PER_THREAD = kTile * PER_ROW / kThreads;
+#pragma unroll
+  for (int i = 0; i < PER_THREAD; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int r = c / PER_ROW, col = (c - r * PER_ROW) * 4;
+    cp_async16(smem_u32(dst + r * Geo<D>::LD + col), src + (size_t)r * D + col);
   }
 }
 
@@ -234,8 +336,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, float* __restrict__ lse, int S, float scale) {
   using G = Geo<D>;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
+  extern __shared__ uint4 smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
   float* Ks = Qs + G::TILE;
   float* Vs = Ks + G::TILE;
   float* Ps = Vs + G::TILE;
@@ -305,136 +407,304 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   store_rows<T, D>(out + base + (size_t)q0 * D, acc, inv);
 }
 
-template <typename T, int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int S, float scale) {
-  using G = Geo<D>;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + G::TILE;
-  float* Ks = dOs + G::TILE;
-  float* Vs = Ks + G::TILE;
-  float* DSs = Vs + G::TILE;
-  float* lse_s = DSs + G::PTILE;
-  float* del_s = lse_s + kTile;
+// ---------------------------------------------------------------------------
+// the fused backward
+// ---------------------------------------------------------------------------
 
-  const int nt = S / kTile;
-  const int qt = nt - 1 - (int)blockIdx.x;  // heaviest causal tiles first
-  const size_t base = (size_t)blockIdx.y * S * D;
-  const size_t rbase = (size_t)blockIdx.y * S;
-  const int q0 = qt * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile<T, D>(q + base + (size_t)q0 * D, Qs);
-  load_tile<T, D>(dout + base + (size_t)q0 * D, dOs);
-  if (threadIdx.x < kTile) {
-    lse_s[threadIdx.x] = lse[rbase + q0 + threadIdx.x];
-    del_s[threadIdx.x] = delta[rbase + q0 + threadIdx.x];
+// The backward's thread grid: warp w covers ty in 4 (w / 2) .. + 3 and tx
+// in 8 (w % 2) .. + 7
+struct BwdThread {
+  int ty, tx;
+  __device__ BwdThread() {
+    const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+    ty = 4 * (w >> 1) + (l >> 3);
+    tx = 8 * (w & 1) + (l & 7);
   }
-  float acc[4][G::NC];
+};
+
+// acc[i][j] = sum_d A[ty + 16i][d] * B[tx + 16j][d]; A, B (64, D) shared
+// tiles: 4 distinct A rows and 8 distinct B rows a warp, one wavefront each
+template <int D>
+__device__ __forceinline__ void score_t(const float* A, const float* B,
+                                        float acc[4][4], BwdThread th) {
+  constexpr int LD = Geo<D>::LD;
+  const float* a = A + th.ty * LD;
+  const float* b = B + th.tx * LD;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < G::NC; ++c) acc[i][c] = 0.f;
-
-  const int nlive = CAUSAL ? qt + 1 : nt;
-  for (int kt = 0; kt < nlive; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<T, D>(k + base + (size_t)k0 * D, Ks);
-    load_tile<T, D>(v + base + (size_t)k0 * D, Vs);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    score_tile<D>(Qs, Ks, s);
-    score_tile<D>(dOs, Vs, dp);
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; d += 4) {
+    float4 av[4], bv[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty * 4 + i;
-      const float lrow = lse_s[row], drow = del_s[row];
+    for (int i = 0; i < 4; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + 16 * i * LD + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(b + 16 * j * LD + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const bool ok = !CAUSAL || k0 + tx + 16 * j <= q0 + row;
-        const float p = ok ? expf(s[i][j] * scale - lrow) : 0.f;
-        DSs[row * G::LDP + tx + 16 * j] = p * (dp[i][j] - drow);
+        float t = acc[i][j];
+        t = fmaf(av[i].x, bv[j].x, t);
+        t = fmaf(av[i].y, bv[j].y, t);
+        t = fmaf(av[i].z, bv[j].z, t);
+        t = fmaf(av[i].w, bv[j].w, t);
+        acc[i][j] = t;
       }
-    }
-    __syncthreads();
-    pv_tile<D>(DSs, Ks, acc);
   }
-  float mul[4] = {scale, scale, scale, scale};
-  store_rows<T, D>(dq + base + (size_t)q0 * D, acc, mul);
 }
 
-template <typename T, int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int S, float scale) {
-  using G = Geo<D>;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + G::TILE;
-  float* Qs = Vs + G::TILE;
-  float* dOs = Qs + G::TILE;
-  float* Ps = dOs + G::TILE;
-  float* DSs = Ps + G::PTILE;
-  float* lse_s = DSs + G::PTILE;
-  float* del_s = lse_s + kTile;
+// acc[i][4g+e] += sum_c A[ty + 16i][c] * B[c][64g + 4tx + e]: A a (64, 64)
+// shared tile over its rows (P or dS, row = key), B a (64, D) tile (dO or Q)
+template <int D>
+__device__ __forceinline__ void rows_times_tile(const float* A,
+                                                const float* B,
+                                                float acc[4][Geo<D>::NC],
+                                                BwdThread th) {
+  constexpr int LD = Geo<D>::LD, LDP = Geo<D>::LDP, G = D / 64;
+  const float* a = A + th.ty * LDP;
+  const float* b = B + th.tx * 4;
+#pragma unroll 4
+  for (int c = 0; c < kTile; c += 4) {
+    float4 av[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + 16 * i * LDP + c);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float4 bv =
+            *reinterpret_cast<const float4*>(b + (c + u) * LD + 64 * g);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float au = comp(av[i], u);
+          acc[i][4 * g + 0] = fmaf(au, bv.x, acc[i][4 * g + 0]);
+          acc[i][4 * g + 1] = fmaf(au, bv.y, acc[i][4 * g + 1]);
+          acc[i][4 * g + 2] = fmaf(au, bv.z, acc[i][4 * g + 2]);
+          acc[i][4 * g + 3] = fmaf(au, bv.w, acc[i][4 * g + 3]);
+        }
+      }
+    }
+  }
+}
 
-  const int nt = S / kTile;
-  const int kt = (int)blockIdx.x;  // causal: key tile 0 sees every q tile
-  const size_t base = (size_t)blockIdx.y * S * D;
-  const size_t rbase = (size_t)blockIdx.y * S;
-  const int k0 = kt * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile<T, D>(k + base + (size_t)k0 * D, Ks);
-  load_tile<T, D>(v + base + (size_t)k0 * D, Vs);
-  float dk_acc[4][G::NC], dv_acc[4][G::NC];
+// acc[i][4g+e] = sum_r A[r][4ty + i] * B[r][64g + 4tx + e]: A the (64, 64)
+// dS tile down its columns (one float4 of 4 queries a key), B the K tile
+template <int D>
+__device__ __forceinline__ void cols_times_tile(const float* A,
+                                                const float* B,
+                                                float acc[4][Geo<D>::NC],
+                                                BwdThread th) {
+  constexpr int LD = Geo<D>::LD, LDP = Geo<D>::LDP, G = D / 64;
+  const float* a = A + 4 * th.ty;
+  const float* b = B + th.tx * 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < G::NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  // causal: the first q tile that sees this key tile (_causal_first)
-  const int first = CAUSAL ? kt : 0;
-  for (int qt = first; qt < nt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile<T, D>(q + base + (size_t)q0 * D, Qs);
-    load_tile<T, D>(dout + base + (size_t)q0 * D, dOs);
-    if (threadIdx.x < kTile) {
-      lse_s[threadIdx.x] = lse[rbase + q0 + threadIdx.x];
-      del_s[threadIdx.x] = delta[rbase + q0 + threadIdx.x];
-    }
-    __syncthreads();
-    // transposed scores: rows are keys (ty*4+i), columns queries (tx+16j)
-    float st[4][4], dpt[4][4];
-    score_tile<D>(Ks, Qs, st);
-    score_tile<D>(Vs, dOs, dpt);
+    for (int c = 0; c < Geo<D>::NC; ++c) acc[i][c] = 0.f;
+#pragma unroll 8
+  for (int r = 0; r < kTile; ++r) {
+    const float4 av = *reinterpret_cast<const float4*>(a + r * LDP);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int krow = ty * 4 + i;
+    for (int g = 0; g < G; ++g) {
+      const float4 bv = *reinterpret_cast<const float4*>(b + r * LD + 64 * g);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qcol = tx + 16 * j;
-        const bool ok = !CAUSAL || q0 + qcol >= k0 + krow;
-        const float p = ok ? expf(st[i][j] * scale - lse_s[qcol]) : 0.f;
-        Ps[krow * G::LDP + qcol] = p;
-        DSs[krow * G::LDP + qcol] = p * (dpt[i][j] - del_s[qcol]);
+      for (int i = 0; i < 4; ++i) {
+        const float ai = comp(av, i);
+        acc[i][4 * g + 0] = fmaf(ai, bv.x, acc[i][4 * g + 0]);
+        acc[i][4 * g + 1] = fmaf(ai, bv.y, acc[i][4 * g + 1]);
+        acc[i][4 * g + 2] = fmaf(ai, bv.z, acc[i][4 * g + 2]);
+        acc[i][4 * g + 3] = fmaf(ai, bv.w, acc[i][4 * g + 3]);
       }
     }
-    __syncthreads();
-    pv_tile<D>(Ps, dOs, dv_acc);
-    pv_tile<D>(DSs, Qs, dk_acc);
   }
-  float one[4] = {1.f, 1.f, 1.f, 1.f};
-  float mul[4] = {scale, scale, scale, scale};
-  store_rows<T, D>(dk + base + (size_t)k0 * D, dk_acc, mul);
-  store_rows<T, D>(dv + base + (size_t)k0 * D, dv_acc, one);
+}
+
+// Q, dO, lse and delta of the q tile at row q0 -> one stage (cp.async)
+template <int D>
+__device__ __forceinline__ void copy_stage(
+    const float* __restrict__ q, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* Qs, float* dOs, float* lse_s, float* del_s) {
+  copy_tile<D>(q, Qs);
+  copy_tile<D>(dout, dOs);
+  if (threadIdx.x < kTile / 4)
+    cp_async16(smem_u32(lse_s + 4 * threadIdx.x), lse + 4 * threadIdx.x);
+  else if (threadIdx.x < kTile / 2)
+    cp_async16(smem_u32(del_s + 4 * (threadIdx.x - kTile / 4)),
+               delta + 4 * (threadIdx.x - kTile / 4));
+}
+
+template <int D>
+constexpr size_t bwd_smem_bytes() {
+  // K, V, Q x 2, dO x 2; P/dS; lse x 2, delta x 2; the claimed ticket
+  return (6 * Geo<D>::TILE + Geo<D>::PTILE + 4 * kTile + 4) * sizeof(float);
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* dq, float* __restrict__ dk, float* __restrict__ dv,
+    int* scratch, int BH, int S, float scale) {
+  using G = Geo<D>;
+  extern __shared__ uint4 smem[];
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + G::TILE;
+  float* Qs = Vs + G::TILE;           // two stages
+  float* dOs = Qs + 2 * G::TILE;      // two stages
+  float* PS = dOs + 2 * G::TILE;      // P, then dS; row = key
+  float* lse_s = PS + G::PTILE;       // two stages
+  float* del_s = lse_s + 2 * kTile;   // two stages
+  int* claimed = reinterpret_cast<int*>(del_s + 2 * kTile);
+
+  const long long t_start = clock64();
+  long long polled = 0;
+  const BwdThread th;
+  const int nt = S / kTile, total = nt * BH;
+  int* counters = scratch + kScratchHead;
+
+  for (;;) {
+    if (threadIdx.x == 0) *claimed = atomicAdd(scratch + kTicket, 1);
+    __syncthreads();  // also: the previous tile's shared tiles are read
+    const int t = *claimed;
+    if (t >= total) break;
+    const int kt = t / BH, bh = t - kt * BH;  // heaviest (lowest kt) first
+    const int k0 = kt * kTile, first = CAUSAL ? kt : 0;
+    const size_t base = (size_t)bh * S * D, rbase = (size_t)bh * S;
+
+    copy_tile<D>(k + base + (size_t)k0 * D, Ks);
+    copy_tile<D>(v + base + (size_t)k0 * D, Vs);
+    copy_stage<D>(q + base + (size_t)(nt - 1) * kTile * D,
+                  dout + base + (size_t)(nt - 1) * kTile * D,
+                  lse + rbase + (nt - 1) * kTile,
+                  delta + rbase + (nt - 1) * kTile, Qs, dOs, lse_s, del_s);
+    cp_commit();
+
+    float dk_acc[4][G::NC], dv_acc[4][G::NC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < G::NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+    for (int qt = nt - 1, st = 0; qt >= first; --qt, st ^= 1) {
+      const int q0 = qt * kTile;
+      float* Qc = Qs + st * G::TILE;
+      float* dOc = dOs + st * G::TILE;
+      const float* lse_c = lse_s + st * kTile;
+      const float* del_c = del_s + st * kTile;
+      if (qt > first) {
+        const int qn = q0 - kTile;
+        copy_stage<D>(q + base + (size_t)qn * D, dout + base + (size_t)qn * D,
+                      lse + rbase + qn, delta + rbase + qn,
+                      Qs + (st ^ 1) * G::TILE, dOs + (st ^ 1) * G::TILE,
+                      lse_s + (st ^ 1) * kTile, del_s + (st ^ 1) * kTile);
+      }
+      cp_commit();
+      cp_wait_one();  // this stage (and K, V) landed; the next may not have
+      __syncthreads();
+
+      // transposed scores: rows are keys (ty + 16i), columns queries
+      // (tx + 16j)
+      float s[4][4], ds[4][4];
+      score_t<D>(Ks, Qc, s, th);
+      score_t<D>(Vs, dOc, ds, th);
+      float lq[4], dl[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        lq[j] = lse_c[th.tx + 16 * j];
+        dl[j] = del_c[th.tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int krow = th.ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qcol = th.tx + 16 * j;
+          const bool ok = !CAUSAL || q0 + qcol >= k0 + krow;
+          const float p = ok ? expf(s[i][j] * scale - lq[j]) : 0.f;
+          PS[krow * G::LDP + qcol] = p;
+          ds[i][j] = p * (ds[i][j] - dl[j]);
+        }
+      }
+      __syncthreads();
+      rows_times_tile<D>(PS, dOc, dv_acc, th);  // dV += P^T dO
+      __syncthreads();                         // P is read: dS replaces it
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          PS[(th.ty + 16 * i) * G::LDP + th.tx + 16 * j] = ds[i][j];
+      __syncthreads();
+      rows_times_tile<D>(PS, Qc, dk_acc, th);  // dK += dS^T Q
+      float part[4][G::NC];
+      cols_times_tile<D>(PS, Ks, part, th);    // dQ partial = dS K
+
+      // add the partial to q tile qt's dQ after key tiles 0 .. kt - 1
+      int* ctr = counters + (size_t)bh * nt + qt;
+      if (threadIdx.x == 0) {
+        const long long p0 = clock64();
+        for (long long n = 0; ld_acquire(ctr) != kt;) {
+          if (++n > SINGA_FLASH_POLL_LIMIT) {
+            __trap();
+            break;
+          }
+        }
+        polled += clock64() - p0;
+      }
+      __syncthreads();
+      const bool last = kt == (CAUSAL ? qt : nt - 1);
+      float* dst = dq + base + (size_t)q0 * D;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int g = 0; g < D / 64; ++g) {
+          float4* p = reinterpret_cast<float4*>(
+              dst + (size_t)(4 * th.ty + i) * D + 64 * g + 4 * th.tx);
+          float4 o = __ldcg(p);
+          o.x += part[i][4 * g + 0];
+          o.y += part[i][4 * g + 1];
+          o.z += part[i][4 * g + 2];
+          o.w += part[i][4 * g + 3];
+          if (last) {
+            o.x *= scale;
+            o.y *= scale;
+            o.z *= scale;
+            o.w *= scale;
+          }
+          __stcg(p, o);
+        }
+      __threadfence();
+      __syncthreads();
+      if (threadIdx.x == 0) st_release(ctr, kt + 1);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const size_t row = (size_t)(k0 + th.ty + 16 * i) * D;
+#pragma unroll
+      for (int g = 0; g < D / 64; ++g) {
+        const int col = 64 * g + 4 * th.tx;
+        *reinterpret_cast<float4*>(dk + base + row + col) = make_float4(
+            dk_acc[i][4 * g] * scale, dk_acc[i][4 * g + 1] * scale,
+            dk_acc[i][4 * g + 2] * scale, dk_acc[i][4 * g + 3] * scale);
+        *reinterpret_cast<float4*>(dv + base + row + col) =
+            make_float4(dv_acc[i][4 * g], dv_acc[i][4 * g + 1],
+                        dv_acc[i][4 * g + 2], dv_acc[i][4 * g + 3]);
+      }
+    }
+  }
+  if (threadIdx.x == 0) {
+    unsigned long long* stats = reinterpret_cast<unsigned long long*>(scratch);
+    atomicAdd(stats + 0, (unsigned long long)polled);
+    atomicAdd(stats + 1, (unsigned long long)(clock64() - t_start));
+    atomicAdd(stats + 2, 1ULL);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -498,53 +768,39 @@ extern "C" int singa_flash_fwd(const void* q, const void* k, const void* v,
   });
 }
 
-extern "C" int singa_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                  const void* dout, const void* lse,
-                                  const void* delta, void* dq, int BH, int S,
-                                  int D, int dtype, int causal, float scale,
-                                  void* stream) {
+// dQ, dK and dV in one launch. dq and scratch must be zeroed (dq is the
+// accumulator; scratch holds the statistics, the ticket and the counters).
+extern "C" int singa_flash_bwd(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dq, void* dk,
+                               void* dv, void* scratch, int BH, int S, int D,
+                               int dtype, int causal, float scale,
+                               void* stream) {
   if (bad_shape(BH, S)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, D, causal, [&](auto t, auto d, auto c) -> int {
-    using T = typename decltype(t)::type;
+  return dispatch(dtype, D, causal, [&](auto, auto d, auto c) -> int {
     constexpr int DD = decltype(d)::value;
     constexpr bool C = decltype(c)::value;
-    constexpr size_t smem =
-        (4 * Geo<DD>::TILE + Geo<DD>::PTILE + 2 * kTile) * sizeof(float);
-    auto kern = flash_bwd_dq_kernel<T, DD, C>;
-    const int e = allow_smem(kern, smem);
+    constexpr size_t smem = bwd_smem_bytes<DD>();
+    auto kern = flash_bwd_kernel<DD, C>;
+    int e = allow_smem(kern, smem);
     if (e != 0) return e;
-    kern<<<dim3(S / kTile, BH), kThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
+    // only blocks that can be resident at once: a block that waits on a
+    // counter then waits on one that runs
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((e = (int)cudaGetDevice(&dev)) != 0 ||
+        (e = (int)cudaDeviceGetAttribute(
+             &sms, cudaDevAttrMultiProcessorCount, dev)) != 0 ||
+        (e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kern, kThreads, smem)) != 0)
+      return e;
+    if (sms < 1 || per_sm < 1) return (int)cudaErrorInvalidValue;
+    kern<<<dim3(sms * per_sm), kThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dq), S, scale);
-    return (int)cudaGetLastError();
-  });
-}
-
-extern "C" int singa_flash_bwd_dkv(const void* q, const void* k,
-                                   const void* v, const void* dout,
-                                   const void* lse, const void* delta,
-                                   void* dk, void* dv, int BH, int S, int D,
-                                   int dtype, int causal, float scale,
-                                   void* stream) {
-  if (bad_shape(BH, S)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, D, causal, [&](auto t, auto d, auto c) -> int {
-    using T = typename decltype(t)::type;
-    constexpr int DD = decltype(d)::value;
-    constexpr bool C = decltype(c)::value;
-    constexpr size_t smem =
-        (4 * Geo<DD>::TILE + 2 * Geo<DD>::PTILE + 2 * kTile) * sizeof(float);
-    auto kern = flash_bwd_dkv_kernel<T, DD, C>;
-    const int e = allow_smem(kern, smem);
-    if (e != 0) return e;
-    kern<<<dim3(S / kTile, BH), kThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv), S, scale);
+        static_cast<float*>(dq), static_cast<float*>(dk),
+        static_cast<float*>(dv), static_cast<int*>(scratch), BH, S, scale);
     return (int)cudaGetLastError();
   });
 }

@@ -4,22 +4,26 @@ CUDA kernels of ``csrc/flash_attention.cu`` (float32) and
 ``csrc/flash_attention_bf16.cu`` (bfloat16).
 
 Counterpart of ``singa_tpu/ops/attention.py``, whose six Pallas kernels
-(staged and streamed forward, dQ and dK/dV) become three Hopper kernel
-entry points here: ``flash_fwd``, ``flash_bwd_dq`` and
-``flash_bwd_dkv``. The TPU's staged/streamed split is a VMEM budget
+(staged and streamed forward, dQ and dK/dV) become Hopper kernel entry
+points here. The TPU's staged/streamed split is a VMEM budget
 (``_variant`` there); on the GPU one kernel streams its tiles through
 shared memory for every S. bf16 runs on the tensor cores
-(``flash_attention_bf16.cu``: P and dS are rounded once to bf16 before
-their products); float32 runs on the CUDA cores (``kernel_source``).
+(``flash_attention_bf16.cu``: ``flash_fwd``, and the backward as the pair
+``flash_bwd_dq`` + ``flash_bwd_dkv``, P and dS rounded once to bf16
+before their products); float32 runs on the CUDA cores
+(``flash_attention.cu``: ``flash_fwd``, and the backward as one fused
+kernel, ``flash_bwd``). ``kernel_source`` says which entry runs where;
+``flash_bwd`` is the backward for both types.
 
 Each kernel wrapper takes flattened ``(B*H, S, D)`` rows (the layout of
 the Pallas calls) with ``lse`` and ``delta`` laid out ``(B*H, S)`` in
 float32, and dispatches by device and nothing else: a CUDA tensor
 launches the kernel or raises; a CPU tensor takes the plain PyTorch
-version beside it (``flash_fwd_plain``, ``flash_bwd_dq_plain``,
-``flash_bwd_dkv_plain``), which the CPU tests hold against the JAX
-package. Each wrapper counts its kernel launches in its ``launches``
-attribute (CPU calls do not count).
+version beside it (``flash_fwd_plain``, ``flash_bwd_plain``,
+``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain``), which the CPU tests
+hold against the JAX package. Each wrapper counts its kernel launches in
+its ``launches`` attribute (CPU calls do not count): ``flash_bwd`` counts
+the fused float32 kernel; on bf16 it calls the pair, which count theirs.
 
 Masking follows the JAX kernels exactly: masked scores are ``NEG_INF``
 (-1e30, finite), their probabilities are set to 0, a row whose every
@@ -46,6 +50,17 @@ KERNEL_HEAD_DIMS = (64, 128)
 #: query and key rows per kernel tile: S must be a multiple
 KERNEL_TILE = 64
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel entries of each type: float32's backward is one fused
+#: kernel, bf16's the dQ and dK/dV pair
+KERNEL_NAMES = {
+    torch.float32: ("flash_fwd", "flash_bwd"),
+    torch.bfloat16: ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+}
+#: int32 scratch of the fused backward before its per-(bh, q tile)
+#: counters: three uint64 statistics (cycles spent polling, cycles the
+#: blocks ran, blocks run), the ticket and one spare
+#: (``kScratchHead`` in ``csrc/flash_attention.cu``)
+BWD_SCRATCH_HEAD = 8
 
 
 def attention(q, k, v, *, causal: bool = False) -> torch.Tensor:
@@ -230,6 +245,15 @@ def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal: bool,
     return dk, dv
 
 
+def flash_bwd_plain(q, k, v, dout, lse, delta, causal: bool,
+                    block: int | None = None):
+    """Plain version of :func:`flash_bwd`: the dQ and dK/dV plain versions
+    composed. -> (dQ, dK, dV)."""
+    dq = flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal, block)
+    return (dq, *flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal,
+                                     block))
+
+
 # ---------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------
@@ -251,7 +275,12 @@ def fusable(seq_len: int, head_dim: int, dtype) -> str | None:
 def kernel_source(name: str, dtype) -> tuple[str, str]:
     """(source under ``csrc/``, C symbol) of kernel ``name`` for inputs of
     ``dtype``: bf16 runs on the tensor cores (``flash_attention_bf16.cu``),
-    float32 on the CUDA cores (``flash_attention.cu``)."""
+    float32 on the CUDA cores (``flash_attention.cu``). Raises for a name
+    that type has no kernel of (``KERNEL_NAMES``)."""
+    names = KERNEL_NAMES.get(dtype, ())
+    if name not in names:
+        raise ValueError(f"no {name} kernel for {dtype}: its kernels are "
+                         f"{names}")
     if dtype == torch.bfloat16:
         return "flash_attention_bf16", f"singa_{name}_bf16"
     return "flash_attention", f"singa_{name}"
@@ -265,7 +294,8 @@ def _entry(name: str, dtype):
 
     source, symbol = kernel_source(name, dtype)
     fn = getattr(_build.load(source), symbol)
-    n_ptr = {"flash_fwd": 5, "flash_bwd_dq": 7, "flash_bwd_dkv": 8}[name]
+    n_ptr = {"flash_fwd": 5, "flash_bwd_dq": 7, "flash_bwd_dkv": 8,
+             "flash_bwd": 10}[name]
     fn.argtypes = (
         [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_void_p]
@@ -333,14 +363,61 @@ def flash_fwd(q, k, v, causal: bool):
     return out, lse
 
 
+def _pair_only(name, q):
+    """Refuse a float32 CUDA call of a bf16 pair entry."""
+    if q.dtype == torch.float32:
+        raise ValueError(f"{name}: float32 has no pair kernel on the card; "
+                         "its backward is the fused flash_bwd")
+
+
+def flash_bwd_scratch(bh: int, s: int, device) -> torch.Tensor:
+    """The fused backward's zeroed int32 scratch: the head
+    (``BWD_SCRATCH_HEAD``), then one counter per (bh, q tile)."""
+    return torch.zeros(BWD_SCRATCH_HEAD + bh * (s // KERNEL_TILE),
+                       dtype=torch.int32, device=device)
+
+
+def launch_flash_bwd(q, k, v, dout, lse, delta, causal: bool):
+    """One launch of the fused float32 backward on CUDA rows, counted
+    nowhere -> (dq, dk, dv, scratch); ``scratch`` holds the statistics of
+    ``BWD_SCRATCH_HEAD`` and the counters as the kernel left them."""
+    dq = torch.zeros_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    scratch = flash_bwd_scratch(q.shape[0], q.shape[1], q.device)
+    _launch("flash_bwd", (q, k, v, dout), (lse, delta),
+            (dq, dk, dv, scratch), causal)
+    return dq, dk, dv, scratch
+
+
+def flash_bwd(q, k, v, dout, lse, delta, causal: bool):
+    """(dQ, dK, dV) of flash attention over (BH, S, D) rows, given the
+    forward's ``lse`` and ``delta = rowsum(dO * O)`` (both (BH, S)
+    float32). float32 on the card: one launch of the fused kernel; bf16:
+    the pair ``flash_bwd_dq`` + ``flash_bwd_dkv``."""
+    _check("flash_bwd", (q, k, v, dout), (lse, delta))
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, dout, lse, delta, causal)
+    if q.device.type != "cuda":
+        raise _no_path("flash_bwd", q.device)
+    if q.dtype == torch.bfloat16:
+        dq = flash_bwd_dq(q, k, v, dout, lse, delta, causal)
+        return (dq, *flash_bwd_dkv(q, k, v, dout, lse, delta, causal))
+    dq, dk, dv, _ = launch_flash_bwd(q, k, v, dout, lse, delta, causal)
+    flash_bwd.launches += 1
+    return dq, dk, dv
+
+
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool):
     """dQ of flash attention over (BH, S, D) rows, given the forward's
-    ``lse`` and ``delta = rowsum(dO * O)`` (both (BH, S) float32)."""
+    ``lse`` and ``delta = rowsum(dO * O)`` (both (BH, S) float32); on the
+    card bf16 only (float32 runs :func:`flash_bwd`)."""
     _check("flash_bwd_dq", (q, k, v, dout), (lse, delta))
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal)
     if q.device.type != "cuda":
         raise _no_path("flash_bwd_dq", q.device)
+    _pair_only("flash_bwd_dq", q)
     dq = torch.empty_like(q)
     _launch("flash_bwd_dq", (q, k, v, dout), (lse, delta), (dq,), causal)
     flash_bwd_dq.launches += 1
@@ -348,12 +425,14 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool):
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool):
-    """(dK, dV) of flash attention over (BH, S, D) rows."""
+    """(dK, dV) of flash attention over (BH, S, D) rows; on the card bf16
+    only (float32 runs :func:`flash_bwd`)."""
     _check("flash_bwd_dkv", (q, k, v, dout), (lse, delta))
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal)
     if q.device.type != "cuda":
         raise _no_path("flash_bwd_dkv", q.device)
+    _pair_only("flash_bwd_dkv", q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch("flash_bwd_dkv", (q, k, v, dout), (lse, delta), (dk, dv), causal)
@@ -362,6 +441,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool):
 
 
 flash_fwd.launches = 0
+flash_bwd.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 
@@ -369,7 +449,8 @@ flash_bwd_dkv.launches = 0
 class _FlashAttention(torch.autograd.Function):
     """Forward saves (q, k, v, out, lse); backward computes
     delta = rowsum(dO * O) in float32 outside the kernels (as the JAX
-    package's ``_flash_bwd`` does), then runs the dQ and dK/dV kernels."""
+    package's ``_flash_bwd`` does), then runs the backward kernels
+    (:func:`flash_bwd`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -386,8 +467,7 @@ class _FlashAttention(torch.autograd.Function):
         bh, s, d = q.shape
         do = g.reshape(bh, s, d).to(q.dtype).contiguous()
         delta = (do.float() * out.float()).sum(-1)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal)
+        dq, dk, dv = flash_bwd(q, k, v, do, lse, delta, ctx.causal)
         shape = g.shape
         return dq.reshape(shape), dk.reshape(shape), dv.reshape(shape), None
 

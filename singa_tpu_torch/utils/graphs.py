@@ -20,7 +20,11 @@ runs it:
 A capture failure raises; nothing turns graphed work into eager work.
 The body must not synchronize with the host (no ``.item()``, ``int()``
 of a tensor, ``.cpu()``, ``torch.tensor(..., device=cuda)``, or a
-Python branch on device data); capture fails on those.
+Python branch on device data); capture fails on those. Python's
+garbage collector is run before a capture and kept off during it: a
+dead reference cycle that holds another graph (an old Engine or
+Trainer) would otherwise be collected mid-capture, and destroying its
+``CUDAGraph`` there (``cudaGraphExecDestroy``) invalidates the capture.
 
 Launch counts: the kernel wrappers count launches in Python
 (``flash_fwd.launches += 1``), which runs once, at capture. The capture
@@ -30,6 +34,7 @@ at capture, so a count still says how many times the kernel ran.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable
 
 import torch
@@ -41,7 +46,7 @@ def launch_counters() -> list:
     from ..ops import paged_attention as pa
     from ..ops import quantized_collective as qc
 
-    return [ta.flash_fwd, ta.flash_bwd_dq, ta.flash_bwd_dkv,
+    return [ta.flash_fwd, ta.flash_bwd, ta.flash_bwd_dq, ta.flash_bwd_dkv,
             pa.paged_attention, pa.paged_attention_overlay, qc.quant_acc]
 
 
@@ -105,6 +110,9 @@ class Graphed:
         graph = torch.cuda.CUDAGraph()
         side = self._side()
         side.wait_stream(torch.cuda.current_stream(self.device))
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # thread_local: the input feeders' threads keep copying on
             # their own streams while this thread captures
@@ -112,6 +120,8 @@ class Graphed:
                                   capture_error_mode="thread_local"):
                 self.body()
         finally:
+            if collecting:
+                gc.enable()
             after = [w.launches for w in counters]
             for w, b in zip(counters, before):
                 w.launches = b

@@ -1,11 +1,12 @@
 // CPU emulation of the CUDA primitives that the kernel sources
-// singa_tpu_torch/csrc/flash_attention_bf16.cu, paged_attention.cu and
-// quant_acc.cu use, so that their kernel code (tile loads, swizzled
-// ldmatrix addressing, mma fragment layouts, shuffles, masks, reductions,
-// atomics) runs on a machine without a GPU. The tests that use it
+// singa_tpu_torch/csrc/flash_attention.cu, flash_attention_bf16.cu,
+// paged_attention.cu and quant_acc.cu use, so that their kernel code (tile
+// loads, swizzled ldmatrix addressing, mma fragment layouts, shuffles,
+// masks, reductions, atomics, the fused backward's ticket and counters)
+// runs on a machine without a GPU. The tests that use it
 // (tests/test_torch_flash_bwd.py, test_torch_flash_fwd.py,
-// test_torch_paged_split.py, test_torch_quant_acc.py) compile a kernel
-// source with g++ after
+// test_torch_flash_f32_emu.py, test_torch_paged_split.py,
+// test_torch_quant_acc.py) compile a kernel source with g++ after
 // swapping each inline-assembly primitive for the emu_* function of the
 // same meaning and each <<<grid, block, smem, stream>>> launch for
 // emu_launch.
@@ -23,11 +24,18 @@
 // __fmul_rn and __fadd_rn round each result to float32 on its own (a
 // volatile store, so g++ cannot contract them into an FMA); atomicMax is
 // a compare-and-swap loop; the device reports emu_sm_count SMs.
+// Since blocks run one after another, a block that waits on another's
+// flag (ld.acquire / st.release: emu_ld_acquire, emu_st_release) finds it
+// set or waits forever: a kernel must bound its polls. __trap records
+// cudaErrorLaunchFailure, which the next cudaGetLastError returns (the
+// thread then runs on); the occupancy query allows blocks by the SM's
+// 228 KB of shared memory (1 KB reserved a block) and 2048 threads.
 #pragma once
 
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <chrono>
 #include <climits>
 #include <cmath>
 #include <cstddef>
@@ -78,13 +86,23 @@ inline size_t __cvta_generic_to_shared(const void* p) {
 }
 
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorLaunchFailure = 719
+};
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <typename K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int bytes) {
   return bytes <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
 }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t emu_error = cudaSuccess;
+inline cudaError_t cudaGetLastError() {
+  const cudaError_t e = emu_error;
+  emu_error = cudaSuccess;
+  return e;
+}
+inline void __trap() { emu_error = cudaErrorLaunchFailure; }
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   std::memset(p, v, n);
   return cudaSuccess;
@@ -98,6 +116,13 @@ inline cudaError_t cudaGetDevice(int* dev) {
 }
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
   *v = emu_sm_count;
+  return cudaSuccess;
+}
+template <typename K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K,
+                                                          int threads,
+                                                          size_t smem) {
+  *n = std::min(2048 / threads, (int)(233472 / (smem + 1024)));
   return cudaSuccess;
 }
 
@@ -117,6 +142,28 @@ inline unsigned __float_as_uint(float f) {
   unsigned u;
   std::memcpy(&u, &f, 4);
   return u;
+}
+inline float4 __ldcg(const float4* p) { return *p; }
+inline void __stcg(float4* p, float4 v) { *p = v; }
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+inline long long clock64() {
+  return std::chrono::steady_clock::now().time_since_epoch().count();
+}
+inline int atomicAdd(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_add(v);
+}
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
+inline int emu_ld_acquire(const int* p) {
+  return std::atomic_ref<int>(*const_cast<int*>(p))
+      .load(std::memory_order_acquire);
+}
+inline void emu_st_release(int* p, int v) {
+  std::atomic_ref<int>(*p).store(v, std::memory_order_release);
 }
 inline unsigned atomicMax(unsigned* p, unsigned v) {
   std::atomic_ref<unsigned> a(*p);

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: the paged-attention kernel, the
-three flash-attention kernels (forward, dQ, dK/dV) and the gradient
+flash-attention kernels (forward; the fused float32 backward; the bf16
+dQ and dK/dV pair) and the gradient
 ring's quant_acc, each held to its plain PyTorch version, their
 wrappers' refusals and launch counts, the serving engine's streams
 through the paged kernel, Trainer steps through the flash kernels, and
@@ -13,6 +14,7 @@ root, without the suite's conftest (which imports jax)::
   python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import gc
 import pathlib
 
 import numpy as np
@@ -27,6 +29,7 @@ from singa_tpu_torch.ops import paged_attention as pa
 from singa_tpu_torch.ops import quantized_collective as qc
 from singa_tpu_torch.serve import Engine, EngineConfig, Request, Scheduler
 from singa_tpu_torch.trainer import Trainer
+from singa_tpu_torch.utils.graphs import Graphed
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -38,7 +41,11 @@ TOL = dict(atol=1e-4, rtol=0)
 #: sums in another order (1e-4); bf16 outputs round once, 2^-8 relative
 #: (2e-2)
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-FLASH_KERNELS = (ta.flash_fwd, ta.flash_bwd_dq, ta.flash_bwd_dkv)
+FLASH_KERNELS = (ta.flash_fwd, ta.flash_bwd, ta.flash_bwd_dq,
+                 ta.flash_bwd_dkv)
+#: launches one forward and one backward add to FLASH_KERNELS' counts:
+#: float32's backward is the fused kernel, bf16's the pair
+FLASH_LAUNCHES = {torch.float32: [1, 1, 0, 0], torch.bfloat16: [1, 0, 1, 1]}
 
 
 @pytest.fixture
@@ -188,7 +195,8 @@ def test_flash_kernels_match_plain(cuda_device, dtype, d, causal, bh, s):
     """Each kernel against its plain version at S a multiple of 64 but
     not of 128 (an odd count of 64-row tiles) and at an odd B*H, and
     every kernel deterministic: a second launch on the same inputs gives
-    bitwise-equal outputs."""
+    bitwise-equal outputs. The backward is flash_bwd: the fused kernel
+    in float32, the dQ and dK/dV pair in bf16."""
     gen = torch.Generator().manual_seed(d + causal)
     q, k, v, do = [torch.randn(bh, s, d, generator=gen).to(cuda_device, dtype)
                    for _ in range(4)]
@@ -196,24 +204,58 @@ def test_flash_kernels_match_plain(cuda_device, dtype, d, causal, bh, s):
     out, lse = ta.flash_fwd(q, k, v, causal)
     want_out, want_lse = ta.flash_fwd_plain(q, k, v, causal)
     delta = (do.float() * want_out.float()).sum(-1)
-    got = [out, lse, ta.flash_bwd_dq(q, k, v, do, want_lse, delta, causal),
-           *ta.flash_bwd_dkv(q, k, v, do, want_lse, delta, causal)]
+    got = [out, lse, *ta.flash_bwd(q, k, v, do, want_lse, delta, causal)]
     want = [want_out, want_lse,
-            ta.flash_bwd_dq_plain(q, k, v, do, want_lse, delta, causal),
-            *ta.flash_bwd_dkv_plain(q, k, v, do, want_lse, delta, causal)]
+            *ta.flash_bwd_plain(q, k, v, do, want_lse, delta, causal)]
     torch.cuda.synchronize()
-    assert _flash_counts() == [n + 1 for n in before]
+    assert _flash_counts() == [
+        n + m for n, m in zip(before, FLASH_LAUNCHES[dtype])]
     for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
         assert a.dtype == b.dtype, name
         scale = float(b.float().abs().max())
         err = float((a.float() - b.float()).abs().max())
         assert err <= FLASH_TOL[dtype] * scale, (name, err, scale)
     again = [*ta.flash_fwd(q, k, v, causal),
-             ta.flash_bwd_dq(q, k, v, do, want_lse, delta, causal),
-             *ta.flash_bwd_dkv(q, k, v, do, want_lse, delta, causal)]
+             *ta.flash_bwd(q, k, v, do, want_lse, delta, causal)]
     torch.cuda.synchronize()
     for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, again):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("bh,s,d,causal", [
+    (3, 192, 128, True), (3, 192, 64, False), (2, 1024, 128, True),
+    (2, 1024, 64, False), (1, 4096, 128, True),
+])
+def test_fused_backward_matches_plain_and_repeats_bitwise(cuda_device, bh, s,
+                                                          d, causal):
+    """The fused float32 backward against flash_bwd_plain (dQ, dK, dV at
+    FLASH_TOL), its counters at their q tiles' contributor counts after
+    the launch, every work tile claimed once by the resident grid, and
+    two launches bitwise equal (dQ is summed over the key tiles in a
+    fixed order, whatever order the blocks run in)."""
+    gen = torch.Generator().manual_seed(bh * s + d + causal)
+    q, k, v, do = [torch.randn(bh, s, d, generator=gen).to(cuda_device)
+                   for _ in range(4)]
+    out, lse = ta.flash_fwd_plain(q, k, v, causal)
+    delta = (do * out).sum(-1)
+    *got, scratch = ta.launch_flash_bwd(q, k, v, do, lse, delta, causal)
+    again = ta.flash_bwd(q, k, v, do, lse, delta, causal)
+    want = ta.flash_bwd_plain(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, again, want):
+        err = float((a - c).abs().max())
+        assert err <= FLASH_TOL[torch.float32] * float(c.abs().max()), (
+            name, err)
+        assert torch.equal(a, b), name
+    nt = s // ta.KERNEL_TILE
+    head = scratch[:ta.BWD_SCRATCH_HEAD].cpu()
+    blocks, ticket = int(head[4:6].view(torch.int64)), int(head[6])
+    counters = scratch[ta.BWD_SCRATCH_HEAD:].view(bh, nt).cpu()
+    want_ctr = (torch.arange(1, nt + 1) if causal
+                else torch.full((nt,), nt)).expand(bh, nt)
+    assert torch.equal(counters, want_ctr.to(torch.int32))
+    assert blocks >= torch.cuda.get_device_properties(0).multi_processor_count
+    assert ticket == bh * nt + blocks
 
 
 def test_flash_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
@@ -230,6 +272,11 @@ def test_flash_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
             ta.flash_fwd(*args, True)
     with pytest.raises(ValueError):
         ta.flash_fwd(q, q.cpu(), q, True)
+    # float32 has no pair kernel on the card: its backward is flash_bwd
+    lse = torch.zeros(2, 256, device=cuda_device)
+    for pair in (ta.flash_bwd_dq, ta.flash_bwd_dkv):
+        with pytest.raises(ValueError, match="flash_bwd"):
+            pair(q, q, q, q, lse, lse, True)
     assert _flash_counts() == before
 
 
@@ -250,9 +297,10 @@ def _train_conf(shard):
 
 def test_trainer_steps_through_the_flash_kernels(cuda_device, tmp_path,
                                                 monkeypatch):
-    """2 Trainer steps on the card launch each flash kernel once per
-    layer per step, and their losses match 2 CPU steps (plain versions)
-    from the same params within 1e-4."""
+    """2 Trainer steps on the card launch the float32 flash kernels (the
+    forward and the fused backward) once per layer per step, and the bf16
+    pair never, and their losses match 2 CPU steps (plain versions) from
+    the same params within 1e-4."""
     shard = str(tmp_path / "shard")
     write_records(shard, *synthetic_token_arrays(4, seq_len=256, vocab=256))
     monkeypatch.setenv("SINGA_TPU_DENSE_ATTN_MB", "0")
@@ -266,7 +314,8 @@ def test_trainer_steps_through_the_flash_kernels(cuda_device, tmp_path,
             tr.train_one_batch(step)
             losses.append(tr.perf.avg()["loss"]["loss"])
             tr.perf.reset()
-    assert _flash_counts() == [n + 2 * 2 for n in before]
+    assert _flash_counts() == [
+        n + 2 * 2 * m for n, m in zip(before, FLASH_LAUNCHES[torch.float32])]
     assert all(np.isfinite(losses))
     np.testing.assert_allclose(losses[:2], losses[2:], atol=1e-4)
 
@@ -377,6 +426,26 @@ neuralnet {{
           srclayers: "label" softmaxloss_param {{ topk: 1 }} }}
 }}
 """)
+
+
+def test_capture_keeps_the_garbage_collector_off(cuda_device):
+    """Python's collector is off while a body is captured and on again
+    after: a dead cycle holding an old graph, collected mid-capture,
+    would destroy that graph there and invalidate the capture (the serve
+    phase's second Engine hit this)."""
+    x = torch.zeros(4, device=cuda_device)
+    seen = []
+
+    def body():
+        x.add_(1)
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+
+    assert gc.isenabled()
+    Graphed(body, cuda_device)(3)  # one eager step, a capture, 2 replays
+    torch.cuda.synchronize()
+    assert seen == [False] and gc.isenabled()
+    assert float(x[0]) == 3
 
 
 def test_graphed_chunk_equals_eager_steps_on_the_card(cuda_device,

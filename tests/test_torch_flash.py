@@ -206,21 +206,28 @@ def test_auto_attention_reads_the_footprint_rule_per_call(monkeypatch, mb,
 
 def test_wrappers_dispatch_by_device_and_count_only_launches():
     q, k, v, g = _to_torch(_inputs(5, (2, 128, 64)), torch.float32)
-    before = (ta.flash_fwd.launches, ta.flash_bwd_dq.launches,
-              ta.flash_bwd_dkv.launches)
+    wrappers = (ta.flash_fwd, ta.flash_bwd, ta.flash_bwd_dq,
+                ta.flash_bwd_dkv)
+    before = [fn.launches for fn in wrappers]
     out, lse = ta.flash_fwd(q, k, v, True)
     delta = (g * out).sum(-1)
-    ta.flash_bwd_dq(q, k, v, g, lse, delta, True)
-    ta.flash_bwd_dkv(q, k, v, g, lse, delta, True)
-    assert (ta.flash_fwd.launches, ta.flash_bwd_dq.launches,
-            ta.flash_bwd_dkv.launches) == before
-    meta = [t.to("meta") for t in (q, k, v)]
+    dq = ta.flash_bwd_dq(q, k, v, g, lse, delta, True)
+    dk, dv = ta.flash_bwd_dkv(q, k, v, g, lse, delta, True)
+    fused = ta.flash_bwd(q, k, v, g, lse, delta, True)
+    for a, b in zip(fused, (dq, dk, dv)):
+        assert torch.equal(a, b)
+    assert [fn.launches for fn in wrappers] == before
+    meta = [t.to("meta") for t in (q, k, v, g)]
     with pytest.raises(ValueError, match="no path"):
-        ta.flash_fwd(*meta, True)
+        ta.flash_fwd(*meta[:3], True)
+    with pytest.raises(ValueError, match="no path"):
+        ta.flash_bwd(*meta, lse.to("meta"), delta.to("meta"), True)
     with pytest.raises(ValueError, match="do not match"):
         ta.flash_fwd(q, k[:, :64], v, True)
     with pytest.raises(ValueError, match="lse/delta"):
         ta.flash_bwd_dq(q, k, v, g, lse.double(), delta, True)
+    with pytest.raises(ValueError, match="lse/delta"):
+        ta.flash_bwd(q, k, v, g, lse, delta[:, :64], True)
 
 
 @pytest.mark.parametrize("s,d,dtype,ok", [

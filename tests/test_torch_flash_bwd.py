@@ -130,20 +130,28 @@ def test_tensor_core_rounding_within_half_the_card_bar(bh, s, d, causal):
 
 
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dq",
-                                  "flash_bwd_dkv"])
+                                  "flash_bwd_dkv", "flash_bwd"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_source_routes_each_dtype_to_its_file(name, dtype):
     """Every bf16 kernel (forward, dQ, dK/dV) comes from the tensor-core
-    source and every float32 kernel from the CUDA-core one, under the C
-    names their sources export; the CUDA-core source exports no bf16
-    entry."""
-    source, symbol = ta.kernel_source(name, dtype)
+    source and every float32 kernel (forward, the fused backward) from
+    the CUDA-core one, under the C names their sources export. A name
+    that a type has no kernel of (float32's dQ and dK/dV pair, bf16's
+    fused backward) is refused, and no source exports it; the CUDA-core
+    source exports no bf16 entry."""
     tensor_cores = dtype == torch.bfloat16
-    assert source == ("flash_attention_bf16" if tensor_cores
-                      else "flash_attention")
-    assert symbol == f"singa_{name}" + ("_bf16" if tensor_cores else "")
+    source = "flash_attention_bf16" if tensor_cores else "flash_attention"
+    symbol = f"singa_{name}" + ("_bf16" if tensor_cores else "")
     with open(os.path.join(_build.CSRC_DIR, f"{source}.cu")) as f:
-        assert f'extern "C" int {symbol}(' in f.read()
+        text = f.read()
+    pair = name in ("flash_bwd_dq", "flash_bwd_dkv")
+    if (pair and not tensor_cores) or (name == "flash_bwd" and tensor_cores):
+        with pytest.raises(ValueError, match=name):
+            ta.kernel_source(name, dtype)
+        assert f" {symbol}(" not in text
+    else:
+        assert ta.kernel_source(name, dtype) == (source, symbol)
+        assert f'extern "C" int {symbol}(' in text
     with open(os.path.join(_build.CSRC_DIR, "flash_attention.cu")) as f:
         assert "bf16" not in f.read().replace("flash_attention_bf16", "")
 
