@@ -53,10 +53,13 @@ caught and carried on):
              bf16 head_dim 128, B*H 3 at S=192 (S a multiple of 64 but
              not of 128) in both types; the forward's lse is held to the
              plain version's at LSE_TOL at every shape (the backward reads
-             it); the fused backward, launched twice, must give
-             bitwise-equal outputs at every float32 shape (its dQ is summed
-             across blocks in a fixed order), and every kernel at the
-             training shape. Times at the training shape (B=1, H=2,
+             it); the float32 forward and the fused backward, each
+             launched twice, must give bitwise-equal outputs at every
+             float32 shape (the forward's key groups merge in a fixed
+             order; the backward's dQ is summed across blocks in one), and
+             every kernel at the training shape; the float32 forward's
+             resident blocks an SM (the occupancy query through its
+             library) are printed. Times at the training shape (B=1, H=2,
              S=8192, D=128, causal) in bf16 and in float32 of each kernel,
              its plain version and, as a yardstick the port never calls,
              F.scaled_dot_product_attention forward and its autograd
@@ -72,7 +75,8 @@ caught and carried on):
              shard of 32 synthetic 8192-token sequences: at float32, 8
              steps through the flash kernels and 8 through dense
              attention, in turns (flash, dense, dense, flash) from the
-             same initial params, losses agreeing and launches = layers x
+             same initial params, losses agreeing (and whether they
+             agree to the bit, printed) and launches = layers x
              steps of the float32 route's kernels (the forward and the
              fused backward; 0 of the bf16 pair, 0 on dense); the same
              comparison failing on each
@@ -159,6 +163,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -843,6 +848,16 @@ def flash_timings(c, flush):
     return rows
 
 
+def flash_fwd_blocks_per_sm(d: int) -> int:
+    """The float32 forward's resident blocks an SM at head width ``d``
+    (causal), from the occupancy query on its shared memory and threads
+    (``singa_flash_fwd_blocks_per_sm``); minus a CUDA error."""
+    fn = _build.load("flash_attention").singa_flash_fwd_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(d, 1)
+
+
 def flash_bwd_polling(c, ms):
     """The fused backward's own statistics from one launch on case ``c``
     (``ms`` its time): the share of its blocks' cycles that thread 0
@@ -888,11 +903,12 @@ def flash_phase(dev):
                 check(rel <= FLASH_TOL[dtype],
                       f"{name} {(bh, s, d, causal, dtype)}: error {rel} > "
                       f"{FLASH_TOL[dtype]} of the output's scale")
-            if name == "flash_bwd":
+            if dtype == torch.float32:
                 again = kernel()
+                again = again if isinstance(again, tuple) else (again,)
                 torch.cuda.synchronize()
                 check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                      f"flash_bwd {(bh, s, d, causal, dtype)}: two launches "
+                      f"{name} {(bh, s, d, causal, dtype)}: two launches "
                       "on the same inputs differ")
             if name == "flash_fwd":
                 lse_err = float(((got[1] - want[1]).abs()
@@ -906,7 +922,12 @@ def flash_phase(dev):
               f"(tol {FLASH_TOL[dtype]:g})")
         del c
     print(f"flash_fwd lse: worst relative error {lse_worst:.2e} over all "
-          f"shapes (tol {LSE_TOL:g})")
+          f"shapes (tol {LSE_TOL:g}); float32 kernels: two launches "
+          "bitwise equal at every float32 shape")
+    for d in ta.KERNEL_HEAD_DIMS:
+        n = flash_fwd_blocks_per_sm(d)
+        check(n >= 1, f"flash_fwd float32 D {d}: occupancy query gave {n}")
+        print(f"flash_fwd float32 D {d}: {n} resident block(s) an SM")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = {}
     for shape in (FLASH_TIMED, FLASH_TIMED_F32):
@@ -1023,7 +1044,8 @@ def train_phase(dev):
                                             (runs[3], runs[2]))
                    for a, b in zip(f, d_))
         print(f"train float32 flash vs dense: max loss difference "
-              f"{diff:.3e} over 8 steps (tol {TRAIN_TOL:g})")
+              f"{diff:.3e} over 8 steps (tol {TRAIN_TOL:g}); equal to the "
+              f"bit: {diff == 0.0}")
         check(diff <= TRAIN_TOL, "train: flash and dense losses differ")
         # the same comparison must fail on a planted gradient fault
         backward = ta._FlashAttention.backward

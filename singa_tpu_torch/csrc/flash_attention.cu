@@ -34,14 +34,74 @@
 // operations per visible (q, k) pair, 85.9 GFLOP: 1.282 ms at the 67
 // TFLOP/s float32 rate. The forward does 2 products (0.513 ms).
 //
-// Forward design (right and simple first): one thread block of 256 threads
-// per (64-row q tile, batch * head), the TPU grid's sequential K axis a
-// loop inside the block, heaviest causal tiles first; tiles copied into
-// shared memory with rows padded to D + 4 floats; score_tile (a 4 x 4 block
-// of a 64 x 64 score tile a thread) and pv_tile (4 rows x D/16 columns of a
-// 64 x D output a thread); row statistics reduced over the 16 threads of a
-// row by shuffles. Known limits: no asynchronous copies, one block per SM
-// at D = 128.
+// Forward design. The first forward ("right and simple first") was
+// one 256-thread block per 64-row q tile: K and V loaded through the
+// registers between two barriers at every key tile and a third barrier
+// before PV; thread tiles of 4 q rows x 4 keys (scores) and 4 rows x D/16
+// columns (output), with a warp spanning 2 rows x 16 key lanes, so each
+// K or V operand load took two shared wavefronts. It took 1.19 ms at B*H
+// 2, S 8192, D 128, causal: 43% of its 0.513 ms bound. What this kernel
+// does, each choice timed on the card against the others
+// (tools/flash_bwd_variants.py --source flash_attention):
+//   * Two key groups a block. A block is one (q tile, bh), numbered
+//     heaviest causal tile first over every bh, with two groups of 128
+//     threads that share the Q tile and fold every other live key tile
+//     each (group g: g, g + 2, ...), each with its own m, l and output
+//     accumulator, its own K, V and P tiles and its own named barrier
+//     (bar.sync 1 + g, 128). At the end group 1 hands m, l and its
+//     accumulator to group 0 through shared memory, and group 0 merges
+//     them in that fixed order. The grid stays one block per q tile,
+//     which the hardware hands out heaviest first as SMs free up, so the
+//     SMs end within about one tile of each other. One group a block
+//     was 15% slower; two groups of 256 threads (16 warps, at most 128
+//     registers a thread, so half the thread tile) 6% slower. Not built:
+//     two 256-thread blocks an SM (with 256 q tiles and 264 block slots
+//     at the timed shape every block is resident at once, so an SM
+//     holding the heaviest tile also holds another) and a 128-row q tile
+//     (128 blocks, the heaviest with twice the average SM's work).
+//   * Large thread tiles, few bytes loaded an FMA. What bounds the
+//     products is the bytes shared memory delivers to registers (128 B a
+//     clock an SM) for each FMA, more than wavefronts. A group's warp
+//     covers 2 q rows x 16 key lanes: lane (ry, kx) holds rows row +
+//     8i (i < 8), keys kx + 16j (j < 4) of the score tile and output
+//     columns 4kx + 64c + e (c < D/64). Per d-quad the scores load 12
+//     float4 for 128 FMAs (0.375 floats an FMA; the first forward 0.5);
+//     per key-quad PV loads 16 float4 for 256 FMAs at D = 128 (0.25;
+//     before 0.375). Wavefronts a warp: the scores 16 per 128 FMAs (Q
+//     rows 2 a load: one wavefront; K rows 16: two), PV 24 per 256 (P
+//     one, V two), 0.125 and 0.094 an FMA instruction (the first forward
+//     0.19 and 0.16). Tile rows are padded to D + 4 floats and P's to 80,
+//     so no load or P store has a bank conflict beyond its bytes. 8 key
+//     lanes a row (4 rows x 8 keys, every load one wavefront, 0.375 and
+//     0.3125 floats an FMA) was 5% slower. A row's statistics live in one
+//     warp: max over 16 lanes by shuffles; the sum l stays per lane until
+//     the end.
+//   * Asynchronous K and V, one stage each, two barriers a step. With
+//     K_kt in shared memory, a group issues V_kt (cp.async) and computes
+//     the scores and the softmax meanwhile; waits for V_kt, then its
+//     barrier (P and V_kt visible, K_kt read); issues K_{kt+2} and
+//     computes PV meanwhile; waits, then its barrier (K_{kt+2} visible, P
+//     and V read). Each copy overlaps half a step.
+//   * The softmax step: m is the row max of the raw scores, P = 2^(S sc -
+//     m sc) with sc = scale log2(e) folded into one FMA before exp2f (1-2%
+//     faster than expf of the scaled score), and lse = m scale + ln l.
+//     The causal mask applies on the diagonal tile only (a masked and an
+//     unmasked instance of the step; masking every tile was 9% slower);
+//     masked scores are exactly -1e30 and their probabilities exactly 0.
+// Shared memory at D = 128: Q, then per group K, V (64 x 132 floats each)
+// and P (64 x 80): 209,920 B, one block (8 warps) an SM, 226-232
+// registers a thread and no spills. The score loop over D and PV's over
+// the keys are unrolled 4 times (2 was 0.2-1.7% slower). No block waits
+// on another (each owns its output rows), so there is no persistent grid
+// or ticket; two launches give the same bits.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; B*H 2, S 8192, D 128, causal):
+// 0.888 ms, 38.7 TFLOP/s, 58% of the bound (tools/flash_bwd_variants.py).
+// With PV unrolled 2 times: 0.896 and 0.902 ms in turns with the first
+// forward's 1.195 and 1.189 (tools/flash_bwd_turns.py), where SDPA's
+// float32 forward took 1.21-1.22 ms. What holds it at 58%: the bytes
+// loaded an FMA (0.3125 floats, at most 80% of the FMA rate through 128 B
+// a clock), the softmax step's exp2f, shuffles and P stores (about 7% of
+// the instructions), and two warps a scheduler to hide latency.
 //
 // Backward design. The previous design was two kernels, dQ (one block per
 // q tile) and dK/dV (one block per key tile). Each recomputed S and dP, so
@@ -105,8 +165,9 @@
 //
 // C interface, bound with ctypes: every pointer and the stream are void*,
 // dtype must be 0 (float32), the launch is on the given stream, and each
-// function returns cudaGetLastError() (0 = launched). singa_flash_bwd's
-// scratch is int32, zeroed by the caller: kScratchHead ints (three uint64
+// launching entry returns cudaGetLastError() (0 = launched);
+// singa_flash_fwd_blocks_per_sm returns the forward's resident blocks an
+// SM (or minus a CUDA error). singa_flash_bwd's scratch is int32, zeroed by the caller: kScratchHead ints (three uint64
 // statistics: cycles thread 0 of each block spent polling, cycles each
 // block ran, blocks run; then the ticket), then BH * (S / 64) counters.
 
@@ -127,6 +188,16 @@ constexpr int kThreads = 256;   // 16 x 16: thread (ty, tx), ty = tid / 16
 constexpr float kNegInf = -1e30f;
 constexpr int kScratchHead = 8;  // scratch ints before the counters
 constexpr int kTicket = 6;       // the ticket's index in the scratch
+constexpr int kFwdGroups = 2;        // the forward's key groups a block
+constexpr int kFwdGroupThreads = 128;  // threads a key group
+constexpr int kFwdThreads = kFwdGroups * kFwdGroupThreads;
+// lanes that share a forward q row (each holds 64 / kFwdKeyLanes of its
+// keys); a warp holds 32 / kFwdKeyLanes rows at a time
+constexpr int kFwdKeyLanes = 16;
+constexpr int kFwdKeys = kTile / kFwdKeyLanes;  // keys a thread
+// a forward thread's q rows lie kFwdRowStep apart; kFwdRows of them
+constexpr int kFwdRowStep = kFwdGroupThreads / kFwdKeyLanes;
+constexpr int kFwdRows = kTile / kFwdRowStep;
 
 template <int D>
 struct Geo {
@@ -135,39 +206,26 @@ struct Geo {
   static constexpr int LDP = kTile + 4;     // padded row stride of a (64, 64) tile
   static constexpr int PTILE = kTile * LDP;
   static constexpr int NC = D / 16;         // output columns per thread
-};
-
-// 16 bytes of global memory <-> floats
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void load(const float* p, float* f) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-  }
-  __device__ static void store4(float* p, const float* f) {
-    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-  }
+  static constexpr int LDF = kTile + kFwdKeyLanes;  // the forward's P rows
+  static constexpr int FTILE = kTile * LDF;
 };
 
 __device__ __forceinline__ float comp(const float4& v, int u) {
   return u == 0 ? v.x : (u == 1 ? v.y : (u == 2 ? v.z : v.w));
 }
 
-// max / sum over the 16 threads that share a row (one half of a warp)
-__device__ __forceinline__ float max16(float x) {
+// max / sum over the kFwdKeyLanes lanes that share a forward row
+__device__ __forceinline__ float row_max(float x) {
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
+  for (int o = kFwdKeyLanes / 2; o > 0; o >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
 
-__device__ __forceinline__ float sum16(float x) {
+__device__ __forceinline__ float row_sum(float x) {
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  for (int o = kFwdKeyLanes / 2; o > 0; o >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
@@ -187,6 +245,17 @@ __device__ __forceinline__ void cp_commit() {
 __device__ __forceinline__ void cp_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
+// every copy group has landed
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// the barrier of the forward's key group g alone (named barrier 1 + g;
+// barrier 0 is __syncthreads)
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "r"(kFwdGroupThreads)
+               : "memory");
+}
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
@@ -201,210 +270,258 @@ __device__ __forceinline__ void st_release(int* p, int v) {
                : "memory");
 }
 
-// (64, D) tile of T at src (row stride D) -> float32 shared tile (stride LD).
-// Each thread issues all its 16-byte loads before it stores any.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src,
-                                          float* dst) {
-  constexpr int N = Vec<T>::N;
-  constexpr int PER_ROW = D / N;
-  constexpr int PER_THREAD = kTile * PER_ROW / kThreads;
-  static_assert(kTile * PER_ROW % kThreads == 0, "tile must split evenly");
-  float f[PER_THREAD][N];
-#pragma unroll
-  for (int i = 0; i < PER_THREAD; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int r = c / PER_ROW, col = (c - r * PER_ROW) * N;
-    Vec<T>::load(src + (size_t)r * D + col, f[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < PER_THREAD; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int r = c / PER_ROW, col = (c - r * PER_ROW) * N;
-    float* d = dst + r * Geo<D>::LD + col;
-#pragma unroll
-    for (int e = 0; e < N; e += 4)
-      *reinterpret_cast<float4*>(d + e) =
-          make_float4(f[i][e], f[i][e + 1], f[i][e + 2], f[i][e + 3]);
-  }
-}
-
-// the same copy issued as cp.async (float32 only), landing at a later
-// cp_wait_one
-template <int D>
+// (64, D) float32 tile at src (row stride D) -> shared tile (stride LD),
+// issued as cp.async by THREADS threads (t: this thread's index among
+// them), landing at a later wait
+template <int D, int THREADS = kThreads>
 __device__ __forceinline__ void copy_tile(const float* __restrict__ src,
-                                          float* dst) {
+                                          float* dst, int t) {
   constexpr int PER_ROW = D / 4;
-  constexpr int PER_THREAD = kTile * PER_ROW / kThreads;
+  constexpr int PER_THREAD = kTile * PER_ROW / THREADS;
+  static_assert(kTile * PER_ROW % THREADS == 0, "tile must split evenly");
 #pragma unroll
   for (int i = 0; i < PER_THREAD; ++i) {
-    const int c = threadIdx.x + i * kThreads;
+    const int c = t + i * THREADS;
     const int r = c / PER_ROW, col = (c - r * PER_ROW) * 4;
     cp_async16(smem_u32(dst + r * Geo<D>::LD + col), src + (size_t)r * D + col);
   }
 }
 
-// acc[i][j] = sum_d A[ty*4+i][d] * B[tx+16j][d]; A, B (64, D) shared tiles
+// ---------------------------------------------------------------------------
+// the forward
+// ---------------------------------------------------------------------------
+
+// A forward thread's place in its key group: warp w, lane (ry, kx) =
+// (l / kFwdKeyLanes, l % kFwdKeyLanes); its q rows are row + kFwdRowStep
+// i (i < kFwdRows), row = (32 / kFwdKeyLanes) w + ry; its keys kx +
+// kFwdKeyLanes j (j < kFwdKeys); its output columns 4 kx + 4 kFwdKeyLanes
+// c + e
+struct FwdThread {
+  int row, kx;
+  __device__ explicit FwdThread(int t) {
+    const int w = t >> 5, l = t & 31;
+    row = (32 / kFwdKeyLanes) * w + l / kFwdKeyLanes;
+    kx = l % kFwdKeyLanes;
+  }
+};
+
+// s[i][j] = sum_d Q[row + kFwdRowStep i][d] * K[kx + kFwdKeyLanes j][d]
 template <int D>
-__device__ __forceinline__ void score_tile(const float* A, const float* B,
-                                           float acc[4][4]) {
+__device__ __forceinline__ void fwd_scores(const float* Q, const float* K,
+                                           float s[kFwdRows][kFwdKeys],
+                                           FwdThread th) {
   constexpr int LD = Geo<D>::LD;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float* a = A + ty * 4 * LD;
-  const float* b = B + tx * LD;
+  const float* a = Q + th.row * LD;
+  const float* b = K + th.kx * LD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kFwdRows; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
+    for (int j = 0; j < kFwdKeys; ++j) s[i][j] = 0.f;
+#pragma unroll 4
   for (int d = 0; d < D; d += 4) {
-    float4 av[4], bv[4];
+    float4 av[kFwdRows], bv[kFwdKeys];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + i * LD + d);
+    for (int i = 0; i < kFwdRows; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + kFwdRowStep * i * LD + d);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + 16 * j * LD + d);
+    for (int j = 0; j < kFwdKeys; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(b + kFwdKeyLanes * j * LD + d);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kFwdRows; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float t = acc[i][j];
+      for (int j = 0; j < kFwdKeys; ++j) {
+        float t = s[i][j];
         t = fmaf(av[i].x, bv[j].x, t);
         t = fmaf(av[i].y, bv[j].y, t);
         t = fmaf(av[i].z, bv[j].z, t);
         t = fmaf(av[i].w, bv[j].w, t);
-        acc[i][j] = t;
+        s[i][j] = t;
       }
   }
 }
 
-// acc[i][4g+e] += sum_kk P[ty*4+i][kk] * V[kk][64g + 4tx + e];
-// P a (64, 64) shared tile (stride LDP), V a (64, D) shared tile
+// acc[i][4c+e] += sum_kk P[row + kFwdRowStep i][kk] *
+// V[kk][4 kx + 4 kFwdKeyLanes c + e]
 template <int D>
-__device__ __forceinline__ void pv_tile(const float* P, const float* V,
-                                        float acc[4][Geo<D>::NC]) {
-  constexpr int LD = Geo<D>::LD, LDP = Geo<D>::LDP, G = D / 64;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float* p = P + ty * 4 * LDP;
-  const float* v = V + tx * 4;
-#pragma unroll 2
+__device__ __forceinline__ void fwd_pv(const float* P, const float* V,
+                                       float acc[kFwdRows][D / kFwdKeyLanes],
+                                       FwdThread th) {
+  constexpr int LD = Geo<D>::LD, LDF = Geo<D>::LDF;
+  constexpr int C = D / (4 * kFwdKeyLanes);
+  const float* p = P + th.row * LDF;
+  const float* v = V + 4 * th.kx;
+#pragma unroll 4
   for (int kk = 0; kk < kTile; kk += 4) {
-    float4 pv[4];
+    float4 pv[kFwdRows];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pv[i] = *reinterpret_cast<const float4*>(p + i * LDP + kk);
+    for (int i = 0; i < kFwdRows; ++i)
+      pv[i] = *reinterpret_cast<const float4*>(p + kFwdRowStep * i * LDF + kk);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(v + (kk + u) * LD + 64 * g);
+      for (int c = 0; c < C; ++c) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            v + (kk + u) * LD + 4 * kFwdKeyLanes * c);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kFwdRows; ++i) {
           const float pu = comp(pv[i], u);
-          acc[i][4 * g + 0] = fmaf(pu, vv.x, acc[i][4 * g + 0]);
-          acc[i][4 * g + 1] = fmaf(pu, vv.y, acc[i][4 * g + 1]);
-          acc[i][4 * g + 2] = fmaf(pu, vv.z, acc[i][4 * g + 2]);
-          acc[i][4 * g + 3] = fmaf(pu, vv.w, acc[i][4 * g + 3]);
+          acc[i][4 * c + 0] = fmaf(pu, vv.x, acc[i][4 * c + 0]);
+          acc[i][4 * c + 1] = fmaf(pu, vv.y, acc[i][4 * c + 1]);
+          acc[i][4 * c + 2] = fmaf(pu, vv.z, acc[i][4 * c + 2]);
+          acc[i][4 * c + 3] = fmaf(pu, vv.w, acc[i][4 * c + 3]);
         }
       }
     }
   }
 }
 
-// rows ty*4+i of a (64, D) output tile at dst (row stride D), times mul
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* dst, float acc[4][Geo<D>::NC],
-                                           const float mul_row[4]) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    T* o = dst + (size_t)(ty * 4 + i) * D + 4 * tx;
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g) {
-      float f[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) f[e] = acc[i][4 * g + e] * mul_row[i];
-      Vec<T>::store4(o + 64 * g, f);
-    }
-  }
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  // Q; then per key group K, V and P
+  return (Geo<D>::TILE + kFwdGroups * (2 * Geo<D>::TILE + Geo<D>::FTILE)) *
+         sizeof(float);
 }
 
-template <typename T, int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, float* __restrict__ lse, int S, float scale) {
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ lse, int BH, int S, float scale) {
   using G = Geo<D>;
+  constexpr int NA = D / kFwdKeyLanes;  // output columns a thread, per row
+  constexpr int GT = kFwdGroupThreads;
   extern __shared__ uint4 smem[];
   float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + G::TILE;
+  const int g = threadIdx.x / GT, lt = threadIdx.x % GT;
+  float* Ks = Qs + G::TILE + g * (2 * G::TILE + G::FTILE);
   float* Vs = Ks + G::TILE;
   float* Ps = Vs + G::TILE;
 
-  const int nt = S / kTile;
-  const int qt = nt - 1 - (int)blockIdx.x;  // heaviest causal tiles first
-  const size_t base = (size_t)blockIdx.y * S * D;
+  const int nt = S / kTile, t = (int)blockIdx.x;
+  const int qt = nt - 1 - t / BH, bh = t % BH;  // heaviest causal tiles first
+  const size_t base = (size_t)bh * S * D;
   const int q0 = qt * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int nlive = CAUSAL ? qt + 1 : nt;
+  const FwdThread th(lt);
+  const float sc = scale * 1.4426950408889634f;  // e^x = 2^(x log2(e))
 
-  load_tile<T, D>(q + base + (size_t)q0 * D, Qs);
-  float m[4], l[4], acc[4][G::NC];
+  copy_tile<D, kFwdThreads>(q + base + (size_t)q0 * D, Qs, threadIdx.x);
+  if (g < nlive) copy_tile<D, GT>(k + base + (size_t)g * kTile * D, Ks, lt);
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();  // Q and each group's first K tile, for every thread
+
+  float m[kFwdRows], l[kFwdRows], acc[kFwdRows][NA];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kFwdRows; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < G::NC; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < NA; ++c) acc[i][c] = 0.f;
   }
 
-  const int nlive = CAUSAL ? qt + 1 : nt;
-  for (int kt = 0; kt < nlive; ++kt) {
+  for (int kt = g; kt < nlive; kt += kFwdGroups) {
     const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's Ks / Vs / Ps are fully read
-    load_tile<T, D>(k + base + (size_t)k0 * D, Ks);
-    load_tile<T, D>(v + base + (size_t)k0 * D, Vs);
-    __syncthreads();
-    float s[4][4];
-    score_tile<D>(Qs, Ks, s);
+    // K_kt is in; V and P are free
+    copy_tile<D, GT>(v + base + (size_t)k0 * D, Vs, lt);
+    cp_commit();
+    float s[kFwdRows][kFwdKeys];
+    fwd_scores<D>(Qs, Ks, s, th);
+    // P = e^((S - m) scale) = 2^(S sc - m sc), one FMA and exp2f, into
+    // Ps; m is the row max of the raw scores; the row statistics and the
+    // accumulator rescaled; the causal mask only on the diagonal tile,
+    // below which every key is visible
+    auto softmax = [&](auto masked) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      float mx = kNegInf;
+      for (int i = 0; i < kFwdRows; ++i) {
+        const int qpos = q0 + th.row + kFwdRowStep * i;
+        float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = !CAUSAL || k0 + tx + 16 * j <= qpos;
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+        for (int j = 0; j < kFwdKeys; ++j) {
+          const bool ok =
+              !decltype(masked)::value || k0 + th.kx + kFwdKeyLanes * j <= qpos;
+          s[i][j] = ok ? s[i][j] : kNegInf;
+          mx = fmaxf(mx, s[i][j]);
+        }
+        const float m_new = fmaxf(m[i], row_max(mx));
+        const float alpha = exp2f((m[i] - m_new) * sc);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kFwdKeys; ++j) {
+          const bool ok =
+              !decltype(masked)::value || k0 + th.kx + kFwdKeyLanes * j <= qpos;
+          const float p = ok ? exp2f(fmaf(s[i][j], sc, -m_new * sc)) : 0.f;
+          Ps[(th.row + kFwdRowStep * i) * G::LDF + th.kx + kFwdKeyLanes * j] =
+              p;
+          sum += p;
+        }
+        l[i] = l[i] * alpha + sum;  // this lane's keys; the row's at the end
+        m[i] = m_new;
+#pragma unroll
+        for (int c = 0; c < NA; ++c) acc[i][c] *= alpha;
       }
-      const float m_new = fmaxf(m[i], max16(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
+    };
+    if (CAUSAL && kt == qt) softmax(std::true_type{});
+    else softmax(std::false_type{});
+    cp_wait_all();  // this thread's part of V_kt
+    group_sync(g);  // P and V_kt visible to the group; K_kt read
+    if (kt + kFwdGroups < nlive) {
+      copy_tile<D, GT>(k + base + (size_t)(k0 + kFwdGroups * kTile) * D, Ks,
+                       lt);
+      cp_commit();
+    }
+    fwd_pv<D>(Ps, Vs, acc, th);
+    cp_wait_all();  // this thread's part of the next K tile
+    group_sync(g);  // the next K tile visible; P and V read
+  }
+
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = !CAUSAL || k0 + tx + 16 * j <= qpos;
-        const float p = ok ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty * 4 + i) * G::LDP + tx + 16 * j] = p;
-        sum += p;
+  for (int i = 0; i < kFwdRows; ++i) l[i] = row_sum(l[i]);
+  if constexpr (kFwdGroups == 2) {
+    // group 1 hands m, l and its accumulator to group 0 through its own
+    // K/V tiles, one column of GT floats a value (conflict-free)
+    static_assert((2 + NA) * kFwdRows * GT <= 2 * G::TILE, "merge space");
+    float* x = Qs + G::TILE + (2 * G::TILE + G::FTILE);
+    if (g == 1) {
+#pragma unroll
+      for (int i = 0; i < kFwdRows; ++i) {
+        x[(2 * i) * GT + lt] = m[i];
+        x[(2 * i + 1) * GT + lt] = l[i];
+#pragma unroll
+        for (int c = 0; c < NA; ++c)
+          x[(2 * kFwdRows + i * NA + c) * GT + lt] = acc[i][c];
       }
-      l[i] = l[i] * alpha + sum16(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < G::NC; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();
-    pv_tile<D>(Ps, Vs, acc);
+    if (g == 1) return;
+#pragma unroll
+    for (int i = 0; i < kFwdRows; ++i) {
+      const float m1 = x[(2 * i) * GT + lt];
+      const float l1 = x[(2 * i + 1) * GT + lt];
+      const float mm = fmaxf(m[i], m1);
+      const float a0 = exp2f((m[i] - mm) * sc), a1 = exp2f((m1 - mm) * sc);
+      l[i] = l[i] * a0 + l1 * a1;
+      m[i] = mm;
+#pragma unroll
+      for (int c = 0; c < NA; ++c)
+        acc[i][c] =
+            acc[i][c] * a0 + x[(2 * kFwdRows + i * NA + c) * GT + lt] * a1;
+    }
   }
 
-  float inv[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kFwdRows; ++i) {
+    const int r = q0 + th.row + kFwdRowStep * i;
     const float safe = l[i] == 0.f ? 1.f : l[i];
-    inv[i] = 1.f / safe;
-    if (tx == 0)
-      lse[(size_t)blockIdx.y * S + q0 + ty * 4 + i] = m[i] + logf(safe);
+    const float inv = 1.f / safe;
+    if (th.kx == 0) lse[(size_t)bh * S + r] = m[i] * scale + logf(safe);
+    float* o = out + base + (size_t)r * D + 4 * th.kx;
+#pragma unroll
+    for (int c = 0; c < NA / 4; ++c)
+      *reinterpret_cast<float4*>(o + 4 * kFwdKeyLanes * c) =
+          make_float4(acc[i][4 * c] * inv, acc[i][4 * c + 1] * inv,
+                      acc[i][4 * c + 2] * inv, acc[i][4 * c + 3] * inv);
   }
-  store_rows<T, D>(out + base + (size_t)q0 * D, acc, inv);
 }
 
 // ---------------------------------------------------------------------------
@@ -530,8 +647,8 @@ __device__ __forceinline__ void copy_stage(
     const float* __restrict__ q, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* Qs, float* dOs, float* lse_s, float* del_s) {
-  copy_tile<D>(q, Qs);
-  copy_tile<D>(dout, dOs);
+  copy_tile<D>(q, Qs, threadIdx.x);
+  copy_tile<D>(dout, dOs, threadIdx.x);
   if (threadIdx.x < kTile / 4)
     cp_async16(smem_u32(lse_s + 4 * threadIdx.x), lse + 4 * threadIdx.x);
   else if (threadIdx.x < kTile / 2)
@@ -578,8 +695,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(
     const int k0 = kt * kTile, first = CAUSAL ? kt : 0;
     const size_t base = (size_t)bh * S * D, rbase = (size_t)bh * S;
 
-    copy_tile<D>(k + base + (size_t)k0 * D, Ks);
-    copy_tile<D>(v + base + (size_t)k0 * D, Vs);
+    copy_tile<D>(k + base + (size_t)k0 * D, Ks, threadIdx.x);
+    copy_tile<D>(v + base + (size_t)k0 * D, Vs, threadIdx.x);
     copy_stage<D>(q + base + (size_t)(nt - 1) * kTile * D,
                   dout + base + (size_t)(nt - 1) * kTile * D,
                   lse + rbase + (nt - 1) * kTile,
@@ -711,25 +828,20 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(
 // launches
 // ---------------------------------------------------------------------------
 
-template <typename T>
-struct Tag {
-  using type = T;
-};
 template <int N>
 using IntC = std::integral_constant<int, N>;
 
-// call f(Tag<float>, IntC<D>, bool_constant<causal>) for the runtime
-// choice; dtype 0 (float32) only: bfloat16 has its own kernels
+// call f(IntC<D>, bool_constant<causal>) for the runtime choice; dtype 0
+// (float32) only: bfloat16 has its own kernels
 template <typename F>
 int dispatch(int dtype, int D, int causal, F f) {
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const Tag<float> t{};
   if (D == 64)
-    return causal ? f(t, IntC<64>{}, std::true_type{})
-                  : f(t, IntC<64>{}, std::false_type{});
+    return causal ? f(IntC<64>{}, std::true_type{})
+                  : f(IntC<64>{}, std::false_type{});
   if (D == 128)
-    return causal ? f(t, IntC<128>{}, std::true_type{})
-                  : f(t, IntC<128>{}, std::false_type{});
+    return causal ? f(IntC<128>{}, std::true_type{})
+                  : f(IntC<128>{}, std::false_type{});
   return (int)cudaErrorInvalidValue;
 }
 
@@ -746,25 +858,42 @@ bool bad_shape(int BH, int S) {
 
 }  // namespace
 
+// One block per (q tile, bh), numbered heaviest causal tile first over
+// every bh.
 extern "C" int singa_flash_fwd(const void* q, const void* k, const void* v,
                                void* out, void* lse, int BH, int S, int D,
                                int dtype, int causal, float scale,
                                void* stream) {
   if (bad_shape(BH, S)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, D, causal, [&](auto t, auto d, auto c) -> int {
-    using T = typename decltype(t)::type;
+  return dispatch(dtype, D, causal, [&](auto d, auto c) -> int {
     constexpr int DD = decltype(d)::value;
     constexpr bool C = decltype(c)::value;
-    constexpr size_t smem = (3 * Geo<DD>::TILE + Geo<DD>::PTILE) * sizeof(float);
-    auto kern = flash_fwd_kernel<T, DD, C>;
+    constexpr size_t smem = fwd_smem_bytes<DD>();
+    auto kern = flash_fwd_kernel<DD, C>;
     const int e = allow_smem(kern, smem);
     if (e != 0) return e;
-    kern<<<dim3(S / kTile, BH), kThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out),
-        static_cast<float*>(lse), S, scale);
+    kern<<<dim3((S / kTile) * BH), kFwdThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out),
+        static_cast<float*>(lse), BH, S, scale);
     return (int)cudaGetLastError();
+  });
+}
+
+// The forward's resident blocks an SM at head width D (the occupancy
+// query on its shared memory and threads) -> that count, or minus a CUDA
+// error.
+extern "C" int singa_flash_fwd_blocks_per_sm(int D, int causal) {
+  return dispatch(0, D, causal, [&](auto d, auto c) -> int {
+    constexpr int DD = decltype(d)::value;
+    constexpr size_t smem = fwd_smem_bytes<DD>();
+    auto kern = flash_fwd_kernel<DD, decltype(c)::value>;
+    int n = 0, e = allow_smem(kern, smem);
+    if (e == 0)
+      e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, kern, kFwdThreads, smem);
+    return e != 0 ? -e : n;
   });
 }
 
@@ -778,7 +907,7 @@ extern "C" int singa_flash_bwd(const void* q, const void* k, const void* v,
                                void* stream) {
   if (bad_shape(BH, S)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, D, causal, [&](auto, auto d, auto c) -> int {
+  return dispatch(dtype, D, causal, [&](auto d, auto c) -> int {
     constexpr int DD = decltype(d)::value;
     constexpr bool C = decltype(c)::value;
     constexpr size_t smem = bwd_smem_bytes<DD>();

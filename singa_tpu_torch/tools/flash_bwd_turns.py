@@ -1,5 +1,5 @@
-"""The flash backward timed against another checkout, in turns, on one
-GPU.
+"""The flash kernels (the backward, and the forward beside it) timed
+against another checkout, in turns, on one GPU.
 
 Run from the repository root with a second checkout (an older commit
 unpacked with ``git archive``) in a directory of its own::
@@ -16,9 +16,16 @@ each call):
 - float32: the backward as the checkout runs it (the fused
   ``flash_bwd`` where the checkout has it, else ``flash_bwd_dq`` then
   ``flash_bwd_dkv``, each alone and the two as one call), the forward,
-  and SDPA's float32 backward (TF32 off) as a yardstick;
+  and SDPA's float32 forward and backward (TF32 off) as yardsticks;
 - bf16: ``flash_bwd_dq``, ``flash_bwd_dkv``, the two as one call, the
-  forward and SDPA's backward.
+  forward, and SDPA's forward and backward.
+
+Beside each type's forward time stand its bound (chip_smoke's
+``flash_bound``: 0.513 ms in float32, operations at 67 TFLOP/s) and the
+share of that bound it reached (bound / time). Each worker then runs
+chip_smoke's float32 flash training run (``train_run``: 8 steps of
+examples/lm/tinylm_longctx_d128.conf at S 8192 from seed-0 params, each
+step timed to a device sync) and records its step ms and losses.
 
 Where the checkout's chip_smoke reads the fused kernel's statistics
 (``flash_bwd_polling``), the worker adds its polling share. Each worker
@@ -34,6 +41,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 import torch
 
@@ -73,14 +81,26 @@ def worker(iters: int) -> dict:
         o = torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True)
         do = c["do"].reshape(1, bh, s, d)
+        calls["sdpa_forward"] = (
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True))
         calls["sdpa_backward"] = lambda: torch.autograd.grad(
             o, (q, k, v), do, retain_graph=True)
         rec = {name: cs.time_ms(fn, flush, iters=iters)
                for name, fn in calls.items()}
+        bound_ms, _ = cs.flash_bound("flash_fwd", c)
+        rec["flash_fwd_bound_ms"] = bound_ms
+        rec["flash_fwd_share_of_bound"] = bound_ms / rec["flash_fwd"]
         if dtype == torch.float32 and hasattr(cs, "flash_bwd_polling"):
             rec.update(cs.flash_bwd_polling(c, rec["backward"]))
         out[str(dtype)[6:]] = rec
         del c, q, k, v, o
+    with tempfile.TemporaryDirectory() as tmp:
+        run = cs.train_run(dev, cs.write_shard(tmp), steps=8,
+                           dtype="float32", dense=False, tag="flash_f32")
+    out["train_float32_flash"] = {
+        key: run[key] for key in ("step_ms_median", "step_ms_min",
+                                  "losses", "launches")}
     return out
 
 

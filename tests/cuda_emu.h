@@ -14,11 +14,17 @@
 // One std::thread per CUDA thread; the blocks of a grid run one after
 // another, each in the one shared-memory array `smem` (filled with 0xff
 // first, since shared memory starts undefined). __syncthreads is a
-// barrier of the block's threads; each warp-collective operation (ldmatrix,
-// mma, __shfl_sync, __shfl_xor_sync) writes
+// barrier of the block's threads, and bar.sync id, n (emu_bar_sync) one of
+// the n threads that name barrier id; each warp-collective operation
+// (ldmatrix, mma, __shfl_sync, __shfl_xor_sync) writes
 // its lanes' operands, meets the warp's other lanes at a barrier, computes
 // its lane's result from all of them, and meets them again before the
-// operands are reused. cp.async copies synchronously. The mma sums its 16
+// operands are reused. cp.async lands at its wait: each thread's copies
+// read their 16 source bytes when issued and queue by commit group, and
+// reach shared memory only at a cp.async.wait_group n of that thread
+// (emu_cp_wait: every group but the newest n), so a kernel that reads a
+// stage before waiting for it, or before the barrier after its threads'
+// waits, reads the stage's old bytes. The mma sums its 16
 // products in float32 in k order (the card's tensor cores may round
 // differently within a step, well inside the tests' bf16 bar).
 // __fmul_rn and __fadd_rn round each result to float32 on its own (a
@@ -39,7 +45,10 @@
 #include <climits>
 #include <cmath>
 #include <cstddef>
+#include <condition_variable>
 #include <cstring>
+#include <deque>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -209,8 +218,56 @@ struct EmuWarp {
 };
 inline EmuWarp emu_warp[32];
 
+// cp.async.cg.shared.global 16 bytes, commit_group, wait_group n: a
+// thread's copies queue by commit group and land at its wait
+struct EmuCopy {
+  unsigned dst;
+  unsigned char bytes[16];
+};
+struct EmuCopyQueue {
+  std::vector<EmuCopy> open;                // issued, not yet committed
+  std::deque<std::vector<EmuCopy>> groups;  // committed, oldest first
+};
+inline thread_local EmuCopyQueue emu_copies;
+
 inline void emu_cp_async16(unsigned dst, const void* src) {
-  std::memcpy(emu_smem() + dst, src, 16);
+  EmuCopy c;
+  c.dst = dst;
+  std::memcpy(c.bytes, src, 16);
+  emu_copies.open.push_back(c);
+}
+inline void emu_cp_commit() {
+  emu_copies.groups.push_back(std::move(emu_copies.open));
+  emu_copies.open.clear();
+}
+// every committed group but the newest n lands
+inline void emu_cp_wait(int n) {
+  while ((int)emu_copies.groups.size() > n) {
+    for (const EmuCopy& c : emu_copies.groups.front())
+      std::memcpy(emu_smem() + c.dst, c.bytes, 16);
+    emu_copies.groups.pop_front();
+  }
+}
+
+// bar.sync id, n: the n threads that name barrier id meet
+struct EmuNamedBarrier {
+  std::mutex mu;
+  std::condition_variable cv;
+  int arrived = 0;
+  unsigned long generation = 0;
+};
+inline EmuNamedBarrier emu_named_barrier[16];
+inline void emu_bar_sync(int id, int n) {
+  EmuNamedBarrier& b = emu_named_barrier[id];
+  std::unique_lock<std::mutex> lock(b.mu);
+  const unsigned long gen = b.generation;
+  if (++b.arrived == n) {
+    b.arrived = 0;
+    ++b.generation;
+    b.cv.notify_all();
+  } else {
+    b.cv.wait(lock, [&] { return b.generation != gen; });
+  }
 }
 
 // ldmatrix.sync.aligned.m8n8.x4[.trans].shared.b16: lanes 8i..8i+7 give

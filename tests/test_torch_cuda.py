@@ -223,6 +223,31 @@ def test_flash_kernels_match_plain(cuda_device, dtype, d, causal, bh, s):
 
 
 @pytest.mark.parametrize("bh,s,d,causal", [
+    (3, 192, 128, True), (3, 192, 64, False), (2, 1088, 128, True),
+    (5, 1088, 64, False),
+])
+def test_float32_forward_matches_plain_and_repeats_bitwise(cuda_device, bh,
+                                                           s, d, causal):
+    """The float32 forward (two key groups a block, merged in a fixed
+    order) at an odd count of 64-row tiles (3, 17) and an odd B*H:
+    against flash_fwd_plain (out at FLASH_TOL of its max, lse at 1e-4
+    relative, clamped at 1: chip_smoke's LSE_TOL), and two launches on
+    the same inputs bitwise equal."""
+    gen = torch.Generator().manual_seed(bh * s + d + causal)
+    q, k, v = [torch.randn(bh, s, d, generator=gen).to(cuda_device)
+               for _ in range(3)]
+    out, lse = ta.flash_fwd(q, k, v, causal)
+    out2, lse2 = ta.flash_fwd(q, k, v, causal)
+    want_out, want_lse = ta.flash_fwd_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    err = float((out - want_out).abs().max())
+    assert err <= FLASH_TOL[torch.float32] * float(want_out.abs().max())
+    assert float(((lse - want_lse).abs()
+                  / want_lse.abs().clamp(min=1.0)).max()) <= 1e-4
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("bh,s,d,causal", [
     (3, 192, 128, True), (3, 192, 64, False), (2, 1024, 128, True),
     (2, 1024, 64, False), (1, 4096, 128, True),
 ])

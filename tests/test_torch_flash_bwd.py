@@ -159,12 +159,19 @@ def test_kernel_source_routes_each_dtype_to_its_file(name, dtype):
 #: kernel vs plain at bf16, relative to the output's max: the card's bar
 #: (FLASH_TOL[bfloat16] in chip_smoke.py and tests/test_torch_cuda.py)
 EMU_TOL = 2e-2
-#: inline-assembly primitives of the kernel source -> their emulations
-EMU_PRIMITIVES = {
+#: the kernel sources' cp.async primitives -> their emulations, which
+#: land each thread's copies at its wait (tests/cuda_emu.h); a source
+#: takes the ones it defines
+CP_ASYNC = {
     "cp_async16": "(unsigned dst, const void* src) "
                   "{ emu_cp_async16(dst, src); }",
-    "cp_commit": "() {}",
-    "cp_wait_all": "() {}",
+    "cp_commit": "() { emu_cp_commit(); }",
+    "cp_wait_one": "() { emu_cp_wait(1); }",
+    "cp_wait_all": "() { emu_cp_wait(0); }",
+}
+#: inline-assembly primitives of the kernel source -> their emulations
+EMU_PRIMITIVES = {
+    **{n: CP_ASYNC[n] for n in ("cp_async16", "cp_commit", "cp_wait_all")},
     "ldsm_x4": "(unsigned addr, unsigned r[4]) "
                "{ emu_ldmatrix(addr, r, false); }",
     "ldsm_x4_t": "(unsigned addr, unsigned r[4]) "

@@ -1,10 +1,19 @@
-"""The fused float32 flash backward on the CPU: the kernel source
-(singa_tpu_torch/csrc/flash_attention.cu, ``singa_flash_bwd``) through the
-CPU emulation of its CUDA primitives (tests/cuda_emu.h, built with the
-helpers of tests/test_torch_flash_bwd.py), and its plain version
+"""The float32 flash kernels on the CPU: the kernel source
+(singa_tpu_torch/csrc/flash_attention.cu: the forward ``singa_flash_fwd``
+and the fused backward ``singa_flash_bwd``) through the CPU emulation of
+its CUDA primitives (tests/cuda_emu.h, built with the helpers of
+tests/test_torch_flash_bwd.py), and the backward's plain version
 ``flash_bwd_plain`` against the JAX package's float32 Pallas kernels.
 
-The emulation runs the kernel's code: the persistent blocks' ticket, the
+The forward's code runs there with its two key groups (512 threads, each
+group on its own named barrier), its cp.async copies landing only at
+each thread's wait, and the merge of the groups; it is held to
+``flash_fwd_plain`` (itself held to the JAX package's float32 Pallas
+forward by tests/test_torch_flash.py). A copy of the source with one
+wait taken out must fail the same check
+(tests/test_torch_flash_variants.py).
+
+The emulation runs the backward's code: the persistent blocks' ticket, the
 downward walk over the q tiles, the five products, the shared P/dS tile,
 the ordered dQ adds behind the per-(bh, q tile) counters and the
 bounded poll. Its blocks run one after another, so the first claims
@@ -26,14 +35,12 @@ import torch
 
 from singa_tpu.ops import attention as ja
 from singa_tpu_torch.ops import attention as ta
-from test_torch_flash_bwd import build_emulated, read_source
+from test_torch_flash_bwd import CP_ASYNC, build_emulated, read_source
 
 #: inline-assembly primitives of csrc/flash_attention.cu -> emulations
 PRIMITIVES = {
-    "cp_async16": "(unsigned dst, const void* src) "
-                  "{ emu_cp_async16(dst, src); }",
-    "cp_commit": "() {}",
-    "cp_wait_one": "() {}",
+    **CP_ASYNC,
+    "group_sync": "(int g) { emu_bar_sync(g + 1, kFwdGroupThreads); }",
     "ld_acquire": "(const int* p) { return emu_ld_acquire(p); }",
     "st_release": "(int* p, int v) { emu_st_release(p, v); }",
 }
@@ -46,20 +53,24 @@ TOL = 1e-5
 LAUNCH_FAILURE = 719
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
-    """csrc/flash_attention.cu built for the CPU on cuda_emu.h, with its
-    forward and fused backward entries declared."""
-    src = (f"#define SINGA_FLASH_POLL_LIMIT {POLL_LIMIT}\n"
-           + read_source("flash_attention"))
-    dll = build_emulated(src, tmp_path_factory.mktemp("flash_f32_emu"),
-                         PRIMITIVES)
+def f32_library(src, tmp):
+    """Float32 flash source ``src`` built for the CPU on cuda_emu.h in
+    ``tmp``, with its forward and fused backward entries declared."""
+    dll = build_emulated(f"#define SINGA_FLASH_POLL_LIMIT {POLL_LIMIT}\n"
+                         + src, tmp, PRIMITIVES)
     tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     for name, n_ptr in (("singa_flash_fwd", 5), ("singa_flash_bwd", 10)):
         fn = getattr(dll, name)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + tail
         fn.restype = ctypes.c_int
     return dll
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    """csrc/flash_attention.cu built for the CPU on cuda_emu.h."""
+    return f32_library(read_source("flash_attention"),
+                       tmp_path_factory.mktemp("flash_f32_emu"))
 
 
 def _inputs(seed, bh, s, d):
@@ -71,6 +82,29 @@ def _inputs(seed, bh, s, d):
 def _tail(bh, s, d, causal):
     return (bh, s, d, 0, int(causal), ctypes.c_float(1 / math.sqrt(d)),
             None)
+
+
+def emulated_forward(lib, q, k, v, causal):
+    """One emulated forward launch (out and lse NaN first, so a row left
+    unwritten shows) -> (out, lse)."""
+    bh, s, d = q.shape
+    out = torch.full_like(q, float("nan"))
+    lse = torch.full((bh, s), float("nan"))
+    assert lib.singa_flash_fwd(
+        *(t.data_ptr() for t in (q, k, v, out, lse)),
+        *_tail(bh, s, d, causal)) == 0
+    return out, lse
+
+
+def forward_errors(out, lse, q, k, v, causal):
+    """(out's max error relative to its max, lse's max of |err| / max(1,
+    |lse|)) against flash_fwd_plain."""
+    want_out, want_lse = ta.flash_fwd_plain(q, k, v, causal)
+    out_err = float((out - want_out).abs().max()) / float(
+        want_out.abs().max())
+    lse_err = float(((lse - want_lse).abs()
+                     / want_lse.abs().clamp(min=1)).max())
+    return out_err, lse_err
 
 
 def emulated_backward(lib, q, k, v, do, lse, delta, causal, scratch=None):
@@ -175,6 +209,23 @@ def test_counters_not_zeroed_fail_the_launch(lib):
     _hold_to_plain((dq, dk, dv), q, k, v, do, False)
 
 
+@pytest.mark.parametrize("bh,s,d,causal", [
+    (1, 128, 64, True),      # two tiles: group 1 sees only the diagonal
+    (3, 192, 64, False),     # odd B*H, an odd tile count
+    (3, 192, 128, True),     # the first q tile leaves group 1 no key tile
+    (2, 256, 128, False),
+])
+def test_emulated_forward_matches_plain(lib, bh, s, d, causal):
+    """The float32 forward's code (two key groups, asynchronous K and V,
+    the groups' merge), emulated, against flash_fwd_plain: out within
+    TOL of its max, lse within TOL relative (clamped at 1); every row
+    written."""
+    q, k, v, _ = _inputs(7 * s + d + int(causal), bh, s, d)
+    out, lse = emulated_forward(lib, q, k, v, causal)
+    out_err, lse_err = forward_errors(out, lse, q, k, v, causal)
+    assert out_err <= TOL and lse_err <= TOL, (out_err, lse_err)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_emulated_forward_lse_feeds_the_fused_backward(lib, causal):
     """The float32 forward's code, emulated, against the plain forward
@@ -183,16 +234,9 @@ def test_emulated_forward_lse_feeds_the_fused_backward(lib, causal):
     lib.emu_set_sm_count(2)
     bh, s, d = 2, 192, 64
     q, k, v, do = _inputs(13 + int(causal), bh, s, d)
-    out = torch.full_like(q, float("nan"))
-    lse = torch.full((bh, s), float("nan"))
-    assert lib.singa_flash_fwd(
-        *(t.data_ptr() for t in (q, k, v, out, lse)),
-        *_tail(bh, s, d, causal)) == 0
-    want_out, want_lse = ta.flash_fwd_plain(q, k, v, causal)
-    assert float((out - want_out).abs().max()) <= TOL * float(
-        want_out.abs().max())
-    assert float(((lse - want_lse).abs() / want_lse.abs().clamp(min=1))
-                 .max()) <= TOL
+    out, lse = emulated_forward(lib, q, k, v, causal)
+    out_err, lse_err = forward_errors(out, lse, q, k, v, causal)
+    assert out_err <= TOL and lse_err <= TOL, (out_err, lse_err)
     rc, dq, dk, dv, _ = emulated_backward(lib, q, k, v, do, lse,
                                           (do * out).sum(-1), causal)
     assert rc == 0

@@ -1,8 +1,9 @@
 """The design variants ``python -m singa_tpu_torch.tools.flash_bwd_variants``
-times against the bf16 flash source: each still applies to the source
-as it stands and computes the same function, on the CPU emulation of
-the kernel source (tests/cuda_emu.h; the helpers of
-tests/test_torch_flash_bwd.py and tests/test_torch_flash_fwd.py).
+times against the bf16 flash source and the float32 forward: each still
+applies to the source as it stands and computes the same function, on
+the CPU emulation of the kernel source (tests/cuda_emu.h; the helpers of
+tests/test_torch_flash_bwd.py, tests/test_torch_flash_fwd.py and
+tests/test_torch_flash_f32_emu.py).
 """
 
 import pytest
@@ -15,7 +16,11 @@ from test_torch_flash_bwd import (
     _check_against_plain,
     _source,
     emulated_flash_entries,
+    read_source,
 )
+from test_torch_flash_f32_emu import TOL as F32_TOL
+from test_torch_flash_f32_emu import emulated_forward as f32_forward
+from test_torch_flash_f32_emu import _inputs, f32_library, forward_errors
 from test_torch_flash_fwd import LSE_TOL, emulated_forward
 
 
@@ -47,3 +52,40 @@ def test_timed_forward_variant_matches_plain(tmp_path):
     assert err <= EMU_TOL * float(want_out.float().abs().max()), err
     assert float(((lse - want_lse).abs()
                   / want_lse.abs().clamp(min=1.0)).max()) <= LSE_TOL
+
+
+@pytest.mark.parametrize("variant", sorted(fv.F32_VARIANTS))
+def test_timed_float32_forward_variants_match_plain(variant, tmp_path):
+    """Each float32 forward variant that tools/flash_bwd_variants.py times
+    (``--source flash_attention``) still applies to the source as it
+    stands, and computes the same function: emulated at an odd causal
+    tile count and an odd B*H, against flash_fwd_plain at the emulated
+    source's bar."""
+    src = read_source("flash_attention")
+    text = fv.variant_source(variant, src, fv.F32_VARIANTS)
+    assert text != src
+    lib = f32_library(text, tmp_path)
+    q, k, v, _ = _inputs(41, 3, 192, 64)
+    out, lse = f32_forward(lib, q, k, v, True)
+    out_err, lse_err = forward_errors(out, lse, q, k, v, True)
+    assert out_err <= F32_TOL and lse_err <= F32_TOL, (out_err, lse_err)
+
+
+#: the wait before the PV product's barrier, which V_kt must have passed
+PLANTED_WAIT = ("    cp_wait_all();  // this thread's part of V_kt\n", "")
+
+
+def test_planted_missing_wait_fails_the_emulated_forward(tmp_path):
+    """The float32 forward with the wait for V_kt taken out: the
+    emulation lands a thread's copies only at its next wait, after PV has
+    read the stage's old bytes (the 0xff fill: NaN), so it must fail the
+    check that the source passes (and passed when the emulation copied
+    at issue)."""
+    src = read_source("flash_attention")
+    old, new = PLANTED_WAIT
+    assert src.count(old) == 1
+    planted = f32_library(src.replace(old, new), tmp_path)
+    q, k, v, _ = _inputs(31, 1, 128, 64)
+    out, lse = f32_forward(planted, q, k, v, True)
+    out_err, _ = forward_errors(out, lse, q, k, v, True)
+    assert not out_err <= F32_TOL, out_err

@@ -24,18 +24,14 @@ import pytest
 import torch
 
 from singa_tpu_torch.ops import paged_attention as pa
-from test_torch_flash_bwd import build_emulated, read_source
+from test_torch_flash_bwd import CP_ASYNC, build_emulated, read_source
 
 #: kernel vs plain, float32: the card's bar (TOL in chip_smoke.py and
 #: tests/test_torch_cuda.py); the splits fold keys in another order
 TOL = 1e-4
 #: the paged source's inline-assembly primitives -> their emulations
-PRIMITIVES = {
-    "cp_async16": "(unsigned dst, const void* src) "
-                  "{ emu_cp_async16(dst, src); }",
-    "cp_commit": "() {}",
-    "cp_wait_one": "() {}",
-}
+PRIMITIVES = {n: CP_ASYNC[n]
+              for n in ("cp_async16", "cp_commit", "cp_wait_one")}
 
 
 @pytest.fixture(scope="module")
