@@ -116,12 +116,27 @@ caught and carried on):
              the probe's outputs equal to the bit, then 10 pairs in
              alternating order of the probe's host ms and the median of
              5 synced steps.
-  8. nets    the reference's MNIST and CIFAR nets through the port's
+  8. rbm     examples/mnist/rbm.conf as written (CD-1 over
+             784-1000-500-250-30, batch 100) through make_trainer (the
+             CDTrainer) on the nets phase's MNIST-shaped shards: with
+             one table of uniforms swapped in for the Gibbs chain's draws
+             (layers.rbm.bernoulli), 5 float32 CD steps on the card and
+             on the CPU from the same seed-0 params, every RBM's
+             reconstruction error within NETS_TOL; then the device's own
+             draws: two card runs from one seed equal to the bit, 30 more
+             steps (finite; every RBM's error below where the run began),
+             step ms and images/s (the step is eager by the dispatch
+             rule), one test batch, 3 steps under torch.profiler (device
+             ms, idle share, the largest kernels); the stack's checkpoint
+             unrolled
+             (unroll_autoencoder) into autoencoder.conf's init.
+  9. nets    the reference's MNIST and CIFAR nets through the port's
              Trainer, each conf as written (examples/mnist/mlp.conf,
              batch 1000; conv.conf, LeNet, batch 64;
              examples/cifar10/alexnet.conf, batch 100, crop 28;
-             autoencoder.conf, batch 100, its pretrained params drawn
-             from the seed) on synthetic shards (synthetic_arrays;
+             autoencoder.conf, batch 100, from the rbm phase's unrolled
+             checkpoint, checked param by param) on synthetic shards
+             (synthetic_arrays;
              structured_rgb and its compute_mean mean file for CIFAR):
              first the tie-sharing max-pool backward and the k² average
              at AlexNet's pool1 shape on inputs full of ties, card vs
@@ -134,7 +149,7 @@ caught and carried on):
              torch.profiler (device ms per step, idle share, the 5
              largest kernels); for mlp the bound, its operations over
              67 TFLOP/s. No kernel of csrc/ lies on this path.
-  9. dispatch host dispatch (the device-resident dataset, multi-step
+  10. dispatch host dispatch (the device-resident dataset, multi-step
              chunks, the step and the engine's decode and prefill as
              CUDA graphs): the four image confs as written (float32) on
              full-size synthetic shards (60000 MNIST-shaped records, the
@@ -155,7 +170,26 @@ caught and carried on):
              engine call split into host, ATen and kernel ms, eager and
              graphed; the 16-request serve workload with graphs and
              without, in turns (graph, eager, eager, graph): streams
-             identical, tokens/s.
+             identical, tokens/s. The autoencoder starts from the rbm
+             phase's unrolled checkpoint here too.
+  11. resnet examples/imagenet/resnet50.conf as written (bottleneck [3,
+             4, 6, 3], batch 256, crop 224, bf16, SGD with momentum and
+             weight decay) on 2560 ImageNet-shaped synthetic records (3 x
+             256 x 256 uint8, 1000 classes, each made from the seed; 256
+             test records): card vs CPU at float32 with the batch cut to
+             8, 3 steps each from the card's state (losses within
+             NETS_TOL, running stats within RESNET_STATS_TOL); then at
+             full width 30 steps as graphed chunks on the cached dataset
+             against 30 eager steps from the same params (window losses
+             and the final running stats within DISPATCH_TOL, the loss
+             falling), a planted fault (the graphed step does not copy
+             the running stats back) that must move the stats by 100x
+             DISPATCH_TOL, step ms and images/s of both, the graphed
+             chunk's device ms by CUDA events and idle share, its 5
+             largest kernels (profiled), BatchNorm's device ms at the
+             net's shapes with the cancellation rescue and without it,
+             peak memory, and one eval batch from the running stats. No
+             kernel of csrc/ lies on the rbm or resnet path.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -180,6 +214,7 @@ from singa_tpu_torch import _build
 from singa_tpu_torch.config import load_model_config
 from singa_tpu_torch.data.loader import (
     compute_mean,
+    imagenet_shaped_arrays,
     structured_rgb,
     synthetic_arrays,
     synthetic_token_arrays,
@@ -192,14 +227,21 @@ from singa_tpu_torch.models.transformer import (
     init_lm,
     lm_apply,
 )
+from singa_tpu_torch.layers import rbm as trbm
 from singa_tpu_torch.ops import attention as ta
+from singa_tpu_torch.ops import norm as tnorm
 from singa_tpu_torch.ops import nn as tnn
 from singa_tpu_torch.ops import paged_attention as pa
 from singa_tpu_torch.ops import quantized_collective as qc
 from singa_tpu_torch.parallel import apply_grad_comm_tag, build_mesh
 from singa_tpu_torch.serve import Engine, EngineConfig, Request, Scheduler
 from singa_tpu_torch.tools.serve_bench import _percentile
-from singa_tpu_torch.trainer import Trainer
+from singa_tpu_torch.trainer import (
+    Trainer,
+    make_trainer,
+    save_checkpoint,
+    unroll_autoencoder,
+)
 
 #: kernel vs plain, float32 on the card: online softmax folds the keys in
 #: another order than the plain one-pass softmax (up to 2048 keys), and
@@ -333,6 +375,28 @@ DISPATCH_TOL = 1e-5
 DISPATCH_FAULT_FACTOR = 100
 DISPATCH_STEPS = 30
 DISPATCH_WINDOW = 10
+RBM_CONF = "examples/mnist/rbm.conf"
+#: the unrolling of rbm.conf's stack into autoencoder.conf
+RBM_PAIRS = [("rbm1", "dec1"), ("rbm2", "dec2"), ("rbm3", "dec3"),
+             ("rbm4", "dec4")]
+RBM_STEPS = 30
+#: the Gibbs chain's real draw (chip_smoke swaps in a table of uniforms
+#: for the card-vs-CPU parity only)
+RBM_DRAW = trbm.bernoulli
+RESNET_CONF = "examples/imagenet/resnet50.conf"
+#: ImageNet-shaped synthetic records (3 x 256 x 256 uint8, 1000
+#: classes): train and test
+RESNET_RECORDS = (2560, 256)
+#: the card-vs-CPU parity run: float32, batch cut to 8, 3 steps
+RESNET_PARITY_BATCH = 8
+RESNET_PARITY_STEPS = 3
+#: running stats card vs CPU after each parity step, |a - b| / max(1,
+#: |b|). The batch variance is one-pass, E[(x-s)^2] - E[x-s]^2 in
+#: float32, summed in another order on each side, so its rounding grows
+#: with |mean| / std; at batch 8 the conf's lr of 0.1 takes the loss
+#: from 7.2 to 43 in 3 steps, and the stats with it: 1.7e-5 on an H100
+#: (NVIDIA H100 80GB HBM3, 700 W), so a bar of 1e-5 fails sound runs
+RESNET_STATS_TOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -1433,21 +1497,30 @@ def write_net_shards(tmp: str) -> dict:
 def net_config(name: str, shards: dict):
     """The conf as written (widths, batch, updater), read by the port's
     load_model_config, on the synthetic shards. The autoencoder's
-    kPretrained params, which the real job restores from an RBM-stack
-    checkpoint, are drawn kGaussain (std 0.1) from the seed instead."""
+    kPretrained params come from ``shards["ae_init"]``, the rbm phase's
+    unrolled RBM stack (the real job's ae_init.npz)."""
     conf, data, _ = NETS[name]
     cfg = load_model_config(os.path.join(REPO, conf))
-    cfg.checkpoint = None
+    cfg.checkpoint = shards["ae_init"] if name == "autoencoder" else None
     for layer in cfg.neuralnet.layer:
         if layer.type == "kShardData":
             test = "kTrain" in (layer.exclude or [])
             layer.data_param.path = shards[data + ("_test" if test else "")]
         if layer.rgbimage_param is not None:
             layer.rgbimage_param.meanfile = shards["mean"]
-        for p in layer.param:
-            if p.init_method == "kPretrained":
-                p.init_method, p.std = "kGaussain", 0.1
     return cfg
+
+
+def check_unrolled_init(tr, ae_init, tag):
+    """The autoencoder's params before its first step are the unrolled
+    checkpoint's arrays, every one of them."""
+    with np.load(ae_init) as z:
+        same = all(np.array_equal(v.cpu().numpy(), z["p|" + n])
+                   for n, v in tr.params.items())
+    print(f"{tag} autoencoder: params at step 0 are the unrolled RBM "
+          f"stack's ({ae_init}): {same}")
+    check(same, f"{tag} autoencoder: does not start from the unrolled "
+          "RBM stack")
 
 
 def net_steps(tr, step0, nsteps, timed=False):
@@ -1487,6 +1560,8 @@ def net_run(dev, name, shards, smi):
                    device="cpu")
     check(card.train_net.batchsize == batch,
           f"nets {name}: batch {card.train_net.batchsize} != {batch}")
+    if name == "autoencoder":
+        check_unrolled_init(card, shards["ae_init"], "nets")
     ours, _ = net_steps(card, 0, NETS_PARITY_STEPS)
     ref, _ = net_steps(host, 0, NETS_PARITY_STEPS)
     rel = max(abs(a - b) / abs(b) for a, b in zip(ours, ref))
@@ -1554,12 +1629,136 @@ def pool_check(dev, smi):
               f"nets pool {kind}: the planted fault passes the check")
 
 
-def nets_phase(dev, smi):
-    """-> {net: record} for the four confs."""
+def nets_phase(dev, smi, shards):
+    """-> {net: record} for the four confs on ``shards``
+    (write_net_shards, with the rbm phase's ``ae_init``)."""
     pool_check(dev, smi)
-    with tempfile.TemporaryDirectory() as tmp:
-        shards = write_net_shards(tmp)
-        return {name: net_run(dev, name, shards, smi) for name in NETS}
+    return {name: net_run(dev, name, shards, smi) for name in NETS}
+
+
+# ---------------------------------------------------------------------------
+# rbm phase
+# ---------------------------------------------------------------------------
+
+
+def rbm_config(shards: dict):
+    """examples/mnist/rbm.conf as written (784-1000-500-250-30, CD-1,
+    batch 100), read by the port's load_model_config, on the MNIST-shaped
+    shards of the nets phase."""
+    cfg = load_model_config(os.path.join(REPO, RBM_CONF))
+    for layer in cfg.neuralnet.layer:
+        if layer.type == "kShardData":
+            test = "kTrain" in (layer.exclude or [])
+            layer.data_param.path = shards["mnist_test" if test else "mnist"]
+    return cfg
+
+
+def uniform_table(shape) -> np.ndarray:
+    """The parity check's uniforms for a draw of ``shape`` (float32 in
+    [0, 1), from a seed made of the shape)."""
+    shape = tuple(int(d) for d in shape)
+    seed = 7919 * sum(shape) + len(shape)
+    return np.random.RandomState(seed).rand(*shape).astype(np.float32)
+
+
+def table_bernoulli(generator, p):
+    """``layers.rbm.bernoulli`` over ``uniform_table``: the same draws on
+    the card and on the CPU."""
+    return torch.from_numpy(uniform_table(p.shape)).to(p.device) < p
+
+
+def rbm_steps(tr, step0, nsteps, timed=False):
+    """-> ({rbm: [recon error per step]}, host ms per step synced to the
+    device when ``timed``)."""
+    errs, ms = {}, []
+    for step in range(step0, step0 + nsteps):
+        t0 = time.perf_counter()
+        tr.train_one_batch(step)
+        if timed:
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        for name, m in tr.perf.avg().items():
+            errs.setdefault(name, []).append(m["loss"])
+        tr.perf.reset()
+    return errs, ms
+
+
+def rbm_phase(dev, smi, shards, tmp):
+    """rbm.conf as written through make_trainer (the CDTrainer): with one
+    injected table of uniforms, NETS_PARITY_STEPS float32 CD steps on the
+    card and on the CPU from the same seed-0 params, every RBM's
+    reconstruction error within NETS_TOL relative; then the real device
+    draws: two card runs from one seed give the same bits over their first
+    NETS_PARITY_STEPS steps, RBM_STEPS more timed steps (finite; each
+    RBM's mean error of the last 5 below that of those first steps), one
+    test batch and a 3-step profile; last the stack's checkpoint,
+    unrolled into autoencoder.conf's init. -> (record, ae_init path)."""
+    trbm.bernoulli = table_bernoulli
+    try:
+        card = make_trainer(rbm_config(shards), seed=0, log=lambda s: None,
+                            device=dev)
+        host = make_trainer(rbm_config(shards), seed=0, log=lambda s: None,
+                            device="cpu")
+        ours, _ = rbm_steps(card, 0, NETS_PARITY_STEPS)
+        ref, _ = rbm_steps(host, 0, NETS_PARITY_STEPS)
+    finally:
+        trbm.bernoulli = RBM_DRAW
+    rbms = [r for r, _ in RBM_PAIRS]
+    check(sorted(ours) == rbms, f"rbm: metrics {sorted(ours)} != {rbms}")
+    rel = max(abs(a - b) / abs(b) for r in rbms
+              for a, b in zip(ours[r], ref[r]))
+    print(f"rbm: card vs CPU, {NETS_PARITY_STEPS} float32 CD steps on one "
+          f"table of uniforms, max relative recon-error difference "
+          f"{rel:.3e} (tol {NETS_TOL:g}); card "
+          + "; ".join(f"{r} " + " ".join(f"{x:.6f}" for x in ours[r])
+                      for r in rbms) + f" [{smi}]")
+    check(rel <= NETS_TOL, "rbm: card and CPU recon errors differ")
+
+    runs = [make_trainer(rbm_config(shards), seed=0, log=lambda s: None,
+                         device=dev) for _ in range(2)]
+    first = [rbm_steps(tr, 0, NETS_PARITY_STEPS)[0] for tr in runs]
+    same = first[0] == first[1] and all(
+        torch.equal(v, runs[1].params[n]) for n, v in runs[0].params.items())
+    print(f"rbm: two card runs from seed 0, {NETS_PARITY_STEPS} steps on "
+          f"the device's draws: the same bits {same}")
+    check(same, "rbm: two runs from one seed differ")
+    tr = runs[0]
+    check(tr.dispatch_mode == "eager", "rbm: the CD step is not eager")
+    errs, ms = rbm_steps(tr, NETS_PARITY_STEPS, RBM_STEPS, timed=True)
+    for r in rbms:
+        # the upper RBMs train on their lower RBMs' moving features: an
+        # error may rise for a while after its first fall
+        e = errs[r]
+        check(all(np.isfinite(e)), f"rbm {r}: non-finite recon error")
+        check(np.mean(e[-5:]) < np.mean(first[0][r]),
+              f"rbm {r}: recon error did not fall")
+    steps = NETS_PARITY_STEPS + RBM_STEPS
+    test = {r: m["loss"] for r, m in
+            tr.evaluate(tr.test_net, 1, "test", steps).items()}
+    check(all(np.isfinite(list(test.values()))),
+          "rbm: non-finite test recon error")
+    median = sorted(ms)[len(ms) // 2]
+    batch = tr.train_net.batchsize
+    prof = profile(tr, steps, 3)
+    steps += 3
+    rec = {"conf": RBM_CONF, "batch": batch,
+           "dispatch": tr.dispatch_mode, "rule": tr.dispatch_reason,
+           "steps": RBM_STEPS,
+           "first": {r: first[0][r][0] for r in rbms},
+           "last": {r: errs[r][-1] for r in rbms}, "test": test,
+           "step_ms_median": median, "step_ms_min": min(ms),
+           "images_per_s": batch / median * 1e3,
+           "device_ms_per_step": prof["device_ms_per_step"],
+           "profiled_wall_ms_per_step": prof["wall_ms_per_step"],
+           "idle_share": prof["idle_share"], "top5": prof["top"][:5],
+           "card": smi}
+    print("rbm", json.dumps(rec))
+    stack = save_checkpoint(os.path.join(tmp, "rbm_stack.npz"), steps,
+                            tr.params, tr.state)
+    ae_init = unroll_autoencoder(stack, os.path.join(tmp, "ae_init.npz"),
+                                 RBM_PAIRS)
+    print(f"rbm: unrolled the card's stack at step {steps} into {ae_init}")
+    return rec, ae_init
 
 
 # ---------------------------------------------------------------------------
@@ -1646,6 +1845,8 @@ def dispatch_pair(dev, make_cfg, units, tag, smi):
     check(graph.dispatch_mode == "graph" and graph.feeder_mode == "cached",
           f"dispatch {tag}: not a graphed step on the cached dataset "
           f"({graph.dispatch_mode}, {graph.feeder_mode})")
+    if tag == "autoencoder":
+        check_unrolled_init(graph, graph.cfg.checkpoint, "dispatch")
     for fn, _, _ in FLASH.values():
         fn.launches = 0
     g_losses = window_losses(graph)
@@ -1704,10 +1905,10 @@ def dispatch_shards(tmp: str) -> dict:
     return write_shards(tmp)
 
 
-def dispatch_phase(dev, smi, cfg, params):
+def dispatch_phase(dev, smi, cfg, params, ae_init):
     """-> {run: record}: the four nets and train_longctx graphed vs eager,
     the two planted faults, the engine call's split and serve with and
-    without graphs in turns."""
+    without graphs in turns. The autoencoder starts from ``ae_init``."""
     import functools
 
     from singa_tpu_torch.data.pipeline import load_shard_arrays
@@ -1721,6 +1922,7 @@ def dispatch_phase(dev, smi, cfg, params):
     try:
         with tempfile.TemporaryDirectory() as tmp:
             shards = dispatch_shards(tmp)
+            shards["ae_init"] = ae_init
             eager_losses = {}
             for name in NETS:
                 out[name], eager_losses[name] = dispatch_pair(
@@ -1785,6 +1987,260 @@ def dispatch_phase(dev, smi, cfg, params):
          (sched.tokens_emitted + len(sched.finished)) / seconds}
         for tag, sched, seconds, _ in runs]
     return out
+
+
+# ---------------------------------------------------------------------------
+# resnet phase
+# ---------------------------------------------------------------------------
+
+
+def write_resnet_shards(tmp: str) -> dict:
+    """ImageNet-shaped train and test shards (imagenet_shaped_arrays: each
+    record made from the seeds; the test split's noise from seed 1)."""
+    out = {k: os.path.join(tmp, k) for k in ("train", "test")}
+    write_records(out["train"], *imagenet_shaped_arrays(RESNET_RECORDS[0]))
+    write_records(out["test"], *imagenet_shaped_arrays(
+        RESNET_RECORDS[1], noise_seed=1))
+    return out
+
+
+def resnet_config(shards: dict, batch=None, dtype=None):
+    """examples/imagenet/resnet50.conf as written (bottleneck [3, 4, 6,
+    3], batch 256, crop 224, bf16, SGD with momentum and weight decay),
+    read by the port's load_model_config, on the synthetic shards; the
+    parity run cuts the batch and the dtype."""
+    cfg = load_model_config(os.path.join(REPO, RESNET_CONF))
+    if dtype is not None:
+        cfg.compute_dtype = dtype
+    for layer in cfg.neuralnet.layer:
+        if layer.type == "kShardData":
+            test = "kTrain" in (layer.exclude or [])
+            layer.data_param.path = shards["test" if test else "train"]
+            if batch is not None:
+                layer.data_param.batchsize = batch
+    return cfg
+
+
+def running_stats(tr) -> dict:
+    """A host copy of the BatchNorm buffers."""
+    return {k: v.detach().cpu().clone() for k, v in tr.buffers.items()
+            if k.endswith(("/running_mean", "/running_var"))}
+
+
+def stats_diff(got: dict, want: dict) -> float:
+    """max |got - want| / max(1, |want|) over every running stat."""
+    check(got.keys() == want.keys(), "resnet: running stats differ in name")
+    return max(float(((got[k] - want[k]).abs()
+                      / want[k].abs().clamp_min(1)).max()) for k in want)
+
+
+def resnet_parity(dev, smi, shards):
+    """resnet50.conf at float32 with the batch cut to 8: RESNET_PARITY_STEPS
+    steps on the card, each also taken on the CPU from the card's state
+    (params, updater slots and running stats copied across first, so the
+    check holds one step's work, not the growth of rounding over steps):
+    losses within NETS_TOL relative, running stats within
+    RESNET_STATS_TOL."""
+    cfg = resnet_config(shards, RESNET_PARITY_BATCH, "float32")
+    card = Trainer(cfg, seed=0, log=lambda s: None, device=dev)
+    host = Trainer(resnet_config(shards, RESNET_PARITY_BATCH, "float32"),
+                   seed=0, log=lambda s: None, device="cpu")
+    rows = []
+    for step in range(RESNET_PARITY_STEPS):
+        host.params = {k: v.cpu() for k, v in card.params.items()}
+        host.state = {n: {k: v.cpu() for k, v in slots.items()}
+                      for n, slots in card.state.items()}
+        host._store_buffers(running_stats(card))
+        (a,), _ = net_steps(card, step, 1)
+        (b,), _ = net_steps(host, step, 1)
+        rows.append((a, b, abs(a - b) / abs(b),
+                     stats_diff(running_stats(card), running_stats(host))))
+    loss_rel = max(r[2] for r in rows)
+    stats_rel = max(r[3] for r in rows)
+    print(f"resnet: card vs CPU, float32, batch {RESNET_PARITY_BATCH}, "
+          f"{RESNET_PARITY_STEPS} steps each from the card's state: max "
+          f"relative loss difference {loss_rel:.3e} (tol {NETS_TOL:g}), "
+          f"running stats {stats_rel:.3e} (tol {RESNET_STATS_TOL:g}); card "
+          f"losses {' '.join(f'{r[0]:.6f}' for r in rows)}, per step loss "
+          f"{' '.join(f'{r[2]:.2e}' for r in rows)}, stats "
+          f"{' '.join(f'{r[3]:.2e}' for r in rows)} [{smi}]")
+    check(all(np.isfinite([r[0] for r in rows])), "resnet: non-finite loss")
+    check(loss_rel <= NETS_TOL, "resnet: card and CPU losses differ")
+    check(stats_rel <= RESNET_STATS_TOL,
+          "resnet: card and CPU running stats differ")
+    return {"loss_rel": loss_rel, "stats_rel": stats_rel,
+            "losses": [r[0] for r in rows]}
+
+
+def bn_device_ms(dev, tr, flush) -> dict:
+    """BatchNorm's device ms per step at the trainer's shapes and dtype:
+    each kBatchNorm layer's training op, forward and backward, on random
+    inputs of its input's shape, timed with CUDA events (time_ms), with
+    the cancellation rescue and without it (ops/norm.py ``RESCUE``), in
+    turns (with, without, without, with), summed over the layers."""
+    dt = tr._compute_dtype or torch.float32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sums = {True: [], False: []}
+    for rescue in (True, False, False, True):
+        total = 0.0
+        for layer in tr.train_net.layers:
+            if layer.TYPE != "kBatchNorm":
+                continue
+            shape = tr.train_net.name2layer[layer.srclayers[0]].out_shape
+            c = shape[1]
+            x = torch.randn(shape, device=dev, generator=gen).to(dt)
+            x.requires_grad_(True)
+            dy = torch.randn(shape, device=dev, generator=gen).to(dt)
+            g = torch.ones(c, device=dev, dtype=dt, requires_grad=True)
+            b = torch.zeros(c, device=dev, dtype=dt, requires_grad=True)
+            shift = torch.zeros(c, device=dev)
+
+            def run():
+                y, _, _ = tnorm.batch_norm_train(x, g, b, layer.eps,
+                                                 shift=shift)
+                torch.autograd.grad(y, (x, g, b), dy)
+
+            tnorm.RESCUE = rescue
+            try:
+                total += time_ms(run, flush, iters=5)
+            finally:
+                tnorm.RESCUE = True
+        sums[rescue].append(total)
+    with_, without = np.mean(sums[True]), np.mean(sums[False])
+    return {"bn_ms": with_, "bn_ms_without_rescue": without,
+            "rescue_ms": with_ - without, "runs": sums}
+
+
+def _stats_not_copied(self, new_p, new_s, res):
+    """The planted fault: the graphed step copies the params, slots and
+    residuals back, not the running stats."""
+    STORE_UPDATE(self, new_p, new_s,
+                 {k: v for k, v in res.items() if k.startswith("__")})
+
+
+def release():
+    """Return the memory of dropped trainers and their graphs' pools."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def resnet_phase(dev, smi):
+    """resnet50.conf as written on ImageNet-shaped records: the parity
+    run, then at full width (bf16, batch 256) DISPATCH_STEPS steps as
+    graphed chunks on the cached dataset against DISPATCH_STEPS eager
+    steps from the same params (window losses and the final running
+    stats within DISPATCH_TOL), the planted stats fault (must move the
+    stats by DISPATCH_FAULT_FACTOR x DISPATCH_TOL), step ms and images/s
+    of both, the graphed chunk's device ms and idle share, its 5 largest
+    kernels, BatchNorm's device ms with and without the rescue, peak
+    memory, and one eval batch from the running stats."""
+    import functools
+
+    from singa_tpu_torch.data.pipeline import load_shard_arrays
+    from singa_tpu_torch.layers.data import ShardDataLayer
+    from singa_tpu_torch.tools.dispatch_turns import profiled_device_ms
+
+    ShardDataLayer.LOADER = staticmethod(
+        functools.lru_cache(maxsize=None)(load_shard_arrays))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            shards = write_resnet_shards(tmp)
+            print(f"resnet: wrote {RESNET_RECORDS} ImageNet-shaped records "
+                  f"in {time.perf_counter() - t0:.1f} s")
+            rec = {"parity": resnet_parity(dev, smi, shards)}
+            batch = resnet_config(shards).neuralnet.layer[0] \
+                .data_param.batchsize
+
+            torch.cuda.reset_peak_memory_stats(dev)
+            graph = Trainer(resnet_config(shards), seed=0,
+                            log=lambda s: None, device=dev,
+                            device_cache=True)
+            check(graph.dispatch_mode == "graph"
+                  and graph.feeder_mode == "cached",
+                  f"resnet: not a graphed step on the cached dataset "
+                  f"({graph.dispatch_mode}, {graph.feeder_mode})")
+            g_losses = window_losses(graph)
+            g_stats = running_stats(graph)
+            check(graph._g.run.captured, "resnet: the step was never "
+                  "captured")
+            s0 = DISPATCH_STEPS
+            rec["step_ms"] = chunk_ms(graph, s0, DISPATCH_STEPS)
+            dev_ms, enqueue_ms = chunk_device_ms(graph, 2 * s0,
+                                                 DISPATCH_STEPS)
+            prof_ms, top = profiled_device_ms(
+                lambda: graph.train_chunk(3 * s0, 3), 3)
+            graph.perf.reset()
+            test = graph.evaluate(graph.test_net, 1, "test",
+                                  3 * s0 + 3)["loss"]
+            check(all(np.isfinite(list(test.values()))),
+                  "resnet: non-finite eval metric")
+            flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+            bn = bn_device_ms(dev, graph, flush)
+            rec.update({
+                "conf": RESNET_CONF, "batch": batch,
+                "images_per_s": batch / rec["step_ms"] * 1e3,
+                "device_ms_per_step": dev_ms,
+                "idle_share": 1.0 - dev_ms / rec["step_ms"],
+                "chunk_enqueue_ms": enqueue_ms,
+                "profiled_device_ms_per_step": prof_ms, "top5": top,
+                "test": test, **bn,
+                "bn_share_of_device_ms": bn["bn_ms"] / dev_ms,
+                "peak_memory_gb_graphed":
+                    torch.cuda.max_memory_allocated(dev) / 1e9})
+            del graph
+            release()
+
+            torch.cuda.reset_peak_memory_stats(dev)
+            eager = Trainer(resnet_config(shards), seed=0,
+                            log=lambda s: None, device=dev, graphs=False,
+                            device_cache=False, prefetch=False)
+            e_losses = window_losses(eager)
+            e_stats = running_stats(eager)
+            rec["eager_step_ms"] = chunk_ms(eager, s0, 10)
+            rec["eager_images_per_s"] = batch / rec["eager_step_ms"] * 1e3
+            rec["peak_memory_gb_eager"] = (
+                torch.cuda.max_memory_allocated(dev) / 1e9)
+            del eager
+            release()
+            rel = rel_diff(g_losses, e_losses)
+            srel = stats_diff(g_stats, e_stats)
+            print(f"resnet: graphed vs eager, {DISPATCH_STEPS} bf16 steps "
+                  f"at batch {batch} in windows of {DISPATCH_WINDOW}: max "
+                  f"relative loss difference {rel:.3e}, running stats "
+                  f"{srel:.3e} (tol {DISPATCH_TOL:g}); graphed "
+                  f"{' '.join(f'{x:.7f}' for x in g_losses)}, eager "
+                  f"{' '.join(f'{x:.7f}' for x in e_losses)} [{smi}]")
+            check(all(np.isfinite(g_losses)), "resnet: non-finite loss")
+            check(g_losses[-1] < g_losses[0], "resnet: loss did not fall")
+            check(rel <= DISPATCH_TOL and srel <= DISPATCH_TOL,
+                  "resnet: graphed and eager steps differ")
+
+            Trainer._store_update = _stats_not_copied
+            try:
+                faulty = Trainer(resnet_config(shards), seed=0,
+                                 log=lambda s: None, device=dev,
+                                 device_cache=True)
+                window_losses(faulty)
+                moved = stats_diff(running_stats(faulty), e_stats)
+            finally:
+                Trainer._store_update = STORE_UPDATE
+            del faulty
+            release()
+            print(f"resnet fault 'running stats not copied back': graphed "
+                  f"vs eager running stats {moved:.3e}, "
+                  f"{moved / DISPATCH_TOL:.0f}x DISPATCH_TOL")
+            check(moved >= DISPATCH_FAULT_FACTOR * DISPATCH_TOL,
+                  "resnet: the planted stats fault passes the check")
+            rec.update({"graphed_losses": g_losses, "eager_losses": e_losses,
+                        "rel_diff": rel, "stats_diff": srel,
+                        "fault_stats_diff": moved, "card": smi})
+            print("resnet", json.dumps(rec))
+            return rec
+    finally:
+        ShardDataLayer.LOADER = staticmethod(load_shard_arrays)
 
 
 def short_kernel_name(mangled: str) -> str:
@@ -1864,8 +2320,12 @@ def main() -> int:
     bf16_launches, f32_launches = train_phase(dev)
     launches.update(bf16_launches)
     ring_err, ring_row, launches["quant_acc"] = ring_phase(dev)
-    nets_phase(dev, smi)
-    dispatch_phase(dev, smi, cfg, params)
+    with tempfile.TemporaryDirectory() as tmp:
+        shards = write_net_shards(tmp)
+        _, shards["ae_init"] = rbm_phase(dev, smi, shards, tmp)
+        nets_phase(dev, smi, shards)
+        dispatch_phase(dev, smi, cfg, params, shards["ae_init"])
+    resnet_phase(dev, smi)
 
     kernels = []
     for name, case in (("paged_attention", "decode"),

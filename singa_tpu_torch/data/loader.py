@@ -4,7 +4,9 @@
 Ported: :func:`write_records` (on the Python shard writer; the
 original tries its native C++ encoder first, which writes the same
 bytes), the MNIST idx and CIFAR-10 binary readers, the mean file, the
-synthetic image and token sources, and their subcommands. Left out:
+synthetic image and token sources, and their subcommands; and an
+ImageNet-shaped synthetic source of the port's own
+(``imagenet-shaped``, for examples/imagenet/resnet50.conf). Left out:
 ``digits`` (it needs sklearn, which the GPU machine lacks; ``synthetic``
 is the learnable stand-in), ``imagenet`` (PIL), the shard split and the
 LMDB interop (kLMDBData is not ported).
@@ -22,6 +24,7 @@ Usage:
   python -m singa_tpu_torch.data.loader mnist --image-file f --label-file f --output DIR
   python -m singa_tpu_torch.data.loader cifar --bin-files f1 f2 ... --output DIR
   python -m singa_tpu_torch.data.loader synthetic --output DIR --n 1000 [--classes 10] [--size 28] [--channels 3]
+  python -m singa_tpu_torch.data.loader imagenet-shaped --output DIR --n 2560 [--seed 0]
   python -m singa_tpu_torch.data.loader compute-mean --input DIR --output mean.npy
   python -m singa_tpu_torch.data.loader text --input corpus.txt --output DIR [--seq-len 256]
   python -m singa_tpu_torch.data.loader tokens --output DIR --n 1000 [--seq-len 128] [--vocab 64]
@@ -177,6 +180,39 @@ def structured_rgb(
     return (templates[labels] + noise).clip(0, 255).astype(np.uint8), labels
 
 
+def imagenet_shaped_arrays(
+    n: int,
+    classes: int = 1000,
+    size: int = 256,
+    seed: int = 0,
+    noise_seed: int | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """ImageNet-shaped synthetic records: (n, 3, size, size) uint8 and
+    labels over ``classes``, each record made from the seeds alone.
+
+    Record i's label and noise come from ``RandomState([noise_seed, i])``
+    (``noise_seed`` defaults to ``seed``), its class's template from
+    ``RandomState([seed, classes + label])``: a 3 x 8 x 8 block of
+    values in [0, 160) upsampled to the record's size, plus uniform
+    integer noise in [0, 95]. No class table is held (at 1000 classes
+    and 256 x 256 it would be 1.5 GB of float64)."""
+    if size % 8:
+        raise ValueError(f"size must be a multiple of 8, got {size}")
+    images = np.empty((n, 3, size, size), np.uint8)
+    labels = np.empty(n, np.int64)
+    nseed = seed if noise_seed is None else noise_seed
+    up = size // 8
+    for i in range(n):
+        rs = np.random.RandomState([nseed, i])
+        label = int(rs.randint(classes))
+        small = np.random.RandomState([seed, classes + label]).randint(
+            0, 160, (3, 8, 8))
+        template = small.repeat(up, axis=1).repeat(up, axis=2)
+        images[i] = template + rs.randint(0, 96, (3, size, size))
+        labels[i] = label
+    return images, labels
+
+
 def text_token_arrays(
     path: str, seq_len: int, stride: int = 0
 ) -> tuple[np.ndarray, np.ndarray]:
@@ -239,6 +275,14 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--channels", type=int, default=0)
 
+    p = sub.add_parser("imagenet-shaped")
+    p.add_argument("--output", required=True)
+    p.add_argument("--n", type=int, default=2560)
+    p.add_argument("--classes", type=int, default=1000)
+    p.add_argument("--size", type=int, default=256)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--noise-seed", type=int, default=None)
+
     p = sub.add_parser("compute-mean")
     p.add_argument("--input", required=True)
     p.add_argument("--output", required=True)
@@ -273,6 +317,12 @@ def main(argv: list[str] | None = None) -> int:
                 args.n, args.classes, args.size, args.seed,
                 channels=args.channels,
             ),
+        )
+    elif args.source == "imagenet-shaped":
+        n = write_records(
+            args.output,
+            *imagenet_shaped_arrays(args.n, args.classes, args.size,
+                                    args.seed, args.noise_seed),
         )
     elif args.source == "compute-mean":
         mean = compute_mean(args.input, args.output)

@@ -8,12 +8,13 @@ filtered by ``exclude`` for the requested phase, topo-sorted from their
 shape-inferred in order. ``Net.forward`` runs the layers eagerly,
 routes a kSlice layer's k-th output to its k-th consumer, and hands
 each layer that draws a generator derived from the step's and its index
-(the JAX package's ``jax.random.fold_in(rng, i)``).
+(the JAX package's ``jax.random.fold_in(rng, i)``), feeds stateful
+layers their buffers and lets a ``layer_hook`` replace a layer's
+compute (the contrastive-divergence trainer's Gibbs chains).
 
 This single-device slice leaves out the JAX package's partitioning
-(a ``partition_type`` other than kNone raises), the pipeline plan,
-buffers (no stateful layer is ported) and the padded param storage of
-uneven model partitions.
+(a ``partition_type`` other than kNone raises), the pipeline plan and
+the padded param storage of uneven model partitions.
 """
 
 from __future__ import annotations
@@ -87,6 +88,21 @@ class Net:
                 specs[name] = spec
         return specs
 
+    def buffer_specs(self) -> dict:
+        """Non-trainable state (BufferSpec) declared by stateful layers."""
+        specs = {}
+        for layer in self.layers:
+            specs.update(layer.buffer_specs())
+        return specs
+
+    def init_buffers(self, device=None) -> dict[str, torch.Tensor]:
+        """Every buffer at its init value, float32, on ``device``."""
+        return {
+            name: torch.full(spec.shape, spec.init, dtype=torch.float32,
+                             device=device)
+            for name, spec in self.buffer_specs().items()
+        }
+
     def resolve_params(self, params: dict) -> dict:
         """The param view every forward reads: shared params resolve
         through their owner's tensor (ParamSpec.owner)."""
@@ -104,7 +120,10 @@ class Net:
         *,
         training: bool,
         generator: torch.Generator | None = None,
+        buffers: dict[str, torch.Tensor] | None = None,
+        return_buffers: bool = False,
         return_acts: bool = False,
+        layer_hook=None,
     ):
         """Run all layers; returns (total_loss, {losslayer: metrics}).
 
@@ -113,8 +132,20 @@ class Net:
         layer i, if it ``uses_generator``, draws from ``fold_in(generator,
         i)``; a dict instead hands layer i its entry (the staged draws
         of a chunk, ``layers.data.StagedDraw``); without one, layers
-        draw nothing (the eval path). With
-        ``return_acts`` the per-layer activation dict is appended."""
+        draw nothing (the eval path).
+
+        ``buffers`` feeds stateful layers (batch-norm running stats);
+        omitted, they use their init values. They stay float32 whatever
+        the params' dtype. With ``return_buffers`` the post-step buffer
+        dict is appended (before acts): the layers' updates over the
+        buffers given. With ``return_acts`` the per-layer activation
+        dict is appended. ``layer_hook``, if given, is called as
+        hook(layer, resolved_params, inputs, layer_generator) before
+        each layer; a non-None return replaces the layer's compute."""
+        if buffers is None:
+            buffers = (self.init_buffers(_device_of(params, batch))
+                       if any(l.has_buffers for l in self.layers) else {})
+        new_buffers = dict(buffers)
         resolved = self.resolve_params(params)
         acts: dict[str, Any] = {}
         slice_cursor: dict[str, int] = {}
@@ -139,8 +170,18 @@ class Net:
                 lgen = fold_in(generator, i)
             else:
                 lgen = None
-            out = layer.apply(resolved, inputs, training=training,
-                              generator=lgen)
+            out = None
+            if layer_hook is not None:
+                out = layer_hook(layer, resolved, inputs, lgen)
+            if out is None:
+                if layer.has_buffers:
+                    out, updates = layer.apply_stateful(
+                        resolved, buffers, inputs, training=training,
+                        generator=lgen)
+                    new_buffers.update(updates)
+                else:
+                    out = layer.apply(resolved, inputs, training=training,
+                                      generator=lgen)
             if layer.is_losslayer:
                 loss, m = out
                 total_loss = total_loss + loss
@@ -148,9 +189,22 @@ class Net:
                 acts[layer.name] = loss
             else:
                 acts[layer.name] = out
+        extra = []
+        if return_buffers:
+            extra.append(new_buffers)
         if return_acts:
-            return total_loss, metrics, acts
-        return total_loss, metrics
+            extra.append(acts)
+        return (total_loss, metrics, *extra)
+
+
+def _device_of(params: dict, batch: dict):
+    """The device of the first tensor among params and batch feeds."""
+    for v in params.values():
+        return v.device
+    for feed in batch.values():
+        for v in feed.values():
+            return v.device
+    return None
 
 
 def active_phases(model_cfg: ModelConfig) -> list[str]:

@@ -4,7 +4,8 @@ Counterpart of ``singa_tpu/layers/__init__.py``: a string-keyed factory
 mirroring the reference's Factory<Layer> (src/worker/neuralnet.cc:13-33).
 It registers the types the port has: the conf-driven transformer LM's
 vocabulary, the image nets' (neuron, loss, parser and connector
-layers) and kShardData. A type the JAX package has and the port does
+layers), kShardData, kRBM, and ResNet's kBatchNorm, kAdd and
+kGlobalPooling. A type the JAX package has and the port does
 not yet raises a ConfigError that says so; nothing is skipped.
 """
 
@@ -31,7 +32,8 @@ from .neuron import (
     SigmoidLayer,
     TanhLayer,
 )
-from .norm import AddLayer
+from .norm import AddLayer, BatchNormLayer, GlobalPoolingLayer
+from .rbm import RBMLayer
 from .sequence import (
     AttentionLayer,
     DenseLayer,
@@ -45,9 +47,7 @@ _REGISTRY: dict[str, type[Layer]] = {}
 
 #: the JAX package's layer types that this package does not port yet
 #: (ROADMAP.md, queue 1)
-NOT_PORTED = frozenset({
-    "kBatchNorm", "kGlobalPooling", "kLMDBData", "kMoE", "kRBM",
-})
+NOT_PORTED = frozenset({"kLMDBData", "kMoE"})
 
 
 def register_layer(cls: type[Layer]) -> type[Layer]:
@@ -79,6 +79,9 @@ def registered_types() -> list[str]:
 
 for _cls in (
     AddLayer,
+    BatchNormLayer,
+    GlobalPoolingLayer,
+    RBMLayer,
     SequenceDataLayer,
     EmbeddingLayer,
     LayerNormLayer,

@@ -10,8 +10,11 @@ ComputeGradient, include/worker/base_layer.h:38-258).
 ``rng``: ``Net.forward`` derives one per layer from the step's, see
 ``utils/rng.py``, for the layers that set ``uses_generator``).
 
-Left out: buffers (non-trainable state such as batch-norm running
-stats), the partition metadata and the serving tier's
+Buffers (:class:`BufferSpec`) are non-trainable per-layer state, such
+as batch-norm running stats: a layer that declares them runs through
+``apply_stateful``, which returns its updates beside its output.
+
+Left out: the partition metadata and the serving tier's
 ``decode_positionwise`` flag; the layers that need them are not ported
 yet.
 """
@@ -26,6 +29,19 @@ from ..config.schema import ConfigError, LayerConfig
 from ..params import ParamSpec
 
 Shape = tuple[int, ...]
+
+
+class BufferSpec:
+    """Non-trainable per-layer state (e.g. batch-norm running stats):
+    initialized to a fill value, updated by the layer's own rule inside
+    the step (never by the updater), checkpointed alongside params."""
+
+    __slots__ = ("name", "shape", "init")
+
+    def __init__(self, name: str, shape: Shape, init: float):
+        self.name = name
+        self.shape = tuple(shape)
+        self.init = init
 
 
 class Layer:
@@ -50,6 +66,7 @@ class Layer:
         self.srclayers: list[str] = list(cfg.srclayers)
         self.out_shape: Shape | None = None
         self._param_specs: dict[str, ParamSpec] = {}
+        self._buffer_specs: dict[str, BufferSpec] = {}
 
     # ---------------- build time ----------------
 
@@ -87,6 +104,21 @@ class Layer:
         )
         return qualified
 
+    def buffer_specs(self) -> dict[str, BufferSpec]:
+        return self._buffer_specs
+
+    def _declare_buffer(
+        self, default_name: str, shape: Shape, init: float = 0.0
+    ) -> str:
+        """Register buffer ``<layer>/<name>`` (checkpoint key ``b|...``)."""
+        qualified = f"{self.name}/{default_name}"
+        self._buffer_specs[qualified] = BufferSpec(qualified, shape, init)
+        return qualified
+
+    @property
+    def has_buffers(self) -> bool:
+        return bool(self._buffer_specs)
+
     # ---------------- run time ----------------
 
     def apply(
@@ -100,13 +132,26 @@ class Layer:
         """Forward on tensors; autograd differentiates it."""
         raise NotImplementedError
 
+    def apply_stateful(
+        self,
+        params: dict[str, torch.Tensor],
+        buffers: dict[str, torch.Tensor],
+        inputs: list[Any],
+        *,
+        training: bool,
+        generator: torch.Generator | None = None,
+    ) -> tuple[Any, dict[str, torch.Tensor]]:
+        """Forward for layers with buffers: returns (out, buffer updates).
+        Only called when ``has_buffers``."""
+        raise NotImplementedError
+
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.name!r}, out={self.out_shape})"
 
 
 def feature_dim(shape: Shape) -> int:
     """Product of the non-batch dims — the reference's flatten-to-(batch,
-    vdim) convention used by FC/loss layers (layer.cc:171-176)."""
+    vdim) convention used by FC/RBM/loss layers (layer.cc:171-176)."""
     out = 1
     for d in shape[1:]:
         out *= d

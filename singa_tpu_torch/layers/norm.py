@@ -1,7 +1,12 @@
-"""Residual addition: kAdd, from ``singa_tpu/layers/norm.py``.
+"""Normalization and residual layers: kBatchNorm, kAdd, kGlobalPooling,
+from ``singa_tpu/layers/norm.py``.
 
-kBatchNorm (with its custom backward) and kGlobalPooling wait for the
-slice that trains ResNet-50 (ROADMAP).
+kBatchNorm's running statistics are buffers (``layers/base.py``
+BufferSpec): updated by the layer inside the step, carried between
+steps by the Trainer in place, checkpointed under ``b|`` keys. The JAX
+package gets BatchNorm synchronised over the global batch from GSPMD;
+the port's per-rank loop would compute per-rank statistics, so the
+Trainer refuses a net with buffers on more than one rank.
 """
 
 from __future__ import annotations
@@ -9,7 +14,83 @@ from __future__ import annotations
 from typing import Sequence
 
 from ..config.schema import ConfigError
-from .base import Layer, Shape
+from ..ops import norm
+from .base import Layer, Shape, require_one_src
+
+
+class BatchNormLayer(Layer):
+    """kBatchNorm: per-channel batch normalization (NCHW axis 1, or the
+    feature axis of 2-D inputs).
+
+    Training normalizes by batch statistics and folds them into running
+    stats with Caffe's momentum convention (running = momentum *
+    running + (1 - momentum) * batch, the biased batch variance);
+    eval normalizes by the running stats. ``F.batch_norm``'s own
+    running update is not used: it folds in the unbiased variance with
+    the complementary momentum."""
+
+    TYPE = "kBatchNorm"
+
+    def setup(self, src_shapes: Sequence[Shape], batchsize: int) -> Shape:
+        p = self.cfg.batchnorm_param
+        self.momentum = p.momentum if p else 0.9
+        self.eps = p.eps if p else 1e-5
+        self.stats_stride = p.stats_sample_stride if p else 1
+        if self.stats_stride < 1:
+            raise ConfigError(
+                f"layer {self.name!r}: stats_sample_stride must be >= 1"
+            )
+        # a stride that leaves 1-2 rows drives the per-channel variance
+        # toward 0 and inv toward rsqrt(eps): silent divergence
+        if self.stats_stride > 1 and batchsize // self.stats_stride < 8:
+            raise ConfigError(
+                f"layer {self.name!r}: stats_sample_stride "
+                f"{self.stats_stride} leaves "
+                f"{max(batchsize // self.stats_stride, 0)} of {batchsize} "
+                "sample rows for the batch moments (need >= 8)"
+            )
+        src = require_one_src(self, src_shapes)
+        if len(src) not in (2, 4):
+            raise ConfigError(
+                f"layer {self.name!r}: kBatchNorm needs (N,C,H,W) or (N,F) "
+                f"input, got {src}"
+            )
+        c = src[1]
+        self.gname = self._declare_param(0, "gamma", (c,))
+        self.bname = self._declare_param(1, "beta", (c,))
+        self.mean_buf = self._declare_buffer("running_mean", (c,), 0.0)
+        self.var_buf = self._declare_buffer("running_var", (c,), 1.0)
+        return src
+
+    def apply_stateful(self, params, buffers, inputs, *, training,
+                       generator=None):
+        x = inputs[0]
+        gamma, beta = params[self.gname], params[self.bname]
+        if not training:
+            return norm.batch_norm_infer(
+                x, gamma, beta, buffers[self.mean_buf],
+                buffers[self.var_buf], self.eps), {}
+        # the running mean anchors the one-pass moments
+        anchor = buffers[self.mean_buf].detach()
+        if self.stats_stride > 1:
+            y, mean, var = norm.batch_norm_train_sampled(
+                x, gamma, beta, self.eps, self.stats_stride, shift=anchor)
+        else:
+            y, mean, var = norm.batch_norm_train(
+                x, gamma, beta, self.eps, shift=anchor)
+        # the running stats are a detached side effect
+        m = self.momentum
+        mean, var = mean.detach(), var.detach()
+        return y, {
+            self.mean_buf: m * buffers[self.mean_buf] + (1 - m) * mean,
+            self.var_buf: m * buffers[self.var_buf] + (1 - m) * var,
+        }
+
+    def apply(self, params, inputs, *, training, generator=None):
+        raise RuntimeError(
+            f"layer {self.name!r}: kBatchNorm is stateful; the net must "
+            "call apply_stateful"
+        )
 
 
 class AddLayer(Layer):
@@ -36,3 +117,26 @@ class AddLayer(Layer):
         for x in inputs[1:]:
             out = out + x
         return out
+
+
+class GlobalPoolingLayer(Layer):
+    """kGlobalPooling: mean (AVE, default) or max over the spatial dims of
+    an NCHW input -> (N, C)."""
+
+    TYPE = "kGlobalPooling"
+
+    def setup(self, src_shapes: Sequence[Shape], batchsize: int) -> Shape:
+        p = self.cfg.globalpooling_param
+        self.pool = p.pool if p else "AVE"
+        src = require_one_src(self, src_shapes)
+        if len(src) != 4:
+            raise ConfigError(
+                f"layer {self.name!r}: kGlobalPooling needs NCHW input"
+            )
+        return (src[0], src[1])
+
+    def apply(self, params, inputs, *, training, generator=None):
+        x = inputs[0]
+        if self.pool == "MAX":
+            return x.amax(dim=(2, 3))
+        return x.mean(dim=(2, 3))

@@ -1,0 +1,115 @@
+"""Restricted Boltzmann machine layer (the contrastive-divergence path),
+from ``singa_tpu/layers/rbm.py``.
+
+In a kBackPropagation net (or at eval time) the layer is a feature
+extractor: ``apply`` returns the mean-field hidden probabilities, which
+lets stacked RBMs form the encoder of a deep autoencoder (pretrain with
+alg kContrastiveDivergence, ``trainer/cd.py``, then kPretrained-init
+the unrolled net).
+
+Every Bernoulli draw of the Gibbs chain goes through :func:`bernoulli`,
+``uniform < p`` as JAX's ``jax.random.bernoulli(key, p)`` is; the
+uniforms are activation-sized and drawn on ``p``'s device, so a net
+with an RBM trains eagerly (``draws_on_device``).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..config.schema import ConfigError
+from ..utils.rng import fold_in, on_device
+from .base import Layer, Shape, feature_dim, require_one_src
+
+
+def bernoulli(generator: torch.Generator, p: torch.Tensor) -> torch.Tensor:
+    """A bool sample, True with probability ``p``: uniforms drawn on p's
+    device from ``generator``'s seed, compared with ``p``."""
+    u = torch.rand(p.shape, generator=on_device(generator, p.device),
+                   device=p.device)
+    return u < p
+
+
+class RBMLayer(Layer):
+    """kRBM: binary-binary RBM with weight (V,H), vbias (V), hbias (H)."""
+
+    TYPE = "kRBM"
+    uses_generator = True
+    draws_on_device = True
+
+    def setup(self, src_shapes: Sequence[Shape], batchsize: int) -> Shape:
+        p = self.cfg.rbm_param
+        if p is None or not p.num_hidden:
+            raise ConfigError(
+                f"layer {self.name!r}: rbm_param.num_hidden required"
+            )
+        src = require_one_src(self, src_shapes)
+        vdim = feature_dim(src)
+        self.vdim, self.hdim = vdim, p.num_hidden
+        self.cd_k = max(1, p.cd_k)
+        self.sample_visible = p.sample_visible
+        self.wname = self._declare_param(
+            0, "weight", (vdim, self.hdim),
+            fan_in=vdim * self.hdim,  # the FC convention (layer.cc:178)
+        )
+        self.vbname = self._declare_param(1, "vbias", (vdim,))
+        self.hbname = self._declare_param(2, "hbias", (self.hdim,))
+        return (src[0], self.hdim)
+
+    # ---------------- mean-field propagation ----------------
+
+    def _flat(self, params, v: torch.Tensor) -> torch.Tensor:
+        return v.reshape(v.shape[0], -1).to(params[self.wname].dtype)
+
+    def prop_up(self, params, v: torch.Tensor) -> torch.Tensor:
+        """P(h=1|v) = sigmoid(vW + hbias)."""
+        return torch.sigmoid(
+            self._flat(params, v) @ params[self.wname] + params[self.hbname])
+
+    def prop_down(self, params, h: torch.Tensor) -> torch.Tensor:
+        """P(v=1|h) = sigmoid(hW^T + vbias)."""
+        return torch.sigmoid(h @ params[self.wname].T + params[self.vbname])
+
+    def apply(self, params, inputs, *, training, generator=None):
+        """Feature-extractor view: mean hidden probabilities."""
+        return self.prop_up(params, inputs[0])
+
+    # ---------------- contrastive divergence ----------------
+
+    def cd_grads(self, params, v0, generator):
+        """One CD-k estimate, no autograd -> (grads, metrics).
+
+        Hidden states are sampled while driving the chain, the final
+        hidden uses probabilities, the positive phase uses h0
+        probabilities, and grads are descent-oriented (neg - pos)/batch,
+        so the updaters (which subtract) ascend the log-likelihood. Draw
+        j of the chain comes from ``fold_in(generator, j)``, as the JAX
+        layer folds its key."""
+        v0 = self._flat(params, v0)
+        batch = v0.shape[0]
+        h0p = self.prop_up(params, v0)
+        hk = bernoulli(fold_in(generator, 0), h0p).to(v0.dtype)
+        vkp = v0
+        for k in range(self.cd_k):
+            vkp = self.prop_down(params, hk)
+            vk = (bernoulli(fold_in(generator, 2 * k + 1), vkp).to(v0.dtype)
+                  if self.sample_visible else vkp)
+            hkp = self.prop_up(params, vk)
+            if k + 1 < self.cd_k:
+                # the last step's sampled hidden is never read
+                hk = bernoulli(fold_in(generator, 2 * k + 2),
+                               hkp).to(v0.dtype)
+        grads = {
+            self.wname: (vkp.T @ hkp - v0.T @ h0p) / batch,
+            self.vbname: (vkp - v0).mean(0),
+            self.hbname: (hkp - h0p).mean(0),
+        }
+        return grads, {"loss": (v0 - vkp).square().mean()}
+
+    def recon_error(self, params, v):
+        """Eval metric: one mean-field reconstruction pass."""
+        v = self._flat(params, v)
+        vp = self.prop_down(params, self.prop_up(params, v))
+        return (v - vp).square().mean()

@@ -2,7 +2,9 @@
 [-cluster_conf F] [-seed N] [-device cpu]``.
 
 Counterpart of ``singa_tpu/main.py`` for synchronous data-parallel
-training: it reads the job conf, builds a :class:`Trainer` and runs it.
+training: it reads the job conf, builds its engine with
+:func:`make_trainer` (the CDTrainer for alg kContrastiveDivergence, else
+the Trainer) and runs it.
 The cluster conf gives the workspace (where checkpoints go) and the
 data-parallel width: ``nworkers`` worker groups become ranks over the
 visible GPUs, or over the one ``-device`` named, repeated (``-device
@@ -12,11 +14,12 @@ other knobs the trainer lists. The trainer runs on the GPU unless
 ``-device cpu`` is given.
 
 The LM confs (examples/lm/) and the image nets' (examples/mnist/mlp.conf,
-conv.conf, autoencoder.conf, examples/cifar10/alexnet.conf) run as
-written once their shards exist: ``python -m
-singa_tpu_torch.data.loader synthetic --output DIR`` makes MNIST-shaped
-ones (``--channels 3 --size 32`` CIFAR-shaped), and ``compute-mean``
-the mean file kRGBImage reads.
+conv.conf, autoencoder.conf, rbm.conf, examples/cifar10/alexnet.conf,
+examples/imagenet/resnet50.conf) run as written once their shards
+exist: ``python -m singa_tpu_torch.data.loader synthetic --output DIR``
+makes MNIST-shaped ones (``--channels 3 --size 32`` CIFAR-shaped;
+``imagenet-shaped`` 3 x 256 x 256 over 1000 classes), and
+``compute-mean`` the mean file kRGBImage reads.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import argparse
 import sys
 
 from .config import load_cluster_config, load_model_config
-from .trainer import Trainer
+from .trainer import make_trainer
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -48,7 +51,8 @@ def main(argv: list[str] | None = None) -> int:
     cluster_cfg = (
         load_cluster_config(args.cluster_conf) if args.cluster_conf else None
     )
-    Trainer(model_cfg, cluster_cfg, seed=args.seed, device=args.device).run()
+    make_trainer(model_cfg, cluster_cfg, seed=args.seed,
+                 device=args.device).run()
     return 0
 
 

@@ -1,1 +1,2 @@
-"""Models of the port: the decoder-only transformer LM."""
+"""Models of the port: the decoder-only transformer LM and the ResNet
+job-config generator."""

@@ -4,7 +4,8 @@ Counterpart of ``singa_tpu/ops/activations.py``: the formulas of the
 reference's mshadow scalar op structs (reference:
 include/mshadow/cxxnet_op.h:14-113), written as the JAX package writes
 them so that autograd gives the same gradients (relu's is 0 at exactly
-0, like relu_grad's strict ``a > 0``).
+0, like relu_grad's strict ``a > 0``), sigmoid excepted: its JAX
+gradient overflows to NaN (see :func:`sigmoid`).
 """
 
 from __future__ import annotations
@@ -26,7 +27,11 @@ def relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
-    return 1.0 / (1.0 + torch.exp(-x))
+    """1 / (1 + exp(-x)). ``torch.sigmoid``, whose gradient s * (1 - s)
+    stays finite: the JAX package's formula differentiates to
+    exp(-x) / (1 + exp(-x))^2, which is inf / inf = NaN once exp(-x)
+    overflows (x < -88.7 in float32)."""
+    return torch.sigmoid(x)
 
 
 def stanh(x: torch.Tensor) -> torch.Tensor:

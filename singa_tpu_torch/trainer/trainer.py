@@ -28,7 +28,12 @@ state exist once per device). Loss and metrics are averaged over the
 ranks. Error-feedback residuals live in ``buffers`` under
 ``__gradres__/<param>`` as whole arrays, chunk r (along the ring's chunk
 dim) belonging to rank r: the layout and ``b|`` checkpoint keys of the
-JAX Trainer.
+JAX Trainer. Stateful layers' buffers (kBatchNorm's running stats,
+``<layer>/running_mean``) live beside them, float32 whatever the compute
+dtype; every step updates them in place, so a captured step or eval
+reads the live values. A net with such buffers trains on one rank only
+(the JAX package's BatchNorm is synchronised over the global batch by
+GSPMD; per-rank statistics would be another result).
 
 Host dispatch (the JAX package's jitted step, scan chunks and
 device-resident dataset):
@@ -77,7 +82,9 @@ it rather than ignoring: any parallel axis but the data axis,
 ``zero_update``, the named-axes ``ring { intra_axis/inter_axis }``,
 ``kernels`` fields other than ``grad_allreduce`` and ``interpret``,
 ``resilience``, ``fleet``, ``pipeline_microbatches``, the sharded
-checkpoint format, and the contrastive-divergence and replica engines.
+checkpoint format, the replica engine (``nservers``) and a net with
+buffers on more than one rank. The contrastive-divergence engine is
+``trainer/cd.py``'s CDTrainer (``make_trainer`` picks it).
 Also left out: telemetry (the JAX package attaches its recorder through
 the resilience supervisor, which is not ported), the eval-burst feeder
 of uncached eval streams, and graphs over more than one rank.
@@ -126,8 +133,11 @@ def _now(step: int, freq: int, after: int) -> bool:
 
 
 def unsupported(model_cfg: ModelConfig,
-                cluster_cfg: ClusterConfig | None) -> list[str]:
-    """The conf knobs this engine does not port yet, by name."""
+                cluster_cfg: ClusterConfig | None,
+                net: Net | None = None, ranks: int = 1) -> list[str]:
+    """The conf knobs this engine does not port yet, by name; with the
+    train ``net`` and the data-parallel width ``ranks``, also a net with
+    buffers on more than one rank."""
     out = []
     for knob in ("resilience", "fleet"):
         if getattr(model_cfg, knob, None) is not None:
@@ -144,8 +154,6 @@ def unsupported(model_cfg: ModelConfig,
         out.append("pipeline_microbatches")
     if model_cfg.checkpoint_format != "npz":
         out.append(f"checkpoint_format {model_cfg.checkpoint_format!r}")
-    if model_cfg.alg != "kBackPropagation":
-        out.append(f"alg {model_cfg.alg!r}")
     if cluster_cfg is not None:
         if cluster_cfg.nservers:
             out.append(f"cluster nservers {cluster_cfg.nservers}")
@@ -153,7 +161,21 @@ def unsupported(model_cfg: ModelConfig,
                      "nexperts_per_group", "npipes_per_group"):
             if getattr(cluster_cfg, axis) > 1:
                 out.append(f"cluster {axis} {getattr(cluster_cfg, axis)}")
+    if net is not None and ranks > 1 and net.buffer_specs():
+        out.append(
+            f"a net with buffers on {ranks} ranks (per-rank batch "
+            "statistics, where the JAX package's BatchNorm is synchronised "
+            f"over the global batch; buffers {sorted(net.buffer_specs())[:4]}"
+            " ...)")
     return out
+
+
+def _refuse(missing: list[str]) -> None:
+    if missing:
+        raise ConfigError(
+            "not ported to singa_tpu_torch yet (synchronous "
+            f"data-parallel training only): {', '.join(missing)}"
+        )
 
 
 class Trainer:
@@ -167,6 +189,12 @@ class Trainer:
     (default: by the budget) and ``stream_chunks`` (default:
     ``SINGA_TPU_STREAM_CHUNK``, on) choose ``feeder_mode`` as in the JAX
     Trainer; ``graphs=False`` forces the eager dispatch."""
+
+    #: subclasses whose step does not thread buffers (the CD trainer)
+    #: refuse a net with stateful layers
+    _supports_buffers = True
+    #: subclasses whose step cannot run the quantized ring refuse it
+    _supports_ring_collective = True
 
     def __init__(
         self,
@@ -183,12 +211,7 @@ class Trainer:
         graphs: bool | None = None,
     ):
         dev = resolve_device(device) if mesh is None else None
-        missing = unsupported(model_cfg, cluster_cfg)
-        if missing:
-            raise ConfigError(
-                "not ported to singa_tpu_torch yet (synchronous "
-                f"data-parallel training only): {', '.join(missing)}"
-            )
+        _refuse(unsupported(model_cfg, cluster_cfg))
         if mesh is None and (cluster_cfg is None or not cluster_cfg.nworkers):
             mesh = build_mesh(1, 1, [dev])
         elif mesh is None:
@@ -216,6 +239,16 @@ class Trainer:
             if "kValidation" in phases
             else None
         )
+
+        # --- buffers (stateful layers, e.g. batch-norm running stats) ---
+        buffer_names = sorted(self.train_net.buffer_specs())
+        if buffer_names and not self._supports_buffers:
+            raise ConfigError(
+                f"{type(self).__name__} does not support stateful layers "
+                f"(buffers: {buffer_names})"
+            )
+        _refuse(unsupported(model_cfg, cluster_cfg, self.train_net,
+                            len(mesh.devices)))
 
         # --- params + updater (ParamManager ctor + InitParams) ---
         self.specs = self.train_net.param_specs()
@@ -347,7 +380,8 @@ class Trainer:
         checkpoint (fills Worker::Resume, worker.cc:65-67)."""
         params = init_params(self._init_gen, self.specs, self.device)
         state = self.updater.init_state(params)
-        buffers = init_residuals(params, self._comm)
+        buffers = {**self.train_net.init_buffers(self.device),
+                   **init_residuals(params, self._comm)}
         self._resume_streams: dict[str, int] = {}
         if self.cfg.checkpoint:
             ck_step, params, state, buffers = restore_into(
@@ -464,11 +498,14 @@ class Trainer:
             params = self._replicas[dev]["params"]
             leaves = {nm: params[nm].detach().requires_grad_(True)
                       for nm in names}
-            loss, m = self.train_net.forward(
+            # buffers go uncast; only a net on one rank has stateful
+            # layers (unsupported()), so updates come from rank 0 alone
+            loss, m, updates = self.train_net.forward(
                 self._cast_compute(leaves),
                 self._cast_compute(self._rank_batch(batch, r)),
                 training=True,
                 generator=fold_in(step_gen, r),
+                buffers=self.buffers, return_buffers=True,
             )
             loss.backward()
             # each rank's loss is its local batch mean: / n makes the sum
@@ -479,6 +516,15 @@ class Trainer:
                 for nm in names
             })
             metrics.append(m)
+        self._store_buffers(updates)
+        return self._reduce_and_update(step, grads, metrics)
+
+    def _reduce_and_update(self, step, grads: list, metrics: list) -> dict:
+        """The eager step's tail: the ranks' local grads (already / n)
+        through the reduction, the update of the params they name on
+        every device -> the metrics, averaged over the ranks."""
+        n = len(self.mesh.devices)
+        names = list(grads[0])
         if self._ring_chunk_dims is not None:
             reduced, res = self._ring_reduce(grads, self.buffers)
             # the reduced grads are the same bits on every rank: take the
@@ -496,11 +542,14 @@ class Trainer:
                 )
             by_dev = {dev: {nm: g.to(dev) for nm, g in summed.items()}
                       for dev in self._replicas}
-        self.buffers = {**self.buffers, **res}
+        self._store_buffers(res)
         for dev, rep in self._replicas.items():
-            rep["params"], rep["state"] = self.updater.apply(
-                step, rep["params"], by_dev[dev], rep["state"], self.specs
+            new_p, new_s = self.updater.apply(
+                step, {nm: rep["params"][nm] for nm in names}, by_dev[dev],
+                {nm: rep["state"][nm] for nm in names}, self.specs
             )
+            rep["params"] = {**rep["params"], **new_p}
+            rep["state"] = {**rep["state"], **new_s}
         return {
             layer: {k: functools.reduce(torch.add, (
                 torch.as_tensor(m[layer][k], device=self.device)
@@ -542,6 +591,20 @@ class Trainer:
         the JAX Trainer's messages (the JAX package's zero_update branch
         has no counterpart: the port refuses zero_update by name)."""
         impl = self._comm.wire_impl
+        if not self._supports_ring_collective:
+            raise ConfigError(
+                f"{type(self).__name__} does not support kernels "
+                f"{{ grad_allreduce: {impl} }} (its step does not run the "
+                "per-rank backward the ring reduces)"
+            )
+        if self.train_net.buffer_specs():
+            # the ring's per-rank backward would turn BatchNorm over the
+            # global batch into per-rank statistics (the JAX Trainer
+            # refuses the same)
+            raise ConfigError(
+                f"kernels {{ grad_allreduce: {impl} }} cannot run "
+                "a net with batch-statistics buffers (kBatchNorm)"
+            )
         if self._comm.hier:
             geom = qc.hier_ring_geometry(self.mesh.shape, self._comm)
             if isinstance(geom, str):
@@ -993,9 +1056,10 @@ class Trainer:
         names = list(self.params)
         leaves = {nm: self.params[nm].detach().requires_grad_(True)
                   for nm in names}
-        loss, metrics = self.train_net.forward(
+        loss, metrics, updates = self.train_net.forward(
             self._cast_compute(leaves), self._cast_compute(batch),
             training=True, generator=gen,
+            buffers=self.buffers, return_buffers=True,
         )
         loss.backward()
         grads = {nm: (leaves[nm].grad if leaves[nm].grad is not None
@@ -1006,20 +1070,29 @@ class Trainer:
                 grads, self.buffers, self._comm, self._buckets(names))
         new_p, new_s = self.updater.apply(
             g.step, self.params, grads, self.state, self.specs)
-        self._store_update(new_p, new_s, res)
+        self._store_update(new_p, new_s, {**updates, **res})
         _add_sums(g.sums, metrics)
         self._advance_step()
 
     @torch.no_grad()
     def _store_update(self, new_p: dict, new_s: dict, res: dict) -> None:
-        """Copy the update into the static params, slots and residuals."""
+        """Copy the update into the static params, slots and buffers
+        (running stats and residuals)."""
         for nm, v in new_p.items():
             self.params[nm].copy_(v)
         for nm, slots in new_s.items():
             for s, v in slots.items():
                 self.state[nm][s].copy_(v)
-        for k, v in res.items():
-            self.buffers[k].copy_(v)
+        self._store_buffers(res)
+
+    @torch.no_grad()
+    def _store_buffers(self, updates: dict) -> None:
+        """Copy buffer updates into the Trainer's buffers in place: a
+        captured step or eval reads them at fixed addresses. Entries
+        that are the buffer itself (not updated) are skipped."""
+        for k, v in updates.items():
+            if v is not self.buffers[k]:
+                self.buffers[k].copy_(v)
 
     def _advance_step(self) -> None:
         self._g.step.add_(1)
@@ -1163,10 +1236,11 @@ class Trainer:
 
     @torch.no_grad()
     def _eval_batch_metrics(self, net: Net, batch: dict) -> dict:
-        """One eval batch -> {losslayer: metrics}."""
+        """One eval batch -> {losslayer: metrics}, stateful layers on the
+        live buffers (BatchNorm's running stats)."""
         _, metrics = net.forward(
             self._cast_compute(self.params), self._cast_compute(batch),
-            training=False,
+            training=False, buffers=self.buffers,
         )
         return metrics
 

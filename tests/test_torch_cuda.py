@@ -551,3 +551,128 @@ def test_engine_graphs_give_the_eager_streams(cuda_device, temperature):
         assert eng._decode_graph.captured == graphs
         out.append({r.rid: r.tokens for r in sched.finished})
     assert out[0] == out[1]
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm's running stats and the RBM's draws on the card
+# ---------------------------------------------------------------------------
+
+
+def _bn_conf(shard):
+    return parse_model_config(f"""
+name: "bn-graph-test"
+train_steps: 12
+test_steps: 2
+test_frequency: 6
+updater {{ type: "kSGD" base_learning_rate: 0.05 momentum: 0.9
+          learning_rate_change_method: kFixed }}
+neuralnet {{
+  layer {{ name: "data" type: "kShardData"
+          data_param {{ path: "{shard}" batchsize: 16 }} }}
+  layer {{ name: "mnist" type: "kMnistImage" srclayers: "data"
+          mnist_param {{ norm_a: 255 norm_b: 0 }} }}
+  layer {{ name: "label" type: "kLabel" srclayers: "data" }}
+  layer {{ name: "conv" type: "kConvolution" srclayers: "mnist"
+          convolution_param {{ num_filters: 8 kernel: 3 stride: 2 pad: 1
+                              bias_term: false }}
+          param {{ name: "weight" init_method: kGaussainSqrtFanIn }} }}
+  layer {{ name: "bn" type: "kBatchNorm" srclayers: "conv" }}
+  layer {{ name: "relu" type: "kReLU" srclayers: "bn" }}
+  layer {{ name: "gap" type: "kGlobalPooling" srclayers: "relu" }}
+  layer {{ name: "fc" type: "kInnerProduct" srclayers: "gap"
+          inner_product_param {{ num_output: 10 }}
+          param {{ name: "w" init_method: kGaussain std: 0.1 }}
+          param {{ name: "b" init_method: kConstant value: 0 }} }}
+  layer {{ name: "loss" type: "kSoftmaxLoss" srclayers: "fc"
+          srclayers: "label" }}
+}}
+""")
+
+
+def _bn_shard(tmp_path):
+    from singa_tpu_torch.data.loader import synthetic_arrays
+
+    shard = str(tmp_path / "shard")
+    write_records(shard, *synthetic_arrays(48, seed=2))
+    return shard
+
+
+def test_batchnorm_graphed_chunk_equals_eager_steps_stats_included(
+        cuda_device, tmp_path):
+    """6 replayed steps of a net with BatchNorm == 6 eager steps on the
+    card: params and running stats to the bit, the stats moved."""
+    shard = _bn_shard(tmp_path)
+    a = Trainer(_bn_conf(shard), seed=3, log=lambda s: None)
+    b = Trainer(_bn_conf(shard), seed=3, log=lambda s: None, graphs=False,
+                device_cache=False, prefetch=False)
+    init = {k: v.clone() for k, v in a.buffers.items()}
+    a.train_chunk(0, 6)
+    for step in range(6):
+        b.train_one_batch(step)
+    torch.cuda.synchronize()
+    assert a._g.run.captured and a._g.run.replays == 5
+    for n, v in a.params.items():
+        assert torch.equal(v, b.params[n]), n
+    for k, v in a.buffers.items():
+        assert torch.equal(v, b.buffers[k]), k
+        assert not torch.equal(v, init[k]), k
+
+
+def test_batchnorm_graphed_eval_reads_the_stats_of_eager_steps(cuda_device,
+                                                              tmp_path):
+    """A captured eval, then eager steps on the same trainer: the stats
+    are updated in place, so the replayed eval reads them and gives the
+    metrics of an eager trainer that took the same steps."""
+    shard = _bn_shard(tmp_path)
+    a = Trainer(_bn_conf(shard), seed=3, log=lambda s: None)
+    b = Trainer(_bn_conf(shard), seed=3, log=lambda s: None, graphs=False,
+                device_cache=False, prefetch=False)
+    a.evaluate(a.test_net, 2, "test", 0)
+    a.evaluate(a.test_net, 2, "test", 0)
+    (eg,) = a._eval_g.values()
+    assert eg.run.captured
+    for step in range(3):
+        a._step_core(step, a._next_batch(a.train_net))
+        b.train_one_batch(step)
+    for pipe in a._pipelines[id(a.test_net)].values():
+        pipe.seek(0)
+    got = a.evaluate(a.test_net, 2, "test", 3)
+    want = b.evaluate(b.test_net, 2, "test", 3)
+    assert got == want
+
+
+def test_batchnorm_ops_on_the_card_match_the_cpu(cuda_device):
+    """The training op (forward, grads of x, gamma and beta), unanchored
+    and anchored, and the rescued variance: card vs CPU within 1e-5."""
+    from singa_tpu_torch.ops import norm
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(16, 8, 7, 7, generator=gen) + 2.0
+    dy = torch.randn(16, 8, 7, 7, generator=gen)
+    gamma = 1 + 0.3 * torch.randn(8, generator=gen)
+    beta = 0.2 * torch.randn(8, generator=gen)
+    offset = (torch.randn(16, 8, 7, 7, generator=gen) * 1e-2 + 1e3, None)
+    for xin, shift in ((x, None), (x, torch.full((8,), 2.0)), offset):
+        outs = []
+        for dev in ("cpu", cuda_device):
+            xt = xin.to(dev).requires_grad_(True)
+            g = gamma.to(dev).requires_grad_(True)
+            b = beta.to(dev).requires_grad_(True)
+            y, mean, var = norm.batch_norm_train(
+                xt, g, b, 1e-5, shift=None if shift is None
+                else shift.to(dev))
+            grads = torch.autograd.grad(y, (xt, g, b), dy.to(dev))
+            outs.append([t.detach().cpu() for t in (y, mean, var, *grads)])
+        for got, want in zip(outs[1], outs[0]):
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_rbm_draws_on_the_card_repeat_from_the_seed(cuda_device):
+    from singa_tpu_torch.layers.rbm import bernoulli
+
+    p = torch.rand(256, 512, device=cuda_device)
+    a = bernoulli(torch.Generator().manual_seed(5), p)
+    b = bernoulli(torch.Generator().manual_seed(5), p)
+    c = bernoulli(torch.Generator().manual_seed(6), p)
+    assert a.device.type == "cuda"
+    assert torch.equal(a, b) and not torch.equal(a, c)

@@ -8,6 +8,8 @@ error on the feeder thread surfaces on the step path, and a reset
 discards the read-ahead so the streams can be re-seeked exactly.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -84,8 +86,14 @@ def test_device_prefetch_bitwise_matches_sync(shard, graphs):
         a.train_one_batch(step)
         b.train_one_batch(step)
     assert_same_training_state(a, b)
-    assert b._pipelines[id(b.train_net)]["data"].position != \
-        b._stream_positions()["kTrain|data"]
+    # the feeder thread stages the next batch after the last step's
+    # swap; wait (bounded) for it to have read ahead
+    pipe = b._pipelines[id(b.train_net)]["data"]
+    deadline = time.monotonic() + 30
+    while (pipe.position == b._stream_positions()["kTrain|data"]
+           and time.monotonic() < deadline):
+        time.sleep(0.01)
+    assert pipe.position != b._stream_positions()["kTrain|data"]
     b._reset_feeders()
 
 

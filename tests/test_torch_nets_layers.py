@@ -92,19 +92,19 @@ def assert_acts(jacts, tacts, names):
 
 
 def test_not_ported_is_exactly_the_rest():
-    assert NOT_PORTED == {"kBatchNorm", "kGlobalPooling", "kLMDBData",
-                          "kMoE", "kRBM"}
+    assert NOT_PORTED == {"kLMDBData", "kMoE"}
     for t in ("kConvolution", "kInnerProduct", "kPooling", "kLRN",
               "kReLU", "kTanh", "kSigmoid", "kDropout", "kSoftmaxLoss",
               "kEuclideanLoss", "kMnistImage", "kRGBImage", "kLabel",
-              "kSlice", "kConcate", "kSplit", "kBridgeSrc", "kBridgeDst"):
+              "kSlice", "kConcate", "kSplit", "kBridgeSrc", "kBridgeDst",
+              "kRBM", "kBatchNorm", "kGlobalPooling", "kAdd"):
         assert t in registered_types()
 
 
 def test_unported_type_and_partitioning_still_raise(shards):
     with pytest.raises(ConfigError, match="not ported"):
         t_build_net(t_parse(net_text(shards["mnist"], '''
-  layer { name: "rbm" type: "kRBM" srclayers: "data" }''')))
+  layer { name: "moe" type: "kMoE" srclayers: "data" }''')))
     with pytest.raises(ConfigError, match="partition_type"):
         t_build_net(t_parse(net_text(shards["mnist"], '''
   layer { name: "mnist" type: "kMnistImage" srclayers: "data"

@@ -471,14 +471,14 @@ def test_main_runs_two_steps_on_the_cpu(shard, tmp_path):
 def test_unported_layer_type_is_refused_by_name(shard):
     txt = narrow_conf(shard).replace(
         'layer { name: "ln_f" type: "kLayerNorm"',
-        'layer { name: "ln_f" type: "kBatchNorm"')
-    with pytest.raises(ConfigError, match="kBatchNorm.*not ported"):
+        'layer { name: "ln_f" type: "kMoE"')
+    with pytest.raises(ConfigError, match="kMoE.*not ported"):
         t_build_net(t_parse(txt))
     with pytest.raises(ConfigError, match="unknown layer type"):
-        t_build_net(t_parse(txt.replace("kBatchNorm", "kBogus")))
+        t_build_net(t_parse(txt.replace("kMoE", "kBogus")))
     with pytest.raises(ConfigError, match="partition_type"):
         t_build_net(t_parse(txt.replace(
-            'type: "kBatchNorm"',
+            'type: "kMoE"',
             'type: "kLayerNorm" partition_type: kDataPartition')))
 
 
