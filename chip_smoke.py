@@ -12,7 +12,8 @@ caught and carried on):
   1. env     the card's name and power limit (nvidia-smi), torch and CUDA
              versions, and the nvcc build of every kernel in
              singa_tpu_torch/csrc/ (one nvcc per source, started together),
-             with ptxas's register and spill lines; the flash kernels
+             with ptxas's register and spill lines, then the g++ build of
+             the native codecs (singa_tpu_torch/native); the flash kernels
              (flash_attention.cu, flash_attention_bf16.cu) and the paged
              kernel (paged_attention.cu) must report no spills.
   2. kernel  the paged-attention kernel, both forms, against its plain
@@ -190,6 +191,38 @@ caught and carried on):
              net's shapes with the cancellation rescue and without it,
              peak memory, and one eval batch from the running stats. No
              kernel of csrc/ lies on the rbm or resnet path.
+  12. lmdb   the native codecs (singa_tpu_torch/native, built by g++ into
+             singa_tpu_torch/_build/), LMDB and kLMDBData, on a 60000-record
+             MNIST-shaped shard (the real training set's size): the
+             native shard codec and the Python codec decode to equal
+             arrays; shard2lmdb, then the native LMDB walker and the Python
+             LMDBReader decode to the shard's arrays (with the C=1 dim);
+             lmdb2shard gives the same records back; each step's host ms.
+             examples/mnist/mlp.conf as written with its data layers
+             swapped to kLMDBData on that database, 5 float32 steps eager
+             and as graphed one-step chunks from the seed-0 params: losses
+             equal to the kShardData run's to the bit. Every load but the
+             comparison's Python ones is served by the native codecs
+             (data.pipeline.served); a codec that does not build fails the
+             run. No kernel of csrc/ lies on this path.
+  13. moe    kMoE's dense path (parallel/moe.py's index form):
+             examples/lm/tinylm_moe.conf as written (bf16, batch 64, 4
+             heads, 2 blocks of 8 experts, d_ff 1024, cf 1.25, aux 0.01)
+             over 256 synthetic 256-token sequences, graphed and eager, 30
+             steps each, with SINGA_TPU_DENSE_ATTN_MB at 0 (the bf16 flash
+             kernels: launches = 2 layers x steps of each of the three)
+             and at its default (dense: 0 launches): finite falling
+             losses, graphed within DISPATCH_TOL of eager, step ms and
+             tokens/s, the graphed chunk's device ms and idle share, the
+             largest kernels, peak memory; 5 float32 steps card vs CPU
+             (within NETS_TOL); the index form vs the dense plain form
+             (the JAX form) at full width, forward to the bit and grads
+             within MOE_GRAD_TOL, a planted fault (the capacity mask
+             dropped) that must break it, and both forms' times; then the
+             serve phase's checks on its d128 LM with moe_experts 8 and
+             d_ff 1024 (16 greedy requests, the paged kernel against the
+             reference in turns, launches = layers x (prefill chunks +
+             decode ticks), one stream equal to generate()).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -210,7 +243,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from singa_tpu_torch import _build
+from singa_tpu_torch import _build, native
 from singa_tpu_torch.config import load_model_config
 from singa_tpu_torch.data.loader import (
     compute_mean,
@@ -233,6 +266,7 @@ from singa_tpu_torch.ops import norm as tnorm
 from singa_tpu_torch.ops import nn as tnn
 from singa_tpu_torch.ops import paged_attention as pa
 from singa_tpu_torch.ops import quantized_collective as qc
+from singa_tpu_torch.parallel import moe as tmoe
 from singa_tpu_torch.parallel import apply_grad_comm_tag, build_mesh
 from singa_tpu_torch.serve import Engine, EngineConfig, Request, Scheduler
 from singa_tpu_torch.tools.serve_bench import _percentile
@@ -397,6 +431,20 @@ RESNET_PARITY_STEPS = 3
 #: from 7.2 to 43 in 3 steps, and the stats with it: 1.7e-5 on an H100
 #: (NVIDIA H100 80GB HBM3, 700 W), so a bar of 1e-5 fails sound runs
 RESNET_STATS_TOL = 1e-4
+LMDB_CONF = "examples/mnist/mlp.conf"
+#: the MNIST-shaped shard of the lmdb phase: the real training set's size
+LMDB_RECORDS = 60000
+LMDB_STEPS = 5
+MOE_CONF = "examples/lm/tinylm_moe.conf"
+#: synthetic sequences x tokens (seq 256 is the text loader's default)
+MOE_SEQS = (256, 256)
+MOE_PARITY_STEPS = 5
+#: the conf's MoE width: batch, seq, d_model, experts, d_ff
+MOE_WIDTH = (64, 256, 256, 8, 1024)
+#: index form vs plain: the gate's and x's grads, |diff| / max |grad|.
+#: Their dot products over D (the gate value's cotangent) sum in another
+#: order in the two forms; every other sum has one nonzero term
+MOE_GRAD_TOL = 1e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -2243,6 +2291,340 @@ def resnet_phase(dev, smi):
         ShardDataLayer.LOADER = staticmethod(load_shard_arrays)
 
 
+# ---------------------------------------------------------------------------
+# lmdb phase
+# ---------------------------------------------------------------------------
+
+
+def timed(fn):
+    """-> (fn(), host ms)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def same_arrays(a, b) -> bool:
+    return all(x.dtype == y.dtype and np.array_equal(x, y)
+               for x, y in zip(a, b))
+
+
+def lmdb_config(path: str, layer_type: str):
+    """examples/mnist/mlp.conf as written, its data layers (train and
+    test) of ``layer_type`` on ``path``."""
+    cfg = load_model_config(os.path.join(REPO, LMDB_CONF))
+    cfg.checkpoint = None
+    for layer in cfg.neuralnet.layer:
+        if layer.type == "kShardData":
+            layer.type = layer_type
+            layer.data_param.path = path
+    return cfg
+
+
+def lmdb_losses(dev, path, layer_type, graphed):
+    """LMDB_STEPS float32 steps from the seed-0 params: eager per-step
+    steps on host batches, or one-step graphed chunks on the cached
+    dataset (replays after the capture) -> per-step losses."""
+    kw = {} if graphed else dict(graphs=False, device_cache=False,
+                                 prefetch=False)
+    tr = Trainer(lmdb_config(path, layer_type), seed=0, log=lambda s: None,
+                 device=dev, **kw)
+    check(tr.dispatch_mode == ("graph" if graphed else "eager"),
+          f"lmdb {layer_type}: dispatch {tr.dispatch_mode}")
+    losses = []
+    for step in range(LMDB_STEPS):
+        if graphed:
+            tr.train_chunk(step, 1)
+        else:
+            tr.train_one_batch(step)
+        losses.append(tr.perf.avg()["loss"]["loss"])
+        tr.perf.reset()
+    if graphed:
+        check(tr._g.run.captured, f"lmdb {layer_type}: never captured")
+    return losses
+
+
+def lmdb_phase(dev, smi):
+    """The native codecs, LMDB and kLMDBData. No kernel of csrc/ lies on
+    this path: the codecs run on the host (g++ builds them into
+    singa_tpu_torch/_build/); training runs PyTorch's own kernels."""
+    from singa_tpu_torch.data import pipeline as tp
+    from singa_tpu_torch.data.loader import lmdb_to_shard, shard_to_lmdb
+
+    rec = {"records": LMDB_RECORDS, "card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        shard, db, back = (os.path.join(tmp, k)
+                           for k in ("mnist", "mnist_lmdb", "roundtrip"))
+        write_records(shard, *synthetic_arrays(LMDB_RECORDS, seed=0))
+        served = dict(tp.served)
+        shard_arr, rec["shard_native_ms"] = timed(
+            lambda: tp.load_shard_arrays(shard))
+        shard_py, rec["shard_python_ms"] = timed(
+            lambda: tp.python_shard_arrays(shard))
+        check(same_arrays(shard_arr, shard_py),
+              "lmdb: native and Python shard codecs decode differently")
+        _, rec["shard2lmdb_ms"] = timed(lambda: shard_to_lmdb(shard, db))
+        lmdb_arr, rec["lmdb_native_ms"] = timed(
+            lambda: tp.load_lmdb_arrays(db))
+        lmdb_py, rec["lmdb_python_ms"] = timed(
+            lambda: tp.python_lmdb_arrays(db))
+        check(same_arrays(lmdb_arr, lmdb_py),
+              "lmdb: native walker and LMDBReader decode differently")
+        check(lmdb_arr[0].shape == (LMDB_RECORDS, 1, 28, 28)
+              and np.array_equal(lmdb_arr[0][:, 0], shard_arr[0])
+              and np.array_equal(lmdb_arr[1], shard_arr[1]),
+              "lmdb: the database's arrays differ from the shard's")
+        _, rec["lmdb2shard_ms"] = timed(lambda: lmdb_to_shard(db, back))
+        check(same_arrays(tp.load_shard_arrays(back), lmdb_arr),
+              "lmdb: lmdb2shard's records differ from the database's")
+        runs = {}
+        for layer_type, path in (("kShardData", shard), ("kLMDBData", db)):
+            for graphed in (False, True):
+                tag = f"{layer_type}_{'graphed' if graphed else 'eager'}"
+                runs[tag] = lmdb_losses(dev, path, layer_type, graphed)
+                check(all(np.isfinite(runs[tag])),
+                      f"lmdb {tag}: non-finite loss")
+        for mode in ("eager", "graphed"):
+            check(runs[f"kLMDBData_{mode}"] == runs[f"kShardData_{mode}"],
+                  f"lmdb: kLMDBData losses ({mode}) differ from "
+                  "kShardData's")
+        rec["losses"] = runs
+        rec["served"] = {k: tp.served[k] - served.get(k, 0)
+                         for k in tp.served}
+    check(rec["served"].get("shard/python", 0) == 1
+          and rec["served"].get("lmdb/python", 0) == 1,
+          "lmdb: the Python codecs served a load other than the "
+          f"comparison's: {rec['served']}")
+    check(rec["served"].get("shard/native", 0) >= 3
+          and rec["served"].get("lmdb/native", 0) >= 2,
+          f"lmdb: the native codecs did not serve: {rec['served']}")
+    print("lmdb", json.dumps(rec))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# moe phase
+# ---------------------------------------------------------------------------
+
+
+def moe_config(shard: str, dtype=None):
+    """examples/lm/tinylm_moe.conf as written (``dtype`` overrides its
+    compute_dtype) on ``shard``."""
+    cfg = load_model_config(os.path.join(REPO, MOE_CONF))
+    if dtype:
+        cfg.compute_dtype = dtype
+    for layer in cfg.neuralnet.layer:
+        if layer.type == "kSequenceData":
+            layer.data_param.path = shard
+    return cfg
+
+
+def moe_train_run(dev, shard, smi, flash: bool):
+    """The conf as written (bf16) from the seed-0 params, graphed
+    (DISPATCH_STEPS steps as chunks of DISPATCH_WINDOW on the cached
+    dataset) and eager (host batches): finite, falling window losses,
+    graphed within DISPATCH_TOL of eager, the bf16 flash kernels'
+    launches = attention layers x steps on the flash route (the score
+    switch at 0) and 0 on the dense one (its default); then the times
+    (dispatch_times) and the peak memory above what was allocated
+    before."""
+    tag = "flash" if flash else "dense"
+    os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "0" if flash else "512"
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    graph = Trainer(moe_config(shard), seed=0, log=lambda s: None,
+                    device=dev)
+    eager = Trainer(moe_config(shard), seed=0, log=lambda s: None,
+                    device=dev, graphs=False, device_cache=False,
+                    prefetch=False)
+    check(graph.dispatch_mode == "graph" and graph.feeder_mode == "cached",
+          f"moe {tag}: not a graphed step on the cached dataset")
+    layers = sum(l.type == "kAttention" for l in graph.cfg.neuralnet.layer)
+    want = flash_launches(torch.bfloat16,
+                          layers * DISPATCH_STEPS if flash else 0)
+    windows, launches = {}, {}
+    for name, tr in (("graphed", graph), ("eager", eager)):
+        for fn, _, _ in FLASH.values():
+            fn.launches = 0
+        windows[name] = window_losses(tr)
+        launches[name] = {n: fn.launches for n, (fn, _, _) in FLASH.items()}
+        check(launches[name] == want, f"moe {tag} {name}: flash launches "
+              f"{launches[name]} != {want}")
+        check(all(np.isfinite(windows[name])),
+              f"moe {tag} {name}: non-finite loss")
+        check(windows[name][-1] < windows[name][0],
+              f"moe {tag} {name}: loss did not fall")
+    rel = rel_diff(windows["graphed"], windows["eager"])
+    check(rel <= DISPATCH_TOL, f"moe {tag}: graphed and eager losses differ")
+    check(graph._g.run.captured, f"moe {tag}: the step was never captured")
+    out = {"run": tag, "conf": MOE_CONF, "steps": DISPATCH_STEPS,
+           "windows": windows, "rel_diff": rel, "launches": launches,
+           **dispatch_times(graph, eager, DISPATCH_STEPS,
+                            graph.tokens_per_step),
+           # both trainers' params, states and datasets, the graph's
+           # pool, over what earlier phases left allocated
+           "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+           "card": smi}
+    print("moe train", json.dumps(out))
+    del graph, eager
+    release()
+    os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "512"
+    return out
+
+
+def moe_parity(dev, shard, smi):
+    """MOE_PARITY_STEPS float32 steps of the conf on the card and on the
+    CPU from the same seed-0 params: losses within NETS_TOL relative."""
+    os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "512"
+    card = Trainer(moe_config(shard, "float32"), seed=0, log=lambda s: None,
+                   device=dev)
+    host = Trainer(moe_config(shard, "float32"), seed=0, log=lambda s: None,
+                   device="cpu")
+    ours, _ = net_steps(card, 0, MOE_PARITY_STEPS)
+    ref, _ = net_steps(host, 0, MOE_PARITY_STEPS)
+    rel = rel_diff(ours, ref)
+    print(f"moe: card vs CPU over {MOE_PARITY_STEPS} float32 steps, max "
+          f"relative loss difference {rel:.3e} (tol {NETS_TOL:g}); card "
+          f"{' '.join(f'{x:.7f}' for x in ours)} [{smi}]")
+    check(rel <= NETS_TOL, "moe: card and CPU losses differ")
+    del card, host
+    release()
+    return rel
+
+
+def moe_forms(dev, dtype):
+    """The index form (the main path) and the dense plain form (the JAX
+    form) at the conf's width (MOE_WIDTH: N = 64 x 256 tokens, D 256, E
+    8, F 1024; cf 1.25) on the same seeded inputs -> (y, aux and, at float32, the
+    grads of sum(y * dy) + aux) of each."""
+    rs = np.random.RandomState(0)
+    b, s, d, n_exp, f = MOE_WIDTH
+    # x's mean shifts each expert's logit by its own amount: the load is
+    # uneven and the fullest queues drop tokens at cf 1.25
+    x = torch.from_numpy(rs.randn(b, s, d).astype(np.float32) + 0.5)
+    p = {"gate": rs.randn(d, n_exp) / np.sqrt(d),
+         "up": rs.randn(n_exp, d, f) / np.sqrt(d),
+         "down": rs.randn(n_exp, f, d) / np.sqrt(f)}
+    dy = torch.from_numpy(rs.randn(b, s, d).astype(np.float32)).to(dev)
+    out = {}
+    for form, fn in (("index", tmoe.moe_ffn_dense),
+                     ("plain", tmoe.moe_ffn_dense_plain)):
+        tx = x.to(dev, dtype).requires_grad_(dtype == torch.float32)
+        tp = {k: torch.from_numpy(v.astype(np.float32)).to(dev, dtype)
+              .requires_grad_(dtype == torch.float32) for k, v in p.items()}
+        y, aux = fn(tx, tp, 1.25)
+        grads = {}
+        if dtype == torch.float32:
+            ((y * dy).sum() + aux).backward()
+            grads = {"x": tx.grad, **{k: v.grad for k, v in tp.items()}}
+        out[form] = (y.detach(), aux.detach(), grads)
+    x2d = x.reshape(-1, d).to(dev)
+    *_, pos = tmoe._probs_and_choice(x2d, torch.from_numpy(
+        p["gate"].astype(np.float32)).to(dev))
+    out["drops"] = int((pos >= tmoe.capacity_of(len(x2d), n_exp, 1.25))
+                       .sum())
+    return out
+
+
+def moe_index_check(dev, smi):
+    """Index form vs plain at full width on the card: the forward
+    (float32 and bf16) to the bit, every grad within MOE_GRAD_TOL of its
+    largest entry (printed: 0.0 where equal to the bit); then
+    a planted fault (the capacity mask dropped: over-capacity tokens
+    spill into the next expert's places) must break the forward's
+    equality. Times of both forms' forward + backward."""
+    rec = {"card": smi}
+    for dtype in (torch.float32, torch.bfloat16):
+        o = moe_forms(dev, dtype)
+        (y, aux, g), (y0, aux0, g0) = o["index"], o["plain"]
+        name = str(dtype).split(".")[-1]
+        rec["dropped_tokens"] = o["drops"]
+        check(o["drops"] > 0, "moe: no token dropped; the capacity path "
+              "is not exercised")
+        rec[f"forward_bitwise_{name}"] = bool(torch.equal(y, y0)
+                                               and torch.equal(aux, aux0))
+        check(rec[f"forward_bitwise_{name}"],
+              f"moe: index and plain forms differ ({name})")
+        for k in g:
+            diff = float((g[k] - g0[k]).abs().max() / g0[k].abs().max())
+            rec[f"grad_{k}_rel"] = diff
+            check(diff <= MOE_GRAD_TOL, f"moe: grad of {k} differs by "
+                  f"{diff}")
+    slots = tmoe._slots
+    tmoe._slots = lambda expert, pos, c, e: (
+        expert * c + pos.long()).clamp(max=e * c)
+    try:
+        o = moe_forms(dev, torch.float32)
+    finally:
+        tmoe._slots = slots
+    rec["fault_max_abs"] = float((o["index"][0] - o["plain"][0]).abs().max())
+    check(rec["fault_max_abs"] > 0,
+          "moe: the capacity-mask fault passes the index vs plain check")
+    # times, forward + backward of each form at float32
+    rs = np.random.RandomState(1)
+    b, s, d, n_exp, f = MOE_WIDTH
+    x = torch.from_numpy(rs.randn(b, s, d).astype(np.float32)).to(dev)
+    p = {k: torch.from_numpy(rs.randn(*shape).astype(np.float32) * 0.05)
+         .to(dev) for k, shape in (("gate", (d, n_exp)),
+                                   ("up", (n_exp, d, f)),
+                                   ("down", (n_exp, f, d)))}
+    flush = torch.empty(16 << 20, dtype=torch.float32, device=dev)
+    for form, fn in (("index", tmoe.moe_ffn_dense),
+                     ("plain", tmoe.moe_ffn_dense_plain)):
+        def call(fn=fn):
+            xg = x.detach().requires_grad_(True)
+            y, aux = fn(xg, {k: v.detach().requires_grad_(True)
+                             for k, v in p.items()}, 1.25)
+            (y.sum() + aux).backward()
+        rec[f"{form}_fwd_bwd_ms"] = time_ms(call, flush, iters=5)
+    print("moe forms", json.dumps(rec))
+    release()
+    return rec
+
+
+def moe_engine_split(dev, smi, cfg, params):
+    """One graphed decode call of the MoE LM and of the same LM with its
+    dense FFN (the serve phase's model), split by where the time goes
+    (dispatch_turns.engine_split)."""
+    import dataclasses
+
+    from singa_tpu_torch.tools.dispatch_turns import engine_split
+
+    dense = dataclasses.replace(cfg, moe_experts=0)
+    for tag, c, p in (("moe", cfg, params), ("dense", dense, init_lm(
+            torch.Generator().manual_seed(0), dense, dev))):
+        split = engine_split(Engine(p, c, EngineConfig(
+            slots=8, kv_block_len=16, max_prefill_chunk=64), device=dev))
+        print(f"moe serve engine call {tag}", json.dumps(split), f"[{smi}]")
+
+
+def moe_phase(dev, smi):
+    """kMoE's dense path: tinylm_moe.conf trained as written through the
+    bf16 flash kernels and through dense attention, card vs CPU, the
+    index form vs its plain version, and the serve phase's d128 LM with 8
+    experts behind the Engine (the paged-attention kernel). -> the
+    kernels' launch counts on the moe train (flash) and serve paths."""
+    with tempfile.TemporaryDirectory() as tmp:
+        shard = os.path.join(tmp, "tokens")
+        write_records(shard, *synthetic_token_arrays(
+            MOE_SEQS[0], seq_len=MOE_SEQS[1], vocab=256, seed=0))
+        runs = {flash: moe_train_run(dev, shard, smi, flash)
+                for flash in (True, False)}
+        moe_parity(dev, shard, smi)
+    moe_index_check(dev, smi)
+    cfg = TransformerConfig(vocab=256, d_model=256, n_heads=2, n_layers=2,
+                            d_ff=1024, max_len=2048, moe_experts=8)
+    params = init_lm(torch.Generator().manual_seed(0), cfg, dev)
+    print(f"moe serve: the serve phase's LM with moe_experts "
+          f"{cfg.moe_experts}, d_ff {cfg.d_ff} [{smi}]")
+    serve_launches = serve_phase(dev, cfg, params)
+    moe_engine_split(dev, smi, cfg, params)
+    del params
+    release()
+    return {**runs[True]["launches"]["graphed"],
+            "paged_attention": serve_launches}
+
+
 def short_kernel_name(mangled: str) -> str:
     """'_ZN12_GLOBAL__N_124flash_bwd_dq_bf16_kernelILi128ELb1EEEv...' ->
     'flash_bwd_dq_bf16_kernel<128,1>' (the last name of the nested name,
@@ -2301,6 +2683,11 @@ def main() -> int:
     print(f"kernel build {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'already built'})")
     spills = ptxas_report(logs)
+    t0 = time.perf_counter()
+    libs = [os.path.basename(native.build(n))
+            for n in ("shardcodec", "lmdbcodec")]
+    print(f"native codec build (g++) {time.perf_counter() - t0:.1f} s: "
+          f"{', '.join(libs)}")
     for lib in SPILL_FREE:
         check(lib in logs, f"{lib}: no ptxas report (not built by this "
               "run)")
@@ -2326,6 +2713,8 @@ def main() -> int:
         nets_phase(dev, smi, shards)
         dispatch_phase(dev, smi, cfg, params, shards["ae_init"])
     resnet_phase(dev, smi)
+    lmdb_phase(dev, smi)
+    moe_launches = moe_phase(dev, smi)
 
     kernels = []
     for name, case in (("paged_attention", "decode"),
@@ -2338,6 +2727,8 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+        if name == "paged_attention":
+            kernels[-1]["moe_serve_launches"] = moe_launches[name]
     # the bf16 route (the main path's), then the float32 route, whose
     # launches are those of the train phase's first float32 flash run
     for dtype, suffix, counts in ((torch.bfloat16, "", launches),
@@ -2356,6 +2747,8 @@ def main() -> int:
             if name == "flash_bwd":
                 kernels[-1]["replaces_also"] = (
                     "singa_tpu/ops/attention.py:451")
+            if dtype == torch.bfloat16:
+                kernels[-1]["moe_train_launches"] = moe_launches[name]
     kernels.append({
         "name": "quant_acc", "route": "cuda", "source": RING_SOURCE,
         "replaces": RING_REPLACES, "launches": launches["quant_acc"],

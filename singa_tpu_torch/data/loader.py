@@ -1,15 +1,17 @@
 """Dataset -> shard converter CLI: the port's part of
 ``singa_tpu/data/loader.py``.
 
-Ported: :func:`write_records` (on the Python shard writer; the
-original tries its native C++ encoder first, which writes the same
-bytes), the MNIST idx and CIFAR-10 binary readers, the mean file, the
-synthetic image and token sources, and their subcommands; and an
-ImageNet-shaped synthetic source of the port's own
-(``imagenet-shaped``, for examples/imagenet/resnet50.conf). Left out:
-``digits`` (it needs sklearn, which the GPU machine lacks; ``synthetic``
-is the learnable stand-in), ``imagenet`` (PIL), the shard split and the
-LMDB interop (kLMDBData is not ported).
+Ported: :func:`write_records` (the native C++ encoder first for a fresh
+shard, as in the original; appends take the Python writer, whose key
+set deduplicates against the existing records), the MNIST idx and
+CIFAR-10 binary readers, the mean file, the synthetic image and token
+sources, the shard split (the reference's Split/SplitN, ``equal`` and
+``head``) and the LMDB interop (``shard2lmdb``/``lmdb2shard``, for
+kLMDBData confs), and their subcommands; and an ImageNet-shaped
+synthetic source of the port's own (``imagenet-shaped``, for
+examples/imagenet/resnet50.conf). Left out: ``digits`` (it needs
+sklearn, which the GPU machine lacks; ``synthetic`` is the learnable
+stand-in) and ``imagenet`` (PIL).
 
 Shards are opened in append mode so a crashed run resumes where it
 stopped (the reference's data_loader.cc:12-14,122), and MNIST idx files
@@ -28,6 +30,9 @@ Usage:
   python -m singa_tpu_torch.data.loader compute-mean --input DIR --output mean.npy
   python -m singa_tpu_torch.data.loader text --input corpus.txt --output DIR [--seq-len 256]
   python -m singa_tpu_torch.data.loader tokens --output DIR --n 1000 [--seq-len 128] [--vocab 64]
+  python -m singa_tpu_torch.data.loader split --input DIR --prefix P --n N [--mode equal|head]
+  python -m singa_tpu_torch.data.loader shard2lmdb --input DIR --output DIR
+  python -m singa_tpu_torch.data.loader lmdb2shard --input DIR --output DIR
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ import sys
 import numpy as np
 
 from .records import ImageRecord, encode_record
-from .shard import ShardWriter
+from .shard import ShardReader, ShardWriter, shard_path
 
 
 def _key(i: int) -> str:
@@ -51,10 +56,18 @@ def write_records(
     folder: str, images: np.ndarray, labels: np.ndarray, append: bool = True
 ) -> int:
     """Write uint8 images (or token sequences) + labels as Records;
-    returns #inserted. The writer's key set deduplicates against
-    existing records, matching the reference loader's resume semantics."""
+    returns #inserted.
+
+    A fresh shard is encoded by the native codec (the same bytes as the
+    Python writer); an append goes through the Python writer, whose key
+    set deduplicates against the existing records, matching the
+    reference loader's resume semantics."""
+    from .. import native
+
     images = np.asarray(images, dtype=np.uint8)
     os.makedirs(folder, exist_ok=True)
+    if not (append and os.path.exists(shard_path(folder))):
+        return native.write_records(shard_path(folder), images, labels)
     n = 0
     with ShardWriter(folder, append=append) as w:
         for i, (img, label) in enumerate(zip(images, labels)):
@@ -254,6 +267,89 @@ def synthetic_token_arrays(
     return seqs, np.zeros(n, dtype=np.uint8)
 
 
+# ---------------------------- split (reference Split/SplitN) -----------
+
+
+def split_shard(input_dir: str, prefix: str, n: int, mode: str = "equal"):
+    """Split a shard into ``<prefix>-<i>`` shards: ``equal`` makes ``n``
+    parts (the first takes the remainder), ``head`` puts the first ``n``
+    records into ``-0`` and the rest into ``-1``."""
+    with ShardReader(input_dir) as reader:
+        tuples = list(reader)
+    total = len(tuples)
+    if mode == "equal":
+        if n >= total:
+            raise ValueError("too many sub-shards")
+        sizes = [total // n + (total % n if i == 0 else 0) for i in range(n)]
+        pos = 0
+        for i, sz in enumerate(sizes):
+            with ShardWriter(f"{prefix}-{i}", append=True) as w:
+                for k, v in tuples[pos : pos + sz]:
+                    w.insert(k, v)
+                w.flush()
+            pos += sz
+    else:  # head: first n records into -0, rest into -1
+        if n >= total:
+            raise ValueError("sub shard must be smaller than original")
+        for i, chunk in enumerate((tuples[:n], tuples[n:])):
+            with ShardWriter(f"{prefix}-{i}", append=True) as w:
+                for k, v in chunk:
+                    w.insert(k, v)
+                w.flush()
+
+
+# ------------------- LMDB interop (reference kLMDBData) -------------------
+
+
+def shard_to_lmdb(input_dir: str, output_dir: str) -> int:
+    """Re-encode a shard as a Caffe-style LMDB of Datum messages, keyed
+    like Caffe's convert tools (%08d). Lets kLMDBData configs run against
+    data produced by this loader."""
+    from .lmdbio import LMDBError, write_lmdb
+    from .records import Datum, decode_record, encode_datum
+
+    def datums():
+        with ShardReader(input_dir) as reader:
+            for key, val in reader:
+                rec = decode_record(val)
+                shape = list(rec.shape) + [1] * (3 - len(rec.shape))
+                if len(rec.shape) == 2:  # (H,W) grayscale -> C=1
+                    shape = [1, rec.shape[0], rec.shape[1]]
+                d = Datum(
+                    channels=shape[0], height=shape[1], width=shape[2],
+                    data=rec.pixel, label=rec.label, float_data=rec.data,
+                )
+                # latin-1 mirrors lmdb_to_shard's decode: keys are raw bytes
+                yield (key.encode("latin-1") if isinstance(key, str)
+                       else key, encode_datum(d))
+
+    try:
+        # loader-written shards insert zero-padded ascending keys, so the
+        # streaming O(page)-memory path normally wins
+        return write_lmdb(output_dir, datums(), assume_sorted=True)
+    except LMDBError as e:
+        if "out of order" not in str(e):
+            raise
+        return write_lmdb(output_dir, datums())
+
+
+def lmdb_to_shard(input_dir: str, output_dir: str) -> int:
+    """Convert a Caffe LMDB into a shard."""
+    from .lmdbio import LMDBReader
+    from .records import datum_to_image_record, decode_datum
+
+    n = 0
+    with LMDBReader(input_dir) as reader, ShardWriter(
+        output_dir, append=True
+    ) as w:
+        for key, val in reader:
+            rec = datum_to_image_record(decode_datum(val))
+            if w.insert(key.decode("latin-1"), encode_record(rec)):
+                n += 1
+        w.flush()
+    return n
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="singa_tpu_torch.data.loader")
     sub = ap.add_subparsers(dest="source", required=True)
@@ -301,6 +397,20 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--vocab", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
 
+    p = sub.add_parser("shard2lmdb")
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+
+    p = sub.add_parser("lmdb2shard")
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+
+    p = sub.add_parser("split")
+    p.add_argument("--input", required=True)
+    p.add_argument("--prefix", required=True)
+    p.add_argument("--n", type=int, required=True)
+    p.add_argument("--mode", choices=("equal", "head"), default="equal")
+
     args = ap.parse_args(argv)
     if args.source == "mnist":
         images = read_idx_images(args.image_file)
@@ -333,12 +443,22 @@ def main(argv: list[str] | None = None) -> int:
             args.output, *text_token_arrays(args.input, args.seq_len,
                                             args.stride)
         )
-    else:
+    elif args.source == "tokens":
         n = write_records(
             args.output,
             *synthetic_token_arrays(args.n, args.seq_len, args.vocab,
                                     args.seed),
         )
+    elif args.source == "shard2lmdb":
+        n = shard_to_lmdb(args.input, args.output)
+        print(f"wrote {n} datums into {os.path.join(args.output, 'data.mdb')}")
+        return 0
+    elif args.source == "lmdb2shard":
+        n = lmdb_to_shard(args.input, args.output)
+    else:
+        split_shard(args.input, args.prefix, args.n, args.mode)
+        print(f"split {args.input} -> {args.prefix}-*")
+        return 0
     print(f"inserted {n} records into {os.path.join(args.output, 'shard.dat')}")
     return 0
 

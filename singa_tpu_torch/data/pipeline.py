@@ -1,12 +1,18 @@
-"""Host-side input pipeline: shard -> batched numpy arrays.
+"""Host-side input pipeline: shard or LMDB -> batched numpy arrays.
 
-Counterpart of ``singa_tpu/data/pipeline.py``, with what the training
-slice needs: :func:`load_shard_arrays` on the Python record codec and
-:class:`BatchPipeline`, with the methods the device-resident dataset
-and the multi-step chunks drive (``advance``, ``next_indices``,
-``steps_per_epoch``). Left out: the native C++ codec the original tries
-first (``singa_tpu/native``; the Python codec here gives the same
-arrays) and ``load_lmdb_arrays`` (kLMDBData is not ported yet).
+Counterpart of ``singa_tpu/data/pipeline.py``: :func:`load_shard_arrays`
+and :func:`load_lmdb_arrays` decode through the native C++ codecs first
+(``singa_tpu_torch/native``), as the original does, and
+:class:`BatchPipeline` has the methods the device-resident dataset and
+the multi-step chunks drive (``advance``, ``next_indices``,
+``steps_per_epoch``).
+
+The native codecs hand a dataset to the Python codec
+(:func:`python_shard_arrays`, :func:`python_lmdb_arrays`) in one case
+only, mixed per-record geometry; a failed build or a malformed record
+raises. :data:`served` counts which codec served each load
+(``"shard/native"``, ``"shard/python"``, ``"lmdb/native"``,
+``"lmdb/python"``), so a caller can check that the native path ran.
 
 Replaces the reference's DataLayer machinery
 (ShardDataLayer::ComputeFeature, src/worker/layer.cc:646-673): it
@@ -16,10 +22,16 @@ delivers raw record batches with the reference's sequencing semantics
 
 from __future__ import annotations
 
+import collections
+import os
+
 import numpy as np
 
 from .records import decode_record
-from .shard import ShardReader
+from .shard import ShardError, ShardReader, shard_path
+
+#: loads served, by "<format>/<codec>"
+served: collections.Counter = collections.Counter()
 
 
 def load_shard_arrays(folder: str) -> tuple[np.ndarray, np.ndarray]:
@@ -27,7 +39,24 @@ def load_shard_arrays(folder: str) -> tuple[np.ndarray, np.ndarray]:
 
     Images come back as float32 with the record's own shape appended after
     the batch dim; uint8 ``pixel`` payloads are widened (the reference's
-    cast-to-uint8-then-float dance, layer.cc:390-400)."""
+    cast-to-uint8-then-float dance, layer.cc:390-400). The native codec
+    decodes uniform-geometry shards; a shard of mixed geometry goes to
+    the Python codec."""
+    from .. import native
+
+    path = shard_path(folder)
+    if not os.path.exists(path):
+        raise ShardError(f"no shard.dat under {folder!r}")
+    fast = native.load_dataset(path)
+    if fast is None:
+        return python_shard_arrays(folder)
+    served["shard/native"] += 1
+    return fast
+
+
+def python_shard_arrays(folder: str) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`load_shard_arrays` on the Python codec: its mixed-geometry
+    case, and the reference the native codec is held to."""
     images: list[np.ndarray] = []
     labels: list[int] = []
     with ShardReader(folder) as reader:
@@ -44,6 +73,64 @@ def load_shard_arrays(folder: str) -> tuple[np.ndarray, np.ndarray]:
             labels.append(rec.label)
     if not images:
         raise ValueError(f"shard {folder!r} holds no records")
+    served["shard/python"] += 1
+    return np.stack(images), np.asarray(labels, dtype=np.int32)
+
+
+def load_lmdb_arrays(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """Decode every Datum in a Caffe LMDB into (images, labels) arrays,
+    the in-memory equivalent of LMDBDataLayer's cursor loop + conversion
+    (reference layer.cc:237-328).
+
+    Uniform-geometry databases decode through the native C++ walker (like
+    the reference's liblmdb path); a database of mixed geometry goes to
+    the pure-Python B+tree reader, which cannot batch it either and
+    raises a clear error."""
+    from .. import native
+    from .lmdbio import lmdb_data_path
+
+    fast = native.load_lmdb_dataset(lmdb_data_path(path))
+    if fast is None:
+        return python_lmdb_arrays(path)
+    served["lmdb/native"] += 1
+    return fast
+
+
+def python_lmdb_arrays(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`load_lmdb_arrays` on the Python reader: its mixed-geometry
+    case, and the reference the native walker is held to."""
+    from .lmdbio import LMDBReader
+    from .records import datum_to_image_record, decode_datum
+
+    images: list[np.ndarray] = []
+    labels: list[int] = []
+    first_shape: tuple | None = None
+    with LMDBReader(path) as reader:
+        for key, val in reader:
+            rec = datum_to_image_record(decode_datum(val))
+            shape = tuple(rec.shape) if any(rec.shape) else (-1,)
+            if rec.pixel:
+                img = np.frombuffer(rec.pixel, dtype=np.uint8).astype(
+                    np.float32
+                )
+            else:
+                img = np.asarray(rec.data, dtype=np.float32)
+            img = img.reshape(shape)
+            # compare post-reshape shapes so shapeless records (which all
+            # normalize to (-1,)) still trip on differing lengths
+            if first_shape is None:
+                first_shape = img.shape
+            elif img.shape != first_shape:
+                raise ValueError(
+                    f"LMDB {path!r}: record {key!r} has shape {img.shape}, "
+                    f"others {first_shape} — mixed geometry cannot be "
+                    "batched; re-export at a uniform size"
+                )
+            images.append(img)
+            labels.append(rec.label)
+    if not images:
+        raise ValueError(f"LMDB {path!r} holds no records")
+    served["lmdb/python"] += 1
     return np.stack(images), np.asarray(labels, dtype=np.int32)
 
 

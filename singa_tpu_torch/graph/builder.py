@@ -187,6 +187,10 @@ class Net:
                 total_loss = total_loss + loss
                 metrics[layer.name] = m
                 acts[layer.name] = loss
+            elif layer.has_aux_loss:
+                out, aux = out
+                total_loss = total_loss + layer.aux_weight * aux
+                acts[layer.name] = out
             else:
                 acts[layer.name] = out
         extra = []

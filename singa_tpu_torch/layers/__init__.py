@@ -2,11 +2,11 @@
 
 Counterpart of ``singa_tpu/layers/__init__.py``: a string-keyed factory
 mirroring the reference's Factory<Layer> (src/worker/neuralnet.cc:13-33).
-It registers the types the port has: the conf-driven transformer LM's
-vocabulary, the image nets' (neuron, loss, parser and connector
-layers), kShardData, kRBM, and ResNet's kBatchNorm, kAdd and
-kGlobalPooling. A type the JAX package has and the port does
-not yet raises a ConfigError that says so; nothing is skipped.
+It registers every layer type of the JAX package: the conf-driven
+transformer LM's vocabulary with kMoE, the image nets' (neuron, loss,
+parser and connector layers), kShardData and kLMDBData, kRBM, and
+ResNet's kBatchNorm, kAdd and kGlobalPooling. Any other type raises a
+ConfigError that lists the registered ones.
 """
 
 from __future__ import annotations
@@ -20,7 +20,13 @@ from .connector import (
     SliceLayer,
     SplitLayer,
 )
-from .data import LabelLayer, MnistImageLayer, RGBImageLayer, ShardDataLayer
+from .data import (
+    LabelLayer,
+    LMDBDataLayer,
+    MnistImageLayer,
+    RGBImageLayer,
+    ShardDataLayer,
+)
 from .loss import EuclideanLossLayer, SoftmaxLossLayer
 from .neuron import (
     ConvolutionLayer,
@@ -40,14 +46,11 @@ from .sequence import (
     EmbeddingLayer,
     LayerNormLayer,
     LMLossLayer,
+    MoELayer,
     SequenceDataLayer,
 )
 
 _REGISTRY: dict[str, type[Layer]] = {}
-
-#: the JAX package's layer types that this package does not port yet
-#: (ROADMAP.md, queue 1)
-NOT_PORTED = frozenset({"kLMDBData", "kMoE"})
 
 
 def register_layer(cls: type[Layer]) -> type[Layer]:
@@ -61,12 +64,6 @@ def create_layer(cfg: LayerConfig) -> Layer:
     try:
         cls = _REGISTRY[cfg.type]
     except KeyError:
-        if cfg.type in NOT_PORTED:
-            raise ConfigError(
-                f"layer {cfg.name!r}: type {cfg.type!r} is not ported to "
-                "singa_tpu_torch yet (ported: "
-                f"{sorted(_REGISTRY)})"
-            ) from None
         raise ConfigError(
             f"unknown layer type {cfg.type!r} (registered: {sorted(_REGISTRY)})"
         ) from None
@@ -88,7 +85,9 @@ for _cls in (
     AttentionLayer,
     DenseLayer,
     LMLossLayer,
+    MoELayer,
     ShardDataLayer,
+    LMDBDataLayer,
     MnistImageLayer,
     RGBImageLayer,
     LabelLayer,
@@ -112,7 +111,6 @@ for _cls in (
 
 __all__ = [
     "Layer",
-    "NOT_PORTED",
     "create_layer",
     "register_layer",
     "registered_types",

@@ -59,6 +59,9 @@ class Layer:
     #: (``utils.rng.on_device``); a captured step would replay one draw,
     #: so the Trainer dispatches such a net eagerly
     draws_on_device = False
+    #: ``apply`` returns (out, aux): Net.forward adds ``aux_weight *
+    #: aux`` to the total loss (kMoE's load balancing)
+    has_aux_loss = False
 
     def __init__(self, cfg: LayerConfig):
         self.cfg = cfg

@@ -4,8 +4,8 @@ Counterpart of ``singa_tpu/layers/data.py``. A data layer is the
 host/device boundary: at build time it opens its source to learn the
 sample shape (like ShardDataLayer::Setup reading one record, reference
 layer.cc:662-672), and at run time the trainer feeds its batches in;
-its ``apply`` forwards that input. Ported: kShardData. kLMDBData waits
-for the native codec (ROADMAP).
+its ``apply`` forwards that input: kShardData and kLMDBData, each
+through the native codec first (``data/pipeline.py``).
 
 Parser layers (kMnistImage, kRGBImage, kLabel) are elementwise math on
 the device (the reference runs them on the prefetch thread,
@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config.schema import ConfigError
-from ..data.pipeline import load_shard_arrays
+from ..data.pipeline import load_lmdb_arrays, load_shard_arrays
 from .base import Layer, Shape
 
 
@@ -62,6 +62,17 @@ class ShardDataLayer(_ArrayDataLayer):
 
     TYPE = "kShardData"
     LOADER = staticmethod(load_shard_arrays)
+
+
+class LMDBDataLayer(_ArrayDataLayer):
+    """kLMDBData (reference: layer.cc:237-328): a Caffe LMDB, each Datum
+    converted to the record layout (datum_to_image_record, the reference's
+    ConvertDatumToSingleLabelImageRecord, layer.cc:306-328), so a sample
+    is (C, H, W); kMnistImage takes the C=1 records. Cursor wraparound
+    becomes the batch pipeline's modular indexing."""
+
+    TYPE = "kLMDBData"
+    LOADER = staticmethod(load_lmdb_arrays)
 
 
 class MnistImageLayer(Layer):

@@ -3,9 +3,9 @@
 Counterpart of ``singa_tpu/layers/sequence.py``: (B, S) tokens from
 kSequenceData, through kEmbedding -> (B, S, D), residual blocks built
 from kLayerNorm / kAttention / kDense / kAdd, into kLMLoss (next-token
-cross-entropy). kMoE waits for the distribution slice, and the serving
-tier's ``decode_step`` hooks for the slice that ports conf-driven
-decoding.
+cross-entropy), with kMoE's dense path in place of a block's FFN. The
+serving tier's ``decode_step`` hooks wait for the slice that ports
+conf-driven decoding.
 
 Numerical points where PyTorch's defaults differ from JAX's:
 ``jax.nn.gelu`` is the tanh approximation and ``jnp.var`` the
@@ -208,6 +208,53 @@ class DenseLayer(Layer):
         elif self.activation == "relu":
             out = F.relu(out)
         return out
+
+
+class MoELayer(Layer):
+    """kMoE: Switch-style top-1 mixture-of-experts FFN, the dense path
+    (``parallel/moe.py``'s index form). ``apply`` returns (out, aux):
+    the load-balancing aux loss joins Net.forward's total loss with
+    weight moe_param.aux_loss_weight. Expert parallelism (the JAX
+    package's shard_map over an expert mesh axis) is not ported; the
+    Trainer refuses a cluster with an expert axis by name."""
+
+    TYPE = "kMoE"
+    has_aux_loss = True
+
+    def setup(self, src_shapes: Sequence[Shape], batchsize: int) -> Shape:
+        p = self.cfg.moe_param
+        if p is None:
+            raise ConfigError(f"layer {self.name!r}: moe_param required")
+        src = require_one_src(self, src_shapes)
+        if len(src) != 3:
+            raise ConfigError(
+                f"layer {self.name!r}: expects (batch, seq, dim) input"
+            )
+        d = src[-1]
+        self.n_experts = p.num_experts
+        self.d_ff = p.d_ff
+        self.capacity_factor = p.capacity_factor
+        self.aux_weight = p.aux_loss_weight
+        self.dispatch = p.dispatch
+        if self.dispatch not in ("psum", "alltoall"):
+            raise ConfigError(
+                f"layer {self.name!r}: moe_param.dispatch must be "
+                f"'psum' or 'alltoall', got {self.dispatch!r}"
+            )
+        self.gate = self._declare_param(0, "gate", (d, self.n_experts),
+                                        fan_in=d)
+        self.up = self._declare_param(
+            1, "up", (self.n_experts, d, self.d_ff), fan_in=d)
+        self.down = self._declare_param(
+            2, "down", (self.n_experts, self.d_ff, d), fan_in=self.d_ff)
+        return src
+
+    def apply(self, params, inputs, *, training, generator=None):
+        from ..parallel.moe import moe_ffn_dense
+
+        p = {"gate": params[self.gate], "up": params[self.up],
+             "down": params[self.down]}
+        return moe_ffn_dense(inputs[0], p, self.capacity_factor)
 
 
 class LMLossLayer(Layer):

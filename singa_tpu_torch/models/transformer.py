@@ -15,8 +15,12 @@ Two numerical points where PyTorch's defaults differ from JAX's:
 - ``jnp.var`` is the population variance, so the layer norm uses
   ``correction=0``.
 
-This slice ports the dense-FFN, dense-attention model: ``attn`` other
-than ``"dense"`` and ``moe_experts > 0`` raise ``NotImplementedError``.
+``moe_experts > 0`` replaces every block's FFN with a Switch MoE
+(``parallel/moe.py``'s dense path; params ``blk{i}/moe/{gate,up,down}``),
+whose load-balancing aux :func:`_block_apply` returns beside its output.
+Decode, prefill and verify route at capacity factor E (drop-free and
+independent of what shares the batch), as in the JAX package. ``attn``
+other than ``"dense"`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.attention import NEG_INF, attention
+from ..parallel.moe import moe_ffn_dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +46,8 @@ class TransformerConfig:
     d_ff: int = 1024
     max_len: int = 1024
     attn: str = "dense"  # dense only in this slice (flash, ring later)
-    #: > 0 replaces every block's FFN with a Switch MoE; not ported yet
+    #: > 0 replaces every block's FFN with a Switch MoE of this many
+    #: experts (parallel/moe.py's dense path)
     moe_experts: int = 0
     moe_aux_weight: float = 0.01
 
@@ -52,10 +58,6 @@ class TransformerConfig:
 
 
 def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            "moe_experts > 0: the MoE FFN comes with the distribution slice"
-        )
     if cfg.attn != "dense":
         raise NotImplementedError(
             f"attn={cfg.attn!r}: flash and ring attention come with the "
@@ -90,10 +92,17 @@ def init_lm(generator: torch.Generator, cfg: TransformerConfig,
         )
         params[f"{p}/ln2/scale"] = torch.ones(d)
         params[f"{p}/ln2/bias"] = torch.zeros(d)
-        params[f"{p}/mlp/up"] = norm((d, f), 1 / math.sqrt(d))
-        params[f"{p}/mlp/down"] = norm(
-            (f, d), 1 / math.sqrt(f * 2 * cfg.n_layers)
-        )
+        if cfg.moe_experts:
+            # the JAX package's init_moe: gate, up, down
+            e = cfg.moe_experts
+            params[f"{p}/moe/gate"] = norm((d, e), 1 / math.sqrt(d))
+            params[f"{p}/moe/up"] = norm((e, d, f), 1 / math.sqrt(d))
+            params[f"{p}/moe/down"] = norm((e, f, d), 1 / math.sqrt(f))
+        else:
+            params[f"{p}/mlp/up"] = norm((d, f), 1 / math.sqrt(d))
+            params[f"{p}/mlp/down"] = norm(
+                (f, d), 1 / math.sqrt(f * 2 * cfg.n_layers)
+            )
     params["ln_f/scale"] = torch.ones(d)
     params["ln_f/bias"] = torch.zeros(d)
     return {k: v.to(dev) for k, v in params.items()}
@@ -123,13 +132,18 @@ def _layernorm(x, scale, bias, eps=1e-5):
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
-def _block_apply(params, p, x, attend, cfg):
-    """One transformer block with a pluggable attention implementation.
+def _block_apply(params, p, x, attend, cfg, moe_capacity_factor=1.25):
+    """One transformer block with a pluggable attention implementation
+    -> (x', aux, extra).
 
     ``attend(q, k, v) -> (o, extra)`` receives/returns (B, H, S, D);
     ``extra`` passes through (K/V caches for decode, None otherwise).
-    The single definition of block semantics: ``lm_apply``,
-    ``generate`` and every serving-engine program run this body."""
+    ``aux`` is the MoE load-balancing loss (the float 0.0 without
+    experts); ``moe_capacity_factor`` is the MoE capacity factor, the
+    training default unless given (decode, prefill and verify pass E,
+    so routing drops nothing). The single definition of block
+    semantics: ``lm_apply``, ``generate`` and every serving-engine
+    program run this body."""
     _check_supported(cfg)
     b, s, _ = x.shape
     h = _layernorm(x, params[f"{p}/ln1/scale"], params[f"{p}/ln1/bias"])
@@ -141,9 +155,20 @@ def _block_apply(params, p, x, attend, cfg):
     o = o.transpose(1, 2).reshape(b, s, cfg.d_model)
     x = x + o @ params[f"{p}/attn/out"]
     h = _layernorm(x, params[f"{p}/ln2/scale"], params[f"{p}/ln2/bias"])
+    if cfg.moe_experts:
+        moe = {k: params[f"{p}/moe/{k}"] for k in ("gate", "up", "down")}
+        y, aux = moe_ffn_dense(h, moe, moe_capacity_factor)
+        return x + y, aux, extra
     h = F.gelu(h @ params[f"{p}/mlp/up"], approximate="tanh")
     x = x + h @ params[f"{p}/mlp/down"]
-    return x, extra
+    return x, 0.0, extra
+
+
+def decode_capacity(cfg: TransformerConfig) -> float:
+    """The capacity factor of every cached forward: E, which makes the
+    capacity the token count, so no token is dropped and a row's output
+    never depends on what shares the batch."""
+    return float(max(cfg.moe_experts, 1))
 
 
 def lm_head(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -166,7 +191,7 @@ def lm_apply(params: dict, tokens: torch.Tensor,
         return attention(q, k, v, causal=True), None
 
     for i in range(cfg.n_layers):
-        x, _ = _block_apply(params, f"blk{i}", x, attend, cfg)
+        x, _, _ = _block_apply(params, f"blk{i}", x, attend, cfg)
     return lm_head(params, x)
 
 
@@ -201,7 +226,8 @@ def _block_step(params, p, x, k_cache, v_cache, pos, cfg):
         )[None, :].expand(q.shape[0], n)
         return cache_attend(q, k_cache, v_cache, positions), None
 
-    x, _ = _block_apply(params, p, x, attend, cfg)
+    x, _, _ = _block_apply(params, p, x, attend, cfg,
+                           moe_capacity_factor=decode_capacity(cfg))
     return x
 
 

@@ -73,6 +73,7 @@ from ..models.transformer import (
     TransformerConfig,
     _block_apply,
     cache_attend,
+    decode_capacity,
     lm_head,
 )
 from ..ops.paged_attention import (
@@ -137,6 +138,9 @@ class Engine:
                 f"'fused', got {self.serving.attend_impl!r}"
             )
         self._fused = self.serving.attend_impl == "fused"
+        #: MoE routing at capacity E on every program: drop-free, so a
+        #: slot's tokens never depend on what shares the batch
+        self._moe_cf = decode_capacity(cfg)
         self.device = resolve_device(device)
         if self._fused and self.device.type == "cuda":
             # the kernel's geometry limits (the plain CPU version has none)
@@ -285,8 +289,9 @@ class Engine:
             return attend
 
         for i in range(self.cfg.n_layers):
-            x, _ = _block_apply(
-                self.params, f"blk{i}", x, mk_attend(i), self.cfg
+            x, _, _ = _block_apply(
+                self.params, f"blk{i}", x, mk_attend(i), self.cfg,
+                moe_capacity_factor=self._moe_cf,
             )
         logits = lm_head(self.params, x)[:, 0]
         self._dec_logits.copy_(logits)
@@ -327,8 +332,9 @@ class Engine:
             return attend
 
         for i in range(self.cfg.n_layers):
-            x, _ = _block_apply(
-                self.params, f"blk{i}", x, mk_attend(i), self.cfg
+            x, _, _ = _block_apply(
+                self.params, f"blk{i}", x, mk_attend(i), self.cfg,
+                moe_capacity_factor=self._moe_cf,
             )
         logits = lm_head(self.params, x)[0]
         last = (n_valid - 1).clamp(min=0).view(1)
@@ -403,8 +409,9 @@ class Engine:
             return attend
 
         for i in range(self.cfg.n_layers):
-            x, extra = _block_apply(
-                self.params, f"blk{i}", x, mk_attend(i), self.cfg
+            x, _, extra = _block_apply(
+                self.params, f"blk{i}", x, mk_attend(i), self.cfg,
+                moe_capacity_factor=self._moe_cf,
             )
             fresh.append(extra)
         logits = lm_head(self.params, x)                         # (S, Q, V)

@@ -26,7 +26,7 @@ from singa_tpu_torch.config import ConfigError
 from singa_tpu_torch.config import parse_model_config as t_parse
 from singa_tpu_torch.data import loader as t_loader
 from singa_tpu_torch.graph.builder import build_net as t_build_net
-from singa_tpu_torch.layers import NOT_PORTED, registered_types
+from singa_tpu_torch.layers import registered_types
 from singa_tpu_torch.trainer import Trainer
 from singa_tpu_torch.utils.rng import fold_in
 
@@ -92,19 +92,28 @@ def assert_acts(jacts, tacts, names):
 
 
 def test_not_ported_is_exactly_the_rest():
-    assert NOT_PORTED == {"kLMDBData", "kMoE"}
-    for t in ("kConvolution", "kInnerProduct", "kPooling", "kLRN",
-              "kReLU", "kTanh", "kSigmoid", "kDropout", "kSoftmaxLoss",
-              "kEuclideanLoss", "kMnistImage", "kRGBImage", "kLabel",
-              "kSlice", "kConcate", "kSplit", "kBridgeSrc", "kBridgeDst",
-              "kRBM", "kBatchNorm", "kGlobalPooling", "kAdd"):
-        assert t in registered_types()
+    """Nothing is left: every TYPE the JAX package registers (each layer
+    class of singa_tpu/layers) is registered in the port."""
+    import inspect
+
+    import singa_tpu.layers as j_layers
+    from singa_tpu.layers.base import Layer as JLayer
+
+    j_types = {
+        cls.TYPE for mod in (j_layers, *vars(j_layers).values())
+        if inspect.ismodule(mod) and mod.__name__.startswith(
+            "singa_tpu.layers")
+        for cls in vars(mod).values()
+        if inspect.isclass(cls) and issubclass(cls, JLayer) and cls.TYPE
+    }
+    assert "kLMDBData" in j_types and "kMoE" in j_types
+    assert j_types <= set(registered_types())
 
 
 def test_unported_type_and_partitioning_still_raise(shards):
-    with pytest.raises(ConfigError, match="not ported"):
+    with pytest.raises(ConfigError, match="unknown layer type 'kBogus'"):
         t_build_net(t_parse(net_text(shards["mnist"], '''
-  layer { name: "moe" type: "kMoE" srclayers: "data" }''')))
+  layer { name: "bogus" type: "kBogus" srclayers: "data" }''')))
     with pytest.raises(ConfigError, match="partition_type"):
         t_build_net(t_parse(net_text(shards["mnist"], '''
   layer { name: "mnist" type: "kMnistImage" srclayers: "data"

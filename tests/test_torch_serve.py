@@ -293,7 +293,7 @@ class EagerEngine(Engine):
             return attend
 
         for i in range(self.cfg.n_layers):
-            x, _ = _block_apply(self.params, f"blk{i}", x, mk_attend(i),
+            x, _, _ = _block_apply(self.params, f"blk{i}", x, mk_attend(i),
                                 self.cfg)
         nxt = self._sample(lm_head(self.params, x)[:, 0], live, tokens)
         st["tokens"] = nxt
@@ -327,7 +327,7 @@ class EagerEngine(Engine):
             return attend
 
         for i in range(self.cfg.n_layers):
-            x, _ = _block_apply(self.params, f"blk{i}", x, mk_attend(i),
+            x, _, _ = _block_apply(self.params, f"blk{i}", x, mk_attend(i),
                                 self.cfg)
         return lm_head(self.params, x)[0][max(n - 1, 0)]
 

@@ -44,7 +44,7 @@ from singa_tpu_torch.config import parse_model_config as t_parse
 from singa_tpu_torch.data import loader as t_loader
 from singa_tpu_torch.data import pipeline as t_pipeline
 from singa_tpu_torch.graph.builder import build_net as t_build_net
-from singa_tpu_torch.layers import NOT_PORTED, registered_types
+from singa_tpu_torch.layers import registered_types
 from singa_tpu_torch.trainer import Trainer, params_from_numpy
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -363,10 +363,8 @@ def test_attention_layers_took_the_flash_path(both_forwards):
 
 
 def test_registry_covers_the_jax_package():
-    """Every JAX layer type is either registered here or listed as not
-    ported yet, and the two lists do not overlap."""
-    assert set(registered_types()) | NOT_PORTED == set(j_registered())
-    assert not set(registered_types()) & NOT_PORTED
+    """The port registers exactly the JAX package's layer types."""
+    assert set(registered_types()) == set(j_registered())
 
 
 # ---------------------------------------------------------------------------
@@ -469,10 +467,12 @@ def test_main_runs_two_steps_on_the_cpu(shard, tmp_path):
 
 
 def test_unported_layer_type_is_refused_by_name(shard):
+    """An unknown type and a partitioned layer are refused by name; kMoE
+    builds, and refuses a layer without its moe_param by name."""
     txt = narrow_conf(shard).replace(
         'layer { name: "ln_f" type: "kLayerNorm"',
         'layer { name: "ln_f" type: "kMoE"')
-    with pytest.raises(ConfigError, match="kMoE.*not ported"):
+    with pytest.raises(ConfigError, match="moe_param required"):
         t_build_net(t_parse(txt))
     with pytest.raises(ConfigError, match="unknown layer type"):
         t_build_net(t_parse(txt.replace("kMoE", "kBogus")))

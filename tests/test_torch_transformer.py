@@ -115,6 +115,15 @@ def test_init_lm_names_shapes_and_seed():
 
 @pytest.mark.parametrize("kw", [dict(moe_experts=2), dict(attn="flash")])
 def test_unported_model_options_raise(kw):
+    """attn="flash" still raises; moe_experts is ported, and init_lm
+    gives the JAX package's names and shapes."""
     cfg = tt.TransformerConfig(**{**KW, **kw})
+    if "moe_experts" in kw:
+        ref = jt.init_lm(jax.random.PRNGKey(0),
+                         jt.TransformerConfig(**{**KW, **kw}))
+        got = tt.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+        assert {k: tuple(v.shape) for k, v in got.items()} == {
+            k: tuple(v.shape) for k, v in ref.items()}
+        return
     with pytest.raises(NotImplementedError):
         tt.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
