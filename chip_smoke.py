@@ -25,7 +25,12 @@ caught and carried on):
              tiles, a prefill chunk from position 0, the position -1 row
              and the dead overlay row, both exact zeros), each form
              launched twice on the same inputs (bitwise equal), and the
-             thread blocks of a decode call (at least one per SM).
+             thread blocks of a decode call (at least one per SM); then
+             the prefix cache's inputs, each against the plain version
+             and launched twice (bitwise equal): tables whose rows share
+             their first 63 block ids, a prefill chunk from 1020 (mid
+             block) and one from 2040 whose padding positions run past
+             max_len and the table.
              Times (CUDA events, L2 flushed before each launch) of the
              kernel (a wrapper call: the split kernel and its combine),
              the plain version and, as a yardstick the port never calls,
@@ -224,6 +229,40 @@ caught and carried on):
              reference in turns, launches = layers x (prefill chunks +
              decode ticks), one stream equal to generate()).
 
+  14. prefix (runs after spec) the serve phase's LM and engine with the
+             prefix cache on: serve_bench's shared_prefix workload at
+             prompt_len 1024 (1020 shared tokens and a 4-token tail, 16
+             requests, 64 new tokens), cold (cache off) and warm (seeded
+             by two throwaway requests of the first prompt) in turns:
+             cold, warm, warm, cold through the kernel, streams equal to
+             each other and to the reference path's cold run, launches =
+             layers x (prefill chunks + decode ticks) in every run,
+             prefill chunks down at least 2x; tokens/s, latency and time
+             to first token (p50, p99) of each run. Then a whole-prompt
+             hit (one COW, one chunk), tail_stride 4 seeded with the
+             1020-token prefix alone (12 tail tokens a request, prefill
+             from 1020), the shared prefix's 63 blocks shipped to a fresh
+             engine (export_blocks, a cache_ship frame, install_prefix
+             timed) whose hits stream as cold, and a decode_blocks
+             follow-up turn (its prompt replays the first turn's history:
+             67 blocks shared, 3 of them decode-written), each stream
+             equal to its cold run; a warm admission's prefill-written
+             pool bytes against a cold one's (a block hit from 1008, a
+             tail hit from 1020, a whole-prompt hit's chunk at 1023): the
+             first layer's equal to the bit, every layer's difference
+             printed, and one query through the kernel in a cold and a
+             warm chunk (the kernel's split follows the chunk's largest
+             position, so its bits may move; the plain version's must
+             not); 8 greedy and 2 temperature slots exported after 16
+             decode ticks as migrate frames and imported into a second engine that
+             already serves a sequence, each continuing bitwise what the
+             exporter goes on to emit (export and import ms, frame
+             bytes); stage -> flip -> rollback on an engine whose graphs
+             are captured, the streams after each equal a fresh engine's
+             on that weight set, and a planted fault (a flip that rebinds
+             ``self.params``) that must break that check; stage, flip and
+             rollback ms and the memory each adds.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -238,6 +277,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -269,6 +309,8 @@ from singa_tpu_torch.ops import quantized_collective as qc
 from singa_tpu_torch.parallel import moe as tmoe
 from singa_tpu_torch.parallel import apply_grad_comm_tag, build_mesh
 from singa_tpu_torch.serve import Engine, EngineConfig, Request, Scheduler
+from singa_tpu_torch.serve.fleet import migrate as tmigrate
+from singa_tpu_torch.tools import serve_bench
 from singa_tpu_torch.tools.serve_bench import _percentile
 from singa_tpu_torch.trainer import (
     Trainer,
@@ -445,6 +487,11 @@ MOE_WIDTH = (64, 256, 256, 8, 1024)
 #: Their dot products over D (the gate value's cotangent) sum in another
 #: order in the two forms; every other sum has one nonzero term
 MOE_GRAD_TOL = 1e-6
+#: the prefix phase: serve_bench's shared_prefix workload at this prompt
+#: length (1020 shared tokens, a 4-token tail), 16 requests; migration of
+#: 8 greedy and 2 temperature slots after 16 decode ticks
+PREFIX_LEN, PREFIX_TAIL, PREFIX_REQUESTS = 1024, 4, 16
+MIGRATE_SLOTS, MIGRATE_TEMPS, MIGRATE_TICKS = 8, 2, 16
 
 
 class SmokeFailure(RuntimeError):
@@ -623,6 +670,41 @@ def split_edges(dev, rs, errs):
     check(blocks >= n_sms, f"decode launches {blocks} blocks < {n_sms} SMs")
 
 
+def prefix_edges(dev, rs, errs):
+    """The inputs the prefix cache sends the kernel, at the serve
+    geometry: tables whose rows share their first 63 block ids (a decode
+    tick over one cached prefix), a prefill chunk that starts mid-block
+    at 1020 (a partial-tail hit), and a chunk at 2040 whose padding
+    positions run past max_len - 1 and past the table (the re-derivation
+    chunk of a whole-prompt hit near max_len). Each against the plain
+    version, each launched twice (bitwise equal). Updates ``errs``."""
+    max_len, h, d, bl = 2048, 2, 128, 16
+    shared = make_case(rs, dev, s=8, h=h, nq=1, d=d, bl=bl, max_len=max_len,
+                       pos0=1008 + rs.randint(0, 100, size=8), overlay=False)
+    shared["tables"][:, :63] = shared["tables"][0, :63].clone()
+    cases = (
+        ("shared_rows", shared),
+        ("mid_block", make_case(rs, dev, s=1, h=h, nq=64, d=d, bl=bl,
+                                max_len=max_len, pos0=[1020], overlay=False)),
+        ("past_max_len", make_case(rs, dev, s=1, h=h, nq=64, d=d, bl=bl,
+                                   max_len=max_len, pos0=[2040],
+                                   overlay=False)),
+    )
+    for name, case in cases:
+        got, again = run_kernel(case), run_kernel(case)
+        want = run_plain(case)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        errs["paged_attention"] = max(errs["paged_attention"], err)
+        print(f"kernel prefix case {name:12s} max_abs_err {err:.3e} (tol "
+              f"{TOL:g}) bitwise repeat {bool(torch.equal(got, again))}")
+        check(bool(torch.isfinite(got).all()),
+              f"prefix case {name}: non-finite output")
+        check(err <= TOL, f"prefix case {name}: max_abs_err {err} > {TOL}")
+        check(torch.equal(got, again),
+              f"prefix case {name}: two launches on the same inputs differ")
+
+
 def kernel_phase(dev, rs):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     max_len, s, h = 2048, 8, 2
@@ -679,6 +761,7 @@ def kernel_phase(dev, rs):
                                 overlay=False)
                 timed = {"decode": dec, "prefill": pre, "overlay": ovl}
     split_edges(dev, rs, errs)
+    prefix_edges(dev, rs, errs)
     rows = {}
     for name, case in timed.items():
         b_ms, b_by = bound(case)
@@ -701,18 +784,25 @@ def kernel_phase(dev, rs):
 
 
 def serve(dev, params, cfg, prompts, *, impl, spec_k=0, max_new=64,
-          graphs=True):
+          graphs=True, prefix_cache=False, seeds=None, **serving):
     """One Engine + Scheduler run, warmed by a throwaway request (which
     also captures the engine's graphs); kernel launch counts are zeroed
-    just before the measured requests and read just after. -> (scheduler,
-    seconds, launches, {rid: tokens})."""
+    just before the measured requests and read just after. With
+    ``prefix_cache`` the warm-up is serve_bench's: two throwaway
+    requests of the first prompt (the second a whole-prompt hit), or of
+    each of ``seeds``; ``serving`` adds EngineConfig fields. ->
+    (scheduler, seconds, launches, {rid: tokens})."""
     eng = Engine(params, cfg, EngineConfig(
         slots=8, kv_block_len=16, max_prefill_chunk=64, spec_k=spec_k,
-        attend_impl=impl,
+        attend_impl=impl, prefix_cache=prefix_cache, **serving,
     ), device=dev, graphs=graphs)
     sched = Scheduler(eng)
-    sched.submit(Request(rid=-1, prompt=prompts[0][:40], max_new_tokens=4))
-    sched.serve()
+    if not prefix_cache:
+        seeds = [prompts[0][:40]]
+    for i, p in enumerate(seeds or [prompts[0], prompts[0]]):
+        sched.submit(Request(rid=-1 - i, prompt=p,
+                             max_new_tokens=2 if prefix_cache else 4))
+        sched.serve()
     sched.reset_counters()
     torch.cuda.synchronize()
     pa.paged_attention.launches = 0
@@ -744,6 +834,12 @@ def report(tag, sched, seconds):
         "p99_ms": _percentile(lat, 0.99),
         **sched.occupancy(),
     }
+    # time to first token from submission (every request is submitted
+    # before the run starts, so the queue's wait is in it)
+    ttft = sorted((r.first_token_mono - r.enqueue_mono) * 1e3
+                  for r in sched.finished)
+    out["ttft_p50_ms"] = _percentile(ttft, 0.50)
+    out["ttft_p99_ms"] = _percentile(ttft, 0.99)
     print("serve", json.dumps(out))
     return out
 
@@ -763,7 +859,8 @@ def in_turns(dev, params, cfg, prompts, a, b):
                                                   prompts, **kw)
         name = kw["impl"] + (f"_spec{kw['spec_k']}" if kw.get("spec_k")
                              else "") + ("_eager" if kw.get("graphs") is False
-                                         else "")
+                                         else "") + (
+            "_warm" if kw.get("prefix_cache") else "")
         report(name, sched, seconds)
         check(len(streams) == len(prompts) and all(
             len(t) == 64 and all(0 <= x < cfg.vocab for x in t)
@@ -833,6 +930,339 @@ def spec_phase(dev, cfg, params):
                   == cfg.n_layers * sched.prefill_chunks,
                   "spec: write-then-read launches != layers x chunks")
     return runs[2][3]["paged_attention_overlay"]
+
+
+# ---------------------------------------------------------------------------
+# prefix phase
+# ---------------------------------------------------------------------------
+
+
+def shared_prefix_prompts(cfg, n):
+    """serve_bench's shared_prefix workload at prompt_len PREFIX_LEN: one
+    common prefix of 1020 tokens and a unique 4-token tail each."""
+    return serve_bench._workload(SimpleNamespace(
+        seed=0, requests=n, vocab=cfg.vocab, prompt_len=PREFIX_LEN,
+        workload="shared_prefix"))
+
+
+def streams_of(eng, prompts, max_new, temps=None):
+    """Serve ``prompts`` on ``eng`` through a Scheduler -> (scheduler,
+    {rid: tokens})."""
+    sched = Scheduler(eng)
+    for i, p in enumerate(prompts):
+        sched.submit(Request(rid=i, prompt=p, max_new_tokens=max_new,
+                             seed=i, temperature=temps[i] if temps else 0.0))
+    sched.serve()
+    return sched, {r.rid: r.tokens for r in sched.finished}
+
+
+def prefix_engine(dev, params, cfg, **serving):
+    return Engine(params, cfg, EngineConfig(
+        slots=8, kv_block_len=16, max_prefill_chunk=64, **serving),
+        device=dev)
+
+
+def prefix_drills(dev, cfg, params, prompts, cold):
+    """A whole-prompt hit, a tail_stride 4 hit seeded with the 1020-token
+    prefix alone, the shared prefix's blocks shipped to a fresh engine
+    (export_blocks -> cache_ship frame -> install_prefix, timed), and a
+    decode_blocks follow-up turn, each stream equal to its cold run's.
+    -> {drill: occupancy or ship numbers}."""
+    out = {}
+    sched, _, _, got = serve(dev, params, cfg, prompts[:1], impl="fused",
+                             prefix_cache=True, seeds=[prompts[0]])
+    check(got[0] == cold[0] and sched.cow_copies == 1
+          and sched.prefill_chunks == 1,
+          "prefix: the whole-prompt hit's stream or its COW")
+    out["whole_prompt"] = sched.occupancy()
+    base = prompts[0][:PREFIX_LEN - PREFIX_TAIL]
+    sched, _, _, got = serve(dev, params, cfg, prompts, impl="fused",
+                             prefix_cache=True, seeds=[base],
+                             prefix_tail_stride=4)
+    n = len(prompts)
+    check(got == cold and sched.partial_hits == n
+          and sched.tail_tokens_shared == 12 * n
+          and sched.prefill_chunks == n,
+          "prefix: tail_stride 4 hits (12 tail tokens each from 1020)")
+    out["tail_stride4"] = sched.occupancy()
+    # the shared prefix's 63 cached blocks shipped to a fresh engine
+    src = prefix_engine(dev, params, cfg, prefix_cache=True)
+    streams_of(src, prompts[:1], 2)
+    chain = src.allocator.cache.chain(prompts[1])
+    blocks = src.allocator.cache.match_chain(chain)
+    src.allocator.retain(blocks)
+    k, v = src.export_blocks(blocks)
+    src.allocator.release(blocks)
+    frame = tmigrate.serialize_ship(0, chain[:len(blocks)], k, v)
+    ship = tmigrate.deserialize_ship(frame)
+    dst = prefix_engine(dev, params, cfg, prefix_cache=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = dst.install_prefix(ship["chain"], ship["k"], ship["v"])
+    torch.cuda.synchronize()
+    install_ms = (time.perf_counter() - t0) * 1e3
+    sched, got = streams_of(dst, prompts[1:], 64)
+    check(info["installed"] == len(blocks) == 63
+          and sched.prefix_hits == n - 1
+          and [got[i] for i in range(n - 1)] == [cold[i] for i in range(1, n)],
+          "prefix: the installed prefix's hits or their streams")
+    out["ship"] = {"blocks": len(blocks), "frame_bytes": len(frame),
+                   "install_prefix_ms": install_ms}
+    eng = prefix_engine(dev, params, cfg, prefix_cache=True,
+                        prefix_decode_blocks=True)
+    turn1, first = streams_of(eng, prompts[:1], 64)
+    # 1024 prompt + 64 emitted tokens: 67 written blocks, 3 past the prompt
+    check(first[0] == cold[0] and turn1.decode_blocks_registered == 3,
+          "prefix: the first turn's stream or its decode-written blocks")
+    follow = np.concatenate([prompts[0], np.asarray(first[0][:48], np.int32),
+                             prompts[1][-8:]])
+    sched, warm = streams_of(eng, [follow], 64)
+    _, want = streams_of(prefix_engine(dev, params, cfg), [follow], 64)
+    check(warm == want, "prefix: the decode_blocks follow-up turn's stream")
+    check(sched.blocks_shared == (PREFIX_LEN + 48) // 16,
+          "prefix: the follow-up turn did not hit the decode-written blocks")
+    out["decode_blocks"] = sched.occupancy()
+    for k, v in out.items():
+        print(f"prefix drill {k}", json.dumps(v))
+    return out
+
+
+def warm_bytes(dev, cfg, params, prompts):
+    """A warm admission's prefill-written pool bytes against a cold
+    one's at the serve geometry: a block hit (prefill from 1008: every
+    position on another row of the (1, 64) chunk than cold, where the
+    chunk starts at 960), a tail_stride 4 hit (from 1020, mid block) and
+    a whole-prompt hit (the COW'd re-derivation chunk at 1023). The
+    first layer's K/V come from the embeddings, LayerNorm and one GEMM
+    and must be equal to the bit; later layers' read the first layer's
+    attention, whose bits the kernel's key-range split may move (see
+    split_order). The streams are held identical elsewhere. -> {case:
+    {pool: max |warm - cold|}}."""
+    base = prompts[0][:PREFIX_LEN - PREFIX_TAIL]
+    names = [f"{kv}{i}" for kv in "kv" for i in range(cfg.n_layers)]
+    out = {}
+    for case, seed, stride in (("block", prompts[0], 0), ("tail", base, 4),
+                               ("whole_prompt", prompts[1], 0)):
+        views = []
+        for cache in (True, False):
+            eng = prefix_engine(dev, params, cfg, prefix_cache=cache,
+                                prefix_tail_stride=stride)
+            streams_of(eng, [seed], 2)
+            p = prompts[1]
+            adm = eng.admit(0, len(p) + 2, prompt=p)
+            for c0 in range(adm.prefill_from, len(p), 64):
+                eng.prefill_chunk(0, p[c0:c0 + 64], c0)
+            rows = eng.state["tables"][:1]
+            views.append([eng._gather(pool, rows)[0, :, :len(p)]
+                          for pool in eng.state["k"] + eng.state["v"]])
+            if cache:
+                check(adm.prefill_from == {"block": 1008, "tail": 1020,
+                                           "whole_prompt": 1023}[case],
+                      f"warm bytes {case}: prefill from {adm.prefill_from}")
+        out[case] = {n: float((w - c).abs().max())
+                     for n, w, c in zip(names, *views)}
+        check(out[case]["k0"] == out[case]["v0"] == 0.0,
+              f"prefix: warm {case}'s first-layer K/V differ from cold")
+    print("prefix warm vs cold pool bytes, max abs difference by pool",
+          json.dumps(out))
+    return out
+
+
+def split_order(dev, rs):
+    """One query at position 1010 through the kernel in a cold chunk
+    (positions 960-1023: it is row 50) and a warm one (1008-1071, padding
+    past 1023: row 2), same pool and table. The kernel splits the live
+    key range, which it takes from the chunk's largest position, so the
+    two calls fold the query's keys in different pieces; the plain
+    version reduces over the whole table in one order. -> (kernel,
+    plain) max |warm row - cold row|."""
+    case = make_case(rs, dev, s=1, h=2, nq=64, d=128, bl=16, max_len=2048,
+                     pos0=[960], overlay=False)
+    warm = dict(case, q=case["q"].clone(), positions=case["positions"] + 48)
+    warm["q"][:, :, 2] = case["q"][:, :, 50]
+    diffs = []
+    for fn in (run_kernel, run_plain):
+        a, b = fn(case), fn(warm)
+        diffs.append(float((a[:, :, 50] - b[:, :, 2]).abs().max()))
+    print(f"prefix split order: the query at 1010, cold row 50 vs warm row "
+          f"2: kernel max |diff| {diffs[0]:.3e}, plain {diffs[1]:.3e}")
+    check(diffs[1] == 0.0, "split order: the plain version moved a row")
+    return diffs
+
+
+def migrate_drill(dev, smi, cfg, params):
+    """MIGRATE_SLOTS greedy and MIGRATE_TEMPS temperature slots, after
+    MIGRATE_TICKS decode ticks, exported as frames and imported into a
+    second engine that already serves a sequence: each continues
+    bitwise what the exporter goes on to emit. -> timings and bytes."""
+    rs = np.random.RandomState(3)
+    n = MIGRATE_SLOTS + MIGRATE_TEMPS
+    temps = [0.0] * MIGRATE_SLOTS + [0.8] * MIGRATE_TEMPS
+    prompts = [rs.randint(0, cfg.vocab, size=(int(rs.randint(32, 1025)),))
+               .astype(np.int32) for _ in range(n + 1)]
+    ec = dict(kv_block_len=16, max_prefill_chunk=64, prefix_cache=True)
+    a = Engine(params, cfg, EngineConfig(slots=n, **ec), device=dev)
+    b = Engine(params, cfg, EngineConfig(slots=n + 1, **ec), device=dev)
+
+    def fill(eng, slot, p, temp):
+        eng.admit(slot, len(p) + 64, prompt=p)
+        for c0 in range(0, len(p), 64):
+            last = eng.prefill_chunk(slot, p[c0:c0 + 64], c0)
+        eng.register_prefix(slot, p)
+        return [eng.activate(slot, last, len(p), seed=slot, temperature=temp)]
+
+    toks = {i: fill(a, i, prompts[i], temps[i]) for i in range(n)}
+    for _ in range(MIGRATE_TICKS):
+        out = a.decode().cpu()
+        for i in range(n):
+            toks[i].append(int(out[i]))
+    fill(b, 0, prompts[n], 0.0)        # the importer is serving already
+    frames, export_ms = [], []
+    for i in range(n):
+        req = Request(rid=i, prompt=prompts[i], max_new_tokens=64,
+                      temperature=temps[i], seed=i)
+        req.tokens = list(toks[i])
+        t0 = time.perf_counter()
+        frames.append(tmigrate.serialize(
+            tmigrate.export_sequence(a, req, i)))
+        export_ms.append((time.perf_counter() - t0) * 1e3)
+    import_ms = []
+    for i, frame in enumerate(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tmigrate.import_sequence(b, i + 1, tmigrate.deserialize(frame))
+        torch.cuda.synchronize()
+        import_ms.append((time.perf_counter() - t0) * 1e3)
+    want, got = {i: list(toks[i]) for i in range(n)}, \
+        {i: list(toks[i]) for i in range(n)}
+    for _ in range(64 - 1 - MIGRATE_TICKS):
+        oa, ob = a.decode().cpu(), b.decode().cpu()
+        for i in range(n):
+            want[i].append(int(oa[i]))
+            got[i].append(int(ob[i + 1]))
+    same = [got[i] == want[i] for i in range(n)]
+    rec = {
+        "slots": n, "temperature_slots": MIGRATE_TEMPS,
+        "continued_bitwise": sum(same),
+        "export_ms_mean": float(np.mean(export_ms)),
+        "import_ms_mean": float(np.mean(import_ms)),
+        "frame_bytes_mean": float(np.mean([len(f) for f in frames])),
+        "kv_blocks_mean": float(np.mean([a.pool.blocks_for(len(p) + 64)
+                                         for p in prompts[:n]])),
+    }
+    print("prefix migrate", json.dumps(rec), f"[{smi}]")
+    check(all(same), f"migrate: slots {[i for i in range(n) if not same[i]]}"
+          " did not continue bitwise")
+    return rec
+
+
+def rebind_flip(self):
+    """The planted fault: flip_params by rebinding ``self.params``, as the
+    JAX engine may (its programs take params per call); the captured
+    graphs go on reading the old tensors."""
+    version, tree = self._staged
+    self._prev = (self.params_version, self.params)
+    self.params, self.params_version, self._staged = tree, version, None
+    return {"version": version, "prev_version": self._prev[0],
+            "purged_blocks": self.allocator.purge_cache()}
+
+
+FLIP_PARAMS = Engine.flip_params
+
+
+def stage_drill(dev, smi, cfg, params):
+    """stage -> flip -> rollback on an engine whose graphs are captured:
+    the streams after each equal a fresh engine's on that weight set;
+    the rebinding flip (rebind_flip) must break that. -> times and
+    memory."""
+    new = init_lm(torch.Generator().manual_seed(1), cfg, dev)
+    prompts = shared_prefix_prompts(cfg, 4)
+    want_old = streams_of(prefix_engine(dev, params, cfg), prompts, 32)[1]
+    want_new = streams_of(prefix_engine(dev, new, cfg), prompts, 32)[1]
+    check(want_old != want_new, "stage: both weight sets give one stream")
+    rec = {}
+    for flip in (FLIP_PARAMS, rebind_flip):
+        eng = prefix_engine(dev, params, cfg, prefix_cache=True)
+        check(streams_of(eng, prompts, 32)[1] == want_old,
+              "stage: the live weights' streams")
+        check(eng._decode_graph.captured and eng._prefill_graph.captured,
+              "stage: graphs not captured before the flip")
+        Engine.flip_params = flip
+        try:
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            nbytes = eng.stage_params(new, 1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mem1 = torch.cuda.memory_allocated(dev)
+            flipped = eng.flip_params()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            mem2 = torch.cuda.memory_allocated(dev)
+        finally:
+            Engine.flip_params = FLIP_PARAMS
+        ok_new = streams_of(eng, prompts, 32)[1] == want_new
+        if flip is rebind_flip:
+            print(f"stage planted fault (flip by rebinding self.params): "
+                  f"streams equal the new weights' fresh engine: {ok_new}")
+            check(not ok_new, "stage: the rebinding flip passes the check")
+            continue
+        check(ok_new, "stage: streams after flip_params != a fresh engine's "
+              "on the new weights")
+        t3 = time.perf_counter()
+        rolled = eng.rollback_params()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        check(streams_of(eng, prompts, 32)[1] == want_old,
+              "stage: streams after rollback_params != the old weights'")
+        rec = {
+            "staged_bytes": nbytes, "stage_ms": (t1 - t0) * 1e3,
+            "flip_ms": (t2 - t1) * 1e3, "rollback_ms": (t4 - t3) * 1e3,
+            "mem_added_by_stage": mem1 - mem0,
+            "mem_added_by_flip": mem2 - mem1,
+            "purged_at_flip": flipped["purged_blocks"],
+            "purged_at_rollback": rolled["purged_blocks"],
+        }
+    print("prefix stage", json.dumps(rec), f"[{smi}]")
+    return rec
+
+
+def prefix_phase(dev, smi, cfg, params):
+    """The serve path with the prefix cache on: shared_prefix cold and
+    warm in turns through the kernel, streams equal to each other and to
+    the reference path's, launches = layers x (prefill chunks + decode
+    ticks), prefill chunks down at least 2x; then the drills, migration
+    and weight staging. -> the warm runs' kernel launches."""
+    prompts = shared_prefix_prompts(cfg, PREFIX_REQUESTS)
+    print(f"prefix: {PREFIX_REQUESTS} requests, {PREFIX_LEN - PREFIX_TAIL} "
+          f"shared + {PREFIX_TAIL} tail tokens, 64 new [{smi}]")
+    _, _, _, ref = serve(dev, params, cfg, prompts, impl="reference")
+    runs = in_turns(dev, params, cfg, prompts, {"impl": "fused"},
+                    {"impl": "fused", "prefix_cache": True})
+    cold = {r.rid: r.tokens for r in runs[0][1].finished}
+    check(cold == ref, "prefix: fused streams != the reference path's")
+    for tag, sched, _, launches in runs:
+        want = cfg.n_layers * (sched.prefill_chunks + sched.decode_ticks)
+        check(launches["paged_attention"] == want > 0,
+              f"prefix {tag}: launches != layers x (chunks + ticks)")
+        if tag == "b":
+            check(sched.prefix_hits == PREFIX_REQUESTS,
+                  "prefix: not every warm admission hit")
+    chunks = {tag: sched.prefill_chunks for tag, sched, _, _ in runs}
+    ratio = chunks["a"] / chunks["b"]
+    print(f"prefix prefill chunks cold {chunks['a']} warm {chunks['b']} "
+          f"({ratio:.1f}x); warm launches {runs[1][3]['paged_attention']} "
+          f"= layers {cfg.n_layers} x (chunks {runs[1][1].prefill_chunks} + "
+          f"ticks {runs[1][1].decode_ticks})")
+    check(ratio >= 2.0, f"prefix: prefill chunks fell {ratio:.2f}x < 2x")
+    prefix_drills(dev, cfg, params, prompts, cold)
+    warm_bytes(dev, cfg, params, prompts)
+    split_order(dev, np.random.RandomState(4))
+    migrate_drill(dev, smi, cfg, params)
+    stage_drill(dev, smi, cfg, params)
+    release()
+    return runs[2][3]["paged_attention"]
 
 
 # ---------------------------------------------------------------------------
@@ -2703,6 +3133,7 @@ def main() -> int:
         "paged_attention": serve_phase(dev, cfg, params),
         "paged_attention_overlay": spec_phase(dev, cfg, params),
     }
+    prefix_launches = prefix_phase(dev, smi, cfg, params)
     flash_errs, flash_rows = flash_phase(dev)
     bf16_launches, f32_launches = train_phase(dev)
     launches.update(bf16_launches)
@@ -2729,6 +3160,7 @@ def main() -> int:
         })
         if name == "paged_attention":
             kernels[-1]["moe_serve_launches"] = moe_launches[name]
+            kernels[-1]["prefix_launches"] = prefix_launches
     # the bf16 route (the main path's), then the float32 route, whose
     # launches are those of the train phase's first float32 flash run
     for dtype, suffix, counts in ((torch.bfloat16, "", launches),

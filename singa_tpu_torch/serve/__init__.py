@@ -8,10 +8,13 @@ the PyTorch counterpart of ``singa_tpu/serve``.
                    slot-batched state, attention through the CUDA
                    paged-attention kernel (``attend_impl="fused"``) or
                    the gather + ``cache_attend`` oracle.
-  ``scheduler``    continuous batching: admission with backpressure,
-                   chunked prefill, decode or speculative verify ticks,
+  ``scheduler``    continuous batching: admission with backpressure
+                   (through the prefix cache when it is on), chunked
+                   prefill, decode or speculative verify ticks,
                    retirement on EOS/budget.
   ``speculate``    model-free drafters for the verify tick (a copy).
+  ``fleet``        ``migrate``: a slot, cached blocks or a weight version
+                   as one frame in the JAX package's format.
 """
 
 from .engine import Admission, Engine, EngineConfig  # noqa: F401

@@ -57,8 +57,25 @@ out-of-range scatters; PyTorch raises (CPU) or asserts (CUDA). Every
 index here is clamped explicitly. Tables and positions are int32, as in
 JAX and as the kernel reads them.
 
-Not in this slice (raise ``NotImplementedError``): the prefix cache,
-a mesh, slot export/import, COW, prefix install and weight staging.
+PREFIX CACHE (``prefix_cache``): the allocator is content-addressed and
+refcounted (kv_pool.py, a copy of the JAX package's). ``admit`` with the
+prompt shares its longest cached block-prefix, COW-extends a registered
+partial tail, and copies the last matched block on a whole-prompt hit
+(copy-on-write) so the one-token re-derivation chunk writes only a
+private block. Slots move between engines as one host payload
+(``export_slot``/``import_slot``, serve/fleet/migrate.py frames it),
+cached blocks ship without a slot (``export_blocks``/
+``install_prefix``), and a next weight version is staged beside the
+live one (``stage_params``/``flip_params``/``rollback_params``).
+
+Every one of these writes the pools, lanes and params IN PLACE
+(``copy_``, ``index_copy_``): the decode and prefill graphs captured
+the tensors' addresses, so a rebound tensor would leave them replaying
+the old bytes without an error. The engine therefore owns its params
+(copied at construction), and a flip swaps the staged tree's bytes
+into the live tensors.
+
+Not in this slice (raises ``NotImplementedError``): a mesh.
 """
 
 from __future__ import annotations
@@ -83,9 +100,7 @@ from ..ops.paged_attention import (
     paged_attention_overlay,
 )
 from ..utils.graphs import Graphed
-from .kv_pool import BlockAllocator, KVPool
-
-_PREFIX_SLICE = "the prefix-cache and fleet slice (ROADMAP.md)"
+from .kv_pool import BlockAllocator, KVPool, PoolExhausted
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,19 +114,74 @@ class EngineConfig:
     #: draft tokens per live greedy slot per speculative tick; 0 = one-
     #: token decode ticks
     spec_k: int = 0
-    #: content-addressed block sharing; not ported yet (raises)
+    #: drafter name (serve/speculate.py DRAFTERS)
+    spec_drafter: str = "ngram"
+    #: ``prefix_cache { enabled }``: content-addressed, refcounted block
+    #: sharing; admissions reuse cached full-block prompt prefixes
     prefix_cache: bool = False
+    #: keep refcount-0 cached blocks on an LRU list (reclaimed lazily)
+    #: instead of freeing them at retirement
+    prefix_lru: bool = True
+    #: ``prefix_cache { tail_stride }``: > 0 indexes each prompt's last
+    #: partial block at this token stride, so a prompt whose shared
+    #: prefix ends mid-block COW-extends the deepest partial match; must
+    #: divide kv_block_len. 0 = full blocks only
+    prefix_tail_stride: int = 0
+    #: ``prefix_cache { decode_blocks }``: register full decode-written
+    #: blocks at retirement, so multi-turn traffic hits its own history
+    #: (warm streams over them are token-identical to cold, not bitwise)
+    prefix_decode_blocks: bool = False
+    #: ``prefix_cache { fetch_timeout_s }``: how long a fleet host holds a
+    #: request awaiting a peer's cache_ship before plain prefill
+    prefix_fetch_timeout_s: float = 2.0
     #: "fused" = the CUDA paged-attention kernel (plain version on the
     #: CPU); "reference" = gather + cache_attend, the stream oracle
     attend_impl: str = "fused"
 
+    @classmethod
+    def from_conf(cls, serving, kernels=None) -> "EngineConfig":
+        """From parsed ``serving { ... }`` / ``kernels { ... }`` blocks
+        (config/schema.py; None = defaults). ``kernels``'
+        ``paged_attention`` picks ``attend_impl``; without the block the
+        port's default (the kernel) holds."""
+        kw = {} if kernels is None else {
+            "attend_impl": kernels.paged_attention
+        }
+        if serving is None:
+            return cls(**kw)
+        spec, pc = serving.speculate, serving.prefix_cache
+        if spec is not None:
+            kw.update(spec_k=spec.k, spec_drafter=spec.drafter)
+        if pc is not None:
+            kw.update(
+                prefix_cache=pc.enabled, prefix_lru=pc.lru,
+                prefix_tail_stride=pc.tail_stride,
+                prefix_decode_blocks=pc.decode_blocks,
+                prefix_fetch_timeout_s=pc.fetch_timeout_s,
+            )
+        return cls(
+            slots=serving.slots, kv_block_len=serving.kv_block_len,
+            kv_blocks=serving.kv_blocks,
+            max_prefill_chunk=serving.max_prefill_chunk, **kw,
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class Admission:
-    """What admit() did for one request: the sequence's block list.
-    (The prefix-cache slice adds the cached-prefix fields.)"""
+    """What admit() did for one request: the sequence's block list
+    (shared prefix blocks first), how many prompt tokens the prefix
+    cache covered, where prefill must start (``cached_tokens`` except on
+    a whole-prompt hit, where the last token re-runs through a COW'd
+    block to re-derive the activation logits), and whether a
+    copy-on-write happened."""
 
     blocks: list
+    cached_tokens: int = 0
+    prefill_from: int = 0
+    cow_copied: bool = False
+    #: tokens of ``cached_tokens`` served by COW-extending a registered
+    #: partial tail; 0 = the hit ended on a block boundary
+    tail_tokens: int = 0
 
 
 class Engine:
@@ -127,10 +197,6 @@ class Engine:
             raise NotImplementedError(
                 "Engine(mesh=...): sharded serving comes with the "
                 "distribution slice (ROADMAP.md)"
-            )
-        if self.serving.prefix_cache:
-            raise NotImplementedError(
-                f"prefix_cache=True: comes with {_PREFIX_SLICE}"
             )
         if self.serving.attend_impl not in ("reference", "fused"):
             raise ValueError(
@@ -153,8 +219,30 @@ class Engine:
             cfg.max_len, self.serving.kv_block_len,
             self.serving.kv_blocks, self.serving.slots,
         )
-        self.allocator = BlockAllocator(self.pool)
-        self.params = {k: v.to(self.device) for k, v in params.items()}
+        self.allocator = BlockAllocator(
+            self.pool,
+            prefix_cache=self.serving.prefix_cache,
+            lru=self.serving.prefix_lru,
+            tail_stride=self.serving.prefix_tail_stride,
+        )
+        #: the engine's own copy: flip_params writes into these tensors,
+        #: which the captured graphs read, so they must not be the
+        #: caller's
+        self.params = {k: v.detach().to(self.device, copy=True)
+                       for k, v in params.items()}
+        #: version tag of the live params; a staged next version waits
+        #: beside them until flip_params, and the previous one stays
+        #: pinned for rollback_params
+        self.params_version = 0
+        self._staged: tuple[int, dict] | None = None
+        self._prev: tuple[int, dict] | None = None
+        #: params version each slot was admitted or imported under: its
+        #: K/V bytes belong to those weights, so registering them in the
+        #: prefix index is gated on that version still being live
+        self._slot_version: dict[int, int] = {}
+        #: the admission-time digest chain per slot (register_prefix
+        #: reuses it: one hashing pass per request)
+        self._slot_chain: dict[int, list[bytes]] = {}
         s, mb = self.serving.slots, self.pool.max_blocks_per_seq
         shape = (
             self.pool.n_blocks, cfg.n_heads,
@@ -444,20 +532,157 @@ class Engine:
     # admission-path API
     # ------------------------------------------------------------------
 
-    def admit(self, slot: int, n_total_tokens: int) -> Admission:
+    def admit(self, slot: int, n_total_tokens: int,
+              prompt=None) -> Admission:
         """Allocate ``blocks_for(n_total_tokens)`` blocks to ``slot`` and
         install its block table (raises PoolExhausted with nothing
         touched: admission backpressure). The slot stays dead until
-        activate()."""
-        blocks = self.allocator.alloc(self.pool.blocks_for(n_total_tokens))
-        row = np.zeros((self.pool.max_blocks_per_seq,), np.int32)
-        row[: len(blocks)] = blocks
+        activate().
+
+        With the prefix cache on and a ``prompt`` given, the prompt's
+        longest cached block-prefix is SHARED instead of allocated
+        (matched blocks retained, LRU blocks revived) and only the rest
+        draws fresh blocks. Feasibility is checked before any state is
+        touched, so a backpressured admission is a true no-op (free list,
+        LRU order, index and statistics untouched). A hit covering the
+        whole prompt still needs the last position's logits: the last
+        matched block is copied into a fresh one (copy-on-write) and
+        ``prefill_from`` points at the last prompt token, whose one-token
+        chunk writes into the private copy only. With ``tail_stride``, a
+        hit whose shared tokens end mid-block copies the deepest
+        registered partial tail into this sequence's next block and
+        prefill starts past the covered tokens."""
+        needed = self.pool.blocks_for(n_total_tokens)
+        alloc = self.allocator
+        hit: list[int] = []
+        chain: list[bytes] = []
+        if alloc.cache is not None and prompt is not None:
+            # one digest pass per admission: the same chain serves the
+            # match here and register_prefix() after prefill
+            chain = alloc.cache.chain(prompt)
+            hit = alloc.cache.match_chain(chain)
+        cached = len(hit) * self.pool.block_len
+        cow = bool(hit) and cached >= len(prompt)
+        tail_src = tail_tokens = 0
+        if (not cow and prompt is not None and alloc.cache is not None
+                and alloc.cache.tail_stride):
+            tail_src, tail_tokens = alloc.cache.match_tail(
+                prompt, len(hit), chain
+            )
+            cached += tail_tokens
+        fresh_n = needed - len(hit) + (1 if cow else 0)
+        protect = hit + ([tail_src] if tail_tokens else [])
+        if fresh_n > alloc.headroom_excluding(protect):
+            raise PoolExhausted(
+                f"need {fresh_n} fresh blocks beyond a {len(hit)}-block "
+                f"prefix hit, {alloc.headroom_excluding(protect)} "
+                "allocatable"
+            )
+        if hit:
+            alloc.retain(hit)
+        if tail_tokens:
+            # pin the tail source across alloc(): a fresh allocation may
+            # otherwise LRU-reclaim the very block about to be copied
+            alloc.retain([tail_src])
+        fresh = alloc.alloc(fresh_n)
+        if cow:
+            # the whole prompt is cached: the last matched block is copied
+            # so the re-derivation chunk writes a private block
+            blocks = hit[:-1] + fresh
+            self._copy_block(hit[-1], fresh[0])
+            alloc.release([hit[-1]])
+        elif tail_tokens:
+            # bytes past the covered tokens are re-prefilled or masked
+            blocks = hit + fresh
+            self._copy_block(tail_src, fresh[0])
+            alloc.release([tail_src])
+        else:
+            blocks = hit + fresh
+        self._install_table(slot, blocks)
         st = self.state
-        st["tables"][slot] = torch.from_numpy(row).to(self.device)
         st["pos"][slot] = 0
         st["live"][slot] = False
         self._slot_blocks[slot] = blocks
-        return Admission(blocks=blocks)
+        self._slot_chain[slot] = chain
+        self._slot_version[slot] = self.params_version
+        return Admission(
+            blocks=blocks,
+            cached_tokens=cached,
+            prefill_from=min(cached, max(len(prompt), 1) - 1)
+            if prompt is not None else 0,
+            cow_copied=cow,
+            tail_tokens=tail_tokens,
+        )
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        """Copy-on-write: block ``src``'s K/V into block ``dst`` in every
+        layer, in place (the source stays shared)."""
+        for pool in self.state["k"] + self.state["v"]:
+            pool[dst].copy_(pool[src])
+
+    def _install_table(self, slot: int, blocks: list[int]) -> None:
+        """Write ``slot``'s block-table row in place (trash block 0
+        beyond its allocation)."""
+        row = np.zeros((self.pool.max_blocks_per_seq,), np.int32)
+        row[: len(blocks)] = blocks
+        self.state["tables"][slot] = torch.from_numpy(row).to(self.device)
+
+    def register_prefix(self, slot: int, prompt) -> int:
+        """Index ``slot``'s fully prompt-covered blocks by their chained
+        content digests, once the prompt is completely prefilled (every
+        registered position is prefill-written, so a later hit's bytes
+        are a cold prefill's). Digests already present are skipped; new
+        entries link to their parent digest. With ``tail_stride``, the
+        prompt's last partial block registers at every covered stride.
+        Skipped for a slot admitted under a since-replaced params
+        version. -> newly registered blocks."""
+        cache = self.allocator.cache
+        if cache is None or not self._version_live(slot):
+            return 0
+        blocks = self._slot_blocks.get(slot)
+        if not blocks:
+            return 0
+        chain = self._slot_chain.get(slot) or cache.chain(prompt)
+        new = self._register_chain(chain, blocks)
+        nb = len(chain)
+        if cache.tail_stride and len(blocks) > nb:
+            cache.register_tail(prompt, blocks[nb])
+        return new
+
+    def register_history(self, slot: int, tokens) -> int:
+        """Index ``slot``'s full blocks under the chained digests of
+        ``tokens`` (the prompt and the emitted history), at retirement
+        with ``prefix_decode_blocks``, so a follow-up turn replaying this
+        conversation hits the decode-written blocks too. Only blocks
+        whose every position was written register: the last emitted
+        token's K/V never is, so the chain stops at ``len(tokens) - 1``
+        positions. -> newly registered blocks."""
+        cache = self.allocator.cache
+        if cache is None or not self._version_live(slot):
+            return 0
+        blocks = self._slot_blocks.get(slot)
+        if not blocks:
+            return 0
+        safe = (len(tokens) - 1) // self.pool.block_len
+        return self._register_chain(cache.chain(tokens)[:safe], blocks)
+
+    def _version_live(self, slot: int) -> bool:
+        """Whether ``slot``'s bytes were written under the live params
+        (a flip mid-flight makes them another version's)."""
+        return self._slot_version.get(slot, self.params_version) \
+            == self.params_version
+
+    def _register_chain(self, chain: list[bytes], blocks: list[int]) -> int:
+        """Register ``blocks[i]`` under ``chain[i]`` where the digest is
+        new, each linked to its parent. -> blocks registered."""
+        cache = self.allocator.cache
+        new = 0
+        for i, digest in enumerate(chain[: len(blocks)]):
+            if not cache.has(digest):
+                new += cache.register(
+                    digest, blocks[i], parent=chain[i - 1] if i else None,
+                )
+        return new
 
     def prefill_chunk(self, slot: int, tokens: np.ndarray, pos0: int):
         """Run one prompt chunk (<= max_prefill_chunk tokens) for
@@ -530,36 +755,320 @@ class Engine:
         )
 
     def retire(self, slot: int) -> None:
-        """Release the slot's blocks and kill its lane."""
+        """Release the slot's blocks (a refcount decrement: shared prefix
+        blocks stay for their other owners, registered refcount-0 blocks
+        park on the LRU list, the rest return to the free list) and kill
+        its lane."""
         st = self.state
         st["live"][slot] = False
         st["tables"][slot] = 0
         self._sampling.pop(slot, None)
+        self._slot_chain.pop(slot, None)
+        self._slot_version.pop(slot, None)
         blocks = self._slot_blocks.pop(slot, None)
         if blocks:
             self.allocator.release(blocks)
 
     # ------------------------------------------------------------------
-    # later slices
+    # migration: a slot, or cached blocks, as host values
     # ------------------------------------------------------------------
 
-    def export_slot(self, slot: int):
-        raise NotImplementedError(f"export_slot: comes with {_PREFIX_SLICE}")
+    def _gather_blocks(self, blocks: list[int]):
+        """Every layer's K/V of ``blocks`` -> two host arrays
+        (L, n, H, BL, D) of the pool's dtype. One copy to the host, so it
+        waits for the card."""
+        idx = torch.tensor(blocks, dtype=torch.int64, device=self.device)
+        k = torch.stack([p.index_select(0, idx) for p in self.state["k"]])
+        v = torch.stack([p.index_select(0, idx) for p in self.state["v"]])
+        return k.cpu().numpy(), v.cpu().numpy()
 
-    def import_slot(self, slot: int, payload: dict):
-        raise NotImplementedError(f"import_slot: comes with {_PREFIX_SLICE}")
+    def _scatter_blocks(self, blocks: list[int], k, v) -> None:
+        """Write host K/V arrays (L, n, H, BL, D) into ``blocks`` of every
+        layer: one ``index_copy_`` per pool."""
+        if not blocks:
+            return
+        idx = torch.tensor(blocks, dtype=torch.int64, device=self.device)
+        for pools, host in ((self.state["k"], k), (self.state["v"], v)):
+            t = torch.from_numpy(np.ascontiguousarray(host)).to(self.device)
+            for i, pool in enumerate(pools):
+                pool.index_copy_(0, idx, t[i])
 
-    def install_prefix(self, chain, k, v):
-        raise NotImplementedError(
-            f"install_prefix: comes with {_PREFIX_SLICE}"
-        )
+    def _check_blocks(self, what: str, k, v) -> None:
+        """Shipped K/V must match this pool's layers, geometry and dtype
+        (raises: nothing is cast)."""
+        pool = self.state["k"][0]
+        want = str(pool.dtype).removeprefix("torch.")
+        shape = (self.cfg.n_layers,) + tuple(pool.shape[1:])
+        for name, a in (("k", k), ("v", v)):
+            if a.dtype.name != want:
+                raise ValueError(
+                    f"{what}: {a.dtype.name} {name} into a {want} pool "
+                    "(K/V bytes are never cast)"
+                )
+            if a.ndim != 5 or (a.shape[0],) + a.shape[2:] != shape:
+                raise ValueError(
+                    f"{what}: {name} {a.shape} does not fit this pool's "
+                    f"(layers, n, heads, block_len, head_dim) "
+                    f"{shape[:1] + ('n',) + shape[1:]}"
+                )
+        if k.shape != v.shape:
+            raise ValueError(f"{what}: k {k.shape} != v {v.shape}")
 
-    def stage_params(self, params: dict, version: int):
-        raise NotImplementedError(
-            f"stage_params (live weight rollout): comes with {_PREFIX_SLICE}"
-        )
+    def export_slot(self, slot: int) -> dict:
+        """One admitted, activated slot's migratable state as host
+        values: every layer's K/V blocks gathered through its table,
+        trimmed to its allocation; the lanes (token, position,
+        temperature); and the admission digest chain. A temperature slot
+        ships its ``torch.Generator`` state (``gen_state``) and the
+        device type it belongs to, so the importer's stream continues
+        bitwise; ``rng`` is the JAX package's key lane, zero here. The
+        slot is untouched (the caller retires it). Synchronises with the
+        card: call it between ticks."""
+        blocks = self._slot_blocks.get(slot)
+        if not blocks:
+            raise ValueError(f"slot {slot} owns no blocks (not admitted?)")
+        k, v = self._gather_blocks(blocks)
+        st = self.state
+        lanes = torch.stack([st["tokens"][slot],
+                             st["pos"][slot].long()]).cpu()
+        temp = self._sampling.get(slot, 0.0)
+        payload = {
+            "k": k,
+            "v": v,
+            "token": int(lanes[0]),
+            "pos": int(lanes[1]),
+            "temp": float(temp),
+            "rng": np.zeros((2,), np.uint32),
+            "chain": list(self._slot_chain.get(slot) or ()),
+        }
+        if temp > 0.0:
+            payload["gen_state"] = self._gens[slot].get_state().numpy()
+            payload["gen_device"] = self.device.type
+        return payload
 
-    def flip_params(self):
-        raise NotImplementedError(
-            f"flip_params (live weight rollout): comes with {_PREFIX_SLICE}"
-        )
+    def import_slot(self, slot: int, payload: dict) -> dict:
+        """Install an exported sequence into dead ``slot``: share this
+        pool's cached blocks wherever the shipped digest chain matches,
+        allocate the rest, write the shipped bytes into the fresh blocks
+        only, install the lanes live, and register the shipped digests
+        for later local hits. The payload is checked first (dtype,
+        geometry, a temperature slot's generator state) and so is
+        feasibility, so a refused or backpressured import (ValueError,
+        PoolExhausted) touches nothing. -> {"blocks", "shared",
+        "registered"}."""
+        k, v = payload["k"], payload["v"]
+        self._check_blocks("import_slot", k, v)
+        temp = float(payload["temp"])
+        state = None
+        if temp > 0.0:
+            if "gen_state" not in payload:
+                raise ValueError(
+                    "import_slot: a temperature slot without a "
+                    "torch.Generator state (a JAX threefry key cannot "
+                    "continue its stream here)"
+                )
+            if payload.get("gen_device") != self.device.type:
+                raise ValueError(
+                    f"import_slot: a {payload.get('gen_device')} "
+                    f"generator state into a {self.device.type} engine"
+                )
+            state = torch.from_numpy(
+                np.array(payload["gen_state"], np.uint8))
+            if state.numel() != self._gens[slot].get_state().numel():
+                raise ValueError(
+                    f"import_slot: a {state.numel()}-byte generator state "
+                    f"for a {self._gens[slot].get_state().numel()}-byte "
+                    "generator"
+                )
+        alloc = self.allocator
+        n = int(k.shape[1])
+        chain = list(payload.get("chain") or ())
+        hit: list[int] = []
+        if alloc.cache is not None and chain:
+            hit = alloc.cache.match_chain(chain)[:n]
+        fresh_n = n - len(hit)
+        if fresh_n > alloc.headroom_excluding(hit):
+            raise PoolExhausted(
+                f"import needs {fresh_n} fresh blocks beyond a "
+                f"{len(hit)}-block prefix hit, "
+                f"{alloc.headroom_excluding(hit)} allocatable"
+            )
+        if hit:
+            alloc.retain(hit)
+        fresh = alloc.alloc(fresh_n)
+        blocks = hit + fresh
+        # shared blocks already hold these bytes: only fresh rows move
+        self._scatter_blocks(fresh, k[:, len(hit):], v[:, len(hit):])
+        self._install_table(slot, blocks)
+        st = self.state
+        st["tokens"][slot] = int(payload["token"])
+        st["pos"][slot] = int(payload["pos"])
+        st["live"][slot] = True
+        if state is None:
+            self._sampling.pop(slot, None)
+        else:
+            self._gens[slot].set_state(state)
+            self._sampling[slot] = temp
+        self._slot_blocks[slot] = blocks
+        self._slot_chain[slot] = chain
+        self._slot_version[slot] = self.params_version
+        registered = 0
+        if alloc.cache is not None:
+            registered = self._register_chain(chain[:n], blocks)
+        return {"blocks": blocks, "shared": len(hit),
+                "registered": registered}
+
+    def export_blocks(self, blocks: list[int]) -> tuple:
+        """Registered blocks' K/V as host arrays ``(k, v)`` shaped
+        (L, n, H, BL, D): the payload of a ``cache_ship``. The caller
+        retains the blocks across the call (an admission could
+        otherwise reclaim them)."""
+        return self._gather_blocks(list(blocks))
+
+    def install_prefix(self, chain: list[bytes], k, v) -> dict:
+        """Warm this pool with a peer's shipped prefix: allocate blocks
+        for every chain position not cached here, write the shipped K/V
+        into them (no lane touched), register them under the shipped
+        digests and park them on the LRU. Checked first (geometry, dtype,
+        feasibility), so a refused or backpressured install touches
+        nothing. Idempotent: a re-sent ship installs nothing. ->
+        {"installed", "shared"}."""
+        alloc = self.allocator
+        if alloc.cache is None or not alloc.lru_enabled:
+            # a refcount-0 block cannot outlive this call without the LRU
+            return {"installed": 0, "shared": 0}
+        n = len(chain)
+        mb = self.pool.max_blocks_per_seq
+        if n > mb or int(k.shape[1]) != n:
+            raise ValueError(
+                f"install_prefix: {n} digests vs {int(k.shape[1])} "
+                f"shipped blocks (table width {mb})"
+            )
+        self._check_blocks("install_prefix", k, v)
+        have = alloc.cache.match_chain(chain)
+        todo = n - len(have)
+        if todo == 0:
+            return {"installed": 0, "shared": n}
+        if todo > alloc.headroom_excluding(have):
+            raise PoolExhausted(
+                f"install needs {todo} fresh blocks beyond a "
+                f"{len(have)}-block local prefix, "
+                f"{alloc.headroom_excluding(have)} allocatable"
+            )
+        # pin the matched parents across alloc(): evicting one would
+        # orphan the chain about to be extended
+        if have:
+            alloc.retain(have)
+        fresh = alloc.alloc(todo)
+        self._scatter_blocks(fresh, k[:, len(have):], v[:, len(have):])
+        for i in range(len(have), n):
+            alloc.cache.register(
+                chain[i], fresh[i - len(have)],
+                parent=chain[i - 1] if i else None,
+            )
+        # the warmed blocks belong to no sequence: release parks them
+        alloc.release(fresh)
+        if have:
+            alloc.release(have)
+        return {"installed": todo, "shared": len(have)}
+
+    # ------------------------------------------------------------------
+    # live weight rollout: a staged next version beside the live one
+    # ------------------------------------------------------------------
+
+    @property
+    def staged_version(self) -> int | None:
+        """Version tag of the staged (not yet live) tree, or None."""
+        return self._staged[0] if self._staged is not None else None
+
+    def stage_params(self, params: dict, version: int) -> int:
+        """Hold next-version ``params`` (tensors or numpy arrays, e.g. a
+        deserialized weight frame) on the device beside the live tree.
+        Validated against the live tree's exact key set, shapes and
+        dtypes before anything is copied: the captured graphs are reused
+        across the flip, so a mismatched tree is rejected here, never
+        staged. -> staged byte count."""
+        version = int(version)
+        if version == self.params_version:
+            raise ValueError(f"stage_params: version {version} is already "
+                             "live")
+        missing = sorted(set(self.params) - set(params))
+        extra = sorted(set(params) - set(self.params))
+        if missing or extra:
+            raise ValueError(
+                f"stage_params v{version}: param tree mismatch "
+                f"(missing {missing[:3]}, extra {extra[:3]})"
+            )
+        host = {}
+        for name, live in self.params.items():
+            a = params[name]
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+                np.array(a))
+            if tuple(t.shape) != tuple(live.shape):
+                raise ValueError(
+                    f"stage_params v{version}: {name!r} shape "
+                    f"{tuple(t.shape)} != live {tuple(live.shape)}"
+                )
+            if t.dtype != live.dtype:
+                raise ValueError(
+                    f"stage_params v{version}: {name!r} dtype {t.dtype} "
+                    f"!= live {live.dtype}"
+                )
+            host[name] = t
+        self._staged = (version, {
+            name: t.detach().to(self.device, copy=True)
+            for name, t in host.items()
+        })
+        return sum(t.numel() * t.element_size() for t in host.values())
+
+    def unstage(self) -> None:
+        """Drop the staged tree (an aborted version)."""
+        self._staged = None
+
+    def _swap_params(self, other: dict) -> None:
+        """Exchange the bytes of the live tensors and ``other``'s, in
+        place: the live tensors keep their addresses (the graphs read
+        them) and ``other`` ends up holding the previous weights."""
+        for name, live in self.params.items():
+            old = live.clone()
+            live.copy_(other[name])
+            other[name].copy_(old)
+
+    def flip_params(self) -> dict:
+        """Make the staged tree live at a tick boundary: its bytes are
+        copied into the live tensors, the previous weights stay pinned
+        (in the staged tree's tensors) for rollback, and the prefix cache
+        is purged (its bytes belong to the old weights). In-flight slots
+        ride through on their written K/V. -> {"version",
+        "prev_version", "purged_blocks"}."""
+        if self._staged is None:
+            raise ValueError("flip_params: nothing staged")
+        version, tree = self._staged
+        self._swap_params(tree)
+        self._prev = (self.params_version, tree)
+        self.params_version = version
+        self._staged = None
+        return {
+            "version": version,
+            "prev_version": self._prev[0],
+            "purged_blocks": self.allocator.purge_cache(),
+        }
+
+    def rollback_params(self) -> dict:
+        """Restore the pinned previous version (a canary abort), in place
+        as flip_params does, and purge the cache again: blocks written
+        under the aborted version are garbage to the restored one.
+        Raises if no previous version is pinned."""
+        if self._prev is None:
+            raise ValueError("rollback_params: no previous version pinned")
+        version, tree = self._prev
+        self._swap_params(tree)
+        aborted = self.params_version
+        self.params_version = version
+        self._prev = None
+        self._staged = None
+        return {
+            "version": version,
+            "aborted_version": aborted,
+            "purged_blocks": self.allocator.purge_cache(),
+        }

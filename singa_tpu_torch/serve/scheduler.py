@@ -11,7 +11,10 @@ plane over one :class:`Engine`:
     never dropped;
   - admitted prompts prefill in fixed chunks, one chunk per request per
     tick, so a long prompt shares the loop with live decode instead of
-    stalling it;
+    stalling it; with the prefix cache on, admission first points the
+    sequence's table at the pool's longest cached prefix of its prompt,
+    the chunk loop starts at the first uncovered token, and the prompt
+    is registered for later hits once its last chunk lands;
   - every live slot advances one token per tick through the engine's
     decode program; EOS or an exhausted budget retires the slot (blocks
     freed for the next admission);
@@ -39,7 +42,7 @@ import numpy as np
 
 from .engine import Engine
 from .kv_pool import PoolExhausted
-from .speculate import NGramDrafter
+from .speculate import make_drafter
 
 
 @dataclasses.dataclass
@@ -82,7 +85,18 @@ class Scheduler:
         #: engine's verify program; ``drafter`` replaces the n-gram drafter
         #: (e.g. speculate.NullDrafter forces zero acceptance)
         self.spec_k = engine.serving.spec_k
-        self.drafter = drafter or NGramDrafter()
+        if drafter is not None:
+            self.drafter = drafter
+        else:
+            self.drafter = (make_drafter(engine.serving.spec_drafter)
+                            if self.spec_k > 0 else None)
+        #: role gate for a fleet's prefill/decode split: False = ticks
+        #: run admission and chunked prefill only, and decoding requests
+        #: wait to be migrated to a decode peer
+        self.decode_enabled = True
+        # the allocator's lifecycle events (lru_evict, lru_reclaim) ride
+        # the scheduler's event path
+        engine.allocator.on_event = self._event
         self._queue: collections.deque[Request] = collections.deque()
         self._slot_req: dict[int, Request] = {}
         self.finished: list[Request] = []
@@ -103,6 +117,15 @@ class Scheduler:
         self.tokens_emitted = 0
         self.spec_drafted = self.spec_accepted = 0
         self.prefill_chunks = 0
+        #: prefix-cache accounting (all zero with the cache off); partial
+        #: hits COW-extended a registered tail, decode blocks registered
+        #: at retirement under ``prefix_decode_blocks``
+        self.prefix_lookups = self.prefix_hits = 0
+        self.blocks_shared = self.cow_copies = 0
+        self.partial_hits = self.tail_tokens_shared = 0
+        self.decode_blocks_registered = 0
+        self.prefill_chunks_saved = 0
+        self.engine.allocator.reset_stats()
         self.backpressure_ticks = 0
         #: sum over ticks of live (decoding) slots: occupancy reporting
         self._live_ticks = 0
@@ -145,7 +168,8 @@ class Scheduler:
             req = self._queue[0]
             try:
                 adm = self.engine.admit(
-                    free[0], len(req.prompt) + req.max_new_tokens
+                    free[0], len(req.prompt) + req.max_new_tokens,
+                    prompt=req.prompt,
                 )
             except PoolExhausted:
                 stalled = True
@@ -155,8 +179,9 @@ class Scheduler:
             self._slot_req[slot] = req
             req.slot = slot
             req.status = "prefill"
-            # a handed-back (drained) request restarts from scratch
-            req._prefilled = 0
+            # prefill starts at the first token the prefix cache did not
+            # cover; a handed-back (drained) request restarts from there
+            req._prefilled = adm.prefill_from
             req.tokens = []
             req.admit_wall = time.time()
             req.admit_mono = time.perf_counter()
@@ -165,6 +190,7 @@ class Scheduler:
                 prompt_len=int(len(req.prompt)), blocks=len(adm.blocks),
                 queued_s=round(req.admit_mono - req.enqueue_mono, 6),
             )
+            self._count_prefix(req, slot, adm)
         if stalled:
             self.backpressure_ticks += 1
             self._event(
@@ -172,6 +198,38 @@ class Scheduler:
                 queued=len(self._queue),
                 free_blocks=self.engine.allocator.free_blocks,
             )
+
+    def _count_prefix(self, req: Request, slot: int, adm) -> None:
+        """The prefix-cache counters and events of one admission."""
+        if self.engine.allocator.cache is not None:
+            self.prefix_lookups += 1
+        if adm.cached_tokens:
+            c = self.engine.serving.max_prefill_chunk
+            plen = len(req.prompt)
+            saved = -(-plen // c) - -(-(plen - adm.prefill_from) // c)
+            # blocks read through another owner's bytes (a COW'd block is
+            # private)
+            shared = (adm.cached_tokens // self.engine.pool.block_len
+                      - (1 if adm.cow_copied else 0))
+            self.prefix_hits += 1
+            self.blocks_shared += shared
+            self.prefill_chunks_saved += saved
+            self._event(
+                "prefix_hit", rid=req.rid, slot=slot,
+                cached_tokens=int(adm.cached_tokens),
+                blocks_shared=int(shared), chunks_saved=int(saved),
+            )
+        if adm.tail_tokens:
+            self.partial_hits += 1
+            self.tail_tokens_shared += adm.tail_tokens
+            self._event(
+                "partial_hit", rid=req.rid, slot=slot,
+                cached_tokens=int(adm.cached_tokens),
+                tail_tokens=int(adm.tail_tokens),
+            )
+        if adm.cow_copied:
+            self.cow_copies += 1
+            self._event("cow_copy", rid=req.rid, slot=slot)
 
     def _prefill_some(self) -> None:
         # one chunk per prefilling request per tick: decode never waits
@@ -195,6 +253,9 @@ class Scheduler:
                 done=int(req._prefilled), of=int(len(req.prompt)),
             )
             if req._prefilled >= len(req.prompt):
+                # every prompt position is prefill-written: index the
+                # fully covered blocks for later hits
+                self.engine.register_prefix(slot, req.prompt)
                 first = self.engine.activate(
                     slot, last, len(req.prompt), req.seed,
                     temperature=req.temperature,
@@ -212,6 +273,18 @@ class Scheduler:
         return False
 
     def _finish(self, slot: int, req: Request, reason: str) -> None:
+        if (self.engine.serving.prefix_decode_blocks
+                and self.engine.allocator.cache is not None and req.tokens):
+            # multi-turn reuse: index the conversation's full blocks,
+            # decode-written ones included, before release parks them
+            n = self.engine.register_history(
+                slot, np.concatenate([np.asarray(req.prompt, np.int32),
+                                      np.asarray(req.tokens, np.int32)]),
+            )
+            if n:
+                self.decode_blocks_registered += n
+                self._event("decode_register", rid=req.rid, slot=slot,
+                            blocks=int(n))
         self.engine.retire(slot)
         del self._slot_req[slot]
         req.status = "done"
@@ -245,11 +318,11 @@ class Scheduler:
     def tick(self) -> int:
         """One scheduling round: admit fills freed slots, prefill
         advances one chunk each, then every live slot decodes (one token,
-        or up to spec_k + 1 through the verify program). -> tokens
-        emitted."""
+        or up to spec_k + 1 through the verify program; skipped when
+        ``decode_enabled`` is False). -> tokens emitted."""
         self._admit_some()
         self._prefill_some()
-        emitted_n = self._decode_some()
+        emitted_n = self._decode_some() if self.decode_enabled else 0
         self.ticks += 1
         return emitted_n
 
@@ -389,4 +462,19 @@ class Scheduler:
             out["tokens_per_tick"] = round(
                 self.tokens_emitted / max(1, self.decode_ticks), 4
             )
+        alloc = self.engine.allocator
+        if alloc.cache is not None:
+            out["prefix_hits"] = self.prefix_hits
+            out["prefix_hit_rate"] = round(
+                self.prefix_hits / max(1, self.prefix_lookups), 4
+            )
+            out["blocks_shared"] = self.blocks_shared
+            out["cow_copies"] = self.cow_copies
+            out["partial_hits"] = self.partial_hits
+            out["tail_tokens_shared"] = self.tail_tokens_shared
+            out["decode_blocks_registered"] = self.decode_blocks_registered
+            out["prefill_chunks_saved"] = self.prefill_chunks_saved
+            out["lru_evictions"] = alloc.lru_evictions
+            out["lru_reclaims"] = alloc.lru_reclaims
+            out["kv_blocks_cached"] = alloc.cached_blocks
         return out

@@ -20,6 +20,18 @@ speculative over one-token tokens/s, gated by ``--spec_threshold``. Use
 ``--workload repeat`` (prompts tiling a short motif, the drafter's home
 turf).
 
+``--workload shared_prefix`` benchmarks the PREFIX CACHE: every prompt
+is one common prefix (``prompt_len - min(4, prompt_len // 4)`` tokens, a
+system prompt) and a unique tail. Warm admission (cache on, seeded by
+two throwaway requests of the first prompt: the second is a
+whole-prompt hit, so the COW path is warm too) runs against cold
+admission (cache off, every prompt prefilled whole) on the same engine
+shape. Or-gate (``--prefix_threshold``, default 1.5): warm tokens/s at
+least that multiple of cold, OR prefill chunks executed down at least
+2x (a counter, so it holds whatever the host's timing). Streams must
+equal the cold run's either way. ``--prefix_cache`` turns the cache on
+in the other arms too.
+
 Baselines always attend through ``reference`` (gather +
 ``cache_attend``), so the stream check (``token_mismatches`` must be 0)
 doubles as a fused-vs-reference check when ``--kernels fused``.
@@ -33,7 +45,8 @@ Usage::
       [--requests 16] [--d_model 256] [--n_layers 2] [--n_heads 4]
       [--vocab 256] [--max_len 128] [--prompt_len 8] [--max_new 48]
       [--block_len 16] [--kv_blocks 0] [--prefill_chunk 16]
-      [--speculate_k K] [--workload random|repeat]
+      [--speculate_k K] [--workload random|repeat|shared_prefix]
+      [--prefix_cache] [--prefix_threshold 1.5]
       [--kernels fused|reference] [--device cuda|cpu] [--no_gate]
 """
 
@@ -88,9 +101,17 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="min speculative tokens/sec over the one-token "
                     "tick")
     ap.add_argument("--workload", default="random",
-                    choices=("random", "repeat"),
+                    choices=("random", "repeat", "shared_prefix"),
                     help="prompt shape: 'repeat' tiles a short motif, the "
-                    "n-gram drafter's home turf")
+                    "n-gram drafter's home turf; 'shared_prefix' is one "
+                    "common prefix and a unique tail, the prefix cache's "
+                    "gate")
+    ap.add_argument("--prefix_cache", action="store_true",
+                    help="prefix cache on in the measured engine (implied "
+                    "by --workload shared_prefix)")
+    ap.add_argument("--prefix_threshold", type=float, default=1.5,
+                    help="min warm tokens/sec over cold on shared_prefix "
+                    "(or-gated with a >= 2x drop in prefill chunks)")
     ap.add_argument("--kernels", default="fused",
                     choices=("fused", "reference"),
                     help="attention on the measured engine: 'fused' = the "
@@ -115,13 +136,21 @@ def _token_mismatches(ref_sched, sched) -> int:
 
 def _workload(args) -> list[np.ndarray]:
     """Deterministic prompts of ``--prompt_len`` tokens; ``repeat``
-    tiles a per-request 4-token motif."""
+    tiles a per-request 4-token motif; ``shared_prefix`` draws one common
+    prefix first (only for that workload, so the others' prompts stay
+    as they were) and a unique tail per request."""
     rs = np.random.RandomState(args.seed)
     prompts = []
+    if args.workload == "shared_prefix":
+        tail = max(1, min(4, args.prompt_len // 4))
+        prefix = rs.randint(0, args.vocab, size=(args.prompt_len - tail,))
     for _ in range(args.requests):
         if args.workload == "repeat":
             motif = rs.randint(0, args.vocab, size=(4,))
             pr = np.tile(motif, args.prompt_len // 4 + 1)[:args.prompt_len]
+        elif args.workload == "shared_prefix":
+            pr = np.concatenate(
+                [prefix, rs.randint(0, args.vocab, size=(tail,))])
         else:
             pr = rs.randint(0, args.vocab, size=(args.prompt_len,))
         prompts.append(pr.astype(np.int32))
@@ -129,11 +158,14 @@ def _workload(args) -> list[np.ndarray]:
 
 
 def run_continuous(params, cfg, prompts, args, slots, device, spec_k=0,
-                   kernels="reference"):
+                   kernels="reference", prefix_cache=False):
     """The serving stack at ``slots`` concurrency (slots=1 is the
     one-at-a-time baseline), warmed with a throwaway request (kernel
     build, allocator and library start-up stay out of the timed run).
-    -> (scheduler, elapsed_s)."""
+    With ``prefix_cache`` a second throwaway of the same prompt is a
+    whole-prompt hit (the COW path runs before the timed run too), and
+    the first prompt's blocks stay cached: the measured requests admit
+    into a warm pool. -> (scheduler, elapsed_s)."""
     engine = Engine(
         params, cfg,
         EngineConfig(
@@ -142,14 +174,16 @@ def run_continuous(params, cfg, prompts, args, slots, device, spec_k=0,
             kv_blocks=args.kv_blocks,
             max_prefill_chunk=args.prefill_chunk,
             spec_k=spec_k,
+            prefix_cache=prefix_cache,
             attend_impl=kernels,
         ),
         device=device,
     )
     sched = Scheduler(engine)
-    sched.submit(Request(rid=-1, prompt=np.asarray(prompts[0]),
-                         max_new_tokens=2))
-    sched.serve()
+    for rid in ((-1, -2) if prefix_cache else (-1,)):
+        sched.submit(Request(rid=rid, prompt=np.asarray(prompts[0]),
+                             max_new_tokens=2))
+        sched.serve()
     sched.reset_counters()
     engine.allocator.peak_used = engine.allocator.used_blocks
     for i, pr in enumerate(prompts):
@@ -175,17 +209,21 @@ def main(argv=None) -> int:
     )
     params = init_lm(torch.Generator().manual_seed(args.seed), cfg, device)
     prompts = _workload(args)
-    spec = args.speculate_k > 0
+    shared = args.workload == "shared_prefix"
+    spec = args.speculate_k > 0 and not shared
 
-    # the baseline: one stream at a time, or one-token ticks at the same
-    # concurrency under speculation; always the reference attend
+    # the baseline: one stream at a time; one-token ticks at the same
+    # concurrency under speculation; cold admission (cache off) on the
+    # same engine shape for shared_prefix. Always the reference attend
     base, base_s = run_continuous(
         params, cfg, prompts, args,
-        slots=args.concurrency if spec else 1, device=device,
+        slots=args.concurrency if spec or shared else 1, device=device,
+        spec_k=args.speculate_k if shared else 0,
     )
     sched, serve_s = run_continuous(
         params, cfg, prompts, args, slots=args.concurrency, device=device,
         spec_k=args.speculate_k, kernels=args.kernels,
+        prefix_cache=shared or args.prefix_cache,
     )
     lat = sorted(r.latency_s * 1e3 for r in sched.finished)
     out = {
@@ -211,19 +249,41 @@ def main(argv=None) -> int:
         round(out["tokens_per_s"] / out["base_tokens_per_s"], 3)
         if out["base_tokens_per_s"] else None
     )
-    threshold = args.spec_threshold if spec else args.threshold
+    threshold = (args.spec_threshold if spec else args.prefix_threshold
+                 if shared else args.threshold)
     if spec:
         out["spec_k"] = args.speculate_k
+    elif shared:
+        out["prefill_chunks_cold"] = base.prefill_chunks
+        out["prefill_chunks_warm"] = sched.prefill_chunks
+        out["prefill_chunk_ratio"] = (
+            round(base.prefill_chunks / sched.prefill_chunks, 3)
+            if sched.prefill_chunks else None
+        )
     else:
         # steady-state capacity: full-occupancy decode ticks only
         steady = (sched.full_tick_tokens / sched.full_tick_s
                   if sched.full_tick_s > 0 else 0.0)
         out["steady_tokens_per_s"] = round(steady, 1)
     out["threshold"] = threshold
-    out["pass"] = (
-        out["token_mismatches"] == 0
-        and (out["speedup"] or 0) >= threshold
-    )
+    if shared:
+        # or-gate: end-to-end warm over cold where prefill dominates; the
+        # executed-chunk drop is the deterministic arm
+        out["pass_mode"] = (
+            "end_to_end" if (out["speedup"] or 0) >= threshold
+            else "prefill_chunks"
+            if (out["prefill_chunk_ratio"] or 0) >= 2.0 else None
+        )
+        out["pass"] = (
+            out["token_mismatches"] == 0
+            and out.get("prefix_hit_rate", 0) > 0
+            and out["pass_mode"] is not None
+        )
+    else:
+        out["pass"] = (
+            out["token_mismatches"] == 0
+            and (out["speedup"] or 0) >= threshold
+        )
     print(json.dumps(out))
     if args.no_gate:
         return 0 if out["token_mismatches"] == 0 else 1

@@ -553,6 +553,87 @@ def test_engine_graphs_give_the_eager_streams(cuda_device, temperature):
     assert out[0] == out[1]
 
 
+def _serve_lm(dev):
+    cfg = TransformerConfig(vocab=64, d_model=128, n_heads=2, n_layers=2,
+                            d_ff=128, max_len=96)
+    return cfg, init_lm(torch.Generator().manual_seed(0), cfg, dev)
+
+
+def test_flip_after_capture_serves_the_new_weights(cuda_device):
+    """Both graphs are captured, then flip_params: the next decode tick's
+    logits are the new weights' (an eager engine flipped at the same
+    point), not the captured old ones'. A flip that rebound the params
+    instead of writing them would leave the graphs replaying the old
+    weights."""
+    cfg, params = _serve_lm(cuda_device)
+    new = init_lm(torch.Generator().manual_seed(1), cfg, cuda_device)
+    prompt = np.arange(40, dtype=np.int32) % 64
+    logits = {}
+    for tag, graphs, flip in (("graphed", True, True), ("eager", False, True),
+                              ("unflipped", True, False)):
+        eng = Engine(params, cfg, EngineConfig(
+            slots=2, kv_block_len=16, max_prefill_chunk=16,
+        ), device=cuda_device, graphs=graphs)
+        eng.admit(0, 60)
+        for c0 in range(0, 40, 16):
+            last = eng.prefill_chunk(0, prompt[c0:c0 + 16], c0)
+        eng.activate(0, last, 40, seed=0)
+        for _ in range(3):
+            eng.decode()
+        assert eng._decode_graph.captured == graphs
+        assert eng._prefill_graph.captured == graphs
+        if flip:
+            eng.stage_params(new, 1)
+            eng.flip_params()
+        eng.decode()
+        logits[tag] = eng._dec_logits[0].clone()
+    torch.testing.assert_close(logits["graphed"], logits["eager"],
+                               atol=1e-5, rtol=0)
+    assert float((logits["graphed"] - logits["unflipped"]).abs().max()) > 1e-2
+
+
+def test_hit_cow_import_and_reclaim_never_recapture(cuda_device):
+    """Prefix hits, whole-prompt COWs, LRU reclaims in a small pool and
+    an imported slot all run through the graphs captured once: each
+    graph is captured one time, and the streams are the eager engine's."""
+    cfg, params = _serve_lm(cuda_device)
+    rs = np.random.RandomState(2)
+    prefix = rs.randint(0, 64, size=(32,)).astype(np.int32)
+    reqs = [np.concatenate([prefix, rs.randint(0, 64, size=(5,))])
+            .astype(np.int32) for _ in range(6)] + [prefix, prefix]
+    reqs += [rs.randint(0, 64, size=(30,)).astype(np.int32)
+             for _ in range(4)]
+    ec = EngineConfig(slots=3, kv_block_len=16, max_prefill_chunk=16,
+                      kv_blocks=14, prefix_cache=True)
+    out = []
+    for graphs in (True, False):
+        donor = Engine(params, cfg, ec, device=cuda_device, graphs=graphs)
+        donor.admit(0, 40, prompt=prefix[:20])
+        last = donor.prefill_chunk(0, prefix[:16], 0)
+        last = donor.prefill_chunk(0, prefix[16:20], 16)
+        donor.activate(0, last, 20, seed=0)
+        donor.decode()
+        eng = Engine(params, cfg, ec, device=cuda_device, graphs=graphs)
+        sched = Scheduler(eng)
+        for i, p in enumerate(reqs):
+            sched.submit(Request(rid=i, prompt=p, max_new_tokens=8))
+        while sched.busy and not eng._decode_graph.captured:
+            sched.tick()
+        graph = eng._decode_graph.graph
+        sched.serve()
+        # an imported slot decodes through the same graphs
+        eng.import_slot(1, donor.export_slot(0))
+        moved = [int(eng.decode()[1]) for _ in range(5)]
+        assert sched.prefix_hits > 0 and sched.cow_copies >= 2
+        assert eng.allocator.lru_reclaims + eng.allocator.lru_evictions > 0
+        if graphs:
+            assert eng._decode_graph.graph is graph is not None
+            assert eng._decode_graph.eager_calls == 1
+            assert eng._prefill_graph.eager_calls == 1
+        out.append(({r.rid: r.tokens for r in sched.finished}, moved))
+    assert out[0] == out[1]
+
+
 # ---------------------------------------------------------------------------
 # BatchNorm's running stats and the RBM's draws on the card
 # ---------------------------------------------------------------------------

@@ -198,11 +198,7 @@ def test_temperature_streams_are_seeded_and_slot_independent():
 @pytest.mark.parametrize(
     "make",
     [
-        lambda p, c: Engine(p, c, EngineConfig(prefix_cache=True),
-                            device="cpu"),
         lambda p, c: Engine(p, c, mesh=object(), device="cpu"),
-        lambda p, c: Engine(p, c, device="cpu").export_slot(0),
-        lambda p, c: Engine(p, c, device="cpu").stage_params(p, 1),
     ],
 )
 def test_later_slice_options_raise(make):
