@@ -263,6 +263,51 @@ caught and carried on):
              ``self.params``) that must break that check; stage, flip and
              rollback ms and the memory each adds.
 
+  15. fleet  (runs after prefix) the serving fleet on the serve phase's LM
+             and engine geometry (8 slots, block 16, chunk 64, the
+             kernel), the serve phase's 16 requests, driven by
+             serve_bench's fleet loop: a prefill and a decode host in
+             this process over LocalTransport (graphs captured by a
+             warm-up through the fleet path), an untimed run with the
+             migration's export (gather + frame), transport (frame decode)
+             and import timed per sequence, then the unified engine and
+             the fleet in turns (unified, fleet, fleet, unified):
+             tokens/s, time to first token (p50, p99; the fleet's as the
+             decode host has it), streams equal to the unified engine's
+             and the reference path's, the prefill host's chunks the
+             prompts' own, the decode host 0 prefill chunks and the
+             prefill host 0 decode ticks, each host's launches = layers x
+             its chunks or ticks; a rollout with every weight_ship to the
+             prefill host torn (torn_weights@1..3): caught by the frame's
+             CRC, quarantined, the canary rolled back, streams equal to
+             v0's; a clean rollout: staged, canary-probed, flipped on
+             both hosts under their captured graphs, streams equal to a
+             fresh v1 engine's; two unified hosts with the prefix cache:
+             a shared-prefix request on the host without the blocks
+             fetches them (cache_fetch -> cache_ship, 63 blocks) and
+             streams as a local hit and a cold engine do, no fetch timing
+             out; serve_bench's socket fleet in this process (TCP
+             loopback) with wire_drop@WIRE_DROP_AT and
+             wire_delay@WIRE_DELAY_AT planted: both fire, streams
+             unchanged, the drop retried; then two OS processes through
+             ``python -m singa_tpu_torch.main -procsID k`` (prefill,
+             decode), once over the Mailbox and once over sockets, this
+             process the front door (a warm-up request first): both hosts
+             report cuda, every stream equals the unified engine's and
+             finishes on the decode host, and each host's counts from its
+             first request past the warm-up are the measured run's (the
+             prefill host's chunks the prompts' own, launches = layers x
+             (chunks + ticks)); last, the drain, twice: a prefill or a
+             unified host0 and a unified host1 over the Mailbox, every
+             request sent to host0, which gets a SIGTERM mid-run (the
+             prefill one once a sequence reached host1, the unified one
+             once it has finished its first stream): it forwards its
+             prefilling and queued requests, the unified one also
+             migrates its decoding sequences (at least one) at a tick
+             boundary, and exits 75; every stream is at full parity.
+             Every wait on a host has a timeout; every process is
+             stopped.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -273,6 +318,8 @@ import ctypes
 import json
 import os
 import re
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -284,6 +331,7 @@ import torch
 import torch.nn.functional as F
 
 from singa_tpu_torch import _build, native
+from singa_tpu_torch.comm import SocketTransport
 from singa_tpu_torch.config import load_model_config
 from singa_tpu_torch.data.loader import (
     compute_mean,
@@ -308,8 +356,12 @@ from singa_tpu_torch.ops import paged_attention as pa
 from singa_tpu_torch.ops import quantized_collective as qc
 from singa_tpu_torch.parallel import moe as tmoe
 from singa_tpu_torch.parallel import apply_grad_comm_tag, build_mesh
+from singa_tpu_torch.resilience.faults import FaultPlan
 from singa_tpu_torch.serve import Engine, EngineConfig, Request, Scheduler
+from singa_tpu_torch.serve.fleet import Mailbox
 from singa_tpu_torch.serve.fleet import migrate as tmigrate
+from singa_tpu_torch.serve.fleet.router import encode_request
+from singa_tpu_torch.serve.rollout import RolloutController
 from singa_tpu_torch.tools import serve_bench
 from singa_tpu_torch.tools.serve_bench import _percentile
 from singa_tpu_torch.trainer import (
@@ -492,6 +544,25 @@ MOE_GRAD_TOL = 1e-6
 #: 8 greedy and 2 temperature slots after 16 decode ticks
 PREFIX_LEN, PREFIX_TAIL, PREFIX_REQUESTS = 1024, 4, 16
 MIGRATE_SLOTS, MIGRATE_TEMPS, MIGRATE_TICKS = 8, 2, 16
+#: the fleet phase's in-process fleets, as serve_bench's arguments: the
+#: serve phase's engine geometry and the kernel
+FLEET_ARGS = dict(
+    fleet_hosts="prefill,decode", concurrency=8, block_len=16, kv_blocks=0,
+    prefill_chunk=64, speculate_k=0, kernels="fused", prefix_cache=False,
+    transport="local", wire_faults="", workspace=None, sigterm_at_tick=0,
+    sigterm_host=None, arrival="batch", rate=0.0, seed=0, max_new=64)
+#: every wait on a fleet run or a host process (a hang fails the phase)
+FLEET_TIMEOUT_S = 120
+#: message-send ordinals of the wire drill's planted faults: past the
+#: warm-up's two sends, a request (delayed) and a migrate frame (dropped)
+WIRE_DELAY_AT, WIRE_DROP_AT, WIRE_DELAY_MS = 12, 22, 50
+
+
+def WARM_PROMPT(cfg):
+    """A warm-up request's prompt: three prefill chunks (and a budget of
+    three decode ticks), so both of a host's graphs are captured (the
+    first call runs eagerly) before anything is counted or timed."""
+    return np.arange(130, dtype=np.int32) % cfg.vocab
 
 
 class SmokeFailure(RuntimeError):
@@ -876,12 +947,7 @@ def in_turns(dev, params, cfg, prompts, a, b):
 
 
 def serve_phase(dev, cfg, params):
-    rs = np.random.RandomState(1)
-    prompts = [
-        rs.randint(0, cfg.vocab, size=(int(rs.randint(32, 1025)),)).astype(
-            np.int32)
-        for _ in range(16)
-    ]
+    prompts = serve_prompts(cfg)
     runs = in_turns(dev, params, cfg, prompts, {"impl": "fused"},
                     {"impl": "reference"})
     for tag, sched, _, launches in runs:
@@ -1263,6 +1329,550 @@ def prefix_phase(dev, smi, cfg, params):
     stage_drill(dev, smi, cfg, params)
     release()
     return runs[2][3]["paged_attention"]
+
+
+# ---------------------------------------------------------------------------
+# fleet phase
+# ---------------------------------------------------------------------------
+
+
+def serve_prompts(cfg):
+    """The serve phase's workload: 16 ragged prompts of 32-1024 tokens."""
+    rs = np.random.RandomState(1)
+    return [
+        rs.randint(0, cfg.vocab, size=(int(rs.randint(32, 1025)),)).astype(
+            np.int32)
+        for _ in range(16)
+    ]
+
+
+def fleet_args(**kw):
+    return SimpleNamespace(**{**FLEET_ARGS, **kw})
+
+
+def prompt_chunks(prompts) -> int:
+    """The prefill chunks the prompts' own prefill takes (no prefix
+    cache, chunk 64): what a prefill host runs for them."""
+    return sum(-(-len(p) // FLEET_ARGS["prefill_chunk"]) for p in prompts)
+
+
+def fleet_run(dev, params, cfg, prompts, fleet):
+    """serve_bench's fleet loop on a built, warmed ``fleet`` (hosts,
+    router), its counters zeroed first. -> (seconds, {rid: tokens},
+    TTFT ms sorted, per-host paged-attention launches)."""
+    torch.cuda.synchronize()
+    pa.paged_attention.launches = pa.paged_attention_overlay.launches = 0
+    launches = {}
+    hosts, _, seconds, streams, _, _, _ = serve_bench.run_fleet(
+        params, cfg, prompts, fleet_args(), dev, fleet=fleet,
+        launches=launches)
+    check(pa.paged_attention.launches + pa.paged_attention_overlay.launches
+          == sum(launches.values()), "fleet: per-host launches do not add "
+          "up")
+    # the first token as the decode host has it: sampled on the prefill
+    # host, landed with the migrated sequence
+    ttft = sorted((r.first_token_mono - r.enqueue_mono) * 1e3
+                  for h in hosts for r in h.sched.finished if r.rid >= 0)
+    return seconds, streams, ttft, launches
+
+
+class MigrationTimer:
+    """Wraps the migrate module's four steps while active: export
+    (export_sequence + serialize, on the prefill host), transport
+    (deserialize at the receiver; an in-process send is a deque append)
+    and import (import_sequence), each closed by a device sync; frame
+    bytes from serialize."""
+
+    STEPS = {"export_sequence": "export", "serialize": "export",
+             "deserialize": "transport", "import_sequence": "import"}
+
+    def __enter__(self):
+        self.ms = {"export": [], "transport": [], "import": []}
+        self.frame_bytes = []
+        self._orig = {}
+        for fn, part in self.STEPS.items():
+            self._orig[fn] = getattr(tmigrate, fn)
+            setattr(tmigrate, fn, self._wrap(self._orig[fn], fn, part))
+        return self
+
+    def _wrap(self, f, fn, part):
+        def timed_step(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*a, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if fn == "serialize":
+                self.ms["export"][-1] += ms
+                self.frame_bytes.append(len(out))
+            else:
+                self.ms[part].append(ms)
+            return out
+        return timed_step
+
+    def __exit__(self, *exc):
+        for fn, f in self._orig.items():
+            setattr(tmigrate, fn, f)
+
+    def summary(self):
+        n = len(self.frame_bytes)
+        return {"sequences": n,
+                **{f"{k}_ms_mean": float(np.mean(v)) for k, v in
+                   self.ms.items()},
+                "frame_bytes_mean": float(np.mean(self.frame_bytes)),
+                "frame_bytes_max": max(self.frame_bytes)}
+
+
+def fleet_inprocess(dev, smi, cfg, params, prompts, uni):
+    """A prefill and a decode host on the card over LocalTransport: an
+    untimed run with the migration steps timed, then fleet against the
+    unified engine in turns (unified, fleet, fleet, unified). ->
+    ((hosts, router), per-host launches of the last fleet run)."""
+    hosts, router, _ = serve_bench.build_fleet(params, cfg, fleet_args(),
+                                               dev)
+    fleet = (hosts, router)
+    serve_bench.warm_fleet(hosts, router, prompts[0][:40])
+    with MigrationTimer() as mt:
+        streams = fleet_run(dev, params, cfg, prompts, fleet)[1]
+    check(streams == uni, "fleet: in-process streams != the unified "
+          "engine's")
+    rec = mt.summary()
+    print("fleet migrate", json.dumps(rec), f"[{smi}]")
+    check(rec["sequences"] == len(prompts), "fleet: not every sequence "
+          "migrated once")
+    out = {}
+    for k, tag in enumerate(("unified", "fleet", "fleet", "unified")):
+        if tag == "unified":
+            sched, seconds, _, got = serve(dev, params, cfg, prompts,
+                                           impl="fused")
+            r = report(f"fleet_{tag}", sched, seconds)
+        else:
+            seconds, got, ttft, launches = fleet_run(dev, params, cfg,
+                                                     prompts, fleet)
+            p0, d0 = hosts
+            tokens = sum(len(v) for v in got.values())
+            r = {"run": "fleet_local", "tokens": tokens,
+                 "seconds": seconds, "tokens_per_s": tokens / seconds,
+                 "ttft_p50_ms": _percentile(ttft, 0.50),
+                 "ttft_p99_ms": _percentile(ttft, 0.99),
+                 "launches": launches,
+                 "prefill_chunks": p0.sched.prefill_chunks,
+                 "decode_ticks": d0.sched.decode_ticks}
+            print("serve", json.dumps(r))
+            check(d0.sched.prefill_chunks == 0 and p0.sched.decode_ticks
+                  == 0, "fleet: a host ran the other role's program")
+            check(p0.sched.prefill_chunks == prompt_chunks(prompts),
+                  "fleet: the prefill host's chunks != the prompts' own")
+            check(launches == {
+                p0.name: cfg.n_layers * p0.sched.prefill_chunks,
+                d0.name: cfg.n_layers * d0.sched.decode_ticks},
+                "fleet: launches != layers x (chunks | ticks) per host")
+            check(d0.migrate_in == p0.migrate_out == len(prompts),
+                  "fleet: not every sequence migrated")
+            out = launches
+        check(got == uni, f"fleet {tag}: streams differ")
+    return fleet, out
+
+
+FLEET_CONF = """
+name: "fleet-smoke"
+neuralnet {{
+  layer {{ name: "embed" type: "kEmbedding"
+    embedding_param {{ vocab_size: {vocab} embedding_dim: {d}
+                       max_len: {max_len} }} }}
+  layer {{ name: "attn1" type: "kAttention" srclayers: "embed"
+    attention_param {{ num_heads: {heads} }} }}
+  layer {{ name: "attn2" type: "kAttention" srclayers: "attn1"
+    attention_param {{ num_heads: {heads} }} }}
+}}
+serving {{ slots: 8 kv_block_len: 16 max_prefill_chunk: 64 }}
+kernels {{ paged_attention: "fused" }}
+fleet {{ {fleet} }}
+"""
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def fleet_conf(tmp, cfg, fleet: str) -> str:
+    check(cfg.n_layers == 2 and cfg.d_ff == 4 * cfg.d_model,
+          "fleet: the conf form needs 2 layers and d_ff = 4 d_model")
+    path = os.path.join(tmp, "fleet.conf")
+    with open(path, "w") as f:
+        f.write(FLEET_CONF.format(vocab=cfg.vocab, d=cfg.d_model,
+                                  max_len=cfg.max_len, heads=cfg.n_heads,
+                                  fleet=fleet))
+    cluster = os.path.join(tmp, "cluster.conf")
+    with open(cluster, "w") as f:
+        f.write(f'nworkers: 2\nworkspace: "{tmp}/ws"\n')
+    return path, cluster
+
+
+def launch_hosts(conf, cluster, n=2):
+    """``python -m singa_tpu_torch.main -procsID k`` for k < n, the
+    port's launch line (seed 0: the phase's params; the card)."""
+    cmd = [sys.executable, "-m", "singa_tpu_torch.main", "-model_conf",
+           conf, "-cluster_conf", cluster]
+    return [subprocess.Popen(cmd + ["-procsID", str(k)], cwd=REPO,
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for k in range(n)]
+
+
+def collect(door, n, got, procs):
+    """Read results from the front door until ``n`` are in ``got``."""
+    deadline = time.monotonic() + FLEET_TIMEOUT_S
+    while len(got) < n:
+        check(time.monotonic() < deadline and all(
+            p.poll() is None for p in procs),
+            f"fleet: {len(got)} of {n} results; hosts "
+            f"{[p.poll() for p in procs]}")
+        for msg in door.recv("frontdoor"):
+            if msg.kind == "result":
+                d = json.loads(msg.payload)
+                got[d["rid"]] = (d, time.perf_counter())
+        time.sleep(0.001)
+
+
+def check_host(cfg, out: str, what: str) -> dict:
+    """The FLEET HOST line a host process logs at exit (its counts from
+    its first request or migration past the warm-up): it ran on the
+    card, and its paged-attention launches are layers x (chunks +
+    ticks). -> the account."""
+    line = next(x for x in out.splitlines() if x.startswith("FLEET HOST: "))
+    r = json.loads(line[len("FLEET HOST: "):])
+    check("device cuda" in out and r["device"] == "cuda",
+          f"{what}: did not report cuda")
+    check(r["paged_launches"]
+          == cfg.n_layers * (r["prefill_chunks"] + r["decode_ticks"]) > 0,
+          f"{what}: launches != layers x (chunks + ticks): {r}")
+    return r
+
+
+def finish_hosts(procs, door, names, expect):
+    """Shut the hosts down (a shutdown message to each of ``names``),
+    wait for every process with a timeout -> their outputs; each must
+    exit with ``expect[k]``."""
+    for name in names:
+        door.send(name, "shutdown", b"", src="frontdoor")
+    outs = []
+    for k, p in enumerate(procs):
+        try:
+            out = p.communicate(timeout=FLEET_TIMEOUT_S)[0]
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out = p.communicate()[0]
+            check(False, f"fleet: host {k} did not exit:\n{out[-2000:]}")
+        outs.append(out)
+        check(p.returncode == expect[k],
+              f"fleet: host {k} exit {p.returncode} != {expect[k]}:\n"
+              f"{out[-3000:]}")
+    return outs
+
+
+def stop_all(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=30)
+
+
+def fleet_processes(smi, cfg, prompts, uni, transport):
+    """Two host processes (prefill, decode) over the Mailbox or the
+    socket wire, this process the front door: a warm-up request first
+    (each host builds its graphs before anything is counted), then the
+    16 requests. Streams equal the unified engine's, every one finishes
+    on the decode host, both hosts report cuda, and each host's counts
+    of the measured run are its own: the prefill host's chunks are the
+    prompts', its launches layers x chunks, the decode host's layers x
+    ticks."""
+    with tempfile.TemporaryDirectory() as tmp:
+        if transport == "mailbox":
+            conf, cluster = fleet_conf(tmp, cfg,
+                                       'role: "auto" prefill_hosts: 1')
+        else:
+            ports = [free_port() for _ in range(3)]
+            conf, cluster = fleet_conf(tmp, cfg, (
+                'transport: socket '
+                f'peers {{ name: "host0" role: "prefill" address: '
+                f'"127.0.0.1:{ports[0]}" }} '
+                f'peers {{ name: "host1" role: "decode" address: '
+                f'"127.0.0.1:{ports[1]}" }} '
+                f'wire {{ frontdoor_address: "127.0.0.1:{ports[2]}" }}'))
+        procs = launch_hosts(conf, cluster)
+        door = None
+        try:
+            if transport == "mailbox":
+                door = Mailbox(os.path.join(tmp, "ws", "fleet"))
+            else:
+                door = SocketTransport({
+                    "host0": f"127.0.0.1:{ports[0]}",
+                    "host1": f"127.0.0.1:{ports[1]}",
+                    "frontdoor": f"127.0.0.1:{ports[2]}"},
+                    connect_timeout_s=2.0, send_timeout_s=30.0,
+                    max_retries=20, backoff_s=0.1, backoff_cap_s=1.0)
+            door.register("frontdoor")
+            t_start = time.perf_counter()
+            got = {}
+            door.send("host0", "request", encode_request(Request(
+                rid=-1, prompt=WARM_PROMPT(cfg), max_new_tokens=4)),
+                src="frontdoor")
+            collect(door, 1, got, procs)
+            warm_s = time.perf_counter() - t_start
+            got.clear()
+            t0 = time.perf_counter()
+            sent = {}
+            for i, p in enumerate(prompts):
+                sent[i] = time.perf_counter()
+                door.send("host0", "request", encode_request(Request(
+                    rid=i, prompt=p, max_new_tokens=64, seed=i)),
+                    src="frontdoor")
+            collect(door, len(prompts), got, procs)
+            seconds = time.perf_counter() - t0
+            outs = finish_hosts(procs, door, ("host0", "host1"), (0, 0))
+        finally:
+            stop_all(procs)
+            if door is not None and transport == "socket":
+                door.close()
+    streams = {i: d["tokens"] for i, (d, _) in got.items()}
+    check(streams == uni, f"fleet {transport}: streams != unified")
+    check({d["host"] for d, _ in got.values()} == {"host1"},
+          f"fleet {transport}: a stream finished off the decode host")
+    reports = [check_host(cfg, o, f"fleet {transport}: host {k}")
+               for k, o in enumerate(outs)]
+    check(reports[0]["prefill_chunks"] == prompt_chunks(prompts)
+          and reports[0]["migrate_out"] == reports[1]["migrate_in"]
+          == len(prompts),
+          f"fleet {transport}: the hosts' counts are not the measured "
+          f"run's: {reports}")
+    check(reports[1]["prefill_chunks"] == 0
+          and reports[0]["decode_ticks"] == 0,
+          f"fleet {transport}: a host ran the other role's program")
+    lat = sorted((t - sent[i]) * 1e3 for i, (_, t) in got.items())
+    tokens = sum(len(v) for v in streams.values())
+    rec = {"run": f"fleet_{transport}", "tokens": tokens,
+           "seconds": seconds, "tokens_per_s": tokens / seconds,
+           "p50_ms": _percentile(lat, 0.50),
+           "p99_ms": _percentile(lat, 0.99), "warm_s": warm_s,
+           "launches": {r["host"]: r["paged_launches"] for r in reports},
+           "hosts": reports}
+    print("serve", json.dumps(rec), f"[{smi}]")
+    return rec
+
+
+def fleet_drain(smi, cfg, prompts, uni, role0):
+    """Two host processes over the Mailbox, host0 of ``role0`` and host1
+    unified, every request sent to host0, which gets a SIGTERM mid-run:
+    a prefill host0 once the first sequence has landed on host1 (it
+    forwards its prefilling and queued requests), a unified host0 once
+    it has finished its first stream (its other slots then hold
+    sequences mid-decode, which it must migrate to host1 at the tick
+    boundary, at least one, and mid-prefill; requests queue). host0
+    exits 75; every stream is at full parity, and each one host0 had
+    not finished finishes on host1."""
+    with tempfile.TemporaryDirectory() as tmp:
+        conf, cluster = fleet_conf(tmp, cfg, (
+            f'peers {{ name: "host0" role: "{role0}" }} '
+            'peers { name: "host1" role: "unified" }'))
+        procs = launch_hosts(conf, cluster)
+        try:
+            door = Mailbox(os.path.join(tmp, "ws", "fleet"))
+            door.register("frontdoor")
+            got = {}
+            for k, name in enumerate(("host0", "host1")):
+                door.send(name, "request", encode_request(Request(
+                    rid=-1 - k, prompt=WARM_PROMPT(cfg), max_new_tokens=4)),
+                    src="frontdoor")
+            collect(door, 2, got, procs)
+            got.clear()
+            for i, p in enumerate(prompts):
+                door.send("host0", "request", encode_request(Request(
+                    rid=i, prompt=p, max_new_tokens=64, seed=i)),
+                    src="frontdoor")
+            deadline = time.monotonic() + FLEET_TIMEOUT_S
+            while role0 == "prefill" and door.statuses().get(
+                    "host1", {}).get("live", 0) < 1:
+                check(time.monotonic() < deadline, "fleet drain: no "
+                      "sequence ever reached host1")
+                time.sleep(0.001)
+            if role0 == "unified":
+                collect(door, 1, got, procs)
+            t_sig = time.perf_counter()
+            procs[0].send_signal(signal.SIGTERM)
+            try:
+                out0 = procs[0].communicate(timeout=FLEET_TIMEOUT_S)[0]
+            except subprocess.TimeoutExpired:
+                check(False, "fleet drain: host0 hung after SIGTERM")
+            drain_ms = (time.perf_counter() - t_sig) * 1e3
+            check(procs[0].returncode == 75,
+                  f"fleet drain: host0 exit {procs[0].returncode} != 75:\n"
+                  f"{out0[-3000:]}")
+            collect(door, len(prompts), got, procs[1:])
+            out1 = finish_hosts(procs[1:], door, ("host1",), (0,))[0]
+        finally:
+            stop_all(procs)
+    line = next(x for x in out0.splitlines()
+                if x.startswith("FLEET DRAIN: "))
+    acct = json.loads(line[len("FLEET DRAIN: "):])
+    streams = {i: d["tokens"] for i, (d, _) in got.items()}
+    check(streams == uni, f"fleet drain ({role0}): streams != unified")
+    early = {rid for rid in acct["finished"] if rid >= 0}
+    check({i for i, (d, _) in got.items() if d["host"] == "host0"} == early
+          and all(d["host"] == "host1" for i, (d, _) in got.items()
+                  if i not in early),
+          f"fleet drain ({role0}): a stream host0 had not finished "
+          "finished off host1")
+    check(len(acct["migrated"]) >= (role0 == "unified")
+          and len(acct["forwarded"]) >= 1 and not acct["handed_back"],
+          f"fleet drain ({role0}): no sequence migrated mid-decode, none "
+          f"forwarded, or some handed back: {acct}")
+    h0 = check_host(cfg, out0, f"fleet drain ({role0}): host0")
+    h1 = check_host(cfg, out1, f"fleet drain ({role0}): host1")
+    rec = {"host0": role0, "drain_ms": drain_ms,
+           "finished_before": len(early),
+           "migrated": len(acct["migrated"]),
+           "migrated_tokens_done": [m["tokens_done"]
+                                    for m in acct["migrated"]],
+           "forwarded": len(acct["forwarded"]), "hosts": [h0, h1]}
+    print("fleet drain", json.dumps(rec), f"[{smi}]")
+    return rec
+
+
+def fleet_prefix(dev, smi, cfg, params):
+    """Two unified hosts with the prefix cache: h1 serves a shared-prefix
+    prompt, then h0 gets another prompt of that prefix, fetches h1's
+    blocks (cache_fetch -> cache_ship), installs them and hits. Its
+    stream equals a local hit's on h1 and a cold engine's."""
+    prompts = shared_prefix_prompts(cfg, 2)
+    hosts, _, _ = serve_bench.build_fleet(
+        params, cfg, fleet_args(fleet_hosts="unified,unified",
+                                prefix_cache=True), dev)
+    h0, h1 = hosts
+    for k, h in enumerate(hosts):     # capture every host's graphs first
+        h.submit(Request(rid=-1 - k, prompt=WARM_PROMPT(cfg),
+                         max_new_tokens=4))
+    serve_bench.pump_fleet(hosts)
+    h1.submit(Request(rid=0, prompt=prompts[0], max_new_tokens=64))
+    serve_bench.pump_fleet(hosts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h0.submit(Request(rid=1, prompt=prompts[1], max_new_tokens=64))
+    serve_bench.pump_fleet(hosts)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    h1.submit(Request(rid=2, prompt=prompts[1], max_new_tokens=64))
+    serve_bench.pump_fleet(hosts)
+    _, cold = streams_of(prefix_engine(dev, params, cfg), prompts[1:], 64)
+    got = serve_bench.fleet_streams(hosts)
+    rec = {"cache_fetches": h0.cache_fetches,
+           "fetch_timeouts": h0.cache_fetch_timeouts,
+           "ships_in": h0.cache_ships_in, "ships_out": h1.cache_ships_out,
+           "ship_blocks": h0.ship_blocks_in, "ship_bytes": h0.ship_bytes_in,
+           "prefix_hits": h0.sched.prefix_hits, "request_ms": ms}
+    print("fleet prefix", json.dumps(rec), f"[{smi}]")
+    check(got[1] == got[2] == cold[0],
+          "fleet prefix: the shipped hit's stream != a local hit's / cold")
+    check(h0.cache_fetches == h0.cache_ships_in == h1.cache_ships_out == 1
+          and h0.cache_fetch_timeouts == 0 and h0.sched.prefix_hits == 1
+          and h0.ship_blocks_in == (PREFIX_LEN - PREFIX_TAIL) // 16,
+          f"fleet prefix: ship counters {rec}")
+    return rec
+
+
+def fleet_rollout(dev, smi, cfg, params, fleet, prompts, uni):
+    """On the in-process prefill + decode pair (graphs captured): a
+    rollout whose every weight_ship to the second host is torn
+    (torn_weights@1..3) is quarantined and the canary rolled back,
+    streams equal to v0's; then a clean one promotes v1 on both hosts,
+    streams equal to a fresh v1 engine's."""
+    new = init_lm(torch.Generator().manual_seed(1), cfg, dev)
+    hosts = fleet[0]
+    peers = {h.name: h.role for h in hosts}
+
+    def rollout(**kw):
+        ctl = RolloutController(
+            hosts[0].transport, peers, params=new, version=1, cfg=cfg,
+            serving=hosts[0].engine.serving, probes=2, probe_tokens=4,
+            stage_timeout_s=FLEET_TIMEOUT_S, device=dev,
+            tick=lambda: [h.tick() for h in hosts], **kw)
+        t0 = time.perf_counter()
+        res = ctl.run()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    hosts[0]._fault_plan = FaultPlan.parse(
+        "torn_weights@1,torn_weights@2,torn_weights@3")
+    torn, torn_ms = rollout()
+    hosts[0]._fault_plan = None
+    check(torn["verdict"] == "quarantined" and torn["torn_ships"] == 3
+          and torn["rollbacks"] == 1,
+          f"fleet rollout: the torn ships were not caught: {torn}")
+    check(all(h.engine.params_version == 0 for h in hosts),
+          "fleet rollout: a host left v0 after the quarantine")
+    got = fleet_run(dev, params, cfg, prompts, fleet)[1]
+    check(got == uni, "fleet rollout: streams after the rollback != v0's")
+    res, ms = rollout()
+    check(res["verdict"] == "promoted"
+          and all(h.engine.params_version == 1 for h in hosts),
+          f"fleet rollout: not promoted: {res}")
+    got = fleet_run(dev, new, cfg, prompts, fleet)[1]
+    _, _, _, want = serve(dev, new, cfg, prompts, impl="fused")
+    check(got == want, "fleet rollout: v1 streams != a fresh v1 engine's")
+    rec = {"torn": torn["verdict"], "torn_ms": torn_ms,
+           "promote": res["verdict"], "promote_ms": ms,
+           "canary": res["canary"]}
+    print("fleet rollout", json.dumps(rec), f"[{smi}]")
+    return rec
+
+
+def fleet_wire(dev, smi, cfg, params, prompts, uni):
+    """serve_bench's socket fleet in this process (real TCP frames,
+    acks) with a dropped send and a delayed one planted past the
+    warm-up's sends: both faults fire, the streams are unchanged, the
+    drop is retried."""
+    args = fleet_args(
+        transport="socket",
+        wire_faults=f"wire_drop@{WIRE_DROP_AT},"
+                    f"wire_delay@{WIRE_DELAY_AT}:ms={WIRE_DELAY_MS}")
+    _, _, seconds, streams, _, _, wire = serve_bench.run_fleet(
+        params, cfg, prompts, args, dev)
+    stats = wire["stats"]
+    rec = {k: v for k, v in stats.items() if k != "send_ms"}
+    rec.update(seconds=seconds, unfired=wire["unfired"],
+               slowest_send_ms=max(max(v) for v in
+                                   stats["send_ms"].values()))
+    print("fleet wire", json.dumps(rec), f"[{smi}]")
+    check(wire["unfired"] == [], f"fleet wire: a planted fault never "
+          f"fired: {wire['unfired']}")
+    check(streams == uni, "fleet wire: streams changed under wire faults")
+    check(stats["retries"] >= 1 and stats["timeouts"] == 0,
+          f"fleet wire: the dropped send was not retried: {rec}")
+    return rec
+
+
+def fleet_phase(dev, smi, cfg, params):
+    """The serving fleet on the card (see the module docstring). ->
+    paged-attention launches a run per host, by run."""
+    prompts = serve_prompts(cfg)
+    _, _, _, uni = serve(dev, params, cfg, prompts, impl="fused")
+    _, _, _, ref = serve(dev, params, cfg, prompts, impl="reference")
+    check(uni == ref, "fleet: the unified engine's fused streams != the "
+          "reference path's")
+    fleet, local = fleet_inprocess(dev, smi, cfg, params, prompts, uni)
+    fleet_rollout(dev, smi, cfg, params, fleet, prompts, uni)
+    del fleet
+    fleet_prefix(dev, smi, cfg, params)
+    fleet_wire(dev, smi, cfg, params, prompts, uni)
+    release()
+    runs = {"local": local}
+    for transport in ("mailbox", "socket"):
+        runs[transport] = fleet_processes(smi, cfg, prompts, uni,
+                                          transport)["launches"]
+    for role0 in ("prefill", "unified"):
+        fleet_drain(smi, cfg, prompts, uni, role0)
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -3134,6 +3744,7 @@ def main() -> int:
         "paged_attention_overlay": spec_phase(dev, cfg, params),
     }
     prefix_launches = prefix_phase(dev, smi, cfg, params)
+    fleet_launches = fleet_phase(dev, smi, cfg, params)
     flash_errs, flash_rows = flash_phase(dev)
     bf16_launches, f32_launches = train_phase(dev)
     launches.update(bf16_launches)
@@ -3161,6 +3772,7 @@ def main() -> int:
         if name == "paged_attention":
             kernels[-1]["moe_serve_launches"] = moe_launches[name]
             kernels[-1]["prefix_launches"] = prefix_launches
+            kernels[-1]["fleet_launches"] = fleet_launches
     # the bf16 route (the main path's), then the float32 route, whose
     # launches are those of the train phase's first float32 flash run
     for dtype, suffix, counts in ((torch.bfloat16, "", launches),

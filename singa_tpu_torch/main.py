@@ -1,5 +1,5 @@
 """CLI entry point: ``python -m singa_tpu_torch.main -model_conf F
-[-cluster_conf F] [-seed N] [-device cpu]``.
+[-cluster_conf F] [-seed N] [-device cpu] [-procsID K] [-faults PLAN]``.
 
 Counterpart of ``singa_tpu/main.py`` for synchronous data-parallel
 training: it reads the job conf, builds its engine with
@@ -9,9 +9,18 @@ The cluster conf gives the workspace (where checkpoints go) and the
 data-parallel width: ``nworkers`` worker groups become ranks over the
 visible GPUs, or over the one ``-device`` named, repeated (``-device
 cpu``: that many CPU ranks). A parallel axis other than the data axis
-raises, as do the serving fleet, the resilience supervisor and the
-other knobs the trainer lists. The trainer runs on the GPU unless
-``-device cpu`` is given.
+raises, as do the resilience supervisor and the other knobs the
+trainer lists. The trainer runs on the GPU unless ``-device cpu`` is
+given.
+
+A ``fleet { ... }`` block makes this process a serving-fleet host
+instead (``serve/fleet/host.run_from_conf``), as ``singa_tpu.main``
+does: ``-procsID`` picks its prefill/decode/unified role, hosts share
+only the conf's transport (a filesystem mailbox under
+``<workspace>/fleet``, or sockets), a SIGTERM drains its in-flight
+sequences to a peer and exits 75, and ``-faults`` arms the wire and
+rollout fault terms (``wire_drop@K``, ``torn_weights@K``, ...). The
+engine runs on the GPU unless ``-device cpu`` is given.
 
 The LM confs (examples/lm/) and the image nets' (examples/mnist/mlp.conf,
 conv.conf, autoencoder.conf, rbm.conf, examples/cifar10/alexnet.conf,
@@ -25,6 +34,7 @@ makes MNIST-shaped ones (``--channels 3 --size 32`` CIFAR-shaped;
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from .config import load_cluster_config, load_model_config
@@ -42,6 +52,12 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("-seed", type=int, default=0, help="init RNG seed")
     ap.add_argument("-device", default=None,
                     help="torch device; default cuda (raises without a GPU)")
+    ap.add_argument("-procsID", type=int, default=0,
+                    help="process rank (a fleet host's role)")
+    ap.add_argument("-faults", default=os.environ.get("SINGA_TPU_FAULTS"),
+                    help="fault plan for a fleet host, e.g. 'wire_drop@3' "
+                    "or 'torn_weights@1' (resilience/faults.py grammar; "
+                    "also via SINGA_TPU_FAULTS)")
     return ap.parse_args(argv)
 
 
@@ -51,6 +67,13 @@ def main(argv: list[str] | None = None) -> int:
     cluster_cfg = (
         load_cluster_config(args.cluster_conf) if args.cluster_conf else None
     )
+    if model_cfg.fleet is not None:
+        from .serve.fleet.host import run_from_conf
+
+        return run_from_conf(
+            model_cfg, cluster_cfg, procs_id=args.procsID, seed=args.seed,
+            faults=args.faults, device=args.device,
+        )
     make_trainer(model_cfg, cluster_cfg, seed=args.seed,
                  device=args.device).run()
     return 0

@@ -548,8 +548,14 @@ class Trainer:
                 step, {nm: rep["params"][nm] for nm in names}, by_dev[dev],
                 {nm: rep["state"][nm] for nm in names}, self.specs
             )
-            rep["params"] = {**rep["params"], **new_p}
-            rep["state"] = {**rep["state"], **new_s}
+            # in place, as _store_update: a captured eval (or step) reads
+            # the params and slots at fixed addresses
+            with torch.no_grad():
+                for nm, v in new_p.items():
+                    rep["params"][nm].copy_(v)
+                for nm, slots in new_s.items():
+                    for s, v in slots.items():
+                        rep["state"][nm][s].copy_(v)
         return {
             layer: {k: functools.reduce(torch.add, (
                 torch.as_tensor(m[layer][k], device=self.device)

@@ -405,6 +405,38 @@ def test_eager_steps_then_graphed_eval_read_the_updated_stats(shards):
     assert got == want
 
 
+def test_eager_steps_keep_every_param_and_slot_address(shards):
+    """The eager step's update lands in the params and updater slots in
+    place, as the graphed step's does: a captured eval reads them at
+    fixed addresses, so a step that rebound them would leave the eval
+    graph reading the old (or freed) memory on the card. The values
+    are those of a trainer that took the same steps."""
+    tr = t_trainer(shards)
+    other = t_trainer(shards, graphs=False, device_cache=False,
+                      prefetch=False)
+    tr.evaluate(tr.test_net, 2, "test", 0)
+    p_ptrs = {k: v.data_ptr() for k, v in tr.params.items()}
+    s_ptrs = {(k, s): v.data_ptr() for k, slots in tr.state.items()
+              for s, v in slots.items()}
+    assert s_ptrs, "the updater keeps no slots: nothing to check"
+    before = {k: np.array(v) for k, v in tr.params.items()}
+    for step in range(3):
+        tr._step_core(step, tr._next_batch(tr.train_net))
+        step_loss(other, step)
+    assert {k: v.data_ptr() for k, v in tr.params.items()} == p_ptrs
+    assert {(k, s): v.data_ptr() for k, slots in tr.state.items()
+            for s, v in slots.items()} == s_ptrs
+    assert any(not np.array_equal(before[k], np.array(v))
+               for k, v in tr.params.items())
+    for k, v in tr.params.items():
+        np.testing.assert_array_equal(np.array(v),
+                                      np.array(other.params[k]), err_msg=k)
+    for k, slots in tr.state.items():
+        for s, v in slots.items():
+            np.testing.assert_array_equal(
+                np.array(v), np.array(other.state[k][s]), err_msg=f"{k}/{s}")
+
+
 def test_checkpoints_carry_buffers_both_ways(shards, tmp_path):
     """b|<layer>/running_* keys: the JAX Trainer's checkpoint restores
     into the port and the port's into the JAX Trainer."""
@@ -449,3 +481,29 @@ def test_stats_sample_stride_refuses_fewer_than_eight_rows(shards):
         "stats_sample_stride: 2 }")
     with pytest.raises(ConfigError, match="leaves 4 of 8 sample rows"):
         t_build_net(t_parse(txt))
+
+
+def test_offset_case_within_its_float64_bound_and_rescue_off_breaks_it(
+        monkeypatch):
+    """The card test's offset case (x near 1e3, std 1e-2) on the CPU:
+    every output within ``bn_float64_bounds`` of the float64 formula;
+    with the cancellation rescue planted off, y, var, dx and dgamma
+    leave it."""
+    from test_torch_cuda import BN_OUTPUTS, _bn_inputs, bn_float64_bounds, \
+        bn_outputs
+
+    _, dy, gamma, beta, offset = _bn_inputs()
+    ref, bounds = bn_float64_bounds(offset, gamma, beta, dy)
+
+    def errors():
+        outs = bn_outputs(offset, gamma, beta, dy, "cpu")
+        return {n: float((o - r).abs().max())
+                for n, o, r in zip(BN_OUTPUTS, outs, ref)}
+
+    errs = errors()
+    for name, b in zip(BN_OUTPUTS, bounds):
+        assert errs[name] <= b, (name, errs[name], b)
+    monkeypatch.setattr(t_norm, "RESCUE", False)
+    errs = errors()
+    broken = {n for n, b in zip(BN_OUTPUTS, bounds) if errs[n] > b}
+    assert {"y", "var", "dx", "dgamma"} <= broken, errs

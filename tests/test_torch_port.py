@@ -25,24 +25,34 @@ import singa_tpu.config as j_config
 import singa_tpu.graph as j_graph
 import singa_tpu_torch.config as t_config
 import singa_tpu_torch.graph as t_graph
+from singa_tpu.comm import faults as j_wire_faults
+from singa_tpu.comm import wire as j_wire
 from singa_tpu.config import schema as j_schema
 from singa_tpu.config import textproto as j_textproto
 from singa_tpu.data import loader as j_loader
 from singa_tpu.data import records as j_records
 from singa_tpu.data import shard as j_shard
 from singa_tpu.graph import kahn as j_kahn
+from singa_tpu.resilience import faults as j_faults
 from singa_tpu.serve import kv_pool as j_kv_pool
 from singa_tpu.serve import speculate as j_speculate
+from singa_tpu.serve.fleet import router as j_router
+from singa_tpu.serve.fleet import transport as j_transport
 from singa_tpu.utils import timers as j_timers
 from singa_tpu_torch import _build
+from singa_tpu_torch.comm import faults as t_wire_faults
+from singa_tpu_torch.comm import wire as t_wire
 from singa_tpu_torch.config import schema as t_schema
 from singa_tpu_torch.config import textproto as t_textproto
 from singa_tpu_torch.data import loader as t_loader
 from singa_tpu_torch.data import records as t_records
 from singa_tpu_torch.data import shard as t_shard
 from singa_tpu_torch.graph import kahn as t_kahn
+from singa_tpu_torch.resilience import faults as t_faults
 from singa_tpu_torch.serve import kv_pool as t_kv_pool
 from singa_tpu_torch.serve import speculate as t_speculate
+from singa_tpu_torch.serve.fleet import router as t_router
+from singa_tpu_torch.serve.fleet import transport as t_transport
 from singa_tpu_torch.tools import serve_bench
 from singa_tpu_torch.utils import timers as t_timers
 
@@ -63,10 +73,12 @@ def _body_without_docstring(path, free=()):
     return [ast.dump(node) for node in body]
 
 
-#: the one copy with a docstring beside its module's that differs:
+#: the copies with a docstring beside their module's that differs:
 #: KernelsConfig's names a change in the original's history by its
-#: number, and the copy words that sentence without it
-FREE_DOCSTRINGS = {t_schema: ("KernelsConfig",)}
+#: number, and the copy words that sentence without it; tear_file's
+#: names the JAX package's training seams, which the port has not
+FREE_DOCSTRINGS = {t_schema: ("KernelsConfig",),
+                   t_faults: ("tear_file",)}
 
 
 @pytest.mark.parametrize("orig,copy", [
@@ -80,6 +92,11 @@ FREE_DOCSTRINGS = {t_schema: ("KernelsConfig",)}
     (j_graph, t_graph),
     (j_kahn, t_kahn),
     (j_timers, t_timers),
+    (j_faults, t_faults),
+    (j_wire_faults, t_wire_faults),
+    (j_wire, t_wire),
+    (j_transport, t_transport),
+    (j_router, t_router),
 ])
 def test_copies_keep_the_originals_code(orig, copy):
     """Only the module docstring (and the docstrings named in
@@ -223,7 +240,7 @@ def test_port_imports_neither_jax_nor_singa_tpu():
         capture_output=True, text=True, timeout=120, cwd=str(REPO),
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 35
+    assert int(res.stdout.strip()) >= 50
 
 
 @pytest.fixture
@@ -231,7 +248,8 @@ def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it(no_gpu):
+def test_entry_points_default_to_cuda_and_raise_without_it(no_gpu,
+                                                            tmp_path):
     from singa_tpu_torch.device import resolve_device
     from singa_tpu_torch.models.transformer import (
         TransformerConfig,
@@ -244,6 +262,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_gpu):
     from singa_tpu_torch.trainer import Trainer
 
     conf = str(REPO / "examples" / "lm" / "tinylm_longctx_d128.conf")
+    fleet_conf = tmp_path / "fleet.conf"
+    fleet_conf.write_text(
+        'neuralnet { layer { name: "e" type: "kEmbedding" embedding_param '
+        '{ vocab_size: 16 embedding_dim: 16 max_len: 16 } } layer { name: '
+        '"a" type: "kAttention" srclayers: "e" attention_param { '
+        'num_heads: 2 } } }\nfleet { role: "unified" mailbox: "'
+        f'{tmp_path}/fleet" }}\n')
     cfg = TransformerConfig(vocab=16, d_model=32, n_heads=2, max_len=16)
     calls = [
         lambda: resolve_device(),
@@ -252,6 +277,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_gpu):
         lambda: serve_bench.main(["--requests", "1"]),
         lambda: Trainer(parse_model_config("")),
         lambda: train_main(["-model_conf", conf]),
+        lambda: train_main(["-model_conf", str(fleet_conf)]),
     ]
     params = init_lm(torch.Generator(), cfg, "cpu")
     calls.append(lambda: Engine(params, cfg))
