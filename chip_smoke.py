@@ -307,6 +307,41 @@ caught and carried on):
              boundary, and exits 75; every stream is at full parity.
              Every wait on a host has a timeout; every process is
              stopped.
+  16. decode (runs after moe) examples/lm/tinylm.conf as written (bf16,
+             d 256, 4 heads, 2 blocks, vocab 256, batch 64) on the train
+             phase's synthetic shard (32 sequences of 8192 tokens): 5
+             graphed steps through the bf16 flash kernels (launches =
+             layers x steps), an npz save, then 64 greedy tokens from a
+             180-byte prompt: ``python -m
+             singa_tpu_torch.tools.generate -raw`` on the card in a
+             process of its own, which must report the KV-cache path
+             (serve/conf_decode.NetDecoder) on cuda; the KV-cache and the
+             rolling-buffer paths in this process on the card (tokens/s of
+             each; the rolling one runs a (1, 8192) forward per token,
+             its attention the float32 flash forward, layers x 64
+             launches) and the KV-cache path on the CPU: all four
+             streams equal; the last logits of every emitted token, KV
+             against rolling on the card, within 1e-4, and a planted
+             fault (K/V written one position late) that must exceed it.
+  17. zero   (runs after decode) tinylm.conf as written with ``kernels {
+             paged_attention: fused }`` on 4 ranks sharing the card, 3
+             steps of each run from the seed-0 params: zero_update
+             against the replicated update (losses, params and slots
+             equal to the bit; slot bytes per rank a quarter), a planted
+             fault (rank r's fresh shard stitched at rank r+1's offset)
+             that must break that equality, then both through the int8
+             ring (q8wire, 4 buckets): zero + ring against the ring
+             alone to the bit, quant_acc launches = ranks x buckets x
+             hops a step in both (the conf's buckets: 2 of the 4 asked,
+             so 24); the zero + ring trainer's sharded
+             save (step ms of each run, save ms) restored on 2 ranks with
+             every array equal to the saved one, a planted fault (the
+             save's commit marker removed) that must make it
+             unresumable, and a serving LM at the conf's geometry booted
+             through load_serving_params from the sharded save and from
+             an npz save of the same state (the 4 names the conf net
+             shares with it restored), whose Engines (the conf's
+             paged-attention kernel) stream equal tokens.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -349,6 +384,7 @@ from singa_tpu_torch.models.transformer import (
     lm_apply,
 )
 from singa_tpu_torch.layers import rbm as trbm
+from singa_tpu_torch.layers.sequence import AttentionLayer
 from singa_tpu_torch.ops import attention as ta
 from singa_tpu_torch.ops import norm as tnorm
 from singa_tpu_torch.ops import nn as tnn
@@ -358,6 +394,7 @@ from singa_tpu_torch.parallel import moe as tmoe
 from singa_tpu_torch.parallel import apply_grad_comm_tag, build_mesh
 from singa_tpu_torch.resilience.faults import FaultPlan
 from singa_tpu_torch.serve import Engine, EngineConfig, Request, Scheduler
+from singa_tpu_torch.serve.conf_decode import NetDecoder
 from singa_tpu_torch.serve.fleet import Mailbox
 from singa_tpu_torch.serve.fleet import migrate as tmigrate
 from singa_tpu_torch.serve.fleet.router import encode_request
@@ -556,6 +593,22 @@ FLEET_TIMEOUT_S = 120
 #: message-send ordinals of the wire drill's planted faults: past the
 #: warm-up's two sends, a request (delayed) and a migrate frame (dropped)
 WIRE_DELAY_AT, WIRE_DROP_AT, WIRE_DELAY_MS = 12, 22, 50
+#: the decode and zero phases' conf, read as written
+TINYLM_CONF = "examples/lm/tinylm.conf"
+#: decode: training steps before the save, greedy tokens, the prompt,
+#: and the generate CLI's time limit
+DECODE_STEPS, DECODE_NEW = 5, 64
+DECODE_PROMPT = "the quick brown fox jumps over the lazy dog. " * 4
+DECODE_TIMEOUT_S = 300
+#: decode: max |KV-cache - rolling| over the last logits of every emitted
+#: token on the card. Both are float32 with TF32 off; they differ in sum
+#: order only (cache_attend over the masked cache against the float32
+#: flash forward, 7.3e-6 relative at worst; cuBLAS GEMMs of other
+#: shapes), ~1e-6 relative a reduction. On an H100 they differ by 1.9e-6
+#: on logits up to 3.2; K/V one position late moves them by 5.6e-2
+DECODE_LOGIT_TOL = 1e-4
+#: zero: ranks sharing the card, steps of each run, serving requests
+ZERO_RANKS, ZERO_STEPS, ZERO_REQUESTS = 4, 3, 4
 
 
 def WARM_PROMPT(cfg):
@@ -3665,6 +3718,412 @@ def moe_phase(dev, smi):
             "paged_attention": serve_launches}
 
 
+# ---------------------------------------------------------------------------
+# decode phase: the conf-net KV-cache decode and tools/generate.py
+# ---------------------------------------------------------------------------
+
+
+def tinylm_conf_text(shard: str, extra: str = "") -> str:
+    """examples/lm/tinylm.conf as written (bf16, d 256, 4 heads, 2
+    blocks, vocab 256, batch 64) over ``shard``, plus ``extra``."""
+    with open(os.path.join(REPO, TINYLM_CONF)) as f:
+        txt = f.read()
+    check("examples/lm/train_shard" in txt, "tinylm.conf: no data path")
+    return txt.replace("examples/lm/train_shard", shard) + "\n" + extra
+
+
+def generate_cli(conf: str, ckpt: str, dev) -> tuple[list[int], str]:
+    """``python -m singa_tpu_torch.tools.generate -raw`` on ``dev`` in a
+    process of its own -> (its tokens, its stderr)."""
+    cmd = [sys.executable, "-m", "singa_tpu_torch.tools.generate",
+           "-model_conf", conf, "-checkpoint", ckpt, "-prompt",
+           DECODE_PROMPT, "-n", str(DECODE_NEW), "-raw",
+           "-device", dev.type]
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=DECODE_TIMEOUT_S)
+    check(res.returncode == 0,
+          f"decode: generate exited {res.returncode}: {res.stderr[-2000:]}")
+    return [int(t) for t in res.stdout.split()], res.stderr
+
+
+def recorded_decode(net, params, prompt, chunk):
+    """Untimed greedy runs of both paths with the last logits of each
+    emitted token recorded as the path computed them (they also warm
+    the kernels and cuBLAS shapes of the timed runs) -> {path: (tokens,
+    (DECODE_NEW, vocab) logits)}."""
+    from singa_tpu_torch.tools.generate import rolling_generate_from_net
+
+    dec, kv = NetDecoder(net, max_prefill_chunk=chunk), []
+    step = dec._step_impl
+
+    def kv_step(*a):
+        kv.append(step(*a))
+        return kv[-1]
+
+    dec._step_impl = kv_step
+    toks = dec.generate(params, prompt, DECODE_NEW, 0.0, 0)
+    rows, forward = [], net.forward
+
+    def rolling_forward(*a, **kw):
+        out = forward(*a, **kw)
+        # the rolling path reads the last live position of its window
+        rows.append(out[2][dec.head][0, len(prompt) - 1 + len(rows)])
+        return out
+
+    net.forward = rolling_forward
+    try:
+        rolling = rolling_generate_from_net(net, params, prompt,
+                                            DECODE_NEW, 0.0, 0)
+    finally:
+        del net.forward
+    # the last prefill chunk's logits, then one (1, 1) step a token
+    return {"kv_cache": (toks, torch.stack(kv[-DECODE_NEW:])),
+            "rolling": (rolling, torch.stack(rows))}
+
+
+def _decode_step_late(self, params, x, cache, pos):
+    """Planted fault: K/V written and attended one position late, so
+    every query also attends a never-written (zero) slot 0."""
+    return DECODE_STEP(self, params, x, cache, pos + 1)
+
+
+DECODE_STEP = AttentionLayer.decode_step
+
+
+def decode_paths(net, params, prompt, dev, serving):
+    """The KV-cache and the rolling decode of ``prompt`` on ``dev``:
+    recorded untimed, then each timed to a device sync, the rolling
+    run's flash launches counted -> ({path: (tokens, tokens/s)},
+    {path: (tokens, logits)}, the rolling run's flash launches)."""
+    from singa_tpu_torch.tools.generate import (
+        generate_from_net,
+        rolling_generate_from_net,
+    )
+
+    recorded = recorded_decode(
+        net, params, prompt, EngineConfig.from_conf(serving).max_prefill_chunk)
+    out = {}
+    for path in ("kv_cache", "rolling"):
+        info = {}
+        for fn, _, _ in FLASH.values():
+            fn.launches = 0
+        sync(dev)
+        t0 = time.perf_counter()
+        if path == "kv_cache":
+            toks = generate_from_net(net, params, prompt, DECODE_NEW, 0.0,
+                                     0, serving=serving, info=info)
+            check(info["path"] == "kv_cache",
+                  f"decode: generate_from_net took {info} on {dev}")
+        else:
+            toks = rolling_generate_from_net(net, params, prompt,
+                                             DECODE_NEW, 0.0, 0)
+        sync(dev)
+        out[path] = (toks, DECODE_NEW / (time.perf_counter() - t0))
+    rolling = {n: fn.launches for n, (fn, _, _) in FLASH.items()}
+    return out, recorded, rolling
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def decode_phase(dev, smi, shard):
+    """tinylm.conf as written: DECODE_STEPS graphed steps through the
+    bf16 flash kernels, an npz save, then greedy decode of DECODE_NEW
+    tokens: the generate CLI on the card (it must report the KV-cache
+    path), the KV-cache and rolling paths in this process on the card
+    (tokens/s of each) and the KV-cache path on the CPU, all four
+    streams equal; on the card the last logits of every emitted token
+    of the two paths within DECODE_LOGIT_TOL, and a planted cache fault
+    (K/V one position late) that must break that bound. (The rolling
+    path runs a (1, S) forward per token: on the card its attention is
+    the float32 flash forward, layers x DECODE_NEW launches.) -> (the
+    flash launches of the training run, of the rolling decode)."""
+    from singa_tpu_torch.graph.builder import build_net
+    from singa_tpu_torch.trainer.checkpoint import load_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = os.path.join(tmp, "tinylm.conf")
+        with open(conf, "w") as f:
+            f.write(tinylm_conf_text(shard))
+        cfg = load_model_config(conf)
+        tr = Trainer(cfg, seed=0, log=lambda s: None, device=dev)
+        layers = sum(l.type == "kAttention" for l in cfg.neuralnet.layer)
+        for fn, _, _ in FLASH.values():
+            fn.launches = 0
+        losses = []
+        for step in range(DECODE_STEPS):
+            tr.train_one_batch(step)
+            losses.append(tr.perf.avg()["loss"]["loss"])
+            tr.perf.reset()
+        launches = {n: fn.launches for n, (fn, _, _) in FLASH.items()}
+        want = flash_launches(torch.bfloat16, layers * DECODE_STEPS)
+        check(launches == want,
+              f"decode: training flash launches {launches} != {want}")
+        check(all(np.isfinite(losses)), "decode: non-finite training loss")
+        ckpt = os.path.join(tmp, "tinylm.npz")
+        save_checkpoint(ckpt, DECODE_STEPS, tr.params, tr.state, tr.buffers)
+        del tr
+        release()
+        cli, err = generate_cli(conf, ckpt, dev)
+        check(f"path kv_cache, device {dev.type}" in err,
+              f"decode: the CLI did not report the KV-cache path on "
+              f"{dev.type}: {err[-500:]}")
+        net = build_net(cfg, "kTest")
+        arrays = load_checkpoint(ckpt)[1]
+        prompt = [b % 256 for b in DECODE_PROMPT.encode()]
+        params = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+        on_card, logits, rolling_launches = decode_paths(
+            net, params, prompt, dev, cfg.serving)
+        chunk = EngineConfig.from_conf(cfg.serving).max_prefill_chunk
+        AttentionLayer.decode_step = _decode_step_late
+        try:
+            late = recorded_decode(net, params, prompt, chunk)["kv_cache"]
+        finally:
+            AttentionLayer.decode_step = DECODE_STEP
+        cpu_params = {k: torch.from_numpy(v) for k, v in arrays.items()}
+        (cpu_kv, cpu_ms) = timed(lambda: NetDecoder(
+            net, max_prefill_chunk=chunk).generate(
+                cpu_params, prompt, DECODE_NEW, 0.0, 0))
+    kv, rolling = on_card["kv_cache"], on_card["rolling"]
+    want_rolling = {n: layers * DECODE_NEW if n == "flash_fwd" else 0
+                    for n in FLASH}
+    ref = logits["rolling"][1]
+    logit_err = (logits["kv_cache"][1] - ref).abs().max().item()
+    late_err = (late[1] - ref).abs().max().item()
+    out = {"conf": TINYLM_CONF, "train_steps": DECODE_STEPS,
+           "losses": losses, "flash_launches": launches,
+           "prompt_tokens": len(prompt), "new_tokens": DECODE_NEW,
+           "max_positions": net.datalayers[0].out_shape[1],
+           "kv_tokens_per_s": kv[1], "rolling_tokens_per_s": rolling[1],
+           "kv_speedup": kv[1] / rolling[1],
+           "cpu_kv_tokens_per_s": DECODE_NEW / cpu_ms * 1e3,
+           "rolling_flash_launches": rolling_launches,
+           "logits_max_abs": ref.abs().max().item(),
+           "kv_vs_rolling_logit_err": logit_err,
+           "planted_late_kv_logit_err": late_err,
+           "planted_late_kv_stream_differs": late[0] != logits["rolling"][0],
+           "cli_stderr": err.strip().splitlines()[-1], "card": smi}
+    print("decode", json.dumps(out))
+    check(rolling_launches == want_rolling,
+          f"decode: rolling flash launches {rolling_launches} != "
+          f"{want_rolling}")
+    check(logit_err <= DECODE_LOGIT_TOL,
+          f"decode: KV-cache logits {logit_err} from the rolling path's "
+          f"(> {DECODE_LOGIT_TOL})")
+    check(late_err > DECODE_LOGIT_TOL,
+          "decode: K/V written one position late passed the logits check")
+    check(all(logits[path][0] == on_card[path][0] for path in logits),
+          "decode: the recorded runs' streams differ from the timed runs'")
+    check(kv[0] == rolling[0],
+          "decode: the KV-cache stream differs from the rolling stream")
+    check(kv[0] == cpu_kv, "decode: the card's stream differs from the "
+          "CPU's")
+    check(cli == kv[0], "decode: the CLI's stream differs from the "
+          "in-process KV-cache stream")
+    return launches, rolling_launches["flash_fwd"]
+
+
+# ---------------------------------------------------------------------------
+# zero phase: zero_update, the ring, sharded saves and resharding
+# ---------------------------------------------------------------------------
+
+
+def zero_trainer(dev, shard, ranks, *, zero, ring, workspace=None,
+                 checkpoint=None):
+    """tinylm.conf as written with ``kernels { paged_attention: fused }``
+    (the serving knob, trained unchanged), on ``ranks`` ranks of ``dev``;
+    ``ring``: the q8wire tag (the int8 ring, 4 buckets); sharded saves
+    into ``workspace``."""
+    from singa_tpu_torch.config import parse_cluster_config, parse_model_config
+
+    extra = ("kernels { paged_attention: fused }\n"
+             'checkpoint_format: "sharded"\n'
+             f"zero_update: {'true' if zero else 'false'}\n")
+    cfg = parse_model_config(tinylm_conf_text(shard, extra))
+    if ring:
+        apply_grad_comm_tag(cfg, "q8wire")
+        cfg.grad_comm.buckets = 4
+    if checkpoint:
+        cfg.checkpoint = checkpoint
+    cl = (parse_cluster_config(f'workspace: "{workspace}"')
+          if workspace else None)
+    return Trainer(cfg, cl, mesh=build_mesh(ranks, 1, [dev] * ranks),
+                   seed=0, log=lambda s: None)
+
+
+def zero_losses(tr, steps):
+    """``steps`` steps -> (losses, step ms median to a device sync)."""
+    losses, ms = [], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        tr.train_one_batch(step)
+        sync(tr.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(tr.perf.avg()["loss"]["loss"])
+        tr.perf.reset()
+    return losses, sorted(ms)[len(ms) // 2]
+
+
+def bitwise(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _stitch_shifted(self, fresh):
+    """Planted fault: rank r's fresh shard written at rank r+1's offset."""
+    return STITCH_ZERO(self, fresh[1:] + fresh[:1])
+
+
+STITCH_ZERO = Trainer._stitch_zero
+
+
+def zero_pair(dev, shard, ring, smi, workspace=None):
+    """Zero against replicated (``ring``: both through the int8 ring) on
+    ZERO_RANKS ranks, ZERO_STEPS steps each from the seed-0 params:
+    losses, params and slots equal to the bit; the flash and quant_acc
+    launches of each run; slot bytes per rank. -> (the record, the zero
+    trainer, which saves into ``workspace``)."""
+    runs = {}
+    for zero in (True, False):
+        tr = zero_trainer(dev, shard, ZERO_RANKS, zero=zero, ring=ring,
+                          workspace=workspace if zero else None)
+        qc.quant_acc.launches = 0
+        for fn, _, _ in FLASH.values():
+            fn.launches = 0
+        losses, ms = zero_losses(tr, ZERO_STEPS)
+        runs[zero] = (tr, losses, ms, qc.quant_acc.launches,
+                      {n: fn.launches for n, (fn, _, _) in FLASH.items()})
+    (tz, lz, mz, qz, fz), (tr, lr, mr, qr, fr) = runs[True], runs[False]
+    tag = "zero+ring vs ring" if ring else "zero vs replicated"
+    out = {"pair": tag, "ranks": ZERO_RANKS, "steps": ZERO_STEPS,
+           "zero_losses": lz, "losses": lr, "zero_step_ms": mz,
+           "step_ms": mr, "zero_quant_acc_launches": qz,
+           "quant_acc_launches": qr,
+           "zero_slot_bytes_per_rank": tz.opt_state_bytes_per_device(),
+           "slot_bytes_per_rank": tr.opt_state_bytes_per_device(),
+           "card": smi}
+    print("zero", json.dumps(out))
+    check(tz.update_mode == "zero" and tr.update_mode == "replicated",
+          f"zero {tag}: update modes {tz.update_mode}, {tr.update_mode}")
+    check(lz == lr, f"zero {tag}: losses differ")
+    check(bitwise(tz.params, tr.params), f"zero {tag}: params differ")
+    check(all(bitwise(tz.state[n], tr.state[n]) for n in tr.state),
+          f"zero {tag}: slots differ")
+    check(tz.opt_state_bytes_per_device() * ZERO_RANKS
+          == tr.opt_state_bytes_per_device(),
+          f"zero {tag}: slot bytes per rank not 1/{ZERO_RANKS}")
+    layers = sum(l.type == "kAttention" for l in tz.cfg.neuralnet.layer)
+    want = flash_launches(torch.bfloat16, layers * ZERO_RANKS * ZERO_STEPS)
+    check(fz == fr == want, f"zero {tag}: flash launches {fz}, {fr} != {want}")
+    # ranks x buckets x reduce hops (the allgather launches none); the
+    # conf's 8192-row positional table leaves 2 of the 4 buckets
+    per_step = (ZERO_RANKS * len(tz._buckets(list(tz.params)))
+                * (ZERO_RANKS - 1) if ring else 0)
+    check(qz == qr == per_step * ZERO_STEPS,
+          f"zero {tag}: quant_acc launches {qz}, {qr} != "
+          f"{per_step * ZERO_STEPS}")
+    del tr
+    return out, tz
+
+
+def zero_phase(dev, smi, shard):
+    """zero_update on ZERO_RANKS ranks sharing the card: against the
+    replicated update and, through the int8 ring, against the ring alone
+    (bitwise both), with a planted stitch fault that must break the
+    first; the zero + ring trainer's sharded save restored on 2 ranks
+    (arrays bitwise), a missing commit marker that must make the save
+    unresumable, and an Engine booted through load_serving_params from
+    the sharded save streaming as one booted from the npz save, through
+    the paged kernel. -> the quant_acc launches of the zero + ring run."""
+    from singa_tpu_torch.resilience import retention
+    from singa_tpu_torch.resilience.reshard import load_serving_params
+    from singa_tpu_torch.trainer.sharded_ckpt import ShardedCheckpoint
+
+    plain, tz = zero_pair(dev, shard, False, smi)
+    del tz
+    release()
+    Trainer._stitch_zero = _stitch_shifted
+    try:
+        tf = zero_trainer(dev, shard, ZERO_RANKS, zero=True, ring=False)
+        fault_losses, _ = zero_losses(tf, 2)
+    finally:
+        Trainer._stitch_zero = STITCH_ZERO
+    print(f"zero planted stitch fault: losses {fault_losses} against "
+          f"{plain['losses'][:2]}")
+    check(fault_losses != plain["losses"][:2],
+          "zero: a shard stitched at the wrong offset passed the check")
+    del tf
+    release()
+    with tempfile.TemporaryDirectory() as tmp:
+        ring, tz = zero_pair(dev, shard, True, smi, workspace=tmp)
+        folder = os.path.join(tmp, "checkpoints")
+        sharded, save_ms = timed(lambda: tz.save(ZERO_STEPS))
+        npz = save_checkpoint(os.path.join(tmp, "step.npz"), ZERO_STEPS,
+                              tz.params, tz.state, tz.buffers)
+        with ShardedCheckpoint(sharded) as ck:
+            saved = {k: ck.assemble(k) for k in ck.keys()}
+        (t2, restore_ms) = timed(lambda: zero_trainer(
+            dev, shard, 2, zero=True, ring=True, checkpoint=sharded))
+        got = {f"p|{n}": v for n, v in t2.params.items()}
+        got.update({f"s|{n}|{s}": v for n, sl in t2.state.items()
+                    for s, v in sl.items()})
+        got.update({f"b|{n}": v for n, v in t2.buffers.items()})
+        check(got.keys() == saved.keys()
+              and all(np.array_equal(got[k].cpu().numpy(), saved[k])
+                      for k in saved),
+              "zero: the 4-rank sharded save restored on 2 ranks differs")
+        del t2
+        release()
+        check(retention.resolve_latest(folder) == sharded,
+              "zero: the sharded save does not resolve as the latest")
+        # the planted fault: the save's commit marker is lost
+        marker = os.path.join(sharded, "commit_0.json")
+        kept = open(marker, "rb").read()
+        os.remove(marker)
+        torn_caught = (not retention.validate_checkpoint(sharded)
+                       and retention.resolve_latest(folder) is None)
+        with open(marker, "wb") as f:
+            f.write(kept)
+        check(torn_caught, "zero: a save without its commit marker "
+              "still validates")
+        lm = TransformerConfig(vocab=256, d_model=256, n_heads=4,
+                               n_layers=2, d_ff=1024,
+                               max_len=tz.train_net.datalayers[0]
+                               .out_shape[1])
+        init = init_lm(torch.Generator().manual_seed(0), lm, dev)
+        serving = EngineConfig.from_conf(tz.cfg.serving, tz.cfg.kernels)
+        check(serving.attend_impl == "fused",
+              "zero: the conf's engine does not take the paged kernel")
+        a, ia = load_serving_params(npz, init)
+        b, ib = load_serving_params(folder, init)
+        # the names the conf net shares with the serving LM: embed/tok,
+        # embed/pos, ln_f/scale, ln_f/bias
+        check(ib["format"] == "sharded" and ib["restored"]
+              == ia["restored"] == 4 and bitwise(a, b),
+              f"zero: serving restore {ib} differs from the npz's {ia}")
+        rs = np.random.RandomState(0)
+        prompts = [rs.randint(1, lm.vocab, size=(16 + 16 * rid,))
+                   .astype(np.int32) for rid in range(ZERO_REQUESTS)]
+        streams, paged = [], []
+        for p in (a, b):
+            before = pa.paged_attention.launches
+            streams.append(streams_of(Engine(p, lm, serving, device=dev),
+                                      prompts, 32)[1])
+            paged.append(pa.paged_attention.launches - before)
+        (sa, sb), (la, lb) = streams, paged
+    out = {"sharded_save_ms": save_ms, "restore_on_2_ms": restore_ms,
+           "saved_arrays": len(saved), "serving_restored": ib["restored"],
+           "paged_launches": [la, lb], "card": smi}
+    print("zero save", json.dumps(out))
+    check(sa == sb, "zero: the engine booted from the sharded save "
+          "streams differently from the npz-booted one")
+    check(la == lb > 0, f"zero: paged kernel launches {la}, {lb}")
+    del tz
+    release()
+    return ring["zero_quant_acc_launches"]
+
+
 def short_kernel_name(mangled: str) -> str:
     """'_ZN12_GLOBAL__N_124flash_bwd_dq_bf16_kernelILi128ELb1EEEv...' ->
     'flash_bwd_dq_bf16_kernel<128,1>' (the last name of the nested name,
@@ -3757,6 +4216,10 @@ def main() -> int:
     resnet_phase(dev, smi)
     lmdb_phase(dev, smi)
     moe_launches = moe_phase(dev, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        shard = write_shard(tmp)
+        decode_launches, rolling_launches = decode_phase(dev, smi, shard)
+        zero_ring_launches = zero_phase(dev, smi, shard)
 
     kernels = []
     for name, case in (("paged_attention", "decode"),
@@ -3793,6 +4256,9 @@ def main() -> int:
                     "singa_tpu/ops/attention.py:451")
             if dtype == torch.bfloat16:
                 kernels[-1]["moe_train_launches"] = moe_launches[name]
+                kernels[-1]["decode_train_launches"] = decode_launches[name]
+            elif name == "flash_fwd":
+                kernels[-1]["decode_rolling_launches"] = rolling_launches
     kernels.append({
         "name": "quant_acc", "route": "cuda", "source": RING_SOURCE,
         "replaces": RING_REPLACES, "launches": launches["quant_acc"],
@@ -3802,6 +4268,7 @@ def main() -> int:
         "library_ms": ring_row["library_ms"],
         "m": RING_TIMED[0], "amax_ms": ring_row["amax_ms"],
         "amax_bound_ms": ring_row["amax_bound_ms"],
+        "zero_ring_launches": zero_ring_launches,
     })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -14,9 +14,11 @@ Buffers (:class:`BufferSpec`) are non-trainable per-layer state, such
 as batch-norm running stats: a layer that declares them runs through
 ``apply_stateful``, which returns its updates beside its output.
 
-Left out: the partition metadata and the serving tier's
-``decode_positionwise`` flag; the layers that need them are not ported
-yet.
+``decode_positionwise`` marks the layers whose ``apply`` works on any
+suffix of a sequence unchanged, so the conf-net KV-cache decode
+(``serve/conf_decode.py``) reuses it; kEmbedding and kAttention carry
+a ``decode_step`` instead. Left out: the partition metadata (the port
+has no model axis to partition over).
 """
 
 from __future__ import annotations
@@ -62,6 +64,13 @@ class Layer:
     #: ``apply`` returns (out, aux): Net.forward adds ``aux_weight *
     #: aux`` to the total loss (kMoE's load balancing)
     has_aux_loss = False
+    #: position-wise over a (B, S, ...) sequence dim: ``apply`` on a
+    #: Q-token suffix equals the full-sequence apply restricted to those
+    #: positions, so the incremental decode (serve/conf_decode.py) can
+    #: reuse ``apply`` unchanged. Layers with cross-position state
+    #: implement ``decode_step`` instead (kAttention caches K/V,
+    #: kEmbedding needs absolute positions).
+    decode_positionwise = False
 
     def __init__(self, cfg: LayerConfig):
         self.cfg = cfg

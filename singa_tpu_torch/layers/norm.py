@@ -98,6 +98,7 @@ class AddLayer(Layer):
     Shapes must match exactly."""
 
     TYPE = "kAdd"
+    decode_positionwise = True  # elementwise: decode reuses apply
 
     def setup(self, src_shapes: Sequence[Shape], batchsize: int) -> Shape:
         if len(src_shapes) < 2:

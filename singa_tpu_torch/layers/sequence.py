@@ -3,9 +3,10 @@
 Counterpart of ``singa_tpu/layers/sequence.py``: (B, S) tokens from
 kSequenceData, through kEmbedding -> (B, S, D), residual blocks built
 from kLayerNorm / kAttention / kDense / kAdd, into kLMLoss (next-token
-cross-entropy), with kMoE's dense path in place of a block's FFN. The
-serving tier's ``decode_step`` hooks wait for the slice that ports
-conf-driven decoding.
+cross-entropy), with kMoE's dense path in place of a block's FFN.
+kEmbedding and kAttention carry the ``decode_step`` hooks of the
+conf-net KV-cache decode (``serve/conf_decode.py``); kLayerNorm and
+kDense are position-wise and decode through ``apply``.
 
 Numerical points where PyTorch's defaults differ from JAX's:
 ``jax.nn.gelu`` is the tanh approximation and ``jnp.var`` the
@@ -97,11 +98,22 @@ class EmbeddingLayer(Layer):
         s = tokens.shape[1]
         return params[self.tok][tokens] + params[self.pos][:s]
 
+    def decode_step(self, params, tokens, pos: int):
+        """The incremental decode's apply (serve/conf_decode.py): embed
+        the Q tokens (1, Q) at ABSOLUTE positions [pos, pos + Q), clamped
+        to the table as the JAX package clamps them; ``apply``'s ``[:s]``
+        assumes the window starts at 0."""
+        table = params[self.pos]
+        p = (pos + torch.arange(tokens.shape[1], device=table.device)
+             ).clamp(max=table.shape[0] - 1)
+        return params[self.tok][tokens.long()] + table[p]
+
 
 class LayerNormLayer(Layer):
     """kLayerNorm over the last dim; stats in fp32 under bf16 compute."""
 
     TYPE = "kLayerNorm"
+    decode_positionwise = True  # per-position stats: decode reuses apply
 
     def setup(self, src_shapes: Sequence[Shape], batchsize: int) -> Shape:
         p = self.cfg.layernorm_param
@@ -175,12 +187,39 @@ class AttentionLayer(Layer):
         o = o.movedim(1, 2).reshape(b, s, d)
         return o.to(w.dtype) @ params[self.out]
 
+    def decode_step(self, params, x, cache, pos: int):
+        """The incremental decode's apply: the Q new positions [pos,
+        pos + Q) write their K/V into the (B, H, C, D) caches IN PLACE
+        (the JAX package returns new caches; here the decoder owns
+        them) and attend the whole masked cache through the serving
+        tier's ``cache_attend`` (models/transformer.py), as the JAX
+        package does; the flash modes are a training-shape choice the
+        chunked cache path does not need. -> (out, (k cache, v cache))."""
+        from ..models.transformer import cache_attend
+
+        b, q_len, d = x.shape
+        w = params[self.qkv]
+        qkv = (x.to(w.dtype) @ w).reshape(
+            b, q_len, 3, self.heads, d // self.heads
+        )
+        q, k, v = (qkv[:, :, j].movedim(2, 1) for j in range(3))
+        kc, vc = cache
+        kc[:, :, pos:pos + q_len] = k.to(kc.dtype)
+        vc[:, :, pos:pos + q_len] = v.to(vc.dtype)
+        positions = (
+            pos + torch.arange(q_len, device=x.device)
+        )[None, :].expand(b, q_len)
+        o = cache_attend(q, kc, vc, positions)
+        o = o.movedim(1, 2).reshape(b, q_len, d)
+        return o.to(w.dtype) @ params[self.out], (kc, vc)
+
 
 class DenseLayer(Layer):
     """kDense: per-position linear map over the last dim (+ optional
     fused activation)."""
 
     TYPE = "kDense"
+    decode_positionwise = True  # per-position map: decode reuses apply
 
     def setup(self, src_shapes: Sequence[Shape], batchsize: int) -> Shape:
         p = self.cfg.dense_param

@@ -37,7 +37,10 @@ function and leaves the ring as it is.
   allgather        the (int8 bytes, scale) pairs ride n-1 more hops and
                    every rank dequantizes the same bytes with the same
                    scale, so the reduced gradient is bitwise identical on
-                   every rank.
+                   every rank. Under zero_update a sharded param skips
+                   it (``gather``): its chunk dim is its zero dim, so the
+                   chunk rank r owns after the reduce-scatter is its
+                   update shard.
 
 ``hier=(K, M)`` is the hierarchical ``q8_hier`` ring in its factored
 form (``ring { intra_degree: K }``): rank r = g*K + p, a float32
@@ -580,6 +583,7 @@ def ring_reduce_gradients(
     error_feedback: bool = True,
     residual_key=None,
     hier: tuple | None = None,
+    gather: dict | None = None,
 ) -> tuple[list, list]:
     """The quantized ring all-reduce over n ranks -> (per rank reduced
     grads, per rank new error-feedback residual chunks).
@@ -599,7 +603,12 @@ def ring_reduce_gradients(
 
     The reduced grads are dequantized from the same (bytes, scale) pairs
     on every rank, so they are bitwise identical across ranks.
-    ``hier = (K, M)`` with K*M == n runs the factored two-level ring."""
+    ``hier = (K, M)`` with K*M == n runs the factored two-level ring.
+
+    ``gather[name]`` False (zero_update's sharded params) skips the
+    allgather for that param: rank r's output is its own reduced chunk
+    r, in the param's dim order (its update shard), and only the
+    gathered params' columns of the owner's row ride the allgather."""
     n = len(grads)
     perm = [(j, (j + 1) % n) for j in range(n)]
     if hier is not None and hier[0] * hier[1] != n:
@@ -646,18 +655,39 @@ def ring_reduce_gradients(
                     new_res[r][residual_key(nm)] = torch.movedim(
                         err[off:off + size].reshape(chunk), 0,
                         chunk_dims[nm])
-        if n == 1:
-            full = [deq[0][None]]
-        elif hier is not None:
-            full = _hier_allgather(fq, fscale, *hier, dtype)
+        gtable = [e for e in table if gather is None or gather[e[0]]]
+        if len(gtable) < len(table):
+            # the gathered params' columns, packed: their own sub-row
+            cols = [slice(off, off + size) for _, off, size, _ in gtable]
+            fq_g = [torch.cat([w[c] for c in cols]) if cols else w[:0]
+                    for w in fq]
+            deq_g = [torch.cat([x[c] for c in cols]) if cols else x[:0]
+                     for x in deq]
+            packed, offset = [], 0
+            for nm, _, size, chunk in gtable:
+                packed.append((nm, offset, size, chunk))
+                offset += size
         else:
-            full = _allgather(fq, fscale, deq, dtype)
+            fq_g, deq_g, packed = fq, deq, table
+        if not packed:
+            full = None
+        elif n == 1:
+            full = [deq_g[0][None]]
+        elif hier is not None:
+            full = _hier_allgather(fq_g, fscale, *hier, dtype)
+        else:
+            full = _allgather(fq_g, fscale, deq_g, dtype)
         for r in range(n):
-            for nm, off, size, chunk in table:
+            for nm, off, size, chunk in packed:
                 g = grads[r][nm]
                 out[r][nm] = _unchunk(
                     full[r][:, off:off + size].reshape((n,) + chunk),
                     chunk_dims[nm], g.shape).to(g.dtype)
+            for nm, off, size, chunk in table:
+                if gather is not None and not gather[nm]:
+                    out[r][nm] = torch.movedim(
+                        deq[r][off:off + size].reshape(chunk), 0,
+                        chunk_dims[nm]).to(grads[r][nm].dtype)
     return out, new_res
 
 
@@ -671,11 +701,13 @@ def _wire_itemsize(dtype: str) -> int:
 
 
 def modeled_wire_bytes(sizes: dict, buckets: tuple, ndata: int, *,
-                       dtype: str = "int8") -> int:
+                       dtype: str = "int8", gather: dict | None = None
+                       ) -> int:
     """Per-rank bytes the flat ring sends in one step: n-1 (chunk +
     scale) payloads per bucket in the reduce phase and n-1 more in the
-    allgather. ``sizes`` maps param name -> element count. The tests
-    hold it equal to what :func:`ppermute` counts."""
+    allgather for the gathered params (``gather[name]`` False: skipped,
+    zero_update's scatter layout). ``sizes`` maps param name -> element
+    count. The tests hold it equal to what :func:`ppermute` counts."""
     if ndata <= 1:
         return 0
     w = _wire_itemsize(dtype)
@@ -683,19 +715,25 @@ def modeled_wire_bytes(sizes: dict, buckets: tuple, ndata: int, *,
     total = 0
     for bucket in buckets:
         chunk = sum(sizes[nm] // ndata for nm in bucket)
-        total += 2 * (ndata - 1) * (chunk * w + scale_bytes)
+        total += (ndata - 1) * (chunk * w + scale_bytes)
+        gchunk = sum(sizes[nm] // ndata for nm in bucket
+                     if gather is None or gather[nm])
+        if gchunk:
+            total += (ndata - 1) * (gchunk * w + scale_bytes)
     return total
 
 
 def modeled_wire_bytes_levels(sizes: dict, buckets: tuple, ndata: int, *,
-                              intra_degree: int, dtype: str = "int8"
-                              ) -> dict:
+                              intra_degree: int, dtype: str = "int8",
+                              gather: dict | None = None) -> dict:
     """Per-rank, per-level bytes the hierarchical ring sends in one step:
     ``{"intra": ..., "inter": ..., "total": ...}``. Per bucket with chunk
     = sum(sizes)/n, K = intra_degree, M = n/K: the intra reduce sends
-    (K-1) (M, chunk) float32 planes; the inter reduce and the inter
-    gather (M-1) (chunk wire bytes + scale) each; the intra gather (K-1)
-    (M chunks of wire bytes + M scales)."""
+    (K-1) (M, chunk) float32 planes; the inter reduce (M-1) (chunk wire
+    bytes + scale); the inter gather (M-1) (chunk wire bytes + scale)
+    and the intra gather (K-1) (M chunks of wire bytes + M scales), over
+    the gathered params only (``gather``, as in
+    :func:`modeled_wire_bytes`)."""
     if ndata <= 1:
         return {"intra": 0, "inter": 0, "total": 0}
     K = max(1, int(intra_degree))
@@ -710,8 +748,12 @@ def modeled_wire_bytes_levels(sizes: dict, buckets: tuple, ndata: int, *,
     for bucket in buckets:
         chunk = sum(sizes[nm] // ndata for nm in bucket)
         intra += (K - 1) * M * chunk * 4
-        inter += 2 * (M - 1) * (chunk * w + scale_bytes)
-        intra += (K - 1) * (M * chunk * w + M * scale_bytes)
+        inter += (M - 1) * (chunk * w + scale_bytes)
+        gchunk = sum(sizes[nm] // ndata for nm in bucket
+                     if gather is None or gather[nm])
+        if gchunk:
+            inter += (M - 1) * (gchunk * w + scale_bytes)
+            intra += (K - 1) * (M * gchunk * w + M * scale_bytes)
     return {
         "intra": int(intra),
         "inter": int(inter),
@@ -719,11 +761,14 @@ def modeled_wire_bytes_levels(sizes: dict, buckets: tuple, ndata: int, *,
     }
 
 
-def reference_wire_bytes(sizes: dict, ndata: int) -> int:
+def reference_wire_bytes(sizes: dict, ndata: int, *,
+                         scatter_only: bool = False) -> int:
     """Per-rank bytes of a bandwidth-optimal float32 ring all-reduce of
     the same gradients: 2(n-1)/n * 4E for E elements (reduce-scatter +
-    allgather), the reference path's collective."""
+    allgather), the reference path's collective; under zero_update
+    (``scatter_only``) the reduce-scatter alone."""
     if ndata <= 1:
         return 0
     total_elems = sum(sizes.values())
-    return int(2 * (ndata - 1) * total_elems * 4 / ndata)
+    phases = 1 if scatter_only else 2
+    return int(phases * (ndata - 1) * total_elems * 4 / ndata)

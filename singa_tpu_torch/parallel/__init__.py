@@ -4,8 +4,9 @@ collectives.
 Counterpart of ``singa_tpu/parallel``, data axis only: a mesh maps each
 data-parallel rank to a torch device (several ranks may share one), and
 ``collectives`` holds the ``grad_comm`` seam (the reference quantized
-reduction, error-feedback residuals, reverse-topo buckets). The ring
-itself lives in ``ops/quantized_collective.py``.
+reduction, error-feedback residuals, reverse-topo buckets);
+``shardings`` gives zero_update's per-param update dim. The ring itself
+lives in ``ops/quantized_collective.py``.
 """
 
 from .collectives import (

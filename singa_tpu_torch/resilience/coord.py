@@ -1,12 +1,16 @@
-"""Coordination helpers of ``singa_tpu/resilience/coord.py`` that the
-serving fleet uses: the atomic publish under the mailbox transport's
-message and status files, and this process's rank for rank-qualified
-fault terms. The preemption barrier and the commit markers of sharded
-saves are not ported."""
+"""Coordination helpers of ``singa_tpu/resilience/coord.py``: the atomic
+publish under the mailbox transport's message and status files, this
+process's rank for rank-qualified fault terms, and the commit markers of
+sharded saves (``commit_<k>.json``: the CRC32 and size of process k's
+shard file, written after the shard; the replica engine's ``.server``
+sidecar marker is read, so a JAX replica save validates under the JAX
+rule). The preemption barrier is not ported."""
 
 from __future__ import annotations
 
+import json
 import os
+import zlib
 
 
 def atomic_write_bytes(path: str, data: bytes) -> str:
@@ -30,3 +34,85 @@ def process_index() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank()
     return 0
+
+
+#: manifest field value declaring "this save carries commit markers"
+COMMIT_VERSION = 2
+#: format tag inside each marker file
+COMMIT_FORMAT = "singa-tpu-commit-v2"
+
+
+def commit_marker_path(path: str, proc: int) -> str:
+    """``commit_k.json`` inside sharded checkpoint dir ``path``."""
+    return os.path.join(path, f"commit_{proc}.json")
+
+
+def shard_digest(shard_file: str) -> dict:
+    """{"size", "crc32"} over the shard file's full byte stream."""
+    crc = 0
+    size = 0
+    with open(shard_file, "rb") as f:
+        while True:
+            chunk = f.read(1 << 20)
+            if not chunk:
+                break
+            crc = zlib.crc32(chunk, crc)
+            size += len(chunk)
+    return {"size": size, "crc32": crc & 0xFFFFFFFF}
+
+
+def write_commit(path: str, proc: int) -> str:
+    """Publish process ``proc``'s commit marker for the shard it just
+    wrote. Atomic tmp + rename: a marker is absent or complete."""
+    marker = {
+        "format": COMMIT_FORMAT,
+        "proc": int(proc),
+        **shard_digest(os.path.join(path, f"proc_{proc}.npz")),
+    }
+    return atomic_write_bytes(
+        commit_marker_path(path, proc),
+        json.dumps(marker).encode("utf-8"),
+    )
+
+
+def _marker_matches(marker_path: str, data_path: str, check) -> bool:
+    """True iff the marker at ``marker_path`` parses, passes ``check``
+    and holds the size and CRC32 of ``data_path``'s bytes."""
+    try:
+        with open(marker_path, encoding="utf-8") as f:
+            marker = json.load(f)
+    except (OSError, ValueError):
+        return False
+    if marker.get("format") != COMMIT_FORMAT or not check(marker):
+        return False
+    try:
+        digest = shard_digest(data_path)
+    except OSError:
+        return False
+    try:
+        return (
+            int(marker["size"]) == digest["size"]
+            and int(marker["crc32"]) == digest["crc32"]
+        )
+    except (KeyError, TypeError, ValueError):
+        return False
+
+
+def commit_ok(path: str, proc: int) -> bool:
+    """True iff process ``proc``'s commit marker exists, parses, and
+    matches its shard's bytes (size + CRC32): a tear of the marker or of
+    the shard after it fails here."""
+    return _marker_matches(
+        commit_marker_path(path, proc),
+        os.path.join(path, f"proc_{proc}.npz"),
+        lambda m: int(m.get("proc", -1)) == int(proc),
+    )
+
+
+def sidecar_commit_ok(path: str) -> bool:
+    """True iff sharded dir ``path``'s ``.server`` sidecar (the JAX
+    replica engine's) matches its ``commit_server.json`` marker."""
+    return _marker_matches(
+        os.path.join(path, "commit_server.json"), path + ".server",
+        lambda m: bool(m.get("sidecar")),
+    )

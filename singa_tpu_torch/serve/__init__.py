@@ -13,6 +13,8 @@ the PyTorch counterpart of ``singa_tpu/serve``.
                    prefill, decode or speculative verify ticks,
                    retirement on EOS/budget.
   ``speculate``    model-free drafters for the verify tick (a copy).
+  ``conf_decode``  KV-cache decode over a conf-built Net (the
+                   ``tools/generate.py`` path).
   ``fleet``        ``migrate``: a slot, cached blocks or a weight version
                    as one frame in the JAX package's format.
 """

@@ -1,5 +1,6 @@
 """Training engine: the synchronous Trainer, the contrastive-divergence
-CDTrainer, and the npz checkpoint format shared with the JAX package."""
+CDTrainer, and the npz and sharded checkpoint formats shared with the
+JAX package (``checkpoint``, ``sharded_ckpt``)."""
 
 from .cd import CDTrainer, unroll_autoencoder
 from .checkpoint import (

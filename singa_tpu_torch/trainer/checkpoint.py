@@ -10,8 +10,8 @@ other:
     data stream's consumed position.
 
 save_checkpoint writes atomically (tmp file + rename), so a crash
-mid-write never corrupts the latest checkpoint. The sharded format of
-the JAX package is not ported.
+mid-write never corrupts the latest checkpoint. The JAX package's
+sharded format is ``sharded_ckpt.py``.
 
 :func:`params_from_numpy` turns the JAX package's param dict, exported
 as numpy arrays, into the port's tensors with names and shapes checked.

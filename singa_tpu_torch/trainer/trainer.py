@@ -25,13 +25,27 @@ three reductions:
 The reduced grads are the same bits for every rank, so the updater's
 elementwise update runs once per distinct device (params and updater
 state exist once per device). Loss and metrics are averaged over the
-ranks. Error-feedback residuals live in ``buffers`` under
-``__gradres__/<param>`` as whole arrays, chunk r (along the ring's chunk
-dim) belonging to rank r: the layout and ``b|`` checkpoint keys of the
-JAX Trainer. Stateful layers' buffers (kBatchNorm's running stats,
-``<layer>/running_mean``) live beside them, float32 whatever the compute
-dtype; every step updates them in place, so a captured step or eval
-reads the live values. A net with such buffers trains on one rank only
+ranks.
+
+``zero_update`` (the JAX package's ZeRO-style update layout,
+``parallel/shardings.py``): each param whose dim the width n divides is
+updated as n rank shards along that dim. Rank r's updater slots exist
+only as its shard, on its device; in the eager tail each rank updates
+its param shard from its shard of the summed grads (under the ring: the
+ring's own scatter output, its allgather skipped) and its slots, and
+the fresh shards are copied back into every device's params, in place.
+The updaters are elementwise and the grads are summed in the same order
+either way, so zero gives the replicated update's params to the bit.
+Multi-rank steps are eager (the dispatch rule); with one rank there is
+nothing to shard and the graphed step is unchanged.
+
+Error-feedback residuals live in ``buffers`` under ``__gradres__/<param>``
+as whole arrays, chunk r (along the ring's chunk dim) belonging to rank
+r: the layout and ``b|`` checkpoint keys of the JAX Trainer. Stateful
+layers' buffers (kBatchNorm's running stats, ``<layer>/running_mean``)
+live beside them, float32 whatever the compute dtype; every step
+updates them in place, so a captured step or eval reads the live
+values. A net with such buffers trains on one rank only
 (the JAX package's BatchNorm is synchronised over the global batch by
 GSPMD; per-rank statistics would be another result).
 
@@ -77,13 +91,20 @@ Cadence semantics match the reference's predicates exactly
 step >= after and (step - after) % freq == 0; tests/validation run
 *before* the train step of the step they trigger on (worker.cc:190-200).
 
+Checkpoints: ``checkpoint_format`` "npz" (``checkpoint.py``) or
+"sharded" (``sharded_ckpt.py``, ``step_<N>.ckpt`` directories in the
+JAX package's format: zero slots and ring residuals saved as rank
+shards); a sharded resume assembles each rank's box of each array from
+the saved boxes it intersects (``resilience/reshard.py``), so a save of
+n ranks (or of the JAX package's devices) resumes on m.
+
 What the port leaves out, and refuses with a ConfigError that names
-it rather than ignoring: any parallel axis but the data axis,
-``zero_update``, the named-axes ``ring { intra_axis/inter_axis }``,
-``kernels`` fields other than ``grad_allreduce`` and ``interpret``,
-``resilience``, ``fleet``, ``pipeline_microbatches``, the sharded
-checkpoint format, the replica engine (``nservers``) and a net with
-buffers on more than one rank. The contrastive-divergence engine is
+it rather than ignoring: any parallel axis but the data axis, the
+named-axes ``ring { intra_axis/inter_axis }``, ``resilience``,
+``fleet``, ``pipeline_microbatches``, the replica engine (``nservers``)
+and a net with buffers on more than one rank. ``kernels {
+paged_attention }`` is the serving engine's knob and trains unchanged,
+as in the JAX package. The contrastive-divergence engine is
 ``trainer/cd.py``'s CDTrainer (``make_trainer`` picks it).
 Also left out: telemetry (the JAX package attaches its recorder through
 the resilience supervisor, which is not ported), the eval-burst feeder
@@ -117,11 +138,13 @@ from ..parallel import (
     residual_key,
     reverse_topo_buckets,
 )
+from ..parallel.shardings import zero_update_shardings
 from ..params import init_params
 from ..utils import Performance, Timers
 from ..utils.graphs import Graphed
 from ..utils.rng import fold_in
 from .checkpoint import load_stream_positions, restore_into, save_checkpoint
+from .sharded_ckpt import RankShards, is_sharded_checkpoint, save_sharded
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -142,18 +165,11 @@ def unsupported(model_cfg: ModelConfig,
     for knob in ("resilience", "fleet"):
         if getattr(model_cfg, knob, None) is not None:
             out.append(knob)
-    kernels = model_cfg.kernels
-    if kernels is not None and kernels.paged_attention != "reference":
-        out.append(f"kernels paged_attention {kernels.paged_attention!r}")
     ring = model_cfg.ring
     if ring is not None and (ring.intra_axis or ring.inter_axis):
         out.append("ring { intra_axis/inter_axis } (the named-axes form)")
-    if model_cfg.zero_update:
-        out.append("zero_update")
     if model_cfg.pipeline_microbatches:
         out.append("pipeline_microbatches")
-    if model_cfg.checkpoint_format != "npz":
-        out.append(f"checkpoint_format {model_cfg.checkpoint_format!r}")
     if cluster_cfg is not None:
         if cluster_cfg.nservers:
             out.append(f"cluster nservers {cluster_cfg.nservers}")
@@ -259,13 +275,25 @@ class Trainer:
         #: the root of every step's generator (the JAX Trainer's step key)
         self._step_gen = fold_in(torch.Generator().manual_seed(seed), 1)
 
+        # --- ZeRO-style update sharding (zero_update): the dim each
+        # param's update is cut along over the ranks, None = replicated
+        # (parallel/shardings.py); the ring below takes it as its chunk
+        # dim. None off zero ---
+        self._zero_dims: dict[str, int | None] | None = None
+        if model_cfg.zero_update:
+            self._zero_dims = zero_update_shardings(
+                mesh, self.train_net, warn=True)
+
         # --- gradient collectives (grad_comm + kernels.grad_allreduce) ---
         self._comm = GradCommSpec.from_config(
             model_cfg.grad_comm, model_cfg.kernels, model_cfg.ring
         )
-        #: the ring's chunk dim per param (0 for every param: the update
-        #: is replicated) and q8_hier's (K, M); None off the ring
+        #: the ring's chunk dim per param (the zero dim of a zero-sharded
+        #: param, else 0), whether its reduced chunks are allgathered
+        #: (False for zero-sharded params) and q8_hier's (K, M); None off
+        #: the ring
         self._ring_chunk_dims: dict[str, int] | None = None
+        self._ring_gather: dict[str, bool] | None = None
         self._ring_hier: tuple[int, int] | None = None
         ndata = len(mesh.devices)
         if self._comm is not None and self._comm.ring:
@@ -376,14 +404,18 @@ class Trainer:
 
     def _materialize_params(self) -> None:
         """Initialize params + updater slots on every device of the mesh
-        and the error-feedback residuals, and overlay the resume
-        checkpoint (fills Worker::Resume, worker.cc:65-67)."""
+        (zero-sharded slots as rank shards) and the error-feedback
+        residuals, and overlay the resume checkpoint (fills
+        Worker::Resume, worker.cc:65-67): an npz save by name, a sharded
+        one through ``_restore_sharded``."""
         params = init_params(self._init_gen, self.specs, self.device)
         state = self.updater.init_state(params)
         buffers = {**self.train_net.init_buffers(self.device),
                    **init_residuals(params, self._comm)}
         self._resume_streams: dict[str, int] = {}
-        if self.cfg.checkpoint:
+        sharded = bool(self.cfg.checkpoint) and is_sharded_checkpoint(
+            self.cfg.checkpoint)
+        if self.cfg.checkpoint and not sharded:
             ck_step, params, state, buffers = restore_into(
                 self.cfg.checkpoint, params, state, buffers
             )
@@ -396,9 +428,86 @@ class Trainer:
         self._replicas: dict[torch.device, dict] = {
             dev: {} for dev in self.mesh.devices
         }
+        #: rank r -> {zero-sharded param: {slot: rank r's shard}} on
+        #: rank r's device (empty dicts off zero)
+        self._zero_slots: list[dict] = [{} for _ in self.mesh.devices]
         self.params = params
         self.state = state
         self.buffers = buffers
+        if sharded:
+            self._restore_sharded()
+
+    def _zero_names(self) -> list[str]:
+        """The params whose update is sharded over the ranks."""
+        if self._zero_dims is None or len(self.mesh.devices) == 1:
+            return []
+        return [n for n, d in self._zero_dims.items() if d is not None]
+
+    def _restore_sharded(self) -> None:
+        """Overlay a sharded checkpoint (``step_<N>.ckpt``) onto the
+        initialized params, slots and buffers. Each entry is placed by
+        the Resharder, each rank's box from the saved boxes it
+        intersects; zero-sharded slots land as their rank shards. Entries
+        absent from the checkpoint keep their init; a shape mismatch
+        raises. The stream positions are global consumed-batch counts,
+        the same on any rank count."""
+        from ..resilience.reshard import Resharder
+        from .sharded_ckpt import (
+            ShardedCheckpoint,
+            buffer_key,
+            param_key,
+            state_key,
+        )
+
+        path = self.cfg.checkpoint
+        devices = list(self.mesh.devices)
+        with ShardedCheckpoint(path) as ck:
+            # admission first: a mesh that cannot host the manifest's
+            # specs raises before anything is placed
+            rs = Resharder(ck, dict(self.mesh.shape))
+            have = set(ck.keys())
+
+            def place(key, init, dim=None):
+                saved = tuple(ck.manifest["arrays"][key]["shape"])
+                if saved != tuple(init.shape):
+                    raise ValueError(
+                        f"checkpoint {path!r}: {key!r} shape {saved} != "
+                        f"model shape {tuple(init.shape)}")
+                if dim is None:
+                    return rs.place(key, [self.device],
+                                    dtype=init.dtype)[0]
+                return rs.place(key, devices, dim, dtype=init.dtype)
+
+            params = {n: place(param_key(n), v)
+                      if param_key(n) in have else v
+                      for n, v in self.params.items()}
+            zero = set(self._zero_names())
+            state = {n: dict(slots) for n, slots in self.state.items()}
+            for n, slots in state.items():
+                for s, v in slots.items():
+                    key = state_key(n, s)
+                    if key not in have:
+                        continue
+                    if n in zero:
+                        parts = place(key, v, self._zero_dims[n])
+                        with torch.no_grad():
+                            for r, part in enumerate(parts):
+                                self._zero_slots[r][n][s].copy_(part)
+                    else:
+                        slots[s] = place(key, v)
+            self.params = params
+            self.state = {n: slots for n, slots in state.items()
+                          if n not in zero}
+            self.buffers = {n: place(buffer_key(n), v)
+                            if buffer_key(n) in have else v
+                            for n, v in self.buffers.items()}
+            self._resume_streams = dict(ck.streams)
+            self.start_step = max(self.start_step, ck.step)
+            note = rs.summary()
+            if note is not None:
+                self.log(f"elastic restore: {note} onto "
+                         f"{len(devices)} rank(s)")
+        self.log(f"resumed sharded from {path} at step {self.start_step}")
 
     @staticmethod
     def _assign(cur: dict | None, value: dict, dev) -> dict:
@@ -431,19 +540,69 @@ class Trainer:
 
     @property
     def state(self) -> dict:
-        """The updater slots (rank 0's device's copy), like ``params``."""
-        return self._replicas[self.device]["state"]
+        """The updater slots (rank 0's device's copy), like ``params``.
+        Under zero the sharded params' slots come back whole, their rank
+        shards concatenated on rank 0's device (a copy, not the live
+        tensors)."""
+        rep = self._replicas[self.device]["state"]
+        zero = self._zero_names()
+        if not zero:
+            return rep
+        n = len(self.mesh.devices)
+        out = dict(rep)
+        for nm in zero:
+            out[nm] = {
+                s: torch.cat([self._zero_slots[r][nm][s].to(self.device)
+                              for r in range(n)], dim=self._zero_dims[nm])
+                for s in self._zero_slots[0][nm]
+            }
+        return {nm: out[nm] for nm in self.params if nm in out}
 
     @state.setter
     def state(self, value: dict) -> None:
+        """Copy ``value`` (whole slots) into every device's slots; under
+        zero a sharded param's slots go to the ranks as their shards."""
+        zero = set(self._zero_names())
         for dev, rep in self._replicas.items():
             cur = rep.get("state", {})
             new = {}
             for n, slots in value.items():
+                if n in zero:
+                    continue
                 new[n] = self._assign(cur.get(n), slots, dev)
                 if new[n] is not cur.get(n):
                     self._drop_graphs()
             rep["state"] = new
+        ranks = len(self.mesh.devices)
+        for r, dev in enumerate(self.mesh.devices):
+            for n in zero & value.keys():
+                d = self._zero_dims[n]
+                parts = {s: v.chunk(ranks, dim=d)[r].contiguous()
+                         for s, v in value[n].items()}
+                self._zero_slots[r][n] = self._assign(
+                    self._zero_slots[r].get(n), parts, dev)
+
+    @property
+    def update_mode(self) -> str:
+        """How the weight update is laid out across the data axis:
+        ``replicated`` (every rank applies the full update, the
+        reference's ParamSync semantics) or ``zero`` (grads reduced to
+        each rank's shard, shard-local updater, params stitched back)."""
+        return "zero" if self._zero_dims is not None else "replicated"
+
+    def opt_state_bytes_per_device(self) -> int:
+        """Bytes of updater state one rank holds (rank 0): the footprint
+        zero_update shrinks by the data width. Ranks that share a card
+        each count their own."""
+        zero = self._zero_slots[0]
+        total = 0
+        for n, slots in self._replicas[self.device]["state"].items():
+            for v in slots.values():
+                total += v.numel() * v.element_size()
+        for slots in zero.values():
+            for v in slots.values():
+                total += v.numel() * v.element_size()
+        return total
 
     def _drop_graphs(self) -> None:
         """Forget every captured step: the tensors it read were replaced."""
@@ -522,15 +681,19 @@ class Trainer:
     def _reduce_and_update(self, step, grads: list, metrics: list) -> dict:
         """The eager step's tail: the ranks' local grads (already / n)
         through the reduction, the update of the params they name on
-        every device -> the metrics, averaged over the ranks."""
+        every device (zero-sharded params: ``_zero_update``) -> the
+        metrics, averaged over the ranks."""
         n = len(self.mesh.devices)
         names = list(grads[0])
+        zero = [nm for nm in self._zero_names() if nm in grads[0]]
         if self._ring_chunk_dims is not None:
             reduced, res = self._ring_reduce(grads, self.buffers)
             # the reduced grads are the same bits on every rank: take the
-            # first rank on each device
+            # first rank on each device (a zero-sharded param's is each
+            # rank's own chunk: the ring's scatter output)
             by_dev = {dev: reduced[self.mesh.devices.index(dev)]
                       for dev in self._replicas}
+            shards = [{nm: g[nm] for nm in zero} for g in reduced]
         else:
             summed = {nm: functools.reduce(
                 torch.add, (g[nm].to(self.device) for g in grads))
@@ -542,7 +705,13 @@ class Trainer:
                 )
             by_dev = {dev: {nm: g.to(dev) for nm, g in summed.items()}
                       for dev in self._replicas}
+            shards = [{nm: summed[nm].chunk(n, dim=self._zero_dims[nm])[r]
+                       .to(dev) for nm in zero}
+                      for r, dev in enumerate(self.mesh.devices)]
         self._store_buffers(res)
+        if zero:
+            self._zero_update(step, shards)
+            names = [nm for nm in names if nm not in shards[0]]
         for dev, rep in self._replicas.items():
             new_p, new_s = self.updater.apply(
                 step, {nm: rep["params"][nm] for nm in names}, by_dev[dev],
@@ -562,6 +731,40 @@ class Trainer:
                 for m in metrics)) / n for k in ms}
             for layer, ms in metrics[0].items()
         }
+
+    def _zero_update(self, step, shards: list) -> None:
+        """The zero update of the params ``shards[r]`` names: rank r
+        updates its slice of each (a view of its device's replica) from
+        ``shards[r]``, its slice of the reduced grads, and from its own
+        slot shards, which take the new slots in place; then the fresh
+        param shards are stitched into every device's replica."""
+        n = len(self.mesh.devices)
+        fresh = []
+        for r, dev in enumerate(self.mesh.devices):
+            params = self._replicas[dev]["params"]
+            slots = self._zero_slots[r]
+            new_p, new_s = self.updater.apply(
+                step,
+                {nm: params[nm].chunk(n, dim=self._zero_dims[nm])[r]
+                 for nm in shards[r]},
+                shards[r], {nm: slots[nm] for nm in shards[r]}, self.specs)
+            with torch.no_grad():
+                for nm, new in new_s.items():
+                    for s, v in new.items():
+                        slots[nm][s].copy_(v)
+            fresh.append(new_p)
+        self._stitch_zero(fresh)
+
+    @torch.no_grad()
+    def _stitch_zero(self, fresh: list) -> None:
+        """Copy rank r's fresh param shards ``fresh[r]`` into slice r of
+        every device's replica, in place: the addresses stay fixed."""
+        n = len(self.mesh.devices)
+        for dev, rep in self._replicas.items():
+            for nm in fresh[0]:
+                parts = rep["params"][nm].chunk(n, dim=self._zero_dims[nm])
+                for r, part in enumerate(parts):
+                    part.copy_(fresh[r][nm])
 
     # ------------------------------------------------------------------
     # gradient collectives (grad_comm, kernels.grad_allreduce)
@@ -594,8 +797,9 @@ class Trainer:
 
     def _setup_ring_collective(self) -> None:
         """Resolve the ring's geometry and refuse what it cannot run, with
-        the JAX Trainer's messages (the JAX package's zero_update branch
-        has no counterpart: the port refuses zero_update by name)."""
+        the JAX Trainer's messages. Under zero_update a zero-sharded
+        param's chunk dim is its zero dim and its allgather is skipped:
+        the ring's scatter output is the update layout."""
         impl = self._comm.wire_impl
         if not self._supports_ring_collective:
             raise ConfigError(
@@ -618,6 +822,17 @@ class Trainer:
                     f"kernels {{ grad_allreduce: q8_hier }} cannot "
                     f"run: {geom}"
                 )
+            if geom[0] != geom[1] and self._zero_dims is not None:
+                # the named form is refused by unsupported() before this;
+                # kept so that the JAX package's refusal stays in place
+                # when the named axes are ported
+                raise ConfigError(
+                    "kernels { grad_allreduce: q8_hier } with named "
+                    "intra_axis/inter_axis does not compose with "
+                    "zero_update (the update layout shards over the "
+                    "data axis only) — use the factored "
+                    "ring { intra_degree } form"
+                )
             self._ring_hier = geom[2:]
         ndata = len(self.mesh.devices)
         bs = self.train_net.batchsize
@@ -629,7 +844,12 @@ class Trainer:
             )
         shapes = {n: s.shape for n, s in self.specs.items()
                   if s.owner is None}
-        chunk_dims = {n: 0 for n in shapes}
+        chunk_dims, gather = {}, {}
+        for n in shapes:
+            d_zero = (None if self._zero_dims is None or ndata == 1
+                      else self._zero_dims[n])
+            chunk_dims[n] = 0 if d_zero is None else d_zero
+            gather[n] = d_zero is None
         reason = qc.ring_reducible(shapes, ndata, chunk_dims)
         if reason is not None:
             raise ConfigError(
@@ -644,6 +864,7 @@ class Trainer:
                     f"interpret off cannot run: {reason}"
                 )
         self._ring_chunk_dims = chunk_dims
+        self._ring_gather = gather
 
     def _ring_reduce(self, grads: list, buffers: dict):
         """Per-rank local partials (already divided by n) through the
@@ -665,6 +886,7 @@ class Trainer:
             error_feedback=self._comm.error_feedback,
             residual_key=residual_key,
             hier=self._ring_hier,
+            gather=self._ring_gather,
         )
         whole = {
             key: torch.cat([nr[key].to(self.device) for nr in new_res],
@@ -700,16 +922,19 @@ class Trainer:
                  for nm, s in self.specs.items()}
         buckets = self._buckets(sizes)
         out = {
-            "reference": qc.reference_wire_bytes(sizes, n),
+            "reference": qc.reference_wire_bytes(
+                sizes, n, scatter_only=bool(self._zero_names())),
             "quantized_ring": qc.modeled_wire_bytes(
-                sizes, buckets, n, dtype=self._comm.dtype),
+                sizes, buckets, n, dtype=self._comm.dtype,
+                gather=self._ring_gather),
             "ndata": n,
         }
         if self._ring_hier is not None:
             k = self._ring_hier[0]
             out["flat_ring"] = out["quantized_ring"]
             levels = qc.modeled_wire_bytes_levels(
-                sizes, buckets, n, intra_degree=k, dtype=self._comm.dtype)
+                sizes, buckets, n, intra_degree=k, dtype=self._comm.dtype,
+                gather=self._ring_gather)
             out["quantized_ring"] = levels["total"]
             out["intra"] = levels["intra"]
             out["inter"] = levels["inter"]
@@ -1411,16 +1636,50 @@ class Trainer:
         return out
 
     def save(self, step: int) -> str | None:
-        """npz snapshot into ``<workspace>/checkpoints/step_<step>.npz``."""
+        """Snapshot into ``<workspace>/checkpoints``: ``step_<step>.npz``,
+        or with ``checkpoint_format: "sharded"`` the ``step_<step>.ckpt``
+        directory of ``sharded_ckpt.save_sharded``."""
         folder = self._checkpoint_dir()
         if folder is None:
             return None
-        path = os.path.join(folder, f"step_{step}.npz")
+        streams = self._stream_positions()
         with self.timers.phase("ckpt"):
-            save_checkpoint(path, step, self.params, self.state,
-                            self.buffers, streams=self._stream_positions())
+            if self.cfg.checkpoint_format == "sharded":
+                path = os.path.join(folder, f"step_{step}.ckpt")
+                save_sharded(path, step, self.params, self._state_layout(),
+                             self._buffer_layout(), streams=streams)
+            else:
+                path = os.path.join(folder, f"step_{step}.npz")
+                save_checkpoint(path, step, self.params, self.state,
+                                self.buffers, streams=streams)
         self.log(f"step {step}: checkpoint -> {path}")
         return path
+
+    def _state_layout(self) -> dict:
+        """The slots as a sharded save lays them: zero-sharded ones as
+        their rank shards, the others whole (rank 0's device's)."""
+        out = dict(self._replicas[self.device]["state"])
+        for nm in self._zero_names():
+            out[nm] = {
+                s: RankShards(tuple(z[nm][s] for z in self._zero_slots),
+                              self._zero_dims[nm])
+                for s in self._zero_slots[0][nm]
+            }
+        return {nm: out[nm] for nm in self.params if nm in out}
+
+    def _buffer_layout(self) -> dict:
+        """The buffers as a sharded save lays them: on the ring each
+        error-feedback residual as its rank chunks along the param's ring
+        chunk dim (the chunk each rank banks), the JAX Trainer's
+        residual layout; everything else whole."""
+        n = len(self.mesh.devices)
+        out = dict(self.buffers)
+        if self._ring_chunk_dims is not None and n > 1:
+            for nm, d in self._ring_chunk_dims.items():
+                key = residual_key(nm)
+                if key in out:
+                    out[key] = RankShards(tuple(out[key].chunk(n, dim=d)), d)
+        return out
 
 
 def _torch_dtype(np_dtype) -> torch.dtype:

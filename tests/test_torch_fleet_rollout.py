@@ -5,8 +5,9 @@ pause, streams straddling the flip), version skew, the serving restore
 of an npz save, and cross-host ``cache_fetch``/``cache_ship``. These are
 ``tests/test_rollout.py``'s and ``tests/test_fleet_prefix.py``'s cases,
 case for case where one applies, over the port's Engine, FleetHost and
-RolloutController. The sharded restore is not ported: it raises by name
-here.
+RolloutController. The sharded restore is
+tests/test_torch_sharded_ckpt.py's; a directory that is no sharded save
+raises by name here.
 
 Tolerance: streams are identical to the oracle engine's, token for
 token; restored and shipped arrays are bitwise.
@@ -662,12 +663,14 @@ class TestLoadServingParams:
             load_serving_params(empty, init)
 
     def test_sharded_save_raises_by_name(self, tmp_path):
-        """The sharded format is not ported: a sharded checkpoint
-        directory raises instead of booting on init weights."""
+        """A directory whose manifest is not the sharded format's raises,
+        naming the format, instead of booting on init weights (a sharded
+        save restores: tests/test_torch_sharded_ckpt.py)."""
         path = tmp_path / "step_3.ckpt"
         path.mkdir()
         (path / "manifest.json").write_text("{}")
-        with pytest.raises(ReshardError, match="sharded"):
+        with pytest.raises(ValueError,
+                           match="not a singa-tpu sharded checkpoint"):
             load_serving_params(str(path), tiny_params(tiny_cfg()))
 
 

@@ -483,14 +483,11 @@ def test_unported_layer_type_is_refused_by_name(shard):
 
 
 @pytest.mark.parametrize("extra,cluster,knob", [
-    ("zero_update: true", "", "zero_update"),
     ("kernels { grad_allreduce: quantized_ring }", "", "grad_comm"),
-    ("kernels { paged_attention: fused }", "", "kernels"),
     ('ring { intra_axis: "data" inter_axis: "model" }', "", "ring"),
     ("resilience { }", "", "resilience"),
     ("fleet { }", "", "fleet"),
     ("pipeline_microbatches: 2", "", "pipeline_microbatches"),
-    ('checkpoint_format: "sharded"', "", "checkpoint_format"),
     ("", "nworkers: 4", "nworkers"),
     ("", "nworkers: 2 nprocs_per_group: 2 nseq_per_group: 2",
      "nseq_per_group"),
