@@ -343,6 +343,38 @@ caught and carried on):
              shares with it restored), whose Engines (the conf's
              paged-attention kernel) stream equal tokens.
 
+  18. procs  (runs after zero) one process per rank group over
+             torch.distributed, gloo, both processes on this card (NCCL
+             refuses two ranks on one device): examples/lm/tinylm_d128.conf
+             with the ring phase's q8wire settings, float32, nworkers 2,
+             8 steps, as two processes through ``python -m
+             singa_tpu_torch.main -procsID k -hostfile hf`` and as one
+             process of 2 ranks, in turns (2, 1, 1, 2): every process
+             reports cuda, gloo and its quant_acc launches, which sum to
+             the one-process run's; params and slots (each process's
+             digest, process 0's npz save) equal the one-process run's
+             to the bit; step ms of each run, ring bytes a rank a step
+             (equal to the model) and each process's host ms in
+             cross-process exchanges. Then through the Python API
+             (``init_distributed``, then ``Trainer(mesh=...)``), 2
+             processes x 2 ranks: the zero phase's zero + ring run (3
+             steps) equal to its 4-rank run to the bit, its sharded save
+             holding proc_0, proc_1, both commit markers and nprocs 2,
+             restored here on 4 and on 2 ranks bitwise; a planted
+             ppermute that delivers every pair one rank past its
+             destination, which must change the bits; ResNet-18
+             (resnet_conf(depth=18, compute_dtype="float32"), batch 64,
+             crop 224, centre crops, 5 steps) with BatchNorm synchronised
+             over the ranks equal to 1 process x 4 ranks to the bit
+             (cuDNN's deterministic algorithms in both, two 1 x 4 runs
+             equal first); here, 4 ranks against 1 rank at the global
+             batch, each step from the 1-rank state, losses within
+             NETS_TOL and running stats within RESNET_STATS_TOL; a
+             planted fault (each process's BatchNorm sums over its own
+             ranks only) that must move the losses or a process's
+             running stats by more than 100 x NETS_TOL. Every wait on a
+             child has a timeout; every child is stopped.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -609,6 +641,13 @@ DECODE_TIMEOUT_S = 300
 DECODE_LOGIT_TOL = 1e-4
 #: zero: ranks sharing the card, steps of each run, serving requests
 ZERO_RANKS, ZERO_STEPS, ZERO_REQUESTS = 4, 3, 4
+#: the procs phase: the LM's steps a run; ResNet-18's global batch, crop
+#: (= record size) and steps; the wrong-peer fault's steps; every wait
+#: on a child process
+PROCS_LM_STEPS = 8
+PROCS_BN = {"batch": 64, "size": 224, "steps": 5, "records": 128}
+PROCS_FAULT_STEPS = 2
+PROCS_TIMEOUT_S = 300
 
 
 def WARM_PROMPT(cfg):
@@ -4035,7 +4074,8 @@ def zero_phase(dev, smi, shard):
     (arrays bitwise), a missing commit marker that must make the save
     unresumable, and an Engine booted through load_serving_params from
     the sharded save streaming as one booted from the npz save, through
-    the paged kernel. -> the quant_acc launches of the zero + ring run."""
+    the paged kernel. -> (the quant_acc launches of the zero + ring run,
+    its digest and losses, for the procs phase)."""
     from singa_tpu_torch.resilience import retention
     from singa_tpu_torch.resilience.reshard import load_serving_params
     from singa_tpu_torch.trainer.sharded_ckpt import ShardedCheckpoint
@@ -4119,9 +4159,508 @@ def zero_phase(dev, smi, shard):
     check(sa == sb, "zero: the engine booted from the sharded save "
           "streams differently from the npz-booted one")
     check(la == lb > 0, f"zero: paged kernel launches {la}, {lb}")
+    digest = tz.digest()
     del tz
     release()
-    return ring["zero_quant_acc_launches"]
+    return ring["zero_quant_acc_launches"], {
+        "digest": digest, "losses": ring["zero_losses"]}
+
+
+# ---------------------------------------------------------------------------
+# procs phase: one process per rank group (torch.distributed over gloo)
+# ---------------------------------------------------------------------------
+
+
+def write_hostfile(path: str, n: int = 2) -> str:
+    """``n`` lines on this host, line 0 with a free port: the
+    rendezvous."""
+    with open(path, "w") as f:
+        f.write(f"127.0.0.1:{free_port()}\n" + "127.0.0.1\n" * (n - 1))
+    return path
+
+
+def run_children(cmds, tmp, name):
+    """One process per command, output to files (a child blocked on a
+    full pipe would stall its peer at the next collective), every wait
+    within PROCS_TIMEOUT_S, all stopped at the end -> their outputs;
+    each must exit 0."""
+    procs, logs, outs = [], [], []
+    try:
+        for k, cmd in enumerate(cmds):
+            logs.append(open(os.path.join(tmp, f"{name}{k}.log"), "w+"))
+            procs.append(subprocess.Popen(cmd, cwd=REPO, stdout=logs[-1],
+                                          stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + PROCS_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        stop_all(procs)
+        for log in logs:
+            log.seek(0)
+            outs.append(log.read())
+            log.close()
+    for k, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"procs {name}: process {k} exited "
+              f"{p.returncode}:\n{out[-3000:]}")
+    return outs
+
+
+def child_report(out: str, tag: str) -> dict:
+    line = next((x for x in out.splitlines() if x.startswith(tag)), None)
+    check(line is not None, f"procs: no {tag!r} line:\n{out[-3000:]}")
+    return json.loads(line[len(tag):])
+
+
+def procs_lm_conf(tmp, shard) -> str:
+    """tinylm_d128.conf with the ring phase's q8wire settings (the int8
+    ring, 4 buckets), float32, PROCS_LM_STEPS steps, over ``shard`` ->
+    the conf's path."""
+    with open(RING_CONF) as f:
+        txt = f.read()
+    for old, new in (("examples/lm/train_shard", shard),
+                     ('compute_dtype: "bfloat16"\n', ""),
+                     ("train_steps: 2000", f"train_steps: {PROCS_LM_STEPS}")):
+        check(old in txt, f"procs: {RING_CONF} has no {old!r}")
+        txt = txt.replace(old, new)
+    path = os.path.join(tmp, "procs_lm.conf")
+    with open(path, "w") as f:
+        f.write(txt + "\ngrad_comm { mode: quantized buckets: 4 }\n"
+                "kernels { grad_allreduce: quantized_ring }\n")
+    return path
+
+
+def lm_cluster(tmp, run) -> str:
+    path = os.path.join(tmp, f"procs_cluster_{run}.conf")
+    with open(path, "w") as f:
+        f.write(f'nworkers: 2\nworkspace: "{tmp}/procs_ws_{run}"\n')
+    return path
+
+
+def lm_save(tmp, run) -> str:
+    return os.path.join(tmp, f"procs_ws_{run}", "checkpoints",
+                        f"step_{PROCS_LM_STEPS}.npz")
+
+
+def procs_lm_cli(dev, conf, tmp, run):
+    """The LM as two processes of one rank through ``python -m
+    singa_tpu_torch.main -procsID k -hostfile hf`` -> their TRAIN
+    PROCESS reports."""
+    cmd = [sys.executable, "-m", "singa_tpu_torch.main", "-model_conf",
+           conf, "-cluster_conf", lm_cluster(tmp, run), "-hostfile",
+           write_hostfile(os.path.join(tmp, f"procs_hf_{run}"))]
+    if dev.type != "cuda":
+        cmd += ["-device", str(dev)]
+    outs = run_children([cmd + ["-procsID", str(k)] for k in range(2)],
+                        tmp, f"procs_lm_{run}_")
+    return [child_report(o, "TRAIN PROCESS: ") for o in outs]
+
+
+def procs_lm_one(dev, conf, tmp, run):
+    """The LM as one process of two ranks on ``dev``, its Trainer's run()
+    timed as main times it -> (trainer, its record)."""
+    from singa_tpu_torch.config import load_cluster_config
+
+    tr = Trainer(load_model_config(conf), load_cluster_config(
+        lm_cluster(tmp, run)), mesh=build_mesh(2, 1, [dev] * 2), seed=0,
+        log=lambda s: None)
+    qc.quant_acc.launches = 0
+    qc.ppermute.sent_bytes.clear()
+    t0 = time.perf_counter()
+    tr.run()
+    sync(dev)
+    return tr, {"run_s": time.perf_counter() - t0,
+                "steps_s": tr.timers.total("data") + tr.timers.total("train"),
+                "quant_acc_launches": qc.quant_acc.launches,
+                "ring_sent_bytes": sum(qc.ppermute.sent_bytes.values()),
+                "digest": tr.digest()}
+
+
+def procs_bn_trainer(dev, shard, bn, ranks):
+    """resnet_conf(depth=18, compute_dtype="float32") at batch
+    ``bn["batch"]`` and crop ``bn["size"]`` (1000 classes) over
+    ``shard``, on ``ranks`` ranks of ``dev``."""
+    from singa_tpu_torch.config import parse_model_config
+    from singa_tpu_torch.models.resnet import resnet_conf
+
+    text = resnet_conf(18, batchsize=bn["batch"], size=bn["size"],
+                       train_shard=shard, test_shard=shard,
+                       train_steps=bn["steps"], compute_dtype="float32")
+    return Trainer(parse_model_config(text.replace("random_skip: 5000",
+                                                   "random_skip: 0")),
+                   mesh=build_mesh(ranks, 1, [dev] * ranks), seed=0,
+                   log=lambda s: None)
+
+
+class bn_runs:
+    """The sync BatchNorm runs' settings: kRGBImage takes the centre crop
+    and no mirror in training too, so that 4 ranks see the rows 1 rank
+    sees (their draws differ), and cuDNN takes its deterministic
+    algorithms (its default float32 weight gradients add with atomics,
+    ``singa_tpu_torch/device.py``), so that two runs can agree to the
+    bit."""
+
+    def __enter__(self):
+        from singa_tpu_torch.layers.data import RGBImageLayer
+
+        self.orig = orig = RGBImageLayer.apply
+        RGBImageLayer.apply = (
+            lambda self, p, i, *, training, generator=None: orig(
+                self, p, i, training=training, generator=None))
+        self.deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        from singa_tpu_torch.layers.data import RGBImageLayer
+
+        RGBImageLayer.apply = self.orig
+        torch.backends.cudnn.deterministic = self.deterministic
+
+
+def step_losses(tr, step0, steps) -> list:
+    out = []
+    for step in range(step0, step0 + steps):
+        tr.train_one_batch(step)
+        out.append(tr.perf.avg()["loss"]["loss"])
+        tr.perf.reset()
+    return out
+
+
+def stats_digest(tr) -> str:
+    """SHA-256 of the running stats' bytes, by name."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(running_stats(tr).items()):
+        h.update(k.encode())
+        h.update(v.numpy().tobytes())
+    return h.hexdigest()
+
+
+def _ppermute_wrong_peer(xs, perm, level="data"):
+    """Planted fault: every pair delivered one rank past its
+    destination."""
+    return PPERMUTE(xs, [(s, (d + 1) % len(xs)) for s, d in perm], level)
+
+
+PPERMUTE = qc.ppermute
+# the module's ppermute counts through its global name
+_ppermute_wrong_peer.sent_bytes = PPERMUTE.sent_bytes
+
+
+def _process_sum(sync_mesh, parts, device):
+    """Planted fault: BatchNorm's sums over this process's ranks alone,
+    scaled to the global count: each process normalises by its own
+    rows."""
+    import functools
+
+    return functools.reduce(torch.add, (p.to(device) for p in parts)) \
+        * sync_mesh.nprocs
+
+
+RANK_SUM = tnorm._rank_sum
+
+
+def procs_child_jobs(spec, dev) -> dict:
+    """This process's share of the API jobs: zero + ring (the zero
+    phase's run, saved sharded), the same with the wrong-peer fault,
+    ResNet-18 with synchronised BatchNorm, and the same with each
+    process's sums its own."""
+    from singa_tpu_torch.parallel import launch
+    from singa_tpu_torch.parallel.mesh import EXCHANGE
+
+    out = {"backend": launch.backend(), "device": str(dev)}
+    qc.quant_acc.launches = 0
+    qc.ppermute.sent_bytes.clear()
+    EXCHANGE.seconds = 0.0
+    tr = zero_trainer(dev, spec["shard"], ZERO_RANKS, zero=True, ring=True,
+                      workspace=spec["zero_ws"])
+    losses, ms = zero_losses(tr, ZERO_STEPS)
+    path, save_ms = timed(lambda: tr.save(ZERO_STEPS))
+    out["zero"] = {"ranks": list(tr.mesh.local_ranks), "losses": losses,
+                   "step_ms": ms, "digest": tr.digest(), "save": path,
+                   "save_ms": save_ms,
+                   "quant_acc_launches": qc.quant_acc.launches,
+                   "ring_sent_bytes": sum(qc.ppermute.sent_bytes.values()),
+                   "exchange_s": EXCHANGE.seconds}
+    del tr
+    release()
+    qc.ppermute = _ppermute_wrong_peer
+    try:
+        tr = zero_trainer(dev, spec["shard"], ZERO_RANKS, zero=True,
+                          ring=True)
+        out["wrong_peer"] = {"losses": zero_losses(tr, PROCS_FAULT_STEPS)[0],
+                             "digest": tr.digest()}
+    finally:
+        qc.ppermute = PPERMUTE
+    del tr
+    release()
+    bn = spec["bn"]
+    with bn_runs():
+        tr = procs_bn_trainer(dev, spec["bn_shard"], bn, ZERO_RANKS)
+        out["bn"] = {"losses": step_losses(tr, 0, bn["steps"]),
+                     "digest": tr.digest(), "stats": stats_digest(tr)}
+        del tr
+        tnorm._rank_sum = _process_sum
+        try:
+            tr = procs_bn_trainer(dev, spec["bn_shard"], bn, ZERO_RANKS)
+            out["bn_fault"] = {"losses": step_losses(tr, 0, bn["steps"])}
+            stats = running_stats(tr)
+            np.savez(spec["bn_fault_stats"].format(proc=tr.mesh.proc),
+                     **{k: v.numpy() for k, v in stats.items()})
+        finally:
+            tnorm._rank_sum = RANK_SUM
+    del tr
+    release()
+    return out
+
+
+def procs_child(argv) -> int:
+    """A process of the procs phase's API jobs: ``python -c "import sys,
+    chip_smoke; sys.exit(chip_smoke.procs_child(sys.argv[1:]))" k spec``,
+    ``spec`` a JSON file (hostfile, device, shards, workspace). It joins
+    the process group as process k (init_distributed), runs
+    procs_child_jobs and prints ``PROCS CHILD: {json}``; a failure
+    leaves at once with exit 1, without waiting on its peer."""
+    import traceback
+
+    from singa_tpu_torch.parallel import launch
+
+    with open(argv[1]) as f:
+        spec = json.load(f)
+    try:
+        check(launch.init_distributed(int(argv[0]), spec["hostfile"],
+                                      device=spec["device"]),
+              "procs: no process group")
+        out = procs_child_jobs(spec, launch.process_device(spec["device"]))
+        out["proc"] = int(argv[0])
+        print("PROCS CHILD: " + json.dumps(out), flush=True)
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    launch.shutdown()
+    return 0
+
+
+def procs_lm(dev, smi, tmp):
+    """The LM over two processes through main and over one process of 2
+    ranks, in turns (2 processes, 1, 1, 2): the processes' params and
+    slots equal each other's and the one-process run's, bitwise; each
+    process on the card; their quant_acc launches summing to the
+    one-process run's. -> the record."""
+    conf = procs_lm_conf(tmp, write_ring_shard(tmp))
+    runs = {}
+    for run in ("a", "b", "c", "d"):
+        if run in "ad":
+            runs[run] = procs_lm_cli(dev, conf, tmp, run)
+        else:
+            tr, runs[run] = procs_lm_one(dev, conf, tmp, run)
+            if run == "c":
+                one = tr
+            del tr
+        release()
+    b, c = runs["b"], runs["c"]
+    check(b["digest"] == c["digest"], "procs lm: two one-process runs differ")
+    want = {k: v.cpu().numpy() for k, v in one.params.items()}
+    want.update({f"{n}|{s}": v.cpu().numpy() for n, sl in one.state.items()
+                 for s, v in sl.items()})
+    launches = []
+    for run in "ad":
+        reps = runs[run]
+        for k, r in enumerate(reps):
+            check((r["proc"], r["nprocs"], r["backend"]) == (k, 2, "gloo")
+                  and r["device"].startswith(dev.type)
+                  and r["steps"] == PROCS_LM_STEPS,
+                  f"procs lm: process {k} of run {run}: {r}")
+            check(r["digest"] == c["digest"],
+                  f"procs lm: process {k} of run {run} differs from the "
+                  "one-process run")
+        total = sum(r["quant_acc_launches"] for r in reps)
+        check(total == c["quant_acc_launches"]
+              and (total > 0) == (dev.type == "cuda"),
+              f"procs lm: quant_acc launches {[r['quant_acc_launches'] for r in reps]}"
+              f" against the one-process {c['quant_acc_launches']}")
+        check(sum(r["ring_sent_bytes"] for r in reps)
+              == c["ring_sent_bytes"], "procs lm: ring bytes differ")
+        launches.append(total)
+        with np.load(lm_save(tmp, run)) as z:
+            got = {k[2:]: z[k] for k in z.files if k[:2] in ("p|", "s|")}
+        check(got.keys() == want.keys() and all(
+            np.array_equal(got[k], want[k]) for k in want),
+            f"procs lm: process 0's save of run {run} differs")
+    per_rank_step = c["ring_sent_bytes"] / 2 / PROCS_LM_STEPS
+    check(per_rank_step == one.wire_bytes_model()["quantized_ring"],
+          "procs lm: ring bytes a rank a step != the model")
+    # the display at step 0 resets the Trainer's timers: steps 1-7
+    timed = PROCS_LM_STEPS - 1
+    out = {"conf": "tinylm_d128 q8wire float32", "ranks": 2,
+           "steps": PROCS_LM_STEPS,
+           "step_ms_in_turns": {
+               "procs_a": max(r["steps_s"] for r in runs["a"]) * 1e3 / timed,
+               "one_b": b["steps_s"] * 1e3 / timed,
+               "one_c": c["steps_s"] * 1e3 / timed,
+               "procs_d": max(r["steps_s"] for r in runs["d"]) * 1e3 / timed},
+           "run_s_in_turns": [max(r["run_s"] for r in runs["a"]), b["run_s"],
+                              c["run_s"], max(r["run_s"] for r in runs["d"])],
+           "ring_bytes_per_rank_step": per_rank_step,
+           "exchange_ms_per_step": [r["exchange_s"] * 1e3 / PROCS_LM_STEPS
+                                    for r in runs["a"] + runs["d"]],
+           "quant_acc_launches": {"procs": launches,
+                                  "per_process": [r["quant_acc_launches"]
+                                                  for r in runs["a"]],
+                                  "one": c["quant_acc_launches"]},
+           "devices": [r["device"] for r in runs["a"]],
+           "backend": runs["a"][0]["backend"], "card": smi}
+    print("procs lm", json.dumps(out))
+    del one
+    release()
+    return out
+
+
+def procs_api(dev, smi, shard, zero_ref, tmp):
+    """zero + ring and ResNet-18 over 2 processes x 2 ranks through the
+    Python API (procs_child), against this process's 1 x 4 runs. ->
+    the record."""
+    from singa_tpu_torch.trainer.sharded_ckpt import ShardedCheckpoint
+
+    bn_shard = os.path.join(tmp, "procs_bn_shard")
+    write_records(bn_shard, *imagenet_shaped_arrays(
+        PROCS_BN["records"], size=PROCS_BN["size"]))
+    spec = {"hostfile": write_hostfile(os.path.join(tmp, "procs_hf_api")),
+            "device": str(dev), "shard": shard, "bn_shard": bn_shard,
+            "zero_ws": os.path.join(tmp, "procs_zero_ws"), "bn": PROCS_BN,
+            "bn_fault_stats": os.path.join(tmp, "procs_bn_fault_{proc}.npz")}
+    spec_path = os.path.join(tmp, "procs_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    script = ("import sys, chip_smoke; "
+              "sys.exit(chip_smoke.procs_child(sys.argv[1:]))")
+    outs = run_children([[sys.executable, "-c", script, str(k), spec_path]
+                         for k in range(2)], tmp, "procs_api_")
+    reps = [child_report(o, "PROCS CHILD: ") for o in outs]
+    for k, r in enumerate(reps):
+        check(r["proc"] == k and r["backend"] == "gloo"
+              and r["device"].startswith(dev.type),
+              f"procs api: process {k}: {r['device']}, {r['backend']}")
+    # zero + ring: the zero phase's 4-rank run, bitwise
+    zero = [r["zero"] for r in reps]
+    check(all(z["digest"] == zero_ref["digest"]
+              and z["losses"] == zero_ref["losses"] for z in zero),
+          f"procs zero: 2 x 2 differs from 1 x 4: {zero} {zero_ref}")
+    tz = zero_trainer(dev, shard, ZERO_RANKS, zero=True, ring=True)
+    per_step = ZERO_RANKS * len(tz._buckets(list(tz.params))) \
+        * (ZERO_RANKS - 1)
+    del tz
+    launches = sum(z["quant_acc_launches"] for z in zero)
+    check(launches == (per_step * ZERO_STEPS if dev.type == "cuda" else 0),
+          f"procs zero: quant_acc launches {launches}")
+    path = zero[0]["save"]
+    names = set(os.listdir(path))
+    with open(os.path.join(path, "manifest.json")) as f:
+        nprocs = json.load(f)["nprocs"]
+    check({"proc_0.npz", "proc_1.npz", "commit_0.json",
+           "commit_1.json"} <= names and nprocs == 2,
+          f"procs zero: the save holds {sorted(names)}, nprocs {nprocs}")
+    with ShardedCheckpoint(path) as ck:
+        saved = {k: ck.assemble(k) for k in ck.keys()}
+    restore_ms = {}
+    for n in (4, 2):
+        back, restore_ms[n] = timed(lambda: zero_trainer(
+            dev, shard, n, zero=True, ring=True, checkpoint=path))
+        got = {f"p|{k}": v for k, v in back.params.items()}
+        got.update({f"s|{k}|{s}": v for k, sl in back.state.items()
+                    for s, v in sl.items()})
+        got.update({f"b|{k}": v for k, v in back.buffers.items()})
+        check(got.keys() == saved.keys() and all(
+            np.array_equal(got[k].cpu().numpy(), saved[k]) for k in saved),
+            f"procs zero: the 2-process save restored on {n} ranks differs")
+        del back
+        release()
+    wrong = [r["wrong_peer"] for r in reps]
+    check(all(w["digest"] != zero_ref["digest"] for w in wrong),
+          "procs zero: a ppermute to the wrong peer passed the check")
+    # synchronised BatchNorm: 1 x 4 here, twice, then 4 ranks against 1
+    with bn_runs():
+        runs = []
+        for _ in range(2):
+            t4 = procs_bn_trainer(dev, bn_shard, PROCS_BN, 4)
+            losses = step_losses(t4, 0, PROCS_BN["steps"])
+            runs.append((t4.digest(), stats_digest(t4)))
+            want_stats = running_stats(t4)
+            del t4
+            release()
+        check(runs[0] == runs[1], "procs bn: two 1 x 4 runs differ")
+        digest, stats = runs[0]
+        one, four = (procs_bn_trainer(dev, bn_shard, PROCS_BN, n)
+                     for n in (1, 4))
+        loss_err = stats_err = 0.0
+        for step in range(PROCS_BN["steps"]):
+            four.params = one.params
+            four.state = one.state
+            four._store_buffers(one.buffers)
+            want, got = (step_losses(tr, step, 1)[0] for tr in (one, four))
+            loss_err = max(loss_err, abs(got - want) / abs(want))
+            stats_err = max(stats_err, stats_diff(running_stats(four),
+                                                  running_stats(one)))
+        del one, four
+        release()
+    bn = [r["bn"] for r in reps]
+    # the fault's miss: its losses' and each process's running stats'
+    fault_loss = max(abs(a - b) / abs(b) for r in reps
+                     for a, b in zip(r["bn_fault"]["losses"], losses))
+    fault_stats = []
+    for k in range(2):
+        with np.load(spec["bn_fault_stats"].format(proc=k)) as z:
+            fault_stats.append(stats_diff(
+                {n: torch.from_numpy(z[n]) for n in z.files}, want_stats))
+    out = {"zero": {"ranks": [z["ranks"] for z in zero],
+                    "losses": zero[0]["losses"],
+                    "step_ms": [z["step_ms"] for z in zero],
+                    "zero_phase_losses": zero_ref["losses"],
+                    "save_ms": [z["save_ms"] for z in zero],
+                    "restore_ms": restore_ms,
+                    "quant_acc_launches": [z["quant_acc_launches"]
+                                           for z in zero],
+                    "ring_bytes_per_rank_step": sum(
+                        z["ring_sent_bytes"] for z in zero)
+                    / ZERO_RANKS / ZERO_STEPS,
+                    "exchange_ms_per_step": [z["exchange_s"] * 1e3
+                                             / ZERO_STEPS for z in zero],
+                    "wrong_peer_losses": wrong[0]["losses"]},
+           "bn": {"conf": "resnet18 float32", **PROCS_BN,
+                  "losses_1x4": losses, "losses_2x2": bn[0]["losses"],
+                  "four_vs_one_loss_rel": loss_err,
+                  "four_vs_one_stats": stats_err,
+                  "fault_losses": reps[0]["bn_fault"]["losses"],
+                  "fault_loss_rel": fault_loss,
+                  "fault_stats": fault_stats},
+           "card": smi}
+    print("procs api", json.dumps(out))
+    check(all(x["digest"] == digest and x["stats"] == stats
+              and x["losses"] == losses for x in bn),
+          "procs bn: 2 x 2 differs from 1 x 4")
+    check(loss_err <= NETS_TOL and stats_err <= RESNET_STATS_TOL,
+          f"procs bn: 4 ranks against 1: losses {loss_err}, stats "
+          f"{stats_err}")
+    check(max(fault_loss, *fault_stats) > 100 * NETS_TOL,
+          f"procs bn: per-process sums passed: losses {fault_loss}, "
+          f"stats {fault_stats}")
+    out["quant_acc_launches"] = launches
+    return out
+
+
+def procs_phase(dev, smi, shard, zero_ref, tmp) -> dict:
+    """One process per rank group over torch.distributed (gloo, both
+    processes on this card): the LM through main (procs_lm), zero + ring
+    and synchronised BatchNorm through the API (procs_api). -> the
+    quant_acc launches of the processes."""
+    t0 = time.perf_counter()
+    lm = procs_lm(dev, smi, tmp)
+    api = procs_api(dev, smi, shard, zero_ref, tmp)
+    print(f"procs phase {time.perf_counter() - t0:.1f} s")
+    return {"lm": lm["quant_acc_launches"]["procs"][0],
+            "zero_ring": api["quant_acc_launches"]}
 
 
 def short_kernel_name(mangled: str) -> str:
@@ -4219,7 +4758,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         shard = write_shard(tmp)
         decode_launches, rolling_launches = decode_phase(dev, smi, shard)
-        zero_ring_launches = zero_phase(dev, smi, shard)
+        zero_ring_launches, zero_ref = zero_phase(dev, smi, shard)
+        procs_launches = procs_phase(dev, smi, shard, zero_ref, tmp)
 
     kernels = []
     for name, case in (("paged_attention", "decode"),
@@ -4269,6 +4809,8 @@ def main() -> int:
         "m": RING_TIMED[0], "amax_ms": ring_row["amax_ms"],
         "amax_bound_ms": ring_row["amax_bound_ms"],
         "zero_ring_launches": zero_ring_launches,
+        "procs_launches": procs_launches["lm"],
+        "procs_zero_ring_launches": procs_launches["zero_ring"],
     })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -11,6 +11,10 @@ each layer that draws a generator derived from the step's and its index
 (the JAX package's ``jax.random.fold_in(rng, i)``), feeds stateful
 layers their buffers and lets a ``layer_hook`` replace a layer's
 compute (the contrastive-divergence trainer's Gibbs chains).
+``Net.forward_ranks`` runs several data-parallel ranks in lockstep,
+each layer for every rank before the next, so that a stateful layer
+(kBatchNorm) sees every rank's input at once and synchronises its
+statistics over the ranks.
 
 This single-device slice leaves out the JAX package's partitioning
 (a ``partition_type`` other than kNone raises), the pipeline plan and
@@ -145,60 +149,110 @@ class Net:
         if buffers is None:
             buffers = (self.init_buffers(_device_of(params, batch))
                        if any(l.has_buffers for l in self.layers) else {})
-        new_buffers = dict(buffers)
-        resolved = self.resolve_params(params)
-        acts: dict[str, Any] = {}
-        slice_cursor: dict[str, int] = {}
-        total_loss = 0.0
-        metrics: dict[str, dict[str, torch.Tensor]] = {}
-        for i, layer in enumerate(self.layers):
-            if layer.is_datalayer:
-                inputs = [batch[layer.name]]
-            else:
-                inputs = []
-                for src in layer.srclayers:
-                    val = acts[src]
-                    if isinstance(self.name2layer[src], SliceLayer):
-                        k = slice_cursor.get(src, 0)
-                        slice_cursor[src] = k + 1
-                        val = val[k]
-                    inputs.append(val)
-            if isinstance(generator, dict):
-                # staged draws of a multi-step chunk, by layer index
-                lgen = generator.get(i)
-            elif generator is not None and layer.uses_generator:
-                lgen = fold_in(generator, i)
-            else:
-                lgen = None
-            out = None
-            if layer_hook is not None:
-                out = layer_hook(layer, resolved, inputs, lgen)
-            if out is None:
-                if layer.has_buffers:
-                    out, updates = layer.apply_stateful(
-                        resolved, buffers, inputs, training=training,
-                        generator=lgen)
-                    new_buffers.update(updates)
-                else:
-                    out = layer.apply(resolved, inputs, training=training,
-                                      generator=lgen)
-            if layer.is_losslayer:
-                loss, m = out
-                total_loss = total_loss + loss
-                metrics[layer.name] = m
-                acts[layer.name] = loss
-            elif layer.has_aux_loss:
-                out, aux = out
-                total_loss = total_loss + layer.aux_weight * aux
-                acts[layer.name] = out
-            else:
-                acts[layer.name] = out
+        losses, metrics, acts, new_buffers = self._walk(
+            [params], [batch], [generator], training=training,
+            buffers=buffers, layer_hook=layer_hook)
         extra = []
         if return_buffers:
             extra.append(new_buffers)
         if return_acts:
-            extra.append(acts)
-        return (total_loss, metrics, *extra)
+            extra.append(acts[0])
+        return (losses[0], metrics[0], *extra)
+
+    def forward_ranks(self, params: list, batches: list, *,
+                      generators: list, buffers: dict, sync):
+        """The training forward of this process's data-parallel ranks in
+        lockstep: ``params[j]``, ``batches[j]`` and ``generators[j]`` are
+        rank j's (as :meth:`forward` takes them), each layer runs for
+        every rank before the next, and a stateful layer takes every
+        rank's input in one call (``apply_stateful_ranks``), its
+        statistics taken over all ranks of ``sync`` (the mesh: its
+        ``gather`` and ranks). -> (each rank's loss, each rank's metrics,
+        the buffers after the layers' updates, the same for every
+        rank)."""
+        losses, metrics, _, new_buffers = self._walk(
+            params, batches, generators, training=True, buffers=buffers,
+            sync=sync)
+        return losses, metrics, new_buffers
+
+    def _walk(self, params: list, batches: list, generators: list, *,
+              training: bool, buffers: dict, layer_hook=None, sync=None):
+        """Run every layer for each lane (a rank's params, batch and
+        generator) -> (losses, metrics, acts, new buffers), a list per
+        lane but the buffers."""
+        new_buffers = dict(buffers)
+        lanes = range(len(params))
+        resolved = [self.resolve_params(p) for p in params]
+        acts: list[dict[str, Any]] = [{} for _ in lanes]
+        cursors: list[dict[str, int]] = [{} for _ in lanes]
+        losses = [0.0 for _ in lanes]
+        metrics: list[dict] = [{} for _ in lanes]
+        for i, layer in enumerate(self.layers):
+            inputs = [self._inputs(layer, batches[j], acts[j], cursors[j])
+                      for j in lanes]
+            lgens = [_layer_generator(generators[j], i, layer)
+                     for j in lanes]
+            if sync is not None and layer.has_buffers:
+                outs, updates = layer.apply_stateful_ranks(
+                    resolved, buffers, inputs, sync=sync)
+                new_buffers.update(updates)
+            else:
+                outs = []
+                for j in lanes:
+                    out = None
+                    if layer_hook is not None:
+                        out = layer_hook(layer, resolved[j], inputs[j],
+                                         lgens[j])
+                    if out is None:
+                        if layer.has_buffers:
+                            out, updates = layer.apply_stateful(
+                                resolved[j], buffers, inputs[j],
+                                training=training, generator=lgens[j])
+                            new_buffers.update(updates)
+                        else:
+                            out = layer.apply(resolved[j], inputs[j],
+                                              training=training,
+                                              generator=lgens[j])
+                    outs.append(out)
+            for j, out in zip(lanes, outs):
+                if layer.is_losslayer:
+                    loss, m = out
+                    losses[j] = losses[j] + loss
+                    metrics[j][layer.name] = m
+                    acts[j][layer.name] = loss
+                elif layer.has_aux_loss:
+                    out, aux = out
+                    losses[j] = losses[j] + layer.aux_weight * aux
+                    acts[j][layer.name] = out
+                else:
+                    acts[j][layer.name] = out
+        return losses, metrics, acts, new_buffers
+
+    def _inputs(self, layer, batch: dict, acts: dict, cursor: dict) -> list:
+        """A layer's inputs: its batch feed, or its source layers' outputs
+        (a kSlice layer's k-th output to its k-th consumer)."""
+        if layer.is_datalayer:
+            return [batch[layer.name]]
+        inputs = []
+        for src in layer.srclayers:
+            val = acts[src]
+            if isinstance(self.name2layer[src], SliceLayer):
+                k = cursor.get(src, 0)
+                cursor[src] = k + 1
+                val = val[k]
+            inputs.append(val)
+        return inputs
+
+
+def _layer_generator(generator, i: int, layer):
+    """Layer ``i``'s draws: its entry of a staged-draw dict, a generator
+    folded from the step's when it draws, else None."""
+    if isinstance(generator, dict):
+        # staged draws of a multi-step chunk, by layer index
+        return generator.get(i)
+    if generator is not None and layer.uses_generator:
+        return fold_in(generator, i)
+    return None
 
 
 def _device_of(params: dict, batch: dict):

@@ -5,8 +5,10 @@ kBatchNorm's running statistics are buffers (``layers/base.py``
 BufferSpec): updated by the layer inside the step, carried between
 steps by the Trainer in place, checkpointed under ``b|`` keys. The JAX
 package gets BatchNorm synchronised over the global batch from GSPMD;
-the port's per-rank loop would compute per-rank statistics, so the
-Trainer refuses a net with buffers on more than one rank.
+the port gets it from ``apply_stateful_ranks``, which the Trainer's
+lockstep forward over several ranks calls with every rank's input: the
+moments and the backward's sums are taken over all ranks, and the
+running stats update from the global moments.
 """
 
 from __future__ import annotations
@@ -82,6 +84,30 @@ class BatchNormLayer(Layer):
         m = self.momentum
         mean, var = mean.detach(), var.detach()
         return y, {
+            self.mean_buf: m * buffers[self.mean_buf] + (1 - m) * mean,
+            self.var_buf: m * buffers[self.var_buf] + (1 - m) * var,
+        }
+
+    def apply_stateful_ranks(self, params: list, buffers, inputs: list, *,
+                             sync):
+        """The training ``apply_stateful`` of every rank of this process
+        at once, ``params[j]`` and ``inputs[j]`` rank j's, the batch
+        statistics those of the global batch over the ranks of ``sync``
+        (the mesh) -> (each rank's output, the running-stat updates from
+        the global moments)."""
+        xs = [x[0] for x in inputs]
+        gammas = [p[self.gname] for p in params]
+        betas = [p[self.bname] for p in params]
+        anchor = buffers[self.mean_buf].detach()
+        if self.stats_stride > 1:
+            ys, mean, var = norm.batch_norm_train_sampled_sync(
+                xs, gammas, betas, self.eps, self.stats_stride, sync,
+                shift=anchor)
+        else:
+            ys, mean, var = norm.batch_norm_train_sync(
+                xs, gammas, betas, self.eps, sync, shift=anchor)
+        m = self.momentum
+        return ys, {
             self.mean_buf: m * buffers[self.mean_buf] + (1 - m) * mean,
             self.var_buf: m * buffers[self.var_buf] + (1 - m) * var,
         }

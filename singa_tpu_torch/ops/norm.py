@@ -31,9 +31,23 @@ off for a timing of what it costs; nothing else sets it.
 Under a low-precision ``x`` the per-channel ``scale`` and ``shift`` are
 rounded to ``x.dtype`` before the multiply-add, as the JAX package
 does; statistics and the running-stat updates stay float32.
+
+Synchronised over data-parallel ranks (``batch_norm_train_sync``, the
+JAX package's BatchNorm under a batch sharded by GSPMD): each rank of
+the process computes its per-channel partial sums, and the partials of
+every rank are summed in rank order through the mesh's ``gather`` (one
+gather in the forward for (s1, s2), one in the backward for (dbeta,
+dgamma)); mean and variance come from the global count. The rescue is
+global too (a global mean, then a global sum of squared deviations),
+decided on the host from the global moments, which every process holds
+to the same bits, so every process takes the same collectives. The
+sampled form takes the global batch's first rows, as the JAX op does on
+the sharded batch: the ranks that hold them contribute their partials.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -176,3 +190,163 @@ def batch_norm_infer(x, gamma, beta, mean, var, eps=1e-5):
     _, shape = _axes_shape(x)
     y, _ = _normalize(x, gamma, beta, mean.float(), var.float(), eps, shape)
     return y
+
+
+def _rank_sum(sync, parts: list, device) -> torch.Tensor:
+    """This process's ranks' partials ``parts`` (one shape) summed with
+    every other rank's, in rank order, on ``device``."""
+    every = sync.gather([{"p": p} for p in parts], device)
+    return functools.reduce(torch.add, (e["p"].to(device) for e in every))
+
+
+def _shifted(x, shift, shape):
+    """``x - shift`` in float32 (``x`` itself, as float32, without one)."""
+    if shift is None:
+        return x.float()
+    return x - shift.to(x.device).float().reshape(shape)
+
+
+def _sync_moments(sync, xfs: list, axes, shape, count: int, shift):
+    """Global moments of the ranks' shifted rows ``xfs`` -> (mean, var)
+    on the first's device: the one-pass form from summed (s1, s2), the
+    rescue's global two-pass form where it is suspect."""
+    dev = xfs[0].device
+    tot = _rank_sum(sync, [torch.stack([xf.sum(axes), (xf * xf).sum(axes)])
+                           for xf in xfs], dev)
+    m = tot[0] / count
+    var = torch.clamp_min(tot[1] / count - m * m, 0.0)
+    if RESCUE and bool((var * 1e5 < m * m).any()):
+        dev_sq = []
+        for xf in xfs:
+            d = xf - m.to(xf.device).reshape(shape)
+            dev_sq.append((d * d).sum(axes))
+        var = _rank_sum(sync, dev_sq, dev) / count
+    mean = m if shift is None else m + shift.to(dev).float()
+    return mean, var
+
+
+class _BatchNormTrainSync(torch.autograd.Function):
+    """(eps, shift, sync, count, k, *xs, *gammas, *betas) for the k ranks
+    of this process -> (*ys, mean, var), the statistics over every rank
+    of ``sync``; the backward sums the ranks' (dbeta, dgamma) the same
+    way before forming each rank's dx, and gives each rank's gamma and
+    beta its own partials."""
+
+    @staticmethod
+    def forward(ctx, eps, shift, sync, count, k, *args):
+        xs, gammas, betas = args[:k], args[k:2 * k], args[2 * k:]
+        axes, shape = _axes_shape(xs[0])
+        xfs = [_shifted(x, shift, shape) for x in xs]
+        mean, var = _sync_moments(sync, xfs, axes, shape, count, shift)
+        ys = []
+        for x, gamma, beta in zip(xs, gammas, betas):
+            y, inv = _normalize(x, gamma, beta, mean.to(x.device),
+                                var.to(x.device), eps, shape)
+            ys.append(y)
+        ctx.save_for_backward(*xs, *gammas, mean, torch.rsqrt(var + eps))
+        ctx.sync, ctx.count, ctx.k = sync, count, k
+        ctx.mark_non_differentiable(mean, var)
+        ctx.set_materialize_grads(False)
+        return (*ys, mean, var)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        k, n = ctx.k, ctx.count
+        saved = ctx.saved_tensors
+        xs, gammas = saved[:k], saved[k:2 * k]
+        mean, inv = saved[2 * k:]
+        axes, shape = _axes_shape(xs[0])
+        dys = [torch.zeros_like(x) if dy is None else dy
+               for x, dy in zip(xs, grads[:k])]
+        xcs = [x - mean.to(x.device).reshape(shape) for x in xs]
+        parts = [torch.stack([dy.sum(axes, dtype=torch.float32),
+                              (dy * xc).sum(axes)])
+                 for dy, xc in zip(dys, xcs)]
+        tot = _rank_sum(ctx.sync, parts, xs[0].device)
+        dxs, dgammas, dbetas = [], [], []
+        for x, gamma, dy, xc, part in zip(xs, gammas, dys, xcs, parts):
+            inv_r = inv.to(x.device)
+            dbeta, dgamma = tot[0].to(x.device), tot[1].to(x.device) * inv_r
+            # JAX's _bn_bwd over the global batch, grouped as in
+            # _BatchNormTrain.backward
+            kk = gamma.float() * inv_r
+            coef = -kk * inv_r * dgamma / n
+            const = -kk * dbeta / n
+            dxf = torch.addcmul(const.reshape(shape), xc, coef.reshape(shape))
+            dxf.addcmul_(dy, kk.reshape(shape))
+            dxs.append(dxf.to(x.dtype))
+            dgammas.append((part[1] * inv_r).to(gamma.dtype))
+            dbetas.append(part[0].to(gamma.dtype))
+        return (None, None, None, None, None, *dxs, *dgammas, *dbetas)
+
+
+class _BatchNormTrainSampledSync(torch.autograd.Function):
+    """(eps, shift, sync, keeps, count, k, *xs, *gammas, *betas) -> (*ys,
+    mean, var): moments from the first ``keeps[j]`` rows of rank j's x
+    summed over every rank of ``sync``; JAX's _bns_bwd on each rank (no
+    exchange: dx does not depend on the reductions)."""
+
+    @staticmethod
+    def forward(ctx, eps, shift, sync, keeps, count, k, *args):
+        xs, gammas, betas = args[:k], args[k:2 * k], args[2 * k:]
+        axes, shape = _axes_shape(xs[0])
+        xfs = [_shifted(x[:keep], shift, shape) for x, keep in zip(xs, keeps)]
+        mean, var = _sync_moments(sync, xfs, axes, shape, count, shift)
+        ys = []
+        for x, gamma, beta in zip(xs, gammas, betas):
+            y, _ = _normalize(x, gamma, beta, mean.to(x.device),
+                              var.to(x.device), eps, shape)
+            ys.append(y)
+        ctx.save_for_backward(*xs, *gammas, mean, torch.rsqrt(var + eps))
+        ctx.k = k
+        ctx.mark_non_differentiable(mean, var)
+        ctx.set_materialize_grads(False)
+        return (*ys, mean, var)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        k = ctx.k
+        saved = ctx.saved_tensors
+        xs, gammas = saved[:k], saved[k:2 * k]
+        mean, inv = saved[2 * k:]
+        axes, shape = _axes_shape(xs[0])
+        dxs, dgammas, dbetas = [], [], []
+        for x, gamma, dy in zip(xs, gammas, grads[:k]):
+            if dy is None:
+                dy = torch.zeros_like(x)
+            inv_r = inv.to(x.device)
+            dbeta, dgamma = _param_grads(
+                dy, x - mean.to(x.device).reshape(shape), inv_r, axes)
+            dxs.append((dy * (gamma.float() * inv_r).reshape(shape))
+                       .to(x.dtype))
+            dgammas.append(dgamma.to(gamma.dtype))
+            dbetas.append(dbeta.to(gamma.dtype))
+        return (None,) * 6 + (*dxs, *dgammas, *dbetas)
+
+
+def batch_norm_train_sync(xs: list, gammas: list, betas: list, eps, sync,
+                          shift=None):
+    """:func:`batch_norm_train` over the global batch of every rank of
+    ``sync`` (the mesh), given this process's ranks' inputs and params
+    -> (their ys, mean, var); the mean and var on the first input's
+    device, the same bits in every process."""
+    k = len(xs)
+    per_rank = xs[0].numel() // xs[0].shape[1]
+    out = _BatchNormTrainSync.apply(eps, shift, sync, per_rank * sync.width,
+                                    k, *xs, *gammas, *betas)
+    return list(out[:k]), out[k], out[k + 1]
+
+
+def batch_norm_train_sampled_sync(xs: list, gammas: list, betas: list, eps,
+                                  stride, sync, shift=None):
+    """:func:`batch_norm_train_sampled` over the global batch: its first
+    ``batch // stride`` rows (the global batch laid over the ranks in
+    rank order, ``xs`` this process's) -> (ys, mean, var)."""
+    k = len(xs)
+    b = xs[0].shape[0]
+    nkeep = max(1, b * sync.width // stride)
+    keeps = [min(b, max(0, nkeep - r * b)) for r in sync.local_ranks]
+    per_row = xs[0].numel() // (b * xs[0].shape[1])
+    out = _BatchNormTrainSampledSync.apply(
+        eps, shift, sync, keeps, nkeep * per_row, k, *xs, *gammas, *betas)
+    return list(out[:k]), out[k], out[k + 1]

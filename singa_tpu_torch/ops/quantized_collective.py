@@ -9,8 +9,11 @@ tensors on that rank's device) and runs each hop for every rank in
 turn. What moves between ranks goes through :func:`ppermute` alone:
 rank r receives what rank (r - 1) mod n sent, copied to rank r's device
 (cloned when both ranks share a device, so no rank ever aliases
-another's tensor). A process-per-GPU transport replaces that one
-function and leaves the ring as it is.
+another's tensor). Under a ``torch.distributed`` process group the
+list's entries of another process's ranks are None: every step runs on
+this process's ranks only, and :func:`ppermute` sends and receives the
+rows that cross processes point to point, so the same operations on
+the same rows give the same bits whatever the process count.
 
   bucket rows      each param's gradient is chunked over the n ranks
                    (``chunk_dims``), and a bucket's chunks are laid out
@@ -384,14 +387,72 @@ def ppermute(xs: list, perm, level: str = "data") -> list:
     """One collective permute over the ranks: for each ``(src, dst)`` of
     ``perm``, rank ``dst`` receives a copy of ``xs[src]`` on its own
     device (the device of ``xs[dst]``). Every copy is a new tensor,
-    also between ranks on one device. The bytes each rank sends are
-    added to ``ppermute.sent_bytes[(level, src)]``."""
+    also between ranks on one device. The bytes each rank of this
+    process sends are added to ``ppermute.sent_bytes[(level, src)]``.
+
+    ``xs[r]`` is None for a rank of another process (the ranks lie
+    process-major, as many to a process): a pair whose source is here
+    and destination there is an ``isend``, the reverse an ``irecv`` into
+    a tensor shaped like ``xs[dst]`` (every rank sends the same shape
+    and dtype), and one call's pairs are posted as one
+    ``batch_isend_irecv``, so the ring's send-next / receive-previous
+    pattern cannot deadlock. Under gloo the bytes cross on CPU
+    tensors. -> the received tensors, None at the other processes'
+    ranks."""
     out = [None] * len(xs)
+    here = [r for r, x in enumerate(xs) if x is not None]
+    remote = []
     for src, dst in perm:
         x = xs[src]
-        out[dst] = x.to(xs[dst].device, copy=True)
-        ppermute.sent_bytes[(level, src)] += x.numel() * x.element_size()
+        if x is not None:
+            ppermute.sent_bytes[(level, src)] += x.numel() * x.element_size()
+            if xs[dst] is not None:
+                out[dst] = x.to(xs[dst].device, copy=True)
+                continue
+        if x is not None or xs[dst] is not None:
+            remote.append((src, dst))
+    if remote:
+        _exchange(xs, out, remote, len(here))
     return out
+
+
+def _exchange(xs: list, out: list, pairs, per_proc: int) -> None:
+    """The pairs of one :func:`ppermute` call that cross processes, as
+    one ``batch_isend_irecv``: this process's sources sent, its
+    destinations received into ``out``."""
+    import time
+
+    import torch.distributed as dist
+
+    from ..parallel.mesh import EXCHANGE
+
+    t0 = time.perf_counter()
+    host = dist.get_backend() == "gloo"
+    ops, landed = [], []
+    for src, dst in pairs:
+        if xs[src] is not None:
+            x = xs[src].contiguous()
+            ops.append(dist.P2POp(dist.isend, x.cpu() if host else x,
+                                  dst // per_proc, tag=src))
+        else:
+            like = xs[dst]
+            buf = torch.empty(like.shape, dtype=like.dtype,
+                              device="cpu" if host else like.device)
+            ops.append(dist.P2POp(dist.irecv, buf, src // per_proc, tag=src))
+            landed.append((dst, buf))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    for dst, buf in landed:
+        out[dst] = buf.to(xs[dst].device)
+    EXCHANGE.add(t0)
+
+
+def _each(fn, *cols) -> list:
+    """``fn(r, cols[0][r], cols[1][r], ...)`` for every rank r whose
+    ``cols[0][r]`` is present (this process's ranks); None for the
+    others."""
+    return [None if cols[0][r] is None else fn(r, *(c[r] for c in cols))
+            for r in range(len(cols[0]))]
 
 
 ppermute.sent_bytes = collections.Counter()
@@ -447,20 +508,21 @@ def _hop(acc: list, local: list, perm, dtype: str, level: str,
     returns each new row's max-abs and the next hop's scales come from it
     (bitwise those :func:`symmetric_scale` would give), else None."""
     if dtype != "int8":
-        moved = ppermute([wire_cast(a, None, dtype) for a in acc], perm,
-                         level)
-        return [wire_uncast(w, None, dtype) + x
-                for w, x in zip(moved, local)], None
+        moved = ppermute(_each(lambda r, a: wire_cast(a, None, dtype), acc),
+                         perm, level)
+        return _each(lambda r, w, x: wire_uncast(w, None, dtype) + x,
+                     moved, local), None
     if scales is None:
-        scales = [symmetric_scale([a]) for a in acc]
-    moved = ppermute([wire_cast(a, s, dtype) for a, s in zip(acc, scales)],
-                     perm, level)
+        scales = _each(lambda r, a: symmetric_scale([a]), acc)
+    moved = ppermute(_each(lambda r, a, s: wire_cast(a, s, dtype),
+                           acc, scales), perm, level)
     scales = ppermute(scales, perm, level)
-    got = [quant_acc(w, s, x, amax=fused)
-           for w, s, x in zip(moved, scales, local)]
+    got = _each(lambda r, w, s, x: quant_acc(w, s, x, amax=fused),
+                moved, scales, local)
     if not fused:
         return got, None
-    return [o for o, _ in got], [scale_from_amax(m) for _, m in got]
+    return (_each(lambda r, g: g[0], got),
+            _each(lambda r, g: scale_from_amax(g[1]), got))
 
 
 def _hier_perms(K: int, M: int):
@@ -488,17 +550,17 @@ def _hier_reduce_scatter(rows: list, K: int, M: int, dtype: str,
     that plane; every hop but the last fuses the next scale, the last
     one too with ``fuse_last``."""
     iperm, xperm = _hier_perms(K, M)
-    pieces = [torch.swapaxes(x.reshape(M, K, -1), 0, 1).contiguous()
-              for x in rows]
-    acc = [pc[(r % K - 1) % K] for r, pc in enumerate(pieces)]
+    pieces = _each(lambda r, x: torch.swapaxes(x.reshape(M, K, -1), 0, 1)
+                   .contiguous(), rows)
+    acc = _each(lambda r, pc: pc[(r % K - 1) % K], pieces)
     for t in range(K - 1):
         moved = ppermute(acc, iperm, "intra")
-        acc = [moved[r] + pc[(r % K - t - 2) % K]
-               for r, pc in enumerate(pieces)]
-    out = [a[(r // K - 1) % M] for r, a in enumerate(acc)]
+        acc = _each(lambda r, pc, m: m + pc[(r % K - t - 2) % K],
+                    pieces, moved)
+    out = _each(lambda r, a: a[(r // K - 1) % M], acc)
     scales = None
     for t in range(M - 1):
-        local = [a[(r // K - t - 2) % M] for r, a in enumerate(acc)]
+        local = _each(lambda r, a: a[(r // K - t - 2) % M], acc)
         out, scales = _hop(out, local, xperm, dtype, "inter", scales,
                            fused=t < M - 2 or fuse_last)
     return out, scales
@@ -509,18 +571,19 @@ def _allgather(fq: list, fscale: list, deq: list, dtype: str) -> list:
     rank the (n, C) float32 bucket rows in chunk order. Rank r writes what
     arrives at hop t into row (r - t - 1) mod n."""
     n = len(fq)
+    here = [r for r in range(n) if fq[r] is not None]
     perm = [(j, (j + 1) % n) for j in range(n)]
     bufs = [[None] * n for _ in range(n)]
-    for r in range(n):
+    for r in here:
         bufs[r][r] = deq[r]
     w, s = fq, fscale
     for t in range(n - 1):
         w = ppermute(w, perm)
         if dtype == "int8":
             s = ppermute(s, perm)
-        for r in range(n):
+        for r in here:
             bufs[r][(r - t - 1) % n] = wire_uncast(w[r], s[r], dtype)
-    return [torch.stack(b) for b in bufs]
+    return [torch.stack(bufs[r]) if r in here else None for r in range(n)]
 
 
 def _hier_allgather(fq: list, fscale: list, K: int, M: int,
@@ -532,11 +595,12 @@ def _hier_allgather(fq: list, fscale: list, K: int, M: int,
     the same scales. -> per rank the (n, C) float32 bucket rows in chunk
     order."""
     n = K * M
+    here = [r for r in range(n) if fq[r] is not None]
     iperm, xperm = _hier_perms(K, M)
     int8 = dtype == "int8"
     planes = [[None] * M for _ in range(n)]
     scales = [[None] * M for _ in range(n)]
-    for r in range(n):
+    for r in here:
         planes[r][r // K] = fq[r]
         scales[r][r // K] = fscale[r]
     w, s = fq, fscale
@@ -544,32 +608,33 @@ def _hier_allgather(fq: list, fscale: list, K: int, M: int,
         w = ppermute(w, xperm, "inter")
         if int8:
             s = ppermute(s, xperm, "inter")
-        for r in range(n):
+        for r in here:
             idx = (r // K - t - 1) % M
             planes[r][idx] = w[r]
             scales[r][idx] = s[r]
-    w = [torch.stack(p) for p in planes]
-    s = [torch.stack(sc) for sc in scales] if int8 else [None] * n
+    w = [torch.stack(planes[r]) if r in here else None for r in range(n)]
+    s = ([torch.stack(scales[r]) if r in here else None for r in range(n)]
+         if int8 else [None] * n)
     big = [[None] * K for _ in range(n)]
     bigs = [[None] * K for _ in range(n)]
-    for r in range(n):
+    for r in here:
         big[r][r % K] = w[r]
         bigs[r][r % K] = s[r]
     for t in range(K - 1):
         w = ppermute(w, iperm, "intra")
         if int8:
             s = ppermute(s, iperm, "intra")
-        for r in range(n):
+        for r in here:
             idx = (r % K - t - 1) % K
             big[r][idx] = w[r]
             bigs[r][idx] = s[r]
-    out = []
-    for r in range(n):
+    out = [None] * n
+    for r in here:
         f = torch.stack(big[r]).float()  # (K, M, C)
         if int8:
             f = f * torch.stack(bigs[r]).reshape(K, M, 1)
         # [j, g] holds row g*K + j -> chunk-index order (n, C)
-        out.append(torch.swapaxes(f, 0, 1).reshape(n, -1))
+        out[r] = torch.swapaxes(f, 0, 1).reshape(n, -1)
     return out
 
 
@@ -608,48 +673,53 @@ def ring_reduce_gradients(
     ``gather[name]`` False (zero_update's sharded params) skips the
     allgather for that param: rank r's output is its own reduced chunk
     r, in the param's dim order (its update shard), and only the
-    gathered params' columns of the owner's row ride the allgather."""
+    gathered params' columns of the owner's row ride the allgather.
+
+    Under a process group ``grads[r]`` and ``residuals[r]`` are None for
+    the other processes' ranks, and so are their entries of both
+    outputs."""
     n = len(grads)
+    here = [r for r in range(n) if grads[r] is not None]
     perm = [(j, (j + 1) % n) for j in range(n)]
     if hier is not None and hier[0] * hier[1] != n:
         raise ValueError(f"hier geometry {hier[0]}x{hier[1]} does not "
                          f"match {n} ranks")
     banks = error_feedback and residual_key is not None
     int8 = dtype == "int8"
-    out = [{} for _ in range(n)]
-    new_res = [{} for _ in range(n)]
+    out = [{} if r in here else None for r in range(n)]
+    new_res = [{} if r in here else None for r in range(n)]
     for bucket in buckets:
-        table = _bucket_table(grads[0], bucket, chunk_dims, n)
-        rows = [_bucket_rows(g, table, chunk_dims, n) for g in grads]
+        table = _bucket_table(grads[here[0]], bucket, chunk_dims, n)
+        rows = _each(lambda r, g: _bucket_rows(g, table, chunk_dims, n),
+                     grads)
         # the owner scales the finished sum as it is unless it adds a
         # residual first: then the last reduce hop's max-abs is of use
         if hier is not None:
             acc, scales = _hier_reduce_scatter(rows, *hier, dtype,
                                                fuse_last=not banks)
         else:
-            acc = [x[(r - 1) % n] for r, x in enumerate(rows)]
+            acc = _each(lambda r, x: x[(r - 1) % n], rows)
             scales = None
             for t in range(n - 1):
-                local = [x[(r - t - 2) % n] for r, x in enumerate(rows)]
+                local = _each(lambda r, x: x[(r - t - 2) % n], rows)
                 acc, scales = _hop(acc, local, perm, dtype, "data", scales,
                                    fused=t < n - 2 or not banks)
         if banks:
-            acc = [a + torch.cat([
+            acc = _each(lambda r, a: a + torch.cat([
                        torch.movedim(residuals[r][residual_key(nm)].float(),
                                      chunk_dims[nm], 0).reshape(-1)
-                       for nm, *_ in table])
-                   for r, a in enumerate(acc)]
+                       for nm, *_ in table]), acc)
             scales = None
         if not int8:
             fscale = [None] * n
         elif scales is not None:
             fscale = scales
         else:
-            fscale = [symmetric_scale([a]) for a in acc]
-        fq = [wire_cast(a, s, dtype) for a, s in zip(acc, fscale)]
-        deq = [wire_uncast(w, s, dtype) for w, s in zip(fq, fscale)]
+            fscale = _each(lambda r, a: symmetric_scale([a]), acc)
+        fq = _each(lambda r, a, s: wire_cast(a, s, dtype), acc, fscale)
+        deq = _each(lambda r, w, s: wire_uncast(w, s, dtype), fq, fscale)
         if banks:
-            for r in range(n):
+            for r in here:
                 err = acc[r] - deq[r]
                 for nm, off, size, chunk in table:
                     new_res[r][residual_key(nm)] = torch.movedim(
@@ -659,10 +729,10 @@ def ring_reduce_gradients(
         if len(gtable) < len(table):
             # the gathered params' columns, packed: their own sub-row
             cols = [slice(off, off + size) for _, off, size, _ in gtable]
-            fq_g = [torch.cat([w[c] for c in cols]) if cols else w[:0]
-                    for w in fq]
-            deq_g = [torch.cat([x[c] for c in cols]) if cols else x[:0]
-                     for x in deq]
+            fq_g = _each(lambda r, w: torch.cat([w[c] for c in cols])
+                         if cols else w[:0], fq)
+            deq_g = _each(lambda r, x: torch.cat([x[c] for c in cols])
+                          if cols else x[:0], deq)
             packed, offset = [], 0
             for nm, _, size, chunk in gtable:
                 packed.append((nm, offset, size, chunk))
@@ -677,7 +747,7 @@ def ring_reduce_gradients(
             full = _hier_allgather(fq_g, fscale, *hier, dtype)
         else:
             full = _allgather(fq_g, fscale, deq_g, dtype)
-        for r in range(n):
+        for r in here:
             for nm, off, size, chunk in packed:
                 g = grads[r][nm]
                 out[r][nm] = _unchunk(

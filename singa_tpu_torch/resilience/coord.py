@@ -4,7 +4,8 @@ process's rank for rank-qualified fault terms, and the commit markers of
 sharded saves (``commit_<k>.json``: the CRC32 and size of process k's
 shard file, written after the shard; the replica engine's ``.server``
 sidecar marker is read, so a JAX replica save validates under the JAX
-rule). The preemption barrier is not ported."""
+rule), and the preemption barrier, an OR over the processes of a
+``torch.distributed`` group."""
 
 from __future__ import annotations
 
@@ -34,6 +35,37 @@ def process_index() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank()
     return 0
+
+
+def process_count() -> int:
+    """The processes of the job: ``torch.distributed``'s world when a
+    process group is up, else 1."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def preemption_barrier(requested: bool) -> bool:
+    """Cross-process OR of this process's preemption flag.
+
+    Called at step or chunk boundaries (every process calls it at the
+    same boundaries: the cadence loop is deterministic), so the
+    allgather doubles as the consistent cut: when it returns True in one
+    process it returns True in all of them, and every process drains at
+    that step. One process short-circuits to its own flag."""
+    if process_count() <= 1:
+        return bool(requested)
+    import torch
+    import torch.distributed as dist
+
+    flag = torch.tensor([int(bool(requested))], dtype=torch.int32)
+    if dist.get_backend() == "nccl":
+        flag = flag.cuda()
+    flags = [torch.empty_like(flag) for _ in range(process_count())]
+    dist.all_gather(flags, flag)
+    return bool(torch.cat(flags).any())
 
 
 #: manifest field value declaring "this save carries commit markers"

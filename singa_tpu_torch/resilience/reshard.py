@@ -218,7 +218,8 @@ class Resharder:
         ``devices``: rank r's slice along ``dim`` (the whole array when
         None) on ``devices[r]``, cast to ``dtype`` when given. ->
         one tensor per rank. Ranks with equal boxes on one device share
-        one tensor."""
+        one tensor. A None device (a rank of another process) gets None
+        and nothing is assembled for it."""
         ck = self.ckpt
         info = ck.manifest["arrays"][key]
         shape = tuple(info["shape"])
@@ -250,6 +251,9 @@ class Resharder:
         placed: dict[tuple, torch.Tensor] = {}
         out = []
         for tbox, dev in zip(targets, devices):
+            if dev is None:
+                out.append(None)
+                continue
             kb = box_key(tbox)
             if (kb, dev) not in placed:
                 if kb not in host:

@@ -85,10 +85,11 @@ class CDTrainer(Trainer):
         compute for a Gibbs-chain update; then the RBM params' CD grads
         through the reduction and the updater. Grads never flow between
         RBMs: greedy layerwise training by construction."""
-        n = len(self.mesh.devices)
+        n = self.mesh.width
         step_gen = fold_in(self._step_gen, step)
         grads, metrics = [], []
-        for r, dev in enumerate(self.mesh.devices):
+        for r in self.mesh.local_ranks:
+            dev = self.mesh.device(r)
             g, m = {}, {}
 
             def hook(layer, resolved, inputs, lgen):

@@ -21,14 +21,15 @@ layout, so a save written by either package restores in the other:
 Keys are the npz checkpoint's: ``p|<param>``, ``s|<param>|<slot>``,
 ``b|<buffer>``.
 
-The port is one process over the ranks of its mesh, so it writes
-``proc_0.npz``: one entry per rank for an array laid over the data axis
-(:class:`RankShards`: the zero update's slots, the ring's residuals),
-its flat device index being the rank, and one entry, from rank 0, for a
+Process k of the job writes ``proc_k.npz``: one entry per rank of its
+own for an array laid over the data axis (:class:`RankShards`: the zero
+update's slots, the ring's residuals), its flat device index being the
+global rank, and process 0 alone one entry, from its first rank, for a
 replicated array, as the JAX package saves replica 0 only. Files are
-written to ``.tmp`` and renamed, the manifest last; a re-save removes
-the shard and marker files of a larger job that wrote the same
-directory before.
+written to ``.tmp`` and renamed; once every process's commit marker has
+landed (a barrier of the process group), process 0 removes the shard
+and marker files of a larger job that wrote the same directory before
+and writes the manifest, with ``"nprocs"`` the process count, last.
 
 Reading is ``ShardedCheckpoint`` (manifest plus lazily loaded pieces);
 placing an entry onto the live mesh, each target box assembled from the
@@ -57,16 +58,19 @@ FORMAT = "singa-tpu-sharded-v1"
 
 @dataclasses.dataclass(frozen=True)
 class RankShards:
-    """An array laid over the data axis: ``parts[r]`` is rank r's slice
-    along ``dim`` (``torch.chunk`` order; equal lengths)."""
+    """An array laid over the data axis: ``parts[i]`` is rank
+    ``first + i``'s slice along ``dim`` (``torch.chunk`` order; equal
+    lengths) of ``width`` ranks (0: ``len(parts)``, every rank's)."""
 
     parts: tuple
     dim: int
+    first: int = 0
+    width: int = 0
 
     @property
     def shape(self) -> tuple[int, ...]:
         shape = list(self.parts[0].shape)
-        shape[self.dim] *= len(self.parts)
+        shape[self.dim] *= self.width or len(self.parts)
         return tuple(shape)
 
 
@@ -103,15 +107,19 @@ def save_sharded(
     state: dict | None = None,
     buffers: dict | None = None,
     streams: dict[str, int] | None = None,
+    *,
+    proc: int = 0,
+    nprocs: int = 1,
 ) -> str:
-    """Write the shards, the commit marker and the manifest of one save.
-    Every value is a tensor or numpy array (replicated: written once,
-    as device 0's) or a :class:`RankShards` (one entry per rank)."""
+    """Write process ``proc``'s shard and commit marker of one save of
+    ``nprocs`` processes, and, in process 0, the manifest. Every value
+    is a tensor or numpy array (replicated: written once, by process
+    0) or a :class:`RankShards` (one entry per rank of this process).
+    Every process of the group calls it at the same step."""
     from ..resilience.coord import COMMIT_VERSION, write_commit
     from ..resilience.retention import remove_stale_shards
 
     flat = _flatten(params, state, buffers)
-    proc = 0
     os.makedirs(path, exist_ok=True)
     entries: dict[str, np.ndarray] = {}
     meta: dict[str, dict] = {}
@@ -121,7 +129,7 @@ def save_sharded(
             meta[key] = {"shape": list(shape),
                          "dtype": _np_dtype_name(arr.parts[0]),
                          "spec": spec_json(arr.dim)}
-            for r, part in enumerate(arr.parts):
+            for r, part in enumerate(arr.parts, start=arr.first):
                 box = _full_box(shape)
                 c = part.shape[arr.dim]
                 box[arr.dim] = [r * c, (r + 1) * c]
@@ -130,6 +138,8 @@ def save_sharded(
             continue
         meta[key] = {"shape": list(arr.shape),
                      "dtype": _np_dtype_name(arr), "spec": spec_json(None)}
+        if proc:
+            continue
         entries[f"{key}{_SEP}0"] = _host(arr)
         entries[f"{key}{_SEP}0{_SEP}idx"] = _full_box(arr.shape)
 
@@ -140,21 +150,30 @@ def save_sharded(
     # the marker after the shard: a present marker always describes a
     # fully written shard
     write_commit(path, proc)
-    # a re-save into a directory a larger job wrote must not leave its
-    # proc_k files behind: the manifest names proc_0 only
-    remove_stale_shards(path, 1)
-    manifest = {
-        "format": FORMAT,
-        "step": int(step),
-        "streams": dict(streams or {}),
-        "nprocs": 1,
-        "commit": COMMIT_VERSION,
-        "arrays": meta,
-    }
-    mpath = os.path.join(path, "manifest.json")
-    with open(mpath + ".tmp", "w") as f:
-        json.dump(manifest, f)
-    os.replace(mpath + ".tmp", mpath)
+    if nprocs > 1:
+        import torch.distributed as dist
+
+        # every process's marker has landed before the manifest names it
+        dist.barrier()
+    if proc == 0:
+        # a re-save into a directory a larger job wrote must not leave
+        # its proc_k files behind: the manifest names nprocs of them
+        remove_stale_shards(path, nprocs)
+        manifest = {
+            "format": FORMAT,
+            "step": int(step),
+            "streams": dict(streams or {}),
+            "nprocs": int(nprocs),
+            "commit": COMMIT_VERSION,
+            "arrays": meta,
+        }
+        mpath = os.path.join(path, "manifest.json")
+        with open(mpath + ".tmp", "w") as f:
+            json.dump(manifest, f)
+        os.replace(mpath + ".tmp", mpath)
+    if nprocs > 1:
+        # no process reads the save before its manifest is there
+        dist.barrier()
     return path
 
 

@@ -10,10 +10,16 @@ device (one rank on one device by default; ``mesh=`` or a cluster with
 ``nworkers`` gives more, and ranks may share a card). Each rank runs
 one forward over the float32 master params cast to the compute dtype
 (so autograd returns float32 grads) and ``backward`` on its contiguous
-slice of the batch, and divides its grads by the width n. Then one of
-three reductions:
+slice of the batch, and divides its grads by the width n. A net with
+buffers (kBatchNorm) on more than one rank runs the ranks in lockstep
+instead (``Net.forward_ranks``: each layer for every rank before the
+next, BatchNorm's moments and its backward's sums taken over all
+ranks, the JAX package's BatchNorm over the global batch) and one
+backward over the ranks' losses, each divided by n. Then one of three
+reductions:
 
-  exact      the ranks' grads are summed (the JAX package's GSPMD psum);
+  exact      the ranks' grads are summed in rank order (the JAX
+             package's GSPMD psum);
   reference  ``grad_comm { mode: quantized }``: the sum goes through the
              quantize/dequantize seam with error feedback
              (``parallel.collectives.reduce_gradients``);
@@ -26,6 +32,19 @@ The reduced grads are the same bits for every rank, so the updater's
 elementwise update runs once per distinct device (params and updater
 state exist once per device). Loss and metrics are averaged over the
 ranks.
+
+Several processes (``parallel/launch.py``, the mesh laid over them
+process-major): each process runs its own ranks and reads the whole
+global stream, keeping its ranks' rows. The exact sum and the q8 seam
+gather every rank's partials to every process (``Mesh.gather``) and
+sum them in rank order, so a run of P processes gives the bits of one
+process over the same ranks; the ring sends its rows between processes
+point to point; a zero update's fresh shards are gathered for the
+stitch. Under the ring each process's residual buffers hold its own
+ranks' chunks (the others' are gathered for an npz save), and under
+zero its ranks' slot shards (``state`` gathers them: a collective, as
+every save is). Process 0 writes an npz save; a sharded save is written
+by every process, its ranks' boxes in ``proc_<k>.npz``.
 
 ``zero_update`` (the JAX package's ZeRO-style update layout,
 ``parallel/shardings.py``): each param whose dim the width n divides is
@@ -45,9 +64,8 @@ r: the layout and ``b|`` checkpoint keys of the JAX Trainer. Stateful
 layers' buffers (kBatchNorm's running stats, ``<layer>/running_mean``)
 live beside them, float32 whatever the compute dtype; every step
 updates them in place, so a captured step or eval reads the live
-values. A net with such buffers trains on one rank only
-(the JAX package's BatchNorm is synchronised over the global batch by
-GSPMD; per-rank statistics would be another result).
+values. On several ranks they update from the global moments, the same
+bits on every rank.
 
 Host dispatch (the JAX package's jitted step, scan chunks and
 device-resident dataset):
@@ -101,8 +119,8 @@ n ranks (or of the JAX package's devices) resumes on m.
 What the port leaves out, and refuses with a ConfigError that names
 it rather than ignoring: any parallel axis but the data axis, the
 named-axes ``ring { intra_axis/inter_axis }``, ``resilience``,
-``fleet``, ``pipeline_microbatches``, the replica engine (``nservers``)
-and a net with buffers on more than one rank. ``kernels {
+``fleet``, ``pipeline_microbatches`` and the replica engine
+(``nservers``); the int8 ring with a net with buffers. ``kernels {
 paged_attention }`` is the serving engine's knob and trains unchanged,
 as in the JAX package. The contrastive-divergence engine is
 ``trainer/cd.py``'s CDTrainer (``make_trainer`` picks it).
@@ -114,6 +132,7 @@ of uncached eval streams, and graphs over more than one rank.
 from __future__ import annotations
 
 import functools
+import hashlib
 import os
 import types
 from typing import Callable
@@ -156,11 +175,8 @@ def _now(step: int, freq: int, after: int) -> bool:
 
 
 def unsupported(model_cfg: ModelConfig,
-                cluster_cfg: ClusterConfig | None,
-                net: Net | None = None, ranks: int = 1) -> list[str]:
-    """The conf knobs this engine does not port yet, by name; with the
-    train ``net`` and the data-parallel width ``ranks``, also a net with
-    buffers on more than one rank."""
+                cluster_cfg: ClusterConfig | None) -> list[str]:
+    """The conf knobs this engine does not port yet, by name."""
     out = []
     for knob in ("resilience", "fleet"):
         if getattr(model_cfg, knob, None) is not None:
@@ -177,12 +193,6 @@ def unsupported(model_cfg: ModelConfig,
                      "nexperts_per_group", "npipes_per_group"):
             if getattr(cluster_cfg, axis) > 1:
                 out.append(f"cluster {axis} {getattr(cluster_cfg, axis)}")
-    if net is not None and ranks > 1 and net.buffer_specs():
-        out.append(
-            f"a net with buffers on {ranks} ranks (per-rank batch "
-            "statistics, where the JAX package's BatchNorm is synchronised "
-            f"over the global batch; buffers {sorted(net.buffer_specs())[:4]}"
-            " ...)")
     return out
 
 
@@ -199,7 +209,8 @@ class Trainer:
     over the ranks of a data-parallel mesh. Without ``mesh``: one rank on
     ``device`` (``None`` is the GPU; pass ``"cpu"`` for the CPU), or, for
     a cluster with ``nworkers``, one rank per worker group over the
-    visible GPUs (over ``device`` repeated when one is given).
+    visible GPUs (over ``device`` repeated when one is given; under a
+    process group this process's share of the worker groups).
 
     ``prefetch`` (default: the conf's ``prefetch``), ``device_cache``
     (default: by the budget) and ``stream_chunks`` (default:
@@ -263,8 +274,6 @@ class Trainer:
                 f"{type(self).__name__} does not support stateful layers "
                 f"(buffers: {buffer_names})"
             )
-        _refuse(unsupported(model_cfg, cluster_cfg, self.train_net,
-                            len(mesh.devices)))
 
         # --- params + updater (ParamManager ctor + InitParams) ---
         self.specs = self.train_net.param_specs()
@@ -295,7 +304,7 @@ class Trainer:
         self._ring_chunk_dims: dict[str, int] | None = None
         self._ring_gather: dict[str, bool] | None = None
         self._ring_hier: tuple[int, int] | None = None
-        ndata = len(mesh.devices)
+        ndata = mesh.width
         if self._comm is not None and self._comm.ring:
             self._setup_ring_collective()
         elif self.train_net.batchsize % ndata:
@@ -429,8 +438,11 @@ class Trainer:
             dev: {} for dev in self.mesh.devices
         }
         #: rank r -> {zero-sharded param: {slot: rank r's shard}} on
-        #: rank r's device (empty dicts off zero)
-        self._zero_slots: list[dict] = [{} for _ in self.mesh.devices]
+        #: rank r's device (empty dicts off zero; None for the ranks of
+        #: other processes)
+        self._zero_slots: list[dict | None] = [
+            {} if self.mesh.is_local(r) else None
+            for r in range(self.mesh.width)]
         self.params = params
         self.state = state
         self.buffers = buffers
@@ -439,7 +451,7 @@ class Trainer:
 
     def _zero_names(self) -> list[str]:
         """The params whose update is sharded over the ranks."""
-        if self._zero_dims is None or len(self.mesh.devices) == 1:
+        if self._zero_dims is None or self.mesh.width == 1:
             return []
         return [n for n, d in self._zero_dims.items() if d is not None]
 
@@ -459,8 +471,13 @@ class Trainer:
             state_key,
         )
 
+        from ..resilience.coord import process_count
+
         path = self.cfg.checkpoint
-        devices = list(self.mesh.devices)
+        mesh = self.mesh
+        # rank -> device; None for the ranks of other processes
+        devices = [mesh.device(r) if mesh.is_local(r) else None
+                   for r in range(mesh.width)]
         with ShardedCheckpoint(path) as ck:
             # admission first: a mesh that cannot host the manifest's
             # specs raises before anything is placed
@@ -491,8 +508,8 @@ class Trainer:
                     if n in zero:
                         parts = place(key, v, self._zero_dims[n])
                         with torch.no_grad():
-                            for r, part in enumerate(parts):
-                                self._zero_slots[r][n][s].copy_(part)
+                            for r in mesh.local_ranks:
+                                self._zero_slots[r][n][s].copy_(parts[r])
                     else:
                         slots[s] = place(key, v)
             self.params = params
@@ -503,6 +520,10 @@ class Trainer:
                             for n, v in self.buffers.items()}
             self._resume_streams = dict(ck.streams)
             self.start_step = max(self.start_step, ck.step)
+            if rs.saved_nprocs != process_count():
+                self.log(f"elastic restore: checkpoint written by "
+                         f"{rs.saved_nprocs} process(es), resuming on "
+                         f"{process_count()}")
             note = rs.summary()
             if note is not None:
                 self.log(f"elastic restore: {note} onto "
@@ -543,18 +564,24 @@ class Trainer:
         """The updater slots (rank 0's device's copy), like ``params``.
         Under zero the sharded params' slots come back whole, their rank
         shards concatenated on rank 0's device (a copy, not the live
-        tensors)."""
+        tensors); across processes the other processes' shards are
+        gathered, a collective every process must join."""
         rep = self._replicas[self.device]["state"]
         zero = self._zero_names()
         if not zero:
             return rep
-        n = len(self.mesh.devices)
+        mesh = self.mesh
+        shards = mesh.gather([
+            {(nm, s): v for nm in zero
+             for s, v in self._zero_slots[r][nm].items()}
+            for r in mesh.local_ranks], self.device)
         out = dict(rep)
         for nm in zero:
             out[nm] = {
-                s: torch.cat([self._zero_slots[r][nm][s].to(self.device)
-                              for r in range(n)], dim=self._zero_dims[nm])
-                for s in self._zero_slots[0][nm]
+                s: torch.cat([shards[r][nm, s].to(self.device)
+                              for r in range(mesh.width)],
+                             dim=self._zero_dims[nm])
+                for s in self._zero_slots[mesh.local_ranks[0]][nm]
             }
         return {nm: out[nm] for nm in self.params if nm in out}
 
@@ -573,8 +600,9 @@ class Trainer:
                 if new[n] is not cur.get(n):
                     self._drop_graphs()
             rep["state"] = new
-        ranks = len(self.mesh.devices)
-        for r, dev in enumerate(self.mesh.devices):
+        ranks = self.mesh.width
+        for r in self.mesh.local_ranks:
+            dev = self.mesh.device(r)
             for n in zero & value.keys():
                 d = self._zero_dims[n]
                 parts = {s: v.chunk(ranks, dim=d)[r].contiguous()
@@ -591,10 +619,10 @@ class Trainer:
         return "zero" if self._zero_dims is not None else "replicated"
 
     def opt_state_bytes_per_device(self) -> int:
-        """Bytes of updater state one rank holds (rank 0): the footprint
-        zero_update shrinks by the data width. Ranks that share a card
-        each count their own."""
-        zero = self._zero_slots[0]
+        """Bytes of updater state one rank holds (this process's first):
+        the footprint zero_update shrinks by the data width. Ranks that
+        share a card each count their own."""
+        zero = self._zero_slots[self.mesh.local_ranks[0]]
         total = 0
         for n, slots in self._replicas[self.device]["state"].items():
             for v in slots.values():
@@ -634,10 +662,12 @@ class Trainer:
         return tree
 
     def _rank_batch(self, batch: dict, r: int) -> dict:
-        """Rank r's contiguous slice of the global batch, on its device
-        (the JAX package's batch sharding over the data axis)."""
-        n = len(self.mesh.devices)
-        dev = self.mesh.devices[r]
+        """Global rank r's contiguous slice of the global batch, on its
+        device (the JAX package's batch sharding over the data axis):
+        every process reads the whole stream and keeps its ranks' rows,
+        so the stream is the same on any process count."""
+        n = self.mesh.width
+        dev = self.mesh.device(r)
         out = {}
         for name, feed in batch.items():
             out[name] = {}
@@ -647,54 +677,94 @@ class Trainer:
         return out
 
     def _step_core(self, step: int, batch: dict) -> dict:
-        """One forward + backward per rank, the reduction, the update on
-        every device; -> the step's metrics, averaged over the ranks."""
-        n = len(self.mesh.devices)
+        """One forward + backward per rank of this process (in lockstep
+        over the ranks for a net with buffers on more than one rank), the
+        reduction, the update on every device; -> the step's metrics,
+        averaged over the ranks."""
+        mesh = self.mesh
+        n = mesh.width
         names = list(self.params)
-        grads, metrics = [], []
         step_gen = fold_in(self._step_gen, step)
-        for r, dev in enumerate(self.mesh.devices):
-            params = self._replicas[dev]["params"]
-            leaves = {nm: params[nm].detach().requires_grad_(True)
-                      for nm in names}
-            # buffers go uncast; only a net on one rank has stateful
-            # layers (unsupported()), so updates come from rank 0 alone
-            loss, m, updates = self.train_net.forward(
-                self._cast_compute(leaves),
-                self._cast_compute(self._rank_batch(batch, r)),
-                training=True,
-                generator=fold_in(step_gen, r),
-                buffers=self.buffers, return_buffers=True,
-            )
-            loss.backward()
+        leaves = [{nm: self._replicas[mesh.device(r)]["params"][nm].detach()
+                   .requires_grad_(True) for nm in names}
+                  for r in mesh.local_ranks]
+        if n > 1 and self.train_net.buffer_specs():
+            losses, metrics, updates = self.train_net.forward_ranks(
+                [self._cast_compute(lv) for lv in leaves],
+                [self._cast_compute(self._rank_batch(batch, r))
+                 for r in mesh.local_ranks],
+                generators=[fold_in(step_gen, r) for r in mesh.local_ranks],
+                buffers=self.buffers, sync=mesh)
             # each rank's loss is its local batch mean: / n makes the sum
-            # over ranks the global mean gradient
-            grads.append({
-                nm: (leaves[nm].grad if leaves[nm].grad is not None
-                     else torch.zeros_like(leaves[nm])) / n
-                for nm in names
-            })
-            metrics.append(m)
+            # over ranks the global mean, whose gradient every rank's
+            # leaves take their share of through the synchronised
+            # BatchNorm's backward
+            torch.autograd.backward([loss / n for loss in losses])
+            grads = [{nm: (lv[nm].grad if lv[nm].grad is not None
+                           else torch.zeros_like(lv[nm])) for nm in names}
+                     for lv in leaves]
+        else:
+            grads, metrics = [], []
+            for r, lv in zip(mesh.local_ranks, leaves):
+                # buffers go uncast; a net with stateful layers runs on
+                # one rank here, so updates come from that rank alone
+                loss, m, updates = self.train_net.forward(
+                    self._cast_compute(lv),
+                    self._cast_compute(self._rank_batch(batch, r)),
+                    training=True,
+                    generator=fold_in(step_gen, r),
+                    buffers=self.buffers, return_buffers=True,
+                )
+                loss.backward()
+                # each rank's loss is its local batch mean: / n makes the
+                # sum over ranks the global mean gradient
+                grads.append({
+                    nm: (lv[nm].grad if lv[nm].grad is not None
+                         else torch.zeros_like(lv[nm])) / n
+                    for nm in names
+                })
+                metrics.append(m)
         self._store_buffers(updates)
         return self._reduce_and_update(step, grads, metrics)
 
     def _reduce_and_update(self, step, grads: list, metrics: list) -> dict:
-        """The eager step's tail: the ranks' local grads (already / n)
-        through the reduction, the update of the params they name on
-        every device (zero-sharded params: ``_zero_update``) -> the
-        metrics, averaged over the ranks."""
-        n = len(self.mesh.devices)
+        """The eager step's tail: the local grads of this process's ranks
+        (already / n) through the reduction, the update of the params
+        they name on every device (zero-sharded params:
+        ``_zero_update``) -> the metrics, averaged over all ranks in
+        rank order."""
+        mesh = self.mesh
+        n = mesh.width
         names = list(grads[0])
         zero = [nm for nm in self._zero_names() if nm in grads[0]]
+        keys = [(layer, k) for layer, ms in metrics[0].items() for k in ms]
+        metrics = [{key: torch.as_tensor(m[key[0]][key[1]],
+                                         device=self.device)
+                    for key in keys} for m in metrics]
         if self._ring_chunk_dims is not None:
-            reduced, res = self._ring_reduce(grads, self.buffers)
+            full = [None] * n
+            for r, g in zip(mesh.local_ranks, grads):
+                full[r] = g
+            reduced, res = self._ring_reduce(full, self.buffers)
             # the reduced grads are the same bits on every rank: take the
             # first rank on each device (a zero-sharded param's is each
             # rank's own chunk: the ring's scatter output)
-            by_dev = {dev: reduced[self.mesh.devices.index(dev)]
-                      for dev in self._replicas}
-            shards = [{nm: g[nm] for nm in zero} for g in reduced]
+            by_dev = {mesh.device(r): reduced[r]
+                      for r in reversed(mesh.local_ranks)}
+            shards = {r: {nm: reduced[r][nm] for nm in zero}
+                      for r in mesh.local_ranks}
+            metrics = mesh.gather(metrics, self.device)
         else:
+            if mesh.nprocs > 1:
+                # every rank's partials and metrics to every process, in
+                # one gather, summed below in rank order as in one process
+                both = mesh.gather([
+                    {**{("g", nm): g[nm] for nm in names},
+                     **{("m", *key): v for key, v in m.items()}}
+                    for g, m in zip(grads, metrics)], self.device)
+                grads = [{nm: b["g", nm] for nm in names} for b in both]
+                metrics = [{key: b[("m", *key)] for key in keys}
+                           for b in both]
             summed = {nm: functools.reduce(
                 torch.add, (g[nm].to(self.device) for g in grads))
                 for nm in names}
@@ -705,13 +775,13 @@ class Trainer:
                 )
             by_dev = {dev: {nm: g.to(dev) for nm, g in summed.items()}
                       for dev in self._replicas}
-            shards = [{nm: summed[nm].chunk(n, dim=self._zero_dims[nm])[r]
-                       .to(dev) for nm in zero}
-                      for r, dev in enumerate(self.mesh.devices)]
+            shards = {r: {nm: summed[nm].chunk(n, dim=self._zero_dims[nm])[r]
+                          .to(mesh.device(r)) for nm in zero}
+                      for r in mesh.local_ranks}
         self._store_buffers(res)
         if zero:
             self._zero_update(step, shards)
-            names = [nm for nm in names if nm not in shards[0]]
+            names = [nm for nm in names if nm not in zero]
         for dev, rep in self._replicas.items():
             new_p, new_s = self.updater.apply(
                 step, {nm: rep["params"][nm] for nm in names}, by_dev[dev],
@@ -725,23 +795,24 @@ class Trainer:
                 for nm, slots in new_s.items():
                     for s, v in slots.items():
                         rep["state"][nm][s].copy_(v)
-        return {
-            layer: {k: functools.reduce(torch.add, (
-                torch.as_tensor(m[layer][k], device=self.device)
-                for m in metrics)) / n for k in ms}
-            for layer, ms in metrics[0].items()
-        }
+        out: dict = {}
+        for layer, k in keys:
+            out.setdefault(layer, {})[k] = functools.reduce(
+                torch.add, (m[layer, k] for m in metrics)) / n
+        return out
 
-    def _zero_update(self, step, shards: list) -> None:
-        """The zero update of the params ``shards[r]`` names: rank r
-        updates its slice of each (a view of its device's replica) from
-        ``shards[r]``, its slice of the reduced grads, and from its own
-        slot shards, which take the new slots in place; then the fresh
-        param shards are stitched into every device's replica."""
-        n = len(self.mesh.devices)
+    def _zero_update(self, step, shards: dict) -> None:
+        """The zero update of the params ``shards[r]`` names: each rank r
+        of this process updates its slice of each (a view of its
+        device's replica) from ``shards[r]``, its slice of the reduced
+        grads, and from its own slot shards, which take the new slots in
+        place; then every rank's fresh param shards (gathered from the
+        other processes) are stitched into every device's replica."""
+        mesh = self.mesh
+        n = mesh.width
         fresh = []
-        for r, dev in enumerate(self.mesh.devices):
-            params = self._replicas[dev]["params"]
+        for r in mesh.local_ranks:
+            params = self._replicas[mesh.device(r)]["params"]
             slots = self._zero_slots[r]
             new_p, new_s = self.updater.apply(
                 step,
@@ -753,13 +824,14 @@ class Trainer:
                     for s, v in new.items():
                         slots[nm][s].copy_(v)
             fresh.append(new_p)
-        self._stitch_zero(fresh)
+        self._stitch_zero(mesh.gather(fresh, self.device))
 
     @torch.no_grad()
     def _stitch_zero(self, fresh: list) -> None:
-        """Copy rank r's fresh param shards ``fresh[r]`` into slice r of
-        every device's replica, in place: the addresses stay fixed."""
-        n = len(self.mesh.devices)
+        """Copy rank r's fresh param shards ``fresh[r]`` (every rank's)
+        into slice r of every device's replica, in place: the addresses
+        stay fixed."""
+        n = self.mesh.width
         for dev, rep in self._replicas.items():
             for nm in fresh[0]:
                 parts = rep["params"][nm].chunk(n, dim=self._zero_dims[nm])
@@ -834,7 +906,7 @@ class Trainer:
                     "ring { intra_degree } form"
                 )
             self._ring_hier = geom[2:]
-        ndata = len(self.mesh.devices)
+        ndata = self.mesh.width
         bs = self.train_net.batchsize
         if bs % ndata:
             raise ConfigError(
@@ -867,20 +939,25 @@ class Trainer:
         self._ring_gather = gather
 
     def _ring_reduce(self, grads: list, buffers: dict):
-        """Per-rank local partials (already divided by n) through the
-        ring -> (per-rank reduced grads, residual updates as whole
-        arrays on rank 0's device). Rank r adds and banks chunk r of each
-        residual."""
+        """Per-rank local partials (already divided by n; None for the
+        ranks of other processes) through the ring -> (per-rank reduced
+        grads, residual updates as whole arrays on this process's first
+        device). Rank r adds and banks chunk r of each residual; the
+        chunks of other processes' ranks keep their old values here."""
         n = len(grads)
+        mesh = self.mesh
         dims = self._ring_chunk_dims
-        res = [{} for _ in range(n)]
-        if self._comm.wants_residuals:
-            for nm in grads[0]:
-                key = residual_key(nm)
-                for r, part in enumerate(buffers[key].chunk(n, dim=dims[nm])):
-                    res[r][key] = part.to(self.mesh.devices[r])
+        names = list(next(g for g in grads if g is not None))
+        res = [None] * n
+        for r in mesh.local_ranks:
+            res[r] = {}
+            if self._comm.wants_residuals:
+                for nm in names:
+                    key = residual_key(nm)
+                    res[r][key] = buffers[key].chunk(n, dim=dims[nm])[r].to(
+                        mesh.device(r))
         out, new_res = qc.ring_reduce_gradients(
-            grads, res, self._buckets(grads[0]),
+            grads, res, self._buckets(names),
             chunk_dims=dims,
             dtype=self._comm.dtype,
             error_feedback=self._comm.error_feedback,
@@ -888,11 +965,16 @@ class Trainer:
             hier=self._ring_hier,
             gather=self._ring_gather,
         )
-        whole = {
-            key: torch.cat([nr[key].to(self.device) for nr in new_res],
-                           dim=dims[nm])
-            for nm in grads[0] if (key := residual_key(nm)) in new_res[0]
-        }
+        mine = new_res[mesh.local_ranks[0]]
+        whole = {}
+        for nm in names:
+            key = residual_key(nm)
+            if key not in mine:
+                continue
+            old = buffers[key].chunk(n, dim=dims[nm])
+            whole[key] = torch.cat(
+                [old[r] if nr is None else nr[key].to(self.device)
+                 for r, nr in enumerate(new_res)], dim=dims[nm])
         return out, whole
 
     def _ring_reduce_probe(self, grads: dict, res: dict):
@@ -901,10 +983,12 @@ class Trainer:
         the reduction gives ``grads`` back; ``res`` holds whole residual
         arrays. -> (per-rank reduced grads, new residuals). The JAX
         Trainer's probe returns the reduced grads once, replicated; here
-        every rank's copy comes back, so a caller can hold them equal."""
-        n = len(self.mesh.devices)
-        local = [{nm: g.to(dev) / n for nm, g in grads.items()}
-                 for dev in self.mesh.devices]
+        every rank's copy comes back (None for other processes' ranks),
+        so a caller can hold them equal."""
+        mesh = self.mesh
+        n = mesh.width
+        local = [{nm: g.to(mesh.device(r)) / n for nm, g in grads.items()}
+                 if mesh.is_local(r) else None for r in range(n)]
         return self._ring_reduce(local, res)
 
     def wire_bytes_model(self) -> dict | None:
@@ -917,7 +1001,7 @@ class Trainer:
         hierarchical total."""
         if self._comm is None:
             return None
-        n = len(self.mesh.devices)
+        n = self.mesh.width
         sizes = {nm: int(np.prod(s.shape, dtype=np.int64))
                  for nm, s in self.specs.items()}
         buckets = self._buckets(sizes)
@@ -1165,7 +1249,7 @@ class Trainer:
         """-> ("graph", "") or ("eager", the rule that keeps it eager)."""
         if graphs is False:
             return "eager", "graphs=False"
-        n = len(self.mesh.devices)
+        n = self.mesh.width
         if n > 1:
             return "eager", (f"{n} ranks: the per-rank loop, the ring's "
                              "host bucket loop and ppermute.sent_bytes")
@@ -1636,49 +1720,99 @@ class Trainer:
         return out
 
     def save(self, step: int) -> str | None:
-        """Snapshot into ``<workspace>/checkpoints``: ``step_<step>.npz``,
-        or with ``checkpoint_format: "sharded"`` the ``step_<step>.ckpt``
-        directory of ``sharded_ckpt.save_sharded``."""
+        """Snapshot into ``<workspace>/checkpoints``: ``step_<step>.npz``
+        (written by process 0; its whole slots and residuals are
+        gathered from every process first), or with
+        ``checkpoint_format: "sharded"`` the ``step_<step>.ckpt``
+        directory of ``sharded_ckpt.save_sharded``, each process writing
+        its ranks' shards. Every process calls it at the same step."""
         folder = self._checkpoint_dir()
         if folder is None:
             return None
+        mesh = self.mesh
         streams = self._stream_positions()
         with self.timers.phase("ckpt"):
             if self.cfg.checkpoint_format == "sharded":
                 path = os.path.join(folder, f"step_{step}.ckpt")
                 save_sharded(path, step, self.params, self._state_layout(),
-                             self._buffer_layout(), streams=streams)
+                             self._buffer_layout(), streams=streams,
+                             proc=mesh.proc, nprocs=mesh.nprocs)
             else:
                 path = os.path.join(folder, f"step_{step}.npz")
-                save_checkpoint(path, step, self.params, self.state,
-                                self.buffers, streams=streams)
+                state, buffers = self.state, self._whole_buffers()
+                if mesh.proc == 0:
+                    save_checkpoint(path, step, self.params, state,
+                                    buffers, streams=streams)
         self.log(f"step {step}: checkpoint -> {path}")
         return path
 
+    def _whole_buffers(self) -> dict:
+        """The buffers with every rank's chunk of each ring residual:
+        across processes the other processes' chunks are gathered (a
+        collective); otherwise ``buffers`` as it is."""
+        mesh = self.mesh
+        n = mesh.width
+        if mesh.nprocs == 1 or self._ring_chunk_dims is None:
+            return self.buffers
+        dims = {residual_key(nm): d
+                for nm, d in self._ring_chunk_dims.items()
+                if residual_key(nm) in self.buffers}
+        parts = mesh.gather(
+            [{key: self.buffers[key].chunk(n, dim=d)[r]
+              for key, d in dims.items()} for r in mesh.local_ranks],
+            self.device)
+        out = dict(self.buffers)
+        for key, d in dims.items():
+            out[key] = torch.cat([p[key] for p in parts], dim=d)
+        return out
+
+    def digest(self) -> str:
+        """SHA-256 of the params' and the whole updater slots' bytes, by
+        name: equal digests are equal values to the bit, so processes and
+        runs compare by it. Under zero across processes ``state`` is a
+        collective: every process calls it."""
+        h = hashlib.sha256()
+        state = self.state
+        for nm in sorted(self.params):
+            h.update(nm.encode())
+            h.update(self.params[nm].detach().cpu().numpy().tobytes())
+            for s in sorted(state.get(nm, {})):
+                h.update(f"{nm}|{s}".encode())
+                h.update(state[nm][s].detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
     def _state_layout(self) -> dict:
         """The slots as a sharded save lays them: zero-sharded ones as
-        their rank shards, the others whole (rank 0's device's)."""
+        this process's ranks' shards, the others whole (its first
+        device's)."""
+        mesh = self.mesh
         out = dict(self._replicas[self.device]["state"])
+        local = mesh.local_ranks
         for nm in self._zero_names():
             out[nm] = {
-                s: RankShards(tuple(z[nm][s] for z in self._zero_slots),
-                              self._zero_dims[nm])
-                for s in self._zero_slots[0][nm]
+                s: RankShards(tuple(self._zero_slots[r][nm][s]
+                                    for r in local), self._zero_dims[nm],
+                              local[0], mesh.width)
+                for s in self._zero_slots[local[0]][nm]
             }
         return {nm: out[nm] for nm in self.params if nm in out}
 
     def _buffer_layout(self) -> dict:
         """The buffers as a sharded save lays them: on the ring each
-        error-feedback residual as its rank chunks along the param's ring
-        chunk dim (the chunk each rank banks), the JAX Trainer's
-        residual layout; everything else whole."""
-        n = len(self.mesh.devices)
+        error-feedback residual as this process's ranks' chunks along
+        the param's ring chunk dim (the chunk each rank banks), the JAX
+        Trainer's residual layout; everything else whole."""
+        mesh = self.mesh
+        n = mesh.width
+        local = mesh.local_ranks
         out = dict(self.buffers)
         if self._ring_chunk_dims is not None and n > 1:
             for nm, d in self._ring_chunk_dims.items():
                 key = residual_key(nm)
                 if key in out:
-                    out[key] = RankShards(tuple(out[key].chunk(n, dim=d)), d)
+                    parts = out[key].chunk(n, dim=d)
+                    out[key] = RankShards(tuple(parts[r] for r in local), d,
+                                          local[0], n)
         return out
 
 

@@ -465,11 +465,14 @@ def test_checkpoints_carry_buffers_both_ways(shards, tmp_path):
 
 
 def test_buffers_on_more_than_one_rank_are_refused_by_name(shards):
-    cfg = t_parse(bn_text(shards))
-    with pytest.raises(ConfigError, match="a net with buffers on 2 ranks"):
-        Trainer(cfg, mesh=build_mesh(2, 1, ["cpu"] * 2), log=lambda s: None)
+    """Exact data parallel synchronises BatchNorm over the ranks
+    (tests/test_torch_sync_bn.py); the int8 ring's per-rank backward
+    cannot, and refuses a net with buffers by name, as the JAX Trainer
+    does, on one rank and on two."""
     ring = t_parse(bn_text(shards, "grad_comm { mode: quantized }\n"
                            "kernels { grad_allreduce: quantized_ring }"))
+    with pytest.raises(ConfigError, match="batch-statistics buffers"):
+        Trainer(ring, mesh=build_mesh(2, 1, ["cpu"] * 2), log=lambda s: None)
     with pytest.raises(ConfigError, match="batch-statistics buffers"):
         Trainer(ring, device="cpu", log=lambda s: None)
 
