@@ -375,6 +375,45 @@ caught and carried on):
              running stats by more than 100 x NETS_TOL. Every wait on a
              child has a timeout; every child is stopped.
 
+  19. axes   (runs after procs) the other mesh axes, every rank on this
+             card, each path (AXES_PATHS) from the seed-0 params:
+             sp   tinylm_ring.conf on cluster_sp.conf (data 2 x seq 4, ring
+                  attention) over 64 synthetic 2048-token sequences (the
+                  sequence cut to 2048: each hop keeps a (32, 4, 512, 512)
+                  float32 score block for the backward);
+             ep   tinylm_moe.conf on cluster_ep.conf (data 2 x expert 4),
+                  the psum and the alltoall dispatch;
+             tp   tinylm.conf with kLayerPartition on data 2 x model 2;
+             q8   tinylm.conf with q8_hier's named axes (intra model,
+                  inter data) on data 2 x model 2;
+             pp   tinylm_pp.conf on cluster_pp.conf (data 4 x pipe 2, 4
+                  microbatches);
+             3axis tinylm_pp.conf on cluster_3axis.conf (data 2 x pipe 2 x
+                  model 2);
+             the others over the moe_train cell's 256 x 256-token shard.
+             Each path: AXES_STEPS float32 steps against the same conf
+             with one axis less (AXES_PATHS' counterpart): losses within
+             AXES_TOL, and the params after the steps within AXES_TOL of
+             each other relative to how far the steps moved them (q8:
+             losses within RING_TOL; ep alltoall against the dense path
+             on 8 data ranks, the same token shards: step 0 within
+             AXES_TOL, the rest within AXES_A2A_TOL, its aux being the
+             global batch's and the counterpart's each rank's); the flash kernels' launches (float32 route) and
+             quant_acc's counted over the run, set to 0 just before it,
+             equal to the path's calls (ring attention's fold is plain
+             PyTorch, so sp launches none); a planted fault on four of
+             them (sp: each K/V block visiting one rank off; ep psum:
+             each expert rank computing the next rank's experts; tp: the
+             Concate in reversed rank order; pp: each pipeline hop one
+             tick late) that must exceed the bar AXES_FAULT_FACTOR
+             times. Then AXES_TIMED bf16 steps of the path and of its
+             counterpart (step ms, host clock to a device sync, and the
+             bf16 route's launches) and the ranks' exchange: the step's
+             gradient sums over the ranks (Trainer._axes_reduce; on one
+             card the layers' cross-rank reads are plain tensor reads),
+             host clock to a device sync, over 3 more steps; q8: the
+             ring's reduction alone (reduce_ms).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -4663,6 +4702,315 @@ def procs_phase(dev, smi, shard, zero_ref, tmp) -> dict:
             "zero_ring": api["quant_acc_launches"]}
 
 
+# ---------------------------------------------------------------------------
+# axes phase: the seq, expert, model and pipe axes and q8_hier's named axes
+# ---------------------------------------------------------------------------
+
+#: float32 steps of each path and its counterpart
+AXES_STEPS = 5
+#: bf16 steps timed of each path and its counterpart
+AXES_TIMED = 10
+AXES_TOL = 1e-4
+AXES_FAULT_FACTOR = 100
+#: the sp cell's shard: ring attention's per-hop fold keeps a (b, h,
+#: s_local, s_local) float32 score block for the backward, 2.1 GB a hop at
+#: S 8192 (about 200 GB for the 8 ranks' 4 hops in 2 layers), 134 MB at
+#: S 2048: the sequence is cut to 2048
+AXES_RING_SHARD = (64, 2048)
+TP_CLUSTER = "nworkers: 4\nnprocs_per_group: 2"
+
+
+def _visitor_one_off(my, i, n):
+    return (my - i + 1) % n
+
+
+def _reversed_concate(parts, dim):
+    return torch.cat(parts[::-1], dim)
+
+
+def _hop_late(sent, t):
+    return sent[max(t - 2, 0)]
+
+
+def _partition(cfg):
+    cfg.neuralnet.partition_type = "kLayerPartition"
+
+
+def _alltoall(cfg):
+    for layer in cfg.neuralnet.layer:
+        if layer.type == "kMoE":
+            layer.moe_param.dispatch = "alltoall"
+
+
+def _named_q8(cfg):
+    apply_grad_comm_tag(cfg, "q8hier")
+    cfg.grad_comm.buckets = 4
+    cfg.ring.intra_degree = 0
+    cfg.ring.intra_axis, cfg.ring.inter_axis = "model", "data"
+
+
+def _path(conf, edit, cluster, ref, calls, fault=None, bar=AXES_TOL,
+          step0_only=False):
+    """One AXES_PATHS entry: the model conf and its edit, the cluster,
+    the counterpart's cluster (its conf: the same, without q8's edit),
+    the flash calls a step (``calls(attention layers, trainer)``), the
+    planted fault (module, attribute, replacement), the loss bar, and
+    whether only step 0's loss and no params are held to AXES_TOL
+    (the rest to ``bar``)."""
+    return SimpleNamespace(conf=conf, edit=edit, cluster=cluster, ref=ref,
+                           calls=calls, fault=fault, bar=bar,
+                           step0_only=step0_only)
+
+
+def _per_rank(layers, tr):
+    return layers * tr.mesh.width
+
+
+def _per_data_rank(layers, tr):
+    return layers * tr.mesh.widths["data"]
+
+
+def _per_microbatch(layers, tr):
+    return (layers * tr.train_net.pipeline_plan.nmicro
+            * tr.mesh.widths["data"])
+
+
+#: AXES_A2A_TOL: the all-to-all form's aux loss is the global batch's
+#: (frac and mean_prob averaged over the 8 token shards before their
+#: product, as in the JAX package), the dense path's on 8 data ranks the
+#: mean of each rank's: the same forward at step 0 (the same token
+#: shards and capacities), then gradients apart by the aux terms
+#: (weight 0.01): 1.06e-4 over 5 steps on the CPU rehearsal
+AXES_A2A_TOL = 1e-3
+AXES_PATHS = {
+    "sp": _path("examples/lm/tinylm_ring.conf", None,
+                "examples/lm/cluster_sp.conf", "nworkers: 2",
+                lambda layers, tr: 0,
+                ("singa_tpu_torch.parallel.ring", "_visitor",
+                 _visitor_one_off)),
+    "ep_psum": _path("examples/lm/tinylm_moe.conf", None,
+                     "examples/lm/cluster_ep.conf", "nworkers: 2",
+                     _per_rank, ("singa_tpu_torch.parallel.moe",
+                                 "_shard_of", lambda e, n: (e + 1) % n)),
+    # the all-to-all form routes 8 token shards with a capacity each:
+    # the dense path on 8 data ranks routes the same shards
+    "ep_alltoall": _path("examples/lm/tinylm_moe.conf", _alltoall,
+                         "examples/lm/cluster_ep.conf", "nworkers: 8",
+                         _per_rank, bar=AXES_A2A_TOL, step0_only=True),
+    "tp": _path("examples/lm/tinylm.conf", _partition, TP_CLUSTER,
+                "nworkers: 2", _per_data_rank,
+                ("singa_tpu_torch.layers.sequence", "concate",
+                 _reversed_concate)),
+    "q8": _path("examples/lm/tinylm.conf", _named_q8, TP_CLUSTER,
+                "nworkers: 2", _per_rank, bar=RING_TOL, step0_only=True),
+    "pp": _path("examples/lm/tinylm_pp.conf", None,
+                "examples/lm/cluster_pp.conf", "nworkers: 4",
+                _per_microbatch, ("singa_tpu_torch.parallel.pipeline",
+                                  "_hop", _hop_late)),
+    "3axis": _path("examples/lm/tinylm_pp.conf", None,
+                   "examples/lm/cluster_3axis.conf",
+                   "nworkers: 4\nnprocs_per_group: 2\nnpipes_per_group: 2",
+                   _per_microbatch),
+}
+
+
+def axes_cluster(spec: str, tmp: str):
+    """A cluster conf (a file of the repo, or conf text) with its
+    workspace under ``tmp``."""
+    from singa_tpu_torch.config import parse_cluster_config
+
+    text = spec
+    if spec.endswith(".conf"):
+        with open(os.path.join(REPO, spec)) as f:
+            text = "\n".join(l for l in f.read().splitlines()
+                             if not l.startswith("workspace"))
+    return parse_cluster_config(
+        f'{text}\nworkspace: "{os.path.join(tmp, "ws_axes")}"\n')
+
+
+def axes_config(conf: str, edit, shard: str, dtype: str):
+    cfg = load_model_config(os.path.join(REPO, conf))
+    cfg.compute_dtype = dtype
+    for layer in cfg.neuralnet.layer:
+        if layer.type == "kSequenceData":
+            layer.data_param.path = shard
+    if edit is not None:
+        edit(cfg)
+    return cfg
+
+
+def axes_steps(tr, steps, step0=0):
+    """-> (losses, host ms of each step to a device sync)."""
+    losses, ms = [], []
+    for step in range(step0, step0 + steps):
+        t0 = time.perf_counter()
+        tr.train_one_batch(step)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(tr.perf.avg()["loss"]["loss"])
+        tr.perf.reset()
+    return losses, ms
+
+
+def axes_launches() -> dict:
+    out = {n: fn.launches for n, (fn, _, _) in FLASH.items()}
+    out["quant_acc"] = qc.quant_acc.launches
+    return out
+
+
+def zero_launches() -> None:
+    for fn, _, _ in FLASH.values():
+        fn.launches = 0
+    qc.quant_acc.launches = 0
+
+
+def axes_deviation(tr, ref, init) -> float:
+    """The largest param difference after the steps, relative to how far
+    the steps moved the counterpart's params."""
+    moved = max(float((ref.params[n] - init[n]).abs().max())
+                for n in init)
+    return max(float((tr._unpad_one(n, tr.params[n])
+                      - ref.params[n]).abs().max()) for n in init) / moved
+
+
+def exchange_ms(tr, step0, steps=3) -> float:
+    """Host ms a step of the ranks' gradient sums (``_axes_reduce``), to
+    a device sync before and after, over ``steps`` steps."""
+    spent = []
+    inner = tr._axes_reduce
+
+    def timed_reduce(ranks, leaves):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(ranks, leaves)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    tr._axes_reduce = timed_reduce
+    axes_steps(tr, steps, step0)
+    del tr._axes_reduce
+    return sum(spent) / len(spent)
+
+
+def axes_path(dev, smi, name, shard, tmp) -> dict:
+    """One path of AXES_PATHS: float32 parity with its counterpart, the
+    launch counts, the planted fault, then the bf16 timings."""
+    import importlib
+
+    path = AXES_PATHS[name]
+    q8 = name == "q8"
+
+    def trainer(dtype, which):
+        ref = which == "ref"
+        cfg = axes_config(path.conf, None if ref and q8 else path.edit,
+                          shard, dtype)
+        return Trainer(cfg, axes_cluster(path.ref if ref else path.cluster,
+                                         tmp),
+                       seed=0, log=lambda s: None, device=dev)
+
+    out = {"path": name, "conf": path.conf, "card": smi}
+    ref = trainer("float32", "ref")
+    init = {n: v.clone() for n, v in ref.params.items()}
+    ref_losses, _ = axes_steps(ref, AXES_STEPS)
+    tr = trainer("float32", "path")
+    out["mesh"] = tr.mesh_shape
+    layers = sum(l.type == "kAttention" for l in tr.cfg.neuralnet.layer)
+    zero_launches()
+    losses, _ = axes_steps(tr, AXES_STEPS)
+    got = axes_launches()
+    want = flash_launches(torch.float32,
+                          path.calls(layers, tr) * AXES_STEPS)
+    buckets = len(tr._buckets(tr.params)) if q8 else 0
+    # q8_hier's named 2 x 2 ring: one int8 hop per rank and bucket
+    want["quant_acc"] = tr.mesh.width * buckets * AXES_STEPS
+    out.update(losses=losses, ref_losses=ref_losses, launches=got)
+    check(got == want, f"axes {name}: launches {got} != {want}")
+    check(all(np.isfinite(losses)), f"axes {name}: non-finite loss")
+    diffs = [abs(a - b) for a, b in zip(losses, ref_losses)]
+    out["loss_diff"] = max(diffs)
+    check(max(diffs) <= path.bar and (not path.step0_only
+                                      or diffs[0] <= AXES_TOL),
+          f"axes {name}: losses differ from the counterpart's by {diffs} "
+          f"(bar {path.bar:g})")
+    if not path.step0_only:
+        out["param_deviation"] = axes_deviation(tr, ref, init)
+        check(out["param_deviation"] <= AXES_TOL,
+              f"axes {name}: params differ from the counterpart's")
+    del tr
+    release()
+    fault = path.fault
+    if fault is not None:
+        module, attr, bad = fault
+        mod = importlib.import_module(module)
+        good = getattr(mod, attr)
+        setattr(mod, attr, bad)
+        try:
+            tf = trainer("float32", "path")
+            fl, _ = axes_steps(tf, AXES_STEPS)
+            dev_f = max(max(abs(a - b) for a, b in zip(fl, ref_losses)),
+                        axes_deviation(tf, ref, init))
+        finally:
+            setattr(mod, attr, good)
+        out["fault"] = {"planted": f"{module}.{attr}", "deviation": dev_f}
+        check(dev_f > AXES_FAULT_FACTOR * AXES_TOL,
+              f"axes {name}: the planted fault ({attr}) moved the run "
+              f"only {dev_f:.3e}")
+        del tf
+    del ref
+    release()
+    for which in ("path", "ref"):
+        tb = trainer("bfloat16", which)
+        zero_launches()
+        bl, ms = axes_steps(tb, AXES_TIMED)
+        rec = {"step_ms_median": sorted(ms)[len(ms) // 2],
+               "step_ms_min": min(ms), "losses": bl,
+               "launches": axes_launches(),
+               "tokens_per_s": tb.tokens_per_step
+               / sorted(ms)[len(ms) // 2] * 1e3}
+        check(all(np.isfinite(bl)), f"axes {name} bf16 {which}: "
+              "non-finite loss")
+        if which == "path":
+            want = flash_launches(torch.bfloat16,
+                                  path.calls(layers, tb) * AXES_TIMED)
+            got = {n: v for n, v in rec["launches"].items()
+                   if n != "quant_acc"}
+            check(got == want, f"axes {name} bf16: flash launches {got} "
+                  f"!= {want}")
+            rec["exchange_ms"] = (reduce_ms(tb) if q8 else
+                                  exchange_ms(tb, AXES_TIMED))
+        out[f"bf16_{which}"] = rec
+        del tb
+        release()
+    print("axes", json.dumps(out))
+    return out
+
+
+def write_axes_shards(tmp: str) -> dict:
+    out = {}
+    for key, (n, s) in (("ring", AXES_RING_SHARD), ("lm", MOE_SEQS)):
+        out[key] = os.path.join(tmp, f"axes_{key}")
+        write_records(out[key], *synthetic_token_arrays(n, seq_len=s,
+                                                        vocab=256, seed=0))
+    return out
+
+
+def axes_phase(dev, smi, tmp) -> dict:
+    """Every path of AXES_PATHS, with the flash kernels forced for the
+    attention (SINGA_TPU_DENSE_ATTN_MB 0). -> {path: its launches over
+    its float32 run}."""
+    t0 = time.perf_counter()
+    shards = write_axes_shards(tmp)
+    os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "0"
+    try:
+        runs = {name: axes_path(dev, smi, name, shards[
+            "ring" if name == "sp" else "lm"], tmp) for name in AXES_PATHS}
+    finally:
+        os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "512"
+    print(f"axes phase {time.perf_counter() - t0:.1f} s")
+    return {name: run["launches"] for name, run in runs.items()}
+
+
 def short_kernel_name(mangled: str) -> str:
     """'_ZN12_GLOBAL__N_124flash_bwd_dq_bf16_kernelILi128ELb1EEEv...' ->
     'flash_bwd_dq_bf16_kernel<128,1>' (the last name of the nested name,
@@ -4760,6 +5108,7 @@ def main() -> int:
         decode_launches, rolling_launches = decode_phase(dev, smi, shard)
         zero_ring_launches, zero_ref = zero_phase(dev, smi, shard)
         procs_launches = procs_phase(dev, smi, shard, zero_ref, tmp)
+        axes_launches_by_path = axes_phase(dev, smi, tmp)
 
     kernels = []
     for name, case in (("paged_attention", "decode"),
@@ -4797,8 +5146,14 @@ def main() -> int:
             if dtype == torch.bfloat16:
                 kernels[-1]["moe_train_launches"] = moe_launches[name]
                 kernels[-1]["decode_train_launches"] = decode_launches[name]
-            elif name == "flash_fwd":
-                kernels[-1]["decode_rolling_launches"] = rolling_launches
+            else:
+                if name == "flash_fwd":
+                    kernels[-1]["decode_rolling_launches"] = (
+                        rolling_launches)
+                # the axes phase's float32 runs, by path
+                kernels[-1]["axes_launches"] = {
+                    path: got[name]
+                    for path, got in axes_launches_by_path.items()}
     kernels.append({
         "name": "quant_acc", "route": "cuda", "source": RING_SOURCE,
         "replaces": RING_REPLACES, "launches": launches["quant_acc"],
@@ -4811,6 +5166,7 @@ def main() -> int:
         "zero_ring_launches": zero_ring_launches,
         "procs_launches": procs_launches["lm"],
         "procs_zero_ring_launches": procs_launches["zero_ring"],
+        "axes_launches": axes_launches_by_path["q8"]["quant_acc"],
     })
     print(smi)
     print(json.dumps({"kernels": kernels}))

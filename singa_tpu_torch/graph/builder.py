@@ -11,14 +11,17 @@ each layer that draws a generator derived from the step's and its index
 (the JAX package's ``jax.random.fold_in(rng, i)``), feeds stateful
 layers their buffers and lets a ``layer_hook`` replace a layer's
 compute (the contrastive-divergence trainer's Gibbs chains).
-``Net.forward_ranks`` runs several data-parallel ranks in lockstep,
-each layer for every rank before the next, so that a stateful layer
-(kBatchNorm) sees every rank's input at once and synchronises its
-statistics over the ranks.
+``Net.forward_ranks`` runs several ranks in lockstep, each layer for
+every rank before the next: a stateful layer (kBatchNorm) sees every
+rank's input at once and synchronises its statistics over the ranks,
+and on a mesh with a pipe, expert, seq or model axis (``lanes``,
+``parallel/axes.py``) a layer whose work crosses ranks runs them all in
+one call (``Layer.apply_ranks``) and a pipeline-staged region runs as
+one GPipe schedule per group of pipe ranks (``graph/pipeline_plan.py``).
 
-This single-device slice leaves out the JAX package's partitioning
-(a ``partition_type`` other than kNone raises), the pipeline plan and
-the padded param storage of uneven model partitions.
+``bind_mesh`` hands every layer the mesh; ``param_logical`` holds the
+logical shapes of params whose stored arrays are padded for an uneven
+kLayerPartition split, which ``resolve_params`` slices back.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 from ..config.schema import ConfigError, LayerConfig, ModelConfig, NetConfig
 from ..layers import Layer, create_layer
 from ..layers.connector import SliceLayer
+from ..parallel.axes import Lanes
 from ..params import ParamSpec
 from ..utils.rng import fold_in
 from .kahn import kahn_order
@@ -66,6 +70,10 @@ class Net:
     def __init__(self, layers: list[Layer], phase: str):
         self.phase = phase
         self.layers = layers
+        #: the GPipe stages of a net on a pipe axis (set by the Trainer)
+        self.pipeline_plan = None
+        #: {param: logical shape} of params stored padded
+        self.param_logical: dict[str, tuple] = {}
         self.name2layer = {l.name: l for l in layers}
         self.datalayers = [l for l in layers if l.is_datalayer]
         self.losslayers = [l for l in layers if l.is_losslayer]
@@ -82,6 +90,12 @@ class Net:
             shapes[layer.name] = out
             layer.out_shape = out
         self.batchsize = batchsize
+
+    def bind_mesh(self, mesh) -> None:
+        """Hand every layer the mesh (its axes decide which layers cross
+        ranks)."""
+        for layer in self.layers:
+            layer.mesh = mesh
 
     def param_specs(self) -> dict[str, ParamSpec]:
         specs: dict[str, ParamSpec] = {}
@@ -109,12 +123,18 @@ class Net:
 
     def resolve_params(self, params: dict) -> dict:
         """The param view every forward reads: shared params resolve
-        through their owner's tensor (ParamSpec.owner)."""
+        through their owner's tensor (ParamSpec.owner), and padded
+        storage is cut back to the logical shape (a rank's shard is no
+        longer than it, and passes unchanged)."""
         resolved = dict(params)
         for layer in self.layers:
             for name, spec in layer.param_specs().items():
                 if spec.owner is not None:
                     resolved[name] = params[spec.owner]
+        for name, logical in self.param_logical.items():
+            v = resolved.get(name)
+            if v is not None and tuple(v.shape) != tuple(logical):
+                resolved[name] = v[tuple(slice(0, n) for n in logical)]
         return resolved
 
     def forward(
@@ -160,26 +180,31 @@ class Net:
         return (losses[0], metrics[0], *extra)
 
     def forward_ranks(self, params: list, batches: list, *,
-                      generators: list, buffers: dict, sync):
-        """The training forward of this process's data-parallel ranks in
-        lockstep: ``params[j]``, ``batches[j]`` and ``generators[j]`` are
-        rank j's (as :meth:`forward` takes them), each layer runs for
-        every rank before the next, and a stateful layer takes every
-        rank's input in one call (``apply_stateful_ranks``), its
-        statistics taken over all ranks of ``sync`` (the mesh: its
-        ``gather`` and ranks). -> (each rank's loss, each rank's metrics,
-        the buffers after the layers' updates, the same for every
-        rank)."""
+                      generators: list, buffers: dict, sync=None,
+                      lanes: Lanes | None = None):
+        """The training forward of this process's ranks in lockstep:
+        ``params[j]``, ``batches[j]`` and ``generators[j]`` are rank j's
+        (as :meth:`forward` takes them), each layer runs for every rank
+        before the next. A stateful layer takes every rank's input in
+        one call (``apply_stateful_ranks``), its statistics taken over
+        all ranks of ``sync`` (the mesh: its ``gather`` and ranks); with
+        ``lanes`` (the ranks of a mesh with more axes than data) a layer
+        that ``crosses`` them runs through ``apply_ranks`` and the
+        pipeline plan's staged region through the GPipe schedule. ->
+        (each rank's loss, each rank's metrics, the buffers after the
+        layers' updates, the same for every rank)."""
         losses, metrics, _, new_buffers = self._walk(
             params, batches, generators, training=True, buffers=buffers,
-            sync=sync)
+            sync=sync, ranks=lanes)
         return losses, metrics, new_buffers
 
     def _walk(self, params: list, batches: list, generators: list, *,
-              training: bool, buffers: dict, layer_hook=None, sync=None):
+              training: bool, buffers: dict, layer_hook=None, sync=None,
+              ranks: Lanes | None = None):
         """Run every layer for each lane (a rank's params, batch and
         generator) -> (losses, metrics, acts, new buffers), a list per
-        lane but the buffers."""
+        lane but the buffers. ``ranks``: the lanes' ranks on a mesh with
+        more axes than data."""
         new_buffers = dict(buffers)
         lanes = range(len(params))
         resolved = [self.resolve_params(p) for p in params]
@@ -187,12 +212,28 @@ class Net:
         cursors: list[dict[str, int]] = [{} for _ in lanes]
         losses = [0.0 for _ in lanes]
         metrics: list[dict] = [{} for _ in lanes]
+        plan = self.pipeline_plan if ranks is not None else None
+        staged = ({l.name for st in plan.stages for l in st}
+                  if plan is not None else set())
         for i, layer in enumerate(self.layers):
+            if layer.name in staged:
+                # the staged region runs as one schedule when its first
+                # layer is reached
+                if layer is plan.stages[0][0]:
+                    outs = self._pipeline(
+                        plan, resolved, [a[plan.entry_src] for a in acts],
+                        ranks, training)
+                    for j in lanes:
+                        acts[j][plan.exits[-1]] = outs[j]
+                continue
             inputs = [self._inputs(layer, batches[j], acts[j], cursors[j])
                       for j in lanes]
             lgens = [_layer_generator(generators[j], i, layer)
                      for j in lanes]
-            if sync is not None and layer.has_buffers:
+            if ranks is not None and layer.crosses():
+                outs = layer.apply_ranks(resolved, inputs, ranks,
+                                         training=training)
+            elif sync is not None and layer.has_buffers:
                 outs, updates = layer.apply_stateful_ranks(
                     resolved, buffers, inputs, sync=sync)
                 new_buffers.update(updates)
@@ -227,6 +268,69 @@ class Net:
                 else:
                     acts[j][layer.name] = out
         return losses, metrics, acts, new_buffers
+
+    def _pipeline(self, plan, resolved: list, entry: list, lanes: Lanes,
+                  training: bool) -> list:
+        """The staged region for every lane: per group of lanes that
+        share all coordinates but pipe and model, stage s runs on the
+        group's lanes of pipe index s (their model ranks together), each
+        lane's activation handed to the lane of the next stage with the
+        same model index; the last stage's output goes to every pipe
+        rank. -> each lane's region output."""
+        from ..parallel.pipeline import gpipe
+
+        outs: list = [None] * len(entry)
+        for group in lanes.groups("pipe", "model"):
+            stage_lanes = [[j for j in group
+                            if lanes.coords(j)["pipe"] == s]
+                           for s in range(plan.nstages)]
+
+            def stage_fn(s):
+                js = stage_lanes[s]
+                sub = lanes.sub(js)
+
+                def fn(acts_in):
+                    return self._run_stage(
+                        plan.stages[s], plan.exits[s], plan.entry_src
+                        if s == 0 else plan.exits[s - 1],
+                        [resolved[j] for j in js], acts_in, sub, training)
+                return fn
+
+            first = stage_lanes[0]
+            b = entry[first[0]].shape[0]
+            if b % plan.nmicro:
+                raise ConfigError(
+                    f"pipeline: batch {b} not divisible by {plan.nmicro} "
+                    "microbatches")
+            mbs = [[entry[j].narrow(0, m * (b // plan.nmicro),
+                                    b // plan.nmicro) for j in first]
+                   for m in range(plan.nmicro)]
+            ys = gpipe([stage_fn(s) for s in range(plan.nstages)], mbs)
+            last = [torch.cat([y[k] for y in ys])
+                    for k in range(len(first))]
+            for j in group:
+                # lane j takes the output of its model index's lane
+                outs[j] = last[lanes.coords(j)["model"]]
+        return outs
+
+    @staticmethod
+    def _run_stage(layers: list, exit_name: str, entry_name: str,
+                   resolved: list, acts_in: list, lanes: Lanes,
+                   training: bool) -> list:
+        """One stage's layers on its lanes (activation ``acts_in[k]`` on
+        lane k) -> each lane's exit activation."""
+        acts = [{entry_name: a} for a in acts_in]
+        for layer in layers:
+            inputs = [[a[src] for src in layer.srclayers] for a in acts]
+            if layer.crosses():
+                outs = layer.apply_ranks(resolved, inputs, lanes,
+                                         training=training)
+            else:
+                outs = [layer.apply(p, x, training=training)
+                        for p, x in zip(resolved, inputs)]
+            for a, out in zip(acts, outs):
+                a[layer.name] = out
+        return [a[exit_name] for a in acts]
 
     def _inputs(self, layer, batch: dict, acts: dict, cursor: dict) -> list:
         """A layer's inputs: its batch feed, or its source layers' outputs
@@ -290,16 +394,8 @@ def build_net(model_cfg: ModelConfig, phase: str = "kTrain") -> Net:
     configs = filter_phase(model_cfg.neuralnet, phase)
     if not configs:
         raise ConfigError(f"no layers left for phase {phase}")
-    net_partition = model_cfg.neuralnet.partition_type
-    for c in configs:
-        part = c.partition_type or net_partition
-        if part not in (None, "kNone"):
-            raise ConfigError(
-                f"layer {c.name!r}: partition_type {part!r} is not ported "
-                "to singa_tpu_torch yet (the single-device slice has no "
-                "mesh to partition over)"
-            )
     order = topo_sort(configs)
-    net = Net([create_layer(c) for c in order], phase)
+    net_partition = model_cfg.neuralnet.partition_type
+    net = Net([create_layer(c, net_partition) for c in order], phase)
     net.setup()
     return net

@@ -60,14 +60,14 @@ def register_layer(cls: type[Layer]) -> type[Layer]:
     return cls
 
 
-def create_layer(cfg: LayerConfig) -> Layer:
+def create_layer(cfg: LayerConfig, net_partition: str = "kNone") -> Layer:
     try:
         cls = _REGISTRY[cfg.type]
     except KeyError:
         raise ConfigError(
             f"unknown layer type {cfg.type!r} (registered: {sorted(_REGISTRY)})"
         ) from None
-    return cls(cfg)
+    return cls(cfg, net_partition)
 
 
 def registered_types() -> list[str]:

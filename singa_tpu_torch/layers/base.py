@@ -17,8 +17,16 @@ as batch-norm running stats: a layer that declares them runs through
 ``decode_positionwise`` marks the layers whose ``apply`` works on any
 suffix of a sequence unchanged, so the conf-net KV-cache decode
 (``serve/conf_decode.py``) reuses it; kEmbedding and kAttention carry
-a ``decode_step`` instead. Left out: the partition metadata (the port
-has no model axis to partition over).
+a ``decode_step`` instead.
+
+Partition metadata (the reference's partition_dimension,
+base_layer.h:121-128): ``partition_type`` (the layer's own, else the
+net's) and ``partition_dim``; each param's ``neuron_axis`` and
+``expert_axis`` say which dim kLayerPartition and the expert axis
+split. ``mesh`` is bound by the Trainer (``Net.bind_mesh``). A layer
+whose work crosses ranks on that mesh (``crosses``) runs every rank in
+one call, ``apply_ranks``: ring attention over the seq axis, kMoE over
+the expert axis, kLayerPartition's Slice/Concate over the model axis.
 """
 
 from __future__ import annotations
@@ -50,6 +58,10 @@ class Layer:
     """Base class; subclasses set TYPE and override setup/apply."""
 
     TYPE: str = ""
+    #: partition_dimension(): 0 = batch (kDataPartition), 1 = neuron
+    #: (kLayerPartition), -1 = unpartitionable (base_layer.h:121-128)
+    PARTITION_DIM_FOR = {"kDataPartition": 0, "kLayerPartition": 1,
+                         "kNone": -1}
 
     is_datalayer = False
     is_parserlayer = False
@@ -72,13 +84,16 @@ class Layer:
     #: kEmbedding needs absolute positions).
     decode_positionwise = False
 
-    def __init__(self, cfg: LayerConfig):
+    def __init__(self, cfg: LayerConfig, net_partition: str = "kNone"):
         self.cfg = cfg
         self.name = cfg.name
         self.srclayers: list[str] = list(cfg.srclayers)
+        self.partition_type = cfg.partition_type or net_partition
         self.out_shape: Shape | None = None
         self._param_specs: dict[str, ParamSpec] = {}
         self._buffer_specs: dict[str, BufferSpec] = {}
+        #: the mesh, bound by the Trainer (Net.bind_mesh); None = one rank
+        self.mesh = None
 
     # ---------------- build time ----------------
 
@@ -100,6 +115,8 @@ class Layer:
         default_name: str,
         shape: Shape,
         fan_in: int = 0,
+        neuron_axis: int | None = None,
+        expert_axis: int | None = None,
     ) -> str:
         """Register param ``<layer>/<name>`` from cfg.param[idx] (if given)."""
         cfg = self.cfg.param[idx] if idx < len(self.cfg.param) else None
@@ -113,6 +130,8 @@ class Layer:
             tuple(shape),
             fan_in=fan_in,
             owner=owner,
+            neuron_axis=neuron_axis,
+            expert_axis=expert_axis,
         )
         return qualified
 
@@ -130,6 +149,19 @@ class Layer:
     @property
     def has_buffers(self) -> bool:
         return bool(self._buffer_specs)
+
+    @property
+    def partition_dim(self) -> int:
+        return self.PARTITION_DIM_FOR[self.partition_type or "kNone"]
+
+    def model_split(self) -> bool:
+        """kLayerPartition on the bound mesh's model axis wider than 1,
+        with a param that splits: this layer's compute is Slice/Concate
+        over the model ranks."""
+        return (self.mesh is not None and self.partition_dim == 1
+                and self.mesh.widths["model"] > 1
+                and any(s.neuron_axis is not None
+                        for s in self._param_specs.values()))
 
     # ---------------- run time ----------------
 
@@ -155,6 +187,18 @@ class Layer:
     ) -> tuple[Any, dict[str, torch.Tensor]]:
         """Forward for layers with buffers: returns (out, buffer updates).
         Only called when ``has_buffers``."""
+        raise NotImplementedError
+
+    def crosses(self) -> bool:
+        """Whether this layer's work on the bound mesh crosses ranks, so
+        that ``Net`` runs it through ``apply_ranks``."""
+        return False
+
+    def apply_ranks(self, params: list, inputs: list, lanes, *,
+                    training: bool) -> list:
+        """Every lane's output in one call (``lanes``: the ranks, their
+        coordinates and groups, ``parallel.axes.Lanes``); ``params[j]``
+        and ``inputs[j]`` are lane j's. Called when ``crosses``."""
         raise NotImplementedError
 
     def __repr__(self) -> str:

@@ -44,10 +44,12 @@ class ConvolutionLayer(Layer):
         conv_w = (width + 2 * self.pad - self.kernel) // self.stride + 1
         col_height = channels * self.kernel * self.kernel
         self.wname = self._declare_param(
-            0, "weight", (self.num_filters, col_height), fan_in=col_height)
+            0, "weight", (self.num_filters, col_height), fan_in=col_height,
+            neuron_axis=0)  # kLayerPartition splits num_filters
         self.bias_term = p.bias_term
         if self.bias_term:
-            self.bname = self._declare_param(1, "bias", (self.num_filters,))
+            self.bname = self._declare_param(1, "bias", (self.num_filters,),
+                                             neuron_axis=0)
         return (src[0], self.num_filters, conv_h, conv_w)
 
     def apply(self, params, inputs, *, training, generator=None):
@@ -76,10 +78,12 @@ class InnerProductLayer(Layer):
         vdim = feature_dim(src)
         self.vdim, self.hdim = vdim, p.num_output
         self.wname = self._declare_param(
-            0, "weight", (vdim, self.hdim), fan_in=vdim * self.hdim)
+            0, "weight", (vdim, self.hdim), fan_in=vdim * self.hdim,
+            neuron_axis=1)  # kLayerPartition splits num_output
         self.bias_term = p.bias_term
         if self.bias_term:
-            self.bname = self._declare_param(1, "bias", (self.hdim,))
+            self.bname = self._declare_param(1, "bias", (self.hdim,),
+                                             neuron_axis=0)
         return (src[0], self.hdim)
 
     def apply(self, params, inputs, *, training, generator=None):
@@ -90,6 +94,23 @@ class InnerProductLayer(Layer):
         if self.bias_term:
             out = out + params[self.bname]
         return out
+
+    def crosses(self) -> bool:
+        return self.model_split()
+
+    def apply_ranks(self, params, inputs, lanes, *, training):
+        """kLayerPartition: each model rank's weight and bias shards give
+        its columns of the output; Concate in rank order, pad cut off."""
+        from ..parallel.axes import concate
+
+        outs = [None] * len(params)
+        for g in lanes.groups("model"):
+            out = concate([self.apply(params[j], inputs[j],
+                                      training=training) for j in g],
+                          -1)[..., :self.hdim]
+            for j in g:
+                outs[j] = out
+        return outs
 
 
 class ReLULayer(Layer):

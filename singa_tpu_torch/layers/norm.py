@@ -58,8 +58,8 @@ class BatchNormLayer(Layer):
                 f"input, got {src}"
             )
         c = src[1]
-        self.gname = self._declare_param(0, "gamma", (c,))
-        self.bname = self._declare_param(1, "beta", (c,))
+        self.gname = self._declare_param(0, "gamma", (c,), neuron_axis=0)
+        self.bname = self._declare_param(1, "beta", (c,), neuron_axis=0)
         self.mean_buf = self._declare_buffer("running_mean", (c,), 0.0)
         self.var_buf = self._declare_buffer("running_var", (c,), 1.0)
         return src

@@ -53,9 +53,11 @@ class RBMLayer(Layer):
         self.wname = self._declare_param(
             0, "weight", (vdim, self.hdim),
             fan_in=vdim * self.hdim,  # the FC convention (layer.cc:178)
+            neuron_axis=1,
         )
         self.vbname = self._declare_param(1, "vbias", (vdim,))
-        self.hbname = self._declare_param(2, "hbias", (self.hdim,))
+        self.hbname = self._declare_param(2, "hbias", (self.hdim,),
+                                          neuron_axis=0)
         return (src[0], self.hdim)
 
     # ---------------- mean-field propagation ----------------

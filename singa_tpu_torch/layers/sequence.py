@@ -8,6 +8,17 @@ kEmbedding and kAttention carry the ``decode_step`` hooks of the
 conf-net KV-cache decode (``serve/conf_decode.py``); kLayerNorm and
 kDense are position-wise and decode through ``apply``.
 
+On a mesh (``Layer.apply_ranks``, ``parallel/axes.py``): over a seq
+axis kEmbedding adds the rank's GLOBAL positions, kAttention runs ring
+attention (``mode: "ring"``; any other mode attends the seq group's
+gathered K/V) and kLMLoss shifts over the global sequence (a shard's
+last target is the next shard's first token; the mean is over every
+rank's B·(S−1) targets); kMoE runs its expert-parallel forms over an
+expert axis; under kLayerPartition on a model axis kAttention and kDense
+compute their output slices from their shards (Concate in rank order;
+``out``, split on its input dim, sums its partial outputs in rank
+order).
+
 Numerical points where PyTorch's defaults differ from JAX's:
 ``jax.nn.gelu`` is the tanh approximation and ``jnp.var`` the
 population variance; the layers below ask for both explicitly.
@@ -22,6 +33,7 @@ import torch.nn.functional as F
 
 from ..config.schema import ConfigError
 from ..ops.attention import attention, auto_attention
+from ..parallel.axes import concate, rank_sum
 from .base import Layer, Shape, require_one_src
 from .data import _ArrayDataLayer
 
@@ -98,6 +110,19 @@ class EmbeddingLayer(Layer):
         s = tokens.shape[1]
         return params[self.tok][tokens] + params[self.pos][:s]
 
+    def crosses(self) -> bool:
+        return self.mesh is not None and self.mesh.widths["seq"] > 1
+
+    def apply_ranks(self, params, inputs, lanes, *, training):
+        """Each seq rank embeds its shard at its global positions."""
+        outs = []
+        for j, (p, x) in enumerate(zip(params, inputs)):
+            tokens = x[0]["image"].long()
+            s = tokens.shape[1]
+            off = lanes.coords(j)["seq"] * s
+            outs.append(p[self.tok][tokens] + p[self.pos][off:off + s])
+        return outs
+
     def decode_step(self, params, tokens, pos: int):
         """The incremental decode's apply (serve/conf_decode.py): embed
         the Q tokens (1, Q) at ABSOLUTE positions [pos, pos + Q), clamped
@@ -138,10 +163,11 @@ class LayerNormLayer(Layer):
 class AttentionLayer(Layer):
     """kAttention: causal multi-head self-attention with fused QKV.
 
-    ``mode`` "flash" (and "ring", which has no sequence mesh to ride in
-    this single-device port) picks dense or the flash kernels by the
-    score footprint (``ops.attention.auto_attention``, one device);
-    anything else is dense."""
+    ``mode`` "flash" (and "ring" off a seq axis, the JAX package's
+    degradation to one shard) picks dense or the flash kernels by the
+    score footprint (``ops.attention.auto_attention``, one rank's
+    shapes); anything else is dense. ``qkv`` splits its output dim and
+    ``out`` its input dim under kLayerPartition."""
 
     TYPE = "kAttention"
 
@@ -165,27 +191,84 @@ class AttentionLayer(Layer):
             )
         self.mode = p.mode
         self.qkv = self._declare_param(
-            0, "qkv", (d, 3 * d), fan_in=d
+            0, "qkv", (d, 3 * d), fan_in=d, neuron_axis=1
         )
         self.out = self._declare_param(
-            1, "out", (d, d), fan_in=d
+            1, "out", (d, d), fan_in=d, neuron_axis=0
         )
         return src
+
+    def _heads(self, qkv):
+        """(B, S, 3D) -> q, k, v as (B, H, S, D/H)."""
+        b, s, d3 = qkv.shape
+        qkv = qkv.reshape(b, s, 3, self.heads, d3 // (3 * self.heads))
+        return [qkv[:, :, j].movedim(2, 1) for j in range(3)]
+
+    def _attend(self, q, k, v):
+        if self.mode in ("flash", "ring"):
+            return auto_attention(q, k, v, causal=True, n_devices=1)
+        return attention(q, k, v, causal=True)
 
     def apply(self, params, inputs, *, training, generator=None):
         x = inputs[0]
         b, s, d = x.shape
         w = params[self.qkv]
-        qkv = (x.to(w.dtype) @ w).reshape(
-            b, s, 3, self.heads, d // self.heads
-        )
-        q, k, v = (qkv[:, :, j].movedim(2, 1) for j in range(3))
-        if self.mode in ("flash", "ring"):
-            o = auto_attention(q, k, v, causal=True, n_devices=1)
-        else:
-            o = attention(q, k, v, causal=True)
+        o = self._attend(*self._heads(x.to(w.dtype) @ w))
         o = o.movedim(1, 2).reshape(b, s, d)
         return o.to(w.dtype) @ params[self.out]
+
+    def crosses(self) -> bool:
+        return (self.mesh is not None and self.mesh.widths["seq"] > 1
+                or self.model_split())
+
+    def apply_ranks(self, params, inputs, lanes, *, training):
+        if self.model_split():
+            return self._model_ranks(params, inputs, lanes)
+        outs = [None] * len(params)
+        for g in lanes.groups("seq"):
+            x = [inputs[j][0] for j in g]
+            w = [params[j][self.qkv] for j in g]
+            heads = [self._heads(xi.to(wi.dtype) @ wi)
+                     for xi, wi in zip(x, w)]
+            if self.mode == "ring":
+                from ..parallel.ring import ring_attention_ranks
+
+                os = ring_attention_ranks(*zip(*heads), causal=True)
+            else:
+                # the global attention the JAX program computes over a
+                # seq-sharded input: the group's blocks gathered
+                q, k, v = (torch.cat(t, dim=2) for t in zip(*heads))
+                os = self._attend(q, k, v).chunk(len(g), dim=2)
+            for j, xi, o in zip(g, x, os):
+                b, s, d = xi.shape
+                o = o.movedim(1, 2).reshape(b, s, d)
+                outs[j] = o.to(w[0].dtype) @ params[j][self.out]
+        return outs
+
+    def _model_ranks(self, params, inputs, lanes):
+        """kLayerPartition: each model rank's ``qkv`` shard gives its
+        slice of the fused projection (Concate in rank order, the pad
+        cut off), the heads attend once per group, and each rank's
+        ``out`` shard (rows of the input dim) gives a partial output,
+        summed in rank order."""
+        outs = [None] * len(params)
+        for g in lanes.groups("model"):
+            x = inputs[g[0]][0]
+            b, s, d = x.shape
+            parts = []
+            for j in g:
+                w = params[j][self.qkv]
+                parts.append(inputs[j][0].to(w.dtype) @ w)
+            o = self._attend(*self._heads(concate(parts, -1)[..., :3 * d]))
+            o = o.movedim(1, 2).reshape(b, s, d)
+            rows = params[g[0]][self.out].shape[0]
+            o = F.pad(o, (0, rows * len(g) - d))
+            y = rank_sum(
+                o[..., k * rows:(k + 1) * rows].to(params[j][self.out].dtype)
+                @ params[j][self.out] for k, j in enumerate(g))
+            for j in g:
+                outs[j] = y
+        return outs
 
     def decode_step(self, params, x, cache, pos: int):
         """The incremental decode's apply: the Q new positions [pos,
@@ -230,32 +313,61 @@ class DenseLayer(Layer):
         self.hdim = p.num_output
         self.activation = p.activation
         self.w = self._declare_param(
-            0, "weight", (d, self.hdim), fan_in=d
+            0, "weight", (d, self.hdim), fan_in=d, neuron_axis=1
         )
         self.bias_term = p.bias_term
         if self.bias_term:
             self.b = self._declare_param(1, "bias", (self.hdim,))
         return (*src[:-1], self.hdim)
 
+    def _activate(self, out):
+        if self.activation == "gelu":
+            return F.gelu(out, approximate="tanh")
+        if self.activation == "relu":
+            return F.relu(out)
+        return out
+
     def apply(self, params, inputs, *, training, generator=None):
         w = params[self.w]
         out = inputs[0].to(w.dtype) @ w
         if self.bias_term:
             out = out + params[self.b]
-        if self.activation == "gelu":
-            out = F.gelu(out, approximate="tanh")
-        elif self.activation == "relu":
-            out = F.relu(out)
-        return out
+        return self._activate(out)
+
+    def crosses(self) -> bool:
+        return self.model_split()
+
+    def apply_ranks(self, params, inputs, lanes, *, training):
+        """kLayerPartition: each model rank computes its columns of the
+        output from its weight shard and its slice of the (replicated)
+        bias; the slices are concatenated in rank order and the pad cut
+        off."""
+        outs = [None] * len(params)
+        for g in lanes.groups("model"):
+            parts = []
+            for k, j in enumerate(g):
+                w = params[j][self.w]
+                part = inputs[j][0].to(w.dtype) @ w
+                if self.bias_term:
+                    m = w.shape[-1]
+                    bias = F.pad(params[j][self.b], (0, m * len(g)
+                                                     - self.hdim))
+                    part = part + bias[k * m:(k + 1) * m]
+                parts.append(part)
+            out = self._activate(concate(parts, -1)[..., :self.hdim])
+            for j in g:
+                outs[j] = out
+        return outs
 
 
 class MoELayer(Layer):
-    """kMoE: Switch-style top-1 mixture-of-experts FFN, the dense path
-    (``parallel/moe.py``'s index form). ``apply`` returns (out, aux):
-    the load-balancing aux loss joins Net.forward's total loss with
-    weight moe_param.aux_loss_weight. Expert parallelism (the JAX
-    package's shard_map over an expert mesh axis) is not ported; the
-    Trainer refuses a cluster with an expert axis by name."""
+    """kMoE: Switch-style top-1 mixture-of-experts FFN on
+    ``parallel/moe.py``'s index form. ``apply`` returns (out, aux): the
+    load-balancing aux loss joins Net.forward's total loss with weight
+    moe_param.aux_loss_weight. Its expert weights split over the mesh's
+    expert axis, where ``apply_ranks`` runs ``moe_param.dispatch``'s form
+    (psum or alltoall); without one the dense path runs, the same
+    math."""
 
     TYPE = "kMoE"
     has_aux_loss = True
@@ -283,17 +395,69 @@ class MoELayer(Layer):
         self.gate = self._declare_param(0, "gate", (d, self.n_experts),
                                         fan_in=d)
         self.up = self._declare_param(
-            1, "up", (self.n_experts, d, self.d_ff), fan_in=d)
+            1, "up", (self.n_experts, d, self.d_ff), fan_in=d,
+            expert_axis=0)
         self.down = self._declare_param(
-            2, "down", (self.n_experts, self.d_ff, d), fan_in=self.d_ff)
+            2, "down", (self.n_experts, self.d_ff, d), fan_in=self.d_ff,
+            expert_axis=0)
         return src
+
+    def _p(self, params):
+        return {"gate": params[self.gate], "up": params[self.up],
+                "down": params[self.down]}
 
     def apply(self, params, inputs, *, training, generator=None):
         from ..parallel.moe import moe_ffn_dense
 
-        p = {"gate": params[self.gate], "up": params[self.up],
-             "down": params[self.down]}
-        return moe_ffn_dense(inputs[0], p, self.capacity_factor)
+        return moe_ffn_dense(inputs[0], self._p(params),
+                             self.capacity_factor)
+
+    def crosses(self) -> bool:
+        return self.mesh is not None and self.mesh.widths["expert"] > 1
+
+    def apply_ranks(self, params, inputs, lanes, *, training):
+        """Each group of expert ranks through the psum or the all-to-all
+        form -> each lane's (out, aux)."""
+        from ..parallel import moe
+
+        widths = lanes.mesh.widths
+        nexp = widths["expert"]
+        if self.n_experts % nexp:
+            raise ConfigError(
+                f"layer {self.name!r}: num_experts {self.n_experts} "
+                f"not divisible by expert axis width {nexp}"
+            )
+        groups = lanes.groups("expert")
+        outs = [None] * len(params)
+        if self.dispatch == "alltoall":
+            b = inputs[0][0].shape[0]
+            if b % nexp:
+                raise ConfigError(
+                    f"layer {self.name!r}: alltoall dispatch shards "
+                    f"the batch over data x expert — batch "
+                    f"{b * widths['data']} must be divisible by "
+                    f"{widths['data'] * nexp}"
+                )
+            fracs, mprobs, ys = [], [], []
+            for g in groups:
+                y, f, m = moe.moe_a2a_ranks(
+                    [inputs[j][0] for j in g],
+                    [self._p(params[j]) for j in g], self.capacity_factor)
+                ys.append(y)
+                fracs += f
+                mprobs += m
+            aux = moe.a2a_aux(fracs, mprobs)
+            for g, y in zip(groups, ys):
+                for j in g:
+                    outs[j] = (y, aux)
+            return outs
+        for g in groups:
+            y, auxes = moe.moe_psum_ranks(
+                [inputs[j][0] for j in g], [self._p(params[j]) for j in g],
+                self.capacity_factor)
+            for j, aux in zip(g, auxes):
+                outs[j] = (y, aux)
+        return outs
 
 
 class LMLossLayer(Layer):
@@ -330,3 +494,33 @@ class LMLossLayer(Layer):
             "loss": loss,
             "precision": hit.float().mean(),
         }
+
+    def crosses(self) -> bool:
+        return self.mesh is not None and self.mesh.widths["seq"] > 1
+
+    def apply_ranks(self, params, inputs, lanes, *, training):
+        """The global sequence's loss per seq group: shard i's last
+        position predicts shard i + 1's first token, the last shard drops
+        its last position, and the mean runs over the group's B·(S−1)
+        targets; every rank of the group takes it."""
+        outs = [None] * len(params)
+        for g in lanes.groups("seq"):
+            lls, hits = [], []
+            for k, j in enumerate(g):
+                logits, feed = inputs[j]
+                tokens = feed["image"].long()
+                if k + 1 < len(g):
+                    nxt = inputs[g[k + 1]][1]["image"].long()[:, :1]
+                    targets = torch.cat([tokens[:, 1:], nxt], 1)
+                else:
+                    logits, targets = logits[:, :-1], tokens[:, 1:]
+                logp = F.log_softmax(logits.float(), dim=-1)
+                lls.append(torch.gather(logp, -1, targets[..., None])
+                           .reshape(-1))
+                hits.append((logp.argmax(-1) == targets).reshape(-1))
+            ll = torch.cat(lls)
+            loss = -ll.mean()
+            m = {"loss": loss, "precision": torch.cat(hits).float().mean()}
+            for j in g:
+                outs[j] = (loss, m)
+        return outs

@@ -55,8 +55,8 @@ def is_residual_key(key: str) -> bool:
 @dataclasses.dataclass(frozen=True)
 class GradCommSpec:
     """The trainer-facing slice of the ``grad_comm`` block, with the
-    ``kernels { grad_allreduce, interpret }`` knobs and the factored
-    ``ring { intra_degree }``."""
+    ``kernels { grad_allreduce, interpret }`` knobs and the ``ring {}``
+    geometry (named axes or the factored ``intra_degree``)."""
 
     mode: str = "exact"  # "exact" | "quantized"
     dtype: str = "int8"  # wire dtype for quantized mode: "int8" | "bf16"
@@ -68,6 +68,11 @@ class GradCommSpec:
     #: quant_acc kernel, and interpret false only keeps the JAX package's
     #: refusal of geometry its compiled TPU kernel cannot tile
     interpret: bool = True
+    #: q8_hier's named axes (``ring { intra_axis / inter_axis }``): the
+    #: full-precision intra rings ride the first, the int8 inter ring
+    #: the second; "" = the factored form
+    intra_axis: str = ""
+    inter_axis: str = ""
     #: q8_hier's group width K (``ring { intra_degree }``); 0 = none
     intra_degree: int = 0
 
@@ -122,6 +127,8 @@ class GradCommSpec:
             buckets=max(0, int(cfg.buckets)),
             wire_impl=impl,
             interpret=interpret,
+            intra_axis=ring.intra_axis if ring is not None else "",
+            inter_axis=ring.inter_axis if ring is not None else "",
             intra_degree=(
                 max(0, int(ring.intra_degree)) if ring is not None else 0
             ),

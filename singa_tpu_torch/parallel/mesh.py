@@ -1,13 +1,16 @@
-"""The data-parallel mesh: rank -> torch device, over one or more
-processes.
+"""The mesh: rank -> torch device and rank -> coordinates on the five
+axes, over one or more processes.
 
-Counterpart of ``singa_tpu/parallel/mesh.py``, data axis only. The JAX
-package maps the reference's worker groups onto a (data, model) device
-mesh; the port's mesh is the data axis alone, a tuple that gives each
-of this process's ranks its device. A device may repeat: several ranks
-on one card run an n-wide data axis on one GPU, as the JAX package's
-tests run one on XLA's virtual host devices. A model, seq, expert or
-pipe width above 1 raises a ConfigError that names it.
+Counterpart of ``singa_tpu/parallel/mesh.py``. The JAX package maps the
+reference's worker groups onto a device mesh whose axes are, outermost
+first, ``FULL_AXES``: data, pipe, expert, seq and model (model
+innermost). The port's mesh is the same grid on one controller: a
+tuple that gives each of this process's ranks its device, and the
+widths of the four axes inside a worker group. Rank r's coordinates
+are r written row-major over ``FULL_AXES`` (``coords``), as the JAX
+mesh lays its device array. A device may repeat: several ranks on one
+card run the mesh on one GPU, as the JAX package's tests run theirs on
+XLA's virtual host devices.
 
 Under a ``torch.distributed`` process group of P processes
 (``parallel/launch.py``) an n-wide axis is laid process-major, the
@@ -15,7 +18,9 @@ order in which the JAX global mesh lists its devices: rank r lives on
 process r // (n / P), and ``devices`` holds this process's n / P ranks.
 :meth:`Mesh.gather` hands every process every rank's tensors in rank
 order; it is the one collective of the Trainer's reductions and of
-synchronised BatchNorm.
+synchronised BatchNorm. Only the data axis spans processes: a pipe,
+expert, seq or model width above 1 under a process group raises a
+ConfigError that names the axis.
 """
 
 from __future__ import annotations
@@ -29,25 +34,80 @@ from ..config.schema import ClusterConfig, ConfigError
 from ..device import resolve_device
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
+#: the mesh's axes, outermost first: model innermost (its exchanges are
+#: densest), then the seq ring, the expert exchange, the pipe hops, data
+#: outermost (the JAX package's ``FULL_AXES``)
+FULL_AXES = ("data", "pipe", "expert", "seq", "model")
+#: the axes inside a worker group, in ``FULL_AXES`` order
+INNER_AXES = FULL_AXES[1:]
+#: the cluster conf field that carves each inner axis out of
+#: ``nprocs_per_group`` (the model axis takes what the others leave)
+CLUSTER_FIELDS = {"pipe": "npipes_per_group",
+                  "expert": "nexperts_per_group",
+                  "seq": "nseq_per_group", "model": "nprocs_per_group"}
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """``devices[i]`` is the device of this process's i-th rank, global
-    rank ``proc * len(devices) + i`` of ``nprocs * len(devices)``."""
+    rank ``proc * len(devices) + i`` of ``nprocs * len(devices)``;
+    ``inner`` the widths of the pipe, expert, seq and model axes (all 1:
+    the data axis alone)."""
 
     devices: tuple[torch.device, ...]
     nprocs: int = 1
     proc: int = 0
+    inner: tuple[int, int, int, int] = (1, 1, 1, 1)
 
     @property
     def width(self) -> int:
-        """The data axis's width: every process's ranks."""
+        """Every rank of the mesh, on every process (on a data-only mesh
+        the data axis's width)."""
         return len(self.devices) * self.nprocs
 
     @property
+    def widths(self) -> dict[str, int]:
+        """{axis: width} over ``FULL_AXES``."""
+        group = 1
+        for w in self.inner:
+            group *= w
+        return {DATA_AXIS: self.width // group,
+                **dict(zip(INNER_AXES, self.inner))}
+
+    @property
+    def has_axes(self) -> bool:
+        """A pipe, expert, seq or model width above 1."""
+        return any(w > 1 for w in self.inner)
+
+    @property
     def shape(self) -> dict[str, int]:
-        return {DATA_AXIS: self.width}
+        """The JAX mesh's axis widths: the data axis alone on a
+        data-only mesh, (data, model) when no pipe, expert or seq width
+        is above 1, else all five."""
+        w = self.widths
+        if not self.has_axes:
+            return {DATA_AXIS: self.width}
+        if all(w[a] == 1 for a in ("pipe", "expert", "seq")):
+            return {DATA_AXIS: w[DATA_AXIS], MODEL_AXIS: w[MODEL_AXIS]}
+        return w
+
+    def coords(self, r: int) -> dict[str, int]:
+        """Global rank ``r``'s index on every axis (row-major over
+        ``FULL_AXES``)."""
+        out = {}
+        for axis in reversed(FULL_AXES):
+            w = self.widths[axis]
+            out[axis] = r % w
+            r //= w
+        return {a: out[a] for a in FULL_AXES}
+
+    def rank(self, **coords) -> int:
+        """The global rank at ``coords`` (axes left out: index 0)."""
+        r = 0
+        for axis in FULL_AXES:
+            r = r * self.widths[axis] + coords.get(axis, 0)
+        return r
 
     @property
     def local_ranks(self) -> range:
@@ -138,24 +198,39 @@ def _processes() -> tuple[int, int]:
 
 
 def build_mesh(ndata: int = 1, nmodel: int = 1, devices=None) -> Mesh:
-    """A mesh of ``ndata`` ranks. In one process they take the first
-    ``ndata`` of ``devices`` (default: the visible GPUs); under a
-    process group of P processes this process takes ranks [k·ndata/P,
-    (k+1)·ndata/P) on the first ndata/P of ``devices`` (default: this
-    process's card, once per rank). ``nmodel`` above 1 raises: the model
-    axis is not ported; so does an ``ndata`` that P does not divide."""
-    if nmodel > 1:
-        raise ConfigError(
-            f"model axis width {nmodel}: singa_tpu_torch ports the data "
-            "axis only"
-        )
+    """A (data, model) mesh of ``ndata`` x ``nmodel`` ranks: the JAX
+    package's ``build_mesh``, over :func:`build_full_mesh`."""
+    return build_full_mesh({DATA_AXIS: ndata, MODEL_AXIS: nmodel}, devices)
+
+
+def build_full_mesh(widths: dict[str, int], devices=None) -> Mesh:
+    """A mesh over ``FULL_AXES`` (widths left out are 1). In one process
+    its ranks take the first of ``devices`` (default: the visible GPUs);
+    under a process group of P processes this process takes ranks
+    [k·n/P, (k+1)·n/P) on the first n/P of ``devices`` (default: this
+    process's card, once per rank). Raises when P does not divide the
+    data axis, or when any other axis is wider than 1 across processes
+    (naming it: only the data axis spans processes)."""
+    shape = [max(1, int(widths.get(a, 1))) for a in FULL_AXES]
+    need = 1
+    for w in shape:
+        need *= w
     nprocs, proc = _processes()
-    if ndata % nprocs:
+    if nprocs > 1:
+        for axis, w in zip(INNER_AXES, shape[1:]):
+            if w > 1:
+                raise ConfigError(
+                    f"{axis} axis width {w} ({CLUSTER_FIELDS[axis]}) "
+                    f"across {nprocs} processes: "
+                    "singa_tpu_torch lays only the data axis over "
+                    "processes (the other axes run on one process's ranks)"
+                )
+    if shape[0] % nprocs:
         raise ConfigError(
-            f"data axis width {ndata} is not divisible by the process "
+            f"data axis width {shape[0]} is not divisible by the process "
             f"count {nprocs}: every process holds the same number of ranks"
         )
-    local = ndata // nprocs
+    local = need // nprocs
     if devices is None:
         if nprocs > 1:
             from .launch import process_device
@@ -165,28 +240,26 @@ def build_mesh(ndata: int = 1, nmodel: int = 1, devices=None) -> Mesh:
             devices = _visible_gpus()
     devices = list(devices)
     if local > len(devices):
+        if shape[2:4] == [1, 1] and shape[1] == 1:
+            want = f"{shape[0]}x{shape[4]}={need}"
+        else:
+            want = f"{dict(zip(FULL_AXES, shape))} = {need}"
         raise ConfigError(
-            f"mesh wants {ndata}x{nmodel}={ndata * nmodel} devices, "
-            f"only {len(devices)} visible"
+            f"mesh wants {want} devices, only {len(devices)} visible"
             + (f" to process {proc} of {nprocs}" if nprocs > 1 else "")
         )
-    return Mesh(tuple(_device(d) for d in devices[:local]), nprocs, proc)
+    return Mesh(tuple(_device(d) for d in devices[:local]), nprocs, proc,
+                tuple(shape[1:]))
 
 
 def mesh_from_cluster(cluster: ClusterConfig | None, devices=None) -> Mesh:
-    """The cluster's worker groups -> data-axis ranks over ``devices``
-    (default: the visible GPUs, or this process's card under a process
-    group). With no cluster, or no ``nworkers``, every device is a rank.
-    A seq, expert, pipe or model width above 1 raises, naming the
-    axis."""
+    """The cluster's topology -> the mesh over ``devices`` (default: the
+    visible GPUs, or this process's card under a process group):
+    ``ngroups`` worker groups on the data axis, ``nprocs_per_group``
+    split into the pipe, expert, seq and model axes
+    (``ClusterConfig.axis_widths``). With no cluster, or no
+    ``nworkers``, every device is a data rank."""
     if cluster is None or not cluster.nworkers:
         devices = _visible_gpus() if devices is None else list(devices)
         return build_mesh(len(devices), 1, devices)
-    widths = cluster.axis_widths
-    for axis in ("seq", "expert", "pipe"):
-        if widths[axis] > 1:
-            raise ConfigError(
-                f"{axis} axis width {widths[axis]}: singa_tpu_torch ports "
-                "the data axis only"
-            )
-    return build_mesh(widths["data"], widths["model"], devices)
+    return build_full_mesh(cluster.axis_widths, devices)

@@ -1,5 +1,5 @@
-"""Mixture-of-experts FFN, dense (single-device) path: the counterpart of
-``singa_tpu/parallel/moe.py``'s ``_route`` and ``moe_ffn_dense``.
+"""Mixture-of-experts FFN: the counterpart of ``singa_tpu/parallel/moe.py``
+(``_route``, ``moe_ffn_dense``, ``moe_ffn`` and ``moe_ffn_a2a``).
 
 Switch-style top-1 routing with a capacity limit: each token goes to
 its highest-probability expert, takes the next free place in that
@@ -33,15 +33,35 @@ against bf16-cast weights, which JAX promotes to float32; PyTorch does
 not promote a mixed matmul, so both forms cast the weights to float32
 explicitly and cast the output back to ``x.dtype`` at the end.
 
-Expert parallelism (``moe_ffn``/``moe_ffn_a2a`` under ``shard_map``) is
-not in this module: it waits for the process-per-GPU transport
-(ROADMAP.md §1 item 6).
+Expert parallelism (the JAX package's ``moe_ffn`` and ``moe_ffn_a2a``
+under ``shard_map``) runs over the mesh's expert axis on the index
+form, each expert rank holding ``e_local = E / n`` experts' weights:
+
+- the psum form (:func:`moe_psum_ranks`): the tokens are the same on
+  every expert rank of a group; each rank routes them, runs its own
+  experts [my·e_local, (my+1)·e_local) on the tokens routed there, and
+  the partial outputs are summed over the expert ranks in rank order.
+  Its aux loss is each rank's own (the same on every rank of a group).
+- the all-to-all form (:func:`moe_a2a_ranks`): expert rank j routes
+  only rows [j·b/n, (j+1)·b/n) of its group's batch, with a capacity per
+  (source rank, expert) of ``max(1, int(cf * n_local / E))``; the slot
+  buffers of every expert go to the expert's owner, which runs its
+  experts on the buffers of every source, and the outputs go back. The
+  aux loss takes ``frac`` and ``mean_prob`` averaged over every token
+  shard before their product, the global batch's value.
+
+:func:`moe_ffn` and :func:`moe_ffn_a2a` are the same two forms on global
+arrays, the JAX functions' signatures with the mesh given as widths.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .axes import rank_sum, split_rows
+
+EXPERT_AXIS = "expert"
 
 
 def capacity_of(n_tokens: int, n_experts: int, capacity_factor: float) -> int:
@@ -141,3 +161,147 @@ def moe_ffn_dense(x, params, capacity_factor: float = 1.25):
     out_pad = torch.cat([out, out.new_zeros(1, d)])
     y = out_pad.index_select(0, slot) * gate_val[:, None]
     return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def _shard_of(e: int, n: int) -> int:
+    """The expert shard whose tokens expert rank ``e`` computes: its
+    own, experts [e·e_local, (e+1)·e_local)."""
+    return e
+
+
+def _slot_rows(x2d, slot, rows: int):
+    """The (rows, D) float32 slot buffer of the tokens whose slot is in
+    [0, rows) (``slot`` == rows marks the others)."""
+    n, d = x2d.shape
+    token = torch.full((rows + 1,), n, dtype=torch.long, device=x2d.device)
+    token.scatter_(0, slot, torch.arange(n, device=x2d.device))
+    xf = x2d.float()
+    x_pad = torch.cat([xf, xf.new_zeros(1, d)])
+    return x_pad.index_select(0, token[:rows])
+
+
+def _gather_back(out, slot, gate_val):
+    """Each token's output row (``slot`` indexes ``out``; the row past
+    its end is the zero row of the tokens it does not hold), scaled by
+    its gate."""
+    out_pad = torch.cat([out, out.new_zeros(1, out.shape[1])])
+    return out_pad.index_select(0, slot) * gate_val[:, None]
+
+
+def moe_psum_ranks(xs: list, ps: list, capacity_factor: float = 1.25):
+    """The psum form over one group's expert ranks: ``xs[e]`` is rank
+    e's (B, S, D) tokens (the same values on every rank), ``ps[e]`` its
+    params (``gate`` whole, ``up``/``down`` its e_local experts) -> (y,
+    [each rank's aux]), y the ranks' partial outputs summed in rank
+    order."""
+    nexp = len(xs)
+    b, s, d = xs[0].shape
+    n = b * s
+    e_total = ps[0]["gate"].shape[1]
+    cap = capacity_of(n, e_total, capacity_factor)
+    parts, auxes = [], []
+    for e in range(nexp):
+        x2d = xs[e].reshape(n, d)
+        probs, onehot, expert, pos = _probs_and_choice(x2d, ps[e]["gate"])
+        auxes.append(_aux(probs, onehot))
+        gate_val = (probs * onehot).sum(-1)
+        e_local = ps[e]["up"].shape[0]
+        rows = e_local * cap
+        local = _slots(expert, pos, cap, e_total) - (
+            _shard_of(e, nexp) * rows)
+        local = torch.where((local >= 0) & (local < rows), local, rows)
+        expert_in = _slot_rows(x2d, local, rows).view(e_local, cap, d)
+        out = _experts(expert_in, ps[e]).reshape(rows, d)
+        parts.append(_gather_back(out, local, gate_val))
+    y = rank_sum(parts)
+    return y.reshape(b, s, d).to(xs[0].dtype), auxes
+
+
+def moe_a2a_ranks(xs: list, ps: list, capacity_factor: float = 1.25):
+    """The all-to-all form over one group's expert ranks: rank j routes
+    rows [j·b/n, (j+1)·b/n) of ``xs[j]`` (B, S, D) -> (y (B, S, D), the
+    group's rows from every rank, the same on each; [each rank's
+    ``frac``]; [each rank's ``mean_prob``])."""
+    nexp = len(xs)
+    b, s, d = xs[0].shape
+    e_total = ps[0]["gate"].shape[1]
+    e_local = e_total // nexp
+    n = (b // nexp) * s
+    cap = capacity_of(n, e_total, capacity_factor)
+    sends, routes, fracs, mprobs = [], [], [], []
+    for j in range(nexp):
+        x2d = split_rows(xs[j], nexp, j).reshape(n, d)
+        probs, onehot, expert, pos = _probs_and_choice(x2d, ps[j]["gate"])
+        fracs.append(onehot.mean(0))
+        mprobs.append(probs.mean(0))
+        slot = _slots(expert, pos, cap, e_total)
+        sends.append(_slot_rows(x2d, slot, e_total * cap)
+                     .view(e_total, cap, d))
+        routes.append((slot, (probs * onehot).sum(-1)))
+    # owner k runs its local experts on every source's buffers for them
+    # (source-major along each expert's rows, as the JAX all_to_all
+    # concatenates them), and returns source j's rows to rank j
+    back = [[None] * nexp for _ in range(nexp)]
+    for k in range(nexp):
+        lo = _shard_of(k, nexp) * e_local
+        expert_in = torch.stack(
+            [sends[j][lo:lo + e_local] for j in range(nexp)], 1
+        ).reshape(e_local, nexp * cap, d)
+        out = _experts(expert_in, ps[k]).view(e_local, nexp, cap, d)
+        for j in range(nexp):
+            back[j][k] = out[:, j]
+    ys = []
+    for j in range(nexp):
+        ret = torch.cat(back[j]).reshape(e_total * cap, d)
+        ys.append(_gather_back(ret, *routes[j])
+                  .reshape(b // nexp, s, d))
+    return torch.cat(ys).to(xs[0].dtype), fracs, mprobs
+
+
+def a2a_aux(fracs: list, mprobs: list) -> torch.Tensor:
+    """The all-to-all form's aux loss: ``frac`` and ``mean_prob``
+    averaged over every token shard (in rank order) before their
+    product, as the JAX form's ``pmean`` over the token axes."""
+    frac = rank_sum(fracs) / len(fracs)
+    mean_prob = rank_sum(mprobs) / len(mprobs)
+    return frac.shape[0] * (frac * mean_prob).sum()
+
+
+def _expert_params(params: dict, nexp: int, e: int) -> dict:
+    return {"gate": params["gate"],
+            "up": split_rows(params["up"], nexp, e),
+            "down": split_rows(params["down"], nexp, e)}
+
+
+def moe_ffn(x, params, *, ndata: int = 1, nexpert: int = 1,
+            capacity_factor: float = 1.25):
+    """The psum form on global arrays: x (B, S, D) split over ``ndata``
+    data ranks, the experts over ``nexpert`` expert ranks -> (y, aux),
+    aux the mean of the data ranks' (the JAX ``moe_ffn``)."""
+    if nexpert == 1:
+        return moe_ffn_dense(x, params, capacity_factor)
+    ps = [_expert_params(params, nexpert, e) for e in range(nexpert)]
+    ys, auxes = [], []
+    for dd in range(ndata):
+        xd = split_rows(x, ndata, dd)
+        y, aux = moe_psum_ranks([xd] * nexpert, ps, capacity_factor)
+        ys.append(y)
+        auxes.append(aux[0])
+    return torch.cat(ys), rank_sum(auxes) / ndata
+
+
+def moe_ffn_a2a(x, params, *, ndata: int = 1, nexpert: int = 1,
+                capacity_factor: float = 1.25):
+    """The all-to-all form on global arrays (the JAX ``moe_ffn_a2a``):
+    -> (y, aux), aux the global batch's."""
+    if nexpert == 1:
+        return moe_ffn_dense(x, params, capacity_factor)
+    ps = [_expert_params(params, nexpert, e) for e in range(nexpert)]
+    ys, fracs, mprobs = [], [], []
+    for dd in range(ndata):
+        xd = split_rows(x, ndata, dd)
+        y, f, m = moe_a2a_ranks([xd] * nexpert, ps, capacity_factor)
+        ys.append(y)
+        fracs += f
+        mprobs += m
+    return torch.cat(ys), a2a_aux(fracs, mprobs)

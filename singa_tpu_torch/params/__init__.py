@@ -2,8 +2,8 @@
 
 Counterpart of ``singa_tpu/params/__init__.py``: the metadata the
 reference attached to each Param (init method + hyperparams, per-param
-learning-rate / weight-decay multipliers, fan-in, sharing links; the
-sharding axes wait for the distribution slice) and the reference's init
+learning-rate / weight-decay multipliers, fan-in, sharing links, and
+the axes kLayerPartition and the expert axis split) and the reference's init
 methods with its exact scaling rules (src/utils/param.cc:61-99).
 
 Randomness comes from an explicit ``torch.Generator`` on the CPU (the
@@ -44,6 +44,13 @@ class ParamSpec:
     wd_mult: float = 1.0
     fan_in: int = 0
     owner: str | None = None  # share_param: alias of another param's storage
+    #: the array axis holding the layer's neuron dimension, which
+    #: kLayerPartition splits over the model axis (dim 1 of an FC weight,
+    #: dim 0 of a conv filter or a bias); None = never model-sharded
+    neuron_axis: int | None = None
+    #: the array axis enumerating experts (kMoE), split over the expert
+    #: axis; None = not expert-sharded
+    expert_axis: int | None = None
 
     @classmethod
     def from_config(
@@ -53,9 +60,12 @@ class ParamSpec:
         shape: tuple[int, ...],
         fan_in: int = 0,
         owner: str | None = None,
+        neuron_axis: int | None = None,
+        expert_axis: int | None = None,
     ) -> "ParamSpec":
         if cfg is None:
-            return cls(name=name, shape=shape, fan_in=fan_in, owner=owner)
+            return cls(name=name, shape=shape, fan_in=fan_in, owner=owner,
+                       neuron_axis=neuron_axis, expert_axis=expert_axis)
         return cls(
             name=name,
             shape=shape,
@@ -69,6 +79,8 @@ class ParamSpec:
             wd_mult=cfg.weight_decay_multiplier,
             fan_in=fan_in,
             owner=owner,
+            neuron_axis=neuron_axis,
+            expert_axis=expert_axis,
         )
 
 

@@ -14,9 +14,9 @@ Supported graphs: kSequenceData -> any DAG of position-wise layers
 (``decode_positionwise``: kLayerNorm, kDense, kAdd) plus kEmbedding and
 kAttention, into kLMLoss. Anything else (convs, pooling, kMoE) raises
 ``UnsupportedNet`` and the caller falls back to the rolling-buffer
-recompute decode: slower, never another result. The JAX package also
-refuses a pipeline-staged net here; the port has no pipeline plan, so
-that check has nothing to look at.
+recompute decode: slower, never another result. A pipeline-staged net
+(one a Trainer on a pipe axis planned) decodes full-window too, as in
+the JAX package.
 
 Prefill chunks have the fixed shape (1, C) and a count of valid tokens:
 padding tokens write K/V only at positions beyond every live query's
@@ -66,8 +66,8 @@ class NetDecoder:
                     f"layer {layer.name!r} ({layer.TYPE}) has no "
                     "incremental decode"
                 )
-        # the JAX package refuses a pipeline-staged net here; the port's
-        # Net has no pipeline plan
+        if net.pipeline_plan is not None:
+            raise UnsupportedNet("pipeline-staged nets decode full-window")
         # cache capacity: the embedding's positional table bounds how far
         # absolute positions can run
         embeds = [l for l in net.layers if l.TYPE == "kEmbedding"]

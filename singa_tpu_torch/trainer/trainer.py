@@ -116,11 +116,30 @@ shards); a sharded resume assembles each rank's box of each array from
 the saved boxes it intersects (``resilience/reshard.py``), so a save of
 n ranks (or of the JAX package's devices) resumes on m.
 
+The other mesh axes (``parallel/mesh.py``: pipe, expert, seq and model,
+from the cluster's ``nprocs_per_group`` split, on one process) run every
+rank in lockstep (``_step_axes``): one walk of the net over all ranks
+(``Net.forward_ranks`` with lanes), where ring attention, kMoE's
+expert forms, kLayerPartition's Slice/Concate and the GPipe stages read
+the other ranks' tensors, then one backward over the ranks' losses,
+each divided by the rank count, so that their sum is the global batch's
+loss whatever work the ranks repeat. A piece of a param (the whole of a
+replicated one, one shard of a split one) takes the sum, in rank order,
+of the gradients of every rank that holds it, and the update runs on
+that piece. kLayerPartition's indivisible dims are stored padded
+(``parallel/shardings.py``): ``params`` and ``state`` hold the stored
+arrays, an npz save the logical ones. q8_hier's named axes (``ring {
+intra_axis / inter_axis }``) reduce over the product of two axes whose
+ranks each take a batch slice: the Trainer runs them as a data axis in
+the ring's order (``_named_ring_view``), int8 on the inter hops.
+
 What the port leaves out, and refuses with a ConfigError that names
-it rather than ignoring: any parallel axis but the data axis, the
-named-axes ``ring { intra_axis/inter_axis }``, ``resilience``,
-``fleet``, ``pipeline_microbatches`` and the replica engine
-(``nservers``); the int8 ring with a net with buffers. ``kernels {
+it rather than ignoring: ``resilience``, ``fleet`` and the replica
+engine (``nservers``); the int8 ring with a net with buffers; on a mesh
+with more axes than data: any axis but data across processes, two of
+the seq, expert and pipe axes together (or with a model axis, but pipe
+with model), ``zero_update``, ``grad_comm``, sharded saves and a net
+with buffers. ``kernels {
 paged_attention }`` is the serving engine's knob and trains unchanged,
 as in the JAX package. The contrastive-divergence engine is
 ``trainer/cd.py``'s CDTrainer (``make_trainer`` picks it).
@@ -148,8 +167,10 @@ from ..graph.builder import Net, active_phases, build_net
 from ..layers.data import RGBImageLayer, StagedDraw
 from ..ops import quantized_collective as qc
 from ..optim import make_updater
+from ..graph.pipeline_plan import plan_stages
 from ..parallel import (
     GradCommSpec,
+    Mesh,
     build_mesh,
     init_residuals,
     mesh_from_cluster,
@@ -157,7 +178,14 @@ from ..parallel import (
     residual_key,
     reverse_topo_buckets,
 )
-from ..parallel.shardings import zero_update_shardings
+from ..parallel.axes import Lanes, rank_sum
+from ..parallel.shardings import (
+    batch_shardings,
+    param_paddings,
+    param_shardings,
+    shard_feed,
+    zero_update_shardings,
+)
 from ..params import init_params
 from ..utils import Performance, Timers
 from ..utils.graphs import Graphed
@@ -181,18 +209,8 @@ def unsupported(model_cfg: ModelConfig,
     for knob in ("resilience", "fleet"):
         if getattr(model_cfg, knob, None) is not None:
             out.append(knob)
-    ring = model_cfg.ring
-    if ring is not None and (ring.intra_axis or ring.inter_axis):
-        out.append("ring { intra_axis/inter_axis } (the named-axes form)")
-    if model_cfg.pipeline_microbatches:
-        out.append("pipeline_microbatches")
-    if cluster_cfg is not None:
-        if cluster_cfg.nservers:
-            out.append(f"cluster nservers {cluster_cfg.nservers}")
-        for axis in ("nprocs_per_group", "nseq_per_group",
-                     "nexperts_per_group", "npipes_per_group"):
-            if getattr(cluster_cfg, axis) > 1:
-                out.append(f"cluster {axis} {getattr(cluster_cfg, axis)}")
+    if cluster_cfg is not None and cluster_cfg.nservers:
+        out.append(f"cluster nservers {cluster_cfg.nservers}")
     return out
 
 
@@ -200,8 +218,17 @@ def _refuse(missing: list[str]) -> None:
     if missing:
         raise ConfigError(
             "not ported to singa_tpu_torch yet (synchronous "
-            f"data-parallel training only): {', '.join(missing)}"
+            f"training only): {', '.join(missing)}"
         )
+
+
+#: the inner-axis combinations the lockstep step runs (any with the data
+#: axis): one of seq, expert, model or pipe, or pipe with model
+AXIS_SETS = ({"seq"}, {"expert"}, {"model"}, {"pipe"}, {"pipe", "model"})
+#: the layer types a seq axis runs: each is position-wise or has its
+#: seq form (kEmbedding's positions, ring attention, kLMLoss's shift)
+SEQ_LAYERS = {"kSequenceData", "kEmbedding", "kLayerNorm", "kAttention",
+              "kDense", "kAdd", "kLMLoss"}
 
 
 class Trainer:
@@ -246,6 +273,14 @@ class Trainer:
                 cluster_cfg,
                 None if device is None else [dev] * cluster_cfg.nworkers,
             )
+        #: the mesh's axes as the cluster laid them (``mesh.shape``)
+        self.mesh_shape = dict(mesh.shape)
+        self._comm = GradCommSpec.from_config(
+            model_cfg.grad_comm, model_cfg.kernels, model_cfg.ring
+        )
+        if self._comm is not None and self._comm.hier and (
+                self._comm.intra_axis or self._comm.inter_axis):
+            mesh = self._named_ring_view(mesh)
         self.mesh = mesh
         #: where params, state and buffers live (rank 0's device)
         self.device = mesh.devices[0]
@@ -293,10 +328,16 @@ class Trainer:
             self._zero_dims = zero_update_shardings(
                 mesh, self.train_net, warn=True)
 
+        # --- the other mesh axes: which param splits over which axis, the
+        # padded storage of uneven kLayerPartition splits, the stages ---
+        #: param -> (dim, mesh axis) it splits over, or None
+        self._layout: dict[str, tuple | None] = {}
+        #: param -> np.pad-style widths of its stored array
+        self._pad: dict[str, tuple] = {}
+        if mesh.has_axes:
+            self._setup_axes()
+
         # --- gradient collectives (grad_comm + kernels.grad_allreduce) ---
-        self._comm = GradCommSpec.from_config(
-            model_cfg.grad_comm, model_cfg.kernels, model_cfg.ring
-        )
         #: the ring's chunk dim per param (the zero dim of a zero-sharded
         #: param, else 0), whether its reduced chunks are allgathered
         #: (False for zero-sharded params) and q8_hier's (K, M); None off
@@ -304,7 +345,7 @@ class Trainer:
         self._ring_chunk_dims: dict[str, int] | None = None
         self._ring_gather: dict[str, bool] | None = None
         self._ring_hier: tuple[int, int] | None = None
-        ndata = mesh.width
+        ndata = mesh.widths["data"]
         if self._comm is not None and self._comm.ring:
             self._setup_ring_collective()
         elif self.train_net.batchsize % ndata:
@@ -406,6 +447,203 @@ class Trainer:
     def _nets(self) -> list[Net]:
         return [n for n in (self.train_net, self.test_net, self.val_net)
                 if n is not None]
+
+    # ------------------------------------------------------------------
+    # the other mesh axes
+    # ------------------------------------------------------------------
+
+    def _named_ring_view(self, mesh: Mesh) -> Mesh:
+        """q8_hier's named form reduces over the product of two mesh axes
+        whose ranks each take a slice of the batch (the JAX ring step's
+        composite batch spec): -> a data-only mesh of those ranks in the
+        ring's order, rank g·K + p the one at index g of the inter axis
+        and p of the intra axis. The geometry's refusals are the JAX
+        Trainer's."""
+        geom = qc.hier_ring_geometry(mesh.shape, self._comm)
+        if isinstance(geom, str):
+            raise ConfigError(
+                f"kernels {{ grad_allreduce: q8_hier }} cannot run: {geom}"
+            )
+        intra, inter, k, m = geom
+        order = [mesh.rank(**{inter: g, intra: p})
+                 for g in range(m) for p in range(k)]
+        return Mesh(tuple(mesh.devices[r] for r in order))
+
+    def _setup_axes(self) -> None:
+        """A mesh with a pipe, expert, seq or model axis: refuse what the
+        lockstep step does not run (by name), bind the mesh, lay out the
+        params (and their padding) and plan the pipeline stages."""
+        mesh, cfg, net = self.mesh, self.cfg, self.train_net
+        if type(self)._step_core is not Trainer._step_core:
+            raise ConfigError(
+                f"{type(self).__name__} runs the data axis only (its step "
+                "is not the lockstep walk of the other mesh axes)"
+            )
+        widths = mesh.widths
+        axes = {a for a, w in widths.items() if a != "data" and w > 1}
+        named = ", ".join(f"{a} {widths[a]}" for a in sorted(axes))
+        if axes not in AXIS_SETS:
+            raise ConfigError(
+                f"mesh axes {named} together: singa_tpu_torch runs one of "
+                "the seq, expert, model and pipe axes, or pipe with model, "
+                "beside the data axis"
+            )
+        for knob, on in (("zero_update", cfg.zero_update),
+                         # the rings refuse a composed mesh themselves,
+                         # with the JAX Trainer's messages
+                         ("grad_comm", self._comm is not None
+                          and not self._comm.ring),
+                         ('checkpoint_format: "sharded"',
+                          cfg.checkpoint_format == "sharded"),
+                         ("a net with buffers",
+                          bool(net.buffer_specs()))):
+            if on:
+                raise ConfigError(
+                    f"{knob} on the {named} mesh axes is not ported to "
+                    "singa_tpu_torch yet"
+                )
+        if "seq" in axes:
+            for layer in net.layers:
+                if layer.TYPE not in SEQ_LAYERS:
+                    raise ConfigError(
+                        f"layer {layer.name!r} ({layer.TYPE}) on the seq "
+                        "axis: singa_tpu_torch's seq axis runs "
+                        f"{', '.join(sorted(SEQ_LAYERS))}"
+                    )
+        for n in self._nets():
+            n.bind_mesh(mesh)
+        self._layout = param_shardings(mesh, net)
+        self._pad = param_paddings(mesh, net)
+        for layer in net.layers:
+            if layer.model_split() and not layer.crosses():
+                raise ConfigError(
+                    f"layer {layer.name!r} ({layer.TYPE}): kLayerPartition "
+                    "on the model axis runs kDense, kInnerProduct and "
+                    "kAttention in singa_tpu_torch"
+                )
+        logical = {nm: self.specs[nm].shape for nm in self._pad}
+        for n in self._nets():
+            n.param_logical = logical
+        local = net.batchsize // max(1, widths["data"])
+        if widths["pipe"] > 1:
+            net.pipeline_plan = plan_stages(net, widths["pipe"],
+                                            cfg.pipeline_microbatches)
+            if net.pipeline_plan and local % net.pipeline_plan.nmicro:
+                raise ConfigError(
+                    f"pipeline: batch {local} not divisible by "
+                    f"{net.pipeline_plan.nmicro} microbatches"
+                )
+        for layer in net.datalayers:
+            if (widths["seq"] > 1 and layer.TYPE == "kSequenceData"
+                    and layer.sample_shape[0] % widths["seq"]):
+                raise ConfigError(
+                    f"sequence length {layer.sample_shape[0]} of "
+                    f"{layer.name!r} is not divisible by the seq axis "
+                    f"width {widths['seq']}"
+                )
+
+    def _pad_one(self, name: str, v):
+        """Logical -> stored: zero-pad the dims ``_pad`` marks (a value
+        already stored passes unchanged)."""
+        w = self._pad.get(name)
+        if not w or tuple(v.shape) != tuple(self.specs[name].shape):
+            return v
+        return torch.nn.functional.pad(
+            v, [x for lo_hi in reversed(w) for x in lo_hi])
+
+    def _unpad_one(self, name: str, v):
+        """Stored -> logical."""
+        if name not in self._pad:
+            return v
+        return v[tuple(slice(0, n) for n in self.specs[name].shape)]
+
+    def _axes_batch(self, batch: dict, r: int, shardings: dict) -> dict:
+        """Rank r's piece of the global batch on its device: its data
+        index's rows, and its seq index's positions of kSequenceData's
+        tokens (``parallel/shardings.py``)."""
+        dev = self.mesh.device(r)
+        return {name: {k: shard_feed(v, shardings[name][k], self.mesh,
+                                     r).to(dev)
+                       for k, v in feed.items()}
+                for name, feed in batch.items()}
+
+    def _piece_of(self, r: int, name: str) -> int:
+        """Which piece of a param rank r holds: its index on the axis the
+        param splits over (0 for a replicated param)."""
+        lay = self._layout.get(name)
+        return 0 if lay is None else self.mesh.coords(r)[lay[1]]
+
+    def _piece(self, name: str, tensor, i: int):
+        """Piece i of a stored param (or slot): its shard along the split
+        dim, or the whole of a replicated one (a view either way)."""
+        lay = self._layout.get(name)
+        if lay is None:
+            return tensor
+        return tensor.chunk(self.mesh.widths[lay[1]], dim=lay[0])[i]
+
+    def _step_axes(self, step: int, batch: dict) -> dict:
+        """The lockstep step of a mesh with more axes than data: every
+        rank's leaves (its pieces of the params), one walk of the net
+        over all ranks, one backward over the ranks' losses each divided
+        by the rank count, each piece's gradient summed over the ranks
+        that hold it in rank order, the update on each piece."""
+        mesh = self.mesh
+        n = mesh.width
+        ranks = list(mesh.local_ranks)
+        names = list(self.params)
+        step_gen = fold_in(self._step_gen, step)
+        leaves = [{nm: self._piece(nm, self._replicas[mesh.device(r)]
+                                   ["params"][nm], self._piece_of(r, nm))
+                   .detach().requires_grad_(True) for nm in names}
+                  for r in ranks]
+        shardings = batch_shardings(mesh, self.train_net)
+        losses, metrics, _ = self.train_net.forward_ranks(
+            [self._cast_compute(lv) for lv in leaves],
+            [self._cast_compute(self._axes_batch(batch, r, shardings))
+             for r in ranks],
+            generators=[fold_in(step_gen, r) for r in ranks],
+            buffers=self.buffers, lanes=Lanes(mesh, tuple(ranks)))
+        torch.autograd.backward([loss / n for loss in losses])
+        self._axes_update(step, self._axes_reduce(ranks, leaves))
+        return {layer: {k: rank_sum(torch.as_tensor(m[layer][k])
+                                    for m in metrics) / n for k in ms}
+                for layer, ms in metrics[0].items()}
+
+    def _axes_reduce(self, ranks: list, leaves: list) -> dict:
+        """{param: [each piece's gradient]}: piece i's, the sum in rank
+        order of the gradients of the ranks that hold it (every rank for
+        a replicated param, the ranks of index i on the split axis for a
+        split one), on the first device. The one exchange of the lockstep
+        step outside the layers."""
+        grads = {}
+        for nm in leaves[0]:
+            lay = self._layout.get(nm)
+            pieces = 1 if lay is None else self.mesh.widths[lay[1]]
+            grads[nm] = [rank_sum(
+                (lv[nm].grad if lv[nm].grad is not None
+                 else torch.zeros_like(lv[nm])).to(self.device)
+                for r, lv in zip(ranks, leaves)
+                if self._piece_of(r, nm) == i)
+                for i in range(pieces)]
+        return grads
+
+    def _axes_update(self, step, grads: dict) -> None:
+        """The update of every piece on every device's stored arrays, in
+        place: a replicated param's whole, a split param's shards one by
+        one (views of the stored arrays and slots)."""
+        for dev, rep in self._replicas.items():
+            for nm, pieces in grads.items():
+                for i, g in enumerate(pieces):
+                    p = self._piece(nm, rep["params"][nm], i)
+                    slots = {k: self._piece(nm, v, i)
+                             for k, v in rep["state"][nm].items()}
+                    new_p, new_s = self.updater.apply(
+                        step, {nm: p}, {nm: g.to(dev)}, {nm: slots},
+                        self.specs)
+                    with torch.no_grad():
+                        p.copy_(new_p[nm])
+                        for k, v in new_s[nm].items():
+                            slots[k].copy_(v)
 
     # ------------------------------------------------------------------
     # params
@@ -553,6 +791,7 @@ class Trainer:
 
     @params.setter
     def params(self, value: dict) -> None:
+        value = {n: self._pad_one(n, v) for n, v in value.items()}
         for dev, rep in self._replicas.items():
             cur = rep.get("params")
             rep["params"] = self._assign(cur, value, dev)
@@ -590,6 +829,8 @@ class Trainer:
         """Copy ``value`` (whole slots) into every device's slots; under
         zero a sharded param's slots go to the ranks as their shards."""
         zero = set(self._zero_names())
+        value = {n: {s: self._pad_one(n, v) for s, v in slots.items()}
+                 for n, slots in value.items()}
         for dev, rep in self._replicas.items():
             cur = rep.get("state", {})
             new = {}
@@ -688,6 +929,8 @@ class Trainer:
         leaves = [{nm: self._replicas[mesh.device(r)]["params"][nm].detach()
                    .requires_grad_(True) for nm in names}
                   for r in mesh.local_ranks]
+        if mesh.has_axes:
+            return self._step_axes(step, batch)
         if n > 1 and self.train_net.buffer_specs():
             losses, metrics, updates = self.train_net.forward_ranks(
                 [self._cast_compute(lv) for lv in leaves],
@@ -887,17 +1130,26 @@ class Trainer:
                 f"kernels {{ grad_allreduce: {impl} }} cannot run "
                 "a net with batch-statistics buffers (kBatchNorm)"
             )
+        if not self._comm.hier:
+            other = {a: w for a, w in self.mesh_shape.items()
+                     if a != "data" and w > 1}
+            if other:
+                raise ConfigError(
+                    "kernels { grad_allreduce: quantized_ring } runs over "
+                    f"the data axis only, but the mesh also shards {other} "
+                    "— kernels { grad_allreduce: q8_hier } with a "
+                    "ring { intra_axis/inter_axis } block is the "
+                    "hierarchical (intra/inter-slice) two-level form "
+                    "that covers composed meshes"
+                )
         if self._comm.hier:
-            geom = qc.hier_ring_geometry(self.mesh.shape, self._comm)
+            geom = qc.hier_ring_geometry(self.mesh_shape, self._comm)
             if isinstance(geom, str):
                 raise ConfigError(
                     f"kernels {{ grad_allreduce: q8_hier }} cannot "
                     f"run: {geom}"
                 )
             if geom[0] != geom[1] and self._zero_dims is not None:
-                # the named form is refused by unsupported() before this;
-                # kept so that the JAX package's refusal stays in place
-                # when the named axes are ported
                 raise ConfigError(
                     "kernels { grad_allreduce: q8_hier } with named "
                     "intra_axis/inter_axis does not compose with "
@@ -1250,6 +1502,8 @@ class Trainer:
         if graphs is False:
             return "eager", "graphs=False"
         n = self.mesh.width
+        if self.mesh.has_axes:
+            return "eager", f"{n} ranks in lockstep over the mesh's axes"
         if n > 1:
             return "eager", (f"{n} ranks: the per-rank loop, the ring's "
                              "host bucket loop and ppermute.sent_bytes")
@@ -1741,8 +1995,15 @@ class Trainer:
                 path = os.path.join(folder, f"step_{step}.npz")
                 state, buffers = self.state, self._whole_buffers()
                 if mesh.proc == 0:
-                    save_checkpoint(path, step, self.params, state,
-                                    buffers, streams=streams)
+                    # npz saves hold the logical arrays
+                    save_checkpoint(
+                        path, step,
+                        {n: self._unpad_one(n, v)
+                         for n, v in self.params.items()},
+                        {n: {k: self._unpad_one(n, v)
+                             for k, v in slots.items()}
+                         for n, slots in state.items()},
+                        buffers, streams=streams)
         self.log(f"step {step}: checkpoint -> {path}")
         return path
 

@@ -279,9 +279,20 @@ def test_trainer_matches_jax_trainer_over_five_steps(shard, dtype):
     assert losses[-1][1] < losses[0][1]
 
 
-def test_an_expert_axis_is_refused_by_name(shard, tmp_path):
+def test_an_expert_axis_is_refused_by_name(shard, tmp_path, monkeypatch):
+    """An expert axis runs on one process's ranks (its expert weights
+    split over them); across processes it is refused, naming the axis
+    and its cluster field."""
+    from singa_tpu_torch.parallel import mesh as t_mesh
+
     cl = t_cluster(f'workspace: "{tmp_path}" nworkers: 2 '
                    "nprocs_per_group: 2 nexperts_per_group: 2")
-    with pytest.raises(ConfigError, match="nexperts_per_group"):
+    tr = Trainer(t_parse(narrow_conf(shard)), cl, seed=0,
+                 log=lambda s: None, device="cpu")
+    assert tr.mesh.widths["expert"] == 2
+    assert tr._layout["b0_moe/up"] == (0, "expert")
+    monkeypatch.setattr(t_mesh, "_processes", lambda: (2, 0))
+    with pytest.raises(ConfigError, match="expert axis width 2 "
+                       r"\(nexperts_per_group\) across 2 processes"):
         Trainer(t_parse(narrow_conf(shard)), cl, seed=0,
                 log=lambda s: None, device="cpu")

@@ -27,6 +27,7 @@ from singa_tpu_torch.config import parse_model_config as t_parse
 from singa_tpu_torch.data import loader as t_loader
 from singa_tpu_torch.graph.builder import build_net as t_build_net
 from singa_tpu_torch.layers import registered_types
+from singa_tpu_torch.parallel import build_mesh
 from singa_tpu_torch.trainer import Trainer
 from singa_tpu_torch.utils.rng import fold_in
 
@@ -111,13 +112,31 @@ def test_not_ported_is_exactly_the_rest():
 
 
 def test_unported_type_and_partitioning_still_raise(shards):
+    """An unknown type raises by name. A partition_type builds with the
+    reference's partition_dim (kDataPartition splits nothing but the
+    batch), and kLayerPartition on a model axis raises, naming the layer,
+    for a type whose Slice/Concate the port does not run (a conv)."""
     with pytest.raises(ConfigError, match="unknown layer type 'kBogus'"):
         t_build_net(t_parse(net_text(shards["mnist"], '''
   layer { name: "bogus" type: "kBogus" srclayers: "data" }''')))
-    with pytest.raises(ConfigError, match="partition_type"):
-        t_build_net(t_parse(net_text(shards["mnist"], '''
+    net = t_build_net(t_parse(net_text(shards["mnist"], '''
   layer { name: "mnist" type: "kMnistImage" srclayers: "data"
           partition_type: kDataPartition }''')))
+    assert net.name2layer["mnist"].partition_dim == 0
+    text = "updater { base_learning_rate: 0.1 }\n" + net_text(
+        shards["mnist"], '''
+  layer { name: "mnist" type: "kMnistImage" srclayers: "data" }
+  layer { name: "conv" type: "kConvolution" srclayers: "mnist"
+          partition_type: kLayerPartition
+          convolution_param { num_filters: 2 kernel: 3 } }
+  layer { name: "fc" type: "kInnerProduct" srclayers: "conv"
+          inner_product_param { num_output: 10 } }
+  layer { name: "loss" type: "kSoftmaxLoss" srclayers: "fc"
+          srclayers: "data" }''')
+    with pytest.raises(ConfigError, match="'conv' \\(kConvolution\\): "
+                       "kLayerPartition"):
+        Trainer(t_parse(text), mesh=build_mesh(1, 2, ["cpu"] * 2),
+                log=lambda s: None)
 
 
 # ---------------------------------------------------------------------------

@@ -243,19 +243,21 @@ def test_config_errors_match_jax(shard, case):
 
 def test_zero_update_and_a_model_axis_stay_refused(shard, tmp_path):
     """zero_update with the ring runs in both packages (the port's
-    composition: tests/test_torch_zero_ring.py); a model axis is refused
-    by the JAX ring and by the port's mesh, each naming it."""
+    composition: tests/test_torch_zero_ring.py); the flat ring on a mesh
+    with a model axis is refused by both Trainers with the same message,
+    naming the axis (the mesh itself builds in both)."""
     jc, tc = make_cfgs(shard, "q8wire", "zero_update: true")
     assert j_trainer(jc).update_mode == "zero"
     assert t_trainer(tc).update_mode == "zero"
     jc, tc = make_cfgs(shard, "q8wire")
-    with pytest.raises(JConfigError, match="'model': 2"):
+    with pytest.raises(JConfigError, match="'model': 2") as jerr:
         JTrainer(jc, None, mesh=j_mesh(2, 2, jax.devices()[:4]), seed=0,
                  log=lambda s: None, prefetch=False)
-    with pytest.raises(ConfigError, match="model axis width 2"):
-        build_mesh(2, 2, ["cpu"] * 4)
+    with pytest.raises(ConfigError, match="'model': 2") as terr:
+        Trainer(tc, mesh=build_mesh(2, 2, ["cpu"] * 4), log=lambda s: None)
+    assert str(terr.value) == str(jerr.value)
     cl = t_cluster(f'workspace: "{tmp_path}" nworkers: 4 nprocs_per_group: 2')
-    with pytest.raises(ConfigError, match="nprocs_per_group"):
+    with pytest.raises(ConfigError, match="'model': 2"):
         Trainer(tc, cl, device="cpu", log=lambda s: None)
 
 

@@ -46,6 +46,7 @@ from singa_tpu_torch.data import pipeline as t_pipeline
 from singa_tpu_torch.graph.builder import build_net as t_build_net
 from singa_tpu_torch.layers import registered_types
 from singa_tpu_torch.trainer import Trainer, params_from_numpy
+from singa_tpu_torch.trainer.trainer import unsupported as t_unsupported
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CONF = REPO / "examples" / "lm" / "tinylm_longctx_d128.conf"
@@ -467,8 +468,9 @@ def test_main_runs_two_steps_on_the_cpu(shard, tmp_path):
 
 
 def test_unported_layer_type_is_refused_by_name(shard):
-    """An unknown type and a partitioned layer are refused by name; kMoE
-    builds, and refuses a layer without its moe_param by name."""
+    """An unknown type is refused by name, and a layer type a seq axis
+    does not run is refused there by name (a partition_type builds);
+    kMoE builds, and refuses a layer without its moe_param by name."""
     txt = narrow_conf(shard).replace(
         'layer { name: "ln_f" type: "kLayerNorm"',
         'layer { name: "ln_f" type: "kMoE"')
@@ -476,10 +478,18 @@ def test_unported_layer_type_is_refused_by_name(shard):
         t_build_net(t_parse(txt))
     with pytest.raises(ConfigError, match="unknown layer type"):
         t_build_net(t_parse(txt.replace("kMoE", "kBogus")))
-    with pytest.raises(ConfigError, match="partition_type"):
-        t_build_net(t_parse(txt.replace(
-            'type: "kMoE"',
-            'type: "kLayerNorm" partition_type: kDataPartition')))
+    net = t_build_net(t_parse(txt.replace(
+        'type: "kMoE"',
+        'type: "kLayerNorm" partition_type: kDataPartition')))
+    assert net.name2layer["ln_f"].partition_type == "kDataPartition"
+    cl = t_cluster('workspace: "ws" nworkers: 2 nprocs_per_group: 2 '
+                   'nseq_per_group: 2')
+    with pytest.raises(ConfigError,
+                       match="'ln_f' \\(kMoE\\) on the seq axis"):
+        t_trainer(t_parse(txt.replace(
+            'layer { name: "ln_f" type: "kMoE"',
+            'layer { name: "ln_f" type: "kMoE" moe_param { num_experts: 2 '
+            'd_ff: 8 }')), cl)
 
 
 @pytest.mark.parametrize("extra,cluster,knob", [
@@ -494,6 +504,14 @@ def test_unported_layer_type_is_refused_by_name(shard):
 ])
 def test_unported_knobs_are_refused_by_name(shard, tmp_path, extra, cluster,
                                             knob):
+    """What the port does not run is refused by name; the knobs it has
+    ported since (the named ring block, pipeline_microbatches, a seq
+    axis) build, and ``unsupported`` no longer names them."""
     cl = t_cluster(f'workspace: "{tmp_path}" {cluster}') if cluster else None
+    cfg = t_parse(narrow_conf(shard, extra))
+    if knob in ("ring", "pipeline_microbatches", "nseq_per_group"):
+        assert t_unsupported(cfg, cl) == []
+        t_trainer(cfg, cl)
+        return
     with pytest.raises(ConfigError, match=knob):
-        t_trainer(t_parse(narrow_conf(shard, extra)), cl)
+        t_trainer(cfg, cl)

@@ -122,7 +122,7 @@ def test_refusals_match_the_jax_trainer(shards):
     """A param whose zero dim is None (the MLP's (10,) bias on 4 ranks)
     keeps chunk dim 0, which the ring cannot cut: both packages refuse
     with one message. The named-axes q8_hier form with zero is refused
-    by the JAX Trainer for zero and by the port by name."""
+    by both Trainers with one message, on the same (data, model) mesh."""
     jcfg = j_parse(mlp_conf(shards, True))
     j_tag(jcfg, "q8wire")
     with pytest.warns(UserWarning), pytest.raises(JConfigError) as jerr:
@@ -136,8 +136,12 @@ def test_refusals_match_the_jax_trainer(shards):
     jcfg = j_parse(lm_conf(shards, True) + named)
     j_tag(jcfg, "q8hier")
     with pytest.raises(JConfigError, match="does not compose with "
-                       "zero_update"):
+                       "zero_update") as jerr:
         JTrainer(jcfg, None, mesh=j_mesh(2, 2, jax.devices()[:4]), seed=3,
                  log=lambda s: None, prefetch=False)
-    with pytest.raises(ConfigError, match="intra_axis/inter_axis"):
-        t_trainer(lm_conf(shards, True) + named, "q8hier")
+    tcfg = t_parse(lm_conf(shards, True) + named)
+    apply_grad_comm_tag(tcfg, "q8hier")
+    with pytest.raises(ConfigError, match="intra_axis/inter_axis") as terr:
+        Trainer(tcfg, mesh=build_mesh(2, 2, ["cpu"] * 4), seed=3,
+                log=lambda s: None)
+    assert str(terr.value) == str(jerr.value)
