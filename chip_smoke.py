@@ -414,12 +414,53 @@ caught and carried on):
              host clock to a device sync, over 3 more steps; q8: the
              ring's reduction alone (reduce_ms).
 
+  20. replica (runs after axes) the replica engine
+             (trainer/replica.py, parallel/consistency.py), every replica
+             rank on this card, each reached through make_trainer on
+             examples/mnist/cluster_elastic.conf (nservers 1,
+             asynchronous) with its nworkers raised: mlp.conf as written
+             (2500-2000-1500-1000-500-10, batch 1000 a replica, Elastic,
+             moving_rate 0.9, sync_frequency 8, warmup_steps 60) on 4
+             replicas over the dispatch phase's full-size synthetic MNIST
+             shard (60000 records), REPLICA_STEPS steps from seeded
+             stacked params (each replica its own draw): after the
+             bootstrap every replica equals the center to the bit; every
+             round's replicas and center held to the protocol's formula
+             computed in float64 on the host from the state before it
+             (REPLICA_ROUND_TOL), a planted fault at the first (the round
+             in reversed replica order) that must miss it by
+             REPLICA_FAULT_FACTOR x; run()'s chunked windows from the same
+             params to the per-step run's bits; finite, falling losses
+             and a test batch on replica 0; the replica step's ms and
+             samples/s, the sync Trainer's step on the same 4 ranks at
+             the same per-rank batch, each round's ms, and 3 steps under
+             torch.profiler (device ms, idle share). RandomSync on the
+             same net: two rounds at full coverage, one at REPLICA_PARTIAL
+             through the dense prefix (and from the same state and draws
+             through the serial loop: the two within the bar) and one
+             through the serial loop, each held to its formula and timed;
+             a planted fault (the snapshot aliased to the params) that
+             must miss the formula by REPLICA_FAULT_FACTOR x. tinylm.conf
+             at full width under Elastic on 2 replicas (a 256 x 256-token
+             shard, the flash kernels forced), 10 steps in float32 and in
+             bf16 across rounds: the flash launches, counted from 0 just
+             before each run, equal replicas x attention layers x steps of
+             each kernel of the type's route. Last, mlp.conf (cut to
+             REPLICA_PROCS' schedule) as two processes through ``python
+             -m singa_tpu_torch.main -procsID k -hostfile hf`` (gloo, this
+             card), one replica each, Elastic and RandomSync at full
+             coverage: both processes' digests (replicas, slots, center,
+             snapshots) equal one process's on the same 2-rank mesh to
+             the bit, and process 0's save and sidecar hold its arrays.
+             Every wait on a child has a timeout; every child is stopped.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import json
 import os
@@ -438,7 +479,7 @@ import torch.nn.functional as F
 
 from singa_tpu_torch import _build, native
 from singa_tpu_torch.comm import SocketTransport
-from singa_tpu_torch.config import load_model_config
+from singa_tpu_torch.config import load_model_config, parse_model_config
 from singa_tpu_torch.data.loader import (
     compute_mean,
     imagenet_shaped_arrays,
@@ -461,6 +502,7 @@ from singa_tpu_torch.ops import norm as tnorm
 from singa_tpu_torch.ops import nn as tnn
 from singa_tpu_torch.ops import paged_attention as pa
 from singa_tpu_torch.ops import quantized_collective as qc
+from singa_tpu_torch.parallel import consistency as tcons
 from singa_tpu_torch.parallel import moe as tmoe
 from singa_tpu_torch.parallel import apply_grad_comm_tag, build_mesh
 from singa_tpu_torch.resilience.faults import FaultPlan
@@ -478,6 +520,7 @@ from singa_tpu_torch.trainer import (
     save_checkpoint,
     unroll_autoencoder,
 )
+from singa_tpu_torch.trainer import replica as trep
 
 #: kernel vs plain, float32 on the card: online softmax folds the keys in
 #: another order than the plain one-pass softmax (up to 2048 keys), and
@@ -5011,6 +5054,569 @@ def axes_phase(dev, smi, tmp) -> dict:
     return {name: run["launches"] for name, run in runs.items()}
 
 
+REPLICA_CONF = "examples/mnist/mlp.conf"
+REPLICA_CLUSTER = "examples/mnist/cluster_elastic.conf"
+#: the mlp run's replica ranks (worker groups), all on this card
+REPLICA_RANKS = 4
+REPLICA_STEPS = 100
+#: a protocol round against its formula in float64, max |got - formula|
+#: over the replicas, the center and the snapshots: float32 rounding of a
+#: few adds and multiplies on values of at most ~0.1 (8 ulps at 0.1)
+REPLICA_ROUND_TOL = 6e-8
+REPLICA_FAULT_FACTOR = 100
+#: RandomSync's pinned partial ratio
+REPLICA_PARTIAL = 0.1
+#: the LM's replicas, steps and protocol settings
+REPLICA_LM_RANKS = 2
+REPLICA_LM_STEPS = 10
+REPLICA_LM_SHARD = (256, 256)
+REPLICA_LM_SYNC = ('param_type: "Elastic" moving_rate: 0.5 '
+                   "sync_frequency: 4 warmup_steps: 2")
+#: the two-process runs: steps, warmup and cadence
+REPLICA_PROCS = {"steps": 12, "warmup": 4, "freq": 4}
+REPLICA_TIMED = 10
+
+
+def replica_shards(tmp: str) -> dict:
+    """The dispatch phase's full-size MNIST-shaped shards (60000 train
+    records, the real training set's size, and the 10000 test)."""
+    from singa_tpu_torch.tools.dispatch_turns import MNIST_RECORDS
+
+    out = {k: os.path.join(tmp, k) for k in ("mnist", "mnist_test")}
+    write_records(out["mnist"], *synthetic_arrays(MNIST_RECORDS[0], seed=0))
+    write_records(out["mnist_test"], *synthetic_arrays(
+        MNIST_RECORDS[1], seed=0, noise_seed=1))
+    return out
+
+
+def replica_mlp_text(shards, edits=()) -> str:
+    """mlp.conf as written (widths, batch 1000, updater, Elastic with
+    moving_rate 0.9, sync_frequency 8, warmup_steps 60) on the shards,
+    with ``edits`` (old, new) applied."""
+    with open(os.path.join(REPO, REPLICA_CONF)) as f:
+        txt = f.read()
+    for old, new in (('path: "train_shard"', f'path: "{shards["mnist"]}"'),
+                     ('path: "test_shard"',
+                      f'path: "{shards["mnist_test"]}"'), *edits):
+        check(old in txt, f"replica: {REPLICA_CONF} lacks {old!r}")
+        txt = txt.replace(old, new)
+    return txt
+
+
+def replica_cluster(tmp, name, nworkers=REPLICA_RANKS, extra="") -> str:
+    """cluster_elastic.conf (nservers 1, asynchronous: the replica
+    engine) with ``nworkers`` worker groups and a workspace of its own
+    -> its path."""
+    with open(os.path.join(REPO, REPLICA_CLUSTER)) as f:
+        txt = f.read()
+    for old, new in (("nworkers: 1", f"nworkers: {nworkers}"),
+                     ('workspace: "examples/mnist/ws"',
+                      f'workspace: "{os.path.join(tmp, "ws_" + name)}"')):
+        check(old in txt, f"replica: {REPLICA_CLUSTER} lacks {old!r}")
+        txt = txt.replace(old, new)
+    path = os.path.join(tmp, f"cluster_{name}.conf")
+    with open(path, "w") as f:
+        f.write(txt + extra)
+    return path
+
+
+def replica_trainer(dev, text, cluster, init=None):
+    """make_trainer on the conf and cluster files, its replicas on
+    ``dev``; ``init`` (stacked numpy params) injected."""
+    from singa_tpu_torch.config import load_cluster_config
+
+    tr = make_trainer(parse_model_config(text), load_cluster_config(cluster),
+                      seed=0, log=lambda s: None, device=dev)
+    check(type(tr).__name__ == "ReplicaTrainer",
+          f"replica: make_trainer gave {type(tr).__name__}")
+    if init is not None:
+        from singa_tpu_torch.trainer import params_from_numpy
+
+        tr.params = params_from_numpy(tr.train_net, init,
+                                      replicas=tr.nreplicas)
+    return tr
+
+
+def replica_init(tr, seed=0) -> dict:
+    """Seeded stacked params, each replica its own draw: the conf's
+    uniform(-0.05, 0.05) init, from numpy."""
+    rs = np.random.RandomState(seed)
+    return {n: rs.uniform(-0.05, 0.05, tuple(v.shape)).astype(np.float32)
+            for n, v in sorted(tr.params.items())}
+
+
+def host64(tree) -> dict:
+    return {n: v.detach().double().cpu().numpy() for n, v in tree.items()}
+
+
+def _elastic_reversed(reps, center, alpha):
+    """A planted fault: the Elastic round in reversed replica order."""
+    def flip(t):
+        return {n: v.flip(0) for n, v in t.items()}
+
+    new_r, c = ELASTIC_SYNC(flip(reps), center, alpha)
+    return flip(new_r), c
+
+
+ELASTIC_SYNC = trep.elastic_sync
+
+
+class RoundCheck:
+    """Holds a ReplicaTrainer's bootstrap and protocol rounds to the
+    protocol: right after the bootstrap every replica equals the center
+    to the bit; each round's replicas, center (and RandomSync's
+    snapshots) are held to the protocol's formula in float64 on the
+    host, from the replicas and center before the round and the
+    snapshots the formula itself left (so a snapshot the trainer let
+    drift shows). Records each round's max error and host ms (to a
+    device sync). ``plant`` (a callable that installs a fault and
+    returns its undo) runs one faulty round first, on the same state,
+    records its error, and restores the state before the real round;
+    ``scan_too`` runs the round through the dense prefix and again, from
+    the same state and draws, through the serial loop, and records how
+    far the two differ."""
+
+    def __init__(self, tr, dev):
+        self.tr, self.dev = tr, dev
+        self.errs, self.ms, self.forms = [], [], []
+        self.fault_errs, self.scan_diffs = [], []
+        self.boot_equal = None
+        self.ref_snap = None
+        self.plant = None
+        self.scan_too = False
+        self._round, self._boot = tr._sync_round, tr._bootstrap
+        tr._sync_round, tr._bootstrap = self.round, self.bootstrap
+
+    def bootstrap(self):
+        self._boot()
+        tr = self.tr
+        reps = tr.params
+        self.boot_equal = all(torch.equal(reps[n][r], c)
+                              for n, c in tr.center.items()
+                              for r in range(tr.nreplicas))
+        if tr.protocol == "RandomSync":
+            self.ref_snap = host64(reps)
+
+    def _device_state(self):
+        tr = self.tr
+        snap = tr.snapshot
+        return (tr.params, {n: v.clone() for n, v in tr.center.items()},
+                snap, copy.deepcopy(tr._sync_rng))
+
+    def _restore(self, state):
+        tr = self.tr
+        params, center, snap, rng = state
+        tr.params = params
+        with torch.no_grad():
+            for n, v in center.items():
+                tr.center[n].copy_(v)
+        if snap is not None:
+            tr._assign_rows("snapshot", snap)
+        tr._sync_rng = copy.deepcopy(rng)
+
+    def formula(self, reps, center, rng):
+        """The round in float64 on the host -> (replicas, center,
+        snapshots or None)."""
+        tr = self.tr
+        reps = {n: v.copy() for n, v in reps.items()}
+        center = {n: v.copy() for n, v in center.items()}
+        if tr.protocol == "Elastic":
+            a = tr.moving_rate if tr.moving_rate > 0 else tr.sample_ratio
+            for n, c in center.items():
+                for i in range(tr.nreplicas):
+                    diff = a * (reps[n][i] - c)
+                    c += diff
+                    reps[n][i] -= diff
+            return reps, center, None
+        snaps = {n: v.copy() for n, v in self.ref_snap.items()}
+        idx = None
+        if tr.sample_ratio < 1.0:
+            shapes = {n: reps[n].shape[1:] for n in sorted(reps)}
+            idx = tcons.sample_sync_indices(rng, shapes, tr.nreplicas,
+                                            tr.sample_ratio)
+        for n, c in center.items():
+            w = reps[n].reshape(tr.nreplicas, -1)
+            s = snaps[n].reshape(tr.nreplicas, -1)
+            cf = c.reshape(-1)
+            for i in range(tr.nreplicas):
+                j = slice(None) if idx is None else idx[n][i]
+                delta = w[i, j] - s[i, j]
+                cf[j] = cf[j] + delta
+                w[i, j] = cf[j]
+                s[i, j] = cf[j]
+        return reps, center, snaps
+
+    def _error(self, want) -> float:
+        tr = self.tr
+        reps, center, snaps = want
+        got = [(host64(tr.params), reps), (host64(tr.center), center)]
+        if snaps is not None:
+            got.append((host64(tr.snapshot), snaps))
+        return max(float(np.abs(g[n] - w[n]).max())
+                   for g, w in got for n in w)
+
+    def _timed_round(self):
+        sync(self.dev)
+        t0 = time.perf_counter()
+        self._round()
+        sync(self.dev)
+        return (time.perf_counter() - t0) * 1e3
+
+    def round(self):
+        tr = self.tr
+        state = self._device_state()
+        want = self.formula(host64(state[0]), host64(state[1]),
+                            copy.deepcopy(state[3]))
+        if self.plant is not None:
+            undo = self.plant()
+            try:
+                self._round()
+            finally:
+                undo()
+            self.fault_errs.append(self._error(want))
+            self._restore(state)
+            self.plant = None
+        form = ("elastic" if tr.protocol == "Elastic" else
+                "full" if tr.sample_ratio >= 1.0 else
+                "scan" if tcons.DENSE_PREFIX_MAX_ELEMS == 0 else "dense")
+        self.ms.append((form, self._timed_round()))
+        if self.scan_too:
+            dense = (tr.params, tr.center, tr.snapshot)
+            self._restore(state)
+            keep = tcons.DENSE_PREFIX_MAX_ELEMS
+            tcons.DENSE_PREFIX_MAX_ELEMS = 0
+            try:
+                self.ms.append(("scan", self._timed_round()))
+            finally:
+                tcons.DENSE_PREFIX_MAX_ELEMS = keep
+            scan = (tr.params, tr.center, tr.snapshot)
+            self.scan_diffs.append(max(
+                float((a[n] - b[n]).abs().max())
+                for a, b in zip(dense, scan) for n in a))
+            self.scan_too = False
+        self.forms.append(form)
+        self.errs.append(self._error(want))
+        if want[2] is not None:
+            self.ref_snap = want[2]
+
+
+def replica_steps(tr, dev, step0, nsteps):
+    """train_one_batch over [step0, step0 + nsteps) -> (losses, host ms
+    of each step to a device sync, whether a round ran in it)."""
+    losses, ms, rounds = [], [], []
+    for step in range(step0, step0 + nsteps):
+        sync(dev)
+        t0 = time.perf_counter()
+        tr.train_one_batch(step)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        rounds.append(tcons.sync_now(step, tr.sync_frequency,
+                                     tr.warmup_steps))
+        losses.append(tr.perf.avg()["loss"]["loss"])
+        tr.perf.reset()
+    return losses, ms, rounds
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def replica_mlp(dev, smi, shards, tmp) -> dict:
+    """mlp.conf as written on REPLICA_RANKS replicas: REPLICA_STEPS
+    per-step steps with every round held to its formula and the
+    reversed-order fault planted at the first; run() from the same
+    params to the same bits; the sync Trainer's step at the same
+    per-rank batch; the profile."""
+    text = replica_mlp_text(shards)
+    cluster = replica_cluster(tmp, "mlp")
+    a = replica_trainer(dev, text, cluster)
+    init = replica_init(a)
+    a.params = {n: torch.from_numpy(v) for n, v in init.items()}
+    check(all(float((v[0] - v[1]).abs().max()) > 0
+              for v in a.params.values()), "replica mlp: replicas not distinct")
+    rc = RoundCheck(a, dev)
+
+    def reversed_order():
+        trep.elastic_sync = _elastic_reversed
+        return lambda: setattr(trep, "elastic_sync", ELASTIC_SYNC)
+
+    rc.plant = reversed_order
+    losses, ms, rounds = replica_steps(a, dev, 0, REPLICA_STEPS)
+    check(rc.boot_equal, "replica mlp: replicas != center after bootstrap")
+    check(all(np.isfinite(losses)), "replica mlp: non-finite loss")
+    check(np.mean(losses[-10:]) < np.mean(losses[:10]),
+          f"replica mlp: loss did not fall: {losses[:10]} ... {losses[-10:]}")
+    n_rounds = sum(rounds)
+    check(len(rc.errs) == n_rounds and n_rounds > 0,
+          f"replica mlp: {len(rc.errs)} rounds checked, {n_rounds} due")
+    check(max(rc.errs) <= REPLICA_ROUND_TOL,
+          f"replica mlp: a round is off its formula by {max(rc.errs):.3e}")
+    check(rc.fault_errs and min(rc.fault_errs) >= REPLICA_FAULT_FACTOR
+          * REPLICA_ROUND_TOL,
+          f"replica mlp: the reversed-order round moved the center by "
+          f"only {rc.fault_errs}")
+    # run(): windows ending at the rounds, from the same params
+    cfg_b = replica_mlp_text(shards, (("train_steps: 60000",
+                                       f"train_steps: {REPLICA_STEPS}"),))
+    b = replica_trainer(dev, cfg_b, replica_cluster(tmp, "mlp_run"),
+                        init=init)
+    windows = []
+    chunk = b.train_chunk
+    b.train_chunk = lambda s0, n: (windows.append(n), chunk(s0, n))
+    sync(dev)
+    t0 = time.perf_counter()
+    b.run()
+    sync(dev)
+    run_s = time.perf_counter() - t0
+    same = all(torch.equal(v, b.params[n]) for n, v in a.params.items()) \
+        and all(torch.equal(v, b.center[n]) for n, v in a.center.items())
+    check(same, "replica mlp: run()'s chunked trajectory differs from the "
+          "per-step one")
+    check(windows and max(windows) > 1, "replica mlp: run() never chunked")
+    test = b.evaluate(b.test_net, 1, "test", REPLICA_STEPS)["loss"]
+    check(all(np.isfinite(list(test.values()))),
+          "replica mlp: non-finite test metric")
+    prof = profile(a, REPLICA_STEPS, 3)
+    # the sync Trainer on the same ranks, each taking the same batch
+    sync_tr = Trainer(parse_model_config(replica_mlp_text(
+        shards, (("batchsize: 1000", f"batchsize: {1000 * REPLICA_RANKS}"),
+                 ))), mesh=build_mesh(REPLICA_RANKS, 1, [dev] * REPLICA_RANKS),
+        seed=0, log=lambda s: None)
+    _, sync_ms = axes_steps(sync_tr, REPLICA_TIMED + 2)
+    post = [m for m, r, s in zip(ms, rounds, range(REPLICA_STEPS))
+            if not r and s > a.warmup_steps]
+    batch = a.train_net.batchsize
+    out = {"conf": REPLICA_CONF, "replicas": REPLICA_RANKS,
+           "batch_per_replica": batch, "steps": REPLICA_STEPS,
+           "params_per_replica": sum(int(np.prod(v.shape[1:]))
+                                     for v in init.values()),
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "losses_every_10": losses[::10], "test": test,
+           "rounds": n_rounds, "round_errs": rc.errs,
+           "round_tol": REPLICA_ROUND_TOL,
+           "reversed_order_fault_err": rc.fault_errs,
+           "elastic_round_ms": [m for _, m in rc.ms],
+           "run_windows": windows, "run_s": run_s,
+           "step_ms_median": median(post), "step_ms_min": min(post),
+           "samples_per_s": REPLICA_RANKS * batch / median(post) * 1e3,
+           "warmup_step_ms_median": median(ms[1:a.warmup_steps]),
+           "sync_trainer_step_ms_median": median(sync_ms[2:]),
+           "sync_trainer_samples_per_s": REPLICA_RANKS * batch
+           / median(sync_ms[2:]) * 1e3,
+           "device_ms_per_step": prof["device_ms_per_step"],
+           "profiled_wall_ms_per_step": prof["wall_ms_per_step"],
+           "idle_share": prof["idle_share"], "top5": prof["top"][:5],
+           "card": smi}
+    print("replica mlp", json.dumps(out))
+    del a, b, sync_tr
+    release()
+    return out
+
+
+def replica_random(dev, smi, shards, tmp) -> dict:
+    """RandomSync on the mlp net (warmup 2, a round every 8 steps): four
+    rounds, two at full coverage, at REPLICA_PARTIAL through the dense prefix
+    (and again from the same state and draws through the serial loop:
+    the two within float32 rounding) and through the serial loop, each
+    held to its formula; then the snapshot aliased to the params (a
+    planted fault), whose first round must miss the formula by
+    REPLICA_FAULT_FACTOR x the bar."""
+    edits = (('param_type: "Elastic"', 'param_type: "RandomSync"'),
+             ("moving_rate: 0.9", "moving_rate: 0"),
+             ("warmup_steps: 60", "warmup_steps: 2"))
+    text = replica_mlp_text(shards, edits)
+    cluster = replica_cluster(tmp, "random", extra="bandwidth: 1e9\n")
+    tr = replica_trainer(dev, text, cluster)
+    tr.params = {n: torch.from_numpy(v)
+                 for n, v in replica_init(tr, 1).items()}
+    rc = RoundCheck(tr, dev)
+    freq = tr.sync_frequency
+    # two rounds at full coverage (the first pays the process's first
+    # launches of its kernels)
+    losses, _, _ = replica_steps(tr, dev, 0, 2 * freq)
+    check(tr.sample_ratio == 1.0, f"replica random: ratio {tr.sample_ratio}")
+    tr.sample_ratio = REPLICA_PARTIAL
+    rc.scan_too = True
+    more, _, _ = replica_steps(tr, dev, 2 * freq, freq)  # dense, then scan
+    keep = tcons.DENSE_PREFIX_MAX_ELEMS
+    tcons.DENSE_PREFIX_MAX_ELEMS = 0
+    try:
+        last, _, _ = replica_steps(tr, dev, 3 * freq, freq)  # scan
+    finally:
+        tcons.DENSE_PREFIX_MAX_ELEMS = keep
+    losses += more + last
+    check(rc.boot_equal, "replica random: replicas != center after bootstrap")
+    check(rc.forms == ["full", "full", "dense", "scan"],
+          f"replica random: rounds {rc.forms}")
+    check(max(rc.errs) <= REPLICA_ROUND_TOL,
+          f"replica random: a round is off its formula: {rc.errs}")
+    check(rc.scan_diffs[0] <= REPLICA_ROUND_TOL,
+          f"replica random: dense and scan differ by {rc.scan_diffs}")
+    check(all(np.isfinite(losses)), "replica random: non-finite loss")
+    del tr
+    release()
+    alias = replica_trainer(dev, text, cluster)
+    alias.params = {n: torch.from_numpy(v)
+                    for n, v in replica_init(alias, 1).items()}
+    alias._take_snapshot = lambda params: params
+    arc = RoundCheck(alias, dev)
+    replica_steps(alias, dev, 0, freq)
+    check(len(arc.errs) == 1 and arc.errs[0] >= REPLICA_FAULT_FACTOR
+          * REPLICA_ROUND_TOL, "replica random: the aliased snapshot's "
+          f"round is off its formula by only {arc.errs}")
+    out = {"conf": REPLICA_CONF + " RandomSync", "replicas": REPLICA_RANKS,
+           "ratios": [1.0, 1.0, REPLICA_PARTIAL, REPLICA_PARTIAL],
+           "forms": rc.forms, "round_errs": rc.errs,
+           "dense_vs_scan": rc.scan_diffs, "round_ms": rc.ms,
+           "aliased_snapshot_fault_err": arc.errs,
+           "round_tol": REPLICA_ROUND_TOL, "losses": losses, "card": smi}
+    print("replica random", json.dumps(out))
+    del alias
+    release()
+    return out
+
+
+def replica_lm(dev, smi, tmp) -> dict:
+    """tinylm.conf at full width under Elastic on REPLICA_LM_RANKS
+    replicas over a 256 x 256-token shard, the flash kernels forced
+    (SINGA_TPU_DENSE_ATTN_MB 0): REPLICA_LM_STEPS steps in float32 and in
+    bf16 (the conf's), each across at least one round; each kernel of the
+    type's route launched replicas x attention layers x steps times,
+    counted from 0 just before the run. -> {dtype: launches}."""
+    shard = os.path.join(tmp, "replica_lm")
+    write_records(shard, *synthetic_token_arrays(
+        REPLICA_LM_SHARD[0], seq_len=REPLICA_LM_SHARD[1], vocab=256, seed=0))
+    base = tinylm_conf_text(shard)
+    check('param_type: "Param"' in base, "replica lm: tinylm.conf's updater")
+    base = base.replace('param_type: "Param"', REPLICA_LM_SYNC)
+    cluster = replica_cluster(tmp, "lm", REPLICA_LM_RANKS,
+                              "bandwidth: 1e9\n")
+    out, launches = {}, {}
+    os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "0"
+    try:
+        for dtype in ("float32", "bfloat16"):
+            text = base
+            if dtype == "float32":
+                check('compute_dtype: "bfloat16"' in text,
+                      "replica lm: tinylm.conf's dtype")
+                text = text.replace('compute_dtype: "bfloat16"', "")
+            tr = replica_trainer(dev, text, cluster)
+            layers = sum(l.TYPE == "kAttention" for l in tr.train_net.layers)
+            zero_launches()
+            losses, ms, rounds = replica_steps(tr, dev, 0, REPLICA_LM_STEPS)
+            got = axes_launches()
+            got.pop("quant_acc")
+            want = flash_launches(getattr(torch, dtype), REPLICA_LM_RANKS
+                                  * layers * REPLICA_LM_STEPS)
+            check(got == want, f"replica lm {dtype}: flash launches {got} "
+                  f"!= {want}")
+            check(sum(rounds) >= 1, f"replica lm {dtype}: no round")
+            check(all(np.isfinite(losses)), f"replica lm {dtype}: loss")
+            launches[dtype] = got
+            out[dtype] = {"losses": losses, "rounds": sum(rounds),
+                          "step_ms_median": median(ms[3:]),
+                          "launches": got}
+            del tr
+            release()
+    finally:
+        os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "512"
+    print("replica lm", json.dumps({"conf": TINYLM_CONF + " Elastic",
+                                    "replicas": REPLICA_LM_RANKS,
+                                    "shard": REPLICA_LM_SHARD, **out,
+                                    "card": smi}))
+    return launches
+
+
+def replica_procs(dev, smi, shards, tmp) -> dict:
+    """mlp.conf (full width, REPLICA_PROCS' schedule) as two processes
+    through ``python -m singa_tpu_torch.main -procsID k -hostfile hf``
+    (gloo, this card), one replica each, under Elastic and RandomSync
+    at full coverage (bandwidth 1e9), against one process on the same
+    2-rank mesh: every process's digest (replicas, slots, center,
+    snapshots) equal to it, to the bit, and process 0's npz and sidecar
+    holding its arrays."""
+    p = REPLICA_PROCS
+    out = {}
+    for protocol in ("Elastic", "RandomSync"):
+        edits = [("train_steps: 60000", f"train_steps: {p['steps']}"),
+                 ("warmup_steps: 60", f"warmup_steps: {p['warmup']}"),
+                 ("sync_frequency: 8", f"sync_frequency: {p['freq']}")]
+        if protocol == "RandomSync":
+            edits += [('param_type: "Elastic"', 'param_type: "RandomSync"'),
+                      ("moving_rate: 0.9", "moving_rate: 0")]
+        conf = os.path.join(tmp, f"replica_procs_{protocol}.conf")
+        with open(conf, "w") as f:
+            f.write(replica_mlp_text(shards, edits))
+        two = replica_cluster(tmp, f"procs_{protocol}", 2, "bandwidth: 1e9\n")
+        cmd = [sys.executable, "-m", "singa_tpu_torch.main", "-model_conf",
+               conf, "-cluster_conf", two, "-hostfile", write_hostfile(
+                   os.path.join(tmp, f"replica_hf_{protocol}"))]
+        if dev.type != "cuda":
+            cmd += ["-device", str(dev)]
+        t0 = time.perf_counter()
+        outs = run_children([cmd + ["-procsID", str(k)] for k in range(2)],
+                            tmp, f"replica_procs_{protocol}_")
+        procs_s = time.perf_counter() - t0
+        reps = [child_report(o, "TRAIN PROCESS: ") for o in outs]
+        with open(conf) as f:
+            one = replica_trainer(dev, f.read(), replica_cluster(
+                tmp, f"one_{protocol}", 2, "bandwidth: 1e9\n"))
+        t0 = time.perf_counter()
+        one.run()
+        sync(dev)
+        one_s = time.perf_counter() - t0
+        digest = one.digest()
+        for k, r in enumerate(reps):
+            check((r["proc"], r["nprocs"], r["backend"], r["ranks"],
+                   r["steps"]) == (k, 2, "gloo", [k], p["steps"])
+                  and r["device"].startswith(dev.type),
+                  f"replica procs {protocol}: process {k}: {r}")
+            check(r["digest"] == digest, f"replica procs {protocol}: "
+                  f"process {k} differs from the one-process run")
+        ck = os.path.join(tmp, f"ws_procs_{protocol}", "checkpoints",
+                          f"step_{p['steps']}.npz")
+        with np.load(ck) as z, np.load(ck + ".server") as s:
+            same = all(np.array_equal(z["p|" + n], v.cpu().numpy())
+                       for n, v in one.params.items()) and all(
+                np.array_equal(s["p|" + n], v.cpu().numpy())
+                for n, v in one.center.items())
+        check(same, f"replica procs {protocol}: process 0's save differs")
+        out[protocol] = {"digest_equal": True, "procs_s": procs_s,
+                         "one_process_run_s": one_s,
+                         "exchange_ms_per_step": [
+                             r["exchange_s"] * 1e3 / p["steps"]
+                             for r in reps],
+                         "steps_s": [r["steps_s"] for r in reps],
+                         "devices": [r["device"] for r in reps]}
+        del one
+        release()
+    print("replica procs", json.dumps({**out, **p, "card": smi}))
+    return out
+
+
+def replica_phase(dev, smi, tmp) -> dict:
+    """The replica engine: the mlp run, RandomSync's three forms, the LM
+    through the flash kernels and the two-process runs. -> the LM's
+    flash launches by dtype."""
+    t0 = time.perf_counter()
+    took = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        took[name] = time.perf_counter() - t
+        return out
+
+    shards = part("shards", replica_shards, tmp)
+    part("mlp", replica_mlp, dev, smi, shards, tmp)
+    part("random", replica_random, dev, smi, shards, tmp)
+    launches = part("lm", replica_lm, dev, smi, tmp)
+    part("procs", replica_procs, dev, smi, shards, tmp)
+    print(f"replica phase {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in took.items())})")
+    return launches
+
+
 def short_kernel_name(mangled: str) -> str:
     """'_ZN12_GLOBAL__N_124flash_bwd_dq_bf16_kernelILi128ELb1EEEv...' ->
     'flash_bwd_dq_bf16_kernel<128,1>' (the last name of the nested name,
@@ -5109,6 +5715,7 @@ def main() -> int:
         zero_ring_launches, zero_ref = zero_phase(dev, smi, shard)
         procs_launches = procs_phase(dev, smi, shard, zero_ref, tmp)
         axes_launches_by_path = axes_phase(dev, smi, tmp)
+        replica_launches = replica_phase(dev, smi, tmp)
 
     kernels = []
     for name, case in (("paged_attention", "decode"),
@@ -5154,6 +5761,9 @@ def main() -> int:
                 kernels[-1]["axes_launches"] = {
                     path: got[name]
                     for path, got in axes_launches_by_path.items()}
+            # the replica phase's LM run of this type
+            kernels[-1]["replica_launches"] = replica_launches[
+                "bfloat16" if dtype == torch.bfloat16 else "float32"][name]
     kernels.append({
         "name": "quant_acc", "route": "cuda", "source": RING_SOURCE,
         "replaces": RING_REPLACES, "launches": launches["quant_acc"],

@@ -30,8 +30,10 @@ read-ahead and joins the thread, so a restore can re-seek the streams.
 A worker-thread exception surfaces on the next ``next()`` / ``take()``
 as an :class:`InputFeedError`.
 
-Left out: ``BurstFeeder`` (the bounded eval-burst feeder), which serves
-the replica engine and comes with it.
+``BurstFeeder`` is the per-step feeder bounded to exactly n batches:
+the eval cadences of uncached streams ride it (``Trainer._eval_batches``),
+and it stops after the n-th batch, so the stream positions end where the
+synchronous path leaves them.
 """
 
 from __future__ import annotations
@@ -205,6 +207,36 @@ class DeviceFeeder(_Prefetcher):
     def reset(self) -> None:
         super().reset()
         self.consumed_positions = {}
+
+
+class BurstFeeder(_Prefetcher):
+    """A device feeder bounded to exactly ``n`` batches (an eval or
+    validation cadence): batch k+1 is assembled and its copy started on
+    the thread while batch k is used, and production stops after the
+    n-th, so the thread never consumes records past the burst and the
+    stream positions land where the synchronous path leaves them."""
+
+    _SLOTS = 1
+
+    def __init__(self, assemble, n: int):
+        super().__init__()
+        self._assemble = assemble
+        self._left = int(n)
+
+    def _produce(self):
+        if self._left <= 0:
+            return None
+        self._left -= 1
+        # a 1-tuple: the end-of-stream marker is None, and a batch must
+        # never be taken for it
+        return (self._assemble(),)
+
+    def next(self):
+        """The next batch of the burst (its copy started on the thread;
+        wait with :func:`ready`)."""
+        if self._thread is None:
+            self._start()
+        return self._get()[0]
 
 
 class ChunkStager(_Prefetcher):

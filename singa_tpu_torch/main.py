@@ -2,10 +2,11 @@
 [-cluster_conf F] [-seed N] [-device cpu] [-procsID K] [-hostfile F]
 [-faults PLAN]``.
 
-Counterpart of ``singa_tpu/main.py`` for synchronous data-parallel
-training: it reads the job conf, builds its engine with
-:func:`make_trainer` (the CDTrainer for alg kContrastiveDivergence, else
-the Trainer) and runs it.
+Counterpart of ``singa_tpu/main.py`` for training: it reads the job
+conf, builds its engine with :func:`make_trainer` (the CDTrainer for alg
+kContrastiveDivergence, the ReplicaTrainer for a cluster with
+``nservers`` that is not ``synchronous``, such as
+examples/mnist/cluster_elastic.conf, else the Trainer) and runs it.
 The cluster conf gives the workspace (where checkpoints go) and the
 data-parallel width: ``nworkers`` worker groups become ranks over the
 visible GPUs, or over the one ``-device`` named, repeated (``-device

@@ -8,8 +8,9 @@ expert-parallel forms) and ``pipeline`` (the GPipe schedule) run over
 the seq, expert and pipe axes; ``shardings`` says which rank holds
 which piece of the batch and the params (and zero_update's update dim);
 ``collectives`` holds the ``grad_comm`` seam (the reference quantized
-reduction, error-feedback residuals, reverse-topo buckets). The int8
-ring itself lives in ``ops/quantized_collective.py``.
+reduction, error-feedback residuals, reverse-topo buckets);
+``consistency`` the replica engine's protocols (Elastic, RandomSync).
+The int8 ring itself lives in ``ops/quantized_collective.py``.
 """
 
 from .collectives import (

@@ -3,9 +3,9 @@ publish under the mailbox transport's message and status files, this
 process's rank for rank-qualified fault terms, and the commit markers of
 sharded saves (``commit_<k>.json``: the CRC32 and size of process k's
 shard file, written after the shard; the replica engine's ``.server``
-sidecar marker is read, so a JAX replica save validates under the JAX
-rule), and the preemption barrier, an OR over the processes of a
-``torch.distributed`` group."""
+sidecar beside a sharded save and its ``commit_server.json`` marker,
+written after the sidecar), and the preemption barrier, an OR over the
+processes of a ``torch.distributed`` group."""
 
 from __future__ import annotations
 
@@ -141,10 +141,40 @@ def commit_ok(path: str, proc: int) -> bool:
     )
 
 
+def sidecar_path(path: str) -> str:
+    """The replica engine's ``.server`` sidecar beside checkpoint
+    ``path`` (the center and the protocol's snapshot,
+    ``trainer/replica.py``)."""
+    return path + ".server"
+
+
+def sidecar_marker_path(path: str) -> str:
+    """``commit_server.json`` inside sharded checkpoint dir ``path``: the
+    sidecar's commit marker. Inside the dir, it goes with the save."""
+    return os.path.join(path, "commit_server.json")
+
+
+def write_sidecar_commit(path: str) -> str:
+    """Publish the commit marker of the ``.server`` sidecar just written
+    beside sharded dir ``path``: its size and CRC32, atomically. Written
+    after the sidecar, by the one process that writes it (process 0): a
+    present marker vouches for a whole sidecar."""
+    marker = {
+        "format": COMMIT_FORMAT,
+        "sidecar": True,
+        **shard_digest(sidecar_path(path)),
+    }
+    return atomic_write_bytes(
+        sidecar_marker_path(path),
+        json.dumps(marker).encode("utf-8"),
+    )
+
+
 def sidecar_commit_ok(path: str) -> bool:
-    """True iff sharded dir ``path``'s ``.server`` sidecar (the JAX
-    replica engine's) matches its ``commit_server.json`` marker."""
+    """True iff sharded dir ``path``'s ``.server`` sidecar matches its
+    ``commit_server.json`` marker: a torn sidecar, a torn marker or a
+    process that died between the two fail here."""
     return _marker_matches(
-        os.path.join(path, "commit_server.json"), path + ".server",
+        sidecar_marker_path(path), sidecar_path(path),
         lambda m: bool(m.get("sidecar")),
     )

@@ -14,7 +14,9 @@ mid-write never corrupts the latest checkpoint. The JAX package's
 sharded format is ``sharded_ckpt.py``.
 
 :func:`params_from_numpy` turns the JAX package's param dict, exported
-as numpy arrays, into the port's tensors with names and shapes checked.
+as numpy arrays, into the port's tensors with names and shapes checked;
+with ``replicas`` it takes the replica engine's stacked ``(R, ...)``
+arrays, replica r's params in row r.
 """
 
 from __future__ import annotations
@@ -162,12 +164,15 @@ def restore_into(path, params, state, buffers=None):
     return step, out_p, out_s, out_b
 
 
-def params_from_numpy(net, arrays: dict, device=None) -> dict:
+def params_from_numpy(net, arrays: dict, device=None,
+                      replicas: int | None = None) -> dict:
     """The JAX package's param dict, exported as numpy, -> the port's
     float32 tensors on ``device`` (default: the CPU).
 
     The names must be exactly the net's owned params (shared params
-    resolve through their owner) and every shape must match its spec."""
+    resolve through their owner) and every shape must match its spec,
+    behind a leading axis of ``replicas`` when that is given (the
+    replica engine's stacked params: ReplicaTrainer's ``params``)."""
     specs = {n: s for n, s in net.param_specs().items() if s.owner is None}
     missing = sorted(set(specs) - set(arrays))
     extra = sorted(set(arrays) - set(specs))
@@ -178,10 +183,13 @@ def params_from_numpy(net, arrays: dict, device=None) -> dict:
     out = {}
     for name, spec in specs.items():
         arr = np.asarray(arrays[name], dtype=np.float32)
-        if tuple(arr.shape) != tuple(spec.shape):
+        want = tuple(spec.shape)
+        if replicas is not None:
+            want = (int(replicas),) + want
+        if tuple(arr.shape) != want:
             raise ValueError(
                 f"params_from_numpy: {name!r} has shape {arr.shape}, the "
-                f"net declares {spec.shape}"
+                f"net declares {want}"
             )
         out[name] = torch.from_numpy(arr.copy()).to(device)
     return out

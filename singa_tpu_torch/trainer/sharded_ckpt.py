@@ -110,12 +110,16 @@ def save_sharded(
     *,
     proc: int = 0,
     nprocs: int = 1,
+    manifest_extra: dict | None = None,
 ) -> str:
     """Write process ``proc``'s shard and commit marker of one save of
     ``nprocs`` processes, and, in process 0, the manifest. Every value
     is a tensor or numpy array (replicated: written once, by process
     0) or a :class:`RankShards` (one entry per rank of this process).
-    Every process of the group calls it at the same step."""
+    Every process of the group calls it at the same step.
+    ``manifest_extra`` merges extra promises into the manifest: the
+    replica engine's ``{"sidecar": True}``, which makes retention demand
+    its ``.server`` sidecar and the sidecar's commit marker."""
     from ..resilience.coord import COMMIT_VERSION, write_commit
     from ..resilience.retention import remove_stale_shards
 
@@ -166,6 +170,7 @@ def save_sharded(
             "nprocs": int(nprocs),
             "commit": COMMIT_VERSION,
             "arrays": meta,
+            **(manifest_extra or {}),
         }
         mpath = os.path.join(path, "manifest.json")
         with open(mpath + ".tmp", "w") as f:

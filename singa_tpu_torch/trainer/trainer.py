@@ -134,18 +134,22 @@ ranks each take a batch slice: the Trainer runs them as a data axis in
 the ring's order (``_named_ring_view``), int8 on the inter hops.
 
 What the port leaves out, and refuses with a ConfigError that names
-it rather than ignoring: ``resilience``, ``fleet`` and the replica
-engine (``nservers``); the int8 ring with a net with buffers; on a mesh
+it rather than ignoring: ``resilience`` and ``fleet``; the int8 ring
+with a net with buffers; on a mesh
 with more axes than data: any axis but data across processes, two of
 the seq, expert and pipe axes together (or with a model axis, but pipe
 with model), ``zero_update``, ``grad_comm``, sharded saves and a net
 with buffers. ``kernels {
 paged_attention }`` is the serving engine's knob and trains unchanged,
-as in the JAX package. The contrastive-divergence engine is
-``trainer/cd.py``'s CDTrainer (``make_trainer`` picks it).
+as in the JAX package. A cluster's ``nservers`` is ignored here, as the
+JAX Trainer ignores it; on an asynchronous cluster ``make_trainer``
+picks the replica engine instead (``trainer/replica.py``'s
+ReplicaTrainer), and the contrastive-divergence engine is
+``trainer/cd.py``'s CDTrainer. Uncached eval streams ride a bounded
+BurstFeeder when ``prefetch`` is on (``_eval_batches``).
 Also left out: telemetry (the JAX package attaches its recorder through
-the resilience supervisor, which is not ported), the eval-burst feeder
-of uncached eval streams, and graphs over more than one rank.
+the resilience supervisor, which is not ported) and graphs over more
+than one rank.
 """
 
 from __future__ import annotations
@@ -206,19 +210,15 @@ def unsupported(model_cfg: ModelConfig,
                 cluster_cfg: ClusterConfig | None) -> list[str]:
     """The conf knobs this engine does not port yet, by name."""
     out = []
-    for knob in ("resilience", "fleet"):
-        if getattr(model_cfg, knob, None) is not None:
-            out.append(knob)
-    if cluster_cfg is not None and cluster_cfg.nservers:
-        out.append(f"cluster nservers {cluster_cfg.nservers}")
-    return out
+    del cluster_cfg
+    return [knob for knob in ("resilience", "fleet")
+            if getattr(model_cfg, knob, None) is not None]
 
 
 def _refuse(missing: list[str]) -> None:
     if missing:
         raise ConfigError(
-            "not ported to singa_tpu_torch yet (synchronous "
-            f"training only): {', '.join(missing)}"
+            f"not ported to singa_tpu_torch yet: {', '.join(missing)}"
         )
 
 
@@ -249,6 +249,14 @@ class Trainer:
     _supports_buffers = True
     #: subclasses whose step cannot run the quantized ring refuse it
     _supports_ring_collective = True
+    #: the replica engine keeps its own update layout and gradient sync
+    #: math: it refuses zero_update and grad_comm (the JAX Trainer's
+    #: messages)
+    _supports_zero_update = True
+    _supports_grad_comm = True
+    #: whether the ranks split the batch (the data axis) or each takes a
+    #: whole batch of its own (the replica engine's worker groups)
+    _splits_batch = True
 
     def __init__(
         self,
@@ -278,6 +286,12 @@ class Trainer:
         self._comm = GradCommSpec.from_config(
             model_cfg.grad_comm, model_cfg.kernels, model_cfg.ring
         )
+        if self._comm is not None and not self._supports_grad_comm:
+            raise ConfigError(
+                f"{type(self).__name__} does not support grad_comm mode "
+                f"{self._comm.mode!r} (the replica protocol owns its own "
+                "gradient sync math)"
+            )
         if self._comm is not None and self._comm.hier and (
                 self._comm.intra_axis or self._comm.inter_axis):
             mesh = self._named_ring_view(mesh)
@@ -325,6 +339,11 @@ class Trainer:
         # dim. None off zero ---
         self._zero_dims: dict[str, int | None] | None = None
         if model_cfg.zero_update:
+            if not self._supports_zero_update:
+                raise ConfigError(
+                    f"{type(self).__name__} does not support zero_update "
+                    "(the replica protocol owns its own update layout)"
+                )
             self._zero_dims = zero_update_shardings(
                 mesh, self.train_net, warn=True)
 
@@ -348,7 +367,7 @@ class Trainer:
         ndata = mesh.widths["data"]
         if self._comm is not None and self._comm.ring:
             self._setup_ring_collective()
-        elif self.train_net.batchsize % ndata:
+        elif self._splits_batch and self.train_net.batchsize % ndata:
             raise ConfigError(
                 f"data-parallel training needs the data-axis width "
                 f"({ndata}: the mesh's ranks, or the cluster's nworkers "
@@ -1851,6 +1870,27 @@ class Trainer:
         _add_sums(eg.sums, self._eval_batch_metrics(net, batch))
         eg.step.add_(1)
 
+    def _eval_batches(self, net: Net, nsteps: int):
+        """Yield ``nsteps`` eval batches. With ``prefetch`` on, uncached
+        eval streams ride a BurstFeeder (``data/device_prefetch.py``):
+        batch k+1 is assembled and copied on its thread while batch k is
+        evaluated, and exactly ``nsteps`` batches are drawn, so the
+        stream positions end where the direct path leaves them. Cached
+        datasets and prefetch-off jobs take the direct path."""
+        if self._cached or not self._prefetch_input:
+            for _ in range(nsteps):
+                yield self._next_batch(net)
+            return
+        from ..data.device_prefetch import BurstFeeder
+
+        feeder = BurstFeeder(lambda: self._assemble_host_batch(net), nsteps)
+        try:
+            for _ in range(nsteps):
+                yield {name: {k: ready(v) for k, v in feed.items()}
+                       for name, feed in feeder.next().items()}
+        finally:
+            feeder.reset()
+
     def evaluate(self, net: Net, nsteps: int, phase: str, step: int) -> dict:
         """Test/Validate (worker.cc:318-348): nsteps batches, averaged.
         A cached net with nsteps > 1 runs as one eval chunk (replays of
@@ -1868,10 +1908,8 @@ class Trainer:
             perf.update_summed(_take_sums(eg.sums), nsteps)
         else:
             with self.timers.phase("eval", steps=nsteps):
-                for _ in range(nsteps):
-                    perf.update(
-                        self._eval_batch_metrics(net, self._next_batch(net))
-                    )
+                for batch in self._eval_batches(net, nsteps):
+                    perf.update(self._eval_batch_metrics(net, batch))
         avg = perf.avg()
         self.log(f"step {step}: {phase} {perf.to_string(avg)}")
         return avg
@@ -1990,7 +2028,8 @@ class Trainer:
                 path = os.path.join(folder, f"step_{step}.ckpt")
                 save_sharded(path, step, self.params, self._state_layout(),
                              self._buffer_layout(), streams=streams,
-                             proc=mesh.proc, nprocs=mesh.nprocs)
+                             proc=mesh.proc, nprocs=mesh.nprocs,
+                             manifest_extra=self._manifest_extra())
             else:
                 path = os.path.join(folder, f"step_{step}.npz")
                 state, buffers = self.state, self._whole_buffers()
@@ -2006,6 +2045,13 @@ class Trainer:
                         buffers, streams=streams)
         self.log(f"step {step}: checkpoint -> {path}")
         return path
+
+    def _manifest_extra(self) -> dict:
+        """Extra promises of a sharded save's manifest: the replica
+        engine promises its ``.server`` sidecar (``{"sidecar": True}``),
+        so that retention refuses a save whose sidecar tore or never
+        landed."""
+        return {}
 
     def _whole_buffers(self) -> dict:
         """The buffers with every rank's chunk of each ring residual:
