@@ -454,6 +454,64 @@ caught and carried on):
              the bit, and process 0's save and sidecar hold its arrays.
              Every wait on a child has a timeout; every child is stopped.
 
+  21. resilience (runs after replica) the resilience runtime
+             (resilience/{guard,context,supervisor,async_ckpt,watchdog}.py
+             and the Trainer's seams). Children through ``python -m
+             singa_tpu_torch.main`` (every training job goes through the
+             supervisor) on the replica phase's full-size MNIST-shaped
+             shards (60000 records), all started at once and run while
+             this process checks the guard: mlp_resilient.conf and
+             mlp_async.conf as written (batch 256, 60 steps, a save every
+             5, kRollback) on cluster.conf, uninterrupted, with
+             ``-faults crash@7`` (exit 0 after a restart) and with
+             ``sigterm@12`` (exit 75, drained at step 12), the async one
+             also with ``async_torn_write@2`` (LATEST is never the torn
+             save); then the drained runs relaunched: every final save's
+             digest equal to the uninterrupted run's, the mlp's dispatch
+             ``graph``. Two processes (gloo, this card; the resilient
+             conf cut to RES_PROCS_STEPS steps, heartbeat_timeout_s 10):
+             ``sigterm@6:rank=1`` drains both at step 6 with exit 75,
+             ``crash@6:rank=0`` ends both with 75 (once more with async
+             sharded saves, whose writer threads issue no collective), and
+             the relaunches end with the uninterrupted pair's digests. In this process:
+             tinylm_d128.conf (bf16, flash forced) under kSkip, graphed,
+             RES_LM_STEPS steps over 2048 x 128 token rows, row
+             RES_POISON of the token table NaN and that token in one
+             record step RES_LM_BAD reads (a token feed cannot hold NaN):
+             the step leaves every param, slot and buffer byte as the
+             step before left it, bad_steps 1, graphed equal to eager to
+             the bit, each bf16 flash kernel launched layers x steps
+             times (counted from 0 just before the run); a planted fault
+             (the verdict ignored, the update always applied) must fail
+             that check. mlp_resilient.conf under RES_ROLLBACK_FAULTS
+             (the counter is read every 3 steps from step 1, so bad steps
+             19-21 trip it at step 22): one rollback to step_20, LR scale
+             0.5, the same tensor addresses before and after it and
+             graph steps after it, graphed equal to eager, the losses
+             within NETS_TOL of the same drill on the CPU.
+             tinylm_d128.conf with the q8wire ring on 4 ranks of the
+             card, kSkip, the poison in rank RES_RING_RANK's slice of step
+             RES_RING_BAD: every rank skips, the ring's residuals bitwise
+             as before the step, quant_acc's launches printed. mlp.conf
+             on cluster_elastic.conf (4 replicas, warmup cut to 2) and
+             rbm.conf, kSkip, one nanloss step each: every replica and
+             the center, and the RBM stack, unchanged through it.
+             mlp_resilient.conf with watchdog_timeout 2 and
+             ``slowstep@3=2.6``: one stack dump showing the train loop's
+             frame. After the children: guard on and off, no bad step,
+             RES_LM_STEPS graphed steps each in turns (on, off, off, on):
+             equal bits, step ms (host clock to a device sync) and 3
+             profiled steps' idle share; resnet50.conf as written (bf16,
+             batch 256, graphed) over RES_RESNET_RECORDS records (a cut of
+             scale), cuDNN deterministic, RES_RESNET_STEPS steps with no
+             saves, with no saves under kSkip, with sync saves and with
+             async saves every RES_RESNET_EVERY: step ms and the host ms
+             each save holds the step loop, the guarded run's params and
+             slots equal the unguarded run's to the bit, and the async
+             saves' arrays equal the sync saves' to the bit.
+             Cuts: steps (the two-process runs, the LM runs, the ResNet
+             runs) and the ResNet record count, never widths.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -521,6 +579,7 @@ from singa_tpu_torch.trainer import (
     unroll_autoencoder,
 )
 from singa_tpu_torch.trainer import replica as trep
+from singa_tpu_torch.trainer import trainer as ttr
 
 #: kernel vs plain, float32 on the card: online softmax folds the keys in
 #: another order than the plain one-pass softmax (up to 2048 keys), and
@@ -3142,10 +3201,10 @@ def dispatch_pair(dev, make_cfg, units, tag, smi):
     return rec, e_losses
 
 
-def _slots_only(self, new_p, new_s, res):
+def _slots_only(self, new_p, new_s, res, ok=None):
     """The planted copy-back fault: the update's slots and residuals land
     in the static tensors, its params do not."""
-    STORE_UPDATE(self, {}, new_s, res)
+    STORE_UPDATE(self, {}, new_s, res, ok)
 
 
 STORE_UPDATE = Trainer._store_update
@@ -3373,11 +3432,11 @@ def bn_device_ms(dev, tr, flush) -> dict:
             "rescue_ms": with_ - without, "runs": sums}
 
 
-def _stats_not_copied(self, new_p, new_s, res):
+def _stats_not_copied(self, new_p, new_s, res, ok=None):
     """The planted fault: the graphed step copies the params, slots and
     residuals back, not the running stats."""
     STORE_UPDATE(self, new_p, new_s,
-                 {k: v for k, v in res.items() if k.startswith("__")})
+                 {k: v for k, v in res.items() if k.startswith("__")}, ok)
 
 
 def release():
@@ -5617,6 +5676,782 @@ def replica_phase(dev, smi, tmp) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 21. resilience: the supervisor, the guard inside the graph, async saves
+# ---------------------------------------------------------------------------
+
+RES_CONFS = {"resilient": "examples/mnist/mlp_resilient.conf",
+             "async": "examples/mnist/mlp_async.conf"}
+#: the guard's LM: tinylm_d128.conf (bf16) over RES_LM_SHARD token rows,
+#: the flash kernels forced; the poison token is read by step RES_LM_BAD
+#: only, and row RES_POISON of the token table is NaN
+RES_LM_CONF = "examples/lm/tinylm_d128.conf"
+RES_LM_SHARD = (2048, 128)
+RES_LM_STEPS = 30
+RES_LM_BAD = 12
+RES_POISON = 255
+#: the ring drill: RES_RING_STEPS steps on 4 ranks, the poison in rank
+#: RES_RING_RANK's slice of step RES_RING_BAD's batch
+RES_RING_STEPS = 5
+RES_RING_BAD = 3
+RES_RING_RANK = 2
+#: the rollback drill on mlp_resilient.conf (kRollback after 3, backoff
+#: 0.5): the counter is read every 3 steps from step 1, so bad steps 19,
+#: 20 and 21 trip it at step 22, back to step_20
+RES_ROLLBACK_FAULTS = "nanloss@19,nanloss@20,nanloss@21"
+RES_REPLICA_BAD = 5
+RES_CD_BAD = 3
+#: resnet50.conf's saves: RES_RESNET_STEPS steps, a save every
+#: RES_RESNET_EVERY, over RES_RESNET_RECORDS records
+RES_RESNET_STEPS = 20
+RES_RESNET_EVERY = 5
+RES_RESNET_RECORDS = (512, 256)
+RES_PROCS_STEPS = 12
+RES_TIMEOUT_S = 300
+
+
+def res_conf(tmp, shards, name, src, edits=()) -> str:
+    """``src`` (a shipped conf) on the MNIST-shaped shards, with
+    ``edits`` (old, new) applied -> the copy's path."""
+    with open(os.path.join(REPO, src)) as f:
+        txt = f.read()
+    for old, new in (('path: "train_shard"', f'path: "{shards["mnist"]}"'),
+                     ('path: "test_shard"',
+                      f'path: "{shards["mnist_test"]}"'), *edits):
+        check(old in txt, f"resilience: {src} lacks {old!r}")
+        txt = txt.replace(old, new)
+    path = os.path.join(tmp, f"res_{name}.conf")
+    with open(path, "w") as f:
+        f.write(txt)
+    return path
+
+
+def res_cluster(tmp, name, nworkers=1) -> str:
+    """examples/mnist/cluster.conf with ``nworkers`` and a workspace of its
+    own -> its path."""
+    with open(os.path.join(REPO, "examples/mnist/cluster.conf")) as f:
+        txt = f.read()
+    ws = os.path.join(tmp, "ws_res_" + name)
+    for old, new in (("nworkers: 1", f"nworkers: {nworkers}"),
+                     ('workspace: "examples/mnist/ws"', f'workspace: "{ws}"')):
+        check(old in txt, f"resilience: cluster.conf lacks {old!r}")
+        txt = txt.replace(old, new)
+    path = os.path.join(tmp, f"res_cluster_{name}.conf")
+    with open(path, "w") as f:
+        f.write(txt)
+    return path
+
+
+def res_ckpts(tmp, name) -> str:
+    return os.path.join(tmp, "ws_res_" + name, "checkpoints")
+
+
+def res_start(dev, tmp, runs) -> list:
+    """Start every run of ``runs`` ({name: (conf, cluster, faults,
+    nprocs)}) as ``python -m singa_tpu_torch.main`` children at once
+    (output to files) -> [(name, process k, Popen, log file)]."""
+    started = []
+    for name, (conf, cluster, faults, nprocs) in runs.items():
+        cmd = [sys.executable, "-m", "singa_tpu_torch.main", "-model_conf",
+               conf, "-cluster_conf", cluster]
+        if faults:
+            cmd += ["-faults", faults]
+        if dev.type != "cuda":
+            cmd += ["-device", str(dev)]
+        if nprocs > 1:
+            cmd += ["-hostfile", write_hostfile(
+                os.path.join(tmp, f"res_hf_{name}"), nprocs)]
+        for k in range(nprocs):
+            log = open(os.path.join(tmp, f"res_{name}_{k}.log"), "w+")
+            started.append((name, k, subprocess.Popen(
+                cmd + (["-procsID", str(k)] if nprocs > 1 else []),
+                cwd=REPO, stdout=log, stderr=subprocess.STDOUT), log))
+    return started
+
+
+def res_wait(started) -> dict:
+    """Wait for every child within RES_TIMEOUT_S, stop them all ->
+    {name: [(exit code, output) per process]}."""
+    try:
+        deadline = time.monotonic() + RES_TIMEOUT_S
+        for _, _, p, _ in started:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        stop_all([p for _, _, p, _ in started])
+    out: dict = {}
+    for name, _, p, log in started:
+        log.seek(0)
+        out.setdefault(name, []).append((p.returncode, log.read()))
+        log.close()
+    return out
+
+
+def npz_digest(path: str) -> str:
+    """SHA-256 of a save's params and slots by name, Trainer.digest's
+    recipe: equal digests are equal arrays to the bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    with np.load(path) as z:
+        names = sorted(k[2:] for k in z.files if k.startswith("p|"))
+        for nm in names:
+            h.update(nm.encode())
+            h.update(z["p|" + nm].tobytes())
+            for k in sorted(f for f in z.files
+                            if f.startswith(f"s|{nm}|")):
+                h.update(f"{nm}|{k.rsplit('|', 1)[1]}".encode())
+                h.update(z[k].tobytes())
+    return h.hexdigest()
+
+
+def res_drills(dev, tmp, shards) -> tuple:
+    """The shipped confs' drills and the two-process drills, wave 1
+    (uninterrupted, crash, sigterm, torn async write) -> (started, the
+    run table)."""
+    runs = {}
+    for tag, src in RES_CONFS.items():
+        conf = res_conf(tmp, shards, tag, src)
+        for kind, faults in (("clean", ""), ("crash", "crash@7"),
+                             ("term", "sigterm@12")):
+            runs[f"{tag}_{kind}"] = (conf, res_cluster(
+                tmp, f"{tag}_{kind}"), faults, 1)
+    runs["async_torn"] = (runs["async_clean"][0], res_cluster(
+        tmp, "async_torn"), "async_torn_write@2", 1)
+    two = res_conf(tmp, shards, "procs", RES_CONFS["resilient"], [
+        ("train_steps: 60", f"train_steps: {RES_PROCS_STEPS}"),
+        ("watchdog_timeout: 300.0",
+         "watchdog_timeout: 300.0\n  heartbeat_timeout_s: 10.0")])
+    for kind, faults in (("clean", ""), ("term", "sigterm@6:rank=1"),
+                         ("crash", "crash@6:rank=0")):
+        runs[f"procs_{kind}"] = (two, res_cluster(tmp, f"procs_{kind}", 2),
+                                 faults, 2)
+    # the crash once more with async sharded saves: each process's writer
+    # thread writes its shard beside a step loop issuing collectives
+    two_async = res_conf(tmp, shards, "procs_async", RES_CONFS["resilient"], [
+        ("train_steps: 60", f"train_steps: {RES_PROCS_STEPS}"),
+        ("watchdog_timeout: 300.0",
+         "watchdog_timeout: 300.0\n  heartbeat_timeout_s: 10.0\n"
+         "  async_checkpoint: true"),
+        ('name: "mlp-resilient-smoke"',
+         'checkpoint_format: "sharded"\nname: "mlp-resilient-smoke"')])
+    runs["procs_async_crash"] = (two_async, res_cluster(
+        tmp, "procs_async_crash", 2), "crash@6:rank=0", 2)
+    return res_start(dev, tmp, runs), runs
+
+
+def res_drills_check(dev, tmp, wave1, runs) -> tuple:
+    """Wave 1's verdicts (the drains exit 75 at the planted step, the torn
+    async write never became LATEST, the mlp's step is graphed), then
+    wave 2 started: the relaunches after the drains and the two-process
+    crashes -> (the verdicts so far, wave 1's results, wave 2)."""
+    t0 = time.perf_counter()
+    got = res_wait(wave1)
+    out = {"wave1_wait_s": time.perf_counter() - t0}
+    for name, results in got.items():
+        want = (75 if name.endswith("term") or name.startswith("procs_")
+                and name.endswith("crash") else 0)
+        for k, (rc, text) in enumerate(results):
+            check(rc == want, f"resilience {name} process {k}: exit {rc} "
+                  f"(want {want}):\n{text[-3000:]}")
+    for tag in RES_CONFS:
+        clean = got[f"{tag}_clean"][0][1]
+        mode = re.search(r"^dispatch: (\w+)", clean, re.M)
+        check(mode is not None and mode.group(1) == "graph",
+              f"resilience {tag}: dispatch {mode and mode.group(1)}")
+        out[f"{tag}_dispatch"] = mode.group(1)
+        check("PREEMPTION: injected sigterm@12 — drained at step 12"
+              in got[f"{tag}_term"][0][1], f"resilience {tag}: no drain")
+        check("attempt 2" in got[f"{tag}_crash"][0][1],
+              f"resilience {tag}: crash@7 was not restarted")
+    torn = got["async_torn"][0][1]
+    check("FAULT: async_torn_write@2" in torn, "resilience: no torn write")
+    ck = res_ckpts(tmp, "async_torn")
+    with open(os.path.join(ck, "LATEST")) as f:
+        latest = f.read().strip()
+    from singa_tpu_torch.resilience import retention
+
+    check(latest == "step_60.npz" and retention.validate_checkpoint(
+        os.path.join(ck, latest)), f"resilience: torn LATEST {latest}")
+    terms = [re.search(r"drained at step (\d+)", t).group(1)
+             for _, t in got["procs_term"]]
+    check(terms == ["6", "6"], f"resilience procs: drained at {terms}")
+    for name in ("procs_crash", "procs_async_crash"):
+        check("FAULT: crash@6" in got[name][0][1],
+              f"resilience {name}: no crash")
+    # wave 2: the relaunches, fault-free, from the newest complete save
+    wave2 = res_start(dev, tmp, {
+        f"{name}_again": (runs[name][0], runs[name][1], "", runs[name][3])
+        for name in ("resilient_term", "async_term", "procs_term",
+                     "procs_crash", "procs_async_crash")})
+    return out, got, wave2
+
+
+def res_relaunch_check(smi, tmp, out, got, wave2) -> dict:
+    """Wave 2's verdicts: every run ends with its uninterrupted run's
+    digest."""
+    t0 = time.perf_counter()
+    again = res_wait(wave2)
+    out["wave2_wait_s"] = time.perf_counter() - t0
+    for name, results in again.items():
+        for k, (rc, text) in enumerate(results):
+            check(rc == 0, f"resilience {name} process {k}: exit {rc}:\n"
+                  f"{text[-3000:]}")
+    for tag in RES_CONFS:
+        ref = npz_digest(os.path.join(res_ckpts(tmp, f"{tag}_clean"),
+                                      "step_60.npz"))
+        for kind in ("crash", "term", "torn"):
+            if kind == "torn" and tag != "async":
+                continue
+            d = npz_digest(os.path.join(res_ckpts(tmp, f"{tag}_{kind}"),
+                                        "step_60.npz"))
+            check(d == ref, f"resilience {tag} {kind}: the final save's "
+                  "digest differs from the uninterrupted run's")
+        out[f"{tag}_digest"] = ref[:16]
+    ref = [child_report(t, "TRAIN PROCESS: ")["digest"]
+           for _, t in got["procs_clean"]]
+    for name in ("procs_term_again", "procs_crash_again",
+                 "procs_async_crash_again"):
+        d = [child_report(t, "TRAIN PROCESS: ")["digest"]
+             for _, t in again[name]]
+        check(d == ref and ref[0] == ref[1],
+              f"resilience {name}: digests differ from the clean run's")
+    check(all("resumed sharded from" in t
+              for _, t in again["procs_async_crash_again"]),
+          "resilience procs_async_crash: the relaunch did not resume")
+    out["procs_digest"] = ref[0][:16]
+    print("resilience drills", json.dumps({**out, "card": smi}))
+    return out
+
+
+class ResLog:
+    """A trainer log that keeps its lines and parses the window losses."""
+
+    def __init__(self):
+        self.lines = []
+
+    def __call__(self, s):
+        self.lines.extend(str(s).splitlines())
+
+    def losses(self) -> list:
+        return [float(m.group(1)) for m in (re.match(
+            r"^step \d+: train loss : ([^,\s]+)", s) for s in self.lines)
+            if m]
+
+
+def res_guarded(dev, cfg, faults="", cluster=None, log=None, **kw):
+    """The Trainer on ``cfg`` under a ResilienceContext with ``faults``
+    bound (not run) -> (trainer, context)."""
+    from singa_tpu_torch.resilience import ResilienceContext
+
+    tr = make_trainer(cfg, cluster, seed=0, log=log or (lambda s: None),
+                      device=dev, **kw)
+    ctx = ResilienceContext(cfg.resilience, FaultPlan.parse(faults),
+                            log=log or (lambda s: None))
+    ctx.bind(tr)
+    return tr, ctx
+
+
+def state_bytes(tr) -> dict:
+    """Every param, slot and buffer's bytes on the host (NaN compares)."""
+    from singa_tpu_torch.resilience.guard import GUARD_KEYS
+
+    out = {("p", n): v.detach().cpu().numpy().tobytes()
+           for n, v in tr.params.items()}
+    out.update({("s", n, s): v.detach().cpu().numpy().tobytes()
+                for n, slots in tr.state.items() for s, v in slots.items()})
+    out.update({("b", n): v.detach().cpu().numpy().tobytes()
+                for n, v in tr.buffers.items() if n not in GUARD_KEYS})
+    return out
+
+
+def res_lm_shard(tmp, rows, bad_row) -> str:
+    """Token rows below RES_POISON, with the poison token in ``bad_row``."""
+    toks, labels = synthetic_token_arrays(rows, seq_len=RES_LM_SHARD[1],
+                                          vocab=RES_POISON, seed=0)
+    toks[bad_row, 7] = RES_POISON
+    shard = os.path.join(tmp, f"res_lm_{bad_row}")
+    write_records(shard, toks, labels)
+    return shard
+
+
+def res_lm_cfg(shard, policy, dtype=None):
+    cfg = load_model_config(os.path.join(REPO, RES_LM_CONF))
+    for layer in cfg.neuralnet.layer:
+        if layer.type == "kSequenceData":
+            layer.data_param.path = shard
+    if dtype is not None:
+        cfg.compute_dtype = dtype
+    cfg.display_frequency = 0
+    if policy:
+        from singa_tpu_torch.config.schema import ResilienceConfig
+
+        cfg.resilience = ResilienceConfig()
+        cfg.resilience.guard_policy = policy
+    return cfg
+
+
+def poison_table(tr) -> None:
+    with torch.no_grad():
+        tr.params["embed/tok"][RES_POISON] = float("nan")
+
+
+def _apply_anyway(ok, new, stored):
+    """A planted fault: the verdict ignored, the update always applied."""
+    del ok
+    stored.copy_(new.to(stored.dtype))
+
+
+def res_guard_graph(dev, smi, tmp) -> dict:
+    """tinylm_d128.conf (bf16, flash forced) under kSkip: the poisoned
+    step inside the graph drops bitwise, graphed equals eager, the flash
+    launches; the planted always-apply verdict is caught."""
+    bs = 64
+    shard = res_lm_shard(tmp, RES_LM_SHARD[0], RES_LM_BAD * bs + 5)
+    os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "0"
+    out = {}
+
+    def run(graphs, fault=False):
+        tr = Trainer(res_lm_cfg(shard, "kSkip"), seed=0, log=lambda s: None,
+                     device=dev, graphs=graphs)
+        poison_table(tr)
+        layers = sum(l.TYPE == "kAttention" for l in tr.train_net.layers)
+        zero_launches()
+        snaps = {}
+        for step in range(RES_LM_STEPS):
+            tr.train_one_batch(step)
+            if step in (RES_LM_BAD - 1, RES_LM_BAD):
+                snaps[step] = state_bytes(tr)
+        sync(dev)
+        got = axes_launches()
+        got.pop("quant_acc")
+        return tr, snaps, got, layers
+
+    def dropped(tr, snaps) -> str:
+        """'' when step RES_LM_BAD left every byte as step
+        RES_LM_BAD - 1 did, bad_steps is 1 and only the poison row of the
+        table is non-finite, else what is wrong."""
+        g = tr.guard_counters()
+        if g["bad_steps"] != 1:
+            return f"bad_steps {g['bad_steps']}"
+        if snaps[RES_LM_BAD] != snaps[RES_LM_BAD - 1]:
+            return "the bad step changed the state"
+        for n, v in tr.params.items():
+            v = v.detach().float().cpu()
+            if n == "embed/tok":
+                v = torch.cat([v[:RES_POISON], v[RES_POISON + 1:]])
+            if not torch.isfinite(v).all():
+                return f"non-finite {n}"
+        return ""
+
+    try:
+        tg, sg, launches, layers = run(None)
+        check(tg.dispatch_mode == "graph", "resilience guard: not graphed")
+        check(tg._g.run.captured or dev.type != "cuda",
+              "resilience guard: no graph captured")
+        why = dropped(tg, sg)
+        check(why == "", f"resilience guard: graphed: {why}")
+        want = flash_launches(torch.bfloat16, layers * RES_LM_STEPS)
+        check(launches == want,
+              f"resilience guard: flash launches {launches} != {want}")
+        te, se, _, _ = run(False)
+        check(se == sg and state_bytes(te) == state_bytes(tg),
+              "resilience guard: graphed differs from eager")
+        del te
+        orig = ttr.apply_verdict
+        ttr.apply_verdict = _apply_anyway
+        try:
+            tf, sf, _, _ = run(None)
+        finally:
+            ttr.apply_verdict = orig
+        caught = dropped(tf, sf)
+        check(caught != "", "resilience guard: the planted always-apply "
+              "verdict passed the check")
+        del tf
+        out = {"bad_steps": 1, "graph_equals_eager": True,
+               "launches": launches, "planted_caught": caught}
+        del tg
+        release()
+    finally:
+        os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "512"
+    print("resilience guard", json.dumps({**out, "card": smi}))
+    return launches
+
+
+def res_guard_timing(dev, smi, tmp) -> dict:
+    """Guard on and off, no bad step, RES_LM_STEPS graphed steps each
+    from the same seed, in turns (on, off, off, on): the same bits, the
+    step ms (host clock to a device sync), and 3 steps of each under
+    torch.profiler (idle share)."""
+    shard = os.path.join(tmp, "res_lm_clean")
+    write_records(shard, *synthetic_token_arrays(
+        RES_LM_SHARD[0], seq_len=RES_LM_SHARD[1], vocab=256, seed=0))
+    os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "0"
+    runs = []
+    try:
+        for policy in ("kSkip", "", "", "kSkip"):
+            tr = Trainer(res_lm_cfg(shard, policy), seed=0,
+                         log=lambda s: None, device=dev)
+            ms = []
+            for step in range(RES_LM_STEPS):
+                t0 = time.perf_counter()
+                tr.train_one_batch(step)
+                sync(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            prof = (profile(tr, RES_LM_STEPS, 3) if dev.type == "cuda"
+                    else {})
+            runs.append({"guard": policy or "off", "bytes": state_bytes(tr),
+                         "step_ms_median": median(ms[3:]),
+                         "idle_share": prof.get("idle_share")})
+            del tr
+            release()
+    finally:
+        os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "512"
+    check(all(r["bytes"] == runs[0]["bytes"] for r in runs),
+          "resilience timing: guard on differs from guard off")
+    out = {"runs": [{k: v for k, v in r.items() if k != "bytes"}
+                    for r in runs]}
+    on = median([runs[0]["step_ms_median"], runs[3]["step_ms_median"]])
+    off = median([runs[1]["step_ms_median"], runs[2]["step_ms_median"]])
+    out["guarded_over_unguarded"] = on / off
+    print("resilience guard timing", json.dumps({**out, "card": smi}))
+    return out
+
+
+def res_rollback(dev, smi, shards) -> dict:
+    """mlp_resilient.conf (display every step) under RES_ROLLBACK_FAULTS:
+    one rollback to step_20, LR scale 0.5, the losses within NETS_TOL of
+    the same drill on the CPU, the step after the rollback replaying the
+    graph on the restored tensors (same addresses), graphed equal to
+    eager."""
+    from singa_tpu_torch.config import load_cluster_config
+
+    out = {}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = res_conf(tmp, shards, "rollback", RES_CONFS["resilient"],
+                        [("display_frequency: 20", "display_frequency: 1")])
+        for where, graphs in ((dev, None), (dev, False),
+                              (torch.device("cpu"), None)):
+            tag = f"{where.type}_{'eager' if graphs is False else 'graph'}"
+            log = ResLog()
+            cl = load_cluster_config(res_cluster(tmp, "rb_" + tag))
+            tr, ctx = res_guarded(where, load_model_config(conf),
+                                  RES_ROLLBACK_FAULTS, cl, log, graphs=graphs)
+            ptrs = {}
+            orig = tr.rollback_to
+
+            def rollback_to(path, tr=tr, orig=orig, ptrs=ptrs):
+                ptrs["before"] = [v.data_ptr() for v in
+                                  list(tr.params.values())
+                                  + list(tr.buffers.values())]
+                ptrs["calls"] = graph_calls(tr)
+                step = orig(path)
+                ptrs["after"] = [v.data_ptr() for v in
+                                 list(tr.params.values())
+                                 + list(tr.buffers.values())]
+                return step
+
+            tr.rollback_to = rollback_to
+            try:
+                tr.run()
+            finally:
+                ctx.stop()
+            g = tr.guard_counters()
+            check(ctx.rollbacks == 1 and g["lr_scale"] == 0.5,
+                  f"resilience rollback {tag}: {ctx.rollbacks} rollbacks, "
+                  f"{g}")
+            check(any("rolling back to" in s and "step_20.npz" in s
+                      for s in log.lines),
+                  f"resilience rollback {tag}: not back to step_20")
+            check(ptrs["before"] == ptrs["after"],
+                  f"resilience rollback {tag}: the restore moved tensors")
+            if graphs is None:
+                check(graph_calls(tr) > ptrs["calls"],
+                      f"resilience rollback {tag}: no graph step after it")
+            runs[tag] = (log.losses(), state_bytes(tr))
+            del tr
+            release()
+    (cl_, cb), (el, eb), (hl, _) = (runs[f"{dev.type}_graph"],
+                                    runs[f"{dev.type}_eager"],
+                                    runs["cpu_graph"])
+    check(cb == eb, "resilience rollback: graphed differs from eager")
+    diff = float(np.max(np.abs(np.asarray(cl_) - np.asarray(hl))))
+    check(len(cl_) == len(hl) and diff <= NETS_TOL,
+          f"resilience rollback: losses {diff} from the CPU's")
+    out = {"rollbacks": 1, "lr_scale": 0.5, "max_loss_diff_vs_cpu": diff,
+           "graph_equals_eager": True}
+    print("resilience rollback", json.dumps({**out, "card": smi}))
+    return out
+
+
+def graph_calls(tr) -> int:
+    """The train graph's replays and eager body calls so far."""
+    g = tr._g
+    return 0 if g is None else g.run.replays + g.run.eager_calls
+
+
+def res_ring(dev, smi, tmp) -> dict:
+    """tinylm_d128.conf with the q8wire ring on 4 ranks of the card, kSkip,
+    the poison token in rank RES_RING_RANK's slice of step RES_RING_BAD:
+    every rank skips (params, slots, the ring's residuals bitwise as
+    before the step) -> the quant_acc launches."""
+    bs = 64
+    shard = res_lm_shard(tmp, 256, RES_RING_BAD * bs
+                         + RES_RING_RANK * bs // RING_RANKS + 3)
+    cfg = load_model_config(RING_CONF)
+    for layer in cfg.neuralnet.layer:
+        if layer.type == "kSequenceData":
+            layer.data_param.path = shard
+    apply_grad_comm_tag(cfg, "q8wire")
+    cfg.grad_comm.buckets = 4
+    from singa_tpu_torch.config.schema import ResilienceConfig
+
+    cfg.resilience = ResilienceConfig()
+    cfg.resilience.guard_policy = "kSkip"
+    tr = Trainer(cfg, mesh=build_mesh(RING_RANKS, 1, [dev] * RING_RANKS),
+                 seed=0, log=lambda s: None)
+    poison_table(tr)
+    zero_launches()
+    for step in range(RES_RING_STEPS):
+        if step == RES_RING_BAD:
+            before = state_bytes(tr)
+        tr.train_one_batch(step)
+        if step == RES_RING_BAD:
+            after = state_bytes(tr)
+    sync(dev)
+    launches = qc.quant_acc.launches
+    res = [k for k in before if k[0] == "b" and "__gradres__" in k[1]]
+    check(res and all(before[k] == after[k] for k in res),
+          "resilience ring: the residuals moved on the dropped step")
+    check(before == after, "resilience ring: the dropped step moved state")
+    check(tr.guard_counters()["bad_steps"] == 1,
+          f"resilience ring: {tr.guard_counters()}")
+    out = {"ranks": RING_RANKS, "bad_rank": RES_RING_RANK,
+           "residuals": len(res), "quant_acc_launches": launches,
+           "per_step": launches / RES_RING_STEPS}
+    del tr
+    release()
+    print("resilience ring", json.dumps({**out, "card": smi}))
+    return launches
+
+
+def res_engines(dev, smi, shards, tmp) -> dict:
+    """mlp.conf on cluster_elastic.conf at 4 replicas (warmup cut to 2)
+    under kSkip with nanloss@RES_REPLICA_BAD: every replica and the
+    center unchanged through that step; rbm.conf under kSkip with
+    nanloss@RES_CD_BAD: the step dropped."""
+    from singa_tpu_torch.config import load_cluster_config
+    from singa_tpu_torch.config.schema import ResilienceConfig
+
+    out = {}
+    text = replica_mlp_text(shards, [("warmup_steps: 60", "warmup_steps: 2")])
+    cfg = parse_model_config(text)
+    cfg.resilience = ResilienceConfig()
+    cfg.resilience.guard_policy = "kSkip"
+    tr, ctx = res_guarded(dev, cfg, f"nanloss@{RES_REPLICA_BAD}",
+                          load_cluster_config(replica_cluster(tmp, "res")))
+    check(type(tr).__name__ == "ReplicaTrainer", "resilience: no replicas")
+    for step in range(RES_REPLICA_BAD + 2):
+        if step == RES_REPLICA_BAD:
+            before = (state_bytes(tr), host64(tr.center))
+        tr.train_one_batch(step)
+        if step == RES_REPLICA_BAD:
+            after = (state_bytes(tr), host64(tr.center))
+    ctx.stop()
+    same_center = all(np.array_equal(before[1][n], after[1][n])
+                      for n in before[1])
+    check(before[0] == after[0] and same_center,
+          "resilience replica: the bad step moved a replica or the center")
+    check(tr.guard_counters()["bad_steps"] == 1, "resilience replica: "
+          f"{tr.guard_counters()}")
+    out["replica"] = {"replicas": tr.nreplicas, "bad_step": RES_REPLICA_BAD}
+    del tr
+    release()
+    cfg = rbm_config(shards)
+    cfg.resilience = ResilienceConfig()
+    cfg.resilience.guard_policy = "kSkip"
+    tr, ctx = res_guarded(dev, cfg, f"nanloss@{RES_CD_BAD}")
+    for step in range(RES_CD_BAD + 2):
+        if step == RES_CD_BAD:
+            before = state_bytes(tr)
+        tr.train_one_batch(step)
+        if step == RES_CD_BAD:
+            after = state_bytes(tr)
+    ctx.stop()
+    check(before == after and tr.guard_counters()["bad_steps"] == 1,
+          "resilience cd: the bad step was not dropped")
+    out["cd"] = {"bad_step": RES_CD_BAD}
+    del tr
+    release()
+    print("resilience engines", json.dumps({**out, "card": smi}))
+    return out
+
+
+def res_watchdog(dev, smi, shards) -> dict:
+    """mlp_resilient.conf with watchdog_timeout 2 and slowstep@3=2.6: the
+    watchdog dumps the thread stacks, the train loop's frame among
+    them."""
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = res_conf(tmp, shards, "watchdog", RES_CONFS["resilient"], [
+            ("watchdog_timeout: 300.0", "watchdog_timeout: 2.0"),
+            ("train_steps: 60", "train_steps: 5")])
+        log = ResLog()
+        tr, ctx = res_guarded(dev, load_model_config(conf), "slowstep@3=2.6",
+                              None, log)
+        try:
+            tr.run()
+        finally:
+            ctx.stop()
+    dump = "\n".join(log.lines)
+    check("WATCHDOG: step 3" in dump and ctx.watchdog.stalls == 1,
+          "resilience watchdog: no stall dump")
+    check('trainer.py", line' in dump and "in run" in dump,
+          "resilience watchdog: the dump lacks the train loop's frame")
+    out = {"stalls": ctx.watchdog.stalls}
+    del tr
+    release()
+    print("resilience watchdog", json.dumps({**out, "card": smi}))
+    return out
+
+
+def res_saves(dev, smi, tmp) -> dict:
+    """resnet50.conf as written (bf16, batch 256, graphed) for
+    RES_RESNET_STEPS steps with no saves, no saves under the kSkip guard,
+    sync saves and async saves every RES_RESNET_EVERY, in that order,
+    cuDNN deterministic (the saves compared across runs): each run's step
+    ms (wall / steps to a device sync) and the host ms each save holds
+    the step loop (Trainer.save's call); the guarded run's params and
+    slots equal the unguarded run's to the bit, with no bad step; the
+    async saves' arrays equal the sync saves' to the bit."""
+    from singa_tpu_torch.config import load_cluster_config
+    from singa_tpu_torch.config.schema import ResilienceConfig
+
+    out = {}
+    shards_dir = os.path.join(tmp, "res_resnet")
+    os.makedirs(shards_dir, exist_ok=True)
+    shards = {k: os.path.join(shards_dir, k) for k in ("train", "test")}
+    write_records(shards["train"], *imagenet_shaped_arrays(
+        RES_RESNET_RECORDS[0]))
+    write_records(shards["test"], *imagenet_shaped_arrays(
+        RES_RESNET_RECORDS[1], noise_seed=1))
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in ("none", "guard", "sync", "async"):
+            cfg = resnet_config(shards)
+            cfg.train_steps = RES_RESNET_STEPS
+            saving = mode in ("sync", "async")
+            cfg.checkpoint_frequency = RES_RESNET_EVERY if saving else 0
+            cfg.display_frequency = 0
+            cfg.resilience = ResilienceConfig()
+            cfg.resilience.async_checkpoint = mode == "async"
+            cfg.resilience.keep_last = 0
+            if mode == "guard":
+                cfg.resilience.guard_policy = "kSkip"
+            # no workspace, no saves at all
+            cl = (load_cluster_config(res_cluster(tmp, "resnet_" + mode))
+                  if saving else None)
+            tr, ctx = res_guarded(dev, cfg, "", cl)
+            saves, end = [], []
+            save = tr.save
+
+            def timed_save(step, save=save, saves=saves, end=end):
+                if step == RES_RESNET_STEPS:
+                    # the end-of-run save: the timed steps end here
+                    sync(dev)
+                    end.append(time.perf_counter())
+                t0 = time.perf_counter()
+                path = save(step)
+                saves.append((time.perf_counter() - t0) * 1e3)
+                return path
+
+            tr.save = timed_save
+            tr.train_one_batch(0)  # the eager first step and the capture
+            tr.train_one_batch(1)
+            tr.start_step = tr.completed_steps = 2
+            sync(dev)
+            t0 = time.perf_counter()
+            try:
+                tr.run()
+                sync(dev)
+                end.append(time.perf_counter())
+                ctx.flush_async()
+            finally:
+                ctx.stop()
+            wall = (end[0] - t0) * 1e3
+            out[mode] = {"step_ms": wall / (RES_RESNET_STEPS - 2),
+                         # the last is the end-of-run save, outside
+                         "save_ms": saves[:-1], "saves": len(saves),
+                         "dispatch": tr.dispatch_mode}
+            check(tr.dispatch_mode == "graph",
+                  f"resilience saves {mode}: not graphed")
+            if mode in ("none", "guard"):
+                out[mode]["digest"] = tr.digest()
+            if mode == "guard":
+                bad = tr.guard_counters()["bad_steps"]
+                check(bad == 0 and out["guard"]["digest"]
+                      == out["none"]["digest"],
+                      f"resilience saves: the guarded ResNet step ({bad} "
+                      "bad) differs from the unguarded one")
+            del tr
+            release()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    n = 0
+    for step in range(RES_RESNET_EVERY, RES_RESNET_STEPS + 1,
+                      RES_RESNET_EVERY):
+        a = os.path.join(res_ckpts(tmp, "resnet_sync"), f"step_{step}.npz")
+        b = os.path.join(res_ckpts(tmp, "resnet_async"), f"step_{step}.npz")
+        with np.load(a) as za, np.load(b) as zb:
+            check(sorted(za.files) == sorted(zb.files) and all(
+                np.array_equal(za[k], zb[k]) for k in za.files),
+                f"resilience saves: step_{step} async differs from sync")
+            n += 1
+            if step == RES_RESNET_EVERY:
+                out["save_mb"] = sum(za[k].nbytes for k in za.files) / 1e6
+    out["saves_compared"] = n
+    print("resilience saves", json.dumps({**out, "card": smi}))
+    return out
+
+
+def resilience_phase(dev, smi, tmp) -> dict:
+    """Phase 21 (see the module docstring) -> the guarded LM's flash
+    launches and the ring drill's quant_acc launches."""
+    t0 = time.perf_counter()
+    took = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        took[name] = time.perf_counter() - t
+        return out
+
+    shards = part("shards", replica_shards, tmp)
+    # the drills' children run while this process checks the guard in
+    # its own runs (wave 1 beside the guard and the rollback, wave 2, the
+    # relaunches, beside the ring, the engines and the watchdog); the
+    # timed parts wait for them all
+    wave1, runs = part("start", res_drills, dev, tmp, shards)
+    wave2 = []
+    try:
+        launches = part("guard", res_guard_graph, dev, smi, tmp)
+        part("rollback", res_rollback, dev, smi, shards)
+        out, got, wave2 = part("drills", res_drills_check, dev, tmp, wave1,
+                               runs)
+        ring = part("ring", res_ring, dev, smi, tmp)
+        part("engines", res_engines, dev, smi, shards, tmp)
+        part("watchdog", res_watchdog, dev, smi, shards)
+    except BaseException:
+        stop_all([p for _, _, p, _ in wave1 + wave2])
+        raise
+    part("relaunches", res_relaunch_check, smi, tmp, out, got, wave2)
+    part("timing", res_guard_timing, dev, smi, tmp)
+    part("saves", res_saves, dev, smi, tmp)
+    print(f"resilience phase {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in took.items())})")
+    return {"flash": launches, "quant_acc": ring}
+
+
 def short_kernel_name(mangled: str) -> str:
     """'_ZN12_GLOBAL__N_124flash_bwd_dq_bf16_kernelILi128ELb1EEEv...' ->
     'flash_bwd_dq_bf16_kernel<128,1>' (the last name of the nested name,
@@ -5716,6 +6551,7 @@ def main() -> int:
         procs_launches = procs_phase(dev, smi, shard, zero_ref, tmp)
         axes_launches_by_path = axes_phase(dev, smi, tmp)
         replica_launches = replica_phase(dev, smi, tmp)
+        res_launches = resilience_phase(dev, smi, tmp)
 
     kernels = []
     for name, case in (("paged_attention", "decode"),
@@ -5753,6 +6589,9 @@ def main() -> int:
             if dtype == torch.bfloat16:
                 kernels[-1]["moe_train_launches"] = moe_launches[name]
                 kernels[-1]["decode_train_launches"] = decode_launches[name]
+                # the resilience phase's guarded graphed LM run
+                kernels[-1]["resilience_launches"] = res_launches["flash"][
+                    name]
             else:
                 if name == "flash_fwd":
                     kernels[-1]["decode_rolling_launches"] = (
@@ -5777,6 +6616,7 @@ def main() -> int:
         "procs_launches": procs_launches["lm"],
         "procs_zero_ring_launches": procs_launches["zero_ring"],
         "axes_launches": axes_launches_by_path["q8"]["quant_acc"],
+        "resilience_launches": res_launches["quant_acc"],
     })
     print(smi)
     print(json.dumps({"kernels": kernels}))

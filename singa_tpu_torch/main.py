@@ -10,10 +10,25 @@ examples/mnist/cluster_elastic.conf, else the Trainer) and runs it.
 The cluster conf gives the workspace (where checkpoints go) and the
 data-parallel width: ``nworkers`` worker groups become ranks over the
 visible GPUs, or over the one ``-device`` named, repeated (``-device
-cpu``: that many CPU ranks). A parallel axis other than the data axis
-raises, as do the resilience supervisor and the other knobs the
-trainer lists. The trainer runs on the GPU unless ``-device cpu`` is
-given.
+cpu``: that many CPU ranks). The trainer runs on the GPU unless
+``-device cpu`` is given.
+
+Every training job runs under the resilience supervisor
+(``resilience/supervisor.py``), as ``singa_tpu.main``'s do: a job with a
+``resilience { ... }`` block (examples/mnist/mlp_resilient.conf,
+mlp_async.conf) gets supervised auto-resume from the newest complete
+checkpoint, SIGTERM/SIGINT drain with the resumable exit status (75),
+the divergence guard inside the step, asynchronous checkpoints, keep-
+last-N retention and the step watchdog; a job with neither the block
+nor a fault plan takes the supervisor's transparent single-attempt
+path. ``-faults`` (or ``SINGA_TPU_FAULTS``) arms a deterministic fault
+plan, the training kinds (``crash@7,sigterm@12,nanloss@5``,
+``corrupt_ckpt@1``, ``async_torn_write@1``, ``slowstep@9=2``,
+``profile@20:steps=5``) as well as the fleet's. Telemetry is on for
+jobs with a workspace: each process appends lifecycle events and phase
+spans to ``<workspace>/events/rank_k.jsonl`` (flushed at display
+cadence; the step path gains no write and no device sync), unless the
+``telemetry { enabled: false }`` block turns it off.
 
 A hostfile of more than one line makes the job one process per line
 (``parallel/launch.py``): each process is started with its own
@@ -25,8 +40,11 @@ PROCESS: {json}`` line at its clean end (its index, the backend, its
 device, the quant_acc launches and ring bytes of its ranks, its host
 seconds in cross-process exchanges, the host seconds of its run and of
 its steps since its last display line, and the digest of its params and
-slots, ``Trainer.digest``); a process that fails leaves with its exit
-code at once, without waiting on its peers.
+slots, ``Trainer.digest``); a process that fails, or drains with status
+75, leaves with its exit code at once, without waiting on its peers (a
+crash in one process of several is not restarted in place: the process
+exits 75, for a launcher to relaunch every process from the newest
+complete checkpoint, as in the JAX package).
 
 A ``fleet { ... }`` block makes this process a serving-fleet host
 instead (``serve/fleet/host.run_from_conf``), as ``singa_tpu.main``
@@ -79,9 +97,11 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     "hosts the rendezvous, a line may carry :port; more "
                     "than one line makes a multi-process training job")
     ap.add_argument("-faults", default=os.environ.get("SINGA_TPU_FAULTS"),
-                    help="fault plan for a fleet host, e.g. 'wire_drop@3' "
-                    "or 'torn_weights@1' (resilience/faults.py grammar; "
-                    "also via SINGA_TPU_FAULTS)")
+                    help="deterministic fault plan, e.g. 'crash@7,sigterm@12',"
+                    " 'nanloss@5', a 'profile@20:steps=5' torch.profiler "
+                    "trigger, or a fleet host's 'wire_drop@3' "
+                    "(resilience/faults.py grammar; also via "
+                    "SINGA_TPU_FAULTS)")
     return ap.parse_args(argv)
 
 
@@ -98,25 +118,37 @@ def main(argv: list[str] | None = None) -> int:
             model_cfg, cluster_cfg, procs_id=args.procsID, seed=args.seed,
             faults=args.faults, device=args.device,
         )
+    from .resilience import supervisor
+
     if not init_distributed(args.procsID, args.hostfile, device=args.device):
-        make_trainer(model_cfg, cluster_cfg, seed=args.seed,
-                     device=args.device).run()
-        return 0
+        return supervisor.run(model_cfg, cluster_cfg, seed=args.seed,
+                              faults=args.faults, device=args.device)
+    built = [0.0]
+
+    def factory(*a, **kw):
+        trainer = make_trainer(*a, **kw)
+        built[0] = time.perf_counter()
+        return trainer
+
+    def report(trainer) -> None:
+        out = process_report(trainer)
+        out["run_s"] = time.perf_counter() - built[0]
+        print("TRAIN PROCESS: " + json.dumps(out), flush=True)
+
     try:
-        trainer = make_trainer(model_cfg, cluster_cfg, seed=args.seed,
-                               device=args.device)
-        t0 = time.perf_counter()
-        trainer.run()
-        report = process_report(trainer)
-        report["run_s"] = time.perf_counter() - t0
-        print("TRAIN PROCESS: " + json.dumps(report), flush=True)
+        rc = supervisor.run(model_cfg, cluster_cfg, seed=args.seed,
+                            faults=args.faults, device=args.device,
+                            trainer_factory=factory, on_complete=report)
     except BaseException:
-        # a peer blocked in a collective would hold this process at exit
-        # (the process group's shutdown); leave with the status now
         traceback.print_exc()
+        rc = 1
+    if rc != 0:
+        # a peer blocked in a collective (or draining in parallel) would
+        # hold this process at exit (the process group's shutdown); leave
+        # with the status now
         sys.stdout.flush()
         sys.stderr.flush()
-        os._exit(1)
+        os._exit(rc)
     shutdown()
     return 0
 
@@ -138,6 +170,9 @@ def process_report(trainer) -> dict:
         "steps_s": trainer.timers.total("data") + trainer.timers.total(
             "train"),
         "digest": trainer.digest(),
+        # the guard's counters ({} unguarded) and the context's rollbacks
+        "guard": trainer.guard_counters(),
+        "rollbacks": getattr(trainer.resilience, "rollbacks", 0),
     }
 
 

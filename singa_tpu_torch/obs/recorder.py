@@ -1,26 +1,27 @@
 """FlightRecorder: the buffered JSONL event log, the PyTorch
-counterpart of ``singa_tpu/obs/recorder.py`` (the same records, the
-same file layout).
+counterpart of ``singa_tpu/obs/recorder.py`` (the same code, records and
+file layout).
 
-Each process appends JSONL records to ``<events_dir>/rank_k.jsonl``:
-one record per lifecycle event the fleet's host, router, scheduler,
-wire and rollout controller emit (``fleet_role``, ``route``,
-``migrate_out``/``migrate_in``, ``cache_fetch``/``cache_ship``,
-``drain``, ``wire_*``, ``rollout_*``, ...), plus (span mode) one record
-per timed phase.
+Each process appends JSONL records to ``<events_dir>/rank_k.jsonl``: one
+record per lifecycle event (the trainer's ``run_start``/``run_stop``,
+display-cadence ``step`` records, ``ckpt_save``/``ckpt_written``/
+``ckpt_latest``, ``guard_rollback``, ``fault``, ``drain``,
+``watchdog_stall``, the supervisor's ``crash``/``restart``; the fleet's
+host, router, wire and rollout events), plus (span mode) one record per
+timed phase occurrence: the Trainer's ``Timers`` hand every phase to
+``phase_span`` and the async checkpoint writer wraps each write in
+``span``.
 
   1. ``event()``/``record_span()`` never touch the device and never do
      I/O: they append a plain dict to an in-memory buffer under a lock.
      Payload values must already be host scalars: ``flush``'s
      ``json.dumps`` has no fallback encoder, so a tensor smuggled into
      a payload fails loudly instead of syncing the card.
-  2. ``flush()`` is the only writer, called at lifecycle edges (drain,
-     stop).
-  3. Everything is thread-safe: the socket transport's reader threads
-     record into the same buffer.
-
-The scheduler records a span per finished request and decode tick
-(``record_span``).
+  2. ``flush()`` is the only writer, called at display-cadence
+     boundaries and at lifecycle edges (drain, restart, stop).
+  3. Everything is thread-safe: the async writer, the feeder threads,
+     the watchdog and the fleet's reader threads record into the same
+     buffer.
 
 Records carry both clocks: ``ts`` (wall, ``time.time()``) for merging
 processes and ``mono`` (``time.perf_counter()``) for durations within
@@ -29,10 +30,23 @@ one.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
 import os
 import threading
 import time
+
+
+def config_hash(model_cfg) -> str:
+    """Deterministic 12-hex digest of a ModelConfig — the run identity
+    every rank derives independently (no coordination needed: all ranks
+    parse the same config text)."""
+    try:
+        blob = json.dumps(model_cfg.to_dict(), sort_keys=True, default=str)
+    except Exception:
+        blob = repr(model_cfg)
+    return hashlib.sha1(blob.encode()).hexdigest()[:12]
 
 
 class FlightRecorder:
@@ -116,6 +130,31 @@ class FlightRecorder:
             self._buf.append(rec)
             self.recorded += 1
 
+    @contextlib.contextmanager
+    def span(self, name: str, *, track: str = "phases",
+             steps: int | None = None):
+        """Context-manager form of ``record_span`` (feeder/stager/writer
+        threads wrap their unit of work in one)."""
+        if not self.trace_spans:
+            yield
+            return
+        t0w = time.time()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.record_span(
+                name, t0w, time.perf_counter() - t0,
+                track=track, steps=steps,
+            )
+
+    def phase_span(
+        self, name: str, t0_wall: float, dur: float, steps: int | None = None
+    ) -> None:
+        """The ``Timers`` span-sink signature (utils/timers.py): every
+        timed phase occurrence becomes a span on the 'phases' track."""
+        self.record_span(name, t0_wall, dur, track="phases", steps=steps)
+
     # ------------------------------------------------------------------
     # flushing (the only I/O)
     # ------------------------------------------------------------------
@@ -156,3 +195,25 @@ class FlightRecorder:
 
     def close(self) -> None:
         self.flush()
+
+
+def recorder_for_job(model_cfg, cluster_cfg, log=print) -> FlightRecorder | None:
+    """Build the job's recorder, or None when telemetry has nowhere to
+    write (no workspace) or was explicitly disabled. Always-on by
+    default: a missing ``telemetry`` config block means enabled."""
+    tel = getattr(model_cfg, "telemetry", None)
+    if tel is not None and not tel.enabled:
+        return None
+    if cluster_cfg is None or not cluster_cfg.workspace:
+        return None
+    from ..resilience.coord import process_index
+
+    subfolder = tel.events_subfolder if tel is not None else "events"
+    trace_spans = tel.trace_spans if tel is not None else True
+    return FlightRecorder(
+        os.path.join(cluster_cfg.workspace, subfolder),
+        rank=process_index(),
+        run_id=config_hash(model_cfg),
+        trace_spans=trace_spans,
+        log=log,
+    )

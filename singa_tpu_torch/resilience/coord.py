@@ -4,13 +4,17 @@ process's rank for rank-qualified fault terms, and the commit markers of
 sharded saves (``commit_<k>.json``: the CRC32 and size of process k's
 shard file, written after the shard; the replica engine's ``.server``
 sidecar beside a sharded save and its ``commit_server.json`` marker,
-written after the sidecar), and the preemption barrier, an OR over the
-processes of a ``torch.distributed`` group."""
+written after the sidecar), process 0's wait for every process's marker
+before it promotes a sharded save to LATEST (``await_commits``), and the
+preemption barrier, an OR over the processes of a ``torch.distributed``
+group, and ``broadcast_from_0`` (process 0's value of a small host
+object, the guard's rollback target across processes)."""
 
 from __future__ import annotations
 
 import json
 import os
+import time
 import zlib
 
 
@@ -178,3 +182,58 @@ def sidecar_commit_ok(path: str) -> bool:
         sidecar_marker_path(path), sidecar_path(path),
         lambda m: bool(m.get("sidecar")),
     )
+
+
+def await_commits(
+    path: str, timeout: float = 60.0, log=print, poll: float = 0.05
+) -> bool:
+    """Run by process 0 before promoting a sharded save to ``LATEST``:
+    wait for every manifest-promised commit marker to exist. The bytes
+    are verified once, by ``retention.validate_checkpoint``, which the
+    caller runs next. A marker is atomic (tmp + rename after its shard),
+    so only its existence can lag, bounded by ``timeout``; past the
+    deadline the save is judged torn, loudly, and LATEST keeps naming the
+    previous complete checkpoint."""
+    try:
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+    except (OSError, ValueError):
+        log(
+            f"COMMIT: {path} has no readable manifest — "
+            "treating the save as torn"
+        )
+        return False
+    if manifest.get("commit") != COMMIT_VERSION:
+        # a save without the commit protocol: nothing to await
+        return True
+    nprocs = int(manifest.get("nprocs", 1))
+    deadline = time.monotonic() + max(0.0, timeout)
+    while True:
+        missing = [
+            k
+            for k in range(nprocs)
+            if not os.path.exists(commit_marker_path(path, k))
+        ]
+        if not missing:
+            return True
+        if time.monotonic() >= deadline:
+            log(
+                f"COMMIT: deadline ({timeout:g}s) expired waiting for "
+                f"commit marker(s) {missing} in {path} — judging the "
+                "save TORN; LATEST keeps the previous complete "
+                "checkpoint"
+            )
+            return False
+        time.sleep(poll)
+
+
+def broadcast_from_0(obj):
+    """Process 0's ``obj`` (a small picklable host value) on every process
+    of the ``torch.distributed`` group; ``obj`` itself in one process."""
+    if process_count() <= 1:
+        return obj
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]

@@ -5,9 +5,32 @@ same way.
 A fault plan is a comma-separated list of ``kind@at`` terms (optionally
 ``kind@at=value``, optionally qualified with ``:rank=K``, ``:steps=N``,
 ``:ms=N`` or ``:peer=H``), from the ``-faults`` flag of
-``python -m singa_tpu_torch.main``. Every kind of the JAX package
-parses, so one plan string serves both packages' launch lines. The
-port fires only the serving fleet's kinds:
+``python -m singa_tpu_torch.main`` (or ``SINGA_TPU_FAULTS``). Every
+kind of the JAX package parses and fires, so one plan string drills both
+packages. The training kinds fire at the Trainer's step-boundary seams
+(``resilience/context.py``), never inside the step, so a drilled run's
+steps are the same as a clean run's:
+
+  crash@7          raise InjectedCrash at the step-7 boundary (before the
+                   step runs): the supervisor's auto-resume
+  sigterm@12       a synthetic SIGTERM at the step-12 boundary: the
+                   preemption drain and the resumable exit (75)
+  nanloss@5        poison step 5's batch: its images NaN (a token feed
+                   takes id 0, the JAX package's cast of NaN), its labels
+                   kept; the step runs eager on the fed batch, and the
+                   divergence guard judges it
+  corrupt_ckpt@1   tear the 1st checkpoint written (a 1-based ordinal,
+                   between the save and the LATEST mark)
+  torn_sidecar@1   tear the replica engine's ``.server`` sidecar of the
+                   1st checkpoint written
+  slowstep@9=0.5   sleep 0.5 s at the step-9 boundary: the watchdog
+  async_torn_write@1  tear the 1st asynchronous write and kill its
+                   publication (``resilience/async_ckpt.py``): LATEST
+                   must keep naming the previous complete save
+  profile@20:steps=5  not a fault: bracket steps 20..25 with
+                   ``torch.profiler`` into <workspace>/<profile_subfolder>
+
+and the serving fleet's:
 
   torn_weights@K   the K-th ``weight_ship`` a fleet host receives is
                    torn in half before decoding: the frame's CRC must
@@ -20,12 +43,12 @@ port fires only the serving fleet's kinds:
                    the socket transport's faults, keyed on the K-th
                    message send of this process (comm/faults.py)
 
-The training kinds (crash, sigterm, nanloss, corrupt_ckpt,
-torn_sidecar, slowstep, async_torn_write, profile) parse but nothing in
-the port fires them: the Trainer refuses a ``resilience {}`` block by
-name. Every fault fires once per plan object; a ``:rank=K`` term fires
-only in process K (``coord.process_index``) and is not consumed
-elsewhere.
+Every fault fires once per plan object: the supervisor owns one plan
+across its restart attempts, so ``crash@7`` does not fire again when the
+resumed run passes step 7. A ``:rank=K`` term fires only in process K
+(``coord.process_index``) and is not consumed elsewhere; a multi-process
+job gives every process the same plan string (a plan forces per-step
+boundaries, which every process must share).
 """
 
 from __future__ import annotations

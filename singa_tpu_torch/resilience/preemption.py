@@ -2,12 +2,14 @@
 PyTorch counterpart of ``singa_tpu/resilience/preemption.py``.
 
 Cluster preemptions arrive as SIGTERM with a short grace window. The
-handler only sets a flag; the serve loop checks it at a tick boundary,
-drains whatever is in flight (a fleet host migrates it to a peer) and
-exits with a distinct "resumable" status (EXIT_RESUMABLE, EX_TEMPFAIL's
-75) so the launcher can tell "re-run me" from a real failure. Nothing
-asynchronous touches serving state, and no CUDA call runs in the
-handler.
+handler only sets a flag; the train loop checks it at a step or chunk
+boundary (``resilience/context.py``), writes a final checkpoint and
+raises ``PreemptionDrained``, which the supervisor turns into a distinct
+"resumable" exit status (EXIT_RESUMABLE, EX_TEMPFAIL's 75), so the
+launcher can tell "re-run me" from a real failure; a fleet host checks
+it at a tick boundary and migrates what is in flight to a peer. Nothing
+asynchronous touches training or serving state, and no CUDA call runs
+in the handler.
 """
 
 from __future__ import annotations
@@ -16,9 +18,23 @@ import signal
 import threading
 
 
+#: clean finish
+EXIT_OK = 0
+#: crashed and the supervisor gave up (or no supervision requested)
+EXIT_FAILED = 1
 #: drained on SIGTERM/SIGINT — safe to relaunch
 #: (BSD sysexits EX_TEMPFAIL: "transient failure, retry")
 EXIT_RESUMABLE = 75
+
+
+class PreemptionDrained(Exception):
+    """Raised at a step boundary after the drain checkpoint is written;
+    the supervisor converts it into EXIT_RESUMABLE."""
+
+    def __init__(self, step: int, checkpoint: str | None):
+        super().__init__(f"preempted at step {step}")
+        self.step = step
+        self.checkpoint = checkpoint
 
 
 class PreemptionHandler:

@@ -11,9 +11,11 @@ backprop grads. Stacked pretraining feeds a deep autoencoder:
 of ``examples/mnist/autoencoder.conf``.
 
 The chain draws activation-sized uniforms on the device, so the step
-is eager (the Trainer's dispatch rule). The JAX trainer's guard seam
-(``grad_norm_sq``, ``lr_scale``) is left out: the port refuses
-``resilience``, which is what would use it.
+is eager (the Trainer's dispatch rule). Under a divergence guard the
+verdict is the finiteness of the CD grads' global norm and of every
+RBM's metrics (there is no backprop loss to watch; a NaN batch shows in
+both), taken in the Trainer's eager tail, which also folds the LR
+backoff into the CD grads and drops a bad step's update.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from ..config.schema import ConfigError
 from ..layers.rbm import RBMLayer
 from ..utils.rng import fold_in
 from .checkpoint import load_checkpoint, save_checkpoint
-from .trainer import Trainer
+from .trainer import _GUARD_METRIC, Trainer
 
 
 def unroll_autoencoder(
@@ -107,6 +109,15 @@ class CDTrainer(Trainer):
             )
             # CD grads are batch means: / n makes their sum the global one
             grads.append({nm: v / n for nm, v in g.items()})
+            if self._guard is not None:
+                # the tail's verdict reads a "loss": NaN unless every RBM
+                # metric is finite (the grads' norm it checks itself)
+                fin = torch.stack([torch.isfinite(torch.as_tensor(v)).all()
+                                   for ms in m.values()
+                                   for v in ms.values()]).all()
+                m[_GUARD_METRIC] = {"loss": torch.where(
+                    fin, torch.zeros((), device=dev),
+                    torch.full((), float("nan"), device=dev))}
             metrics.append(m)
         return self._reduce_and_update(step, grads, metrics)
 

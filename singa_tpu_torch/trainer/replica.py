@@ -51,11 +51,18 @@ sharded save's manifest promises it and its ``commit_server.json``
 marker follows it. Saves cross to and from the JAX package's replica
 engine in both formats.
 
+The divergence guard: every replica computes its own verdict (its loss
+and its grad-norm finite) and the step's verdict is their conjunction
+over every replica of every process, so any bad replica voids the whole
+step and the counters (shared 0-d tensors on rank 0's device, saved
+unstacked as the JAX engine saves them) and a rollback stay consistent:
+a rollback restores every replica, the center and the snapshots through
+the engine's own resume path.
+
 What the port leaves out: the step and the protocol round run eager
 (the JAX package's fused multi-window programs, the rounds compiled into
 the chunk, wait for graphs over several ranks); the replica axis beside
 a model axis (kLayerPartition), which the Trainer refuses by name;
-``resilience {}`` and the guard seam, as the Trainer refuses them;
 ``zero_update`` and ``grad_comm``, refused with the JAX Trainer's
 messages, as the JAX replica engine refuses them.
 """
@@ -83,6 +90,12 @@ from ..parallel.consistency import (
     sync_ratio,
 )
 from ..resilience.coord import sidecar_path, write_sidecar_commit
+from ..resilience.guard import (
+    GUARD_KEYS,
+    guard_finish,
+    guard_grads,
+    init_guard_buffers,
+)
 from ..utils.rng import fold_in
 from .checkpoint import load_checkpoint, load_stream_positions, save_checkpoint
 from .sharded_ckpt import (
@@ -91,10 +104,9 @@ from .sharded_ckpt import (
     buffer_key,
     is_sharded_checkpoint,
     param_key,
-    save_sharded,
     state_key,
 )
-from .trainer import Trainer, _now
+from .trainer import _GUARD_METRIC, Trainer, _now, _put
 
 PROTOCOLS = ("Elastic", "RandomSync")
 
@@ -186,6 +198,9 @@ class ReplicaTrainer(Trainer):
         self._bootstrapped = False
         self._eval_view: tuple[dict, dict] | None = None
         self._last_batch: list | None = None
+        #: the guard counters, shared by every replica
+        self._gbuf = (init_guard_buffers(self.device)
+                      if self._guard is not None else {})
         if self.cfg.checkpoint:
             self._resume(self.cfg.checkpoint)
 
@@ -257,11 +272,21 @@ class ReplicaTrainer(Trainer):
 
     @property
     def buffers(self) -> dict:
-        return self._stacked("buffers")
+        """The replicas' buffers stacked, and the guard counters (shared,
+        unstacked, live)."""
+        return {**self._stacked("buffers"), **self._gbuf}
 
     @buffers.setter
     def buffers(self, value: dict) -> None:
-        self._assign_rows("buffers", value)
+        with torch.no_grad():
+            for k in GUARD_KEYS:
+                if k in value and k in self._gbuf:
+                    self._gbuf[k].copy_(torch.as_tensor(value[k]))
+        self._assign_rows("buffers", {k: v for k, v in value.items()
+                                      if k not in GUARD_KEYS})
+
+    def _guard_buffers(self) -> dict:
+        return self._gbuf
 
     @property
     def snapshot(self) -> dict | None:
@@ -297,6 +322,8 @@ class ReplicaTrainer(Trainer):
     def _can_chunk(self) -> bool:
         """run() advances by windows that end at the protocol's rounds
         (``_chunk_len``); each step of a window is eager."""
+        if self.resilience is not None and self.resilience.per_step:
+            return False
         return self._chunk_cap() > 1
 
     def _step_core(self, step: int, batches: list) -> dict:
@@ -307,7 +334,8 @@ class ReplicaTrainer(Trainer):
         mesh = self.mesh
         step_gen = fold_in(self._step_gen, step)
         self._last_batch = batches
-        metrics = []
+        guard = self._guard is not None
+        metrics, news = [], []
         for r in mesh.local_ranks:
             rep, dev = self._reps[r], mesh.device(r)
             leaves = {n: p.detach().requires_grad_(True)
@@ -323,24 +351,37 @@ class ReplicaTrainer(Trainer):
             grads = {n: (lv.grad if lv.grad is not None
                          else torch.zeros_like(lv))
                      for n, lv in leaves.items()}
+            flat = {(layer, k): torch.as_tensor(v, device=self.device)
+                    for layer, ms in m.items() for k, v in ms.items()}
+            if guard:
+                ok_r, grads = guard_grads(self._gbuf, loss.detach(), grads)
+                flat[_GUARD_METRIC, "bad"] = (~ok_r).float().to(self.device)
             new_p, new_s = self.updater.apply(
                 step, rep["params"], grads, rep["state"], self.specs)
-            with torch.no_grad():
+            news.append((rep, new_p, new_s, updates))
+            metrics.append(flat)
+        metrics = mesh.gather(metrics, self.device)
+        ok = None
+        if guard:
+            # one verdict over every replica: any bad one voids the step
+            ok = functools.reduce(torch.add, (
+                m.pop((_GUARD_METRIC, "bad")) for m in metrics)) == 0
+        with torch.no_grad():
+            for rep, new_p, new_s, updates in news:
                 for n, v in new_p.items():
-                    rep["params"][n].copy_(v)
+                    _put(rep["params"][n], v, ok)
                 for n, slots in new_s.items():
                     for s, v in slots.items():
-                        rep["state"][n][s].copy_(v)
+                        _put(rep["state"][n][s], v, ok)
                 for k, v in updates.items():
                     if v is not rep["buffers"][k]:
-                        rep["buffers"][k].copy_(v)
-            metrics.append({(layer, k): torch.as_tensor(v, device=self.device)
-                            for layer, ms in m.items() for k, v in ms.items()})
-        metrics = mesh.gather(metrics, self.device)
+                        _put(rep["buffers"][k], v, ok)
         out: dict = {}
         for layer, k in metrics[0]:
             out.setdefault(layer, {})[k] = functools.reduce(
                 torch.add, (m[layer, k] for m in metrics)) / self.nreplicas
+        if guard:
+            out = guard_finish(ok, self._gbuf, out)
         return out
 
     def _next_batch(self, net: Net):
@@ -609,46 +650,38 @@ class ReplicaTrainer(Trainer):
                               ranks[0], self.nreplicas)
                 for k in local[0]}
 
-    def save(self, step: int) -> str | None:
-        """The base formats with the replicas stacked ``(R, ...)``, then
-        the ``.server`` sidecar. Every process calls it at the same
-        step."""
-        folder = self._checkpoint_dir()
-        if folder is None:
-            return None
-        mesh = self.mesh
-        streams = self._stream_positions()
-        with self.timers.phase("ckpt"):
-            if self.cfg.checkpoint_format == "sharded":
-                path = os.path.join(folder, f"step_{step}.ckpt")
-                state: dict = {}
-                for (n, s), v in self._rank_shards("state").items():
-                    state.setdefault(n, {})[s] = v
-                save_sharded(path, step, self._rank_shards("params"), state,
-                             self._rank_shards("buffers"), streams=streams,
-                             proc=mesh.proc, nprocs=mesh.nprocs,
-                             manifest_extra=self._manifest_extra())
-            else:
-                path = os.path.join(folder, f"step_{step}.npz")
-                params, state, buffers = self.params, self.state, self.buffers
-                if mesh.proc == 0:
-                    save_checkpoint(path, step, params, state, buffers,
-                                    streams=streams)
-            self._save_sidecar(path, step)
-        self.log(f"step {step}: checkpoint -> {path}")
-        return path
+    def _save_trees(self) -> tuple:
+        """The base formats' trees with the replicas stacked ``(R, ...)``
+        (sharded: this process's replicas as rank boxes along the
+        replica axis) and the guard counters unstacked."""
+        if self.cfg.checkpoint_format == "sharded":
+            state: dict = {}
+            for (n, s), v in self._rank_shards("state").items():
+                state.setdefault(n, {})[s] = v
+            return (True, self._rank_shards("params"), state,
+                    {**self._rank_shards("buffers"), **self._gbuf})
+        return False, self.params, self.state, self.buffers
 
-    def _save_sidecar(self, path: str, step: int) -> None:
+    def _sidecar_tree(self):
+        """The ``.server`` state, taken at the save's step boundary on
+        every process (the snapshots' gather is a collective): the center,
+        the stacked RandomSync snapshots, the ratio; None before the
+        bootstrap."""
+        if self.center is None:
+            return None
+        return {"center": dict(self.center), "snapshot": self.snapshot,
+                "ratio": torch.tensor(self.sample_ratio,
+                                      dtype=torch.float32)}
+
+    def _write_sidecar(self, path: str, step: int, tree) -> None:
         """``<path>.server``: the center, ``__sample_ratio__`` and, under
         RandomSync, the stacked snapshots as ``__snapshot__``, written by
-        process 0; beside a sharded save its commit marker follows."""
-        if self.center is None:
+        process 0 after the base save; beside a sharded save its commit
+        marker follows."""
+        if tree is None or self.mesh.proc != 0:
             return
-        snap = self.snapshot
-        if self.mesh.proc != 0:
-            return
-        server = {**self.center,
-                  "__sample_ratio__": np.float32(self.sample_ratio)}
+        server = {**tree["center"], "__sample_ratio__": tree["ratio"]}
+        snap = tree["snapshot"]
         save_checkpoint(sidecar_path(path), step, server,
                         {"__snapshot__": snap} if snap else None)
         if os.path.isdir(path):
@@ -698,6 +731,11 @@ class ReplicaTrainer(Trainer):
                     for r, d in zip(self.mesh.local_ranks,
                                     self._local(kind)):
                         d[k].copy_(torch.from_numpy(np.asarray(arr[r])))
+        with torch.no_grad():
+            for k, v in self._gbuf.items():
+                arr = arrays.get(buffer_key(k))
+                if arr is not None:
+                    v.copy_(torch.from_numpy(np.asarray(arr)))
         self._resume_streams = streams
         self.start_step = max(self.start_step, step)
         server = sidecar_path(path)
@@ -737,3 +775,14 @@ class ReplicaTrainer(Trainer):
                 h.update(f"{kind}|{n}".encode())
                 h.update(tree[n].detach().cpu().numpy().tobytes())
         return h.hexdigest()
+
+    def _restore_live(self, path: str) -> None:
+        """The guard's rollback: every replica, the guard counters, the
+        center and the snapshots from ``path`` through the engine's own
+        resume, in place (a save from before the bootstrap leaves the
+        engine unbootstrapped, as a fresh one)."""
+        self.center = None
+        self._bootstrapped = False
+        for r in self.mesh.local_ranks:
+            self._reps[r].pop("snapshot", None)
+        self._resume(path)

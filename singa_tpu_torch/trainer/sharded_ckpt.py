@@ -27,7 +27,9 @@ update's slots, the ring's residuals), its flat device index being the
 global rank, and process 0 alone one entry, from its first rank, for a
 replicated array, as the JAX package saves replica 0 only. Files are
 written to ``.tmp`` and renamed; once every process's commit marker has
-landed (a barrier of the process group), process 0 removes the shard
+landed (a barrier of the process group; on the async writer thread,
+which issues no collective, process 0's await of the markers before
+LATEST names the save stands for it), process 0 removes the shard
 and marker files of a larger job that wrote the same directory before
 and writes the manifest, with ``"nprocs"`` the process count, last.
 
@@ -111,6 +113,7 @@ def save_sharded(
     proc: int = 0,
     nprocs: int = 1,
     manifest_extra: dict | None = None,
+    barrier: bool = True,
 ) -> str:
     """Write process ``proc``'s shard and commit marker of one save of
     ``nprocs`` processes, and, in process 0, the manifest. Every value
@@ -119,7 +122,15 @@ def save_sharded(
     Every process of the group calls it at the same step.
     ``manifest_extra`` merges extra promises into the manifest: the
     replica engine's ``{"sidecar": True}``, which makes retention demand
-    its ``.server`` sidecar and the sidecar's commit marker."""
+    its ``.server`` sidecar and the sidecar's commit marker.
+
+    Across processes two barriers of the process group order the save:
+    every marker before the manifest, the manifest before any process
+    goes on. ``barrier=False`` leaves them out, for a caller that must
+    issue no collective (the async writer thread, beside a step loop
+    that issues its own): the save is then ordered as the JAX package
+    orders it, by process 0 awaiting every commit marker before LATEST
+    names the save (``coord.await_commits``); nothing reads it before."""
     from ..resilience.coord import COMMIT_VERSION, write_commit
     from ..resilience.retention import remove_stale_shards
 
@@ -154,7 +165,7 @@ def save_sharded(
     # the marker after the shard: a present marker always describes a
     # fully written shard
     write_commit(path, proc)
-    if nprocs > 1:
+    if nprocs > 1 and barrier:
         import torch.distributed as dist
 
         # every process's marker has landed before the manifest names it
@@ -176,7 +187,7 @@ def save_sharded(
         with open(mpath + ".tmp", "w") as f:
             json.dump(manifest, f)
         os.replace(mpath + ".tmp", mpath)
-    if nprocs > 1:
+    if nprocs > 1 and barrier:
         # no process reads the save before its manifest is there
         dist.barrier()
     return path

@@ -133,9 +133,29 @@ intra_axis / inter_axis }``) reduce over the product of two axes whose
 ranks each take a batch slice: the Trainer runs them as a data axis in
 the ring's order (``_named_ring_view``), int8 on the inter hops.
 
+Resilience (``resilience/``): the supervisor attaches a
+``ResilienceContext`` (``self.resilience``) and the flight recorder
+(``attach_telemetry``), and ``run`` calls the context at every step
+boundary (``before_step``/``after_step``), ``save`` at every write
+(``checkpoint_written``). With a ``guard_policy`` the step computes the
+divergence guard's verdict on the device (the loss and the global
+grad-norm finite) and writes ``where(ok, new, old)`` into the stored
+params, slots and buffers, in the eager tail and in the graphed body
+alike, so a captured step replays it with no host read; the counters are
+0-d tensors in ``buffers`` under the JAX package's reserved keys, and the
+accumulated LR backoff multiplies the grads. On several ranks one
+verdict covers the whole step (every rank's loss and the reduced grads;
+the ring's residuals roll back with it). ``rollback_to`` restores a
+checkpoint into the live tensors (a captured graph replays the restored
+values), and with ``async_checkpoint`` a save is a device snapshot into
+one of two preallocated buffers plus a copy to pinned host memory on a
+side stream, written by the context's writer thread. A fault plan makes
+every step a chunk of one; a ``nanloss`` step runs eager on its
+poisoned, directly fed batch.
+
 What the port leaves out, and refuses with a ConfigError that names
-it rather than ignoring: ``resilience`` and ``fleet``; the int8 ring
-with a net with buffers; on a mesh
+it rather than ignoring: ``fleet`` (``main`` dispatches it to the
+serving host); the int8 ring with a net with buffers; on a mesh
 with more axes than data: any axis but data across processes, two of
 the seq, expert and pipe axes together (or with a model axis, but pipe
 with model), ``zero_update``, ``grad_comm``, sharded saves and a net
@@ -147,9 +167,7 @@ picks the replica engine instead (``trainer/replica.py``'s
 ReplicaTrainer), and the contrastive-divergence engine is
 ``trainer/cd.py``'s CDTrainer. Uncached eval streams ride a bounded
 BurstFeeder when ``prefetch`` is on (``_eval_batches``).
-Also left out: telemetry (the JAX package attaches its recorder through
-the resilience supervisor, which is not ported) and graphs over more
-than one rank.
+Also left out: graphs over more than one rank.
 """
 
 from __future__ import annotations
@@ -157,6 +175,7 @@ from __future__ import annotations
 import functools
 import hashlib
 import os
+import threading
 import types
 from typing import Callable
 
@@ -191,6 +210,17 @@ from ..parallel.shardings import (
     zero_update_shardings,
 )
 from ..params import init_params
+from ..resilience.guard import (
+    GUARD_CONSEC,
+    GUARD_KEYS,
+    GUARD_LR,
+    GuardSpec,
+    apply_verdict,
+    grad_norm_sq,
+    guard_finish,
+    guard_grads,
+    init_guard_buffers,
+)
 from ..utils import Performance, Timers
 from ..utils.graphs import Graphed
 from ..utils.rng import fold_in
@@ -209,9 +239,8 @@ def _now(step: int, freq: int, after: int) -> bool:
 def unsupported(model_cfg: ModelConfig,
                 cluster_cfg: ClusterConfig | None) -> list[str]:
     """The conf knobs this engine does not port yet, by name."""
-    out = []
     del cluster_cfg
-    return [knob for knob in ("resilience", "fleet")
+    return [knob for knob in ("fleet",)
             if getattr(model_cfg, knob, None) is not None]
 
 
@@ -332,6 +361,15 @@ class Trainer:
         self._init_gen = torch.Generator().manual_seed(seed)
         #: the root of every step's generator (the JAX Trainer's step key)
         self._step_gen = fold_in(torch.Generator().manual_seed(seed), 1)
+        #: the resilience context the supervisor attaches (None: inert)
+        self.resilience = None
+        #: the flight recorder (``attach_telemetry``; None: inert)
+        self.telemetry = None
+        #: the divergence guard (None: unguarded)
+        self._guard = GuardSpec.from_config(model_cfg.resilience)
+        #: the async saves' two snapshot buffers (``_snapshot``)
+        self._snaps = [None, None]
+        self._snap_next = 0
 
         # --- ZeRO-style update sharding (zero_update): the dim each
         # param's update is cut along over the ranks, None = replicated
@@ -623,10 +661,20 @@ class Trainer:
             generators=[fold_in(step_gen, r) for r in ranks],
             buffers=self.buffers, lanes=Lanes(mesh, tuple(ranks)))
         torch.autograd.backward([loss / n for loss in losses])
-        self._axes_update(step, self._axes_reduce(ranks, leaves))
-        return {layer: {k: rank_sum(torch.as_tensor(m[layer][k])
-                                    for m in metrics) / n for k in ms}
-                for layer, ms in metrics[0].items()}
+        grads = self._axes_reduce(ranks, leaves)
+        out = {layer: {k: rank_sum(torch.as_tensor(m[layer][k])
+                                   for m in metrics) / n for k in ms}
+               for layer, ms in metrics[0].items()}
+        ok = None
+        if self._guard is not None:
+            ok, grads = guard_grads(
+                self._guard_buffers(),
+                rank_sum(l.detach().float().to(self.device) for l in losses),
+                grads)
+        self._axes_update(step, grads, ok)
+        if ok is not None:
+            out = guard_finish(ok, self._guard_buffers(), out)
+        return out
 
     def _axes_reduce(self, ranks: list, leaves: list) -> dict:
         """{param: [each piece's gradient]}: piece i's, the sum in rank
@@ -646,7 +694,7 @@ class Trainer:
                 for i in range(pieces)]
         return grads
 
-    def _axes_update(self, step, grads: dict) -> None:
+    def _axes_update(self, step, grads: dict, ok=None) -> None:
         """The update of every piece on every device's stored arrays, in
         place: a replicated param's whole, a split param's shards one by
         one (views of the stored arrays and slots)."""
@@ -660,9 +708,9 @@ class Trainer:
                         step, {nm: p}, {nm: g.to(dev)}, {nm: slots},
                         self.specs)
                     with torch.no_grad():
-                        p.copy_(new_p[nm])
+                        _put(p, new_p[nm], ok)
                         for k, v in new_s[nm].items():
-                            slots[k].copy_(v)
+                            _put(slots[k], v, ok)
 
     # ------------------------------------------------------------------
     # params
@@ -678,6 +726,10 @@ class Trainer:
         state = self.updater.init_state(params)
         buffers = {**self.train_net.init_buffers(self.device),
                    **init_residuals(params, self._comm)}
+        if self._guard is not None:
+            # the counters ride the buffers: they checkpoint and restore
+            # with the rest of the training state
+            buffers.update(init_guard_buffers(self.device))
         self._resume_streams: dict[str, int] = {}
         sharded = bool(self.cfg.checkpoint) and is_sharded_checkpoint(
             self.cfg.checkpoint)
@@ -965,6 +1017,9 @@ class Trainer:
             grads = [{nm: (lv[nm].grad if lv[nm].grad is not None
                            else torch.zeros_like(lv[nm])) for nm in names}
                      for lv in leaves]
+            if self._guard is not None:
+                for m, loss in zip(metrics, losses):
+                    m[_GUARD_METRIC] = {"loss": loss.detach().float()}
         else:
             grads, metrics = [], []
             for r, lv in zip(mesh.local_ranks, leaves):
@@ -985,20 +1040,30 @@ class Trainer:
                          else torch.zeros_like(lv[nm])) / n
                     for nm in names
                 })
+                if self._guard is not None:
+                    m = {**m, _GUARD_METRIC: {"loss": loss.detach().float()}}
                 metrics.append(m)
-        self._store_buffers(updates)
-        return self._reduce_and_update(step, grads, metrics)
+        return self._reduce_and_update(step, grads, metrics, updates)
 
-    def _reduce_and_update(self, step, grads: list, metrics: list) -> dict:
+    def _reduce_and_update(self, step, grads: list, metrics: list,
+                           updates: dict | None = None) -> dict:
         """The eager step's tail: the local grads of this process's ranks
         (already / n) through the reduction, the update of the params
         they name on every device (zero-sharded params:
-        ``_zero_update``) -> the metrics, averaged over all ranks in
-        rank order."""
+        ``_zero_update``) and the buffer ``updates`` -> the metrics,
+        averaged over all ranks in rank order.
+
+        Guarded, the verdict is taken over every rank's loss (the
+        ``_GUARD_METRIC`` entry each rank's metrics carry, averaged with
+        them) and the squared norm of the reduced grads (on the ring,
+        each rank's, summed with the metrics), so it is the same on
+        every rank and process: a bad rank voids the step everywhere,
+        its params, slots, buffer updates and ring residuals alike."""
         mesh = self.mesh
         n = mesh.width
         names = list(grads[0])
         zero = [nm for nm in self._zero_names() if nm in grads[0]]
+        guard = self._guard is not None
         keys = [(layer, k) for layer, ms in metrics[0].items() for k in ms]
         metrics = [{key: torch.as_tensor(m[key[0]][key[1]],
                                          device=self.device)
@@ -1015,6 +1080,11 @@ class Trainer:
                       for r in reversed(mesh.local_ranks)}
             shards = {r: {nm: reduced[r][nm] for nm in zero}
                       for r in mesh.local_ranks}
+            if guard:
+                key = (_GUARD_METRIC, "gnorm")
+                keys.append(key)
+                for r, m in zip(mesh.local_ranks, metrics):
+                    m[key] = grad_norm_sq(reduced[r]).to(self.device)
             metrics = mesh.gather(metrics, self.device)
         else:
             if mesh.nprocs > 1:
@@ -1040,9 +1110,21 @@ class Trainer:
             shards = {r: {nm: summed[nm].chunk(n, dim=self._zero_dims[nm])[r]
                           .to(mesh.device(r)) for nm in zero}
                       for r in mesh.local_ranks}
-        self._store_buffers(res)
+        out: dict = {}
+        for layer, k in keys:
+            out.setdefault(layer, {})[k] = functools.reduce(
+                torch.add, (m[layer, k] for m in metrics)) / n
+        ok = None
+        if guard:
+            gm = out.pop(_GUARD_METRIC)
+            # by_dev and shards hold copies: the norm is one device's
+            ok, (by_dev, shards) = guard_grads(
+                self._guard_buffers(), gm["loss"], (by_dev, shards),
+                gnorm=gm["gnorm"] if "gnorm" in gm else grad_norm_sq(
+                    by_dev[self.device]))
+        self._store_buffers({**(updates or {}), **res}, ok)
         if zero:
-            self._zero_update(step, shards)
+            self._zero_update(step, shards, ok)
             names = [nm for nm in names if nm not in zero]
         for dev, rep in self._replicas.items():
             new_p, new_s = self.updater.apply(
@@ -1053,17 +1135,15 @@ class Trainer:
             # the params and slots at fixed addresses
             with torch.no_grad():
                 for nm, v in new_p.items():
-                    rep["params"][nm].copy_(v)
+                    _put(rep["params"][nm], v, ok)
                 for nm, slots in new_s.items():
                     for s, v in slots.items():
-                        rep["state"][nm][s].copy_(v)
-        out: dict = {}
-        for layer, k in keys:
-            out.setdefault(layer, {})[k] = functools.reduce(
-                torch.add, (m[layer, k] for m in metrics)) / n
+                        _put(rep["state"][nm][s], v, ok)
+        if guard:
+            out = guard_finish(ok, self._guard_buffers(), out)
         return out
 
-    def _zero_update(self, step, shards: dict) -> None:
+    def _zero_update(self, step, shards: dict, ok=None) -> None:
         """The zero update of the params ``shards[r]`` names: each rank r
         of this process updates its slice of each (a view of its
         device's replica) from ``shards[r]``, its slice of the reduced
@@ -1084,7 +1164,12 @@ class Trainer:
             with torch.no_grad():
                 for nm, new in new_s.items():
                     for s, v in new.items():
-                        slots[nm][s].copy_(v)
+                        _put(slots[nm][s], v, ok)
+            if ok is not None:
+                new_p = {nm: torch.where(
+                    ok.to(v.device), v,
+                    params[nm].chunk(n, dim=self._zero_dims[nm])[r])
+                    for nm, v in new_p.items()}
             fresh.append(new_p)
         self._stitch_zero(mesh.gather(fresh, self.device))
 
@@ -1407,6 +1492,8 @@ class Trainer:
         mode."""
         if not self._stream_chunks or self._dispatch != "graph":
             return False
+        if self.resilience is not None and self.resilience.per_step:
+            return False
         return self._chunk_cap() > 1
 
     def _reset_feeders(self) -> None:
@@ -1517,7 +1604,11 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _dispatch_rule(self, graphs: bool | None) -> tuple[str, str]:
-        """-> ("graph", "") or ("eager", the rule that keeps it eager)."""
+        """-> ("graph", "") or ("eager", the rule that keeps it eager).
+        The divergence guard keeps the graph (its verdict is device
+        work); under a fault plan a ``nanloss`` step alone runs eager, on
+        its poisoned batch fed directly, and says so in the log
+        (``train_one_batch``)."""
         if graphs is False:
             return "eager", "graphs=False"
         n = self.mesh.width
@@ -1656,31 +1747,46 @@ class Trainer:
         if self._comm is not None:
             grads, res = reduce_gradients(
                 grads, self.buffers, self._comm, self._buckets(names))
+        ok = None
+        if self._guard is not None:
+            # the verdict on the device: no host read, so a captured
+            # graph replays it
+            ok, grads = guard_grads(self._guard_buffers(), loss.detach(),
+                                    grads)
         new_p, new_s = self.updater.apply(
             g.step, self.params, grads, self.state, self.specs)
-        self._store_update(new_p, new_s, {**updates, **res})
+        self._store_update(new_p, new_s, {**updates, **res}, ok)
+        if ok is not None:
+            metrics = guard_finish(ok, self._guard_buffers(), metrics)
         _add_sums(g.sums, metrics)
         self._advance_step()
 
     @torch.no_grad()
-    def _store_update(self, new_p: dict, new_s: dict, res: dict) -> None:
+    def _store_update(self, new_p: dict, new_s: dict, res: dict,
+                      ok=None) -> None:
         """Copy the update into the static params, slots and buffers
-        (running stats and residuals)."""
+        (running stats and residuals), in place; with a guard verdict
+        ``ok``, ``where(ok, new, old)``."""
         for nm, v in new_p.items():
-            self.params[nm].copy_(v)
+            _put(self.params[nm], v, ok)
         for nm, slots in new_s.items():
             for s, v in slots.items():
-                self.state[nm][s].copy_(v)
-        self._store_buffers(res)
+                _put(self.state[nm][s], v, ok)
+        self._store_buffers(res, ok)
 
     @torch.no_grad()
-    def _store_buffers(self, updates: dict) -> None:
+    def _store_buffers(self, updates: dict, ok=None) -> None:
         """Copy buffer updates into the Trainer's buffers in place: a
         captured step or eval reads them at fixed addresses. Entries
-        that are the buffer itself (not updated) are skipped."""
+        that are the buffer itself (not updated) are skipped; with a
+        guard verdict ``ok``, ``where(ok, new, old)``."""
         for k, v in updates.items():
             if v is not self.buffers[k]:
-                self.buffers[k].copy_(v)
+                _put(self.buffers[k], v, ok)
+
+    def _guard_buffers(self) -> dict:
+        """The live guard counters (0-d tensors on rank 0's device)."""
+        return {k: self.buffers[k] for k in GUARD_KEYS}
 
     def _advance_step(self) -> None:
         self._g.step.add_(1)
@@ -1701,14 +1807,32 @@ class Trainer:
     def train_one_batch(self, step: int) -> None:
         """TrainOneBatch (worker.cc:304-316): one forward+backward+update.
         Graphed: one replay of the step (one call of its body on the
-        CPU) on the batch at the stream's position."""
+        CPU) on the batch at the stream's position. A ``nanloss`` fault
+        at ``step`` runs the step eager on its poisoned batch, fed
+        directly (the JAX step's plain path)."""
+        if self.telemetry is not None:
+            self.telemetry.step = step  # an attribute stamp, no I/O
+        ctx = self.resilience
         if self._dispatch != "graph":
             with self.timers.phase("data"):
                 batch = self._next_batch(self.train_net)
+            if ctx is not None:
+                batch = ctx.inject_batch_faults(self, step, batch)
             with self.timers.phase("train"):
                 metrics = self._step_core(step, batch)
             self.perf.update(metrics)
             return
+        if ctx is not None and ctx.plan:
+            with self.timers.phase("data"):
+                batch = ctx.inject_batch_faults(
+                    self, step, lambda: self._next_batch(self.train_net))
+            if batch is not None:
+                self.log(f"dispatch: eager for step {step} (nanloss: a "
+                         "poisoned batch fed directly)")
+                with self.timers.phase("train"):
+                    metrics = self._step_core(step, batch)
+                self.perf.update(metrics)
+                return
         g = self._graph()
         pipes = self._pipelines[id(self.train_net)]
         with self.timers.phase("data"):
@@ -1736,6 +1860,9 @@ class Trainer:
         """Chunking folds N steps into one dispatch window: it needs the
         dataset on the device (batch = index math inside the step), a
         graphed step and a chunk cap above 1."""
+        if self.resilience is not None and self.resilience.per_step:
+            # a fault plan needs exact per-step boundaries
+            return False
         return (self._cached and self._dispatch == "graph"
                 and self._chunk_cap() > 1)
 
@@ -1816,6 +1943,10 @@ class Trainer:
             step + 1, cfg.checkpoint_frequency, cfg.checkpoint_after_steps
         )
         n = min(n, fire - step)
+        if self._guard is not None and self._guard.policy == "kRollback":
+            # the rollback policy reads the consecutive-bad counter at
+            # chunk boundaries: detection lags at most one window
+            n = min(n, self._guard.rollback_after)
         return max(1, int(n))
 
     # ------------------------------------------------------------------
@@ -1945,13 +2076,38 @@ class Trainer:
             rate = f"{sps:.0f} samples/s, {steps_s:.1f} steps/s"
             if self.tokens_per_step and steps_s > 0:
                 rate += f", {steps_s * self.tokens_per_step:.0f} tok/s"
+            # the guard counters ride the display line: one host read,
+            # at display cadence, never per step
+            guard, g = "", {}
+            if self._guard is not None:
+                g = self.guard_counters()
+                rb = getattr(self.resilience, "rollbacks", 0)
+                guard = (f" guard[bad {g['bad_steps']}, rollbacks {rb}, "
+                         f"lr x{g['lr_scale']:g}]")
             avg = self.perf.avg()
             self.log(
                 f"step {step}: train {self.perf.to_string(avg)} "
-                f"[{self.timers.to_string()}; {rate}]"
+                f"[{self.timers.to_string()}; {rate}]{guard}"
             )
+            if self.telemetry is not None:
+                self.telemetry.event(
+                    "step", step=step,
+                    metrics={l: dict(b) for l, b in avg.items()},
+                    phase_ms={p: round(self.timers.mean_ms(p), 3)
+                              for p in self.timers.phases()},
+                    steps=self.perf.count,
+                    samples_per_s=round(sps, 1),
+                    steps_per_s=round(steps_s, 3),
+                    **({"tokens_per_s": round(
+                        steps_s * self.tokens_per_step, 1)}
+                       if self.tokens_per_step else {}),
+                    **({"guard": g} if g else {}),
+                )
             self.perf.reset()
             self.timers.reset()
+            if self.telemetry is not None:
+                # the display boundary is the step loop's only flush
+                self.telemetry.flush()
         # snapshot labels carry the RESUME step (steps completed)
         done = step + 1
         if (
@@ -1974,9 +2130,14 @@ class Trainer:
         at a time."""
         streaming = self.feeder_mode == "stream"
         chunking = self._can_chunk() or streaming
+        ctx = self.resilience
         step = self.start_step
         self.completed_steps = step
         while step < self.cfg.train_steps:
+            if ctx is not None:
+                # the step-boundary seam: watchdog beat, fault injection,
+                # the preemption drain (may raise)
+                ctx.before_step(self, step)
             n = self._chunk_len(step) if chunking else 1
             self._pre_events(step)
             if n > 1 or (streaming and self._step_via_chunk(step)):
@@ -1987,6 +2148,9 @@ class Trainer:
                 self.train_one_batch(step)
             self._post_events(step + n - 1)
             step += n
+            if ctx is not None:
+                # a guard rollback may rewind to the last checkpoint
+                step = ctx.after_step(self, step)
             self.completed_steps = step
         if self._checkpoint_dir() is not None:
             self.save(self.cfg.train_steps)
@@ -2017,34 +2181,187 @@ class Trainer:
         gathered from every process first), or with
         ``checkpoint_format: "sharded"`` the ``step_<step>.ckpt``
         directory of ``sharded_ckpt.save_sharded``, each process writing
-        its ranks' shards. Every process calls it at the same step."""
+        its ranks' shards. Every process calls it at the same step.
+
+        Under a resilience context the context's ``checkpoint_written``
+        seam follows every write (the corrupt_ckpt fault, validation,
+        LATEST, retention). With ``async_checkpoint`` the step path only
+        takes a snapshot (``_snapshot``) and queues its write on the
+        context's writer thread."""
         folder = self._checkpoint_dir()
         if folder is None:
             return None
+        ctx = self.resilience
+        writer = ctx.async_ckpt if ctx is not None else None
+        rec = self.telemetry
+        if writer is None:
+            # the ckpt phase times the save's step-path cost (sync: the
+            # whole write; async: the snapshot and the submit)
+            with self.timers.phase("ckpt"):
+                path, write = self._prepare_save(folder, step, False)
+                write()
+            self.log(f"step {step}: checkpoint -> {path}")
+            if rec is not None:
+                rec.event("ckpt_save", step=step, path=path, mode="sync")
+            if ctx is not None:
+                ctx.checkpoint_written(self, path, step)
+            return path
+        with self.timers.phase("ckpt"):
+            path, write = self._prepare_save(folder, step, True)
+            writer.submit(
+                step, path, write,
+                on_written=lambda p, s: ctx.checkpoint_written(self, p, s),
+            )
+        self.log(f"step {step}: checkpoint (async) -> {path}")
+        if rec is not None:
+            rec.event("ckpt_save", step=step, path=path, mode="async")
+        return path
+
+    def _save_trees(self) -> tuple:
+        """-> (sharded, params, state, buffers): what a save writes, in
+        its format's layout (npz: the logical arrays, every process's
+        slots and residuals gathered; sharded: the stored arrays, this
+        process's rank shards)."""
+        if self.cfg.checkpoint_format == "sharded":
+            return (True, dict(self.params), self._state_layout(),
+                    self._buffer_layout())
+        state, buffers = self.state, self._whole_buffers()
+        return (False,
+                {n: self._unpad_one(n, v) for n, v in self.params.items()},
+                {n: {k: self._unpad_one(n, v) for k, v in slots.items()}
+                 for n, slots in state.items()},
+                dict(buffers))
+
+    def _prepare_save(self, folder: str, step: int, snapshot: bool):
+        """-> (final path, zero-argument write function) of one save.
+        ``snapshot=False`` writes the live tensors (the synchronous
+        path: the function runs before the next step); ``snapshot=True``
+        writes a snapshot (``_snapshot``), so the function may run on
+        the writer thread while the step loop goes on: it waits for the
+        snapshot's copy to the host and issues no device work."""
         mesh = self.mesh
         streams = self._stream_positions()
-        with self.timers.phase("ckpt"):
-            if self.cfg.checkpoint_format == "sharded":
-                path = os.path.join(folder, f"step_{step}.ckpt")
-                save_sharded(path, step, self.params, self._state_layout(),
-                             self._buffer_layout(), streams=streams,
-                             proc=mesh.proc, nprocs=mesh.nprocs,
-                             manifest_extra=self._manifest_extra())
-            else:
-                path = os.path.join(folder, f"step_{step}.npz")
-                state, buffers = self.state, self._whole_buffers()
+        sharded, params, state, buffers = self._save_trees()
+        side = self._sidecar_tree()
+        wait = release = None
+        if snapshot:
+            (params, state, buffers, side), wait, release = self._snapshot(
+                (params, state, buffers, side))
+        if sharded:
+            path = os.path.join(folder, f"step_{step}.ckpt")
+            extra = self._manifest_extra()
+
+            def write_files() -> None:
+                # on the writer thread no collective: the step loop
+                # issues its own on the same group meanwhile
+                save_sharded(path, step, params, state, buffers,
+                             streams=streams, proc=mesh.proc,
+                             nprocs=mesh.nprocs, manifest_extra=extra,
+                             barrier=not snapshot)
+        else:
+            path = os.path.join(folder, f"step_{step}.npz")
+
+            def write_files() -> None:
                 if mesh.proc == 0:
-                    # npz saves hold the logical arrays
-                    save_checkpoint(
-                        path, step,
-                        {n: self._unpad_one(n, v)
-                         for n, v in self.params.items()},
-                        {n: {k: self._unpad_one(n, v)
-                             for k, v in slots.items()}
-                         for n, slots in state.items()},
-                        buffers, streams=streams)
-        self.log(f"step {step}: checkpoint -> {path}")
-        return path
+                    save_checkpoint(path, step, params, state, buffers,
+                                    streams=streams)
+
+        def write() -> None:
+            try:
+                if wait is not None:
+                    wait()
+                write_files()
+                self._write_sidecar(path, step, side)
+            finally:
+                if release is not None:
+                    release()
+
+        return path, write
+
+    def _snapshot(self, trees):
+        """The zero-stall save's stage 1 (``resilience/async_ckpt.py``):
+        copy every tensor of ``trees`` (dicts of tensors or RankShards),
+        device to device on the compute stream, into the next of two
+        preallocated snapshot buffers, then on a side stream that waits
+        for those copies, into pinned host memory, and record an event.
+        -> (the same trees over the host copies, the writer's wait, the
+        buffer's release). The next step writes the live tensors, never
+        the snapshot; a buffer is reused only after its write released
+        it (the writer queue's double buffer bounds that wait)."""
+        leaves: list = []
+
+        def collect(x):
+            if isinstance(x, dict):
+                for v in x.values():
+                    collect(v)
+            elif isinstance(x, tuple):
+                for v in x:
+                    collect(v)
+            elif isinstance(x, RankShards):
+                leaves.extend(x.parts)
+            elif isinstance(x, torch.Tensor):
+                leaves.append(x)
+
+        collect(trees)
+        k = self._snap_next
+        self._snap_next ^= 1
+        buf = self._snaps[k]
+        sig = [(tuple(t.shape), t.dtype, t.device) for t in leaves]
+        if buf is not None:
+            buf["free"].wait()
+        if buf is None or buf["sig"] != sig:
+            cuda = any(t.device.type == "cuda" for t in leaves)
+            dev_flat, dev = _flat_like(leaves, self.device, False)
+            host_flat, host = ((dev_flat, dev) if not cuda else
+                               _flat_like(leaves, "cpu", True))
+            buf = {"sig": sig, "dev": dev, "host": host, "cuda": cuda,
+                   "flat": (dev_flat, host_flat),
+                   "free": threading.Event()}
+            self._snaps[k] = buf
+        buf["free"].clear()
+        # one multi-tensor copy, then (on the card) one copy of the flat
+        # snapshot to pinned memory: a handful of host calls, so a writer
+        # thread holding the GIL delays the step loop little
+        with torch.no_grad():
+            torch._foreach_copy_(buf["dev"], leaves)
+        done = None
+        if buf["cuda"]:
+            copied = torch.cuda.Event()
+            copied.record()
+            if getattr(self, "_ckpt_stream", None) is None:
+                self._ckpt_stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._ckpt_stream):
+                self._ckpt_stream.wait_event(copied)
+                buf["flat"][1].copy_(buf["flat"][0], non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._ckpt_stream)
+        it = iter(buf["host"])
+
+        def rebuild(x):
+            if isinstance(x, dict):
+                return {n: rebuild(v) for n, v in x.items()}
+            if isinstance(x, tuple):
+                return tuple(rebuild(v) for v in x)
+            if isinstance(x, RankShards):
+                return RankShards(tuple(next(it) for _ in x.parts), x.dim,
+                                  x.first, x.width)
+            if isinstance(x, torch.Tensor):
+                return next(it)
+            return x
+
+        out = rebuild(trees)
+        return out, (done.synchronize if done is not None else None), \
+            buf["free"].set
+
+    def _sidecar_tree(self):
+        """What a save writes beside its checkpoint, taken at the step
+        boundary with it (the replica engine's ``.server`` state); None:
+        nothing."""
+        return None
+
+    def _write_sidecar(self, path: str, step: int, tree) -> None:
+        """Write ``_sidecar_tree``'s ``tree`` beside save ``path``."""
+        del path, step, tree
 
     def _manifest_extra(self) -> dict:
         """Extra promises of a sharded save's manifest: the replica
@@ -2072,6 +2389,86 @@ class Trainer:
         for key, d in dims.items():
             out[key] = torch.cat([p[key] for p in parts], dim=d)
         return out
+
+    # ------------------------------------------------------------------
+    # resilience: telemetry, rollback, guard state (resilience/context.py)
+    # ------------------------------------------------------------------
+
+    def attach_telemetry(self, rec) -> None:
+        """Wire the flight recorder in: lifecycle events from the cadence
+        loop and (span mode) every timed phase as a span. Buffer appends
+        only: the step path gains no write and no device sync."""
+        self.telemetry = rec
+        if rec is not None:
+            self.timers.span_sink = rec.phase_span
+
+    def close(self) -> None:
+        """Release what a run holds beyond its tensors: park the feeder
+        threads and drop the captured graphs (the supervisor closes a
+        failed attempt's trainer before the next one builds)."""
+        self._reset_feeders()
+        self._drop_graphs()
+
+    def rollback_to(self, path: str) -> int:
+        """Restore params, slots, buffers and stream positions from the
+        checkpoint ``path`` into the live tensors (the guard's rollback):
+        the addresses a captured step reads stay the same, so its graph
+        replays the restored values. -> the checkpoint's step, where the
+        cadence loop continues."""
+        self.cfg.checkpoint = path
+        # the checkpoint's own step, not the pre-rollback resume step
+        self.start_step = 0
+        self._reset_feeders()
+        self._restore_live(path)
+        self._seek_resumed_streams()
+        self.completed_steps = self.start_step
+        return self.start_step
+
+    def _restore_live(self, path: str) -> None:
+        """Overlay checkpoint ``path`` onto the live params, slots and
+        buffers, in place."""
+        live = self.buffers
+        if is_sharded_checkpoint(path):
+            self._restore_sharded()
+        else:
+            # an npz save holds the logical arrays; the setters pad
+            ck_step, params, state, buffers = restore_into(
+                path,
+                {n: self._unpad_one(n, v) for n, v in self.params.items()},
+                {n: {k: self._unpad_one(n, v) for k, v in slots.items()}
+                 for n, slots in self.state.items()},
+                self.buffers)
+            self.params, self.state, self.buffers = params, state, buffers
+            self._resume_streams = load_stream_positions(path)
+            self.start_step = max(self.start_step, ck_step)
+            self.log(f"rolled back to {path} at step {self.start_step}")
+        with torch.no_grad():
+            for k, v in self.buffers.items():
+                if v is not live[k]:
+                    live[k].copy_(v)
+        self.buffers = live
+
+    @torch.no_grad()
+    def set_guard_state(self, consec: int | None = None,
+                        lr_scale: float | None = None) -> None:
+        """Overwrite the guard counters in place (a rollback resets the
+        consecutive count and compounds the LR backoff)."""
+        gb = self._guard_buffers()
+        if consec is not None:
+            gb[GUARD_CONSEC].fill_(int(consec))
+        if lr_scale is not None:
+            gb[GUARD_LR].fill_(float(lr_scale))
+
+    def guard_counters(self) -> dict:
+        """The guard counters on the host: one device read, so call it at
+        a cadence boundary (display, rollback window, end of run), never
+        per step. {} when unguarded."""
+        if self._guard is None:
+            return {}
+        gb = self._guard_buffers()
+        c, b, lr = torch.stack([gb[k].double() for k in GUARD_KEYS]).cpu()
+        return {"consecutive_bad": int(c), "bad_steps": int(b),
+                "lr_scale": float(lr)}
 
     def digest(self) -> str:
         """SHA-256 of the params' and the whole updater slots' bytes, by
@@ -2123,8 +2520,37 @@ class Trainer:
         return out
 
 
+def _flat_like(tensors: list, device, pin: bool):
+    """One flat byte buffer on ``device`` (pinned host memory when
+    ``pin``) and views of it shaped and typed as ``tensors``, each at a
+    256-byte boundary -> (buffer, views)."""
+    sizes = [t.numel() * t.element_size() for t in tensors]
+    offs, total = [], 0
+    for n in sizes:
+        offs.append(total)
+        total += -(-n // 256) * 256
+    flat = torch.empty(max(total, 1), dtype=torch.uint8, device=device,
+                       pin_memory=pin)
+    return flat, [flat[o:o + n].view(t.dtype).view(t.shape)
+                  for o, n, t in zip(offs, sizes, tensors)]
+
+
 def _torch_dtype(np_dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, np_dtype)).dtype
+
+
+#: the metrics entry that carries each rank's loss (and on the ring its
+#: reduced grads' squared norm) into the guarded eager tail
+_GUARD_METRIC = "__guard__"
+
+
+def _put(stored: torch.Tensor, new: torch.Tensor, ok) -> None:
+    """``stored := new`` in place, or ``where(ok, new, stored)`` under a
+    guard verdict ``ok`` (moved to the stored tensor's device)."""
+    if ok is None:
+        stored.copy_(new)
+    else:
+        apply_verdict(ok.to(stored.device), new, stored)
 
 
 def _add_sums(sums: dict, metrics: dict) -> None:

@@ -901,3 +901,103 @@ def test_rbm_draws_on_the_card_repeat_from_the_seed(cuda_device):
     c = bernoulli(torch.Generator().manual_seed(6), p)
     assert a.device.type == "cuda"
     assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+def _poison_lm_conf(shard, extra=""):
+    """A one-block LM (vocab 64, d 32) under kSkip over ``shard``."""
+    return parse_model_config(f"""
+name: "guard-test"
+train_steps: 6
+{extra}
+updater {{ type: kSGD momentum: 0.9 base_learning_rate: 0.05
+           param_type: "Param" }}
+neuralnet {{
+  layer {{ name: "data" type: "kSequenceData"
+    data_param {{ path: "{shard}" batchsize: 8 }} }}
+  layer {{ name: "embed" type: "kEmbedding" srclayers: "data"
+    embedding_param {{ vocab_size: 64 embedding_dim: 32 }}
+    param {{ name: "tok" init_method: "kGaussain" std: 0.5 }}
+    param {{ name: "pos" init_method: "kGaussain" std: 0.5 }} }}
+  layer {{ name: "attn" type: "kAttention" srclayers: "embed"
+    attention_param {{ num_heads: 2 mode: "flash" }}
+    param {{ name: "qkv" init_method: "kUniformSqrtFanIn" }}
+    param {{ name: "out" init_method: "kUniformSqrtFanIn" }} }}
+  layer {{ name: "head" type: "kDense" srclayers: "attn"
+    dense_param {{ num_output: 64 bias_term: false }}
+    param {{ name: "weight" init_method: "kGaussain" std: 0.3 }} }}
+  layer {{ name: "loss" type: "kLMLoss" srclayers: "head" srclayers: "data" }}
+}}
+resilience {{ guard_policy: kSkip }}
+""")
+
+
+def _state_bytes(tr) -> dict:
+    out = {("p", n): v.cpu().numpy().tobytes() for n, v in tr.params.items()}
+    out.update({("s", n, s): v.cpu().numpy().tobytes()
+                for n, slots in tr.state.items() for s, v in slots.items()})
+    return out
+
+
+def test_guarded_graph_drops_the_bad_step_like_eager(cuda_device, tmp_path):
+    """A poison token (its table row NaN) read by step 3 only: inside the
+    captured graph the verdict drops that step to the bit, and the graphed
+    run equals the eager run to the bit."""
+    toks, labels = synthetic_token_arrays(48, seq_len=64, vocab=63)
+    toks[3 * 8 + 2, 9] = 63
+    shard = str(tmp_path / "tok")
+    write_records(shard, toks, labels)
+    runs = []
+    for graphs in (None, False):
+        tr = Trainer(_poison_lm_conf(shard), seed=0, log=lambda s: None,
+                     graphs=graphs)
+        with torch.no_grad():
+            tr.params["embed/tok"][63] = float("nan")
+        snaps = []
+        for step in range(6):
+            tr.train_one_batch(step)
+            snaps.append(_state_bytes(tr))
+        torch.cuda.synchronize()
+        assert tr.guard_counters()["bad_steps"] == 1
+        runs.append((tr.dispatch_mode, snaps))
+    (mode, graphed), (_, eager) = runs
+    assert mode == "graph"
+    assert graphed[3] == graphed[2] and graphed[4] != graphed[3]
+    assert graphed == eager
+
+
+def test_async_snapshot_is_ordered_before_the_next_replays(cuda_device,
+                                                          tmp_path):
+    """An async save at step 4, then graph replays enqueued at once (they
+    overwrite the live tensors): the save holds step 4's params and slots,
+    those of a second run stopped there."""
+    from singa_tpu_torch.config.schema import ClusterConfig
+    from singa_tpu_torch.data.loader import synthetic_arrays
+    from singa_tpu_torch.resilience import FaultPlan, ResilienceContext
+    from singa_tpu_torch.trainer import load_checkpoint
+
+    shard = str(tmp_path / "shard")
+    write_records(shard, *synthetic_arrays(64, seed=2))
+    cfg = _mlp_conf(shard)
+    cfg.resilience = parse_model_config(
+        "resilience { async_checkpoint: true }").resilience
+    cl = ClusterConfig()
+    cl.workspace = str(tmp_path / "ws")
+    a = Trainer(cfg, cl, seed=3, log=lambda s: None)
+    ctx = ResilienceContext(cfg.resilience, FaultPlan(), log=lambda s: None)
+    ctx.bind(a)
+    try:
+        a.train_chunk(0, 4)
+        a.save(4)
+        a.train_chunk(4, 6)
+        ctx.flush_async()
+    finally:
+        ctx.stop()
+    b = Trainer(_mlp_conf(shard), seed=3, log=lambda s: None)
+    b.train_chunk(0, 4)
+    _, params, state, _ = load_checkpoint(
+        str(tmp_path / "ws" / "checkpoints" / "step_4.npz"))
+    for n, v in b.params.items():
+        assert np.array_equal(params[n], v.cpu().numpy()), n
+        for slot, s in b.state[n].items():
+            assert np.array_equal(state[n][slot], s.cpu().numpy())
+        assert not torch.equal(v, a.params[n]), n

@@ -506,10 +506,12 @@ def test_unported_knobs_are_refused_by_name(shard, tmp_path, extra, cluster,
                                             knob):
     """What the port does not run is refused by name; the knobs it has
     ported since (the named ring block, pipeline_microbatches, a seq
-    axis) build, and ``unsupported`` no longer names them."""
+    axis, the resilience block) build, and ``unsupported`` no longer
+    names them."""
     cl = t_cluster(f'workspace: "{tmp_path}" {cluster}') if cluster else None
     cfg = t_parse(narrow_conf(shard, extra))
-    if knob in ("ring", "pipeline_microbatches", "nseq_per_group"):
+    if knob in ("ring", "pipeline_microbatches", "nseq_per_group",
+                "resilience"):
         assert t_unsupported(cfg, cl) == []
         t_trainer(cfg, cl)
         return
