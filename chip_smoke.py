@@ -383,7 +383,9 @@ caught and carried on):
                   float32 score block for the backward);
              ep   tinylm_moe.conf on cluster_ep.conf (data 2 x expert 4),
                   the psum and the alltoall dispatch;
-             tp   tinylm.conf with kLayerPartition on data 2 x model 2;
+             tp   tinylm.conf with kLayerPartition on data 2 x model 2
+                  (a model group's heads meet on one device and attend
+                  there at once: the flash kernels launch per group);
              q8   tinylm.conf with q8_hier's named axes (intra model,
                   inter data) on data 2 x model 2;
              pp   tinylm_pp.conf on cluster_pp.conf (data 4 x pipe 2, 4
@@ -511,6 +513,46 @@ caught and carried on):
              saves' arrays equal the sync saves' to the bit.
              Cuts: steps (the two-process runs, the LM runs, the ResNet
              runs) and the ResNet record count, never widths.
+
+  22. model  (runs after resilience) the model axis beside the data-axis
+             features, every rank on this card. serve_tp: the serve
+             phase's LM and 16 requests on ``Engine(mesh=build_mesh(1,
+             2))`` (each rank its own pools of its head, the params split
+             by the code-API LM's tensor-parallel layout), in turns with
+             the unsharded engine (plain, mesh, mesh, plain) after an
+             untimed plain run: every stream equal to it, the paged
+             launches of a mesh run = ranks x layers x (prefill chunks +
+             decode ticks), decode and prefill captured over both ranks,
+             tokens/s of each run; shared_prefix warm on the mesh equal
+             to cold on the unsharded engine, every admission a hit; a
+             planted fault (rank 1's pools are rank 0's) that must change
+             the streams. replica_tp: mlp.conf as written with
+             kLayerPartition, cut to MODEL_REPLICA_STEPS steps (the
+             warmup's 60 and two rounds), through ``main`` on a cluster
+             conf of its own (nworkers 8, nprocs_per_group 2, nservers 1,
+             asynchronous: 4 replicas x 2 model ranks) over the replica
+             phase's shards, Elastic, RandomSync at 1 (bandwidth 1e9) and
+             at REPLICA_PARTIAL (SyncConfig pinned), each against the
+             same conf on 4 x 1 through ``main``: every replica and the
+             center within the JAX package's bar (rtol MODEL_RTOL, atol
+             MODEL_ATOL); every round of the 4 x 2 run held to its
+             float64 formula (REPLICA_ROUND_TOL), the first Elastic round
+             run once more with a planted fault (each lane's pieces
+             joined in reversed rank order) that must miss it by
+             REPLICA_FAULT_FACTOR x; MODEL_TIMED more steps of each, step
+             ms. Then tinylm.conf with kLayerPartition under Elastic on 2
+             replicas x 2 model ranks (bf16, flash forced) for
+             MODEL_LM_STEPS steps: each bf16 flash kernel launched
+             replicas x attention layers x steps times (a lane's heads
+             attend at once), quant_acc never. zero_tp: tinylm.conf with kLayerPartition on data 2 x
+             model 2, zero against replicated for MODEL_ZERO_STEPS steps
+             (losses, params, slots to the bit; a rank's slot bytes), the
+             zero run's sharded save restored on 4 x 1, 1 x 4 and 1 x 1,
+             every param and slot bitwise the saved one. procs_tp: the
+             same conf as two processes of one model group each through
+             ``python -m singa_tpu_torch.main -procsID k -hostfile hf``
+             (gloo, this card) against one process of 4 ranks: both
+             digests equal its. Cuts: steps, never widths.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1088,18 +1130,20 @@ def kernel_phase(dev, rs):
 
 
 def serve(dev, params, cfg, prompts, *, impl, spec_k=0, max_new=64,
-          graphs=True, prefix_cache=False, seeds=None, **serving):
+          graphs=True, prefix_cache=False, seeds=None, mesh=None,
+          **serving):
     """One Engine + Scheduler run, warmed by a throwaway request (which
     also captures the engine's graphs); kernel launch counts are zeroed
     just before the measured requests and read just after. With
     ``prefix_cache`` the warm-up is serve_bench's: two throwaway
     requests of the first prompt (the second a whole-prompt hit), or of
-    each of ``seeds``; ``serving`` adds EngineConfig fields. ->
-    (scheduler, seconds, launches, {rid: tokens})."""
+    each of ``seeds``; ``mesh`` makes it ``Engine(mesh=...)``;
+    ``serving`` adds EngineConfig fields. -> (scheduler, seconds,
+    launches, {rid: tokens})."""
     eng = Engine(params, cfg, EngineConfig(
         slots=8, kv_block_len=16, max_prefill_chunk=64, spec_k=spec_k,
         attend_impl=impl, prefix_cache=prefix_cache, **serving,
-    ), device=dev, graphs=graphs)
+    ), device=dev, mesh=mesh, graphs=graphs)
     sched = Scheduler(eng)
     if not prefix_cache:
         seeds = [prompts[0][:40]]
@@ -1164,7 +1208,8 @@ def in_turns(dev, params, cfg, prompts, a, b):
         name = kw["impl"] + (f"_spec{kw['spec_k']}" if kw.get("spec_k")
                              else "") + ("_eager" if kw.get("graphs") is False
                                          else "") + (
-            "_warm" if kw.get("prefix_cache") else "")
+            "_warm" if kw.get("prefix_cache") else "") + (
+            "_tp" if kw.get("mesh") is not None else "")
         report(name, sched, seconds)
         check(len(streams) == len(prompts) and all(
             len(t) == 64 and all(0 <= x < cfg.vocab for x in t)
@@ -1352,8 +1397,9 @@ def warm_bytes(dev, cfg, params, prompts):
             for c0 in range(adm.prefill_from, len(p), 64):
                 eng.prefill_chunk(0, p[c0:c0 + 64], c0)
             rows = eng.state["tables"][:1]
+            pools = eng._pools[0]
             views.append([eng._gather(pool, rows)[0, :, :len(p)]
-                          for pool in eng.state["k"] + eng.state["v"]])
+                          for pool in pools["k"] + pools["v"]])
             if cache:
                 check(adm.prefill_from == {"block": 1008, "tail": 1020,
                                            "whole_prompt": 1023}[case],
@@ -4869,12 +4915,15 @@ def _per_rank(layers, tr):
 
 
 def _per_data_rank(layers, tr):
+    """A kLayerPartition kAttention attends its group's heads at once."""
     return layers * tr.mesh.widths["data"]
 
 
 def _per_microbatch(layers, tr):
     return (layers * tr.train_net.pipeline_plan.nmicro
             * tr.mesh.widths["data"])
+
+
 
 
 #: AXES_A2A_TOL: the all-to-all form's aux loss is the global batch's
@@ -6452,6 +6501,457 @@ def resilience_phase(dev, smi, tmp) -> dict:
     return {"flash": launches, "quant_acc": ring}
 
 
+# ---------------------------------------------------------------------------
+# model phase: the model axis beside the data-axis features
+# ---------------------------------------------------------------------------
+
+#: model ranks of every path of the phase, and the mlp's replicas
+MODEL_RANKS = 2
+MODEL_REPLICAS = 4
+#: mlp.conf's warmup is 60 steps and its rounds every 8: 72 steps end at
+#: the second round (after steps 63 and 71)
+MODEL_REPLICA_STEPS = 72
+#: the JAX package's TestReplicaComposition bar, 4 x 2 against 4 x 1
+MODEL_RTOL, MODEL_ATOL = 2e-4, 1e-5
+MODEL_TIMED = 5
+MODEL_LM_STEPS = 10
+MODEL_LM_SHARD = (128, 256)
+MODEL_ZERO_STEPS = 4
+
+
+def model_serve(dev, smi, cfg, params) -> dict:
+    """serve_tp: the serve phase's LM and 16 requests on
+    ``Engine(mesh=build_mesh(1, 2))``, both ranks on this card, in turns
+    with the unsharded engine (plain, mesh, mesh, plain) after an untimed
+    plain run: every stream equal to the untimed run's, the paged launches
+    of a mesh run = ranks x layers x (prefill chunks + decode ticks), the
+    decode and prefill captured as graphs over both ranks; tokens/s of
+    each run. Then the prefix phase's shared_prefix workload warm on the
+    mesh against cold on the unsharded engine, and the planted fault (rank
+    1's pools are rank 0's) that must change the streams."""
+    mesh = build_mesh(1, MODEL_RANKS, [dev] * MODEL_RANKS)
+    prompts = serve_prompts(cfg)
+    runs = in_turns(dev, params, cfg, prompts, {"impl": "fused"},
+                    {"impl": "fused", "mesh": mesh})
+    tps = []
+    for tag, sched, seconds, launches in runs:
+        ranks = MODEL_RANKS if tag == "b" else 1
+        want = ranks * cfg.n_layers * (sched.prefill_chunks
+                                       + sched.decode_ticks)
+        check(launches["paged_attention"] == want > 0,
+              f"model serve {tag}: paged launches {launches} != ranks "
+              f"{ranks} x layers x (chunks + ticks) = {want}")
+        if tag == "b":
+            eng = sched.engine
+            check(eng.dispatch_reason == "" and all(
+                g.captured for g in (eng._decode_graph, eng._prefill_graph))
+                  or dev.type != "cuda",
+                  f"model serve: mesh engine not graphed "
+                  f"({eng.dispatch_reason!r})")
+            check([p["k"][0].shape[1] for p in eng._pools]
+                  == [cfg.n_heads // MODEL_RANKS] * MODEL_RANKS,
+                  "model serve: pools not split by heads")
+        tps.append((("plain", "tp")[tag == "b"],
+                    (sched.tokens_emitted + len(sched.finished)) / seconds))
+    mesh_launches = runs[1][3]["paged_attention"]
+    # spec_k 0: the mesh run verifies no drafts
+    mesh_overlay = runs[1][3]["paged_attention_overlay"]
+    check(mesh_overlay == 0, f"model serve: overlay launches {mesh_overlay}")
+    pp = shared_prefix_prompts(cfg, PREFIX_REQUESTS)
+    _, _, _, cold = serve(dev, params, cfg, pp, impl="fused")
+    wsched, _, wl, warm = serve(dev, params, cfg, pp, impl="fused",
+                                mesh=mesh, prefix_cache=True)
+    check(warm == cold, "model serve: warm streams on the mesh != cold")
+    check(wsched.prefix_hits == PREFIX_REQUESTS,
+          "model serve: not every warm admission hit on the mesh")
+    eng = Engine(params, cfg, EngineConfig(
+        slots=8, kv_block_len=16, max_prefill_chunk=64), mesh=mesh)
+    eng._pools[1] = eng._pools[0]
+    _, faulty = streams_of(eng, prompts, 64)
+    plain = {r.rid: r.tokens for r in runs[0][1].finished}
+    fault_mism = sum(faulty[i] != plain[i] for i in plain)
+    check(fault_mism > 0, "model serve: rank 1 reading rank 0's pools "
+          "left every stream as it was")
+    out = {"requests": len(prompts), "ranks": MODEL_RANKS,
+           "tokens_per_s_in_turns": tps,
+           "tp_over_plain": (tps[1][1] + tps[2][1]) / (tps[0][1]
+                                                        + tps[3][1]),
+           "mesh_paged_launches": mesh_launches,
+           "mesh_overlay_launches": mesh_overlay,
+           "prefix_warm_launches": wl["paged_attention"],
+           "prefix_hits": wsched.prefix_hits,
+           "fault_streams_changed": fault_mism, "card": smi}
+    print("model serve", json.dumps(out))
+    del eng
+    release()
+    return out
+
+
+def model_cluster(tmp, name, nworkers, per_group, extra="") -> str:
+    """An asynchronous cluster conf with ``nservers 1`` (the replica
+    engine), ``nworkers`` ranks and ``per_group`` of them a worker group
+    (the model axis) -> its path."""
+    path = os.path.join(tmp, f"model_{name}.conf")
+    with open(path, "w") as f:
+        f.write(f"nworkers: {nworkers}\nnprocs_per_group: {per_group}\n"
+                f"nservers: 1\nsynchronous: false\n"
+                f'workspace: "{os.path.join(tmp, "ws_" + name)}"\n{extra}')
+    return path
+
+
+def _reversed_lane(tr):
+    """A planted fault: a round joins every lane's pieces in reversed
+    model-rank order (each replica takes its pieces from the wrong
+    rank)."""
+    tr._join = lambda name, parts: trep.ReplicaTrainer._join(
+        tr, name, parts[::-1])
+    return lambda: tr.__dict__.pop("_join")
+
+
+def model_main(dev, text, cluster, tmp, name, plant=False):
+    """``text`` through ``main`` on ``cluster``, on this card; the
+    trainer main built is caught at make_trainer and its rounds held to
+    their formula (RoundCheck), the first with the reversed-lane fault
+    when ``plant`` -> (trainer, its RoundCheck, main's seconds)."""
+    import singa_tpu_torch.trainer as ttrainer
+    from singa_tpu_torch.main import main as tmain
+
+    conf = os.path.join(tmp, f"model_{name}.job.conf")
+    with open(conf, "w") as f:
+        f.write(text)
+    made, real = [], ttrainer.make_trainer
+
+    def catching(*a, **kw):
+        tr = real(*a, **kw)
+        made.append((tr, RoundCheck(tr, dev)))
+        if plant:
+            made[-1][1].plant = lambda: _reversed_lane(tr)
+        return tr
+
+    ttrainer.make_trainer = catching
+    try:
+        t0 = time.perf_counter()
+        rc = tmain(["-model_conf", conf, "-cluster_conf", cluster,
+                    "-device", str(dev)])
+        sync(dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        ttrainer.make_trainer = real
+    check(rc == 0 and len(made) == 1, f"model {name}: main exited {rc}")
+    tr, rcheck = made[0]
+    check(type(tr).__name__ == "ReplicaTrainer",
+          f"model {name}: main built {type(tr).__name__}")
+    return tr, rcheck, seconds
+
+
+def off_bar(a: dict, b: dict) -> float:
+    """The largest |a - b| - (atol + rtol |b|) over ``a``'s arrays
+    (<= 0 within the JAX bar)."""
+    return max(float(((a[n] - b[n]).abs() - (
+        MODEL_ATOL + MODEL_RTOL * b[n].abs())).max()) for n in a)
+
+
+def model_replica(dev, smi, shards, tmp) -> dict:
+    """replica_tp: mlp.conf as written with kLayerPartition on 4 replicas
+    x 2 model ranks, through ``main`` on its own cluster conf (nworkers
+    8, nprocs_per_group 2, nservers 1, asynchronous), cut to
+    MODEL_REPLICA_STEPS steps, Elastic, RandomSync at 1 (bandwidth 1e9)
+    and at REPLICA_PARTIAL (SyncConfig pinned): every round held to its
+    float64 formula (REPLICA_ROUND_TOL), the reversed-lane fault at the
+    first Elastic round 100x past it; each against the same conf on 4 x
+    1 through main: every replica and the center within the JAX bar;
+    step ms of both after the run. Then tinylm.conf with kLayerPartition
+    on 2 replicas x 2 model ranks, bf16, flash forced: the bf16 flash
+    kernels launched replicas x attention layers x steps times each;
+    quant_acc launched by none of these runs."""
+    out = {"runs": {}}
+    qc.quant_acc.launches = 0
+    for proto, ratio in (("Elastic", None), ("RandomSync", 1.0),
+                         ("RandomSync", REPLICA_PARTIAL)):
+        text = replica_mlp_text(shards, (
+            ("train_steps: 60000", f"train_steps: {MODEL_REPLICA_STEPS}"),
+            ('param_type: "Elastic"', f'param_type: "{proto}"'),
+            ("neuralnet {", 'neuralnet {\n  partition_type: '
+             '"kLayerPartition"')))
+        extra = "bandwidth: 1e9\n" if ratio == 1.0 else ""
+        pinned = trep.sync_ratio
+        if ratio is not None and ratio < 1.0:
+            trep.sync_ratio = lambda *a: REPLICA_PARTIAL
+        got = {}
+        try:
+            for per in (MODEL_RANKS, 1):
+                nw = MODEL_REPLICAS * per
+                name = f"{proto}_{ratio}_{nw}"
+                tr, rc, secs = model_main(
+                    dev, text, model_cluster(tmp, name, nw, per, extra),
+                    tmp, name, plant=per > 1 and proto == "Elastic")
+                check(tr.mesh_shape == ({"data": 4, "model": 2}
+                                        if nw > MODEL_REPLICAS
+                                        else {"data": 4}),
+                      f"model replica {name}: mesh {tr.mesh_shape}")
+                check(rc.boot_equal and len(rc.errs) == 2,
+                      f"model replica {name}: bootstrap or rounds "
+                      f"({rc.boot_equal}, {len(rc.errs)})")
+                check(max(rc.errs) <= REPLICA_ROUND_TOL,
+                      f"model replica {name}: a round is off its formula "
+                      f"by {max(rc.errs):.3e}")
+                check(tr.sample_ratio == (1.0 if ratio is None else ratio)
+                      or proto == "Elastic",
+                      f"model replica {name}: ratio {tr.sample_ratio}")
+                _, ms, _ = replica_steps(tr, dev, MODEL_REPLICA_STEPS,
+                                         MODEL_TIMED)
+                got[nw] = {"params": tr.params, "center": dict(tr.center),
+                           "round_errs": rc.errs,
+                           "fault_errs": rc.fault_errs, "main_s": secs,
+                           "step_ms_median": median(ms)}
+                del tr, rc
+                release()
+        finally:
+            trep.sync_ratio = pinned
+        tp, dp = got[MODEL_REPLICAS * MODEL_RANKS], got[MODEL_REPLICAS]
+        bar = max(off_bar(tp["params"], dp["params"]),
+                  off_bar(tp["center"], dp["center"]))
+        check(bar <= 0, f"model replica {proto} {ratio}: 4 x 2 off 4 x 1 "
+              f"past the JAX bar by {bar:.3e}")
+        if proto == "Elastic":
+            check(tp["fault_errs"] and min(tp["fault_errs"])
+                  >= REPLICA_FAULT_FACTOR * REPLICA_ROUND_TOL,
+                  f"model replica: the reversed-lane round moved only "
+                  f"{tp['fault_errs']}")
+            out["reversed_lane_fault_err"] = tp["fault_errs"]
+        diff = max(float((tp["params"][n] - dp["params"][n]).abs().max())
+                   for n in tp["params"])
+        out["runs"][f"{proto} {ratio}"] = {
+            "max_abs_4x2_vs_4x1": diff, "bar_margin": bar,
+            "round_errs_4x2": tp["round_errs"],
+            "step_ms_4x2": tp["step_ms_median"],
+            "step_ms_4x1": dp["step_ms_median"],
+            "main_s_4x2": tp["main_s"], "main_s_4x1": dp["main_s"]}
+        del got, tp, dp
+        release()
+    out["mlp_quant_acc_launches"] = qc.quant_acc.launches
+    check(out["mlp_quant_acc_launches"] == 0,
+          f"model replica: quant_acc launched "
+          f"{out['mlp_quant_acc_launches']} times")
+    out["lm_launches"] = model_replica_lm(dev, tmp)
+    out.update(card=smi, round_tol=REPLICA_ROUND_TOL,
+               bar={"rtol": MODEL_RTOL, "atol": MODEL_ATOL})
+    print("model replica", json.dumps(out))
+    return out
+
+
+def model_lm_shard(tmp) -> str:
+    shard = os.path.join(tmp, "model_lm")
+    if not os.path.exists(shard):
+        write_records(shard, *synthetic_token_arrays(
+            MODEL_LM_SHARD[0], seq_len=MODEL_LM_SHARD[1], vocab=256,
+            seed=0))
+    return shard
+
+
+def model_replica_lm(dev, tmp) -> dict:
+    """tinylm.conf (bf16) with kLayerPartition under Elastic on 2
+    replicas x 2 model ranks, the flash kernels forced, MODEL_LM_STEPS
+    steps across a round: launches of each bf16 kernel = replicas x
+    attention layers x steps (a lane's heads attend at once), of
+    quant_acc 0, counted from 0 just before the run."""
+    base = tinylm_conf_text(model_lm_shard(tmp))
+    check('param_type: "Param"' in base, "model lm: tinylm.conf's updater")
+    text = base.replace('param_type: "Param"', REPLICA_LM_SYNC).replace(
+        "neuralnet {", 'neuralnet {\n  partition_type: "kLayerPartition"')
+    cluster = model_cluster(tmp, "lm", 2 * MODEL_RANKS, MODEL_RANKS,
+                            "bandwidth: 1e9\n")
+    os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "0"
+    try:
+        tr = replica_trainer(dev, text, cluster)
+        check(tr.mesh_shape == {"data": 2, "model": 2},
+              f"model lm: mesh {tr.mesh_shape}")
+        layers = sum(l.TYPE == "kAttention" for l in tr.train_net.layers)
+        zero_launches()
+        losses, ms, rounds = replica_steps(tr, dev, 0, MODEL_LM_STEPS)
+        got = axes_launches()
+    finally:
+        os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "512"
+    want = flash_launches(torch.bfloat16, tr.mesh.widths["data"] * layers
+                          * MODEL_LM_STEPS)
+    # the rings refuse a replica engine: its rounds launch no quant_acc
+    want["quant_acc"] = 0
+    check(got == want, f"model lm: launches {got} != {want}")
+    check(sum(rounds) >= 1 and all(np.isfinite(losses)),
+          f"model lm: rounds {sum(rounds)}, losses {losses}")
+    print("model lm", json.dumps({"losses": losses, "rounds": sum(rounds),
+                                  "step_ms_median": median(ms[3:]),
+                                  "launches": got}))
+    del tr
+    release()
+    return got
+
+
+def model_zero_trainer(dev, shard, ndata, nmodel, *, zero, workspace=None,
+                       checkpoint=None):
+    """tinylm.conf (bf16) with kLayerPartition, zero or replicated,
+    sharded saves into ``workspace``, on ndata x nmodel ranks of this
+    card."""
+    from singa_tpu_torch.config import parse_cluster_config
+
+    cfg = parse_model_config(tinylm_conf_text(
+        shard, 'checkpoint_format: "sharded"\n'
+        f"zero_update: {'true' if zero else 'false'}\n"))
+    _partition(cfg)
+    if checkpoint:
+        cfg.checkpoint = checkpoint
+    cl = (parse_cluster_config(f'workspace: "{workspace}"')
+          if workspace else None)
+    return Trainer(cfg, cl, mesh=build_mesh(ndata, nmodel,
+                                            [dev] * (ndata * nmodel)),
+                   seed=0, log=lambda s: None)
+
+
+def whole_state(tr) -> dict:
+    """A trainer's params and whole slots at their logical shapes."""
+    out = {n: tr._unpad_one(n, v) for n, v in tr.params.items()}
+    out.update({f"{n}|{s}": tr._unpad_one(n, v)
+                for n, slots in tr.state.items() for s, v in slots.items()})
+    return out
+
+
+def model_zero(dev, smi, tmp) -> dict:
+    """zero_tp: tinylm.conf on data 2 x model 2, zero against replicated
+    over MODEL_ZERO_STEPS steps (losses, params and slots to the bit; a
+    rank's slot bytes); the zero run's sharded save restored on 4 x 1,
+    1 x 4 and 1 x 1, every param and slot bitwise the saved one."""
+    import warnings
+
+    shard = model_lm_shard(tmp)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        z = model_zero_trainer(dev, shard, 2, MODEL_RANKS, zero=True,
+                               workspace=os.path.join(tmp, "ws_model_zero"))
+        r = model_zero_trainer(dev, shard, 2, MODEL_RANKS, zero=False)
+    check(z.update_mode == "zero", "model zero: not zero")
+    lz, msz = zero_losses(z, MODEL_ZERO_STEPS)
+    lr, msr = zero_losses(r, MODEL_ZERO_STEPS)
+    check(lz == lr and bitwise(z.params, r.params)
+          and bitwise(*({(n, s): v for n, sl in t.state.items()
+                         for s, v in sl.items()} for t in (z, r))),
+          f"model zero: zero != replicated ({lz} vs {lr})")
+    path = z.save(MODEL_ZERO_STEPS)
+    want = whole_state(z)
+    restored = {}
+    for nd, nm in ((4, 1), (1, 4), (1, 1)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            back = model_zero_trainer(dev, shard, nd, nm, zero=True,
+                                      checkpoint=path)
+        got = whole_state(back)
+        check(got.keys() == want.keys() and all(
+            torch.equal(got[k].cpu(), want[k].cpu()) for k in want),
+            f"model zero: the 2 x 2 save restored on {nd} x {nm} differs")
+        restored[f"{nd}x{nm}"] = back.start_step
+        del back
+    out = {"conf": TINYLM_CONF + " kLayerPartition", "mesh": "2x2",
+           "losses": lz, "zero_step_ms": msz, "replicated_step_ms": msr,
+           "slot_bytes_a_rank": {"zero": z.opt_state_bytes_per_device(),
+                                 "replicated": r.opt_state_bytes_per_device()},
+           "restored_at_step": restored, "card": smi}
+    print("model zero", json.dumps(out))
+    del z, r
+    release()
+    return out
+
+
+def model_procs(dev, smi, tmp) -> dict:
+    """procs_tp: the zero_tp conf (MODEL_ZERO_STEPS steps) as 2 processes
+    of one model group (2 ranks) each through ``python -m
+    singa_tpu_torch.main -procsID k -hostfile hf`` (gloo, this card)
+    against one process of 4 ranks: every digest equal."""
+    from singa_tpu_torch.config import load_cluster_config
+
+    shard = model_lm_shard(tmp)
+    conf = os.path.join(tmp, "model_procs.conf")
+    txt = tinylm_conf_text(shard, 'zero_update: true\n').replace(
+        "train_steps: 2000", f"train_steps: {MODEL_ZERO_STEPS}").replace(
+        "neuralnet {", 'neuralnet {\n  partition_type: "kLayerPartition"')
+    with open(conf, "w") as f:
+        f.write(txt)
+    cluster = os.path.join(tmp, "model_procs_cluster.conf")
+    with open(cluster, "w") as f:
+        f.write(f"nworkers: 4\nnprocs_per_group: {MODEL_RANKS}\n"
+                f'workspace: "{tmp}/ws_model_procs"\n')
+    cmd = [sys.executable, "-m", "singa_tpu_torch.main", "-model_conf",
+           conf, "-cluster_conf", cluster, "-hostfile",
+           write_hostfile(os.path.join(tmp, "model_procs_hf"))]
+    if dev.type != "cuda":
+        cmd += ["-device", str(dev)]
+    t0 = time.perf_counter()
+    reps = [child_report(o, "TRAIN PROCESS: ") for o in run_children(
+        [cmd + ["-procsID", str(k)] for k in range(2)], tmp, "model_procs")]
+    procs_s = time.perf_counter() - t0
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        one = Trainer(load_model_config(conf), load_cluster_config(cluster),
+                      mesh=build_mesh(2, MODEL_RANKS, [dev] * 4), seed=0,
+                      log=lambda s: None)
+    one.run()
+    digest = one.digest()
+    for k, r in enumerate(reps):
+        check((r["proc"], r["nprocs"], r["backend"]) == (k, 2, "gloo")
+              and r["ranks"] == [2 * k, 2 * k + 1]
+              and r["device"].startswith(dev.type)
+              and r["steps"] == MODEL_ZERO_STEPS,
+              f"model procs: process {k}: {r}")
+        check(r["digest"] == digest,
+              f"model procs: process {k}'s digest != one process's")
+    out = {"processes": 2, "ranks_a_process": MODEL_RANKS,
+           "steps": MODEL_ZERO_STEPS, "procs_s": procs_s,
+           "exchange_ms_per_step": [r["exchange_s"] * 1e3 / MODEL_ZERO_STEPS
+                                    for r in reps],
+           "digest_equal": all(r["digest"] == digest for r in reps),
+           "card": smi}
+    print("model procs", json.dumps(out))
+    del one
+    release()
+    return out
+
+
+def model_phase(dev, smi, cfg, params, tmp) -> dict:
+    """Phase 22: the model axis wherever the JAX package composes it
+    (serve_tp, replica_tp, zero_tp, procs_tp). -> {"paged", "overlay":
+    the mesh serve run's paged and overlay launches, "flash": the
+    replica LM's flash launches by kernel, "quant_acc": the replica
+    runs', "seconds": the phase's}."""
+    import gc
+
+    t0 = time.perf_counter()
+    # the host-bound loops below would otherwise pay the cyclic
+    # collector's scans of every object the earlier phases left: after
+    # the resilience phase the serve loop ran at a third of the tokens/s
+    # it reaches with them frozen
+    gc.collect()
+    gc.freeze()
+    try:
+        served = model_serve(dev, smi, cfg, params)
+        # the replica phase's shards, when it left them in ``tmp``
+        shards = {k: os.path.join(tmp, k) for k in ("mnist", "mnist_test")}
+        if not all(os.path.exists(v) for v in shards.values()):
+            shards = replica_shards(tmp)
+        reps = model_replica(dev, smi, shards, tmp)
+        model_zero(dev, smi, tmp)
+        model_procs(dev, smi, tmp)
+    finally:
+        gc.unfreeze()
+    seconds = time.perf_counter() - t0
+    print(f"model phase {seconds:.1f} s [{smi}]")
+    return {"paged": served["mesh_paged_launches"],
+            "overlay": served["mesh_overlay_launches"],
+            "flash": reps["lm_launches"],
+            "quant_acc": (reps["mlp_quant_acc_launches"]
+                          + reps["lm_launches"]["quant_acc"]),
+            "seconds": seconds}
+
+
 def short_kernel_name(mangled: str) -> str:
     """'_ZN12_GLOBAL__N_124flash_bwd_dq_bf16_kernelILi128ELb1EEEv...' ->
     'flash_bwd_dq_bf16_kernel<128,1>' (the last name of the nested name,
@@ -6552,6 +7052,7 @@ def main() -> int:
         axes_launches_by_path = axes_phase(dev, smi, tmp)
         replica_launches = replica_phase(dev, smi, tmp)
         res_launches = resilience_phase(dev, smi, tmp)
+        model = model_phase(dev, smi, cfg, params, tmp)
 
     kernels = []
     for name, case in (("paged_attention", "decode"),
@@ -6564,6 +7065,9 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+        # the model phase's mesh serve run: each rank over its pools
+        kernels[-1]["model_launches"] = model[
+            "paged" if name == "paged_attention" else "overlay"]
         if name == "paged_attention":
             kernels[-1]["moe_serve_launches"] = moe_launches[name]
             kernels[-1]["prefix_launches"] = prefix_launches
@@ -6603,6 +7107,11 @@ def main() -> int:
             # the replica phase's LM run of this type
             kernels[-1]["replica_launches"] = replica_launches[
                 "bfloat16" if dtype == torch.bfloat16 else "float32"][name]
+            # the model phase's LM lanes (bf16); flash_fwd's count is
+            # both types', so the float32 row leaves it out
+            if dtype == torch.bfloat16 or name not in FLASH_ROUTES[
+                    torch.bfloat16]:
+                kernels[-1]["model_launches"] = model["flash"][name]
     kernels.append({
         "name": "quant_acc", "route": "cuda", "source": RING_SOURCE,
         "replaces": RING_REPLACES, "launches": launches["quant_acc"],
@@ -6617,6 +7126,9 @@ def main() -> int:
         "procs_zero_ring_launches": procs_launches["zero_ring"],
         "axes_launches": axes_launches_by_path["q8"]["quant_acc"],
         "resilience_launches": res_launches["quant_acc"],
+        # the model phase's replica runs (the rings refuse a replica
+        # engine)
+        "model_launches": model["quant_acc"],
     })
     print(smi)
     print(json.dumps({"kernels": kernels}))

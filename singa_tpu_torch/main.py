@@ -30,11 +30,18 @@ spans to ``<workspace>/events/rank_k.jsonl`` (flushed at display
 cadence; the step path gains no write and no device sync), unless the
 ``telemetry { enabled: false }`` block turns it off.
 
+A cluster's ``nprocs_per_group`` above 1 splits each worker group over
+the model axis (kLayerPartition) or the axes its ``nseq_per_group``,
+``nexperts_per_group`` and ``npipes_per_group`` carve out; with
+``nservers`` on an asynchronous cluster each replica of the replica
+engine is then a lane of model ranks.
+
 A hostfile of more than one line makes the job one process per line
 (``parallel/launch.py``): each process is started with its own
 ``-procsID k`` and the same ``-hostfile``, line 0 hosts the rendezvous,
 and the cluster's ``nworkers`` ranks are laid over the processes
-(``nworkers`` / processes each). Only training confs start a process
+(``nworkers`` / processes each; a process may hold whole model groups,
+never part of one). Only training confs start a process
 group. Every process of a multi-process job prints one ``TRAIN
 PROCESS: {json}`` line at its clean end (its index, the backend, its
 device, the quant_acc launches and ring bytes of its ranks, its host

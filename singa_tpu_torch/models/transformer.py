@@ -21,6 +21,18 @@ whose load-balancing aux :func:`_block_apply` returns beside its output.
 Decode, prefill and verify route at capacity factor E (drop-free and
 independent of what shares the batch), as in the JAX package. ``attn``
 other than ``"dense"`` raises ``NotImplementedError``.
+
+Tensor parallelism (the serving engine on a mesh): :func:`lm_param_shardings`
+is the JAX package's layout of this param tree over the model axis
+(``mlp/up`` split on its output dim; ``mlp/down``, ``attn/qkv`` and
+``attn/out`` on their contraction dim; everything else, and any dim the
+width does not divide, replicated). :func:`_block_apply_tp` is the block
+over the model ranks' pieces (:func:`split_lm_params`): each split
+contraction's partial products are summed over the ranks in rank order,
+each rank attends its own heads of the summed q, k and v (contiguous, so
+rank m's rows of ``attn/out`` are exactly its heads' outputs), and the
+MLP's gelu stays on each rank's columns. :func:`lm_apply_tp` is
+``lm_apply`` over it.
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.attention import NEG_INF, attention
+from ..parallel.axes import rank_sum
 from ..parallel.moe import moe_ffn_dense
 
 
@@ -162,6 +175,113 @@ def _block_apply(params, p, x, attend, cfg, moe_capacity_factor=1.25):
     h = F.gelu(h @ params[f"{p}/mlp/up"], approximate="tanh")
     x = x + h @ params[f"{p}/mlp/down"]
     return x, 0.0, extra
+
+
+def lm_param_shardings(nmodel: int, params: dict) -> dict:
+    """{param name: the dim it splits over ``nmodel`` model ranks, or
+    None (replicated)}: the JAX package's ``lm_param_shardings``.
+    ``mlp/up`` splits its output dim, ``mlp/down``, ``attn/qkv`` and
+    ``attn/out`` their contraction dim (the packed (d, 3d) qkv reshapes
+    to (3, heads, head_dim) downstream, which a column split would
+    cross); a dim ``nmodel`` does not divide, and every other param,
+    replicates, as in the JAX package."""
+    out = {}
+    for name, v in params.items():
+        dim = None
+        if nmodel > 1 and v.ndim == 2:
+            if name.endswith("/mlp/up"):
+                dim = 1
+            elif name.endswith(("/attn/qkv", "/attn/out", "/mlp/down")):
+                dim = 0
+            if dim is not None and v.shape[dim] % nmodel:
+                dim = None
+        out[name] = dim
+    return out
+
+
+def split_lm_params(params: dict, layout: dict, devices) -> list[dict]:
+    """Each model rank's own contiguous copies of its pieces of the split
+    params (``layout``: :func:`lm_param_shardings`), rank m's on
+    ``devices[m]``."""
+    n = len(devices)
+    return [{name: v.chunk(n, dim=d)[m].to(dev).clone(
+                 memory_format=torch.contiguous_format)
+             for name, v in params.items()
+             if (d := layout.get(name)) is not None}
+            for m, dev in enumerate(devices)]
+
+
+def _contract(x, params, pieces, layout, name):
+    """``x @ params[name]``; split on its contraction dim, the model
+    ranks' partial products (rank m's slice of x's last dim times its
+    rows) summed in rank order on x's device."""
+    if layout.get(name) is None:
+        return x @ params[name]
+    return rank_sum(
+        (x[..., m * pc[name].shape[0]:(m + 1) * pc[name].shape[0]]
+         .to(pc[name].device) @ pc[name]).to(x.device)
+        for m, pc in enumerate(pieces))
+
+
+def _block_apply_tp(params, pieces, layout, p, x, attend, cfg,
+                    moe_capacity_factor=1.25):
+    """:func:`_block_apply` over the model ranks -> (x', aux, [each
+    rank's extra]). ``params`` is the whole tree (the replicated params
+    run once, on x's device), ``pieces[m]`` rank m's pieces of the split
+    ones, ``layout`` :func:`lm_param_shardings`. ``attend(m, q, k, v) ->
+    (o, extra)`` gets rank m's heads (B, H/M, S, D), or every head when
+    the model width does not divide them (each rank then attends all of
+    them and takes its own slice of the output's contraction)."""
+    _check_supported(cfg)
+    b, s, d = x.shape
+    nm = len(pieces)
+    h = _layernorm(x, params[f"{p}/ln1/scale"], params[f"{p}/ln1/bias"])
+    qkv = _contract(h, params, pieces, layout, f"{p}/attn/qkv").reshape(
+        b, s, 3, cfg.n_heads, cfg.head_dim)
+    q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
+    hm = cfg.n_heads // nm if cfg.n_heads % nm == 0 else cfg.n_heads
+    outs, extras = [], []
+    for m, pc in enumerate(pieces):
+        dev = next(iter(pc.values())).device if pc else x.device
+        sl = slice(0, hm) if hm == cfg.n_heads else slice(m * hm,
+                                                           (m + 1) * hm)
+        o, extra = attend(m, q[:, sl].to(dev), k[:, sl].to(dev),
+                          v[:, sl].to(dev))
+        outs.append(o.transpose(1, 2).reshape(b, s, hm * cfg.head_dim)
+                    .to(x.device))
+        extras.append(extra)
+    o = outs[0] if hm == cfg.n_heads else torch.cat(outs, dim=-1)
+    x = x + _contract(o, params, pieces, layout, f"{p}/attn/out")
+    h = _layernorm(x, params[f"{p}/ln2/scale"], params[f"{p}/ln2/bias"])
+    if cfg.moe_experts:
+        moe = {k: params[f"{p}/moe/{k}"] for k in ("gate", "up", "down")}
+        y, aux = moe_ffn_dense(h, moe, moe_capacity_factor)
+        return x + y, aux, extras
+    up, down = f"{p}/mlp/up", f"{p}/mlp/down"
+    if layout.get(up) is None or layout.get(down) is None:
+        h = F.gelu(h @ params[up], approximate="tanh")
+        return x + h @ params[down], 0.0, extras
+    y = rank_sum(
+        (F.gelu(h.to(pc[up].device) @ pc[up], approximate="tanh")
+         @ pc[down]).to(x.device) for pc in pieces)
+    return x + y, 0.0, extras
+
+
+def lm_apply_tp(params: dict, pieces: list, layout: dict,
+                tokens: torch.Tensor, cfg: TransformerConfig):
+    """:func:`lm_apply` split over the model ranks whose pieces are
+    ``pieces`` (:func:`split_lm_params`): the same logits within the
+    rounding of the split contractions' sums."""
+    s = tokens.shape[1]
+    x = params["embed/tok"][tokens.long()] + params["embed/pos"][:s]
+
+    def attend(m, q, k, v):
+        return attention(q, k, v, causal=True), None
+
+    for i in range(cfg.n_layers):
+        x, _, _ = _block_apply_tp(params, pieces, layout, f"blk{i}", x,
+                                  attend, cfg)
+    return lm_head(params, x)
 
 
 def decode_capacity(cfg: TransformerConfig) -> float:

@@ -18,9 +18,14 @@ order in which the JAX global mesh lists its devices: rank r lives on
 process r // (n / P), and ``devices`` holds this process's n / P ranks.
 :meth:`Mesh.gather` hands every process every rank's tensors in rank
 order; it is the one collective of the Trainer's reductions and of
-synchronised BatchNorm. Only the data axis spans processes: a pipe,
-expert, seq or model width above 1 under a process group raises a
-ConfigError that names the axis.
+synchronised BatchNorm. The data axis spans processes, and so does the
+model axis when every process holds whole model groups (its ranks a
+multiple of the model width): the model is innermost, so every layer
+exchange of a group stays inside one process, and the only exchanges
+between processes are the data axis's (the gradient sums of each piece,
+the zero shards, the saves). A model group that would span processes,
+and a pipe, expert or seq width above 1 under a process group, raise a
+ConfigError that names them.
 """
 
 from __future__ import annotations
@@ -134,7 +139,8 @@ class Mesh:
         import torch.distributed as dist
 
         t0 = time.perf_counter()
-        keys = list(local[0])
+        # one key order on every process, whatever order its dicts hold
+        keys = sorted(local[0], key=repr)
         out = [dict() for _ in range(self.width)]
         by_dtype: dict[torch.dtype, list] = {}
         for k in keys:
@@ -209,22 +215,30 @@ def build_full_mesh(widths: dict[str, int], devices=None) -> Mesh:
     under a process group of P processes this process takes ranks
     [k·n/P, (k+1)·n/P) on the first n/P of ``devices`` (default: this
     process's card, once per rank). Raises when P does not divide the
-    data axis, or when any other axis is wider than 1 across processes
-    (naming it: only the data axis spans processes)."""
+    data axis, when a model group would span processes, or when a pipe,
+    expert or seq axis is wider than 1 across processes (naming it)."""
     shape = [max(1, int(widths.get(a, 1))) for a in FULL_AXES]
     need = 1
     for w in shape:
         need *= w
     nprocs, proc = _processes()
     if nprocs > 1:
-        for axis, w in zip(INNER_AXES, shape[1:]):
+        for axis, w in zip(INNER_AXES[:-1], shape[1:-1]):
             if w > 1:
                 raise ConfigError(
                     f"{axis} axis width {w} ({CLUSTER_FIELDS[axis]}) "
                     f"across {nprocs} processes: "
-                    "singa_tpu_torch lays only the data axis over "
-                    "processes (the other axes run on one process's ranks)"
+                    "singa_tpu_torch lays only the data axis and whole "
+                    "model groups over processes (the other axes run on "
+                    "one process's ranks)"
                 )
+        if shape[-1] > 1 and (need % nprocs or (need // nprocs) % shape[-1]):
+            raise ConfigError(
+                f"model axis width {shape[-1]} ({CLUSTER_FIELDS['model']}) "
+                f"across {nprocs} processes: a model group spans "
+                f"processes ({need} ranks, {need / nprocs:g} a process); "
+                "singa_tpu_torch keeps each model group inside one process"
+            )
     if shape[0] % nprocs:
         raise ConfigError(
             f"data axis width {shape[0]} is not divisible by the process "

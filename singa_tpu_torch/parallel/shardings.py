@@ -17,17 +17,19 @@ controller:
   it) and warns; an indivisible expert count replicates and warns.
 
 ``zero_update_shardings`` is the ZeRO-style update layout
-(``zero_update``, PAPERS.md arxiv 2004.13336), data axis only (the
-Trainer refuses zero on a mesh with more axes): the JAX package's
-forward sharding plus the data axis on the first still-replicated dim
-the data width divides reduces, with every param replicated in the
-forward, to one number per param, the dim its update is cut along over
-the ranks, or None when no dim divides evenly, in which case its update
-stays replicated (announced by ``warnings.warn`` naming the param, as in
-the JAX package). Rank r owns slice r of that dim (``torch.chunk``
-order: rows [r*m/n, (r+1)*m/n) of an m-long dim), which is also the
-chunk the int8 ring's reduce-scatter leaves on rank r when the ring
-chunks that dim.
+(``zero_update``, PAPERS.md arxiv 2004.13336) on the data axis, beside
+the model axis or alone (the Trainer refuses zero beside the seq,
+expert and pipe axes): the JAX package's forward sharding plus the data
+axis on the first still-replicated dim the data width divides, the dim
+a kLayerPartition param splits over the model axis excluded and a
+padded dim counted at its stored length. It reduces to one number per
+param, the dim its update is cut along over the data ranks, or None
+when no dim divides evenly, in which case its update stays replicated
+(announced by ``warnings.warn`` naming the param, as in the JAX
+package). The rank at data index i owns slice i of that dim of its
+model piece (``torch.chunk`` order: rows [i*m/n, (i+1)*m/n) of an
+m-long dim), which on a data-only mesh is also the chunk the int8
+ring's reduce-scatter leaves on rank i when the ring chunks that dim.
 """
 
 from __future__ import annotations
@@ -127,17 +129,20 @@ def zero_update_shardings(mesh, net, *, warn: bool = False
     axis, or None (replicated update)} for every param ``net`` owns
     (shared params resolve through their owner). On a one-wide data
     axis every entry is None and nothing warns."""
-    ndata = mesh.shape[DATA_AXIS]
+    ndata = mesh.widths[DATA_AXIS]
     out: dict[str, int | None] = {}
-    for name, spec in net.param_specs().items():
+    for name, spec, sharded, pad in _param_layout(mesh, net):
         if spec.owner is not None:
             continue
         shape = list(spec.shape)
+        if pad:
+            shape[sharded[0]] += pad
         dim = None
         if ndata > 1:
             dim = next(
                 (d for d, size in enumerate(shape)
-                 if size and size % ndata == 0),
+                 if (sharded is None or d != sharded[0])
+                 and size and size % ndata == 0),
                 None,
             )
         if dim is None and ndata > 1 and warn:
@@ -151,9 +156,15 @@ def zero_update_shardings(mesh, net, *, warn: bool = False
     return out
 
 
-def spec_json(dim: int | None) -> list:
-    """The JSON PartitionSpec the JAX package's sharded checkpoint
-    manifest records for an array sharded over the data axis along
-    ``dim``: ``[]`` when replicated, else ``[None] * dim + ["data"]``
-    (the JAX package's specs drop trailing Nones)."""
-    return [] if dim is None else [None] * dim + [DATA_AXIS]
+def spec_json(dim: int | None, axes: dict[int, str] | None = None) -> list:
+    """The JSON PartitionSpec a sharded checkpoint manifest records for
+    an array split over the data axis along ``dim`` and over the mesh
+    axes ``axes`` ({dim: axis}) along theirs: ``[]`` when replicated,
+    else one entry per dim up to the last split one (None for a whole
+    dim), e.g. ``[None, "data"]`` or ``["data", "model"]``."""
+    placed = dict(axes or {})
+    if dim is not None:
+        placed[dim] = DATA_AXIS
+    if not placed:
+        return []
+    return [placed.get(d) for d in range(max(placed) + 1)]

@@ -1,17 +1,18 @@
-"""Elastic restore: place a sharded checkpoint onto any data-axis width,
-and the serving restore of a saved param tree.
+"""Elastic restore: place a sharded checkpoint onto any data x model
+mesh, and the serving restore of a saved param tree.
 
 Counterpart of ``singa_tpu/resilience/reshard.py``. A sharded save
 (``trainer/sharded_ckpt.py``) records, per array, its global shape, its
 PartitionSpec and each saved shard's global index box, whichever package
-and whichever number of devices or ranks wrote it. ``Resharder.place``
-puts one entry onto the live mesh's ranks, as a replicated array or as
-rank shards along one dim (the port's two layouts). Each target rank's
-box is assembled on the host from the saved pieces it intersects and
-nothing more, so the largest host buffer is one target shard, never the
-whole array unless the target holds it whole. Where the saved layout is
-the live one (the same width and spec, as a same-topology resume always
-has) each box is exactly one saved piece. ``resharded_keys`` records
+and whichever mesh wrote it. ``Resharder.place_boxes`` puts any boxes
+of one entry onto the live mesh's ranks (the whole array, a model
+piece, a zero chunk inside one, a padded tail past the saved shape,
+which reads zeros). Each target rank's box is assembled on the host
+from the saved pieces it intersects and nothing more, so the largest
+host buffer is one target shard, never the whole array unless the
+target holds it whole. Where the saved layout is the live one (the same
+width and spec, as a same-topology resume always has) each box is
+exactly one saved piece. ``resharded_keys`` records
 the entries whose target boxes differ from the saved ones (4 ranks ->
 2, 2 -> 4, a JAX save's virtual devices, a sharded slot restored into a
 replicated update).
@@ -123,22 +124,6 @@ def checkpoint_nprocs(path: str) -> int | None:
 # ---------------------------------------------------------------------------
 
 
-def _box_of(index, shape) -> np.ndarray:
-    """(ndim, 2) [start, stop) box from an index tuple of slices (the
-    sharded_ckpt box convention, scalars -> [[0, 1]])."""
-    box = []
-    for sl, dim in zip(index, shape):
-        box.append(
-            [
-                0 if sl.start is None else int(sl.start),
-                dim if sl.stop is None else int(sl.stop),
-            ]
-        )
-    if not box:
-        box = [[0, 1]]
-    return np.asarray(box, dtype=np.int64)
-
-
 def _assemble_box(
     target_box: np.ndarray,
     pieces: list,
@@ -175,23 +160,13 @@ def _assemble_box(
     return out
 
 
-def rank_index(shape, dim: int | None, n: int, r: int) -> tuple:
-    """Rank r's index tuple (slices) of an array of ``shape`` laid over n
-    ranks along ``dim`` (None: the whole array)."""
-    index = [slice(None)] * len(shape)
-    if dim is not None:
-        c = shape[dim] // n
-        index[dim] = slice(r * c, (r + 1) * c)
-    return tuple(index)
-
-
 class Resharder:
     """Restore a ``ShardedCheckpoint`` onto the live mesh's ranks.
 
     ``axis_widths`` (the target mesh's {axis: width}) arms the admission
     check: construction raises ``ReshardError`` listing every entry the
-    mesh cannot host. ``place`` restores entry by entry, each target
-    box from the saved boxes it intersects."""
+    mesh cannot host. ``place_boxes`` restores entry by entry, each
+    target box from the saved boxes it intersects."""
 
     def __init__(self, ckpt, axis_widths: dict[str, int] | None = None):
         self.ckpt = ckpt
@@ -212,14 +187,14 @@ class Resharder:
     def saved_nprocs(self) -> int:
         return int(self.ckpt.manifest.get("nprocs", 1))
 
-    def place(self, key: str, devices, dim: int | None = None,
-              dtype: torch.dtype | None = None) -> list[torch.Tensor]:
-        """Manifest entry ``key`` onto the ranks whose devices are
-        ``devices``: rank r's slice along ``dim`` (the whole array when
-        None) on ``devices[r]``, cast to ``dtype`` when given. ->
-        one tensor per rank. Ranks with equal boxes on one device share
-        one tensor. A None device (a rank of another process) gets None
-        and nothing is assembled for it."""
+    def place_boxes(self, key: str, boxes, devices,
+                    dtype: torch.dtype | None = None) -> list:
+        """Manifest entry ``key``'s global index boxes ``boxes`` ((ndim,
+        2) [start, stop) each; a box may reach past the saved shape,
+        into a padded tail, which reads zeros) on ``devices``, one
+        tensor per box, cast to ``dtype`` when given. Equal boxes on one
+        device share one tensor. A None device (a rank of another
+        process) gets None and nothing is assembled for it."""
         ck = self.ckpt
         info = ck.manifest["arrays"][key]
         shape = tuple(info["shape"])
@@ -241,24 +216,21 @@ class Resharder:
         saved_boxes = [
             (i, np.asarray(box)) for i, (_, _, box) in enumerate(raw)
         ]
-        n = len(devices)
-        targets = [_box_of(rank_index(shape, dim, n, r), shape)
-                   for r in range(n)]
         saved_keys = {box_key(box) for _, box in saved_boxes}
-        if any(box_key(tbox) not in saved_keys for tbox in targets):
+        if any(box_key(tbox) not in saved_keys for tbox in boxes):
             self.resharded_keys.append(key)
         host: dict[bytes, np.ndarray] = {}
         placed: dict[tuple, torch.Tensor] = {}
         out = []
-        for tbox, dev in zip(targets, devices):
+        for tbox, dev in zip(boxes, devices):
             if dev is None:
                 out.append(None)
                 continue
             kb = box_key(tbox)
             if (kb, dev) not in placed:
                 if kb not in host:
-                    host[kb] = _assemble_box(tbox, saved_boxes, shape,
-                                             np_dtype, load)
+                    host[kb] = _assemble_box(np.asarray(tbox), saved_boxes,
+                                             shape, np_dtype, load)
                 placed[kb, dev] = torch.from_numpy(host[kb]).to(
                     device=dev, dtype=dtype)
             out.append(placed[kb, dev])
@@ -293,8 +265,8 @@ def load_serving_params(path: str, init_params: dict) -> tuple[dict, dict]:
       names the model lacks are ignored, absent names keep their init,
       and a shape mismatch raises;
     - a sharded checkpoint directory restores the same way through
-      ``Resharder.place`` onto each init param's device, whatever the
-      number of processes, devices or ranks that wrote it.
+      ``Resharder.place_boxes`` onto each init param's device, whatever
+      the number of processes, devices or ranks that wrote it.
 
     Restored values are tensors on each init param's device and dtype.
     Raises ``ReshardError`` on an absent or unhostable save: a serving
@@ -326,8 +298,9 @@ def load_serving_params(path: str, init_params: dict) -> tuple[dict, dict]:
                     raise ReshardError(
                         f"checkpoint {path!r}: param {name!r} shape "
                         f"{shape} != model shape {tuple(live.shape)}")
-                (out[name],) = rs.place(key, [live.device],
-                                        dtype=live.dtype)
+                (out[name],) = rs.place_boxes(
+                    key, [[[0, d] for d in shape] or [[0, 1]]],
+                    [live.device], dtype=live.dtype)
                 restored += 1
             info = {
                 "path": path,

@@ -75,12 +75,29 @@ the old bytes without an error. The engine therefore owns its params
 (copied at construction), and a flip swaps the staged tree's bytes
 into the live tensors.
 
-Not in this slice (raises ``NotImplementedError``): a mesh.
+MESH (``Engine(mesh=...)``, a :class:`parallel.mesh.Mesh`): the serving
+analog of kLayerPartition, as the JAX engine lays it. The params take
+the code-API LM's tensor-parallel layout over the model axis
+(``models/transformer.lm_param_shardings``; each model rank keeps its
+own copies of its pieces, refreshed in place by every flip), and every
+program runs ``_block_apply_tp``. Each model rank owns its own
+contiguous K/V pools of its ``n_heads / M`` heads and the paged kernel
+runs once per rank over them; where M does not divide the heads the
+pools replicate (each rank holds every head) with the JAX package's
+warning. The block tables, positions, slot lanes and the block
+allocator are one, shared by every rank (block ids are a namespace
+every rank resolves). An exported slot or block set gathers the heads in
+rank order, so a mesh engine and a plain one exchange them. The data
+axis replicates the engine in the JAX package; here the ranks of data
+index 0 run it. Decode and prefill are captured over every rank when the
+ranks share one device; ranks on several devices run eager, the reason
+logged.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -89,9 +106,12 @@ from ..device import resolve_device
 from ..models.transformer import (
     TransformerConfig,
     _block_apply,
+    _block_apply_tp,
     cache_attend,
     decode_capacity,
     lm_head,
+    lm_param_shardings,
+    split_lm_params,
 )
 from ..ops.paged_attention import (
     _gather,
@@ -193,11 +213,18 @@ class Engine:
         self.cfg = cfg
         self.serving = serving or EngineConfig()
         self.temperature = float(temperature)
-        if mesh is not None:
-            raise NotImplementedError(
-                "Engine(mesh=...): sharded serving comes with the "
-                "distribution slice (ROADMAP.md)"
+        #: each model rank's device (one, without a mesh)
+        self._devices = self._rank_devices(mesh, device)
+        nmodel = len(self._devices)
+        if nmodel > 1 and cfg.n_heads % nmodel:
+            warnings.warn(
+                f"serving: n_heads {cfg.n_heads} not divisible by the "
+                f"model axis ({nmodel}); KV pools fall back to replication",
+                stacklevel=2,
             )
+        #: the heads each rank's pools hold
+        self._rank_heads = (cfg.n_heads // nmodel
+                            if cfg.n_heads % nmodel == 0 else cfg.n_heads)
         if self.serving.attend_impl not in ("reference", "fused"):
             raise ValueError(
                 f"kernels.paged_attention must be 'reference' or "
@@ -207,7 +234,7 @@ class Engine:
         #: MoE routing at capacity E on every program: drop-free, so a
         #: slot's tokens never depend on what shares the batch
         self._moe_cf = decode_capacity(cfg)
-        self.device = resolve_device(device)
+        self.device = self._devices[0]
         if self._fused and self.device.type == "cuda":
             # the kernel's geometry limits (the plain CPU version has none)
             reason = fusable(self.serving.kv_block_len, cfg.head_dim)
@@ -230,6 +257,11 @@ class Engine:
         #: caller's
         self.params = {k: v.detach().to(self.device, copy=True)
                        for k, v in params.items()}
+        #: the tensor-parallel layout (no split param without a mesh)
+        #: and each model rank's own copies of its pieces
+        self._layout = lm_param_shardings(nmodel, self.params)
+        self._pieces = split_lm_params(self.params, self._layout,
+                                       self._devices)
         #: version tag of the live params; a staged next version waits
         #: beside them until flip_params, and the previous one stays
         #: pinned for rollback_params
@@ -245,19 +277,20 @@ class Engine:
         self._slot_chain: dict[int, list[bytes]] = {}
         s, mb = self.serving.slots, self.pool.max_blocks_per_seq
         shape = (
-            self.pool.n_blocks, cfg.n_heads,
+            self.pool.n_blocks, self._rank_heads,
             self.pool.block_len, cfg.head_dim,
         )
         dev, dtype = self.device, self.params["embed/tok"].dtype
+        #: each model rank's own K and V pools, one per layer, on its device
+        self._pools = [
+            {kv: [torch.zeros(shape, dtype=dtype, device=d)
+                  for _ in range(cfg.n_layers)] for kv in ("k", "v")}
+            for d in self._devices]
         self.state = {
             "tokens": torch.zeros(s, dtype=torch.int64, device=dev),
             "pos": torch.zeros(s, dtype=torch.int32, device=dev),
             "live": torch.zeros(s, dtype=torch.bool, device=dev),
             "tables": torch.zeros((s, mb), dtype=torch.int32, device=dev),
-            "k": [torch.zeros(shape, dtype=dtype, device=dev)
-                  for _ in range(cfg.n_layers)],
-            "v": [torch.zeros(shape, dtype=dtype, device=dev)
-                  for _ in range(cfg.n_layers)],
         }
         #: per-slot sampling streams, seeded at activation
         self._gens = [torch.Generator(device=dev) for _ in range(s)]
@@ -278,8 +311,56 @@ class Engine:
         self._pf_ar = torch.arange(c, device=dev)
         #: prefill's logits at the chunk's last valid position
         self._pf_out = torch.zeros((cfg.vocab,), dtype=dtype, device=dev)
+        #: why decode and prefill run eager ("" when they may be graphs)
+        self.dispatch_reason = ""
+        if len(set(self._devices)) > 1:
+            self.dispatch_reason = (
+                f"the mesh's {nmodel} model ranks on "
+                f"{len(set(self._devices))} devices: one CUDA graph "
+                "cannot hold them")
+            print(f"engine dispatch: eager ({self.dispatch_reason})")
+        graphs = graphs and not self.dispatch_reason
         self._decode_graph = Graphed(self._decode, dev, enabled=graphs)
         self._prefill_graph = Graphed(self._prefill, dev, enabled=graphs)
+
+    @staticmethod
+    def _rank_devices(mesh, device) -> list:
+        """The model ranks' devices: the mesh's data-index-0 ranks', in
+        model order, or ``device`` alone without a mesh."""
+        if mesh is None:
+            return [resolve_device(device)]
+        from ..parallel.mesh import Mesh, _device
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(
+                "Engine(mesh=...) takes a singa_tpu_torch.parallel Mesh "
+                f"(build_mesh), not {type(mesh).__name__}")
+        if mesh.nprocs > 1:
+            raise ValueError(
+                f"Engine(mesh=...) over {mesh.nprocs} processes: the "
+                "serving engine runs its mesh in one process")
+        devices = [mesh.device(mesh.rank(model=m))
+                   for m in range(mesh.widths["model"])]
+        if device is not None and _device(device) != devices[0]:
+            raise ValueError(
+                f"Engine(device={device!r}, mesh=...): the mesh's first "
+                f"rank is on {devices[0]}")
+        return devices
+
+    def _block(self, p, x, attend):
+        """One block of the live params -> (x', [each rank's extra]):
+        ``_block_apply`` without a mesh, ``_block_apply_tp`` over the
+        model ranks' pieces on one. ``attend(m, q, k, v)`` is rank m's
+        attention over its heads and its pools."""
+        if len(self._devices) == 1:
+            x, _, extra = _block_apply(
+                self.params, p, x, lambda q, k, v: attend(0, q, k, v),
+                self.cfg, moe_capacity_factor=self._moe_cf)
+            return x, [extra]
+        x, _, extras = _block_apply_tp(
+            self.params, self._pieces, self._layout, p, x, attend, self.cfg,
+            moe_capacity_factor=self._moe_cf)
+        return x, extras
 
     # ------------------------------------------------------------------
     # the programs
@@ -315,15 +396,17 @@ class Engine:
             )[0]
         return torch.where(live, nxt, prev)
 
-    def _write(self, i, bid, off, k, v):
-        """Scatter fresh K/V (index shape + (H, D)) into layer ``i``'s
-        pools IN PLACE at (block ``bid``, offset ``off``). Padding, dead
-        and rejected lanes all target the trash block 0, so indices may
-        repeat; ``index_put_`` then writes them in an undefined order,
-        which is harmless: only trash bytes collide, and every attend
-        masks them."""
-        self.state["k"][i][bid, :, off] = k
-        self.state["v"][i][bid, :, off] = v
+    def _write(self, i, bid, off, k, v, m=0):
+        """Scatter fresh K/V (index shape + (H, D), rank ``m``'s heads)
+        into rank m's layer-``i`` pools IN PLACE at (block ``bid``,
+        offset ``off``). Padding, dead and rejected lanes all target the
+        trash block 0, so indices may repeat; ``index_put_`` then writes
+        them in an undefined order, which is harmless: only trash bytes
+        collide, and every attend masks them."""
+        kp, vp = self._pools[m]["k"][i], self._pools[m]["v"][i]
+        bid, off = bid.to(kp.device), off.to(kp.device)
+        kp[bid, :, off] = k.to(kp.device)
+        vp[bid, :, off] = v.to(kp.device)
 
     def _embed(self, tokens, positions):
         """Token + position embeddings; positions past max_len (dead or
@@ -364,23 +447,23 @@ class Engine:
         pos_attend = torch.where(live, pos, -1)[:, None]
 
         def mk_attend(i):
-            def attend(q, k, v):
-                self._write(i, bid, off, k[:, :, 0], v[:, :, 0])
-                kp, vp = st["k"][i], st["v"][i]
+            def attend(m, q, k, v):
+                self._write(i, bid, off, k[:, :, 0], v[:, :, 0], m)
+                kp, vp = self._pools[m]["k"][i], self._pools[m]["v"][i]
+                tab = tables.to(kp.device)
                 if self._fused:
-                    o = self._paged_attend(q, kp, vp, tables, pos_attend)
+                    o = self._paged_attend(q, kp, vp, tab,
+                                           pos_attend.to(kp.device))
                 else:
                     o = cache_attend(
-                        q, *self._gather_kv(kp, vp, tables), pos[:, None]
+                        q, *self._gather_kv(kp, vp, tab),
+                        pos[:, None].to(kp.device)
                     )
                 return o, None
             return attend
 
         for i in range(self.cfg.n_layers):
-            x, _, _ = _block_apply(
-                self.params, f"blk{i}", x, mk_attend(i), self.cfg,
-                moe_capacity_factor=self._moe_cf,
-            )
+            x, _ = self._block(f"blk{i}", x, mk_attend(i))
         logits = lm_head(self.params, x)[:, 0]
         self._dec_logits.copy_(logits)
         tokens.copy_(torch.where(live, logits.argmax(-1), tokens))
@@ -405,25 +488,22 @@ class Engine:
         off = off[0]
 
         def mk_attend(i):
-            def attend(q, k, v):
+            def attend(m, q, k, v):
                 self._write(
-                    i, bid, off, k[0].transpose(0, 1), v[0].transpose(0, 1)
+                    i, bid, off, k[0].transpose(0, 1), v[0].transpose(0, 1),
+                    m
                 )
-                kp, vp = self.state["k"][i], self.state["v"][i]
+                kp, vp = self._pools[m]["k"][i], self._pools[m]["v"][i]
+                tab, pm = row.to(kp.device), p[None].to(kp.device)
                 if self._fused:
-                    o = self._paged_attend(q, kp, vp, row, p[None])
+                    o = self._paged_attend(q, kp, vp, tab, pm)
                 else:
-                    o = cache_attend(
-                        q, *self._gather_kv(kp, vp, row), p[None]
-                    )
+                    o = cache_attend(q, *self._gather_kv(kp, vp, tab), pm)
                 return o, None
             return attend
 
         for i in range(self.cfg.n_layers):
-            x, _, _ = _block_apply(
-                self.params, f"blk{i}", x, mk_attend(i), self.cfg,
-                moe_capacity_factor=self._moe_cf,
-            )
+            x, _ = self._block(f"blk{i}", x, mk_attend(i))
         logits = lm_head(self.params, x)[0]
         last = (n_valid - 1).clamp(min=0).view(1)
         self._pf_out.copy_(logits.index_select(0, last)[0])
@@ -470,38 +550,37 @@ class Engine:
         fresh = []
 
         def mk_attend(i):
-            def attend(qh, kh, vh):
-                kp, vp = st["k"][i], st["v"][i]
+            def attend(m, qh, kh, vh):
+                kp, vp = self._pools[m]["k"][i], self._pools[m]["v"][i]
+                d = kp.device
+                tab = tables.to(d)
                 if self._fused:
                     # the overlay form IS the rewind contract at every
                     # draft width: the pool is never written here
                     o = paged_attention_overlay(
-                        qh.contiguous(), kp, vp, tables, p32,
-                        kh.contiguous(), vh.contiguous(), valid,
+                        qh.contiguous(), kp, vp, tab, p32.to(d),
+                        kh.contiguous(), vh.contiguous(), valid.to(d),
                     )
                     return o, (kh, vh)
                 if kd == 0:
                     # zero draft width: nothing can be rejected, so write
                     # then gather like the decode tick
                     self._write(
-                        i, bid, off, kh.transpose(1, 2), vh.transpose(1, 2)
+                        i, bid, off, kh.transpose(1, 2), vh.transpose(1, 2),
+                        m
                     )
-                    o = cache_attend(
-                        qh, *self._gather_kv(kp, vp, tables), p
-                    )
+                    o = cache_attend(qh, *self._gather_kv(kp, vp, tab),
+                                     p.to(d))
                     return o, None
-                dk, dv = self._gather_kv(kp, vp, tables)
-                dk[s_idx, :, p_col] = kh.transpose(1, 2)
-                dv[s_idx, :, p_col] = vh.transpose(1, 2)
-                return cache_attend(qh, dk, dv, p), (kh, vh)
+                dk, dv = self._gather_kv(kp, vp, tab)
+                dk[s_idx.to(d), :, p_col.to(d)] = kh.transpose(1, 2)
+                dv[s_idx.to(d), :, p_col.to(d)] = vh.transpose(1, 2)
+                return cache_attend(qh, dk, dv, p.to(d)), (kh, vh)
             return attend
 
         for i in range(self.cfg.n_layers):
-            x, _, extra = _block_apply(
-                self.params, f"blk{i}", x, mk_attend(i), self.cfg,
-                moe_capacity_factor=self._moe_cf,
-            )
-            fresh.append(extra)
+            x, extras = self._block(f"blk{i}", x, mk_attend(i))
+            fresh.append(extras)
         logits = lm_head(self.params, x)                         # (S, Q, V)
         greedy = logits.argmax(-1)
         # position 0 samples through the slot's own stream (temperature
@@ -519,10 +598,10 @@ class Engine:
             # the rewind-by-construction scatter: only positions sequential
             # decode would have written land in real blocks
             bid_keep = torch.where(emit_mask, bid, 0)
-            for i, (kh, vh) in enumerate(fresh):
-                self._write(
-                    i, bid_keep, off, kh.transpose(1, 2), vh.transpose(1, 2)
-                )
+            for i, extras in enumerate(fresh):
+                for m, (kh, vh) in enumerate(extras):
+                    self._write(i, bid_keep, off, kh.transpose(1, 2),
+                                vh.transpose(1, 2), m)
         # in place: the lanes keep the addresses decode's graph reads
         tokens.copy_(torch.where(live, last_tok, tokens))
         pos.add_(torch.where(live, acc + 1, 0).to(torch.int32))
@@ -616,9 +695,10 @@ class Engine:
 
     def _copy_block(self, src: int, dst: int) -> None:
         """Copy-on-write: block ``src``'s K/V into block ``dst`` in every
-        layer, in place (the source stays shared)."""
-        for pool in self.state["k"] + self.state["v"]:
-            pool[dst].copy_(pool[src])
+        layer of every rank, in place (the source stays shared)."""
+        for pools in self._pools:
+            for pool in pools["k"] + pools["v"]:
+                pool[dst].copy_(pool[src])
 
     def _install_table(self, slot: int, blocks: list[int]) -> None:
         """Write ``slot``'s block-table row in place (trash block 0
@@ -773,32 +853,54 @@ class Engine:
     # migration: a slot, or cached blocks, as host values
     # ------------------------------------------------------------------
 
+    def _head_ranks(self) -> list[int]:
+        """The ranks whose pools together hold every head once, in head
+        order: every rank when the heads split, else rank 0."""
+        if self._rank_heads == self.cfg.n_heads:
+            return [0]
+        return list(range(len(self._pools)))
+
     def _gather_blocks(self, blocks: list[int]):
         """Every layer's K/V of ``blocks`` -> two host arrays
-        (L, n, H, BL, D) of the pool's dtype. One copy to the host, so it
-        waits for the card."""
-        idx = torch.tensor(blocks, dtype=torch.int64, device=self.device)
-        k = torch.stack([p.index_select(0, idx) for p in self.state["k"]])
-        v = torch.stack([p.index_select(0, idx) for p in self.state["v"]])
-        return k.cpu().numpy(), v.cpu().numpy()
+        (L, n, H, BL, D) of the pool's dtype, the heads gathered from the
+        ranks in rank order. One copy to the host, so it waits for the
+        card."""
+        out = []
+        for kv in ("k", "v"):
+            parts = []
+            for m in self._head_ranks():
+                pools = self._pools[m][kv]
+                idx = torch.tensor(blocks, dtype=torch.int64,
+                                   device=pools[0].device)
+                parts.append(torch.stack(
+                    [p.index_select(0, idx) for p in pools]).to(self.device))
+            out.append(torch.cat(parts, dim=2).cpu().numpy())
+        return out[0], out[1]
 
     def _scatter_blocks(self, blocks: list[int], k, v) -> None:
         """Write host K/V arrays (L, n, H, BL, D) into ``blocks`` of every
-        layer: one ``index_copy_`` per pool."""
+        layer, each rank its heads (every head where they replicate):
+        one ``index_copy_`` per pool."""
         if not blocks:
             return
-        idx = torch.tensor(blocks, dtype=torch.int64, device=self.device)
-        for pools, host in ((self.state["k"], k), (self.state["v"], v)):
-            t = torch.from_numpy(np.ascontiguousarray(host)).to(self.device)
-            for i, pool in enumerate(pools):
-                pool.index_copy_(0, idx, t[i])
+        hm = self._rank_heads
+        for m, pools in enumerate(self._pools):
+            sl = slice(0, hm) if hm == self.cfg.n_heads else slice(
+                m * hm, (m + 1) * hm)
+            dev = pools["k"][0].device
+            idx = torch.tensor(blocks, dtype=torch.int64, device=dev)
+            for kv, host in (("k", k), ("v", v)):
+                t = torch.from_numpy(
+                    np.ascontiguousarray(host[:, :, sl])).to(dev)
+                for i, pool in enumerate(pools[kv]):
+                    pool.index_copy_(0, idx, t[i])
 
     def _check_blocks(self, what: str, k, v) -> None:
         """Shipped K/V must match this pool's layers, geometry and dtype
         (raises: nothing is cast)."""
-        pool = self.state["k"][0]
+        pool = self._pools[0]["k"][0]
         want = str(pool.dtype).removeprefix("torch.")
-        shape = (self.cfg.n_layers,) + tuple(pool.shape[1:])
+        shape = (self.cfg.n_layers, self.cfg.n_heads) + tuple(pool.shape[2:])
         for name, a in (("k", k), ("v", v)):
             if a.dtype.name != want:
                 raise ValueError(
@@ -1033,6 +1135,10 @@ class Engine:
             old = live.clone()
             live.copy_(other[name])
             other[name].copy_(old)
+            d = self._layout.get(name)
+            for m, pc in enumerate(self._pieces):
+                if d is not None:
+                    pc[name].copy_(live.chunk(len(self._pieces), dim=d)[m])
 
     def flip_params(self) -> dict:
         """Make the staged tree live at a tick boundary: its bytes are

@@ -64,6 +64,8 @@ class CDTrainer(Trainer):
     _supports_buffers = False
     #: the CD walk is not the ring's per-rank backward
     _supports_ring_collective = False
+    #: nor the lockstep walk of the other mesh axes
+    _axis_sets = ()
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)

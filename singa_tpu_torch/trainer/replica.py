@@ -5,12 +5,25 @@ Counterpart of ``singa_tpu/trainer/replica.py``. The reference's cluster
 runs ``ngroups`` model replicas, each training on its own data and
 reconciling through the parameter-server protocol that
 UpdaterProto.param_type selects ("Elastic" | "RandomSync",
-src/worker/neuralnet.cc:35-44). Here each rank of the mesh's data axis
-holds one replica: its own params, updater slots and buffers
+src/worker/neuralnet.cc:35-44). Here each index of the mesh's data axis
+holds one replica, a lane of model ranks (one rank on a data-only
+mesh): every rank of the lane its own params, updater slots and buffers
 (BatchNorm's running stats), on its device, at fixed addresses that
 every step and protocol round update in place, even when several ranks
-share one card. The protocol rounds are ``parallel/consistency.py``'s
-functions over the replicas stacked in rank order.
+share one card. A kLayerPartition param is stored split over the
+lane's ranks, padded where the split is uneven (the Trainer's layout,
+``parallel/shardings.py``), the other params whole on every rank of the
+lane (the JAX package's ``_rep_param_sh``: the data axis prepended to
+each param's kLayerPartition spec). Each replica's step is the lockstep
+walk of its lane (``Net.forward_ranks``; the layers that cross the
+model ranks run through ``apply_ranks``), each piece's gradient summed
+over the lane's ranks that hold it, in rank order. The protocol rounds
+are ``parallel/consistency.py``'s functions over the replicas stacked in
+replica order, each replica's pieces joined into its stored arrays, so
+a round runs on the stored (padded) coordinates with the same serial
+arithmetic per element as on a data-only mesh; RandomSync below full
+coverage samples that stored coordinate space, as the JAX package does,
+and a padded tail coordinate carries a zero delta.
 
 Lifecycle, as Worker::Start (src/worker/worker.cc:14-57):
 
@@ -32,8 +45,8 @@ worker group read its own part of the data. The step's metrics are
 averaged over the replicas; eval runs on replica 0.
 
 Several processes (``parallel/launch.py``): each process holds its own
-ranks' replicas and reads the whole global stream, keeping its ranks'
-batches. A protocol round gathers every replica in rank order
+replicas' lanes whole and reads the whole global stream, keeping its
+replicas' batches. A protocol round gathers every replica in rank order
 (``Mesh.gather``), every process runs the same serial round on the same
 values, keeps the center and copies back its own replicas, so P
 processes give the bits of one process over the same ranks. RandomSync's
@@ -43,13 +56,16 @@ gather what they need from the other processes (collectives: every
 process calls them at the same step).
 
 Checkpoints: the base formats with the params, slots and buffers
-stacked ``(R, ...)`` (an npz save by process 0; a sharded save with each
-replica's row as its rank's box), plus the ``.server`` sidecar beside
-them, an npz holding the center, ``__sample_ratio__`` and the RandomSync
-``__snapshot__`` stack, written by process 0 after the base save; a
-sharded save's manifest promises it and its ``commit_server.json``
-marker follows it. Saves cross to and from the JAX package's replica
-engine in both formats.
+stacked ``(R, ...)`` (an npz save by process 0, at the logical shapes;
+a sharded save, at the stored shapes as the JAX replica engine's, with
+each replica's row, or each model piece of it, as its rank's box), plus
+the ``.server`` sidecar
+beside them, an npz holding the center, ``__sample_ratio__`` and the
+RandomSync ``__snapshot__`` stack at their logical shapes, written by
+process 0 after the base save; a sharded save's manifest promises it
+and its ``commit_server.json`` marker follows it. Saves cross to and
+from the JAX package's replica engine in both formats (a JAX sharded
+save's padded storage is cut back through the logical shape).
 
 The divergence guard: every replica computes its own verdict (its loss
 and its grad-norm finite) and the step's verdict is their conjunction
@@ -61,10 +77,10 @@ the engine's own resume path.
 
 What the port leaves out: the step and the protocol round run eager
 (the JAX package's fused multi-window programs, the rounds compiled into
-the chunk, wait for graphs over several ranks); the replica axis beside
-a model axis (kLayerPartition), which the Trainer refuses by name;
-``zero_update`` and ``grad_comm``, refused with the JAX Trainer's
-messages, as the JAX replica engine refuses them.
+the chunk, wait for graphs over several ranks); the seq, expert and pipe
+axes beside the replicas, refused by name; ``zero_update`` and
+``grad_comm``, refused with the JAX Trainer's messages, as the JAX
+replica engine refuses them.
 """
 
 from __future__ import annotations
@@ -82,6 +98,8 @@ from ..config.schema import ClusterConfig, ConfigError, ModelConfig
 from ..data.device_prefetch import ready, to_device
 from ..graph.builder import Net
 from ..params import init_params
+from ..parallel.axes import Lanes, rank_sum
+from ..parallel.shardings import spec_json
 from ..parallel.consistency import (
     elastic_sync,
     random_sync,
@@ -99,14 +117,14 @@ from ..resilience.guard import (
 from ..utils.rng import fold_in
 from .checkpoint import load_checkpoint, load_stream_positions, save_checkpoint
 from .sharded_ckpt import (
-    RankShards,
+    RankBoxes,
     ShardedCheckpoint,
     buffer_key,
     is_sharded_checkpoint,
     param_key,
     state_key,
 )
-from .trainer import _GUARD_METRIC, Trainer, _now, _put
+from .trainer import _GUARD_METRIC, Trainer, _grad_of, _now, _put
 
 PROTOCOLS = ("Elastic", "RandomSync")
 
@@ -122,6 +140,7 @@ class ReplicaTrainer(Trainer):
     _supports_zero_update = False
     _supports_grad_comm = False
     _splits_batch = False
+    _axis_sets = ({"model"},)
 
     def __init__(
         self,
@@ -173,26 +192,32 @@ class ReplicaTrainer(Trainer):
     # ------------------------------------------------------------------
 
     def _materialize_params(self) -> None:
-        """One replica per rank of this process: params from the rank's
-        own generator, fresh updater slots and buffers, on the rank's
-        device. Then the resume checkpoint, with its sidecar."""
+        """One replica per index of the data axis whose lane this process
+        holds: params from the replica's own generator, padded and split
+        over the lane's ranks, fresh updater slots and buffers on each
+        rank's device. Then the resume checkpoint, with its sidecar."""
         mesh = self.mesh
         #: the replica count: the data axis's width over every process
-        self.nreplicas = mesh.width
+        self.nreplicas = mesh.widths["data"]
         root = fold_in(self._init_gen, 2)
         #: global rank -> {"params", "state", "buffers"[, "snapshot"]} on
-        #: the rank's device; None for the ranks of other processes
+        #: the rank's device (its pieces of its replica's stored arrays);
+        #: None for the ranks of other processes
         self._reps: list[dict | None] = [None] * mesh.width
-        for r in mesh.local_ranks:
-            dev = mesh.device(r)
-            params = init_params(fold_in(root, r), self.specs, dev)
-            self._reps[r] = {
-                "params": params,
-                "state": self.updater.init_state(params),
-                "buffers": self.train_net.init_buffers(dev),
-            }
+        for i in self._local_replicas():
+            lane = self._lane(i)
+            stored = {n: self._pad_one(n, v) for n, v in init_params(
+                fold_in(root, i), self.specs, mesh.device(lane[0])).items()}
+            for r in lane:
+                params = self._pieces_of(r, stored)
+                self._reps[r] = {
+                    "params": params,
+                    "state": self.updater.init_state(params),
+                    "buffers": self.train_net.init_buffers(mesh.device(r)),
+                }
         self._resume_streams: dict[str, int] = {}
-        #: the server's params (on rank 0's device), set at bootstrap
+        #: the server's params (on rank 0's device, stored arrays), set at
+        #: bootstrap
         self.center: dict[str, torch.Tensor] | None = None
         #: the PS holds a published model (worker.cc:50-55)
         self._bootstrapped = False
@@ -204,8 +229,36 @@ class ReplicaTrainer(Trainer):
         if self.cfg.checkpoint:
             self._resume(self.cfg.checkpoint)
 
+    def _lane(self, i: int) -> list[int]:
+        """Replica i's ranks, model index 0 first."""
+        return [self.mesh.rank(data=i, model=m)
+                for m in range(self.mesh.widths["model"])]
+
+    def _local_replicas(self) -> list[int]:
+        """The replicas whose lanes this process holds (whole: the mesh
+        keeps every model group inside one process)."""
+        return [i for i in range(self.nreplicas)
+                if self.mesh.is_local(self._lane(i)[0])]
+
+    def _pieces_of(self, r: int, stored: dict) -> dict:
+        """Rank r's own contiguous copies of its pieces of ``stored``
+        (param name -> stored array), on its device."""
+        return {n: self._piece(n, v, self._piece_of(r, n)).to(
+                    self.mesh.device(r)).clone(
+                        memory_format=torch.contiguous_format)
+                for n, v in stored.items()}
+
+    def _join(self, name: str, parts: list):
+        """One replica's stored array of ``name`` from its lane's parts
+        in rank order (a split param's pieces joined, else the first
+        rank's), on rank 0's device."""
+        lay = self._layout.get(name)
+        if lay is None:
+            return parts[0].to(self.device)
+        return torch.cat([p.to(self.device) for p in parts], dim=lay[0])
+
     def _local(self, kind: str) -> list[dict]:
-        """This process's replicas' ``kind`` dicts ("params", "state",
+        """This process's ranks' ``kind`` dicts ("params", "state",
         "buffers", "snapshot"), one per rank, flat: a slot is keyed
         (param, slot)."""
         out = []
@@ -218,37 +271,56 @@ class ReplicaTrainer(Trainer):
         return out
 
     def _gathered(self, kind: str) -> list[dict]:
-        """Every replica's flat ``kind`` dict in rank order: this
-        process's own tensors, the other processes' gathered onto rank
-        0's device (a collective across processes)."""
+        """Every rank's flat ``kind`` dict in rank order: this process's
+        own tensors, the other processes' gathered onto rank 0's device
+        (a collective across processes)."""
         local = self._local(kind)
         if not local[0]:
             return [{} for _ in range(self.mesh.width)]
         return self.mesh.gather(local, self.device)
 
+    def _replica(self, every: list, i: int) -> dict:
+        """Replica i's flat dict of stored arrays from every rank's
+        ``every`` (rank order)."""
+        lane = self._lane(i)
+        return {k: self._join(k[0] if isinstance(k, tuple) else k,
+                              [every[r][k] for r in lane])
+                for k in every[lane[0]]}
+
     def _stacked(self, kind: str) -> dict:
-        """The replicas' flat ``kind`` dict stacked ``(R, ...)`` on rank
-        0's device, in rank order (a copy)."""
-        reps = self._gathered(kind)
-        return {k: torch.stack([d[k].to(self.device) for d in reps])
-                for k in reps[0]}
+        """The replicas' flat ``kind`` dict of stored arrays stacked
+        ``(R, ...)`` on rank 0's device, in replica order (a copy)."""
+        every = self._gathered(kind)
+        reps = [self._replica(every, i) for i in range(self.nreplicas)]
+        return {k: torch.stack([d[k] for d in reps]) for k in reps[0]}
 
     def _assign_rows(self, kind: str, value: dict) -> None:
-        """Copy row r of each stacked ``(R, ...)`` value into replica r's
-        tensor, in place, for this process's ranks (flat keys)."""
+        """Copy row i of each stacked ``(R, ...)`` value (logical or
+        stored) into replica i's tensors (each rank its piece), in
+        place, for this process's ranks (flat keys)."""
         local = self._local(kind)
-        value = {k: torch.as_tensor(v) for k, v in value.items()}
+        rows = {}
         for k, v in value.items():
-            want = (self.nreplicas, *local[0][k].shape)
+            name = k[0] if isinstance(k, tuple) else k
+            if name in self.specs:
+                v = self._pad_one(name, torch.as_tensor(v))
+                shape = self._stored_shape(name)
+            else:
+                v, shape = torch.as_tensor(v), local[0][k].shape
+            want = (self.nreplicas, *shape)
             if tuple(v.shape) != want:
                 raise ValueError(
                     f"{kind} {k!r}: shape {tuple(v.shape)} != {want} "
                     f"({self.nreplicas} replicas)"
                 )
+            rows[k] = v
         with torch.no_grad():
             for r, d in zip(self.mesh.local_ranks, local):
-                for k, v in value.items():
-                    d[k].copy_(v[r])
+                i = self.mesh.coords(r)["data"]
+                for k, v in rows.items():
+                    name = k[0] if isinstance(k, tuple) else k
+                    d[k].copy_(self._piece(name, v[i],
+                                           self._piece_of(r, name)))
 
     @property
     def params(self) -> dict:
@@ -327,40 +399,52 @@ class ReplicaTrainer(Trainer):
         return self._chunk_cap() > 1
 
     def _step_core(self, step: int, batches: list) -> dict:
-        """Each replica of this process: forward and backward on its own
-        batch, its updater on its own params and slots, its buffers'
-        updates, all in place. -> the step's metrics, averaged over every
-        replica in rank order."""
+        """Each replica of this process: the lockstep walk of its lane on
+        its own batch (every rank of the lane the same generator, the
+        replica's), the backward over the lane's losses each divided by
+        the lane's width, each piece's gradient summed over the lane's
+        ranks that hold it in rank order, each rank's updater on its own
+        params and slots, its buffers' updates, all in place. -> the
+        step's metrics, averaged over every replica in replica order."""
         mesh = self.mesh
         step_gen = fold_in(self._step_gen, step)
         self._last_batch = batches
         guard = self._guard is not None
         metrics, news = [], []
-        for r in mesh.local_ranks:
-            rep, dev = self._reps[r], mesh.device(r)
-            leaves = {n: p.detach().requires_grad_(True)
-                      for n, p in rep["params"].items()}
-            batch = {name: {k: v.to(dev) for k, v in feed.items()}
-                     for name, feed in batches[r].items()}
-            loss, m, updates = self.train_net.forward(
-                self._cast_compute(leaves), self._cast_compute(batch),
-                training=True, generator=fold_in(step_gen, r),
-                buffers=rep["buffers"], return_buffers=True,
-            )
-            loss.backward()
-            grads = {n: (lv.grad if lv.grad is not None
-                         else torch.zeros_like(lv))
-                     for n, lv in leaves.items()}
-            flat = {(layer, k): torch.as_tensor(v, device=self.device)
-                    for layer, ms in m.items() for k, v in ms.items()}
+        for i in self._local_replicas():
+            lane = self._lane(i)
+            reps = [self._reps[r] for r in lane]
+            leaves = [{n: p.detach().requires_grad_(True)
+                       for n, p in rep["params"].items()} for rep in reps]
+            gen = fold_in(step_gen, i)
+            losses, ms, updates = self.train_net.forward_ranks(
+                [self._cast_compute(lv) for lv in leaves],
+                [self._cast_compute({
+                    name: {k: v.to(mesh.device(r)) for k, v in feed.items()}
+                    for name, feed in batches[i].items()}) for r in lane],
+                generators=[gen] * len(lane), buffers=reps[0]["buffers"],
+                lanes=Lanes(mesh, tuple(lane)))
+            torch.autograd.backward([loss / len(lane) for loss in losses])
+            grads = self._axes_reduce(lane, [
+                {n: _grad_of(lv[n]) for n in lv} for lv in leaves])
+            flat = {(layer, k): rank_sum(
+                        torch.as_tensor(m[layer][k], device=self.device)
+                        for m in ms) / len(lane)
+                    for layer, m0 in ms[0].items() for k in m0}
             if guard:
-                ok_r, grads = guard_grads(self._gbuf, loss.detach(), grads)
-                flat[_GUARD_METRIC, "bad"] = (~ok_r).float().to(self.device)
-            new_p, new_s = self.updater.apply(
-                step, rep["params"], grads, rep["state"], self.specs)
-            news.append((rep, new_p, new_s, updates))
+                ok_i, grads = guard_grads(
+                    self._gbuf, rank_sum(loss.detach().float().to(
+                        self.device) for loss in losses), grads)
+                flat[_GUARD_METRIC, "bad"] = (~ok_i).float().to(self.device)
+            for r, rep in zip(lane, reps):
+                dev = mesh.device(r)
+                mine = {n: pieces[self._piece_of(r, n)].to(dev)
+                        for n, pieces in grads.items()}
+                new_p, new_s = self.updater.apply(
+                    step, rep["params"], mine, rep["state"], self.specs)
+                news.append((rep, new_p, new_s, updates))
             metrics.append(flat)
-        metrics = mesh.gather(metrics, self.device)
+        metrics = self._replica_metrics(metrics)
         ok = None
         if guard:
             # one verdict over every replica: any bad one voids the step
@@ -384,17 +468,32 @@ class ReplicaTrainer(Trainer):
             out = guard_finish(ok, self._gbuf, out)
         return out
 
+    def _replica_metrics(self, local: list) -> list:
+        """Every replica's metrics in replica order from this process's
+        replicas' (``local``, one dict each): across processes a gather,
+        each process's first rank standing for its replicas (the other
+        ranks carry copies)."""
+        if self.mesh.nprocs == 1:
+            return local
+        mine = self._local_replicas()
+        per_rank = []
+        for r in self.mesh.local_ranks:
+            i = self.mesh.coords(r)["data"]
+            per_rank.append(local[mine.index(i)])
+        every = self.mesh.gather(per_rank, self.device)
+        return [every[self._lane(i)[0]] for i in range(self.nreplicas)]
+
     def _next_batch(self, net: Net):
         """Train batches: one per replica, in stream order (replica i the
-        i-th of R consecutive batches), a list over the global ranks with
-        None for other processes' ranks, whose batches are skipped on the
-        stream. Other nets: the base's one batch."""
+        i-th of R consecutive batches), a list over the replicas with
+        None for other processes' replicas, whose batches are skipped on
+        the stream. Other nets: the base's one batch."""
         if net is not self.train_net:
             return super()._next_batch(net)
         if self._cached:
             out = []
-            for r in range(self.nreplicas):
-                local = self.mesh.is_local(r)
+            for i in range(self.nreplicas):
+                local = self.mesh.is_local(self._lane(i)[0])
                 batch = {}
                 for name, pipe in self._pipelines[id(net)].items():
                     if not local:
@@ -423,8 +522,8 @@ class ReplicaTrainer(Trainer):
         if net is not self.train_net:
             return super()._assemble_host_batch(net)
         out = []
-        for r in range(self.nreplicas):
-            local = self.mesh.is_local(r)
+        for i in range(self.nreplicas):
+            local = self.mesh.is_local(self._lane(i)[0])
             batch = {}
             for name, pipe in self._pipelines[id(net)].items():
                 if not local:
@@ -501,13 +600,14 @@ class ReplicaTrainer(Trainer):
         := replica 0, every replica := center; RandomSync snapshots every
         replica. Then SyncConfig on the measured warmup step time
         (worker.cc:42-48), process 0's ratio on every process."""
-        first = self._gathered("params")[0]
+        first = self._replica(self._gathered("params"), 0)
         self.center = {n: v.to(self.device, copy=True)
                        for n, v in first.items()}
         with torch.no_grad():
-            for d in self._local("params"):
+            for r, d in zip(self.mesh.local_ranks, self._local("params")):
                 for n, v in d.items():
-                    v.copy_(self.center[n])
+                    v.copy_(self._piece(n, self.center[n],
+                                        self._piece_of(r, n)))
         if self.protocol == "RandomSync":
             for r in self.mesh.local_ranks:
                 rep = self._reps[r]
@@ -574,11 +674,14 @@ class ReplicaTrainer(Trainer):
     # ------------------------------------------------------------------
 
     def _replica0(self) -> tuple[dict, dict]:
-        """Replica 0's params and buffers: its own tensors in one process;
-        across processes gathered by every process (a collective)."""
-        if self.mesh.nprocs == 1:
+        """Replica 0's params (its stored arrays) and buffers: its own
+        tensors on a data-only mesh in one process; else joined from its
+        lane, across processes gathered by every process (a
+        collective)."""
+        if self.mesh.nprocs == 1 and self.mesh.widths["model"] == 1:
             return self._reps[0]["params"], self._reps[0]["buffers"]
-        return self._gathered("params")[0], self._gathered("buffers")[0]
+        return (self._replica(self._gathered("params"), 0),
+                self._gathered("buffers")[0])
 
     def evaluate(self, net: Net, nsteps: int, phase: str, step: int) -> dict:
         """Test/Validate on replica 0's view (each reference group tests
@@ -613,20 +716,24 @@ class ReplicaTrainer(Trainer):
         spread: each param's largest |replica - center| over every
         replica, the quantity the protocols are to bound. Across
         processes a collective."""
-        r = self.mesh.local_ranks[0]
-        rep, dev = self._reps[r], self.mesh.device(r)
+        i = self._local_replicas()[0]
+        r = self._lane(i)[0]
+        rep = self._reps[r]
         lines = []
         if self._last_batch is not None:
-            batch = {name: {k: v.to(dev) for k, v in feed.items()}
-                     for name, feed in self._last_batch[r].items()}
+            batch = {name: {k: v.to(self.device) for k, v in feed.items()}
+                     for name, feed in self._last_batch[i].items()}
+            params = self._replica(
+                [self._reps[q]["params"] if q in self._lane(i) else None
+                 for q in range(self.mesh.width)], i)
             _, _, acts = self.train_net.forward(
-                self._cast_compute(rep["params"]), self._cast_compute(batch),
+                self._cast_compute(params), self._cast_compute(batch),
                 training=True,
-                generator=fold_in(fold_in(self._step_gen, step), r),
+                generator=fold_in(fold_in(self._step_gen, step), i),
                 buffers=rep["buffers"], return_acts=True,
             )
             lines.append(
-                f"debug (replica {r}): " + ", ".join(
+                f"debug (replica {i}): " + ", ".join(
                     f"{name} {float(a.float().abs().mean()):.4g}"
                     for name, a in acts.items()
                     if isinstance(a, torch.Tensor)))
@@ -641,35 +748,68 @@ class ReplicaTrainer(Trainer):
     # checkpoints
     # ------------------------------------------------------------------
 
-    def _rank_shards(self, kind: str) -> dict:
-        """This process's replicas' flat ``kind`` tensors as the sharded
-        format's rank boxes along a leading replica axis."""
+    def _rank_boxes(self, kind: str) -> dict:
+        """This process's ranks' flat ``kind`` tensors as the sharded
+        format's boxes along a leading replica axis: rank r's row of its
+        replica, a split param's piece as its box of the stored (padded)
+        array, which the JAX replica engine's sharded resume demands; a
+        box that several ranks of a lane hold is written by the
+        first."""
+        mesh = self.mesh
         local = self._local(kind)
-        ranks = self.mesh.local_ranks
-        return {k: RankShards(tuple(d[k].unsqueeze(0) for d in local), 0,
-                              ranks[0], self.nreplicas)
-                for k in local[0]}
+        out = {}
+        for k in local[0]:
+            name = k[0] if isinstance(k, tuple) else k
+            param = name in self.specs
+            split = param and self._layout.get(name) is not None
+            ranks, parts, boxes = [], [], []
+            for r, d in zip(mesh.local_ranks, local):
+                c = mesh.coords(r)
+                if c["model"] and not split:
+                    continue
+                box = (self._rank_box(name, r, zero=False, logical=False)
+                       if param else [[0, n] for n in d[k].shape])
+                ranks.append(r)
+                parts.append(d[k].unsqueeze(0))
+                boxes.append([[c["data"], c["data"] + 1]] + box)
+            shape = (self._stored_shape(name) if param
+                     else tuple(local[0][k].shape))
+            lay = self._layout.get(name) if param else None
+            out[k] = RankBoxes(
+                tuple(parts), tuple(boxes), tuple(ranks),
+                (self.nreplicas, *shape),
+                spec_json(0, None if lay is None else {lay[0] + 1: lay[1]}))
+        return out
 
     def _save_trees(self) -> tuple:
         """The base formats' trees with the replicas stacked ``(R, ...)``
-        (sharded: this process's replicas as rank boxes along the
-        replica axis) and the guard counters unstacked."""
+        (npz: at their logical shapes; sharded: this process's ranks'
+        boxes along the replica axis) and the guard counters
+        unstacked."""
         if self.cfg.checkpoint_format == "sharded":
             state: dict = {}
-            for (n, s), v in self._rank_shards("state").items():
+            for (n, s), v in self._rank_boxes("state").items():
                 state.setdefault(n, {})[s] = v
-            return (True, self._rank_shards("params"), state,
-                    {**self._rank_shards("buffers"), **self._gbuf})
-        return False, self.params, self.state, self.buffers
+            return (True, self._rank_boxes("params"), state,
+                    {**self._rank_boxes("buffers"), **self._gbuf})
+        return (False,
+                {n: self._unpad_one(n, v) for n, v in self.params.items()},
+                {n: {s: self._unpad_one(n, v) for s, v in slots.items()}
+                 for n, slots in self.state.items()},
+                self.buffers)
 
     def _sidecar_tree(self):
         """The ``.server`` state, taken at the save's step boundary on
-        every process (the snapshots' gather is a collective): the center,
-        the stacked RandomSync snapshots, the ratio; None before the
-        bootstrap."""
+        every process (the snapshots' gather is a collective), at the
+        logical shapes: the center, the stacked RandomSync snapshots, the
+        ratio; None before the bootstrap."""
         if self.center is None:
             return None
-        return {"center": dict(self.center), "snapshot": self.snapshot,
+        snap = self.snapshot
+        return {"center": {n: self._unpad_one(n, v)
+                           for n, v in self.center.items()},
+                "snapshot": None if snap is None else {
+                    n: self._unpad_one(n, v) for n, v in snap.items()},
                 "ratio": torch.tensor(self.sample_ratio,
                                       dtype=torch.float32)}
 
@@ -702,10 +842,19 @@ class ReplicaTrainer(Trainer):
         center, the ratio, and RandomSync's snapshots (an Elastic
         sidecar has none: they are refreshed from the restored replicas,
         as a fresh RandomSyncParam::Init does, param.cc:203-207)."""
+        # the keys whose saved shape is the wanted one or a split
+        # param's padded storage, which a sharded save holds
+        padded = set()
         if is_sharded_checkpoint(path):
             with ShardedCheckpoint(path) as ck:
                 arrays = {k: ck.assemble(k) for k in ck.keys()}
                 step, streams = ck.step, dict(ck.streams)
+                for k in ck.keys():
+                    name = k.split("|")[1]
+                    if k[0] in "ps" and name in self.specs and (
+                            ck.padded_split(k, (self.nreplicas, *self.specs[
+                                name].shape)) is None):
+                        padded.add(k)
         else:
             step, params, state, buffers = load_checkpoint(path)
             arrays = {param_key(n): v for n, v in params.items()}
@@ -716,21 +865,23 @@ class ReplicaTrainer(Trainer):
         for kind, key_of in (("params", param_key),
                              ("state", lambda k: state_key(*k)),
                              ("buffers", buffer_key)):
+            rows = {}
             for k, v in self._local(kind)[0].items():
                 arr = arrays.get(key_of(k))
                 if arr is None:
                     continue
-                want = (self.nreplicas, *v.shape)
-                if tuple(arr.shape) != want:
+                name = k[0] if isinstance(k, tuple) else k
+                want = (self.nreplicas, *(self.specs[name].shape
+                                          if name in self.specs
+                                          else v.shape))
+                if tuple(arr.shape) != want and key_of(k) not in padded:
                     raise ValueError(
                         f"checkpoint {path!r}: {key_of(k)!r} shape "
                         f"{arr.shape} != model shape {want} (saved with a "
-                        "different replica count?)"
+                        "different replica count or other layer widths?)"
                     )
-                with torch.no_grad():
-                    for r, d in zip(self.mesh.local_ranks,
-                                    self._local(kind)):
-                        d[k].copy_(torch.from_numpy(np.asarray(arr[r])))
+                rows[k] = np.asarray(arr)[tuple(slice(0, n) for n in want)]
+            self._assign_rows(kind, rows)
         with torch.no_grad():
             for k, v in self._gbuf.items():
                 arr = arrays.get(buffer_key(k))
@@ -752,7 +903,8 @@ class ReplicaTrainer(Trainer):
                         f"!= model shape {self.specs[n].shape}"
                     )
             self.center = {
-                n: torch.from_numpy(np.asarray(v, np.float32)).to(self.device)
+                n: self._pad_one(n, torch.from_numpy(
+                    np.asarray(v, np.float32)).to(self.device))
                 for n, v in sv_params.items()}
             snap = sv_state.get("__snapshot__")
             if self.protocol == "RandomSync":

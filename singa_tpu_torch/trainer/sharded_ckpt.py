@@ -21,9 +21,12 @@ layout, so a save written by either package restores in the other:
 Keys are the npz checkpoint's: ``p|<param>``, ``s|<param>|<slot>``,
 ``b|<buffer>``.
 
-Process k of the job writes ``proc_k.npz``: one entry per rank of its
-own for an array laid over the data axis (:class:`RankShards`: the zero
-update's slots, the ring's residuals), its flat device index being the
+Process k of the job writes ``proc_k.npz``: one entry per box its ranks
+write of an array laid over the mesh (:class:`RankBoxes`: the zero
+update's data chunks, the ring's residuals, a kLayerPartition param's
+model pieces, written by the data-0 ranks, the padded tail cut off so
+the boxes tile the logical shape, zero's data chunks nested inside
+them, a replica's row and pieces), its flat device index being the
 global rank, and process 0 alone one entry, from its first rank, for a
 replicated array, as the JAX package saves replica 0 only. Files are
 written to ``.tmp`` and renamed; once every process's commit marker has
@@ -48,6 +51,7 @@ import os
 import numpy as np
 import torch
 
+from ..parallel.mesh import MODEL_AXIS
 from ..parallel.shardings import spec_json
 
 _SEP = "##"  # key ## flat-device-index [## idx]
@@ -59,21 +63,20 @@ FORMAT = "singa-tpu-sharded-v1"
 
 
 @dataclasses.dataclass(frozen=True)
-class RankShards:
-    """An array laid over the data axis: ``parts[i]`` is rank
-    ``first + i``'s slice along ``dim`` (``torch.chunk`` order; equal
-    lengths) of ``width`` ranks (0: ``len(parts)``, every rank's)."""
+class RankBoxes:
+    """An array saved as boxes of its global shape ``shape``:
+    ``parts[i]`` is written as global rank ``ranks[i]``'s box
+    ``boxes[i]`` (one (start, stop) per dim), the manifest recording
+    ``spec``. A part may be longer than its box (a model piece whose
+    stored array pads an uneven split): the save cuts it to the box, so
+    the boxes tile the logical shape. A process may hold no box of an
+    array (its ranks are not the ones that write it)."""
 
     parts: tuple
-    dim: int
-    first: int = 0
-    width: int = 0
-
-    @property
-    def shape(self) -> tuple[int, ...]:
-        shape = list(self.parts[0].shape)
-        shape[self.dim] *= self.width or len(self.parts)
-        return tuple(shape)
+    boxes: tuple
+    ranks: tuple
+    shape: tuple
+    spec: list
 
 
 def _flatten(params, state, buffers) -> dict:
@@ -118,7 +121,7 @@ def save_sharded(
     """Write process ``proc``'s shard and commit marker of one save of
     ``nprocs`` processes, and, in process 0, the manifest. Every value
     is a tensor or numpy array (replicated: written once, by process
-    0) or a :class:`RankShards` (one entry per rank of this process).
+    0) or a :class:`RankBoxes` (one entry per box of this process).
     Every process of the group calls it at the same step.
     ``manifest_extra`` merges extra promises into the manifest: the
     replica engine's ``{"sidecar": True}``, which makes retention demand
@@ -139,16 +142,15 @@ def save_sharded(
     entries: dict[str, np.ndarray] = {}
     meta: dict[str, dict] = {}
     for key, arr in flat.items():
-        if isinstance(arr, RankShards):
-            shape = arr.shape
-            meta[key] = {"shape": list(shape),
-                         "dtype": _np_dtype_name(arr.parts[0]),
-                         "spec": spec_json(arr.dim)}
-            for r, part in enumerate(arr.parts, start=arr.first):
-                box = _full_box(shape)
-                c = part.shape[arr.dim]
-                box[arr.dim] = [r * c, (r + 1) * c]
-                entries[f"{key}{_SEP}{r}"] = _host(part)
+        if isinstance(arr, RankBoxes):
+            if arr.parts:
+                meta[key] = {"shape": list(arr.shape),
+                             "dtype": _np_dtype_name(arr.parts[0]),
+                             "spec": list(arr.spec)}
+            for r, part, box in zip(arr.ranks, arr.parts, arr.boxes):
+                box = np.asarray(box, dtype=np.int64).reshape(-1, 2)
+                cut = tuple(slice(0, int(b - a)) for a, b in box)
+                entries[f"{key}{_SEP}{r}"] = _host(part)[cut]
                 entries[f"{key}{_SEP}{r}{_SEP}idx"] = box
             continue
         meta[key] = {"shape": list(arr.shape),
@@ -254,6 +256,41 @@ class ShardedCheckpoint:
             sl = tuple(slice(int(a), int(b)) for a, b in box[: out.ndim])
             out[sl] = z[entry]
         return out
+
+    def padded_split(self, key: str, logical) -> str | None:
+        """None when entry ``key`` holds an array of shape ``logical``,
+        or the padded storage of an uneven kLayerPartition split of one
+        (as the JAX package and the replica engine's sharded saves hold
+        it): longer on the one dim its spec splits over the model axis,
+        by exactly the pad of the width its saved pieces cut that dim
+        into, the padded tail all zeros. Else why not."""
+        saved, logical = tuple(self.manifest["arrays"][key]["shape"]), \
+            tuple(logical)
+        if saved == logical:
+            return None
+        why = f"shape {saved} != model shape {logical}"
+        longer = [d for d, (a, b) in enumerate(zip(saved, logical))
+                  if a != b]
+        spec = self.manifest["arrays"][key].get("spec") or []
+        if len(saved) != len(logical) or len(longer) != 1:
+            return why
+        (d,) = longer
+        axes = spec[d] if d < len(spec) else None
+        if MODEL_AXIS not in ([axes] if isinstance(axes, str)
+                              else axes or []):
+            return f"{why} (dim {d} is not split over the model axis)"
+        pieces = self.pieces(key)
+        width = len({(int(box[d][0]), int(box[d][1]))
+                     for _, _, box in pieces})
+        if saved[d] != logical[d] + (-logical[d] % width):
+            return (f"{why} (dim {d}: {saved[d]} is not {logical[d]} "
+                    f"padded for {width} model ranks)")
+        for z, entry, box in pieces:
+            start, stop = int(box[d][0]), int(box[d][1])
+            if stop > logical[d] and np.any(np.take(z[entry], range(
+                    max(logical[d] - start, 0), stop - start), axis=d)):
+                return f"{why} (dim {d}: the padded tail is not zero)"
+        return None
 
     def close(self) -> None:
         for z in self._files:

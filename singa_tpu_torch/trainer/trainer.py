@@ -153,13 +153,23 @@ side stream, written by the context's writer thread. A fault plan makes
 every step a chunk of one; a ``nanloss`` step runs eager on its
 poisoned, directly fed batch.
 
+On a data x model mesh ``zero_update`` shards each model piece's
+update over the data axis (``parallel/shardings.py``'s
+``zero_update_shardings``: the JAX layout), and a sharded save writes
+each piece as its box, the padded tail cut off, zero's data chunks
+inside it; ``_restore_sharded`` places any saved layout onto any mesh.
+Whole model groups may sit in separate processes (``parallel/mesh.py``):
+the gradient sums of each piece, the zero shards and the saves then
+cross processes through ``Mesh.gather``, summed in rank order.
+
 What the port leaves out, and refuses with a ConfigError that names
 it rather than ignoring: ``fleet`` (``main`` dispatches it to the
-serving host); the int8 ring with a net with buffers; on a mesh
-with more axes than data: any axis but data across processes, two of
-the seq, expert and pipe axes together (or with a model axis, but pipe
-with model), ``zero_update``, ``grad_comm``, sharded saves and a net
-with buffers. ``kernels {
+serving host); the int8 ring with a net with buffers; across
+processes a seq, expert or pipe axis, or a model group that spans
+processes; on a mesh with more axes than data: two of the seq, expert
+and pipe axes together (or with a model axis, but pipe with model),
+``zero_update`` and sharded saves beside a seq, expert or pipe axis,
+``grad_comm``, and a net with buffers. ``kernels {
 paged_attention }`` is the serving engine's knob and trains unchanged,
 as in the JAX package. A cluster's ``nservers`` is ignored here, as the
 JAX Trainer ignores it; on an asynchronous cluster ``make_trainer``
@@ -172,6 +182,7 @@ Also left out: graphs over more than one rank.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import hashlib
 import os
@@ -207,6 +218,7 @@ from ..parallel.shardings import (
     param_paddings,
     param_shardings,
     shard_feed,
+    spec_json,
     zero_update_shardings,
 )
 from ..params import init_params
@@ -225,7 +237,11 @@ from ..utils import Performance, Timers
 from ..utils.graphs import Graphed
 from ..utils.rng import fold_in
 from .checkpoint import load_stream_positions, restore_into, save_checkpoint
-from .sharded_ckpt import RankShards, is_sharded_checkpoint, save_sharded
+from .sharded_ckpt import (
+    RankBoxes,
+    is_sharded_checkpoint,
+    save_sharded,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -254,6 +270,8 @@ def _refuse(missing: list[str]) -> None:
 #: the inner-axis combinations the lockstep step runs (any with the data
 #: axis): one of seq, expert, model or pipe, or pipe with model
 AXIS_SETS = ({"seq"}, {"expert"}, {"model"}, {"pipe"}, {"pipe", "model"})
+#: the axes beside which zero_update and sharded saves are not ported
+UNZEROED_AXES = {"seq", "expert", "pipe"}
 #: the layer types a seq axis runs: each is position-wise or has its
 #: seq form (kEmbedding's positions, ring attention, kLMLoss's shift)
 SEQ_LAYERS = {"kSequenceData", "kEmbedding", "kLayerNorm", "kAttention",
@@ -286,6 +304,10 @@ class Trainer:
     #: whether the ranks split the batch (the data axis) or each takes a
     #: whole batch of its own (the replica engine's worker groups)
     _splits_batch = True
+    #: the inner-axis combinations this engine's step runs beside the
+    #: data axis: the lockstep walk's (an engine with a step of its own
+    #: names its own; none: the data axis only)
+    _axis_sets = AXIS_SETS
 
     def __init__(
         self,
@@ -531,27 +553,25 @@ class Trainer:
         lockstep step does not run (by name), bind the mesh, lay out the
         params (and their padding) and plan the pipeline stages."""
         mesh, cfg, net = self.mesh, self.cfg, self.train_net
-        if type(self)._step_core is not Trainer._step_core:
-            raise ConfigError(
-                f"{type(self).__name__} runs the data axis only (its step "
-                "is not the lockstep walk of the other mesh axes)"
-            )
         widths = mesh.widths
         axes = {a for a, w in widths.items() if a != "data" and w > 1}
         named = ", ".join(f"{a} {widths[a]}" for a in sorted(axes))
-        if axes not in AXIS_SETS:
+        if axes not in self._axis_sets:
+            runs = " or ".join(" with ".join(sorted(s))
+                               for s in self._axis_sets)
             raise ConfigError(
-                f"mesh axes {named} together: singa_tpu_torch runs one of "
-                "the seq, expert, model and pipe axes, or pipe with model, "
-                "beside the data axis"
+                f"{type(self).__name__} on the {named} mesh axes: it runs "
+                + (f"{runs} beside the data axis" if runs
+                   else "the data axis only")
             )
-        for knob, on in (("zero_update", cfg.zero_update),
+        beside = bool(axes & UNZEROED_AXES)
+        for knob, on in (("zero_update", cfg.zero_update and beside),
                          # the rings refuse a composed mesh themselves,
                          # with the JAX Trainer's messages
                          ("grad_comm", self._comm is not None
                           and not self._comm.ring),
                          ('checkpoint_format: "sharded"',
-                          cfg.checkpoint_format == "sharded"),
+                          cfg.checkpoint_format == "sharded" and beside),
                          ("a net with buffers",
                           bool(net.buffer_specs()))):
             if on:
@@ -600,19 +620,29 @@ class Trainer:
                 )
 
     def _pad_one(self, name: str, v):
-        """Logical -> stored: zero-pad the dims ``_pad`` marks (a value
-        already stored passes unchanged)."""
+        """Logical -> stored: zero-pad the dims ``_pad`` marks, the
+        trailing ones, so a replica-stacked (R, ...) value pads too (a
+        value already stored passes unchanged)."""
         w = self._pad.get(name)
-        if not w or tuple(v.shape) != tuple(self.specs[name].shape):
+        logical = tuple(self.specs[name].shape)
+        if not w or tuple(v.shape[v.dim() - len(logical):]) != logical:
             return v
         return torch.nn.functional.pad(
             v, [x for lo_hi in reversed(w) for x in lo_hi])
 
+    def _stored_shape(self, name: str) -> tuple:
+        """The shape of param ``name``'s stored array (its logical shape
+        with ``_pad``'s widths)."""
+        w = self._pad.get(name, ())
+        return tuple(n + sum(w[d]) if d < len(w) else n
+                     for d, n in enumerate(self.specs[name].shape))
+
     def _unpad_one(self, name: str, v):
-        """Stored -> logical."""
+        """Stored -> logical (the trailing dims: a replica-stacked value
+        keeps its leading axis)."""
         if name not in self._pad:
             return v
-        return v[tuple(slice(0, n) for n in self.specs[name].shape)]
+        return v[(Ellipsis, *(slice(0, n) for n in self.specs[name].shape))]
 
     def _axes_batch(self, batch: dict, r: int, shardings: dict) -> dict:
         """Rank r's piece of the global batch on its device: its data
@@ -641,9 +671,11 @@ class Trainer:
     def _step_axes(self, step: int, batch: dict) -> dict:
         """The lockstep step of a mesh with more axes than data: every
         rank's leaves (its pieces of the params), one walk of the net
-        over all ranks, one backward over the ranks' losses each divided
-        by the rank count, each piece's gradient summed over the ranks
-        that hold it in rank order, the update on each piece."""
+        over this process's ranks, one backward over the ranks' losses
+        each divided by the rank count, each piece's gradient summed over
+        the ranks that hold it in rank order (every process's, gathered
+        with the metrics and losses in one ``Mesh.gather``), the update
+        on each piece (a zero-sharded piece's on each rank's box)."""
         mesh = self.mesh
         n = mesh.width
         ranks = list(mesh.local_ranks)
@@ -661,45 +693,56 @@ class Trainer:
             generators=[fold_in(step_gen, r) for r in ranks],
             buffers=self.buffers, lanes=Lanes(mesh, tuple(ranks)))
         torch.autograd.backward([loss / n for loss in losses])
-        grads = self._axes_reduce(ranks, leaves)
-        out = {layer: {k: rank_sum(torch.as_tensor(m[layer][k])
-                                   for m in metrics) / n for k in ms}
-               for layer, ms in metrics[0].items()}
+        keys = [(layer, k) for layer, ms in metrics[0].items() for k in ms]
+        every = mesh.gather([
+            {**{("g", nm): _grad_of(lv[nm]) for nm in names},
+             **{("m", *key): torch.as_tensor(m[key[0]][key[1]],
+                                             device=self.device)
+                for key in keys},
+             "loss": loss.detach().float().to(self.device)}
+            for lv, m, loss in zip(leaves, metrics, losses)], self.device)
+        grads = self._axes_reduce(
+            range(n), [{nm: e["g", nm] for nm in names} for e in every])
+        out: dict = {}
+        for layer, k in keys:
+            out.setdefault(layer, {})[k] = rank_sum(
+                e["m", layer, k] for e in every) / n
         ok = None
         if self._guard is not None:
             ok, grads = guard_grads(
-                self._guard_buffers(),
-                rank_sum(l.detach().float().to(self.device) for l in losses),
+                self._guard_buffers(), rank_sum(e["loss"] for e in every),
                 grads)
         self._axes_update(step, grads, ok)
         if ok is not None:
             out = guard_finish(ok, self._guard_buffers(), out)
         return out
 
-    def _axes_reduce(self, ranks: list, leaves: list) -> dict:
+    def _axes_reduce(self, ranks, grads: list) -> dict:
         """{param: [each piece's gradient]}: piece i's, the sum in rank
-        order of the gradients of the ranks that hold it (every rank for
-        a replicated param, the ranks of index i on the split axis for a
-        split one), on the first device. The one exchange of the lockstep
-        step outside the layers."""
-        grads = {}
-        for nm in leaves[0]:
+        order of the gradients ``grads[j]`` of ranks ``ranks[j]`` that
+        hold it (every rank for a replicated param, the ranks of index i
+        on the split axis for a split one), on the first device. The one
+        exchange of the lockstep step outside the layers."""
+        out = {}
+        for nm in grads[0]:
             lay = self._layout.get(nm)
             pieces = 1 if lay is None else self.mesh.widths[lay[1]]
-            grads[nm] = [rank_sum(
-                (lv[nm].grad if lv[nm].grad is not None
-                 else torch.zeros_like(lv[nm])).to(self.device)
-                for r, lv in zip(ranks, leaves)
+            out[nm] = [rank_sum(
+                g[nm].to(self.device) for r, g in zip(ranks, grads)
                 if self._piece_of(r, nm) == i)
                 for i in range(pieces)]
-        return grads
+        return out
 
     def _axes_update(self, step, grads: dict, ok=None) -> None:
         """The update of every piece on every device's stored arrays, in
         place: a replicated param's whole, a split param's shards one by
-        one (views of the stored arrays and slots)."""
+        one (views of the stored arrays and slots); the zero-sharded
+        params' through ``_zero_update``, each rank on its box."""
+        zero = [nm for nm in self._zero_names() if nm in grads]
         for dev, rep in self._replicas.items():
             for nm, pieces in grads.items():
+                if nm in zero:
+                    continue
                 for i, g in enumerate(pieces):
                     p = self._piece(nm, rep["params"][nm], i)
                     slots = {k: self._piece(nm, v, i)
@@ -711,6 +754,12 @@ class Trainer:
                         _put(p, new_p[nm], ok)
                         for k, v in new_s[nm].items():
                             _put(slots[k], v, ok)
+        if zero:
+            self._zero_update(step, {
+                r: {nm: self._zero_chunk(
+                    nm, grads[nm][self._piece_of(r, nm)], r).to(
+                        self.mesh.device(r)) for nm in zero}
+                for r in self.mesh.local_ranks}, ok)
 
     # ------------------------------------------------------------------
     # params
@@ -764,14 +813,77 @@ class Trainer:
             return []
         return [n for n, d in self._zero_dims.items() if d is not None]
 
+    def _zero_chunk(self, name: str, piece, r: int):
+        """Rank r's zero chunk of its model piece of param ``name`` (or
+        of a slot, or of a gradient): slice i of the zero dim, i its data
+        index (a view)."""
+        return piece.chunk(self.mesh.widths["data"],
+                           dim=self._zero_dims[name])[
+                               self.mesh.coords(r)["data"]]
+
+    def _zero_box(self, name: str, stored, r: int):
+        """Rank r's zero box of a stored param or slot (a view)."""
+        return self._zero_chunk(
+            name, self._piece(name, stored, self._piece_of(r, name)), r)
+
+    def _rank_box(self, name: str, r: int, *, zero: bool,
+                  logical: bool) -> list:
+        """Rank r's box of param ``name`` (or of its slots), [start,
+        stop] per dim of the stored array: its model piece along the
+        split dim, with ``zero`` its data chunk of that along the zero
+        dim; ``logical`` clips it to the logical shape (a save's box)."""
+        box = [[0, d] for d in self._stored_shape(name)]
+        lay = self._layout.get(name)
+        dims = [] if lay is None else [(lay[0], self.mesh.widths[lay[1]],
+                                        self._piece_of(r, name))]
+        if zero:
+            dims.append((self._zero_dims[name], self.mesh.widths["data"],
+                         self.mesh.coords(r)["data"]))
+        for d, w, i in dims:
+            lo, hi = box[d]
+            c = (hi - lo) // w
+            box[d] = [lo + i * c, lo + (i + 1) * c]
+        if logical:
+            box = [[min(lo, n), min(hi, n)]
+                   for (lo, hi), n in zip(box, self.specs[name].shape)]
+        return box
+
+    def _save_layout(self, name: str, whole, part_of, zero: bool):
+        """What a sharded save writes for param ``name`` or one of its
+        slots: ``whole`` (the stored array) when it is neither split nor
+        zero-sharded, else this process's ranks' boxes, rank r's
+        ``part_of(r)`` cut to its logical box. A box that several ranks
+        hold is written by one (data index 0 for a model piece, model
+        index 0 for a replicated param's zero chunk), as the JAX package
+        writes replica 0 only."""
+        lay = self._layout.get(name)
+        if lay is None and not zero:
+            return whole
+        mesh = self.mesh
+        ranks = tuple(r for r in mesh.local_ranks
+                      if (zero or mesh.coords(r)["data"] == 0)
+                      and (lay is not None or mesh.coords(r)["model"] == 0))
+        return RankBoxes(
+            tuple(part_of(r) for r in ranks),
+            tuple(self._rank_box(name, r, zero=zero, logical=True)
+                  for r in ranks),
+            ranks, tuple(self.specs[name].shape),
+            spec_json(self._zero_dims[name] if zero else None,
+                      None if lay is None else {lay[0]: lay[1]}))
+
     def _restore_sharded(self) -> None:
         """Overlay a sharded checkpoint (``step_<N>.ckpt``) onto the
         initialized params, slots and buffers. Each entry is placed by
-        the Resharder, each rank's box from the saved boxes it
-        intersects; zero-sharded slots land as their rank shards. Entries
-        absent from the checkpoint keep their init; a shape mismatch
-        raises. The stream positions are global consumed-batch counts,
-        the same on any rank count."""
+        the Resharder, each box from the saved boxes it intersects:
+        params and slots as their stored arrays (a save of another
+        model width, or the JAX package's padded storage, re-sliced
+        through the logical shape: a saved padded tail, zeros, is cut,
+        a shorter stored tail reads zeros), zero-sharded slots as each
+        rank's box. Entries absent from the checkpoint keep their init;
+        a saved shape other than the logical one raises, unless it is
+        that padded storage (``ShardedCheckpoint.padded_split``). The stream positions are global consumed-batch
+        counts, the same on any rank count."""
+        from ..resilience.coord import process_count
         from ..resilience.reshard import Resharder
         from .sharded_ckpt import (
             ShardedCheckpoint,
@@ -779,8 +891,6 @@ class Trainer:
             param_key,
             state_key,
         )
-
-        from ..resilience.coord import process_count
 
         path = self.cfg.checkpoint
         mesh = self.mesh
@@ -790,42 +900,45 @@ class Trainer:
         with ShardedCheckpoint(path) as ck:
             # admission first: a mesh that cannot host the manifest's
             # specs raises before anything is placed
-            rs = Resharder(ck, dict(self.mesh.shape))
+            rs = Resharder(ck, dict(mesh.widths))
             have = set(ck.keys())
 
-            def place(key, init, dim=None):
-                saved = tuple(ck.manifest["arrays"][key]["shape"])
-                if saved != tuple(init.shape):
-                    raise ValueError(
-                        f"checkpoint {path!r}: {key!r} shape {saved} != "
-                        f"model shape {tuple(init.shape)}")
-                if dim is None:
-                    return rs.place(key, [self.device],
-                                    dtype=init.dtype)[0]
-                return rs.place(key, devices, dim, dtype=init.dtype)
+            def check(key, init, name=None):
+                why = ck.padded_split(key, self.specs[name].shape
+                                      if name else init.shape)
+                if why is not None:
+                    raise ValueError(f"checkpoint {path!r}: {key!r} {why}")
 
-            params = {n: place(param_key(n), v)
-                      if param_key(n) in have else v
+            def whole(key, init, name=None):
+                if key not in have:
+                    return init
+                check(key, init, name)
+                box = [[0, d] for d in init.shape] or [[0, 1]]
+                return rs.place_boxes(key, [box], [self.device],
+                                      dtype=init.dtype)[0]
+
+            params = {n: whole(param_key(n), v, n)
                       for n, v in self.params.items()}
             zero = set(self._zero_names())
             state = {n: dict(slots) for n, slots in self.state.items()}
             for n, slots in state.items():
                 for s, v in slots.items():
                     key = state_key(n, s)
-                    if key not in have:
-                        continue
-                    if n in zero:
-                        parts = place(key, v, self._zero_dims[n])
+                    if n not in zero:
+                        slots[s] = whole(key, v, n)
+                    elif key in have:
+                        check(key, v, n)
+                        parts = rs.place_boxes(key, [
+                            self._rank_box(n, r, zero=True, logical=False)
+                            for r in range(mesh.width)], devices,
+                            dtype=v.dtype)
                         with torch.no_grad():
                             for r in mesh.local_ranks:
                                 self._zero_slots[r][n][s].copy_(parts[r])
-                    else:
-                        slots[s] = place(key, v)
             self.params = params
             self.state = {n: slots for n, slots in state.items()
                           if n not in zero}
-            self.buffers = {n: place(buffer_key(n), v)
-                            if buffer_key(n) in have else v
+            self.buffers = {n: whole(buffer_key(n), v)
                             for n, v in self.buffers.items()}
             self._resume_streams = dict(ck.streams)
             self.start_step = max(self.start_step, ck.step)
@@ -887,12 +1000,12 @@ class Trainer:
             for r in mesh.local_ranks], self.device)
         out = dict(rep)
         for nm in zero:
-            out[nm] = {
-                s: torch.cat([shards[r][nm, s].to(self.device)
-                              for r in range(mesh.width)],
-                             dim=self._zero_dims[nm])
-                for s in self._zero_slots[mesh.local_ranks[0]][nm]
-            }
+            out[nm] = {}
+            for s in self._zero_slots[mesh.local_ranks[0]][nm]:
+                whole = torch.empty_like(self.params[nm])
+                for r in range(mesh.width):
+                    self._zero_box(nm, whole, r).copy_(shards[r][nm, s])
+                out[nm][s] = whole
         return {nm: out[nm] for nm in self.params if nm in out}
 
     @state.setter
@@ -912,12 +1025,10 @@ class Trainer:
                 if new[n] is not cur.get(n):
                     self._drop_graphs()
             rep["state"] = new
-        ranks = self.mesh.width
         for r in self.mesh.local_ranks:
             dev = self.mesh.device(r)
-            for n in zero & value.keys():
-                d = self._zero_dims[n]
-                parts = {s: v.chunk(ranks, dim=d)[r].contiguous()
+            for n in (n for n in self._zero_names() if n in value):
+                parts = {s: self._zero_box(n, v, r).contiguous()
                          for s, v in value[n].items()}
                 self._zero_slots[r][n] = self._assign(
                     self._zero_slots[r].get(n), parts, dev)
@@ -1107,7 +1218,7 @@ class Trainer:
                 )
             by_dev = {dev: {nm: g.to(dev) for nm, g in summed.items()}
                       for dev in self._replicas}
-            shards = {r: {nm: summed[nm].chunk(n, dim=self._zero_dims[nm])[r]
+            shards = {r: {nm: self._zero_chunk(nm, summed[nm], r)
                           .to(mesh.device(r)) for nm in zero}
                       for r in mesh.local_ranks}
         out: dict = {}
@@ -1151,39 +1262,34 @@ class Trainer:
         place; then every rank's fresh param shards (gathered from the
         other processes) are stitched into every device's replica."""
         mesh = self.mesh
-        n = mesh.width
         fresh = []
         for r in mesh.local_ranks:
             params = self._replicas[mesh.device(r)]["params"]
             slots = self._zero_slots[r]
+            mine = {nm: self._zero_box(nm, params[nm], r)
+                    for nm in shards[r]}
             new_p, new_s = self.updater.apply(
-                step,
-                {nm: params[nm].chunk(n, dim=self._zero_dims[nm])[r]
-                 for nm in shards[r]},
-                shards[r], {nm: slots[nm] for nm in shards[r]}, self.specs)
+                step, mine, shards[r], {nm: slots[nm] for nm in shards[r]},
+                self.specs)
             with torch.no_grad():
                 for nm, new in new_s.items():
                     for s, v in new.items():
                         _put(slots[nm][s], v, ok)
             if ok is not None:
-                new_p = {nm: torch.where(
-                    ok.to(v.device), v,
-                    params[nm].chunk(n, dim=self._zero_dims[nm])[r])
-                    for nm, v in new_p.items()}
+                new_p = {nm: torch.where(ok.to(v.device), v, mine[nm])
+                         for nm, v in new_p.items()}
             fresh.append(new_p)
         self._stitch_zero(mesh.gather(fresh, self.device))
 
     @torch.no_grad()
     def _stitch_zero(self, fresh: list) -> None:
         """Copy rank r's fresh param shards ``fresh[r]`` (every rank's)
-        into slice r of every device's replica, in place: the addresses
-        stay fixed."""
-        n = self.mesh.width
+        into rank r's box of every device's replica, in place: the
+        addresses stay fixed."""
         for dev, rep in self._replicas.items():
             for nm in fresh[0]:
-                parts = rep["params"][nm].chunk(n, dim=self._zero_dims[nm])
-                for r, part in enumerate(parts):
-                    part.copy_(fresh[r][nm])
+                for r, new in enumerate(fresh):
+                    self._zero_box(nm, rep["params"][nm], r).copy_(new[nm])
 
     # ------------------------------------------------------------------
     # gradient collectives (grad_comm, kernels.grad_allreduce)
@@ -2223,8 +2329,14 @@ class Trainer:
         slots and residuals gathered; sharded: the stored arrays, this
         process's rank shards)."""
         if self.cfg.checkpoint_format == "sharded":
-            return (True, dict(self.params), self._state_layout(),
-                    self._buffer_layout())
+            mesh = self.mesh
+            return (True, {
+                nm: self._save_layout(
+                    nm, v, lambda r, nm=nm: self._piece(
+                        nm, self._replicas[mesh.device(r)]["params"][nm],
+                        self._piece_of(r, nm)), False)
+                for nm, v in self.params.items()},
+                self._state_layout(), self._buffer_layout())
         state, buffers = self.state, self._whole_buffers()
         return (False,
                 {n: self._unpad_one(n, v) for n, v in self.params.items()},
@@ -2280,7 +2392,7 @@ class Trainer:
 
     def _snapshot(self, trees):
         """The zero-stall save's stage 1 (``resilience/async_ckpt.py``):
-        copy every tensor of ``trees`` (dicts of tensors or RankShards),
+        copy every tensor of ``trees`` (dicts of tensors or RankBoxes),
         device to device on the compute stream, into the next of two
         preallocated snapshot buffers, then on a side stream that waits
         for those copies, into pinned host memory, and record an event.
@@ -2297,7 +2409,7 @@ class Trainer:
             elif isinstance(x, tuple):
                 for v in x:
                     collect(v)
-            elif isinstance(x, RankShards):
+            elif isinstance(x, RankBoxes):
                 leaves.extend(x.parts)
             elif isinstance(x, torch.Tensor):
                 leaves.append(x)
@@ -2342,9 +2454,9 @@ class Trainer:
                 return {n: rebuild(v) for n, v in x.items()}
             if isinstance(x, tuple):
                 return tuple(rebuild(v) for v in x)
-            if isinstance(x, RankShards):
-                return RankShards(tuple(next(it) for _ in x.parts), x.dim,
-                                  x.first, x.width)
+            if isinstance(x, RankBoxes):
+                return dataclasses.replace(
+                    x, parts=tuple(next(it) for _ in x.parts))
             if isinstance(x, torch.Tensor):
                 return next(it)
             return x
@@ -2486,20 +2598,26 @@ class Trainer:
         return h.hexdigest()
 
     def _state_layout(self) -> dict:
-        """The slots as a sharded save lays them: zero-sharded ones as
-        this process's ranks' shards, the others whole (its first
+        """The slots as a sharded save lays them (``_save_layout``):
+        zero-sharded ones as this process's ranks' boxes, a split
+        param's as its model pieces, the others whole (its first
         device's)."""
         mesh = self.mesh
-        out = dict(self._replicas[self.device]["state"])
-        local = mesh.local_ranks
-        for nm in self._zero_names():
-            out[nm] = {
-                s: RankShards(tuple(self._zero_slots[r][nm][s]
-                                    for r in local), self._zero_dims[nm],
-                              local[0], mesh.width)
-                for s in self._zero_slots[local[0]][nm]
-            }
-        return {nm: out[nm] for nm in self.params if nm in out}
+        zero = set(self._zero_names())
+        out = {}
+        for nm in self.params:
+            if nm in zero:
+                out[nm] = {s: self._save_layout(
+                    nm, None, lambda r, nm=nm, s=s: self._zero_slots[r][nm][s],
+                    True) for s in self._zero_slots[mesh.local_ranks[0]][nm]}
+            elif nm in self._replicas[self.device]["state"]:
+                out[nm] = {s: self._save_layout(
+                    nm, v, lambda r, nm=nm, s=s: self._piece(
+                        nm, self._replicas[mesh.device(r)]["state"][nm][s],
+                        self._piece_of(r, nm)), False)
+                    for s, v in self._replicas[self.device]["state"][nm]
+                    .items()}
+        return out
 
     def _buffer_layout(self) -> dict:
         """The buffers as a sharded save lays them: on the ring each
@@ -2514,9 +2632,16 @@ class Trainer:
             for nm, d in self._ring_chunk_dims.items():
                 key = residual_key(nm)
                 if key in out:
-                    parts = out[key].chunk(n, dim=d)
-                    out[key] = RankShards(tuple(parts[r] for r in local), d,
-                                          local[0], n)
+                    shape = tuple(out[key].shape)
+                    c = shape[d] // n
+                    boxes = []
+                    for r in local:
+                        box = [[0, size] for size in shape]
+                        box[d] = [r * c, (r + 1) * c]
+                        boxes.append(box)
+                    out[key] = RankBoxes(
+                        tuple(out[key].narrow(d, r * c, c) for r in local),
+                        tuple(boxes), tuple(local), shape, spec_json(d))
         return out
 
 
@@ -2542,6 +2667,11 @@ def _torch_dtype(np_dtype) -> torch.dtype:
 #: the metrics entry that carries each rank's loss (and on the ring its
 #: reduced grads' squared norm) into the guarded eager tail
 _GUARD_METRIC = "__guard__"
+
+
+def _grad_of(leaf: torch.Tensor) -> torch.Tensor:
+    """A leaf's gradient, zeros where autograd left none."""
+    return leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
 
 
 def _put(stored: torch.Tensor, new: torch.Tensor, ok) -> None:

@@ -222,21 +222,25 @@ def test_named_hier_refusals_match_jax(shard_ring, intra, inter, zero):
 
 
 # ---------------------------------------------------------------------------
-# only the data axis spans processes
+# the data axis and whole model groups span processes, nothing else
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("axis,text", [
-    ("seq", "nworkers: 4\nnprocs_per_group: 2\nnseq_per_group: 2"),
-    ("expert", "nworkers: 4\nnprocs_per_group: 2\nnexperts_per_group: 2"),
-    ("model", "nworkers: 4\nnprocs_per_group: 2"),
-    ("pipe", "nworkers: 4\nnprocs_per_group: 2\nnpipes_per_group: 2"),
+@pytest.mark.parametrize("axis,text,nprocs", [
+    ("seq", "nworkers: 4\nnprocs_per_group: 2\nnseq_per_group: 2", 2),
+    ("expert", "nworkers: 4\nnprocs_per_group: 2\nnexperts_per_group: 2",
+     2),
+    # 4 processes of one rank each: every model group of 2 spans two
+    ("model", "nworkers: 4\nnprocs_per_group: 2", 4),
+    ("pipe", "nworkers: 4\nnprocs_per_group: 2\nnpipes_per_group: 2", 2),
 ])
 def test_an_axis_across_processes_is_refused_by_name(monkeypatch, axis,
-                                                     text):
+                                                     text, nprocs):
     cl = cluster(text)
     assert mesh_from_cluster(cl, ["cpu"] * 4).widths[axis] == 2
-    monkeypatch.setattr(t_mesh, "_processes", lambda: (2, 0))
+    monkeypatch.setattr(t_mesh, "_processes", lambda: (nprocs, 0))
+    match = ("a model group spans processes" if axis == "model"
+             else "singa_tpu_torch lays only the data axis")
     with pytest.raises(ConfigError, match=f"^{axis} axis width 2 .* across "
-                       "2 processes"):
-        mesh_from_cluster(cl, ["cpu"] * 2)
+                       f"{nprocs} processes: {match}"):
+        mesh_from_cluster(cl, ["cpu"] * (4 // nprocs))

@@ -1001,3 +1001,67 @@ def test_async_snapshot_is_ordered_before_the_next_replays(cuda_device,
         for slot, s in b.state[n].items():
             assert np.array_equal(state[n][slot], s.cpu().numpy())
         assert not torch.equal(v, a.params[n]), n
+
+
+def test_mesh_engine_graphs_each_rank_over_its_pools(cuda_device):
+    """Engine(mesh=build_mesh(1, 2)) with both ranks on the card: decode
+    and prefill captured as graphs over both ranks, the kernel launched
+    ranks x layers x (prefill chunks + decode ticks) times, and the
+    streams equal to the unsharded engine's."""
+    from singa_tpu_torch.parallel import build_mesh
+
+    cfg, params = _serve_lm(cuda_device)
+    rs = np.random.RandomState(1)
+    reqs = [(rs.randint(0, 64, size=(int(rs.randint(3, 40)),)),
+             int(rs.randint(4, 30))) for _ in range(6)]
+    out = []
+    for mesh in (None, build_mesh(1, 2, [cuda_device] * 2)):
+        eng = Engine(params, cfg, EngineConfig(
+            slots=3, kv_block_len=16, max_prefill_chunk=16,
+        ), device=cuda_device, mesh=mesh)
+        sched = Scheduler(eng)
+        for i, (p, m) in enumerate(reqs):
+            sched.submit(Request(rid=i, prompt=p.astype(np.int32),
+                                 max_new_tokens=m))
+        before = pa.paged_attention.launches
+        sched.serve()
+        ranks = 1 if mesh is None else 2
+        assert pa.paged_attention.launches - before == ranks * cfg.n_layers \
+            * (sched.prefill_chunks + sched.decode_ticks)
+        assert eng._decode_graph.captured and eng._prefill_graph.captured
+        assert eng.dispatch_reason == ""
+        out.append({r.rid: r.tokens for r in sched.finished})
+    assert out[0] == out[1]
+
+
+def test_replica_lanes_attend_their_heads(cuda_device, tmp_path,
+                                          monkeypatch):
+    """Two replicas of two model ranks (kLayerPartition) on the card
+    through the flash kernels: each kernel of the float32 route launched
+    lanes x attention layers x steps times (a lane's heads meet on one
+    device and attend at once), finite losses."""
+    from singa_tpu_torch.parallel import build_mesh
+    from singa_tpu_torch.trainer import ReplicaTrainer
+
+    shard = str(tmp_path / "shard")
+    write_records(shard, *synthetic_token_arrays(16, seq_len=256,
+                                                 vocab=256))
+    monkeypatch.setenv("SINGA_TPU_DENSE_ATTN_MB", "0")
+    cfg = _train_conf(shard)
+    cfg.neuralnet.partition_type = "kLayerPartition"
+    cfg.updater.param_type = "Elastic"
+    cfg.updater.moving_rate = 0.5
+    cfg.updater.sync_frequency = 2
+    cfg.updater.warmup_steps = 1
+    tr = ReplicaTrainer(cfg, mesh=build_mesh(2, 2, [cuda_device] * 4),
+                        seed=0, log=lambda s: None)
+    layers = sum(l.TYPE == "kAttention" for l in tr.train_net.layers)
+    before = _flash_counts()
+    losses = []
+    for step in range(4):
+        tr.train_one_batch(step)
+        losses.append(tr.perf.avg()["loss"]["loss"])
+        tr.perf.reset()
+    assert _flash_counts() == [n + 2 * layers * 4 * m for n, m in zip(
+        before, FLASH_LAUNCHES[torch.float32])]
+    assert np.isfinite(losses).all()

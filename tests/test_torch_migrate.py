@@ -68,7 +68,7 @@ def continue_slot(eng, slot, have):
 def gathered(eng, slot, n):
     rows = eng.state["tables"][slot:slot + 1]
     return [eng._gather(p, rows)[0, :, :n]
-            for p in eng.state["k"] + eng.state["v"]]
+            for p in eng._pools[0]["k"] + eng._pools[0]["v"]]
 
 
 @pytest.mark.parametrize("impl", ["fused", "reference"])

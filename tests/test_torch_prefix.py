@@ -207,7 +207,7 @@ def _pool_view(eng, slot, n):
     """Every layer's gathered K and V of ``slot`` over positions < n."""
     rows = eng.state["tables"][slot:slot + 1]
     return [eng._gather(pool, rows)[0, :, :n].clone()
-            for pool in eng.state["k"] + eng.state["v"]]
+            for pool in eng._pools[0]["k"] + eng._pools[0]["v"]]
 
 
 @pytest.mark.parametrize("impl", IMPLS)

@@ -313,10 +313,17 @@ def test_refusals_by_name(shards, case):
         text += "fleet { }\n"
         match = "not ported to singa_tpu_torch yet: fleet"
     else:
+        # replicas beside a model axis run; zero_update beside them is
+        # refused with the JAX engine's message
         text = text.replace("neuralnet {",
                             'neuralnet {\n  partition_type: "kLayerPartition"')
+        text += "zero_update: true\n"
         mesh = build_mesh(2, 2, ["cpu"] * 4)
-        match = "ReplicaTrainer runs the data axis only"
+        with pytest.raises(JConfigError) as want:
+            JReplica(j_parse(text), mesh=j_mesh(2, 2, jax.devices()[:4]),
+                     log=lambda s: None, prefetch=False)
+        match = "^ReplicaTrainer does not support zero_update"
+        assert str(want.value).startswith(match[1:])
     with pytest.raises(ConfigError, match=match):
         ReplicaTrainer(t_parse(text), mesh=mesh, log=lambda s: None)
 

@@ -255,8 +255,15 @@ def test_serving_restore_from_a_sharded_save(tmp_path):
     init = init_lm(torch.Generator().manual_seed(2), cfg, "cpu")
     folder = tmp_path / "checkpoints"
     npz = save_checkpoint(str(folder / "step_5.npz"), 5, trained)
-    layout = {n: t_sc.RankShards(tuple(v.chunk(2)), 0)
-              if n.endswith("/qkv") else v for n, v in trained.items()}
+    def halves(v):
+        c = v.shape[0] // 2
+        return t_sc.RankBoxes(
+            tuple(v.chunk(2)), tuple([[r * c, (r + 1) * c], [0, v.shape[1]]]
+                                     for r in range(2)),
+            (0, 1), tuple(v.shape), ["data"])
+
+    layout = {n: halves(v) if n.endswith("/qkv") else v
+              for n, v in trained.items()}
     sh = t_sc.save_sharded(str(folder / "step_6.ckpt"), 6, layout)
     a, ia = load_serving_params(npz, init)
     b, ib = load_serving_params(sh, init)
@@ -278,16 +285,18 @@ def test_serving_restore_from_a_sharded_save(tmp_path):
 
     assert stream(a) == stream(b) != stream(init)
     with t_sc.ShardedCheckpoint(sh) as ck:
-        (part,) = Resharder(ck).place("p|blk0/attn/qkv", ["cpu"], dim=1)
+        (part,) = Resharder(ck).place_boxes(
+            "p|blk0/attn/qkv", [[[0, d] for d in trained[
+                "blk0/attn/qkv"].shape]], ["cpu"])
         assert torch.equal(part, trained["blk0/attn/qkv"])
 
 
 def test_a_mesh_that_cannot_host_the_save_is_refused(shards, save4,
                                                      tmp_path):
     """The admission check runs before anything is placed: an entry
-    sharded over an axis the port's mesh lacks (a model axis, as a JAX
-    kLayerPartition save has) raises ReshardError naming the entry; the
-    save's process count reads back."""
+    sharded over an axis the port's mesh lacks (it has the five of
+    ``FULL_AXES``, the model axis among them) raises ReshardError naming
+    the entry; the save's process count reads back."""
     from singa_tpu_torch.resilience.reshard import (
         ReshardError,
         checkpoint_nprocs,
@@ -300,8 +309,8 @@ def test_a_mesh_that_cannot_host_the_save_is_refused(shards, save4,
     mpath = os.path.join(path, "manifest.json")
     with open(mpath) as f:
         m = json.load(f)
-    m["arrays"]["p|b0_attn/qkv"]["spec"] = [None, "model"]
+    m["arrays"]["p|b0_attn/qkv"]["spec"] = [None, "rows"]
     with open(mpath, "w") as f:
         json.dump(m, f)
-    with pytest.raises(ReshardError, match="p\\|b0_attn/qkv.*'model'"):
+    with pytest.raises(ReshardError, match="p\\|b0_attn/qkv.*'rows'"):
         t_trainer(conf(shards), 2, ckpt=path)
