@@ -133,8 +133,13 @@ caught and carried on):
              steps (finite; every RBM's error below where the run began),
              step ms and images/s (the step is eager by the dispatch
              rule), one test batch, 3 steps under torch.profiler (device
-             ms, idle share, the largest kernels); the stack's checkpoint
-             unrolled
+             ms, idle share, the largest kernels); rbm_tp: the conf with
+             kLayerPartition (each RBM's hidden units split) on data 2 x
+             model 2 through the CD engine's one chain over the global
+             batch, 5 float32 steps on the table of uniforms against data
+             2, the same chain with the hidden units whole (NETS_TOL), no
+             kernel launched, a planted reversed Concate 100x past the bar; the
+             stack's checkpoint unrolled
              (unroll_autoencoder) into autoencoder.conf's init.
   9. nets    the reference's MNIST and CIFAR nets through the port's
              Trainer, each conf as written (examples/mnist/mlp.conf,
@@ -184,7 +189,13 @@ caught and carried on):
              256 x 256 uint8, 1000 classes, each made from the seed; 256
              test records): card vs CPU at float32 with the batch cut to
              8, 3 steps each from the card's state (losses within
-             NETS_TOL, running stats within RESNET_STATS_TOL); then at
+             NETS_TOL, running stats within RESNET_STATS_TOL); resnet_tp:
+             the conf's widths with kLayerPartition (filters, BatchNorm
+             channels, classifier outputs split) on data 2 x model 2 at
+             float32, batch 8, 3 steps each from data 2's state against
+             data 2 at the same global batch (the same bars; cuDNN
+             deterministic), no kernel launched, a planted reversed
+             filter Concate 100x past NETS_TOL on the params; then at
              full width 30 steps as graphed chunks on the cached dataset
              against 30 eager steps from the same params (window losses
              and the final running stats within DISPATCH_TOL, the loss
@@ -223,7 +234,13 @@ caught and carried on):
              (within NETS_TOL); the index form vs the dense plain form
              (the JAX form) at full width, forward to the bit and grads
              within MOE_GRAD_TOL, a planted fault (the capacity mask
-             dropped) that must break it, and both forms' times; then the
+             dropped) that must break it, and both forms' times; the
+             data axis's global routing: 5 float32 steps on 2 data ranks
+             against one rank at the global batch (losses NETS_TOL,
+             params AXES_TOL relative to their movement; the flash
+             launches 2 ranks x 2 layers x 5), a planted reversed Concate
+             of the ranks' tokens 100x past the bar and per-rank routing
+             (the routing before its repair) past it; then the
              serve phase's checks on its d128 LM with moe_experts 8 and
              d_ff 1024 (16 greedy requests, the paged kernel against the
              reference in turns, launches = layers x (prefill chunks +
@@ -392,29 +409,46 @@ caught and carried on):
                   microbatches);
              3axis tinylm_pp.conf on cluster_3axis.conf (data 2 x pipe 2 x
                   model 2);
+             sp_ep tinylm_moe.conf with ring attention on seq 2 x expert
+                  2; sp_tp tinylm.conf, kLayerPartition, ring, on data 2
+                  x seq 2 x model 2; ep_tp tinylm_moe.conf,
+                  kLayerPartition, on data 2 x expert 2 x model 2; sp_moe
+                  tinylm_moe.conf on data 2 x seq 4 (kMoE routing the
+                  gathered sequence);
              the others over the moe_train cell's 256 x 256-token shard.
-             Each path: AXES_STEPS float32 steps against the same conf
-             with one axis less (AXES_PATHS' counterpart): losses within
-             AXES_TOL, and the params after the steps within AXES_TOL of
-             each other relative to how far the steps moved them (q8:
-             losses within RING_TOL; ep alltoall against the dense path
-             on 8 data ranks, the same token shards: step 0 within
-             AXES_TOL, the rest within AXES_A2A_TOL, its aux being the
-             global batch's and the counterpart's each rank's); the flash kernels' launches (float32 route) and
+             Each path: AXES_STEPS float32 steps against a run that
+             routes the same tokens, the same conf with one axis less
+             (AXES_PATHS' counterpart): losses within AXES_TOL, and the
+             params after the steps within AXES_TOL of each other
+             relative to how far the steps moved them (q8: losses within
+             RING_TOL; ep psum against data 2 x expert 2, each data
+             shard routed alone either way; ep alltoall against data 4 x
+             expert 2, the same 8 token shards and capacities: step 0
+             within AXES_TOL, the rest within AXES_A2A_TOL); the flash
+             kernels' launches (float32 route) and
              quant_acc's counted over the run, set to 0 just before it,
              equal to the path's calls (ring attention's fold is plain
-             PyTorch, so sp launches none); a planted fault on four of
-             them (sp: each K/V block visiting one rank off; ep psum:
-             each expert rank computing the next rank's experts; tp: the
-             Concate in reversed rank order; pp: each pipeline hop one
-             tick late) that must exceed the bar AXES_FAULT_FACTOR
-             times. Then AXES_TIMED bf16 steps of the path and of its
+             PyTorch, so sp, sp_ep and sp_tp launch none); a planted
+             fault on eight of them (sp: each K/V block visiting one rank
+             off; ep psum: each expert rank computing the next rank's
+             experts; tp, sp_tp, ep_tp: the Concate in reversed rank
+             order; sp_ep, sp_moe: kMoE's gathered sequence in reversed
+             order; pp: each pipeline hop one tick late) that must exceed
+             the bar AXES_FAULT_FACTOR times. Then AXES_TIMED bf16 steps
+             of the path and of its
              counterpart (step ms, host clock to a device sync, and the
              bf16 route's launches) and the ranks' exchange: the step's
              gradient sums over the ranks (Trainer._axes_reduce; on one
              card the layers' cross-rank reads are plain tensor reads),
              host clock to a device sync, over 3 more steps; q8: the
-             ring's reduction alone (reduce_ms).
+             ring's reduction alone (reduce_ms). Then ZERO_PATHS: the
+             sp, ep psum and pp paths with zero_update and sharded saves,
+             AXES_STEPS float32 steps against the same path replicated
+             (losses, params and slots to the bit; the flash launches as
+             the path's), the zero run's save restored on data 4 and on
+             data 1 (every param and slot to the bit), and a planted
+             fault (every rank's zero chunk at data index 0) 100x past
+             AXES_TOL. Each path's seconds are printed.
 
   20. replica (runs after axes) the replica engine
              (trainer/replica.py, parallel/consistency.py), every replica
@@ -447,7 +481,16 @@ caught and carried on):
              shard, the flash kernels forced), 10 steps in float32 and in
              bf16 across rounds: the flash launches, counted from 0 just
              before each run, equal replicas x attention layers x steps of
-             each kernel of the type's route. Last, mlp.conf (cut to
+             each kernel of the type's route. replica_sp and replica_ep:
+             tinylm_ring.conf and tinylm_moe.conf at full width, float32,
+             under the same Elastic on 2 replicas x 2 seq (expert) ranks,
+             10 steps, every round within REPLICA_ROUND_ULPS (8 ulps of
+             each element's largest operand: REPLICA_ROUND_TOL's 8 ulps at
+             0.1) of its formula, a planted fault 100x past it (sp: the
+             round in reversed order; ep: each lane joined in reversed
+             rank order), the flash launches exact (sp 0: the ring's
+             fold is plain; ep replicas x 2 ranks x 2 layers x 10). Last,
+             mlp.conf (cut to
              REPLICA_PROCS' schedule) as two processes through ``python
              -m singa_tpu_torch.main -procsID k -hostfile hf`` (gloo, this
              card), one replica each, Elastic and RandomSync at full
@@ -3120,12 +3163,77 @@ def rbm_phase(dev, smi, shards, tmp):
            "idle_share": prof["idle_share"], "top5": prof["top"][:5],
            "card": smi}
     print("rbm", json.dumps(rec))
+    rec["tp"] = rbm_tp(dev, smi, shards)
     stack = save_checkpoint(os.path.join(tmp, "rbm_stack.npz"), steps,
                             tr.params, tr.state)
     ae_init = unroll_autoencoder(stack, os.path.join(tmp, "ae_init.npz"),
                                  RBM_PAIRS)
     print(f"rbm: unrolled the card's stack at step {steps} into {ae_init}")
     return rec, ae_init
+
+
+def rbm_tp(dev, smi, shards) -> dict:
+    """rbm.conf with kLayerPartition (each RBM's hidden units split) on
+    data 2 x model 2 of the card through the CD engine: the JAX
+    program's one Gibbs chain over the global batch, each model rank's
+    hidden units from its shards. Held, on one table of uniforms, to the
+    conf on data 2 (the same global chain, the hidden units whole):
+    NETS_PARITY_STEPS float32 CD steps, every RBM's recon error within
+    NETS_TOL relative.
+    No kernel runs on this path (launches counted from 0, all 0). The
+    planted fault (each chain's hidden units joined in reversed rank
+    order) must exceed the bar 100 times."""
+    from singa_tpu_torch.config import parse_cluster_config
+
+    t0 = time.perf_counter()
+
+    def run(cluster):
+        cfg = rbm_config(shards)
+        cfg.neuralnet.partition_type = "kLayerPartition"
+        ws = os.path.join(os.path.dirname(shards["mnist"]), "ws_rbm_tp")
+        tr = make_trainer(cfg, cluster and parse_cluster_config(
+            f'{cluster}\nworkspace: "{ws}"\n'), seed=0,
+            log=lambda s: None, device=dev)
+        return rbm_steps(tr, 0, NETS_PARITY_STEPS)[0], tr
+
+    rbms = [r for r, _ in RBM_PAIRS]
+    trbm.bernoulli = table_bernoulli
+    try:
+        ref, _ = run("nworkers: 2")
+        zero_launches()
+        ours, tr = run("nworkers: 4\nnprocs_per_group: 2")
+        got = axes_launches()
+        check(type(tr).__name__ == "CDTrainer"
+              and tr._layout["rbm1/weight"] == (1, "model"),
+              "rbm tp: not the CD engine on a model-split stack")
+        del tr
+        good = trbm.concate
+        trbm.concate = _reversed_concate
+        try:
+            bad, _ = run("nworkers: 4\nnprocs_per_group: 2")
+        finally:
+            trbm.concate = good
+    finally:
+        trbm.bernoulli = RBM_DRAW
+    release()
+
+    def rel(a):
+        return max(abs(x - y) / abs(y) for r in rbms
+                   for x, y in zip(a[r], ref[r]))
+
+    out = {"conf": RBM_CONF + " kLayerPartition", "mesh": "data 2 x model 2",
+           "against": "data 2", "rel": rel(ours), "fault": rel(bad),
+           "launches": got,
+           "recon": {r: ours[r] for r in rbms},
+           "seconds": time.perf_counter() - t0, "card": smi}
+    print("rbm tp", json.dumps(out))
+    check(all(v == 0 for v in got.values()),
+          f"rbm tp: a kernel launched on the CD path: {got}")
+    check(out["rel"] <= NETS_TOL, "rbm tp: data 2 x model 2 and data 2 "
+          "differ")
+    check(out["fault"] > AXES_FAULT_FACTOR * NETS_TOL,
+          "rbm tp: the reversed Concate passes")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3439,6 +3547,98 @@ def resnet_parity(dev, smi, shards):
             "losses": [r[0] for r in rows]}
 
 
+def _reversed_filters(self, params, inputs, lanes, *, training):
+    """A planted fault: kLayerPartition's conv joins its filter shards
+    in reversed rank order."""
+    outs = [None] * len(params)
+    for g in lanes.groups("model"):
+        out = torch.cat([self.apply(params[j], inputs[j], training=training)
+                         for j in g][::-1], 1)[:, :self.num_filters]
+        for j in g:
+            outs[j] = out
+    return outs
+
+
+def resnet_tp(dev, smi, shards) -> dict:
+    """resnet50.conf, its widths as written, with kLayerPartition (every
+    conv's filters, every BatchNorm's channels with their moments over
+    the data ranks, and the classifier's outputs split over the model
+    ranks) on data 2 x model 2 of the card, float32, the batch cut to
+    RESNET_PARITY_BATCH: RESNET_PARITY_STEPS steps against data 2 at the
+    same global batch, each step from data 2's state (params, slots and
+    running stats copied across first), cuDNN deterministic: losses
+    within NETS_TOL relative, running stats within RESNET_STATS_TOL. No
+    kernel runs on this path (launches counted from 0, all 0). The
+    planted fault (the conv's filter shards joined in reversed order)
+    must move one step's params AXES_FAULT_FACTOR x NETS_TOL relative to
+    how far the step moved them."""
+    from singa_tpu_torch.config import parse_cluster_config
+    from singa_tpu_torch.layers import neuron as tneuron
+
+    t0 = time.perf_counter()
+
+    def trainer(cluster):
+        cfg = resnet_config(shards, RESNET_PARITY_BATCH, "float32")
+        cfg.neuralnet.partition_type = "kLayerPartition"
+        ws = os.path.join(os.path.dirname(shards["train"]), "ws_tp")
+        return Trainer(cfg, parse_cluster_config(
+            f'{cluster}\nworkspace: "{ws}"\n'), seed=0,
+            log=lambda s: None, device=dev)
+
+    def take(tr, ref):
+        tr.params = dict(ref.params)
+        tr.state = {n: dict(slots) for n, slots in ref.state.items()}
+        tr._store_buffers(running_stats(ref))
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = trainer("nworkers: 2")
+        tp = trainer("nworkers: 4\nnprocs_per_group: 2")
+        check(tp._layout["conv1/weight"][1] == "model",
+              f"resnet tp: conv1 is not split: {tp._layout['conv1/weight']}")
+        rows = []
+        zero_launches()
+        for step in range(RESNET_PARITY_STEPS):
+            take(tp, ref)
+            (b,), _ = net_steps(tp, step, 1)
+            (a,), _ = net_steps(ref, step, 1)
+            rows.append((b, a, abs(b - a) / abs(a),
+                         stats_diff(running_stats(tp), running_stats(ref))))
+        got = axes_launches()
+        init = {n: v.clone() for n, v in ref.params.items()}
+        take(tp, ref)
+        net_steps(ref, RESNET_PARITY_STEPS, 1)
+        good = tneuron.ConvolutionLayer.apply_ranks
+        tneuron.ConvolutionLayer.apply_ranks = _reversed_filters
+        try:
+            net_steps(tp, RESNET_PARITY_STEPS, 1)
+        finally:
+            tneuron.ConvolutionLayer.apply_ranks = good
+        fault = axes_deviation(tp, ref, init)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del ref, tp
+    release()
+    out = {"conf": RESNET_CONF + " kLayerPartition",
+           "mesh": "data 2 x model 2", "batch": RESNET_PARITY_BATCH,
+           "steps": RESNET_PARITY_STEPS,
+           "loss_rel": max(r[2] for r in rows),
+           "stats_rel": max(r[3] for r in rows),
+           "losses": [r[0] for r in rows], "launches": got,
+           "fault": fault, "seconds": time.perf_counter() - t0, "card": smi}
+    print("resnet tp", json.dumps(out))
+    check(all(np.isfinite(out["losses"])), "resnet tp: non-finite loss")
+    check(all(v == 0 for v in got.values()),
+          f"resnet tp: a kernel launched: {got}")
+    check(out["loss_rel"] <= NETS_TOL, "resnet tp: losses differ")
+    check(out["stats_rel"] <= RESNET_STATS_TOL,
+          "resnet tp: running stats differ")
+    check(fault > AXES_FAULT_FACTOR * NETS_TOL,
+          f"resnet tp: the reversed filters moved the step only {fault:.3e}")
+    return out
+
+
 def bn_device_ms(dev, tr, flush) -> dict:
     """BatchNorm's device ms per step at the trainer's shapes and dtype:
     each kBatchNorm layer's training op, forward and backward, on random
@@ -3517,7 +3717,8 @@ def resnet_phase(dev, smi):
             shards = write_resnet_shards(tmp)
             print(f"resnet: wrote {RESNET_RECORDS} ImageNet-shaped records "
                   f"in {time.perf_counter() - t0:.1f} s")
-            rec = {"parity": resnet_parity(dev, smi, shards)}
+            rec = {"parity": resnet_parity(dev, smi, shards),
+                   "tp": resnet_tp(dev, smi, shards)}
             batch = resnet_config(shards).neuralnet.layer[0] \
                 .data_param.batchsize
 
@@ -3811,6 +4012,88 @@ def moe_parity(dev, shard, smi):
     return rel
 
 
+def moe_routing(dev, shard, smi) -> dict:
+    """The data axis routes the global batch (the JAX dense path's
+    GSPMD routing): MOE_PARITY_STEPS float32 steps of the conf on 2 data
+    ranks of the card against one rank at the global batch, the flash
+    kernels forced: losses within NETS_TOL relative, and the params
+    after the steps within AXES_TOL of the one rank's relative to how
+    far the steps moved them (``axes_deviation``); the float32 flash
+    launches counted from 0 just before the 2-rank run (each rank
+    attends its own rows). Two planted faults, each measured as the
+    larger of the two: kMoE's Concate of the ranks' tokens reversed (the
+    ranks take back each other's outputs) must exceed the bar 100
+    times; each rank routing its own tokens (the routing before the
+    repair) must exceed it. -> the launches."""
+    from singa_tpu_torch.config import parse_cluster_config
+    from singa_tpu_torch.layers import sequence as tseq
+
+    t0 = time.perf_counter()
+    os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "0"
+
+    def run(nworkers):
+        ws = os.path.join(os.path.dirname(shard), "ws_moe")
+        tr = Trainer(moe_config(shard, "float32"), parse_cluster_config(
+            f'nworkers: {nworkers}\nworkspace: "{ws}"\n'), seed=0,
+            log=lambda s: None, device=dev)
+        losses, _ = net_steps(tr, 0, MOE_PARITY_STEPS)
+        return losses, tr
+
+    try:
+        one = Trainer(moe_config(shard, "float32"), seed=0,
+                      log=lambda s: None, device=dev)
+        init = {n: v.clone() for n, v in one.params.items()}
+        ref, _ = net_steps(one, 0, MOE_PARITY_STEPS)
+
+        def deviation(losses, tr):
+            return max(rel_diff(losses, ref), axes_deviation(tr, one, init))
+
+        zero_launches()
+        ours, tr = run(2)
+        got = axes_launches()
+        layers = sum(l.TYPE == "kAttention" for l in tr.train_net.layers)
+        check(tr._lockstep(), "moe routing: the data axis did not walk "
+              "its ranks in lockstep")
+        dev_ours = axes_deviation(tr, one, init)
+        del tr
+        release()
+        faults = {}
+        good = tseq.concate
+        tseq.concate = _reversed_concate
+        try:
+            faults["reversed_concate"] = deviation(*run(2))
+        finally:
+            tseq.concate = good
+        release()
+        crosses = tseq.MoELayer.crosses
+        tseq.MoELayer.crosses = lambda self: False
+        try:
+            faults["per_rank_routing"] = deviation(*run(2))
+        finally:
+            tseq.MoELayer.crosses = crosses
+        del one
+        release()
+    finally:
+        os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "512"
+    want = flash_launches(torch.float32, 2 * layers * MOE_PARITY_STEPS)
+    want["quant_acc"] = 0
+    rel = rel_diff(ours, ref)
+    out = {"losses": ours, "one_rank": ref, "rel": rel,
+           "param_deviation": dev_ours, "launches": got, "faults": faults,
+           "seconds": time.perf_counter() - t0}
+    print("moe routing: data 2 vs one rank at the global batch",
+          json.dumps(out), f"[{smi}]")
+    check(got == want, f"moe routing: launches {got} != {want}")
+    check(rel <= NETS_TOL, "moe routing: data 2 and one rank differ")
+    check(dev_ours <= AXES_TOL,
+          "moe routing: data 2's params differ from one rank's")
+    check(faults["reversed_concate"] > AXES_FAULT_FACTOR * AXES_TOL,
+          "moe routing: the reversed Concate passes")
+    check(faults["per_rank_routing"] > AXES_FAULT_FACTOR * AXES_TOL,
+          "moe routing: per-rank routing passes the bar")
+    return got
+
+
 def moe_forms(dev, dtype):
     """The index form (the main path) and the dense plain form (the JAX
     form) at the conf's width (MOE_WIDTH: N = 64 x 256 tokens, D 256, E
@@ -3930,6 +4213,7 @@ def moe_phase(dev, smi):
         runs = {flash: moe_train_run(dev, shard, smi, flash)
                 for flash in (True, False)}
         moe_parity(dev, shard, smi)
+        routing = moe_routing(dev, shard, smi)
     moe_index_check(dev, smi)
     cfg = TransformerConfig(vocab=256, d_model=256, n_heads=2, n_layers=2,
                             d_ff=1024, max_len=2048, moe_experts=8)
@@ -3941,7 +4225,7 @@ def moe_phase(dev, smi):
     del params
     release()
     return {**runs[True]["launches"]["graphed"],
-            "paged_attention": serve_launches}
+            "paged_attention": serve_launches, "routing": routing}
 
 
 # ---------------------------------------------------------------------------
@@ -4924,29 +5208,74 @@ def _per_microbatch(layers, tr):
             * tr.mesh.widths["data"])
 
 
+def _per_model_group(layers, tr):
+    """A kLayerPartition kAttention attends its model group's heads at
+    once: one call per group of model ranks."""
+    return layers * tr.mesh.width // tr.mesh.widths["model"]
 
 
-#: AXES_A2A_TOL: the all-to-all form's aux loss is the global batch's
-#: (frac and mean_prob averaged over the 8 token shards before their
-#: product, as in the JAX package), the dense path's on 8 data ranks the
-#: mean of each rank's: the same forward at step 0 (the same token
-#: shards and capacities), then gradients apart by the aux terms
-#: (weight 0.01): 1.06e-4 over 5 steps on the CPU rehearsal
+def _per_seq_group(layers, tr):
+    """A non-ring mode on a seq axis attends the seq group's gathered
+    blocks at once: one call per group of seq ranks."""
+    return layers * tr.mesh.width // tr.mesh.widths["seq"]
+
+
+def _ring(cfg):
+    for layer in cfg.neuralnet.layer:
+        if layer.type == "kAttention":
+            layer.attention_param.mode = "ring"
+
+
+def _ring_partition(cfg):
+    _ring(cfg)
+    _partition(cfg)
+
+
+def _cluster_of(**widths) -> str:
+    """Cluster conf lines for a mesh of ``widths`` (data and the inner
+    axes; the model axis is what the named axes leave of a group)."""
+    fields = {"seq": "nseq_per_group", "expert": "nexperts_per_group",
+              "pipe": "npipes_per_group"}
+    group = 1
+    for axis, w in widths.items():
+        if axis != "data":
+            group *= w
+    lines = [f"nworkers: {widths.get('data', 1) * group}"]
+    if group > 1:
+        lines.append(f"nprocs_per_group: {group}")
+    lines += [f"{fields[a]}: {w}" for a, w in widths.items() if a in fields]
+    return "\n".join(lines)
+
+
+
+
+#: AXES_A2A_TOL: the all-to-all form's counterpart routes the same token
+#: shards with the same capacities (data 4 x expert 2: 8 shards of the
+#: batch in the same row order, a capacity per source shard), so every
+#: step agrees within AXES_TOL on the CPU rehearsal; the bar kept from
+#: the dense counterpart it replaced (whose aux loss was each rank's)
 AXES_A2A_TOL = 1e-3
+_REVERSED_CONCATE = ("singa_tpu_torch.layers.sequence", "concate",
+                     _reversed_concate)
 AXES_PATHS = {
     "sp": _path("examples/lm/tinylm_ring.conf", None,
                 "examples/lm/cluster_sp.conf", "nworkers: 2",
                 lambda layers, tr: 0,
                 ("singa_tpu_torch.parallel.ring", "_visitor",
                  _visitor_one_off)),
+    # the psum form routes each data shard with its whole sequence
+    # whatever the expert width: data 2 x expert 2 routes the same token
+    # sets (the data axis alone now routes the global batch)
     "ep_psum": _path("examples/lm/tinylm_moe.conf", None,
-                     "examples/lm/cluster_ep.conf", "nworkers: 2",
+                     "examples/lm/cluster_ep.conf",
+                     _cluster_of(data=2, expert=2),
                      _per_rank, ("singa_tpu_torch.parallel.moe",
                                  "_shard_of", lambda e, n: (e + 1) % n)),
-    # the all-to-all form routes 8 token shards with a capacity each:
-    # the dense path on 8 data ranks routes the same shards
+    # the all-to-all form routes 8 (data x expert) token shards with a
+    # capacity each: data 4 x expert 2 routes the same shards
     "ep_alltoall": _path("examples/lm/tinylm_moe.conf", _alltoall,
-                         "examples/lm/cluster_ep.conf", "nworkers: 8",
+                         "examples/lm/cluster_ep.conf",
+                         _cluster_of(data=4, expert=2),
                          _per_rank, bar=AXES_A2A_TOL, step0_only=True),
     "tp": _path("examples/lm/tinylm.conf", _partition, TP_CLUSTER,
                 "nworkers: 2", _per_data_rank,
@@ -4962,12 +5291,29 @@ AXES_PATHS = {
                    "examples/lm/cluster_3axis.conf",
                    "nworkers: 4\nnprocs_per_group: 2\nnpipes_per_group: 2",
                    _per_microbatch),
+    # the pairs (each against the same conf with one axis less) and kMoE
+    # on a seq axis; each planted fault reverses a Concate: kMoE's
+    # gathered sequence (sp_ep, sp_moe) or kLayerPartition's slices
+    "sp_ep": _path("examples/lm/tinylm_moe.conf", _ring,
+                   _cluster_of(seq=2, expert=2), _cluster_of(seq=2),
+                   lambda layers, tr: 0, _REVERSED_CONCATE),
+    "sp_tp": _path("examples/lm/tinylm.conf", _ring_partition,
+                   _cluster_of(data=2, seq=2, model=2),
+                   _cluster_of(data=2, seq=2),
+                   lambda layers, tr: 0, _REVERSED_CONCATE),
+    "ep_tp": _path("examples/lm/tinylm_moe.conf", _partition,
+                   _cluster_of(data=2, expert=2, model=2),
+                   _cluster_of(data=2, expert=2), _per_model_group,
+                   _REVERSED_CONCATE),
+    "sp_moe": _path("examples/lm/tinylm_moe.conf", None,
+                    _cluster_of(data=2, seq=4), "nworkers: 2",
+                    _per_seq_group, _REVERSED_CONCATE),
 }
 
 
-def axes_cluster(spec: str, tmp: str):
+def axes_cluster(spec: str, tmp: str, ws: str = "ws_axes"):
     """A cluster conf (a file of the repo, or conf text) with its
-    workspace under ``tmp``."""
+    workspace ``ws`` under ``tmp``."""
     from singa_tpu_torch.config import parse_cluster_config
 
     text = spec
@@ -4976,7 +5322,7 @@ def axes_cluster(spec: str, tmp: str):
             text = "\n".join(l for l in f.read().splitlines()
                              if not l.startswith("workspace"))
     return parse_cluster_config(
-        f'{text}\nworkspace: "{os.path.join(tmp, "ws_axes")}"\n')
+        f'{text}\nworkspace: "{os.path.join(tmp, ws)}"\n')
 
 
 def axes_config(conf: str, edit, shard: str, dtype: str):
@@ -5137,6 +5483,114 @@ def axes_path(dev, smi, name, shard, tmp) -> dict:
     return out
 
 
+#: zero_update and sharded saves beside the seq, expert and pipe axes:
+#: the sp, ep (psum) and pp paths' confs and meshes with zero_update and
+#: checkpoint_format "sharded", against the same path replicated
+ZERO_PATHS = {"sp_zero": "sp", "ep_zero": "ep_psum", "pp_zero": "pp"}
+#: the meshes each zero run's sharded save is restored on
+ZERO_RESTORE = ("nworkers: 4", "nworkers: 1")
+
+
+def host_arrays(tr) -> dict:
+    """A trainer's params and whole slots at their logical shapes, host
+    copies, by checkpoint key."""
+    out = {f"p|{n}": tr._unpad_one(n, v).detach().cpu().clone()
+           for n, v in tr.params.items()}
+    out.update({f"s|{n}|{k}": tr._unpad_one(n, v).detach().cpu().clone()
+                for n, slots in tr.state.items() for k, v in slots.items()})
+    return out
+
+
+def bitwise(got: dict, want: dict) -> bool:
+    return got.keys() == want.keys() and all(
+        torch.equal(got[k], want[k]) for k in want)
+
+
+def _first_zero_chunk(self, name, piece, r):
+    """The planted fault: every rank's zero chunk at data index 0."""
+    return piece.chunk(self.mesh.widths["data"],
+                       dim=self._zero_dims[name])[0]
+
+
+def axes_zero_path(dev, smi, name, shard, tmp) -> dict:
+    """One ZERO_PATHS entry: AXES_STEPS float32 steps replicated and
+    with zero_update on the base path's mesh (losses, params and slots
+    equal to the bit; the flash launches of the zero run counted from 0
+    just before it), the zero run's sharded save restored on each of
+    ZERO_RESTORE's meshes (every param and slot the saved one, to the
+    bit), and the planted fault (every rank's zero chunk at data index
+    0) that must move the params AXES_FAULT_FACTOR x AXES_TOL relative to
+    how far the steps moved them."""
+    import warnings
+
+    from singa_tpu_torch.trainer import trainer as ttrainer
+
+    t0 = time.perf_counter()
+    base = AXES_PATHS[ZERO_PATHS[name]]
+
+    def trainer(zero, cluster=base.cluster, ckpt=None):
+        cfg = axes_config(base.conf, base.edit, shard, "float32")
+        if zero:
+            cfg.zero_update = True
+            cfg.checkpoint_format = "sharded"
+        if ckpt is not None:
+            cfg.checkpoint = ckpt
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return Trainer(cfg, axes_cluster(cluster, tmp, f"ws_{name}"),
+                           seed=0, log=lambda s: None, device=dev)
+
+    out = {"path": name, "conf": base.conf, "card": smi}
+    rep = trainer(False)
+    init = {n: v.clone() for n, v in rep.params.items()}
+    rl, _ = axes_steps(rep, AXES_STEPS)
+    want = host_arrays(rep)
+    zero_launches()
+    zt = trainer(True)
+    zl, _ = axes_steps(zt, AXES_STEPS)
+    got = axes_launches()
+    out["mesh"] = zt.mesh_shape
+    layers = sum(l.type == "kAttention" for l in zt.cfg.neuralnet.layer)
+    exp = flash_launches(torch.float32, base.calls(layers, zt) * AXES_STEPS)
+    exp["quant_acc"] = 0
+    check(zt.update_mode == "zero" and any(
+        d is not None for d in zt._zero_dims.values()),
+        f"axes {name}: no param's update is zero-sharded")
+    check(got == exp, f"axes {name}: launches {got} != {exp}")
+    saved = host_arrays(zt)
+    out.update(losses=zl, launches=got, zero_equals_replicated=(
+        zl == rl and bitwise(saved, want)))
+    check(out["zero_equals_replicated"],
+          f"axes {name}: zero differs from replicated")
+    path = zt.save(AXES_STEPS)
+    del zt
+    release()
+    out["restored"] = {}
+    for spec in ZERO_RESTORE:
+        back = trainer(True, spec, path)
+        out["restored"][spec] = bitwise(host_arrays(back), saved)
+        check(out["restored"][spec] and back.start_step == AXES_STEPS,
+              f"axes {name}: the save restored on {spec} differs")
+        del back
+        release()
+    good = ttrainer.Trainer._zero_chunk
+    ttrainer.Trainer._zero_chunk = _first_zero_chunk
+    try:
+        tf = trainer(True)
+        axes_steps(tf, AXES_STEPS)
+        dev_f = axes_deviation(tf, rep, init)
+    finally:
+        ttrainer.Trainer._zero_chunk = good
+    out["fault"] = {"planted": "Trainer._zero_chunk", "deviation": dev_f}
+    check(dev_f > AXES_FAULT_FACTOR * AXES_TOL,
+          f"axes {name}: the planted fault moved the run only {dev_f:.3e}")
+    del tf, rep
+    release()
+    out["seconds"] = time.perf_counter() - t0
+    print("axes", json.dumps(out))
+    return out
+
+
 def write_axes_shards(tmp: str) -> dict:
     out = {}
     for key, (n, s) in (("ring", AXES_RING_SHARD), ("lm", MOE_SEQS)):
@@ -5153,12 +5607,18 @@ def axes_phase(dev, smi, tmp) -> dict:
     t0 = time.perf_counter()
     shards = write_axes_shards(tmp)
     os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "0"
+    runs, took = {}, {}
     try:
-        runs = {name: axes_path(dev, smi, name, shards[
-            "ring" if name == "sp" else "lm"], tmp) for name in AXES_PATHS}
+        for name in (*AXES_PATHS, *ZERO_PATHS):
+            t = time.perf_counter()
+            shard = shards["ring" if name in ("sp", "sp_zero") else "lm"]
+            fn = axes_zero_path if name in ZERO_PATHS else axes_path
+            runs[name] = fn(dev, smi, name, shard, tmp)
+            took[name] = time.perf_counter() - t
     finally:
         os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "512"
-    print(f"axes phase {time.perf_counter() - t0:.1f} s")
+    print(f"axes phase {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in took.items())})")
     return {name: run["launches"] for name, run in runs.items()}
 
 
@@ -5269,6 +5729,12 @@ def _elastic_reversed(reps, center, alpha):
 ELASTIC_SYNC = trep.elastic_sync
 
 
+def _elastic_order_reversed():
+    """Plant the reversed-order Elastic round -> its undo."""
+    trep.elastic_sync = _elastic_reversed
+    return lambda: setattr(trep, "elastic_sync", ELASTIC_SYNC)
+
+
 class RoundCheck:
     """Holds a ReplicaTrainer's bootstrap and protocol rounds to the
     protocol: right after the bootstrap every replica equals the center
@@ -5292,6 +5758,7 @@ class RoundCheck:
         self.ref_snap = None
         self.plant = None
         self.scan_too = False
+        self.ulps = False
         self._round, self._boot = tr._sync_round, tr._bootstrap
         tr._sync_round, tr._bootstrap = self.round, self.bootstrap
 
@@ -5354,13 +5821,25 @@ class RoundCheck:
                 s[i, j] = cf[j]
         return reps, center, snaps
 
-    def _error(self, want) -> float:
+    def _error(self, want, before) -> float:
+        """max |got - formula| over every array; with ``ulps`` in float32
+        ulps per element, each at the largest operand of its round (its
+        replicas' and center's values before and after the round;
+        REPLICA_ROUND_ULPS)."""
         tr = self.tr
         reps, center, snaps = want
         got = [(host64(tr.params), reps), (host64(tr.center), center)]
         if snaps is not None:
             got.append((host64(tr.snapshot), snaps))
-        return max(float(np.abs(g[n] - w[n]).max())
+
+        def scale(n):
+            if not self.ulps:
+                return 1.0
+            return np.spacing(np.maximum.reduce([
+                np.abs(before[0][n]).max(0), np.abs(before[1][n]),
+                np.abs(reps[n]).max(0), np.abs(center[n])]).astype(
+                    np.float32))
+        return max(float((np.abs(g[n] - w[n]) / scale(n)).max())
                    for g, w in got for n in w)
 
     def _timed_round(self):
@@ -5373,15 +5852,15 @@ class RoundCheck:
     def round(self):
         tr = self.tr
         state = self._device_state()
-        want = self.formula(host64(state[0]), host64(state[1]),
-                            copy.deepcopy(state[3]))
+        before = (host64(state[0]), host64(state[1]))
+        want = self.formula(*before, copy.deepcopy(state[3]))
         if self.plant is not None:
             undo = self.plant()
             try:
                 self._round()
             finally:
                 undo()
-            self.fault_errs.append(self._error(want))
+            self.fault_errs.append(self._error(want, before))
             self._restore(state)
             self.plant = None
         form = ("elastic" if tr.protocol == "Elastic" else
@@ -5403,7 +5882,7 @@ class RoundCheck:
                 for a, b in zip(dense, scan) for n in a))
             self.scan_too = False
         self.forms.append(form)
-        self.errs.append(self._error(want))
+        self.errs.append(self._error(want, before))
         if want[2] is not None:
             self.ref_snap = want[2]
 
@@ -5635,6 +6114,91 @@ def replica_lm(dev, smi, tmp) -> dict:
     return launches
 
 
+#: REPLICA_ROUND_TOL (6e-8) is 8 float32 ulps at 0.1, the mlp's values;
+#: the LMs' values reach ~2, so their rounds are held to 8 ulps per
+#: element, each at the largest operand of its round (at the formula's
+#: own value a round that cancels reads hundreds of ulps)
+REPLICA_ROUND_ULPS = 8
+#: the replica engine beside seq and expert: (conf, cluster field)
+REPLICA_AXES = {"replica_sp": ("examples/lm/tinylm_ring.conf",
+                               "nseq_per_group"),
+                "replica_ep": ("examples/lm/tinylm_moe.conf",
+                               "nexperts_per_group")}
+
+
+def replica_axes(dev, smi, tmp) -> dict:
+    """The replica engine beside a seq and an expert axis: each conf at
+    full width under REPLICA_LM_SYNC's Elastic on REPLICA_LM_RANKS
+    replicas x 2 (seq or expert) ranks of the card, float32,
+    REPLICA_LM_STEPS steps with the flash kernels forced, every round
+    held to its float64 formula within REPLICA_ROUND_ULPS, and a fault
+    planted at the first round, whose error must exceed that bar 100
+    times (replica_sp: the round in reversed replica order, its lanes
+    holding whole params; replica_ep: each replica joined from its
+    lane's ranks in reversed order, the expert pieces swapped); the
+    float32 flash launches counted from 0 just before each run (ring
+    attention's fold launches none; on an expert lane each rank
+    attends its replica's batch). -> {path: launches}."""
+    shard = os.path.join(tmp, "replica_axes_lm")
+    write_records(shard, *synthetic_token_arrays(
+        REPLICA_LM_SHARD[0], seq_len=REPLICA_LM_SHARD[1], vocab=256, seed=0))
+    out, launches = {}, {}
+    os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "0"
+    try:
+        for name, (conf, field) in REPLICA_AXES.items():
+            t0 = time.perf_counter()
+            with open(os.path.join(REPO, conf)) as f:
+                text = f.read()
+            for old, new in (("examples/lm/train_shard", shard),
+                             ('param_type: "Param"', REPLICA_LM_SYNC),
+                             ('compute_dtype: "bfloat16"', "")):
+                check(old in text, f"replica {name}: {conf} lacks {old!r}")
+                text = text.replace(old, new)
+            cluster = replica_cluster(
+                tmp, name, 2 * REPLICA_LM_RANKS,
+                f"nprocs_per_group: 2\n{field}: 2\nbandwidth: 1e9\n")
+            tr = replica_trainer(dev, text, cluster)
+            check(tr.nreplicas == REPLICA_LM_RANKS
+                  and len(tr._lane(0)) == 2,
+                  f"replica {name}: {tr.nreplicas} replicas of "
+                  f"{len(tr._lane(0))} ranks")
+            rc = RoundCheck(tr, dev)
+            rc.ulps = True
+            rc.plant = (_elastic_order_reversed if name == "replica_sp"
+                        else lambda: _reversed_lane(tr))
+            layers = sum(l.TYPE == "kAttention" for l in tr.train_net.layers)
+            zero_launches()
+            losses, ms, rounds = replica_steps(tr, dev, 0, REPLICA_LM_STEPS)
+            got = axes_launches()
+            calls = 0 if name == "replica_sp" else (
+                tr.mesh.width * layers * REPLICA_LM_STEPS)
+            want = flash_launches(torch.float32, calls)
+            want["quant_acc"] = 0
+            rec = {"conf": conf + " Elastic", "mesh": tr.mesh_shape,
+                   "losses": losses, "rounds": sum(rounds),
+                   "round_err_ulps": rc.errs,
+                   "fault_err_ulps": rc.fault_errs, "launches": got,
+                   "step_ms_median": median(ms[3:]),
+                   "seconds": time.perf_counter() - t0}
+            out[name] = rec
+            launches[name] = got
+            check(got == want, f"replica {name}: launches {got} != {want}")
+            check(all(np.isfinite(losses)), f"replica {name}: loss")
+            check(sum(rounds) >= 1 and rc.errs
+                  and max(rc.errs) <= REPLICA_ROUND_ULPS,
+                  f"replica {name}: rounds off their formula: {rc.errs}")
+            check(rc.fault_errs and min(rc.fault_errs)
+                  > REPLICA_FAULT_FACTOR * REPLICA_ROUND_ULPS,
+                  f"replica {name}: the reversed lane passes: "
+                  f"{rc.fault_errs}")
+            del tr, rc
+            release()
+    finally:
+        os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "512"
+    print("replica axes", json.dumps({**out, "card": smi}))
+    return launches
+
+
 def replica_procs(dev, smi, shards, tmp) -> dict:
     """mlp.conf (full width, REPLICA_PROCS' schedule) as two processes
     through ``python -m singa_tpu_torch.main -procsID k -hostfile hf``
@@ -5719,6 +6283,7 @@ def replica_phase(dev, smi, tmp) -> dict:
     part("mlp", replica_mlp, dev, smi, shards, tmp)
     part("random", replica_random, dev, smi, shards, tmp)
     launches = part("lm", replica_lm, dev, smi, tmp)
+    launches["axes"] = part("axes", replica_axes, dev, smi, tmp)
     part("procs", replica_procs, dev, smi, shards, tmp)
     print(f"replica phase {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f}' for k, v in took.items())})")
@@ -7104,6 +7669,13 @@ def main() -> int:
                 kernels[-1]["axes_launches"] = {
                     path: got[name]
                     for path, got in axes_launches_by_path.items()}
+                # the data axis's global kMoE routing (moe phase) and the
+                # replica engine beside seq and expert (replica phase)
+                kernels[-1]["moe_route_launches"] = moe_launches[
+                    "routing"][name]
+                kernels[-1]["replica_axes_launches"] = {
+                    path: got[name] for path, got in
+                    replica_launches["axes"].items()}
             # the replica phase's LM run of this type
             kernels[-1]["replica_launches"] = replica_launches[
                 "bfloat16" if dtype == torch.bfloat16 else "float32"][name]

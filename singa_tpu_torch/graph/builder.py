@@ -187,8 +187,9 @@ class Net:
         (as :meth:`forward` takes them), each layer runs for every rank
         before the next. A stateful layer takes every rank's input in
         one call (``apply_stateful_ranks``), its statistics taken over
-        all ranks of ``sync`` (the mesh: its ``gather`` and ranks); with
-        ``lanes`` (the ranks of a mesh with more axes than data) a layer
+        all ranks of ``sync`` (the mesh: its ``gather`` and ranks; on a
+        mesh with more axes than data, ``apply_stateful_lanes`` over the
+        ranks that split the batch); with ``lanes`` a layer
         that ``crosses`` them runs through ``apply_ranks`` and the
         pipeline plan's staged region through the GPipe schedule. ->
         (each rank's loss, each rank's metrics, the buffers after the
@@ -234,8 +235,12 @@ class Net:
                 outs = layer.apply_ranks(resolved, inputs, ranks,
                                          training=training)
             elif sync is not None and layer.has_buffers:
-                outs, updates = layer.apply_stateful_ranks(
-                    resolved, buffers, inputs, sync=sync)
+                if ranks is not None and ranks.mesh.has_axes:
+                    outs, updates = layer.apply_stateful_lanes(
+                        resolved, buffers, inputs, ranks)
+                else:
+                    outs, updates = layer.apply_stateful_ranks(
+                        resolved, buffers, inputs, sync=sync)
                 new_buffers.update(updates)
             else:
                 outs = []

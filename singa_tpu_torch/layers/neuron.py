@@ -60,6 +60,24 @@ class ConvolutionLayer(Layer):
         return nn.conv2d(x, params[self.wname], bias, stride=self.stride,
                          pad=self.pad)
 
+    def crosses(self) -> bool:
+        return self.model_split()
+
+    def apply_ranks(self, params, inputs, lanes, *, training):
+        """kLayerPartition: each model rank convolves with its filters
+        (its weight and bias shards); the output channels are joined by
+        Concate in rank order and the pad cut off."""
+        from ..parallel.axes import concate
+
+        outs = [None] * len(params)
+        for g in lanes.groups("model"):
+            out = concate([self.apply(params[j], inputs[j],
+                                      training=training) for j in g],
+                          1)[:, :self.num_filters]
+            for j in g:
+                outs[j] = out
+        return outs
+
 
 class InnerProductLayer(Layer):
     """kInnerProduct (reference: layer.cc:162-213). Flattens the input to

@@ -15,8 +15,12 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import torch
+
 from ..config.schema import ConfigError
 from ..ops import norm
+from ..parallel.axes import concate
+from ..parallel.mesh import Mesh
 from .base import Layer, Shape, require_one_src
 
 
@@ -81,12 +85,25 @@ class BatchNormLayer(Layer):
             y, mean, var = norm.batch_norm_train(
                 x, gamma, beta, self.eps, shift=anchor)
         # the running stats are a detached side effect
+        return y, self._running(buffers, mean.detach(), var.detach())
+
+    def _running(self, buffers, mean, var) -> dict:
+        """The running-stat updates from the batch moments (Caffe's
+        momentum convention)."""
         m = self.momentum
-        mean, var = mean.detach(), var.detach()
-        return y, {
-            self.mean_buf: m * buffers[self.mean_buf] + (1 - m) * mean,
-            self.var_buf: m * buffers[self.var_buf] + (1 - m) * var,
-        }
+        return {self.mean_buf: m * buffers[self.mean_buf] + (1 - m) * mean,
+                self.var_buf: m * buffers[self.var_buf] + (1 - m) * var}
+
+    def _sync_train(self, xs, gammas, betas, sync, shift):
+        """The training normalization of ranks' inputs ``xs`` with the
+        moments over the ranks of ``sync`` -> (each rank's output, mean,
+        var), sampled or not as the layer is."""
+        if self.stats_stride > 1:
+            return norm.batch_norm_train_sampled_sync(
+                xs, gammas, betas, self.eps, self.stats_stride, sync,
+                shift=shift)
+        return norm.batch_norm_train_sync(xs, gammas, betas, self.eps, sync,
+                                          shift=shift)
 
     def apply_stateful_ranks(self, params: list, buffers, inputs: list, *,
                              sync):
@@ -95,22 +112,63 @@ class BatchNormLayer(Layer):
         statistics those of the global batch over the ranks of ``sync``
         (the mesh) -> (each rank's output, the running-stat updates from
         the global moments)."""
-        xs = [x[0] for x in inputs]
-        gammas = [p[self.gname] for p in params]
-        betas = [p[self.bname] for p in params]
-        anchor = buffers[self.mean_buf].detach()
-        if self.stats_stride > 1:
-            ys, mean, var = norm.batch_norm_train_sampled_sync(
-                xs, gammas, betas, self.eps, self.stats_stride, sync,
-                shift=anchor)
-        else:
-            ys, mean, var = norm.batch_norm_train_sync(
-                xs, gammas, betas, self.eps, sync, shift=anchor)
-        m = self.momentum
-        return ys, {
-            self.mean_buf: m * buffers[self.mean_buf] + (1 - m) * mean,
-            self.var_buf: m * buffers[self.var_buf] + (1 - m) * var,
-        }
+        ys, mean, var = self._sync_train(
+            [x[0] for x in inputs], [p[self.gname] for p in params],
+            [p[self.bname] for p in params], sync,
+            buffers[self.mean_buf].detach())
+        return ys, self._running(buffers, mean, var)
+
+    def apply_stateful_lanes(self, params: list, buffers, inputs: list,
+                             lanes):
+        """``apply_stateful_ranks`` on a mesh with more axes than data:
+        the moments of each group of lanes that differ in their data
+        index only (the ranks of the other axes hold the same rows, so a
+        sum over every rank would count each row once per such rank).
+        Under kLayerPartition each model rank normalises its slice of the
+        (zero-padded) channels with its ``gamma``/``beta`` shard, the
+        slices concatenated in rank order and the pad cut off; the
+        running stats take each model index's moments in that order."""
+        split = self.model_split()
+        chans = inputs[0][0].shape[1]
+        width = lanes.mesh.widths["model"] if split else 1
+        m = -(-chans // width)
+        anchor = torch.nn.functional.pad(
+            buffers[self.mean_buf].detach(), (0, m * width - chans))
+        ys: list = [None] * len(params)
+        moments: dict[int, tuple] = {}
+        for g in lanes.groups("data"):
+            k = lanes.coords(g[0])["model"] if split else 0
+            xs = [inputs[j][0] for j in g]
+            if split:
+                pad = [0, 0] * (xs[0].dim() - 2) + [0, m * width - chans]
+                xs = [torch.nn.functional.pad(x, pad)
+                      .narrow(1, k * m, m) for x in xs]
+            sync = Mesh(tuple(lanes.mesh.device(lanes.ranks[j])
+                              for j in g))
+            out, mean, var = self._sync_train(
+                xs, [params[j][self.gname] for j in g],
+                [params[j][self.bname] for j in g], sync,
+                anchor.narrow(0, k * m, m))
+            moments.setdefault(k, (mean, var))
+            for j, y in zip(g, out):
+                ys[j] = y
+        if split:
+            # lane j takes the model ranks' slices of its own lanes
+            parts = {}
+            for j in range(len(params)):
+                c = lanes.coords(j)
+                parts.setdefault(tuple(v for a, v in c.items()
+                                       if a != "model"), {})[c["model"]] = j
+            outs = [None] * len(params)
+            for by_model in parts.values():
+                y = concate([ys[by_model[k]] for k in sorted(by_model)],
+                            1).narrow(1, 0, chans)
+                for j in by_model.values():
+                    outs[j] = y
+            ys = outs
+        return ys, self._running(buffers, *(
+            torch.cat([moments[k][i] for k in sorted(moments)])[:chans]
+            for i in (0, 1)))
 
     def apply(self, params, inputs, *, training, generator=None):
         raise RuntimeError(

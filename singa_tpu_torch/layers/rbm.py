@@ -20,6 +20,7 @@ from typing import Sequence
 import torch
 
 from ..config.schema import ConfigError
+from ..parallel.axes import concate, rank_sum
 from ..utils.rng import fold_in, on_device
 from .base import Layer, Shape, feature_dim, require_one_src
 
@@ -89,24 +90,67 @@ class RBMLayer(Layer):
         so the updaters (which subtract) ascend the log-likelihood. Draw
         j of the chain comes from ``fold_in(generator, j)``, as the JAX
         layer folds its key."""
-        v0 = self._flat(params, v0)
+        grads, metrics = self.cd_grads_ranks([params], v0, generator)
+        return {n: g[0] for n, g in grads.items()}, metrics
+
+    # ---------------- kLayerPartition: the hidden units split ----------------
+
+    def crosses(self) -> bool:
+        return self.model_split()
+
+    def _up_ranks(self, ps: list, v):
+        """P(h=1|v) from the model ranks' shards ``ps`` (weight columns,
+        hbias slice): each rank's hidden units, Concate in rank order,
+        the pad cut off."""
+        return concate([self.prop_up(p, v) for p in ps], -1)[:, :self.hdim]
+
+    def _down_ranks(self, ps: list, h):
+        """P(v=1|h): the model ranks' partial products of their hidden
+        units, summed in rank order."""
+        m = ps[0][self.wname].shape[1]
+        h = torch.nn.functional.pad(h, (0, m * len(ps) - self.hdim))
+        return torch.sigmoid(rank_sum(
+            h[:, k * m:(k + 1) * m] @ p[self.wname].T
+            for k, p in enumerate(ps)) + ps[0][self.vbname])
+
+    def apply_ranks(self, params, inputs, lanes, *, training):
+        """Feature-extractor view over the model ranks' hidden units."""
+        outs = [None] * len(params)
+        for g in lanes.groups("model"):
+            ps = [params[j] for j in g]
+            out = self._up_ranks(ps, self._flat(ps[0], inputs[g[0]][0]))
+            for j in g:
+                outs[j] = out
+        return outs
+
+    def cd_grads_ranks(self, ps: list, v0, generator):
+        """``cd_grads`` with the hidden units split over the model ranks
+        (``ps[k]`` rank k's shards; one rank: the whole params): the
+        same chain and draws, each rank's hidden units from its shards
+        -> ({param: [each rank's gradient of its piece]}, metrics). The
+        padded tail of the last piece takes a zero gradient."""
+        v0 = self._flat(ps[0], v0)
         batch = v0.shape[0]
-        h0p = self.prop_up(params, v0)
+        m = ps[0][self.wname].shape[1]
+        h0p = self._up_ranks(ps, v0)
         hk = bernoulli(fold_in(generator, 0), h0p).to(v0.dtype)
         vkp = v0
         for k in range(self.cd_k):
-            vkp = self.prop_down(params, hk)
+            vkp = self._down_ranks(ps, hk)
             vk = (bernoulli(fold_in(generator, 2 * k + 1), vkp).to(v0.dtype)
                   if self.sample_visible else vkp)
-            hkp = self.prop_up(params, vk)
+            hkp = self._up_ranks(ps, vk)
             if k + 1 < self.cd_k:
-                # the last step's sampled hidden is never read
                 hk = bernoulli(fold_in(generator, 2 * k + 2),
                                hkp).to(v0.dtype)
+        pad = (0, m * len(ps) - self.hdim)
+        hkp, h0p = (torch.nn.functional.pad(t, pad) for t in (hkp, h0p))
+        cols = [slice(k * m, (k + 1) * m) for k in range(len(ps))]
         grads = {
-            self.wname: (vkp.T @ hkp - v0.T @ h0p) / batch,
-            self.vbname: (vkp - v0).mean(0),
-            self.hbname: (hkp - h0p).mean(0),
+            self.wname: [(vkp.T @ hkp[:, c] - v0.T @ h0p[:, c]) / batch
+                         for c in cols],
+            self.vbname: [(vkp - v0).mean(0)],
+            self.hbname: [(hkp[:, c] - h0p[:, c]).mean(0) for c in cols],
         }
         return grads, {"loss": (v0 - vkp).square().mean()}
 

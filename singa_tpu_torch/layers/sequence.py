@@ -13,11 +13,13 @@ axis kEmbedding adds the rank's GLOBAL positions, kAttention runs ring
 attention (``mode: "ring"``; any other mode attends the seq group's
 gathered K/V) and kLMLoss shifts over the global sequence (a shard's
 last target is the next shard's first token; the mean is over every
-rank's B·(S−1) targets); kMoE runs its expert-parallel forms over an
-expert axis; under kLayerPartition on a model axis kAttention and kDense
-compute their output slices from their shards (Concate in rank order;
-``out``, split on its input dim, sums its partial outputs in rank
-order).
+rank's B·(S−1) targets); kMoE routes the tokens the JAX program routes
+together (the global batch, or over an expert axis each data shard
+through its expert-parallel forms; each with its whole sequence); under
+kLayerPartition on a model axis kAttention and kDense compute their
+output slices from their shards (Concate in rank order; ``out``, split
+on its input dim, sums its partial outputs in rank order), beside a seq
+axis too.
 
 Numerical points where PyTorch's defaults differ from JAX's:
 ``jax.nn.gelu`` is the tanh approximation and ``jnp.var`` the
@@ -221,6 +223,22 @@ class AttentionLayer(Layer):
         return (self.mesh is not None and self.mesh.widths["seq"] > 1
                 or self.model_split())
 
+    def _attend_seq(self, heads: list) -> list:
+        """One seq group's attention: ``heads[s]`` the (q, k, v) of seq
+        shard s -> each shard's output. One shard attends alone (ring
+        mode too: the JAX package's degradation off a seq axis); ring
+        attention in ``mode: "ring"``, else the global attention the JAX
+        program computes over a seq-sharded input, the group's blocks
+        gathered."""
+        if len(heads) == 1:
+            return [self._attend(*heads[0])]
+        if self.mode == "ring":
+            from ..parallel.ring import ring_attention_ranks
+
+            return ring_attention_ranks(*zip(*heads), causal=True)
+        q, k, v = (torch.cat(t, dim=2) for t in zip(*heads))
+        return self._attend(q, k, v).chunk(len(heads), dim=2)
+
     def apply_ranks(self, params, inputs, lanes, *, training):
         if self.model_split():
             return self._model_ranks(params, inputs, lanes)
@@ -230,44 +248,51 @@ class AttentionLayer(Layer):
             w = [params[j][self.qkv] for j in g]
             heads = [self._heads(xi.to(wi.dtype) @ wi)
                      for xi, wi in zip(x, w)]
-            if self.mode == "ring":
-                from ..parallel.ring import ring_attention_ranks
-
-                os = ring_attention_ranks(*zip(*heads), causal=True)
-            else:
-                # the global attention the JAX program computes over a
-                # seq-sharded input: the group's blocks gathered
-                q, k, v = (torch.cat(t, dim=2) for t in zip(*heads))
-                os = self._attend(q, k, v).chunk(len(g), dim=2)
+            os = self._attend_seq(heads)
             for j, xi, o in zip(g, x, os):
                 b, s, d = xi.shape
                 o = o.movedim(1, 2).reshape(b, s, d)
                 outs[j] = o.to(w[0].dtype) @ params[j][self.out]
         return outs
 
+    def _project_out(self, o, params, js):
+        """The model ranks ``js``' ``out`` shards (rows of the input dim)
+        on the attended heads o (B, S, D): partial outputs summed in rank
+        order."""
+        rows = params[js[0]][self.out].shape[0]
+        o = F.pad(o, (0, rows * len(js) - o.shape[-1]))
+        return rank_sum(
+            o[..., k * rows:(k + 1) * rows].to(params[j][self.out].dtype)
+            @ params[j][self.out] for k, j in enumerate(js))
+
+    def _fused_qkv(self, params, inputs, js):
+        """The model ranks ``js``' slices of the fused projection of
+        their (replicated) input, Concate in rank order, pad cut off."""
+        d = inputs[js[0]][0].shape[-1]
+        parts = [inputs[j][0].to(params[j][self.qkv].dtype)
+                 @ params[j][self.qkv] for j in js]
+        return concate(parts, -1)[..., :3 * d]
+
     def _model_ranks(self, params, inputs, lanes):
-        """kLayerPartition: each model rank's ``qkv`` shard gives its
-        slice of the fused projection (Concate in rank order, the pad
-        cut off), the heads attend once per group, and each rank's
-        ``out`` shard (rows of the input dim) gives a partial output,
-        summed in rank order."""
+        """kLayerPartition: each seq shard's heads (the whole sequence
+        off a seq axis) from its model ranks' ``qkv`` shards, the seq
+        group's attention over them (``_attend_seq``; the heads of a
+        group meet on one device and attend there at once), each shard's
+        output from its model ranks' ``out`` shards."""
         outs = [None] * len(params)
-        for g in lanes.groups("model"):
-            x = inputs[g[0]][0]
-            b, s, d = x.shape
-            parts = []
+        for g in lanes.groups("seq", "model"):
+            by: dict[int, list] = {}
             for j in g:
-                w = params[j][self.qkv]
-                parts.append(inputs[j][0].to(w.dtype) @ w)
-            o = self._attend(*self._heads(concate(parts, -1)[..., :3 * d]))
-            o = o.movedim(1, 2).reshape(b, s, d)
-            rows = params[g[0]][self.out].shape[0]
-            o = F.pad(o, (0, rows * len(g) - d))
-            y = rank_sum(
-                o[..., k * rows:(k + 1) * rows].to(params[j][self.out].dtype)
-                @ params[j][self.out] for k, j in enumerate(g))
-            for j in g:
-                outs[j] = y
+                by.setdefault(lanes.coords(j)["seq"], []).append(j)
+            shards = [by[s] for s in sorted(by)]
+            os = self._attend_seq([self._heads(
+                self._fused_qkv(params, inputs, js)) for js in shards])
+            for js, o in zip(shards, os):
+                b, s, d = inputs[js[0]][0].shape
+                y = self._project_out(o.movedim(1, 2).reshape(b, s, d),
+                                      params, js)
+                for j in js:
+                    outs[j] = y
         return outs
 
     def decode_step(self, params, x, cache, pos: int):
@@ -367,7 +392,7 @@ class MoELayer(Layer):
     moe_param.aux_loss_weight. Its expert weights split over the mesh's
     expert axis, where ``apply_ranks`` runs ``moe_param.dispatch``'s form
     (psum or alltoall); without one the dense path runs, the same
-    math."""
+    math, on every rank's tokens at once."""
 
     TYPE = "kMoE"
     has_aux_loss = True
@@ -413,24 +438,57 @@ class MoELayer(Layer):
                              self.capacity_factor)
 
     def crosses(self) -> bool:
-        return self.mesh is not None and self.mesh.widths["expert"] > 1
+        # the JAX program routes the tokens of every rank of the walk
+        # together (off the rings' per-shard step, which walks no lanes)
+        return self.mesh is not None and self.mesh.width > 1
 
     def apply_ranks(self, params, inputs, lanes, *, training):
-        """Each group of expert ranks through the psum or the all-to-all
-        form -> each lane's (out, aux)."""
+        """The JAX program's routing groups -> each lane's (out, aux):
+        without an expert axis the walk's tokens at once (GSPMD's global
+        batch: its data shards in rank order, each with its whole
+        sequence); over an expert axis each data shard with its whole
+        sequence through the psum or the all-to-all form. Each token set
+        is gathered (Concate) from one lane per (data, expert, seq)
+        coordinate (the model and pipe ranks hold the same rows), seq
+        shards in position order; each lane takes back its rows."""
         from ..parallel import moe
 
         widths = lanes.mesh.widths
-        nexp = widths["expert"]
+        nexp, nseq = widths["expert"], widths["seq"]
         if self.n_experts % nexp:
             raise ConfigError(
                 f"layer {self.name!r}: num_experts {self.n_experts} "
                 f"not divisible by expert axis width {nexp}"
             )
-        groups = lanes.groups("expert")
+        rep: dict[tuple, int] = {}
+        for j in range(len(params)):
+            c = lanes.coords(j)
+            rep.setdefault((c["data"], c["expert"], c["seq"]), j)
+        datas = sorted({d for d, _, _ in rep})
+
+        def tokens(d, e):
+            return concate([inputs[rep[d, e, s]][0] for s in range(nseq)],
+                           1)
+
+        def rows(y, j):
+            # lane j's block of its data shard's output (B, S, D)
+            return y.chunk(nseq, 1)[lanes.coords(j)["seq"]]
+
         outs = [None] * len(params)
+        if nexp == 1:
+            first = rep[datas[0], 0, 0]
+            y, aux = moe.moe_ffn_dense(
+                concate([tokens(d, 0) for d in datas], 0),
+                self._p(params[first]), self.capacity_factor)
+            ys = dict(zip(datas, y.chunk(len(datas))))
+            for j in range(len(params)):
+                outs[j] = (rows(ys[lanes.coords(j)["data"]], j), aux)
+            return outs
+        xs = {d: [tokens(d, e) for e in range(nexp)] for d in datas}
+        ps = {d: [self._p(params[rep[d, e, 0]]) for e in range(nexp)]
+              for d in datas}
         if self.dispatch == "alltoall":
-            b = inputs[0][0].shape[0]
+            b = xs[datas[0]][0].shape[0]
             if b % nexp:
                 raise ConfigError(
                     f"layer {self.name!r}: alltoall dispatch shards "
@@ -438,25 +496,22 @@ class MoELayer(Layer):
                     f"{b * widths['data']} must be divisible by "
                     f"{widths['data'] * nexp}"
                 )
-            fracs, mprobs, ys = [], [], []
-            for g in groups:
-                y, f, m = moe.moe_a2a_ranks(
-                    [inputs[j][0] for j in g],
-                    [self._p(params[j]) for j in g], self.capacity_factor)
-                ys.append(y)
+            fracs, mprobs, ys = [], [], {}
+            for d in datas:
+                ys[d], f, m = moe.moe_a2a_ranks(xs[d], ps[d],
+                                                self.capacity_factor)
                 fracs += f
                 mprobs += m
             aux = moe.a2a_aux(fracs, mprobs)
-            for g, y in zip(groups, ys):
-                for j in g:
-                    outs[j] = (y, aux)
+            for j in range(len(params)):
+                outs[j] = (rows(ys[lanes.coords(j)["data"]], j), aux)
             return outs
-        for g in groups:
-            y, auxes = moe.moe_psum_ranks(
-                [inputs[j][0] for j in g], [self._p(params[j]) for j in g],
-                self.capacity_factor)
-            for j, aux in zip(g, auxes):
-                outs[j] = (y, aux)
+        for d in datas:
+            y, auxes = moe.moe_psum_ranks(xs[d], ps[d], self.capacity_factor)
+            for j in range(len(params)):
+                c = lanes.coords(j)
+                if c["data"] == d:
+                    outs[j] = (rows(y, j), auxes[c["expert"]])
         return outs
 
 

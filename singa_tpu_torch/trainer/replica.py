@@ -6,17 +6,20 @@ runs ``ngroups`` model replicas, each training on its own data and
 reconciling through the parameter-server protocol that
 UpdaterProto.param_type selects ("Elastic" | "RandomSync",
 src/worker/neuralnet.cc:35-44). Here each index of the mesh's data axis
-holds one replica, a lane of model ranks (one rank on a data-only
-mesh): every rank of the lane its own params, updater slots and buffers
+holds one replica, the lane of every rank of that index (its model,
+seq, expert and pipe ranks; one rank on a data-only mesh): every rank
+of the lane its own params, updater slots and buffers
 (BatchNorm's running stats), on its device, at fixed addresses that
 every step and protocol round update in place, even when several ranks
 share one card. A kLayerPartition param is stored split over the
 lane's ranks, padded where the split is uneven (the Trainer's layout,
 ``parallel/shardings.py``), the other params whole on every rank of the
 lane (the JAX package's ``_rep_param_sh``: the data axis prepended to
-each param's kLayerPartition spec). Each replica's step is the lockstep
-walk of its lane (``Net.forward_ranks``; the layers that cross the
-model ranks run through ``apply_ranks``), each piece's gradient summed
+each param's spec; an expert-split kMoE weight likewise over the lane's
+expert ranks). Each replica's step is the lockstep walk of its lane
+(``Net.forward_ranks``; the layers that cross the lane's ranks run
+through ``apply_ranks``, each rank its seq positions of the replica's
+batch), each piece's gradient summed
 over the lane's ranks that hold it, in rank order. The protocol rounds
 are ``parallel/consistency.py``'s functions over the replicas stacked in
 replica order, each replica's pieces joined into its stored arrays, so
@@ -98,8 +101,8 @@ from ..config.schema import ClusterConfig, ConfigError, ModelConfig
 from ..data.device_prefetch import ready, to_device
 from ..graph.builder import Net
 from ..params import init_params
-from ..parallel.axes import Lanes, rank_sum
-from ..parallel.shardings import spec_json
+from ..parallel.axes import Lanes, rank_sum, split_rows
+from ..parallel.shardings import batch_shardings, spec_json
 from ..parallel.consistency import (
     elastic_sync,
     random_sync,
@@ -140,7 +143,7 @@ class ReplicaTrainer(Trainer):
     _supports_zero_update = False
     _supports_grad_comm = False
     _splits_batch = False
-    _axis_sets = ({"model"},)
+    _axis_sets = ({"model"}, {"seq"}, {"expert"}, {"pipe"})
 
     def __init__(
         self,
@@ -230,9 +233,18 @@ class ReplicaTrainer(Trainer):
             self._resume(self.cfg.checkpoint)
 
     def _lane(self, i: int) -> list[int]:
-        """Replica i's ranks, model index 0 first."""
-        return [self.mesh.rank(data=i, model=m)
-                for m in range(self.mesh.widths["model"])]
+        """Replica i's ranks: every rank of data index i, in rank order
+        (the data axis is the mesh's outermost)."""
+        g = self.mesh.width // self.nreplicas
+        return list(range(i * g, (i + 1) * g))
+
+    def _holders(self, name: str, lane: list) -> list[int]:
+        """The first rank of ``lane`` that holds each piece of param
+        ``name``, in piece order (one rank for a replicated param)."""
+        first: dict[int, int] = {}
+        for r in lane:
+            first.setdefault(self._piece_of(r, name), r)
+        return [first[k] for k in sorted(first)]
 
     def _local_replicas(self) -> list[int]:
         """The replicas whose lanes this process holds (whole: the mesh
@@ -283,9 +295,12 @@ class ReplicaTrainer(Trainer):
         """Replica i's flat dict of stored arrays from every rank's
         ``every`` (rank order)."""
         lane = self._lane(i)
-        return {k: self._join(k[0] if isinstance(k, tuple) else k,
-                              [every[r][k] for r in lane])
-                for k in every[lane[0]]}
+        out = {}
+        for k in every[lane[0]]:
+            name = k[0] if isinstance(k, tuple) else k
+            out[k] = self._join(name, [every[r][k] for r in (
+                self._holders(name, lane) if name in self.specs else lane)])
+        return out
 
     def _stacked(self, kind: str) -> dict:
         """The replicas' flat ``kind`` dict of stored arrays stacked
@@ -398,6 +413,23 @@ class ReplicaTrainer(Trainer):
             return False
         return self._chunk_cap() > 1
 
+    def _lane_feed(self, batch: dict, r: int) -> dict:
+        """Rank r's piece of its replica's whole batch, on its device:
+        the batch shardings' axes but data (kSequenceData's positions
+        over seq)."""
+        mesh = self.mesh
+        c = mesh.coords(r)
+        specs = batch_shardings(mesh, self.train_net)
+        out = {}
+        for name, feed in batch.items():
+            out[name] = {}
+            for k, v in feed.items():
+                for dim, axis in enumerate(specs[name][k]):
+                    if axis != "data":
+                        v = split_rows(v, mesh.widths[axis], c[axis], dim)
+                out[name][k] = v.to(mesh.device(r))
+        return out
+
     def _step_core(self, step: int, batches: list) -> dict:
         """Each replica of this process: the lockstep walk of its lane on
         its own batch (every rank of the lane the same generator, the
@@ -419,9 +451,8 @@ class ReplicaTrainer(Trainer):
             gen = fold_in(step_gen, i)
             losses, ms, updates = self.train_net.forward_ranks(
                 [self._cast_compute(lv) for lv in leaves],
-                [self._cast_compute({
-                    name: {k: v.to(mesh.device(r)) for k, v in feed.items()}
-                    for name, feed in batches[i].items()}) for r in lane],
+                [self._cast_compute(self._lane_feed(batches[i], r))
+                 for r in lane],
                 generators=[gen] * len(lane), buffers=reps[0]["buffers"],
                 lanes=Lanes(mesh, tuple(lane)))
             torch.autograd.backward([loss / len(lane) for loss in losses])
@@ -678,7 +709,7 @@ class ReplicaTrainer(Trainer):
         tensors on a data-only mesh in one process; else joined from its
         lane, across processes gathered by every process (a
         collective)."""
-        if self.mesh.nprocs == 1 and self.mesh.widths["model"] == 1:
+        if self.mesh.nprocs == 1 and not self.mesh.has_axes:
             return self._reps[0]["params"], self._reps[0]["buffers"]
         return (self._replica(self._gathered("params"), 0),
                 self._gathered("buffers")[0])
@@ -765,7 +796,8 @@ class ReplicaTrainer(Trainer):
             ranks, parts, boxes = [], [], []
             for r, d in zip(mesh.local_ranks, local):
                 c = mesh.coords(r)
-                if c["model"] and not split:
+                cut = self._layout[name][1] if split else "data"
+                if any(i for a, i in c.items() if a not in ("data", cut)):
                     continue
                 box = (self._rank_box(name, r, zero=False, logical=False)
                        if param else [[0, n] for n in d[k].shape])

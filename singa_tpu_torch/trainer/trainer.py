@@ -11,10 +11,11 @@ device (one rank on one device by default; ``mesh=`` or a cluster with
 one forward over the float32 master params cast to the compute dtype
 (so autograd returns float32 grads) and ``backward`` on its contiguous
 slice of the batch, and divides its grads by the width n. A net with
-buffers (kBatchNorm) on more than one rank runs the ranks in lockstep
-instead (``Net.forward_ranks``: each layer for every rank before the
-next, BatchNorm's moments and its backward's sums taken over all
-ranks, the JAX package's BatchNorm over the global batch) and one
+buffers (kBatchNorm) or with kMoE on more than one rank runs the ranks
+in lockstep instead (``_lockstep``; ``Net.forward_ranks``: each layer
+for every rank before the next, BatchNorm's moments and its backward's
+sums taken over all ranks, kMoE routing every rank's tokens at once:
+the JAX package's BatchNorm and routing over the global batch) and one
 backward over the ranks' losses, each divided by n. Then one of three
 reductions:
 
@@ -120,13 +121,16 @@ The other mesh axes (``parallel/mesh.py``: pipe, expert, seq and model,
 from the cluster's ``nprocs_per_group`` split, on one process) run every
 rank in lockstep (``_step_axes``): one walk of the net over all ranks
 (``Net.forward_ranks`` with lanes), where ring attention, kMoE's
-expert forms, kLayerPartition's Slice/Concate and the GPipe stages read
-the other ranks' tensors, then one backward over the ranks' losses,
+routing groups, kLayerPartition's Slice/Concate, BatchNorm's moments
+over the data ranks and the GPipe stages read the other ranks'
+tensors, then one backward over the ranks' losses,
 each divided by the rank count, so that their sum is the global batch's
 loss whatever work the ranks repeat. A piece of a param (the whole of a
 replicated one, one shard of a split one) takes the sum, in rank order,
 of the gradients of every rank that holds it, and the update runs on
-that piece. kLayerPartition's indivisible dims are stored padded
+that piece (through the ``grad_comm`` seam on each param's logical
+gradient, ``_axes_seam``). kLayerPartition's indivisible dims are
+stored padded
 (``parallel/shardings.py``): ``params`` and ``state`` hold the stored
 arrays, an npz save the logical ones. q8_hier's named axes (``ring {
 intra_axis / inter_axis }``) reduce over the product of two axes whose
@@ -153,11 +157,12 @@ side stream, written by the context's writer thread. A fault plan makes
 every step a chunk of one; a ``nanloss`` step runs eager on its
 poisoned, directly fed batch.
 
-On a data x model mesh ``zero_update`` shards each model piece's
-update over the data axis (``parallel/shardings.py``'s
-``zero_update_shardings``: the JAX layout), and a sharded save writes
-each piece as its box, the padded tail cut off, zero's data chunks
-inside it; ``_restore_sharded`` places any saved layout onto any mesh.
+On any of these meshes ``zero_update`` shards each piece's update over
+the data axis (``parallel/shardings.py``'s ``zero_update_shardings``:
+the JAX layout), and a sharded save writes each piece as its box, the
+padded tail cut off, zero's data chunks inside it, from the ranks at
+index 0 on every axis that does not cut the box; ``_restore_sharded``
+places any saved layout onto any mesh.
 Whole model groups may sit in separate processes (``parallel/mesh.py``):
 the gradient sums of each piece, the zero shards and the saves then
 cross processes through ``Mesh.gather``, summed in rank order.
@@ -165,11 +170,11 @@ cross processes through ``Mesh.gather``, summed in rank order.
 What the port leaves out, and refuses with a ConfigError that names
 it rather than ignoring: ``fleet`` (``main`` dispatches it to the
 serving host); the int8 ring with a net with buffers; across
-processes a seq, expert or pipe axis, or a model group that spans
-processes; on a mesh with more axes than data: two of the seq, expert
-and pipe axes together (or with a model axis, but pipe with model),
-``zero_update`` and sharded saves beside a seq, expert or pipe axis,
-``grad_comm``, and a net with buffers. ``kernels {
+processes a seq, expert or pipe axis, a model group that spans
+processes, kMoE on a data axis that spans processes and a net with
+buffers on an axes mesh over processes; pipe beside seq or expert (the
+JAX package cannot run either: ``JAX_REFUSES``), or pipe with more than
+the model axis. ``kernels {
 paged_attention }`` is the serving engine's knob and trains unchanged,
 as in the JAX package. A cluster's ``nservers`` is ignored here, as the
 JAX Trainer ignores it; on an asynchronous cluster ``make_trainer``
@@ -268,14 +273,27 @@ def _refuse(missing: list[str]) -> None:
 
 
 #: the inner-axis combinations the lockstep step runs (any with the data
-#: axis): one of seq, expert, model or pipe, or pipe with model
-AXIS_SETS = ({"seq"}, {"expert"}, {"model"}, {"pipe"}, {"pipe", "model"})
-#: the axes beside which zero_update and sharded saves are not ported
-UNZEROED_AXES = {"seq", "expert", "pipe"}
+#: axis): each of seq, expert, model and pipe alone, pipe with model, and
+#: any of seq, expert and model together
+AXIS_SETS = ({"seq"}, {"expert"}, {"model"}, {"pipe"}, {"pipe", "model"},
+             {"seq", "expert"}, {"seq", "model"}, {"expert", "model"},
+             {"seq", "expert", "model"})
+#: the axis pairs the JAX package cannot run either, with its reason
+JAX_REFUSES = {
+    frozenset({"seq", "pipe"}): (
+        "the JAX package cannot run it either: ring attention's shard_map "
+        "inside the staged pipeline raises \"ValueError: The context mesh "
+        "... should match the mesh passed to shard_map\""),
+    frozenset({"expert", "pipe"}): (
+        "the JAX package cannot run it either: its pipeline refuses a "
+        "staged kMoE (\"its auxiliary loss has no path out of the pipeline "
+        "region\"), so an expert axis beside pipe has no layer to split"),
+}
 #: the layer types a seq axis runs: each is position-wise or has its
-#: seq form (kEmbedding's positions, ring attention, kLMLoss's shift)
+#: seq form (kEmbedding's positions, ring attention, kLMLoss's shift,
+#: kMoE's routing over the gathered sequence)
 SEQ_LAYERS = {"kSequenceData", "kEmbedding", "kLayerNorm", "kAttention",
-              "kDense", "kAdd", "kLMLoss"}
+              "kDense", "kAdd", "kLMLoss", "kMoE"}
 
 
 class Trainer:
@@ -415,6 +433,10 @@ class Trainer:
         self._pad: dict[str, tuple] = {}
         if mesh.has_axes:
             self._setup_axes()
+        elif mesh.width > 1:
+            # kMoE routes the walk's tokens together (``crosses``)
+            for n in self._nets():
+                n.bind_mesh(mesh)
 
         # --- gradient collectives (grad_comm + kernels.grad_allreduce) ---
         #: the ring's chunk dim per param (the zero dim of a zero-sharded
@@ -435,6 +457,17 @@ class Trainer:
                 f"({self.train_net.batchsize}): each rank takes a "
                 "contiguous slice of it"
             )
+
+        if (mesh.nprocs > 1 and self._splits_batch
+                and self._ring_chunk_dims is None):
+            for layer in self.train_net.layers:
+                if layer.crosses() and layer.TYPE == "kMoE":
+                    raise ConfigError(
+                        f"layer {layer.name!r} (kMoE) on a data axis that "
+                        f"spans {mesh.nprocs} processes: the JAX program "
+                        "routes the global batch's tokens together, and "
+                        "singa_tpu_torch gathers them on one process only"
+                    )
 
         #: the graph state of the train step and of each eval net
         #: (built at first use; see _graph)
@@ -559,26 +592,19 @@ class Trainer:
         if axes not in self._axis_sets:
             runs = " or ".join(" with ".join(sorted(s))
                                for s in self._axis_sets)
+            why = next((w for pair, w in JAX_REFUSES.items()
+                        if pair <= axes),
+                       "it runs " + (f"{runs} beside the data axis" if runs
+                                     else "the data axis only"))
             raise ConfigError(
-                f"{type(self).__name__} on the {named} mesh axes: it runs "
-                + (f"{runs} beside the data axis" if runs
-                   else "the data axis only")
+                f"{type(self).__name__} on the {named} mesh axes: {why}")
+        if mesh.nprocs > 1 and net.buffer_specs():
+            # the data ranks of one model index span processes
+            raise ConfigError(
+                f"a net with buffers on the {named} mesh axes across "
+                f"{mesh.nprocs} processes is not ported to "
+                "singa_tpu_torch yet"
             )
-        beside = bool(axes & UNZEROED_AXES)
-        for knob, on in (("zero_update", cfg.zero_update and beside),
-                         # the rings refuse a composed mesh themselves,
-                         # with the JAX Trainer's messages
-                         ("grad_comm", self._comm is not None
-                          and not self._comm.ring),
-                         ('checkpoint_format: "sharded"',
-                          cfg.checkpoint_format == "sharded" and beside),
-                         ("a net with buffers",
-                          bool(net.buffer_specs()))):
-            if on:
-                raise ConfigError(
-                    f"{knob} on the {named} mesh axes is not ported to "
-                    "singa_tpu_torch yet"
-                )
         if "seq" in axes:
             for layer in net.layers:
                 if layer.TYPE not in SEQ_LAYERS:
@@ -592,11 +618,11 @@ class Trainer:
         self._layout = param_shardings(mesh, net)
         self._pad = param_paddings(mesh, net)
         for layer in net.layers:
-            if layer.model_split() and not layer.crosses():
+            if layer.model_split() and not layer.crosses() and not (
+                    layer.has_buffers and self._splits_batch):
                 raise ConfigError(
                     f"layer {layer.name!r} ({layer.TYPE}): kLayerPartition "
-                    "on the model axis runs kDense, kInnerProduct and "
-                    "kAttention in singa_tpu_torch"
+                    f"on the model axis does not run in {type(self).__name__}"
                 )
         logical = {nm: self.specs[nm].shape for nm in self._pad}
         for n in self._nets():
@@ -686,12 +712,16 @@ class Trainer:
                    .detach().requires_grad_(True) for nm in names}
                   for r in ranks]
         shardings = batch_shardings(mesh, self.train_net)
-        losses, metrics, _ = self.train_net.forward_ranks(
+        losses, metrics, updates = self.train_net.forward_ranks(
             [self._cast_compute(lv) for lv in leaves],
             [self._cast_compute(self._axes_batch(batch, r, shardings))
              for r in ranks],
-            generators=[fold_in(step_gen, r) for r in ranks],
-            buffers=self.buffers, lanes=Lanes(mesh, tuple(ranks)))
+            # the ranks that hold the same rows draw alike (a crop, a
+            # mirror, a dropout mask): the key is the data index, the
+            # rank itself on a data-only mesh
+            generators=[fold_in(step_gen, mesh.coords(r)["data"])
+                        for r in ranks],
+            buffers=self.buffers, sync=mesh, lanes=Lanes(mesh, tuple(ranks)))
         torch.autograd.backward([loss / n for loss in losses])
         keys = [(layer, k) for layer, ms in metrics[0].items() for k in ms]
         every = mesh.gather([
@@ -703,6 +733,9 @@ class Trainer:
             for lv, m, loss in zip(leaves, metrics, losses)], self.device)
         grads = self._axes_reduce(
             range(n), [{nm: e["g", nm] for nm in names} for e in every])
+        res = {}
+        if self._comm is not None:
+            grads, res = self._axes_seam(grads)
         out: dict = {}
         for layer, k in keys:
             out.setdefault(layer, {})[k] = rank_sum(
@@ -712,6 +745,7 @@ class Trainer:
             ok, grads = guard_grads(
                 self._guard_buffers(), rank_sum(e["loss"] for e in every),
                 grads)
+        self._store_buffers({**updates, **res}, ok)
         self._axes_update(step, grads, ok)
         if ok is not None:
             out = guard_finish(ok, self._guard_buffers(), out)
@@ -732,6 +766,23 @@ class Trainer:
                 if self._piece_of(r, nm) == i)
                 for i in range(pieces)]
         return out
+
+    def _axes_seam(self, grads: dict) -> tuple[dict, dict]:
+        """The ``grad_comm`` reference seam on the lockstep step's summed
+        pieces: each param's pieces joined into its logical gradient (the
+        global array the JAX seam quantizes, bucket by bucket), through
+        ``reduce_gradients``, and cut back into pieces -> (pieces, the
+        residual-buffer updates)."""
+        whole = {}
+        for nm, pieces in grads.items():
+            lay = self._layout.get(nm)
+            g = pieces[0] if lay is None else torch.cat(pieces, lay[0])
+            whole[nm] = self._unpad_one(nm, g)
+        whole, res = reduce_gradients(whole, self.buffers, self._comm,
+                                      self._buckets(list(whole)))
+        return {nm: [self._piece(nm, self._pad_one(nm, whole[nm]), i)
+                     for i in range(len(pieces))]
+                for nm, pieces in grads.items()}, res
 
     def _axes_update(self, step, grads: dict, ok=None) -> None:
         """The update of every piece on every device's stored arrays, in
@@ -814,7 +865,7 @@ class Trainer:
         return [n for n, d in self._zero_dims.items() if d is not None]
 
     def _zero_chunk(self, name: str, piece, r: int):
-        """Rank r's zero chunk of its model piece of param ``name`` (or
+        """Rank r's zero chunk of its piece of param ``name`` (or
         of a slot, or of a gradient): slice i of the zero dim, i its data
         index (a view)."""
         return piece.chunk(self.mesh.widths["data"],
@@ -829,7 +880,7 @@ class Trainer:
     def _rank_box(self, name: str, r: int, *, zero: bool,
                   logical: bool) -> list:
         """Rank r's box of param ``name`` (or of its slots), [start,
-        stop] per dim of the stored array: its model piece along the
+        stop] per dim of the stored array: its piece along the
         split dim, with ``zero`` its data chunk of that along the zero
         dim; ``logical`` clips it to the logical shape (a save's box)."""
         box = [[0, d] for d in self._stored_shape(name)]
@@ -853,16 +904,20 @@ class Trainer:
         slots: ``whole`` (the stored array) when it is neither split nor
         zero-sharded, else this process's ranks' boxes, rank r's
         ``part_of(r)`` cut to its logical box. A box that several ranks
-        hold is written by one (data index 0 for a model piece, model
-        index 0 for a replicated param's zero chunk), as the JAX package
-        writes replica 0 only."""
+        hold is written by one, the rank at index 0 on every axis that
+        does not cut it (the split axis, and data for a zero chunk), as
+        the JAX package writes replica 0 only."""
         lay = self._layout.get(name)
         if lay is None and not zero:
             return whole
         mesh = self.mesh
+        # the axes that cut the box; index 0 on every other one writes it
+        cuts = {lay[1]} if lay is not None else set()
+        if zero:
+            cuts.add("data")
         ranks = tuple(r for r in mesh.local_ranks
-                      if (zero or mesh.coords(r)["data"] == 0)
-                      and (lay is not None or mesh.coords(r)["model"] == 0))
+                      if all(i == 0 for a, i in mesh.coords(r).items()
+                             if a not in cuts))
         return RankBoxes(
             tuple(part_of(r) for r in ranks),
             tuple(self._rank_box(name, r, zero=zero, logical=True)
@@ -1113,13 +1168,14 @@ class Trainer:
                   for r in mesh.local_ranks]
         if mesh.has_axes:
             return self._step_axes(step, batch)
-        if n > 1 and self.train_net.buffer_specs():
+        if self._lockstep():
             losses, metrics, updates = self.train_net.forward_ranks(
                 [self._cast_compute(lv) for lv in leaves],
                 [self._cast_compute(self._rank_batch(batch, r))
                  for r in mesh.local_ranks],
                 generators=[fold_in(step_gen, r) for r in mesh.local_ranks],
-                buffers=self.buffers, sync=mesh)
+                buffers=self.buffers, sync=mesh,
+                lanes=Lanes(mesh, tuple(mesh.local_ranks)))
             # each rank's loss is its local batch mean: / n makes the sum
             # over ranks the global mean, whose gradient every rank's
             # leaves take their share of through the synchronised
@@ -1155,6 +1211,15 @@ class Trainer:
                     m = {**m, _GUARD_METRIC: {"loss": loss.detach().float()}}
                 metrics.append(m)
         return self._reduce_and_update(step, grads, metrics, updates)
+
+    def _lockstep(self) -> bool:
+        """Whether a data-only mesh's step walks its ranks in lockstep: a
+        net with buffers (synchronised BatchNorm) or a layer that takes
+        every rank's input at once (kMoE's global routing) on more than
+        one rank; the rings' per-shard step never does."""
+        return self.mesh.width > 1 and self._ring_chunk_dims is None and (
+            bool(self.train_net.buffer_specs())
+            or any(layer.crosses() for layer in self.train_net.layers))
 
     def _reduce_and_update(self, step, grads: list, metrics: list,
                            updates: dict | None = None) -> dict:

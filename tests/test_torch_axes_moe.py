@@ -6,9 +6,9 @@ all-to-all forms, kMoE's ``apply_ranks``) against the JAX package.
 outputs, aux and gradients within 1e-5; the all-to-all form with ample
 capacity and with queues that overflow (capacity per source rank and
 expert, as in the JAX form). Through the Trainer, 4 steps within 1e-4:
-the psum form on data 2 x expert 4 against the port's data-2 dense run
-(the JAX Trainer's composed dp x ep psum run is an xfail on this image,
-tests/test_parallel_conf.py), and both forms on expert 4 against the
+the psum form on data 2 x expert 4 against the JAX Trainer's psum run
+on data 2 x expert 2 (the same token sets: each data shard with its
+whole sequence), and both forms on expert 4 against the
 JAX Trainer's single-device dense run. A planted fault (each expert
 rank computing the next rank's experts) must move the losses past the
 bar.
@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from singa_tpu.parallel import build_full_mesh
 from singa_tpu.parallel import moe as jm
 from singa_tpu_torch.parallel import moe as tm
 from test_torch_axes_seq import (
@@ -86,15 +87,20 @@ def moe_ref(shard):
     return jax_run(lm_text(shard, moe="psum"))
 
 
-def test_psum_form_on_data2_expert4_matches_the_data2_dense_run(shard,
-                                                                 moe_ref):
-    _, params = moe_ref
-    text = lm_text(shard, moe="psum")
-    dense = losses_of(port_trainer(text, cluster(DP2), params), 4)
+def test_psum_form_on_data2_expert4_matches_the_data2_dense_run(shard):
+    """The psum form routes each data shard with its whole sequence
+    (the JAX ``moe_ffn``'s ``P(data, None, None)``), whatever the expert
+    width: the JAX Trainer's psum run on data 2 x expert 2 routes the
+    same token sets, at a capacity factor of 1 where queues overflow.
+    (The port's data-2 dense run routes the global batch, as the JAX
+    dense path does.)"""
+    text = lm_text(shard, moe="psum", cf=1.0)
+    jl, params = jax_run(text, mesh=build_full_mesh(
+        {"data": 2, "expert": 2}, jax.devices()[:4]))
     tr = port_trainer(text, cluster(EP), params)
     assert tr._layout["moe/up"] == (0, "expert")
     assert tr._layout["moe/gate"] is None
-    close(losses_of(tr, 4), dense, LOSS_TOL)
+    close(losses_of(tr, 4), jl, LOSS_TOL)
 
 
 @pytest.mark.parametrize("dispatch", ["psum", "alltoall"])

@@ -28,7 +28,7 @@ from singa_tpu_torch.data import loader as t_loader
 from singa_tpu_torch.graph.builder import build_net as t_build_net
 from singa_tpu_torch.layers import registered_types
 from singa_tpu_torch.parallel import build_mesh
-from singa_tpu_torch.trainer import Trainer
+from singa_tpu_torch.trainer import ReplicaTrainer, Trainer
 from singa_tpu_torch.utils.rng import fold_in
 
 ACT = dict(atol=2e-5, rtol=1e-5)
@@ -114,8 +114,10 @@ def test_not_ported_is_exactly_the_rest():
 def test_unported_type_and_partitioning_still_raise(shards):
     """An unknown type raises by name. A partition_type builds with the
     reference's partition_dim (kDataPartition splits nothing but the
-    batch), and kLayerPartition on a model axis raises, naming the layer,
-    for a type whose Slice/Concate the port does not run (a conv)."""
+    batch). kLayerPartition on a model axis splits a conv's filters and
+    trains (tests/test_torch_axes_layers.py holds it to the JAX
+    package); it raises, naming the layer, where the engine has no split
+    form for the type (kBatchNorm in the replica engine's lanes)."""
     with pytest.raises(ConfigError, match="unknown layer type 'kBogus'"):
         t_build_net(t_parse(net_text(shards["mnist"], '''
   layer { name: "bogus" type: "kBogus" srclayers: "data" }''')))
@@ -131,12 +133,24 @@ def test_unported_type_and_partitioning_still_raise(shards):
           convolution_param { num_filters: 2 kernel: 3 } }
   layer { name: "fc" type: "kInnerProduct" srclayers: "conv"
           inner_product_param { num_output: 10 } }
+  layer { name: "label" type: "kLabel" srclayers: "data" }
   layer { name: "loss" type: "kSoftmaxLoss" srclayers: "fc"
-          srclayers: "data" }''')
-    with pytest.raises(ConfigError, match="'conv' \\(kConvolution\\): "
+          srclayers: "label" }''')
+    tr = Trainer(t_parse(text), mesh=build_mesh(1, 2, ["cpu"] * 2),
+                 log=lambda s: None)
+    assert tr._layout["conv/weight"] == (0, "model")
+    tr.train_one_batch(0)
+    assert np.isfinite(tr.perf.avg()["loss"]["loss"])
+    bn = text.replace('base_learning_rate: 0.1',
+                      'base_learning_rate: 0.1 param_type: "Elastic"').replace(
+        'layer { name: "fc" type: "kInnerProduct" srclayers: "conv"',
+        'layer { name: "bn" type: "kBatchNorm" srclayers: "conv"\n'
+        '          partition_type: kLayerPartition }\n'
+        '  layer { name: "fc" type: "kInnerProduct" srclayers: "bn"')
+    with pytest.raises(ConfigError, match="'bn' \\(kBatchNorm\\): "
                        "kLayerPartition"):
-        Trainer(t_parse(text), mesh=build_mesh(1, 2, ["cpu"] * 2),
-                log=lambda s: None)
+        ReplicaTrainer(t_parse(bn), mesh=build_mesh(1, 2, ["cpu"] * 2),
+                       log=lambda s: None)
 
 
 # ---------------------------------------------------------------------------

@@ -484,12 +484,16 @@ def test_unported_layer_type_is_refused_by_name(shard):
     assert net.name2layer["ln_f"].partition_type == "kDataPartition"
     cl = t_cluster('workspace: "ws" nworkers: 2 nprocs_per_group: 2 '
                    'nseq_per_group: 2')
+    moe = txt.replace('layer { name: "ln_f" type: "kMoE"',
+                      'layer { name: "ln_f" type: "kMoE" moe_param { '
+                      'num_experts: 2 d_ff: 8 }')
+    # kMoE routes the gathered sequence on a seq axis since it joined
+    # SEQ_LAYERS; a type outside the list is still refused by name
+    assert t_trainer(t_parse(moe), cl).mesh_shape["seq"] == 2
     with pytest.raises(ConfigError,
-                       match="'ln_f' \\(kMoE\\) on the seq axis"):
-        t_trainer(t_parse(txt.replace(
-            'layer { name: "ln_f" type: "kMoE"',
-            'layer { name: "ln_f" type: "kMoE" moe_param { num_experts: 2 '
-            'd_ff: 8 }')), cl)
+                       match="'ln_f' \\(kDropout\\) on the seq axis"):
+        t_trainer(t_parse(txt.replace('type: "kMoE"', 'type: "kDropout"')),
+                  cl)
 
 
 @pytest.mark.parametrize("extra,cluster,knob", [
