@@ -7082,6 +7082,32 @@ MODEL_TIMED = 5
 MODEL_LM_STEPS = 10
 MODEL_LM_SHARD = (128, 256)
 MODEL_ZERO_STEPS = 4
+#: procs_span: processes of one rank each, every model group of
+#: MODEL_RANKS over MODEL_RANKS of them
+SPAN_PROCS = 4
+#: the steps a child's ``steps_s`` covers: the display line at step 0
+#: resets the timers, so the steps after the first (whose time holds
+#: the first exchanges' set-up); the layer exchange seconds cover all
+SPAN_TIMED_STEPS = MODEL_ZERO_STEPS - 1
+#: a procs_span child: ``main`` with every exchange's backward keeping
+#: this process's consumers' gradients only (the remote consumers'
+#: dropped), patched in from outside the port before ``main`` runs
+SPAN_FAULT_MAIN = """
+import functools, sys
+import torch
+from singa_tpu_torch.parallel import axes
+
+def local_only(ctx, *grads):
+    plan = ctx.plan
+    mine = torch.stack(grads)
+    return (None, *(functools.reduce(torch.add, (
+        mine[c, plan.first + k] for c in range(mine.shape[0])))
+        for k in range(plan.local)))
+
+axes.GroupExchange.backward = staticmethod(local_only)
+from singa_tpu_torch.main import main
+sys.exit(main(sys.argv[1:]))
+"""
 
 
 def model_serve(dev, smi, cfg, params) -> dict:
@@ -7425,42 +7451,70 @@ def model_zero(dev, smi, tmp) -> dict:
     return out
 
 
-def model_procs(dev, smi, tmp) -> dict:
-    """procs_tp: the zero_tp conf (MODEL_ZERO_STEPS steps) as 2 processes
-    of one model group (2 ranks) each through ``python -m
-    singa_tpu_torch.main -procsID k -hostfile hf`` (gloo, this card)
-    against one process of 4 ranks: every digest equal."""
-    from singa_tpu_torch.config import load_cluster_config
-
-    shard = model_lm_shard(tmp)
+def model_procs_conf(tmp) -> str:
+    """The zero_tp conf (tinylm.conf, bf16, kLayerPartition, zero_update,
+    MODEL_ZERO_STEPS steps) -> its path."""
     conf = os.path.join(tmp, "model_procs.conf")
-    txt = tinylm_conf_text(shard, 'zero_update: true\n').replace(
-        "train_steps: 2000", f"train_steps: {MODEL_ZERO_STEPS}").replace(
-        "neuralnet {", 'neuralnet {\n  partition_type: "kLayerPartition"')
+    txt = tinylm_conf_text(model_lm_shard(tmp), 'zero_update: true\n') \
+        .replace("train_steps: 2000", f"train_steps: {MODEL_ZERO_STEPS}") \
+        .replace("neuralnet {",
+                 'neuralnet {\n  partition_type: "kLayerPartition"')
     with open(conf, "w") as f:
         f.write(txt)
-    cluster = os.path.join(tmp, "model_procs_cluster.conf")
+    return conf
+
+
+def model_cli(dev, tmp, conf, nprocs, name,
+              child=("-m", "singa_tpu_torch.main")):
+    """``conf`` on data 2 x model MODEL_RANKS as ``nprocs`` processes
+    through ``main`` (or the Python ``child`` arguments that end in it;
+    gloo, this card), flash forced -> (their reports, seconds)."""
+    cluster = os.path.join(tmp, f"{name}_cluster.conf")
     with open(cluster, "w") as f:
         f.write(f"nworkers: 4\nnprocs_per_group: {MODEL_RANKS}\n"
-                f'workspace: "{tmp}/ws_model_procs"\n')
-    cmd = [sys.executable, "-m", "singa_tpu_torch.main", "-model_conf",
-           conf, "-cluster_conf", cluster, "-hostfile",
-           write_hostfile(os.path.join(tmp, "model_procs_hf"))]
+                f'workspace: "{tmp}/ws_{name}"\n')
+    cmd = [sys.executable, *child, "-model_conf", conf, "-cluster_conf",
+           cluster, "-hostfile",
+           write_hostfile(os.path.join(tmp, f"{name}_hf"), nprocs)]
     if dev.type != "cuda":
         cmd += ["-device", str(dev)]
-    t0 = time.perf_counter()
-    reps = [child_report(o, "TRAIN PROCESS: ") for o in run_children(
-        [cmd + ["-procsID", str(k)] for k in range(2)], tmp, "model_procs")]
-    procs_s = time.perf_counter() - t0
+    os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "0"
+    try:
+        t0 = time.perf_counter()
+        reps = [child_report(o, "TRAIN PROCESS: ") for o in run_children(
+            [cmd + ["-procsID", str(k)] for k in range(nprocs)], tmp, name)]
+    finally:
+        os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "512"
+    return reps, time.perf_counter() - t0
+
+
+def model_procs(dev, smi, tmp) -> dict:
+    """procs_tp: the zero_tp conf (``model_procs_conf``, flash forced)
+    as 2 processes of one model group (2 ranks) each through ``python -m
+    singa_tpu_torch.main -procsID k -hostfile hf`` (gloo, this card)
+    against one process of 4 ranks: every digest equal. -> the record,
+    with the conf, the one-process digest and its attention layers for
+    procs_span."""
     import warnings
 
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        one = Trainer(load_model_config(conf), load_cluster_config(cluster),
-                      mesh=build_mesh(2, MODEL_RANKS, [dev] * 4), seed=0,
-                      log=lambda s: None)
-    one.run()
+    from singa_tpu_torch.config import parse_cluster_config
+
+    conf = model_procs_conf(tmp)
+    reps, procs_s = model_cli(dev, tmp, conf, 2, "model_procs")
+    os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "0"
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            one = Trainer(load_model_config(conf), parse_cluster_config(
+                f"nworkers: 4\nnprocs_per_group: {MODEL_RANKS}\n"
+                f'workspace: "{tmp}/ws_model_one"\n'),
+                mesh=build_mesh(2, MODEL_RANKS, [dev] * 4), seed=0,
+                log=lambda s: None)
+        one.run()
+    finally:
+        os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "512"
     digest = one.digest()
+    layers = sum(l.TYPE == "kAttention" for l in one.train_net.layers)
     for k, r in enumerate(reps):
         check((r["proc"], r["nprocs"], r["backend"]) == (k, 2, "gloo")
               and r["ranks"] == [2 * k, 2 * k + 1]
@@ -7478,15 +7532,117 @@ def model_procs(dev, smi, tmp) -> dict:
     print("model procs", json.dumps(out))
     del one
     release()
+    return {**out, "conf": conf, "digest": digest, "layers": layers}
+
+
+def model_span(dev, smi, tmp, procs) -> dict:
+    """procs_span: procs_tp's job (``procs``: model_procs's record) as
+    SPAN_PROCS processes of one rank each through ``main`` (gloo, this
+    card), flash forced: each model group spans MODEL_RANKS processes,
+    its layers' Concate and partial sums cross them inside the step.
+    Every process on the card with its rank and its digest procs_tp's
+    one-process 4-rank digest; its flash launches exactly the
+    prediction, attention layers x steps of each bf16 kernel (a process
+    attends its group's gathered heads once a layer and step); its
+    layer exchange ms a step. Then the planted fault, every process's
+    exchange backward keeping its own consumers' gradients only
+    (SPAN_FAULT_MAIN), must change every digest. -> the record."""
+    reps, span_s = model_cli(dev, tmp, procs["conf"], SPAN_PROCS,
+                             "model_span")
+    faulty, fault_s = model_cli(dev, tmp, procs["conf"], SPAN_PROCS,
+                                "model_span_fault",
+                                child=("-c", SPAN_FAULT_MAIN))
+    want = flash_launches(torch.bfloat16, procs["layers"] * MODEL_ZERO_STEPS)
+    want = {n: want[n] for n in reps[0]["flash_launches"]}
+    for k, r in enumerate(reps):
+        check((r["proc"], r["nprocs"], r["backend"]) == (k, SPAN_PROCS,
+                                                        "gloo")
+              and r["ranks"] == [k] and r["device"].startswith(dev.type)
+              and r["steps"] == MODEL_ZERO_STEPS,
+              f"model span: process {k}: {r}")
+        check(r["digest"] == procs["digest"],
+              f"model span: process {k}'s digest != one process's")
+    out = {"processes": SPAN_PROCS, "ranks_a_process": 1,
+           "steps": MODEL_ZERO_STEPS, "span_s": span_s,
+           "flash_launches": [r["flash_launches"] for r in reps],
+           "predicted": want,
+           "layer_exchange_ms_per_step": [
+               r["layer_exchange_s"] * 1e3 / MODEL_ZERO_STEPS for r in reps],
+           "exchange_ms_per_step": [r["exchange_s"] * 1e3 / MODEL_ZERO_STEPS
+                                    for r in reps],
+           "steps_ms_per_step": [r["steps_s"] * 1e3 / SPAN_TIMED_STEPS
+                                 for r in reps],
+           "digest_equal": all(r["digest"] == procs["digest"]
+                               for r in reps),
+           "fault_digests_differ": all(r["digest"] != procs["digest"]
+                                       for r in faulty),
+           "fault_s": fault_s, "card": smi}
+    print("model span", json.dumps(out))
+    for k, r in enumerate(reps):
+        check(r["flash_launches"] == want,
+              f"model span: process {k}: flash launches "
+              f"{r['flash_launches']} != {want}")
+    check(out["fault_digests_differ"],
+          "model span: dropping the remote consumers' gradients kept the "
+          "digest")
+    return out
+
+
+def span_turns(dev, smi, tmp) -> dict:
+    """procs_tp (2 processes of a whole model group each) and procs_span
+    (4 processes of one rank each) in turns: tp, span, span, tp; each
+    process's step ms (its data and train phases over SPAN_TIMED_STEPS)
+    and layer exchange ms a step (over all MODEL_ZERO_STEPS). And the attention a spanning group
+    repeats: a process attends its whole group's heads, so a group of
+    MODEL_RANKS processes attends them MODEL_RANKS times where procs_tp
+    attends them once; one flash forward and backward at the group's
+    shapes (the LM's batch over the data axis, its 4 heads of 64, S 256,
+    bf16) times the attention layers is that work a step and process.
+    Not part of ``main`` (about two minutes). -> the record."""
+    conf = model_procs_conf(tmp)
+    runs = []
+    for k, (n, name) in enumerate(((2, "tp"), (SPAN_PROCS, "span"),
+                                   (SPAN_PROCS, "span"), (2, "tp"))):
+        reps, secs = model_cli(dev, tmp, conf, n, f"turn{k}_{name}")
+        runs.append({"path": name, "seconds": secs,
+                     "step_ms": [r["steps_s"] * 1e3 / SPAN_TIMED_STEPS
+                                 for r in reps],
+                     "layer_exchange_ms": [
+                         r["layer_exchange_s"] * 1e3 / MODEL_ZERO_STEPS
+                         for r in reps],
+                     "exchange_ms": [r["exchange_s"] * 1e3 / MODEL_ZERO_STEPS
+                                     for r in reps]})
+    cfg = load_model_config(conf)
+    layers = sum(l.type == "kAttention" for l in cfg.neuralnet.layer)
+    batch = next(l.data_param.batchsize for l in cfg.neuralnet.layer
+                 if l.type == "kSequenceData")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shape = (batch // 2, 4, MODEL_LM_SHARD[1], 64)
+    q, k_, v = (torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.bfloat16).requires_grad_(True)
+                for _ in range(3))
+    do = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device=dev)
+    os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "0"
+    try:
+        ms = time_ms(lambda: torch.autograd.grad(
+            ta.auto_attention(q, k_, v, causal=True, n_devices=1),
+            (q, k_, v), do), flush)
+    finally:
+        os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "512"
+    out = {"runs": runs, "attention_fwd_bwd_ms": ms, "layers": layers,
+           "repeated_attention_ms_per_step": ms * layers, "card": smi}
+    print("span turns", json.dumps(out))
     return out
 
 
 def model_phase(dev, smi, cfg, params, tmp) -> dict:
     """Phase 22: the model axis wherever the JAX package composes it
-    (serve_tp, replica_tp, zero_tp, procs_tp). -> {"paged", "overlay":
-    the mesh serve run's paged and overlay launches, "flash": the
-    replica LM's flash launches by kernel, "quant_acc": the replica
-    runs', "seconds": the phase's}."""
+    (serve_tp, replica_tp, zero_tp, procs_tp) and a model group that
+    spans processes (procs_span). -> {"paged", "overlay": the mesh serve
+    run's paged and overlay launches, "flash": the replica LM's flash
+    launches by kernel, "span": each procs_span process's, "quant_acc":
+    the replica runs', "seconds": the phase's}."""
     import gc
 
     t0 = time.perf_counter()
@@ -7504,7 +7660,7 @@ def model_phase(dev, smi, cfg, params, tmp) -> dict:
             shards = replica_shards(tmp)
         reps = model_replica(dev, smi, shards, tmp)
         model_zero(dev, smi, tmp)
-        model_procs(dev, smi, tmp)
+        span = model_span(dev, smi, tmp, model_procs(dev, smi, tmp))
     finally:
         gc.unfreeze()
     seconds = time.perf_counter() - t0
@@ -7512,6 +7668,7 @@ def model_phase(dev, smi, cfg, params, tmp) -> dict:
     return {"paged": served["mesh_paged_launches"],
             "overlay": served["mesh_overlay_launches"],
             "flash": reps["lm_launches"],
+            "span": span["flash_launches"],
             "quant_acc": (reps["mlp_quant_acc_launches"]
                           + reps["lm_launches"]["quant_acc"]),
             "seconds": seconds}
@@ -7684,6 +7841,10 @@ def main() -> int:
             if dtype == torch.bfloat16 or name not in FLASH_ROUTES[
                     torch.bfloat16]:
                 kernels[-1]["model_launches"] = model["flash"][name]
+            if dtype == torch.bfloat16:
+                # procs_span: each process's own (a spanning group)
+                kernels[-1]["span_launches"] = [
+                    got[name] for got in model["span"]]
     kernels.append({
         "name": "quant_acc", "route": "cuda", "source": RING_SOURCE,
         "replaces": RING_REPLACES, "launches": launches["quant_acc"],

@@ -65,17 +65,17 @@ class ConvolutionLayer(Layer):
 
     def apply_ranks(self, params, inputs, lanes, *, training):
         """kLayerPartition: each model rank convolves with its filters
-        (its weight and bias shards); the output channels are joined by
-        Concate in rank order and the pad cut off."""
+        (its weight and bias shards); every lane joins the group's
+        output channels by Concate in rank order (the parts through
+        ``Lanes.exchange``) and cuts the pad off."""
         from ..parallel.axes import concate
 
         outs = [None] * len(params)
         for g in lanes.groups("model"):
-            out = concate([self.apply(params[j], inputs[j],
-                                      training=training) for j in g],
-                          1)[:, :self.num_filters]
-            for j in g:
-                outs[j] = out
+            parts = lanes.exchange(g, [self.apply(
+                params[j], inputs[j], training=training) for j in g])
+            for j, whole in zip(g, parts):
+                outs[j] = concate(whole, 1)[:, :self.num_filters]
         return outs
 
 
@@ -118,16 +118,16 @@ class InnerProductLayer(Layer):
 
     def apply_ranks(self, params, inputs, lanes, *, training):
         """kLayerPartition: each model rank's weight and bias shards give
-        its columns of the output; Concate in rank order, pad cut off."""
+        its columns of the output; every lane joins the group's columns
+        by Concate in rank order (``Lanes.exchange``), pad cut off."""
         from ..parallel.axes import concate
 
         outs = [None] * len(params)
         for g in lanes.groups("model"):
-            out = concate([self.apply(params[j], inputs[j],
-                                      training=training) for j in g],
-                          -1)[..., :self.hdim]
-            for j in g:
-                outs[j] = out
+            parts = lanes.exchange(g, [self.apply(
+                params[j], inputs[j], training=training) for j in g])
+            for j, whole in zip(g, parts):
+                outs[j] = concate(whole, -1)[..., :self.hdim]
         return outs
 
 

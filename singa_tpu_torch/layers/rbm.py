@@ -114,13 +114,15 @@ class RBMLayer(Layer):
             for k, p in enumerate(ps)) + ps[0][self.vbname])
 
     def apply_ranks(self, params, inputs, lanes, *, training):
-        """Feature-extractor view over the model ranks' hidden units."""
+        """Feature-extractor view over the model ranks' hidden units:
+        each rank's units, every lane's Concate of the group's in rank
+        order (``Lanes.exchange``), the pad cut off."""
         outs = [None] * len(params)
         for g in lanes.groups("model"):
-            ps = [params[j] for j in g]
-            out = self._up_ranks(ps, self._flat(ps[0], inputs[g[0]][0]))
-            for j in g:
-                outs[j] = out
+            parts = lanes.exchange(g, [self.prop_up(params[j], inputs[j][0])
+                                       for j in g])
+            for j, whole in zip(g, parts):
+                outs[j] = concate(whole, -1)[:, :self.hdim]
         return outs
 
     def cd_grads_ranks(self, ps: list, v0, generator):

@@ -255,30 +255,37 @@ class AttentionLayer(Layer):
                 outs[j] = o.to(w[0].dtype) @ params[j][self.out]
         return outs
 
-    def _project_out(self, o, params, js):
+    def _project_out(self, o, params, js, lanes):
         """The model ranks ``js``' ``out`` shards (rows of the input dim)
-        on the attended heads o (B, S, D): partial outputs summed in rank
-        order."""
+        on the attended heads o (B, S, D): each rank's partial output,
+        and every lane's sum of the group's partials in rank order (the
+        partials through ``Lanes.exchange``)."""
         rows = params[js[0]][self.out].shape[0]
-        o = F.pad(o, (0, rows * len(js) - o.shape[-1]))
-        return rank_sum(
-            o[..., k * rows:(k + 1) * rows].to(params[j][self.out].dtype)
-            @ params[j][self.out] for k, j in enumerate(js))
+        o = F.pad(o, (0, rows * lanes.mesh.widths["model"] - o.shape[-1]))
+        parts = []
+        for j in js:
+            m = lanes.coords(j)["model"]
+            parts.append(o[..., m * rows:(m + 1) * rows].to(
+                params[j][self.out].dtype) @ params[j][self.out])
+        return [rank_sum(p) for p in lanes.exchange(js, parts)]
 
-    def _fused_qkv(self, params, inputs, js):
+    def _fused_qkv(self, params, inputs, js, lanes):
         """The model ranks ``js``' slices of the fused projection of
-        their (replicated) input, Concate in rank order, pad cut off."""
+        their (replicated) input, Concate in rank order, pad cut off:
+        once for this process (``Lanes.exchange``'s one consumer)."""
         d = inputs[js[0]][0].shape[-1]
         parts = [inputs[j][0].to(params[j][self.qkv].dtype)
                  @ params[j][self.qkv] for j in js]
-        return concate(parts, -1)[..., :3 * d]
+        whole, = lanes.exchange(js, parts, per_lane=False)
+        return concate(whole, -1)[..., :3 * d]
 
     def _model_ranks(self, params, inputs, lanes):
         """kLayerPartition: each seq shard's heads (the whole sequence
         off a seq axis) from its model ranks' ``qkv`` shards, the seq
         group's attention over them (``_attend_seq``; the heads of a
-        group meet on one device and attend there at once), each shard's
-        output from its model ranks' ``out`` shards."""
+        group meet on one device and attend there at once: once a
+        process when the group spans processes), each lane's output from
+        its model ranks' ``out`` shards."""
         outs = [None] * len(params)
         for g in lanes.groups("seq", "model"):
             by: dict[int, list] = {}
@@ -286,12 +293,12 @@ class AttentionLayer(Layer):
                 by.setdefault(lanes.coords(j)["seq"], []).append(j)
             shards = [by[s] for s in sorted(by)]
             os = self._attend_seq([self._heads(
-                self._fused_qkv(params, inputs, js)) for js in shards])
+                self._fused_qkv(params, inputs, js, lanes)) for js in shards])
             for js, o in zip(shards, os):
                 b, s, d = inputs[js[0]][0].shape
-                y = self._project_out(o.movedim(1, 2).reshape(b, s, d),
-                                      params, js)
-                for j in js:
+                ys = self._project_out(o.movedim(1, 2).reshape(b, s, d),
+                                       params, js, lanes)
+                for j, y in zip(js, ys):
                     outs[j] = y
         return outs
 
@@ -365,23 +372,23 @@ class DenseLayer(Layer):
     def apply_ranks(self, params, inputs, lanes, *, training):
         """kLayerPartition: each model rank computes its columns of the
         output from its weight shard and its slice of the (replicated)
-        bias; the slices are concatenated in rank order and the pad cut
-        off."""
+        bias; every lane concatenates the group's slices in rank order
+        (``Lanes.exchange``) and cuts the pad off."""
+        width = lanes.mesh.widths["model"]
         outs = [None] * len(params)
         for g in lanes.groups("model"):
             parts = []
-            for k, j in enumerate(g):
+            for j in g:
                 w = params[j][self.w]
                 part = inputs[j][0].to(w.dtype) @ w
                 if self.bias_term:
-                    m = w.shape[-1]
-                    bias = F.pad(params[j][self.b], (0, m * len(g)
+                    m, k = w.shape[-1], lanes.coords(j)["model"]
+                    bias = F.pad(params[j][self.b], (0, m * width
                                                      - self.hdim))
                     part = part + bias[k * m:(k + 1) * m]
                 parts.append(part)
-            out = self._activate(concate(parts, -1)[..., :self.hdim])
-            for j in g:
-                outs[j] = out
+            for j, whole in zip(g, lanes.exchange(g, parts)):
+                outs[j] = self._activate(concate(whole, -1)[..., :self.hdim])
         return outs
 
 

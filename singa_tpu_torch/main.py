@@ -162,16 +162,22 @@ def main(argv: list[str] | None = None) -> int:
 
 def process_report(trainer) -> dict:
     """What one process of a multi-process job reports at its end."""
+    from .ops import attention as ta
     from .ops import quantized_collective as qc
-    from .parallel.mesh import EXCHANGE
+    from .parallel.mesh import EXCHANGE, LAYER_EXCHANGE
 
     mesh = trainer.mesh
     return {
         "proc": mesh.proc, "nprocs": mesh.nprocs, "backend": backend(),
         "device": str(trainer.device), "ranks": list(mesh.local_ranks),
         "quant_acc_launches": qc.quant_acc.launches,
+        "flash_launches": {n: getattr(ta, n).launches
+                           for names in ta.KERNEL_NAMES.values()
+                           for n in names},
         "ring_sent_bytes": sum(qc.ppermute.sent_bytes.values()),
         "exchange_s": EXCHANGE.seconds,
+        # a spanning model group's layer exchanges, forward and backward
+        "layer_exchange_s": LAYER_EXCHANGE.seconds,
         "steps": trainer.completed_steps - trainer.start_step,
         # the data and train phases since the last display line
         "steps_s": trainer.timers.total("data") + trainer.timers.total(

@@ -182,8 +182,12 @@ def backend() -> str:
 
 
 def shutdown() -> None:
-    """Destroy the process group, if one is up."""
+    """Destroy the process group (and the model groups' subgroups), if
+    one is up."""
     import torch.distributed as dist
 
+    from .mesh import _GROUPS
+
+    _GROUPS.clear()
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()

@@ -19,13 +19,15 @@ process r // (n / P), and ``devices`` holds this process's n / P ranks.
 :meth:`Mesh.gather` hands every process every rank's tensors in rank
 order; it is the one collective of the Trainer's reductions and of
 synchronised BatchNorm. The data axis spans processes, and so does the
-model axis when every process holds whole model groups (its ranks a
-multiple of the model width): the model is innermost, so every layer
-exchange of a group stays inside one process, and the only exchanges
-between processes are the data axis's (the gradient sums of each piece,
-the zero shards, the saves). A model group that would span processes,
-and a pipe, expert or seq width above 1 under a process group, raise a
-ConfigError that names them.
+model axis: a process holds whole model groups (its ranks a multiple of
+the model width), or a model group spans whole processes (the model
+width a multiple of a process's ranks), the reference's partitioned
+workers one process each. A spanning group's kLayerPartition exchanges
+(``parallel/axes.py``) cross its processes through
+:meth:`Mesh.gather_rows` over a process group of those processes. A
+process that would hold parts of two model groups, and a pipe, expert
+or seq width above 1 under a process group, raise a ConfigError that
+names them.
 """
 
 from __future__ import annotations
@@ -127,17 +129,47 @@ class Mesh:
     def is_local(self, r: int) -> bool:
         return r in self.local_ranks
 
+    def procs_of(self, ranks) -> tuple[int, ...]:
+        """The processes that hold the global ``ranks``, in order."""
+        k = len(self.devices)
+        return tuple(sorted({r // k for r in ranks}))
+
+    def gather_rows(self, row: torch.Tensor, procs: tuple[int, ...]
+                    ) -> torch.Tensor:
+        """Every process of ``procs``' ``row`` (one shape and dtype on
+        each; this process among them), stacked in process order on
+        ``row``'s device. The bytes travel as one flat uint8 row per
+        process through one ``all_gather`` over those processes (on CPU
+        rows under gloo), so the bits arrive unchanged."""
+        import torch.distributed as dist
+
+        flat = row.contiguous().reshape(-1).view(torch.uint8)
+        wire = flat.cpu() if dist.get_backend() == "gloo" else flat
+        parts = [torch.empty_like(wire) for _ in procs]
+        dist.all_gather(parts, wire, group=_process_group(self, procs))
+        return torch.stack(parts).to(row.device).view(row.dtype).reshape(
+            len(procs), *row.shape)
+
+    def spanning_groups(self) -> list[tuple[int, ...]]:
+        """The processes of each model group that spans more than one,
+        in group order, each set once."""
+        width = self.widths[MODEL_AXIS]
+        out = []
+        for r in range(0, self.width, width):
+            ps = self.procs_of(range(r, r + width))
+            if len(ps) > 1 and ps not in out:
+                out.append(ps)
+        return out
+
     def gather(self, local: list, device) -> list:
         """Every rank's dict of tensors, in rank order, on ``device``.
         ``local`` holds this process's ranks' dicts (the same keys,
         shapes and dtypes on every rank); one process returns it as it
         is. Across processes each dtype's values travel as one flat row
-        per rank through one ``all_gather`` (on CPU rows under gloo),
-        so the bits arrive unchanged."""
+        per rank through one ``gather_rows``, so the bits arrive
+        unchanged."""
         if self.nprocs == 1:
             return list(local)
-        import torch.distributed as dist
-
         t0 = time.perf_counter()
         # one key order on every process, whatever order its dicts hold
         keys = sorted(local[0], key=repr)
@@ -145,15 +177,12 @@ class Mesh:
         by_dtype: dict[torch.dtype, list] = {}
         for k in keys:
             by_dtype.setdefault(local[0][k].dtype, []).append(k)
-        host = dist.get_backend() == "gloo"
-        for dtype, ks in by_dtype.items():
+        for ks in by_dtype.values():
             rows = torch.stack([
                 torch.cat([d[k].to(device).reshape(-1)
                            for k in ks]) for d in local])
-            wire = rows.cpu() if host else rows
-            parts = [torch.empty_like(wire) for _ in range(self.nprocs)]
-            dist.all_gather(parts, wire)
-            flat = torch.cat(parts).to(device)
+            flat = self.gather_rows(rows, tuple(range(self.nprocs))) \
+                .reshape(self.width, -1)
             for r in range(self.width):
                 o = 0
                 for k in ks:
@@ -178,6 +207,30 @@ class _Exchange:
 
 
 EXCHANGE = _Exchange()
+#: the kLayerPartition exchanges' share: a spanning model group's
+#: Concate and partial sums, forward and backward
+LAYER_EXCHANGE = _Exchange()
+
+#: (the world group's id, processes) -> their torch.distributed group
+_GROUPS: dict = {}
+
+
+def _process_group(mesh: Mesh, procs: tuple[int, ...]):
+    """The process group of ``procs`` (None: every process, the default
+    group). ``torch.distributed.new_group`` is collective over the
+    world: at the first need every process creates the groups of every
+    model group of ``mesh`` that spans some but not all processes, in
+    group order, so their calls match."""
+    import torch.distributed as dist
+
+    if len(procs) == mesh.nprocs:
+        return None
+    world = id(dist.group.WORLD)
+    if (world, procs) not in _GROUPS:
+        for ps in mesh.spanning_groups():
+            if len(ps) < mesh.nprocs and (world, ps) not in _GROUPS:
+                _GROUPS[world, ps] = dist.new_group(list(ps))
+    return _GROUPS[world, procs]
 
 
 def _visible_gpus() -> list[torch.device]:
@@ -214,8 +267,11 @@ def build_full_mesh(widths: dict[str, int], devices=None) -> Mesh:
     its ranks take the first of ``devices`` (default: the visible GPUs);
     under a process group of P processes this process takes ranks
     [k·n/P, (k+1)·n/P) on the first n/P of ``devices`` (default: this
-    process's card, once per rank). Raises when P does not divide the
-    data axis, when a model group would span processes, or when a pipe,
+    process's card, once per rank). A model group may span whole
+    processes (rank r's group is the ranks that differ from it in the
+    model index only; its parts then cross processes in the layers'
+    exchanges). Raises when P does not divide the data axis, when a
+    process would hold parts of two model groups, or when a pipe,
     expert or seq axis is wider than 1 across processes (naming it)."""
     shape = [max(1, int(widths.get(a, 1))) for a in FULL_AXES]
     need = 1
@@ -228,22 +284,26 @@ def build_full_mesh(widths: dict[str, int], devices=None) -> Mesh:
                 raise ConfigError(
                     f"{axis} axis width {w} ({CLUSTER_FIELDS[axis]}) "
                     f"across {nprocs} processes: "
-                    "singa_tpu_torch lays only the data axis and whole "
-                    "model groups over processes (the other axes run on "
+                    "singa_tpu_torch lays only the data axis and the "
+                    "model axis over processes (the other axes run on "
                     "one process's ranks)"
                 )
-        if shape[-1] > 1 and (need % nprocs or (need // nprocs) % shape[-1]):
+        if need % nprocs:
+            what = (f"data axis width {need}" if need == shape[0]
+                    else f"rank count {need}")
+            raise ConfigError(
+                f"{what} is not divisible by the process count {nprocs}: "
+                "every process holds the same number of ranks"
+            )
+        local = need // nprocs
+        if shape[-1] > 1 and local % shape[-1] and shape[-1] % local:
             raise ConfigError(
                 f"model axis width {shape[-1]} ({CLUSTER_FIELDS['model']}) "
-                f"across {nprocs} processes: a model group spans "
-                f"processes ({need} ranks, {need / nprocs:g} a process); "
-                "singa_tpu_torch keeps each model group inside one process"
+                f"across {nprocs} processes of {local} ranks: a process "
+                "would hold parts of two model groups; singa_tpu_torch "
+                "lays whole model groups on a process or a model group "
+                "over whole processes"
             )
-    if shape[0] % nprocs:
-        raise ConfigError(
-            f"data axis width {shape[0]} is not divisible by the process "
-            f"count {nprocs}: every process holds the same number of ranks"
-        )
     local = need // nprocs
     if devices is None:
         if nprocs > 1:

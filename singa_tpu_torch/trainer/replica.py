@@ -48,8 +48,11 @@ worker group read its own part of the data. The step's metrics are
 averaged over the replicas; eval runs on replica 0.
 
 Several processes (``parallel/launch.py``): each process holds its own
-replicas' lanes whole and reads the whole global stream, keeping its
-replicas' batches. A protocol round gathers every replica in rank order
+replicas' lanes, whole or its share of one whose model group spans
+processes, and reads the whole global stream, keeping its replicas'
+batches. A spanning lane's layers exchange their parts across its
+processes (``parallel/axes.py``), and its ranks' gradients, metrics and
+losses meet in one gather a step before the lane's sums. A protocol round gathers every replica in rank order
 (``Mesh.gather``), every process runs the same serial round on the same
 values, keeps the center and copies back its own replicas, so P
 processes give the bits of one process over the same ranks. RandomSync's
@@ -208,10 +211,10 @@ class ReplicaTrainer(Trainer):
         #: None for the ranks of other processes
         self._reps: list[dict | None] = [None] * mesh.width
         for i in self._local_replicas():
-            lane = self._lane(i)
+            here = self._here(i)
             stored = {n: self._pad_one(n, v) for n, v in init_params(
-                fold_in(root, i), self.specs, mesh.device(lane[0])).items()}
-            for r in lane:
+                fold_in(root, i), self.specs, mesh.device(here[0])).items()}
+            for r in here:
                 params = self._pieces_of(r, stored)
                 self._reps[r] = {
                     "params": params,
@@ -247,10 +250,13 @@ class ReplicaTrainer(Trainer):
         return [first[k] for k in sorted(first)]
 
     def _local_replicas(self) -> list[int]:
-        """The replicas whose lanes this process holds (whole: the mesh
-        keeps every model group inside one process)."""
-        return [i for i in range(self.nreplicas)
-                if self.mesh.is_local(self._lane(i)[0])]
+        """The replicas whose lanes this process holds: whole, or its
+        share of one whose model group spans processes."""
+        return [i for i in range(self.nreplicas) if self._here(i)]
+
+    def _here(self, i: int) -> list[int]:
+        """This process's ranks of replica i's lane."""
+        return [r for r in self._lane(i) if self.mesh.is_local(r)]
 
     def _pieces_of(self, r: int, stored: dict) -> dict:
         """Rank r's own contiguous copies of its pieces of ``stored``
@@ -444,30 +450,38 @@ class ReplicaTrainer(Trainer):
         guard = self._guard is not None
         metrics, news = [], []
         for i in self._local_replicas():
-            lane = self._lane(i)
-            reps = [self._reps[r] for r in lane]
+            lane, here = self._lane(i), self._here(i)
+            reps = [self._reps[r] for r in here]
             leaves = [{n: p.detach().requires_grad_(True)
                        for n, p in rep["params"].items()} for rep in reps]
             gen = fold_in(step_gen, i)
             losses, ms, updates = self.train_net.forward_ranks(
                 [self._cast_compute(lv) for lv in leaves],
                 [self._cast_compute(self._lane_feed(batches[i], r))
-                 for r in lane],
-                generators=[gen] * len(lane), buffers=reps[0]["buffers"],
-                lanes=Lanes(mesh, tuple(lane)))
+                 for r in here],
+                generators=[gen] * len(here), buffers=reps[0]["buffers"],
+                lanes=Lanes(mesh, tuple(here)))
             torch.autograd.backward([loss / len(lane) for loss in losses])
+            keys = [(layer, k) for layer, m0 in ms[0].items() for k in m0]
+            rows = [{**{("g", n): _grad_of(lv[n]) for n in lv},
+                     **{("m", *key): torch.as_tensor(
+                         m[key[0]][key[1]], device=self.device)
+                        for key in keys},
+                     "loss": loss.detach().float().to(self.device)}
+                    for lv, m, loss in zip(leaves, ms, losses)]
+            if len(here) < len(lane):
+                # the lane spans processes: every rank's, in one gather
+                every = mesh.gather(rows, self.device)
+                rows = [every[r] for r in lane]
             grads = self._axes_reduce(lane, [
-                {n: _grad_of(lv[n]) for n in lv} for lv in leaves])
-            flat = {(layer, k): rank_sum(
-                        torch.as_tensor(m[layer][k], device=self.device)
-                        for m in ms) / len(lane)
-                    for layer, m0 in ms[0].items() for k in m0}
+                {n: row["g", n] for n in leaves[0]} for row in rows])
+            flat = {key: rank_sum(row[("m", *key)] for row in rows)
+                    / len(lane) for key in keys}
             if guard:
                 ok_i, grads = guard_grads(
-                    self._gbuf, rank_sum(loss.detach().float().to(
-                        self.device) for loss in losses), grads)
+                    self._gbuf, rank_sum(row["loss"] for row in rows), grads)
                 flat[_GUARD_METRIC, "bad"] = (~ok_i).float().to(self.device)
-            for r, rep in zip(lane, reps):
+            for r, rep in zip(here, reps):
                 dev = mesh.device(r)
                 mine = {n: pieces[self._piece_of(r, n)].to(dev)
                         for n, pieces in grads.items()}
@@ -524,7 +538,7 @@ class ReplicaTrainer(Trainer):
         if self._cached:
             out = []
             for i in range(self.nreplicas):
-                local = self.mesh.is_local(self._lane(i)[0])
+                local = bool(self._here(i))
                 batch = {}
                 for name, pipe in self._pipelines[id(net)].items():
                     if not local:
@@ -554,7 +568,7 @@ class ReplicaTrainer(Trainer):
             return super()._assemble_host_batch(net)
         out = []
         for i in range(self.nreplicas):
-            local = self.mesh.is_local(self._lane(i)[0])
+            local = bool(self._here(i))
             batch = {}
             for name, pipe in self._pipelines[id(net)].items():
                 if not local:
@@ -748,15 +762,18 @@ class ReplicaTrainer(Trainer):
         replica, the quantity the protocols are to bound. Across
         processes a collective."""
         i = self._local_replicas()[0]
-        r = self._lane(i)[0]
-        rep = self._reps[r]
+        here = self._here(i)
+        rep = self._reps[here[0]]
         lines = []
         if self._last_batch is not None:
             batch = {name: {k: v.to(self.device) for k, v in feed.items()}
                      for name, feed in self._last_batch[i].items()}
-            params = self._replica(
-                [self._reps[q]["params"] if q in self._lane(i) else None
-                 for q in range(self.mesh.width)], i)
+            # a lane that spans processes joins its pieces from them all
+            every = (self._gathered("params")
+                     if len(here) < len(self._lane(i)) else
+                     [self._reps[q]["params"] if q in here else None
+                      for q in range(self.mesh.width)])
+            params = self._replica(every, i)
             _, _, acts = self.train_net.forward(
                 self._cast_compute(params), self._cast_compute(batch),
                 training=True,

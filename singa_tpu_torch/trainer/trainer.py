@@ -118,12 +118,14 @@ the saved boxes it intersects (``resilience/reshard.py``), so a save of
 n ranks (or of the JAX package's devices) resumes on m.
 
 The other mesh axes (``parallel/mesh.py``: pipe, expert, seq and model,
-from the cluster's ``nprocs_per_group`` split, on one process) run every
-rank in lockstep (``_step_axes``): one walk of the net over all ranks
+from the cluster's ``nprocs_per_group`` split, on one process; the
+model axis also over processes) run every rank of a process in lockstep
+(``_step_axes``): one walk of the net over its ranks
 (``Net.forward_ranks`` with lanes), where ring attention, kMoE's
-routing groups, kLayerPartition's Slice/Concate, BatchNorm's moments
-over the data ranks and the GPipe stages read the other ranks'
-tensors, then one backward over the ranks' losses,
+routing groups, BatchNorm's moments over the data ranks and the GPipe
+stages read the other ranks' tensors and kLayerPartition's Concate and
+partial sums go through ``Lanes.exchange`` (across the processes of a
+model group that spans them), then one backward over the ranks' losses,
 each divided by the rank count, so that their sum is the global batch's
 loss whatever work the ranks repeat. A piece of a param (the whole of a
 replicated one, one shard of a split one) takes the sum, in rank order,
@@ -163,16 +165,20 @@ the JAX layout), and a sharded save writes each piece as its box, the
 padded tail cut off, zero's data chunks inside it, from the ranks at
 index 0 on every axis that does not cut the box; ``_restore_sharded``
 places any saved layout onto any mesh.
-Whole model groups may sit in separate processes (``parallel/mesh.py``):
-the gradient sums of each piece, the zero shards and the saves then
-cross processes through ``Mesh.gather``, summed in rank order.
+Model groups may sit in separate processes, whole or one spanning
+several (``parallel/mesh.py``; the reference's partitioned workers one
+process each): the gradient sums of each piece, the zero shards and the
+saves then cross processes through ``Mesh.gather``, summed in rank
+order, and a spanning group's layer exchanges cross them inside the
+step, forward and backward.
 
 What the port leaves out, and refuses with a ConfigError that names
 it rather than ignoring: ``fleet`` (``main`` dispatches it to the
 serving host); the int8 ring with a net with buffers; across
-processes a seq, expert or pipe axis, a model group that spans
-processes, kMoE on a data axis that spans processes and a net with
-buffers on an axes mesh over processes; pipe beside seq or expert (the
+processes a seq, expert or pipe axis, a process holding parts of two
+model groups, kMoE on a data axis or a model group that spans
+processes, a net with buffers on an axes mesh over processes and
+q8_hier's named axes; pipe beside seq or expert (the
 JAX package cannot run either: ``JAX_REFUSES``), or pipe with more than
 the model axis. ``kernels {
 paged_attention }`` is the serving engine's knob and trains unchanged,
@@ -458,12 +464,14 @@ class Trainer:
                 "contiguous slice of it"
             )
 
-        if (mesh.nprocs > 1 and self._splits_batch
+        spans = mesh.nprocs > 1 and bool(mesh.spanning_groups())
+        if (mesh.nprocs > 1 and (self._splits_batch or spans)
                 and self._ring_chunk_dims is None):
             for layer in self.train_net.layers:
                 if layer.crosses() and layer.TYPE == "kMoE":
                     raise ConfigError(
-                        f"layer {layer.name!r} (kMoE) on a data axis that "
+                        f"layer {layer.name!r} (kMoE) on a "
+                        f"{'model group' if spans else 'data axis'} that "
                         f"spans {mesh.nprocs} processes: the JAX program "
                         "routes the global batch's tokens together, and "
                         "singa_tpu_torch gathers them on one process only"
@@ -575,6 +583,15 @@ class Trainer:
         if isinstance(geom, str):
             raise ConfigError(
                 f"kernels {{ grad_allreduce: q8_hier }} cannot run: {geom}"
+            )
+        if mesh.nprocs > 1:
+            # the view is one process's list of every rank's device
+            raise ConfigError(
+                "kernels { grad_allreduce: q8_hier } with a ring { "
+                f"intra_axis/inter_axis }} block across {mesh.nprocs} "
+                "processes is not ported to singa_tpu_torch: its ring view "
+                "reorders the ranks of every process on one (the factored "
+                "ring { intra_degree } form runs across processes)"
             )
         intra, inter, k, m = geom
         order = [mesh.rank(**{inter: g, intra: p})
@@ -697,7 +714,8 @@ class Trainer:
     def _step_axes(self, step: int, batch: dict) -> dict:
         """The lockstep step of a mesh with more axes than data: every
         rank's leaves (its pieces of the params), one walk of the net
-        over this process's ranks, one backward over the ranks' losses
+        over this process's ranks (a spanning model group's exchanges
+        crossing processes inside it), one backward over the ranks' losses
         each divided by the rank count, each piece's gradient summed over
         the ranks that hold it in rank order (every process's, gathered
         with the metrics and losses in one ``Mesh.gather``), the update

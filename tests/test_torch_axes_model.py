@@ -222,7 +222,7 @@ def test_named_hier_refusals_match_jax(shard_ring, intra, inter, zero):
 
 
 # ---------------------------------------------------------------------------
-# the data axis and whole model groups span processes, nothing else
+# the data and model axes span processes, nothing else
 # ---------------------------------------------------------------------------
 
 
@@ -230,7 +230,8 @@ def test_named_hier_refusals_match_jax(shard_ring, intra, inter, zero):
     ("seq", "nworkers: 4\nnprocs_per_group: 2\nnseq_per_group: 2", 2),
     ("expert", "nworkers: 4\nnprocs_per_group: 2\nnexperts_per_group: 2",
      2),
-    # 4 processes of one rank each: every model group of 2 spans two
+    # 4 processes of one rank each: every model group of 2 spans two,
+    # which the mesh lays out (the layers' exchanges cross processes)
     ("model", "nworkers: 4\nnprocs_per_group: 2", 4),
     ("pipe", "nworkers: 4\nnprocs_per_group: 2\nnpipes_per_group: 2", 2),
 ])
@@ -238,9 +239,16 @@ def test_an_axis_across_processes_is_refused_by_name(monkeypatch, axis,
                                                      text, nprocs):
     cl = cluster(text)
     assert mesh_from_cluster(cl, ["cpu"] * 4).widths[axis] == 2
-    monkeypatch.setattr(t_mesh, "_processes", lambda: (nprocs, 0))
-    match = ("a model group spans processes" if axis == "model"
-             else "singa_tpu_torch lays only the data axis")
+    monkeypatch.setattr(t_mesh, "_processes", lambda: (nprocs, 3))
+    if axis == "model":
+        m = mesh_from_cluster(cl, ["cpu"])
+        assert (m.nprocs, m.proc, list(m.local_ranks)) == (4, 3, [3])
+        assert m.coords(3) == {"data": 1, "pipe": 0, "expert": 0, "seq": 0,
+                               "model": 1}
+        assert m.procs_of([2, 3]) == (2, 3)
+        assert m.spanning_groups() == [(0, 1), (2, 3)]
+        return
     with pytest.raises(ConfigError, match=f"^{axis} axis width 2 .* across "
-                       f"{nprocs} processes: {match}"):
+                       f"{nprocs} processes: singa_tpu_torch lays only the "
+                       "data axis and the model axis"):
         mesh_from_cluster(cl, ["cpu"] * (4 // nprocs))

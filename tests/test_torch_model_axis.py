@@ -14,9 +14,10 @@ own data-only runs.
   JAX draw; the padded tail stays zero.
 - zero_update on 2 x 2 equal to the replicated update to the bit, its
   layout the JAX ``zero_update_shardings``'s.
-- A model group per process is admitted under a process group, one that
-  spans processes refused by name; ``main`` reaches replicas of model
-  lanes from a cluster conf.
+- A model group per process and one that spans whole processes are
+  laid out under a process group, a process holding parts of two groups
+  refused by name; ``main`` reaches replicas of model lanes from a
+  cluster conf.
 
 The saves on a data x model mesh are tests/test_torch_model_ckpt.py's.
 """
@@ -186,15 +187,25 @@ def test_zero_on_data_x_model_equals_replicated_and_the_jax_layout(img):
 
 
 def test_whole_model_groups_span_processes(monkeypatch):
-    """Under a process group the model axis is laid over processes when
-    each holds whole model groups: process 1 of 2 holds ranks 2-3, the
-    second model group of a 2 x 2 mesh."""
+    """Under a process group the model axis is laid over processes:
+    process 1 of 2 holds ranks 2-3, the second model group of a 2 x 2
+    mesh, or the second half of the one model group of 1 x 4 (its parts
+    cross the processes); a process that would hold parts of two model
+    groups is refused by name."""
     monkeypatch.setattr(t_mesh, "_processes", lambda: (2, 1))
     m = build_full_mesh({"data": 2, "model": 2}, ["cpu"] * 2)
     assert list(m.local_ranks) == [2, 3] and m.widths["model"] == 2
     assert {m.coords(r)["data"] for r in m.local_ranks} == {1}
-    with pytest.raises(ConfigError, match="a model group spans processes"):
-        build_full_mesh({"data": 1, "model": 4}, ["cpu"] * 2)
+    assert m.spanning_groups() == []
+    m = build_full_mesh({"data": 1, "model": 4}, ["cpu"] * 2)
+    assert list(m.local_ranks) == [2, 3]
+    assert [m.coords(r)["model"] for r in m.local_ranks] == [2, 3]
+    assert m.spanning_groups() == [(0, 1)]
+    monkeypatch.setattr(t_mesh, "_processes", lambda: (4, 1))
+    with pytest.raises(ConfigError, match="model axis width 4 .* across 4 "
+                       "processes of 3 ranks: a process would hold parts "
+                       "of two model groups"):
+        build_full_mesh({"data": 3, "model": 4}, ["cpu"] * 3)
 
 
 def test_main_trains_replicas_of_model_lanes(shards, tmp_path, capsys):
