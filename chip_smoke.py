@@ -596,6 +596,33 @@ caught and carried on):
              ``python -m singa_tpu_torch.main -procsID k -hostfile hf``
              (gloo, this card) against one process of 4 ranks: both
              digests equal its. Cuts: steps, never widths.
+  23. tools  (runs after model) the operator tools of
+             ``singa_tpu_torch/tools``, each through its ``main`` on this
+             card. ``trace`` merges every job log the earlier phases left
+             (one Chrome trace a workspace, every span record an 'X' event
+             of its process) and those of the streaming grad_comm job
+             (input_stall's probe with ``grad_comm { mode: quantized
+             buckets: 4 }``, TOOLS_STEPS steps) run here on one rank
+             (``stage_block``, ``comm`` and ``kernel_select`` in it) and
+             as two ``main`` processes (``assemble_batch`` and ``comm``
+             in each); ``--summarize`` of each. ``sweep`` (mlp.conf at
+             its widths, 1 and 2 ranks), ``elastic_launch`` (mlp.conf, a
+             gang of 2 with ``crash@3`` on its first attempt against a
+             clean gang: exit 75, a relaunch, the clean digests) and
+             ``cluster`` (start, ps, both processes to their end, stop)
+             run as child processes beside ``graph``, ``partition`` and
+             ``draw`` (a PNG, or the refusal naming matplotlib or PIL).
+             Then the timing gates at the JAX tools' widths, --steps and
+             --trials cut (TOOLS_ARGS): ``telemetry_overhead`` (writes =
+             the cadence flushes), ``ckpt_stall``, ``input_stall``,
+             ``update_stall`` (the zero opt bytes below the replicated),
+             ``collective_stall`` on 4 ranks (quant_acc launches = each
+             ring reduction's ranks x buckets x int8 hops; the counted
+             wire bytes equal the model) and ``attend_stall`` (streams
+             identical, paged launches = 2 layers x the fused engines'
+             prefill chunks and decode ticks); every JSON line has the
+             JAX tool's keys. The timing verdicts are printed, not
+             asserted: the thresholds are the JAX package's.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -656,7 +683,7 @@ from singa_tpu_torch.serve.fleet import migrate as tmigrate
 from singa_tpu_torch.serve.fleet.router import encode_request
 from singa_tpu_torch.serve.rollout import RolloutController
 from singa_tpu_torch.tools import serve_bench
-from singa_tpu_torch.tools.serve_bench import _percentile
+from singa_tpu_torch.tools.trace import _percentile
 from singa_tpu_torch.trainer import (
     Trainer,
     make_trainer,
@@ -4682,6 +4709,13 @@ def child_report(out: str, tag: str) -> dict:
     return json.loads(line[len(tag):])
 
 
+def step_exchange_s(r: dict) -> float:
+    """A TRAIN PROCESS report's cross-process exchange seconds in its
+    steps: its count less what its Trainer's one-shot comm probe added
+    (0 where no probe ran: no recorder or no grad_comm)."""
+    return r["exchange_s"] - r["comm_probe"]["exchange_s"]
+
+
 def procs_lm_conf(tmp, shard) -> str:
     """tinylm_d128.conf with the ring phase's q8wire settings (the int8
     ring, 4 buckets), float32, PROCS_LM_STEPS steps, over ``shard`` ->
@@ -4936,7 +4970,7 @@ def procs_lm(dev, smi, tmp):
     want = {k: v.cpu().numpy() for k, v in one.params.items()}
     want.update({f"{n}|{s}": v.cpu().numpy() for n, sl in one.state.items()
                  for s, v in sl.items()})
-    launches = []
+    launches, probes = [], []
     for run in "ad":
         reps = runs[run]
         for k, r in enumerate(reps):
@@ -4947,14 +4981,21 @@ def procs_lm(dev, smi, tmp):
             check(r["digest"] == c["digest"],
                   f"procs lm: process {k} of run {run} differs from the "
                   "one-process run")
+        # each child's Trainer ran the one-shot comm probe (its recorder
+        # and grad_comm are on): its counters hold the probe's rounds
+        # too, which it reports apart; the in-process run has no probe
         total = sum(r["quant_acc_launches"] for r in reps)
-        check(total == c["quant_acc_launches"]
-              and (total > 0) == (dev.type == "cuda"),
+        probe = sum(r["comm_probe"]["quant_acc_launches"] for r in reps)
+        check(total == c["quant_acc_launches"] + probe
+              and (total > 0) == (probe > 0) == (dev.type == "cuda"),
               f"procs lm: quant_acc launches {[r['quant_acc_launches'] for r in reps]}"
-              f" against the one-process {c['quant_acc_launches']}")
-        check(sum(r["ring_sent_bytes"] for r in reps)
-              == c["ring_sent_bytes"], "procs lm: ring bytes differ")
+              f" (the probe's {probe}) against the one-process "
+              f"{c['quant_acc_launches']}")
+        check(sum(r["ring_sent_bytes"] - r["comm_probe"]["ring_sent_bytes"]
+                  for r in reps) == c["ring_sent_bytes"],
+              "procs lm: ring bytes differ")
         launches.append(total)
+        probes.append(probe)
         with np.load(lm_save(tmp, run)) as z:
             got = {k[2:]: z[k] for k in z.files if k[:2] in ("p|", "s|")}
         check(got.keys() == want.keys() and all(
@@ -4975,11 +5016,13 @@ def procs_lm(dev, smi, tmp):
            "run_s_in_turns": [max(r["run_s"] for r in runs["a"]), b["run_s"],
                               c["run_s"], max(r["run_s"] for r in runs["d"])],
            "ring_bytes_per_rank_step": per_rank_step,
-           "exchange_ms_per_step": [r["exchange_s"] * 1e3 / PROCS_LM_STEPS
-                                    for r in runs["a"] + runs["d"]],
+           "exchange_ms_per_step": [
+               step_exchange_s(r) * 1e3 / PROCS_LM_STEPS
+               for r in runs["a"] + runs["d"]],
            "quant_acc_launches": {"procs": launches,
                                   "per_process": [r["quant_acc_launches"]
                                                   for r in runs["a"]],
+                                  "comm_probe": probes,
                                   "one": c["quant_acc_launches"]},
            "devices": [r["device"] for r in runs["a"]],
            "backend": runs["a"][0]["backend"], "card": smi}
@@ -6256,7 +6299,7 @@ def replica_procs(dev, smi, shards, tmp) -> dict:
         out[protocol] = {"digest_equal": True, "procs_s": procs_s,
                          "one_process_run_s": one_s,
                          "exchange_ms_per_step": [
-                             r["exchange_s"] * 1e3 / p["steps"]
+                             step_exchange_s(r) * 1e3 / p["steps"]
                              for r in reps],
                          "steps_s": [r["steps_s"] for r in reps],
                          "devices": [r["device"] for r in reps]}
@@ -6316,9 +6359,11 @@ RES_ROLLBACK_FAULTS = "nanloss@19,nanloss@20,nanloss@21"
 RES_REPLICA_BAD = 5
 RES_CD_BAD = 3
 #: resnet50.conf's saves: RES_RESNET_STEPS steps, a save every
-#: RES_RESNET_EVERY, over RES_RESNET_RECORDS records
-RES_RESNET_STEPS = 20
-RES_RESNET_EVERY = 5
+#: RES_RESNET_EVERY, over RES_RESNET_RECORDS records (saves at 3, 6 and 9
+#: and the end-of-run one at 10: the first async save allocates the
+#: pinned snapshot buffers, the saves at 6 and 9 are the steady stall)
+RES_RESNET_STEPS = 10
+RES_RESNET_EVERY = 3
 RES_RESNET_RECORDS = (512, 256)
 RES_PROCS_STEPS = 12
 RES_TIMEOUT_S = 300
@@ -7525,8 +7570,8 @@ def model_procs(dev, smi, tmp) -> dict:
               f"model procs: process {k}'s digest != one process's")
     out = {"processes": 2, "ranks_a_process": MODEL_RANKS,
            "steps": MODEL_ZERO_STEPS, "procs_s": procs_s,
-           "exchange_ms_per_step": [r["exchange_s"] * 1e3 / MODEL_ZERO_STEPS
-                                    for r in reps],
+           "exchange_ms_per_step": [
+               step_exchange_s(r) * 1e3 / MODEL_ZERO_STEPS for r in reps],
            "digest_equal": all(r["digest"] == digest for r in reps),
            "card": smi}
     print("model procs", json.dumps(out))
@@ -7568,8 +7613,8 @@ def model_span(dev, smi, tmp, procs) -> dict:
            "predicted": want,
            "layer_exchange_ms_per_step": [
                r["layer_exchange_s"] * 1e3 / MODEL_ZERO_STEPS for r in reps],
-           "exchange_ms_per_step": [r["exchange_s"] * 1e3 / MODEL_ZERO_STEPS
-                                    for r in reps],
+           "exchange_ms_per_step": [
+               step_exchange_s(r) * 1e3 / MODEL_ZERO_STEPS for r in reps],
            "steps_ms_per_step": [r["steps_s"] * 1e3 / SPAN_TIMED_STEPS
                                  for r in reps],
            "digest_equal": all(r["digest"] == procs["digest"]
@@ -7610,8 +7655,9 @@ def span_turns(dev, smi, tmp) -> dict:
                      "layer_exchange_ms": [
                          r["layer_exchange_s"] * 1e3 / MODEL_ZERO_STEPS
                          for r in reps],
-                     "exchange_ms": [r["exchange_s"] * 1e3 / MODEL_ZERO_STEPS
-                                     for r in reps]})
+                     "exchange_ms": [
+                         step_exchange_s(r) * 1e3 / MODEL_ZERO_STEPS
+                         for r in reps]})
     cfg = load_model_config(conf)
     layers = sum(l.type == "kAttention" for l in cfg.neuralnet.layer)
     batch = next(l.data_param.batchsize for l in cfg.neuralnet.layer
@@ -7672,6 +7718,493 @@ def model_phase(dev, smi, cfg, params, tmp) -> dict:
             "quant_acc": (reps["mlp_quant_acc_launches"]
                           + reps["lm_launches"]["quant_acc"]),
             "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# tools phase: the operator tools on the card
+# ---------------------------------------------------------------------------
+
+#: the timing gates' cuts: --steps/--trials only, never a width; the
+#: gradient gate on 4 ranks and a 12-wide head (the JAX tool's own
+#: documented form of the real 2 x 2 hierarchical ring)
+TOOLS_ARGS = {
+    "telemetry_overhead": ["--steps", "30", "--trials", "3"],
+    "ckpt_stall": ["--steps", "10", "--trials", "2"],
+    "input_stall": ["--steps", "48", "--trials", "2"],
+    "update_stall": ["--steps", "8", "--trials", "2"],
+    "collective_stall": ["--steps", "6", "--trials", "2",
+                         "--ndata", "4", "--head", "12"],
+    "attend_stall": ["--trials", "2"],
+}
+#: each tool's JSON keys (the JAX tool's; tests/test_torch_tools_*.py
+#: hold the two lists equal on the CPU)
+TOOLS_KEYS = {
+    "telemetry_overhead": ["off_step_ms", "on_step_ms", "ratio", "events",
+                           "writes", "threshold", "pass"],
+    "ckpt_stall": ["nockpt_step_ms", "async_step_ms", "sync_step_ms",
+                   "async_ratio", "sync_ratio", "threshold", "pass_mode",
+                   "pass"],
+    "input_stall": ["sync_step_ms", "prefetch_step_ms", "stream_step_ms",
+                    "prefetch_ratio", "stream_ratio", "threshold",
+                    "pass_mode", "pass"],
+    "update_stall": ["replicated_step_ms", "zero_step_ms", "ratio",
+                     "replicated_update_ms", "zero_update_ms",
+                     "opt_bytes_replicated", "opt_bytes_zero",
+                     "opt_bytes_ratio", "ndata", "threshold", "pass"],
+    "collective_stall": [
+        "exact_step_ms", "quantized_step_ms", "overlap_step_ms",
+        "q8_overlap_step_ms", "q8_ring_step_ms", "q8_hier_step_ms",
+        "quantized_ratio", "overlap_ratio", "q8_overlap_ratio",
+        "q8_ring_ratio", "q8_hier_ratio", "comm_ms", "wire_bytes",
+        "hier_wire_bytes", "hier_model_matches_jaxpr", "hier_intra_degree",
+        "wire_bytes_ratio", "wire_model_matches_jaxpr", "wire_threshold",
+        "dtype", "buckets", "ndata", "zero_update", "threshold",
+        "machinery_share", "machinery_share_threshold", "pass_mode",
+        "ring_pass_mode", "hier_pass_mode", "pass"],
+    "attend_stall": ["concurrency", "block_len", "ref_bytes", "fused_bytes",
+                     "fused_xla_bytes", "bytes_ratio", "cache_fill",
+                     "live_blocks", "ref_tick_ms", "fused_tick_ms",
+                     "speedup", "ticks", "token_mismatches", "threshold",
+                     "bytes_threshold", "pass_mode", "pass"],
+}
+#: the streaming grad_comm job the trace is checked on: its steps, a
+#: display every TOOLS_DISPLAY
+TOOLS_STEPS = 16
+TOOLS_DISPLAY = 4
+TOOLS_GRAD_COMM = "grad_comm { mode: quantized buckets: 4 }"
+TOOLS_TIMEOUT_S = 300
+#: elastic_launch's main with the fault plan on the first gang attempt
+#: only (every relaunch of a plan would fire it again)
+ELASTIC_MAIN = """
+import sys
+from singa_tpu_torch.tools import elastic_launch as el
+once = el.run_gang_once
+def first_only(args, nprocs, *, log=print):
+    codes = once(args, nprocs, log=log)
+    args.faults = None
+    return codes
+el.run_gang_once = first_only
+sys.exit(el.main(sys.argv[1:]))
+"""
+
+
+def tool_json(mod, argv) -> tuple[int, dict, str]:
+    """``mod.main(argv)`` with its stdout captured -> (exit code, the
+    JSON it printed last, all it printed); the JSON is printed here."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    text = buf.getvalue()
+    try:
+        got = json.loads(text.strip().splitlines()[-1])
+    except ValueError:  # trace --summarize prints its JSON indented
+        got = json.loads(text)
+    name = mod.__name__.rsplit(".", 1)[-1]
+    print(f"tool {name} ({time.perf_counter() - t:.1f} s, exit {rc}): "
+          f"{json.dumps(got)}")
+    return rc, got, text
+
+
+def tools_start(cmd, tmp, name, env=None):
+    """A child process with its output to a file -> (name, process, log)."""
+    log = open(os.path.join(tmp, f"tools_{name}.log"), "w+")
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=log,
+                            stderr=subprocess.STDOUT,
+                            env={**os.environ, **(env or {})})
+    return name, proc, log
+
+
+def tools_wait(started) -> dict:
+    """Wait for every child (within TOOLS_TIMEOUT_S, all stopped in any
+    case) -> {name: (exit code, output)}."""
+    out = {}
+    deadline = time.monotonic() + TOOLS_TIMEOUT_S
+    try:
+        for name, proc, log in started:
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+    finally:
+        stop_all([p for _, p, _ in started])
+        for name, proc, log in started:
+            log.seek(0)
+            out[name] = (proc.returncode, log.read())
+            log.close()
+    return out
+
+
+def tools_mlp_conf(tmp, shard, name, steps) -> str:
+    """examples/mnist/mlp.conf at its published widths on ``shard``, cut
+    to ``steps`` steps (a display every 2, no test, no saves) -> its
+    path."""
+    with open(os.path.join(REPO, "examples/mnist/mlp.conf")) as f:
+        txt = f.read()
+    txt = re.sub(r'path: "[^"]*"', f'path: "{shard}"', txt)
+    for key, val in (("train_steps", steps), ("test_steps", 0),
+                     ("display_frequency", 2)):
+        txt = re.sub(rf"{key}: \d+", f"{key}: {val}", txt)
+    path = os.path.join(tmp, f"tools_{name}.conf")
+    with open(path, "w") as f:
+        f.write(txt)
+    return path
+
+
+def tools_cluster(tmp, name, nworkers) -> str:
+    path = os.path.join(tmp, f"tools_cluster_{name}.conf")
+    with open(path, "w") as f:
+        f.write(f'nworkers: {nworkers}\n'
+                f'workspace: "{os.path.join(tmp, "ws_tools_" + name)}"\n')
+    return path
+
+
+def tools_probe_text(shard, steps, extra="") -> str:
+    """input_stall's probe MLP at its default widths, ``steps`` steps, a
+    display every TOOLS_DISPLAY, ``extra`` appended."""
+    from singa_tpu_torch.tools import input_stall as tin
+
+    return (tin._CONF.format(shard=shard, batch=1024, hidden=128, head=10)
+            .replace("train_steps: 1000000",
+                     f"train_steps: {steps}\n"
+                     f"display_frequency: {TOOLS_DISPLAY}")
+            + "\n" + extra + "\n")
+
+
+def tools_stream_text(shard) -> str:
+    """The streaming probe with the quantized, bucketed gradient
+    collective, TOOLS_STEPS steps."""
+    return tools_probe_text(shard, TOOLS_STEPS, TOOLS_GRAD_COMM)
+
+
+def tools_stream_run(dev, shard, tmp) -> str:
+    """The streaming grad_comm job on one rank of this card, in this
+    process, with the flight recorder on -> its events dir."""
+    from singa_tpu_torch.obs import FlightRecorder
+
+    events = os.path.join(tmp, "ws_tools_stream", "events")
+    rec = FlightRecorder(events, rank=0, run_id="tools-stream",
+                         log=lambda s: None)
+    tr = Trainer(parse_model_config(tools_stream_text(shard)), seed=0,
+                 log=lambda s: None, device=dev, prefetch=True,
+                 device_cache=False)
+    check(tr.feeder_mode == "stream", f"tools: the stream job's feeder is "
+          f"{tr.feeder_mode}")
+    tr.attach_telemetry(rec)
+    tr.run()
+    tr.close()
+    rec.close()
+    return events
+
+
+def trace_check(events: str, out: str) -> dict:
+    """``trace`` (main) merges one job's per-process logs into ``out``:
+    a valid Chrome trace whose spans are every process's span records,
+    one for one -> {"names": span names by pid, "summary": the
+    --summarize dict}."""
+    from collections import Counter
+
+    from singa_tpu_torch.tools import trace as ttrace
+
+    rc, line, _ = tool_json(ttrace, [events, "-o", out])
+    check(rc == 0 and line["skipped"] == 0,
+          f"trace: {events} merged with exit {rc}: {line}")
+    with open(out) as f:
+        trace = json.load(f)
+    evs = trace["traceEvents"]
+    check(all({"name", "ph", "pid", "tid"} <= e.keys() for e in evs)
+          and all(e["ts"] >= 0 for e in evs if e["ph"] != "M"),
+          f"trace: {out} is not a valid Chrome trace")
+    records, _ = ttrace.load_events(events)
+    want = Counter(r.get("rank", 0) for r in records if r["kind"] == "span")
+    got = Counter(e["pid"] for e in evs if e["ph"] == "X")
+    check(got == want and len(evs) == line["events"],
+          f"trace: {events}: spans by process {dict(got)} != records "
+          f"{dict(want)}")
+    names = {}
+    for e in evs:
+        if e["ph"] == "X":
+            names.setdefault(e["pid"], set()).add(e["name"])
+    rc, summary, _ = tool_json(ttrace, [events, "--summarize"])
+    check(rc == 0 and summary["records"] == len(records),
+          f"trace --summarize of {events}: {summary}")
+    return {"names": names, "summary": summary}
+
+
+def counting(cls, name, counts, key):
+    """Wrap ``cls.name`` to add one to ``counts[key(self)]`` a call ->
+    the original (to restore)."""
+    orig = getattr(cls, name)
+
+    def wrapped(self, *a, **kw):
+        k = key(self, *a)
+        if k is not None:
+            counts[k] = counts.get(k, 0) + 1
+        return orig(self, *a, **kw)
+
+    setattr(cls, name, wrapped)
+    return orig
+
+
+def ring_launches(self, grads, buffers) -> tuple | None:
+    """What one ``_ring_reduce`` call launches: ranks x buckets x the
+    int8 hops of a bucket (n - 1 on the flat ring, M - 1 inter-slice
+    hops on the two-level ring of M slices), keyed by the ring's form."""
+    n = self.mesh.width
+    names = list(next(g for g in grads if g is not None))
+    buckets = len(self._buckets(names))
+    if self._comm.hier:
+        hops = n // self._ring_hier[0] - 1
+    else:
+        hops = n - 1
+    return ("q8_hier" if self._comm.hier else "q8_ring", n * buckets * hops)
+
+
+def tools_phase(dev, smi, tmp) -> dict:
+    """Phase 23: the operator tools (singa_tpu_torch/tools) through their
+    main on this card -> {"paged_attention": attend_stall's fused
+    launches, "quant_acc": collective_stall's ring launches}."""
+    import contextlib
+    import glob
+    import io
+
+    from singa_tpu_torch.tools import attend_stall as tatt
+    from singa_tpu_torch.tools import ckpt_stall as tckpt
+    from singa_tpu_torch.tools import collective_stall as tcoll
+    from singa_tpu_torch.tools import draw as tdraw
+    from singa_tpu_torch.tools import graph as tgraph
+    from singa_tpu_torch.tools import input_stall as tinput
+    from singa_tpu_torch.tools import partition as tpart
+    from singa_tpu_torch.tools import telemetry_overhead as ttel
+    from singa_tpu_torch.tools import update_stall as tupd
+
+    t0 = time.perf_counter()
+    devarg = ["--device", str(dev)]
+    # earlier phases' logs, before this phase adds its own workspaces
+    earlier = sorted({os.path.dirname(p) for p in glob.glob(
+        os.path.join(tmp, "**", "events", "rank_*.jsonl"), recursive=True)})
+    check(bool(earlier), "tools: no event logs left by earlier phases")
+
+    shard = os.path.join(tmp, "tools_shard")
+    write_records(shard, *synthetic_arrays(4096, seed=0))
+    stream_conf = os.path.join(tmp, "tools_stream.conf")
+    with open(stream_conf, "w") as f:
+        f.write(tools_stream_text(shard))
+    sweep_conf = tools_mlp_conf(tmp, shard, "sweep", 10)
+    # the launchers' jobs: the probe MLP (their children's start-up, not
+    # their steps, is what they exercise)
+    job = os.path.join(tmp, "tools_elastic.conf")
+    with open(job, "w") as f:
+        f.write(tools_probe_text(shard, 6, "checkpoint_frequency: 2\n"
+                                 'checkpoint_format: "sharded"'))
+    cl_job = os.path.join(tmp, "tools_cluster.conf")
+    with open(cl_job, "w") as f:
+        f.write(tools_probe_text(shard, 4))
+    py = sys.executable
+    cpu = ["-device", "cpu"] if dev.type == "cpu" else []
+    # the tools that start processes run beside this process's checks
+    hf = write_hostfile(os.path.join(tmp, "tools_trace_hf"))
+    started = [
+        tools_start([py, "-m", "singa_tpu_torch.main", "-model_conf",
+                     stream_conf, "-cluster_conf",
+                     tools_cluster(tmp, "procs", 2), "-procsID", str(k),
+                     "-hostfile", hf] + cpu, tmp, f"procs{k}",
+                    env={"SINGA_TPU_DEVICE_CACHE_MB": "0"})
+        for k in (0, 1)]
+    started.append(tools_start(
+        [py, "-m", "singa_tpu_torch.tools.sweep", "--model_conf",
+         sweep_conf, "--workers", "1", "2", "--steps", "10", "--json",
+         os.path.join(tmp, "tools_sweep.json")] + devarg, tmp, "sweep"))
+    for name, faults in (("clean", []), ("crashed", ["-faults", "crash@3"])):
+        started.append(tools_start(
+            [py, "-c", ELASTIC_MAIN, "-model_conf", job, "-cluster_conf",
+             tools_cluster(tmp, name, 2), "-nprocs", "2"] + faults + cpu,
+            tmp, name))
+    cl_hf = write_hostfile(os.path.join(tmp, "tools_cluster_hf"))
+    cl_ws = os.path.join(tmp, "ws_tools_cl")
+    cl_args = ["-hostfile", cl_hf, "-workspace", cl_ws]
+    try:
+        r = subprocess.run(
+            [py, "-m", "singa_tpu_torch.tools.cluster", "start", "-n", "2",
+             "-model_conf", cl_job, "-cluster_conf",
+             tools_cluster(tmp, "cl", 2)] + cl_args + cpu,
+            cwd=REPO, capture_output=True, text=True, timeout=60)
+        check(r.returncode == 0, f"cluster start: {r.stdout}{r.stderr}")
+
+        # in this process meanwhile: trace of the earlier phases' logs
+        merged = {}
+        for k, events in enumerate(earlier):
+            merged[events] = trace_check(
+                events, os.path.join(tmp, f"tools_trace_{k}.json"))
+        print(f"tools trace: {len(earlier)} earlier jobs' logs merged, "
+              f"{sum(len(m['names']) for m in merged.values())} processes")
+        stream = trace_check(tools_stream_run(dev, shard, tmp),
+                             os.path.join(tmp, "tools_trace_stream.json"))
+        check({"stage_block", "comm", "train", "data"}
+              <= stream["names"][0], f"trace: the stream job's spans "
+              f"{stream['names']}")
+        check(stream["summary"]["grad_wire_impl"] == "reference"
+              and stream["summary"]["comm_ms_per_step"] is not None,
+              f"trace: the stream job's summary {stream['summary']}")
+        # graph and partition (host code), draw (matplotlib and PIL)
+        net = ttr.build_net(parse_model_config(tools_stream_text(shard)),
+                            "kTrain")
+        doc = {"phase": "kTrain",
+               "nodes": [{"id": l.name, "type": l.TYPE} for l in net.layers],
+               "links": [{"source": src, "target": l.name}
+                         for l in net.layers for src in l.srclayers]}
+        with open(os.path.join(tmp, "tools_net.json"), "w") as f:
+            json.dump(doc, f)
+        dot = os.path.join(tmp, "tools_net.dot")
+        check(tgraph.main(["--input", os.path.join(tmp, "tools_net.json"),
+                           "--output", dot]) == 0, "graph failed")
+        with open(dot) as f:
+            check('"fc1" -> "tanh1";' in f.read(), "graph: no fc1 edge")
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(tpart.main(["--input", shard, "--output-prefix",
+                              os.path.join(tmp, "tools_part"), "--nworkers",
+                              "4", "--group-size", "2"]) == 0,
+                  "partition failed")
+        with open(os.path.join(tmp, "tools_train.log"), "w") as f:
+            f.write("".join(f"step {s}: train loss : {2.3 - s / 100}, "
+                            f"precision : {s / 100}\n" for s in range(10)))
+        png = os.path.join(tmp, "tools_curves.png")
+        err = io.StringIO()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(err):
+            rc = tdraw.main(["--log", os.path.join(tmp, "tools_train.log"),
+                             "--output", png])
+        check(rc == 0 or (rc == 2 and ("PIL" in err.getvalue()
+                                       or "matplotlib" in err.getvalue())),
+              f"draw exited {rc}: {err.getvalue()}")
+        print("tools draw: " + ("wrote a PNG" if rc == 0 else
+                                err.getvalue().strip()))
+    finally:
+        kids = tools_wait(started)
+    for name, (rc, out) in kids.items():
+        check(rc == 0, f"tools {name} exited {rc}:\n{out[-3000:]}")
+    procs = trace_check(os.path.join(tmp, "ws_tools_procs", "events"),
+                        os.path.join(tmp, "tools_trace_procs.json"))
+    for pid in (0, 1):
+        check({"assemble_batch", "comm", "train"}
+              <= procs["names"].get(pid, set()),
+              f"trace: process {pid}'s spans {procs['names'].get(pid)}")
+    with open(os.path.join(tmp, "tools_sweep.json")) as f:
+        rows = json.load(f)
+    check([r["nworkers"] for r in rows] == [1, 2]
+          and all(r["samples_per_sec"] > 0 for r in rows),
+          f"sweep rows {rows}")
+    print("tools sweep: " + json.dumps(rows))
+    digests = {name: [json.loads(x.split("TRAIN PROCESS: ")[1])["digest"]
+                      for x in kids[name][1].splitlines()
+                      if "TRAIN PROCESS: " in x]
+               for name in ("clean", "crashed")}
+    crashed = kids["crashed"][1]
+    check("exited [75, 75]" in crashed and "relaunching" in crashed,
+          f"elastic_launch: no relaunch of the crashed gang:\n"
+          f"{crashed[-2000:]}")
+    check(len(digests["clean"]) == 2 and digests["crashed"]
+          == digests["clean"], f"elastic_launch: digests {digests}")
+    print(f"tools elastic_launch: the crashed gang relaunched to the "
+          f"clean gang's digest {digests['clean'][0][:16]}")
+    deadline = time.monotonic() + TOOLS_TIMEOUT_S
+    r = subprocess.run([py, "-m", "singa_tpu_torch.tools.cluster", "ps"]
+                       + cl_args, cwd=REPO, capture_output=True, text=True,
+                       timeout=60)
+    check(r.returncode == 0 and "rank 1" in r.stdout, f"cluster ps: "
+          f"{r.stdout}{r.stderr}")
+    logs = [os.path.join(cl_ws, "procs", f"rank{k}.log") for k in (0, 1)]
+
+    def done(path):
+        with open(path) as f:
+            return "TRAIN PROCESS: " in f.read()
+
+    while time.monotonic() < deadline and not all(map(done, logs)):
+        time.sleep(0.5)
+    r = subprocess.run([py, "-m", "singa_tpu_torch.tools.cluster", "stop"]
+                       + cl_args, cwd=REPO, capture_output=True, text=True,
+                       timeout=60)
+    check(all(map(done, logs)) and r.returncode == 0,
+          f"cluster: the job did not finish, or stop failed: {r.stdout}")
+    check(not any(f.endswith(".pid")
+                  for f in os.listdir(os.path.join(cl_ws, "procs"))),
+          "cluster stop left pid files")
+    print("tools cluster: start, ps, both processes to their end, stop")
+    t_children = time.perf_counter() - t0
+
+    # the timing gates, in this process, the card otherwise idle
+    gates = {}
+    targs = TOOLS_ARGS["telemetry_overhead"]
+    tel = tool_json(ttel, targs + devarg)[1]
+    # a flush at every multiple of --display (the tool's 10) among the
+    # timed steps, which follow its 5 warmup steps
+    steps, trials, display, warmup = int(targs[1]), int(targs[3]), 10, 5
+    flushes = (warmup + trials * steps) // display - warmup // display
+    check(tel["writes"] == flushes, f"telemetry_overhead: writes "
+          f"{tel['writes']} != the {flushes} cadence flushes")
+    gates["telemetry_overhead"] = tel
+    gates["ckpt_stall"] = tool_json(tckpt, TOOLS_ARGS["ckpt_stall"]
+                                    + devarg)[1]
+    gates["input_stall"] = tool_json(tinput, TOOLS_ARGS["input_stall"]
+                                     + devarg)[1]
+    upd = tool_json(tupd, TOOLS_ARGS["update_stall"] + devarg)[1]
+    check(upd["opt_bytes_zero"] < upd["opt_bytes_replicated"],
+          f"update_stall: the zero update's opt bytes did not shrink {upd}")
+    gates["update_stall"] = upd
+    rings: dict = {}
+    orig = counting(ttr.Trainer, "_ring_reduce", rings,
+                    lambda self, *a: ring_launches(self, *a))
+    q0 = qc.quant_acc.launches
+    try:
+        coll = tool_json(tcoll, TOOLS_ARGS["collective_stall"] + devarg)[1]
+    finally:
+        ttr.Trainer._ring_reduce = orig
+    q_launches = qc.quant_acc.launches - q0
+    want = sum(n * c for (_, n), c in rings.items())
+    print(f"tools collective_stall: quant_acc launches {q_launches}, "
+          f"ring reductions by form and launches each "
+          f"{ {f'{k[0]} x{k[1]}': c for k, c in rings.items()} }")
+    check(q_launches == want > 0 and {k[0] for k in rings}
+          == {"q8_ring", "q8_hier"},
+          f"collective_stall: quant_acc launched {q_launches}, the ring "
+          f"reductions make {want}")
+    check(coll["wire_model_matches_jaxpr"] and coll["hier_model_matches_jaxpr"],
+          f"collective_stall: the counted wire bytes miss the model {coll}")
+    gates["collective_stall"] = coll
+    fused_calls: dict = {}
+    key = (lambda self, *a: "fused" if self.serving.attend_impl == "fused"
+           else None)
+    origs = {m: counting(Engine, m, fused_calls, key)
+             for m in ("prefill_chunk", "decode")}
+    p0 = pa.paged_attention.launches
+    try:
+        att = tool_json(tatt, TOOLS_ARGS["attend_stall"] + devarg)[1]
+    finally:
+        for m, f in origs.items():
+            setattr(Engine, m, f)
+    p_launches = pa.paged_attention.launches - p0
+    want = 2 * fused_calls.get("fused", 0)  # the tool's n_layers: 2
+    print(f"tools attend_stall: paged launches {p_launches} = layers 2 x "
+          f"fused engine calls {fused_calls.get('fused', 0)}")
+    check(p_launches == want > 0, f"attend_stall: paged launches "
+          f"{p_launches} != {want}")
+    check(att["token_mismatches"] == 0,
+          f"attend_stall: {att['token_mismatches']} streams differ")
+    gates["attend_stall"] = att
+    for name, got in gates.items():
+        check(list(got) == TOOLS_KEYS[name],
+              f"{name}: JSON keys {list(got)} != {TOOLS_KEYS[name]}")
+        verdict = {k: got[k] for k in got
+                   if k.endswith(("pass", "pass_mode", "ratio", "speedup"))}
+        print(f"tools gate {name}: {json.dumps(verdict)} [{smi}]")
+    seconds = time.perf_counter() - t0
+    print(f"tools phase {seconds:.1f} s (children and checks "
+          f"{t_children:.1f} s, gates {seconds - t_children:.1f} s) [{smi}]")
+    return {"paged_attention": p_launches, "quant_acc": q_launches}
 
 
 def short_kernel_name(mangled: str) -> str:
@@ -7775,6 +8308,7 @@ def main() -> int:
         replica_launches = replica_phase(dev, smi, tmp)
         res_launches = resilience_phase(dev, smi, tmp)
         model = model_phase(dev, smi, cfg, params, tmp)
+        tools = tools_phase(dev, smi, tmp)
 
     kernels = []
     for name, case in (("paged_attention", "decode"),
@@ -7791,6 +8325,8 @@ def main() -> int:
         kernels[-1]["model_launches"] = model[
             "paged" if name == "paged_attention" else "overlay"]
         if name == "paged_attention":
+            # attend_stall's fused arm (tools phase)
+            kernels[-1]["tools_launches"] = tools[name]
             kernels[-1]["moe_serve_launches"] = moe_launches[name]
             kernels[-1]["prefix_launches"] = prefix_launches
             kernels[-1]["fleet_launches"] = fleet_launches
@@ -7862,6 +8398,8 @@ def main() -> int:
         # the model phase's replica runs (the rings refuse a replica
         # engine)
         "model_launches": model["quant_acc"],
+        # collective_stall's q8_ring and q8_hier arms (tools phase)
+        "tools_launches": tools["quant_acc"],
     })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -45,9 +45,10 @@ never part of one). Only training confs start a process
 group. Every process of a multi-process job prints one ``TRAIN
 PROCESS: {json}`` line at its clean end (its index, the backend, its
 device, the quant_acc launches and ring bytes of its ranks, its host
-seconds in cross-process exchanges, the host seconds of its run and of
-its steps since its last display line, and the digest of its params and
-slots, ``Trainer.digest``); a process that fails, or drains with status
+seconds in cross-process exchanges, the share of those three that the
+Trainer's one-shot comm probe added (``comm_probe``), the host seconds
+of its run and of its steps since its last display line, and the digest
+of its params and slots, ``Trainer.digest``); a process that fails, or drains with status
 75, leaves with its exit code at once, without waiting on its peers (a
 crash in one process of several is not restarted in place: the process
 exits 75, for a launcher to relaunch every process from the newest
@@ -178,6 +179,8 @@ def process_report(trainer) -> dict:
         "exchange_s": EXCHANGE.seconds,
         # a spanning model group's layer exchanges, forward and backward
         "layer_exchange_s": LAYER_EXCHANGE.seconds,
+        # what the one-shot comm probe added to the three counters above
+        "comm_probe": dict(trainer.comm_probe_counts),
         "steps": trainer.completed_steps - trainer.start_step,
         # the data and train phases since the last display line
         "steps_s": trainer.timers.total("data") + trainer.timers.total(

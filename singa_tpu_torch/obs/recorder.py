@@ -6,11 +6,16 @@ Each process appends JSONL records to ``<events_dir>/rank_k.jsonl``: one
 record per lifecycle event (the trainer's ``run_start``/``run_stop``,
 display-cadence ``step`` records, ``ckpt_save``/``ckpt_written``/
 ``ckpt_latest``, ``guard_rollback``, ``fault``, ``drain``,
-``watchdog_stall``, the supervisor's ``crash``/``restart``; the fleet's
-host, router, wire and rollout events), plus (span mode) one record per
-timed phase occurrence: the Trainer's ``Timers`` hand every phase to
-``phase_span`` and the async checkpoint writer wraps each write in
-``span``.
+``watchdog_stall``, the supervisor's ``crash``/``restart``; with a
+grad_comm block the run-start ``kernel_select`` of the
+``train.grad_allreduce`` site and the one-shot ``comm_probe``; the
+fleet's host, router, wire and rollout events), plus (span mode) one
+record per timed phase occurrence: the Trainer's ``Timers`` hand every
+phase to ``phase_span`` (the ``comm`` probe's among them), the feeder
+thread wraps each batch in an ``assemble_batch`` span (track
+``feeder``), the stager each staged block in ``stage_block`` (track
+``stager``), and the async checkpoint writer each write in ``span``.
+``tools/trace.py`` reads them all.
 
   1. ``event()``/``record_span()`` never touch the device and never do
      I/O: they append a plain dict to an in-memory buffer under a lock.

@@ -91,13 +91,7 @@ from ..models.transformer import TransformerConfig, init_lm
 from ..ops import paged_attention as pa
 from ..resilience.preemption import EXIT_RESUMABLE, PreemptionHandler
 from ..serve import Engine, EngineConfig, Request, Scheduler
-
-
-def _percentile(sorted_vals: list[float], q: float) -> float:
-    if not sorted_vals:
-        return 0.0
-    i = min(len(sorted_vals) - 1, int(round(q * (len(sorted_vals) - 1))))
-    return sorted_vals[i]
+from .trace import _percentile
 
 
 def build_argparser() -> argparse.ArgumentParser:

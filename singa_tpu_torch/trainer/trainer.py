@@ -411,6 +411,12 @@ class Trainer:
         self.resilience = None
         #: the flight recorder (``attach_telemetry``; None: inert)
         self.telemetry = None
+        #: the one-shot comm probe ran (``_maybe_record_comm_probe``)
+        self._comm_probe_done = False
+        #: what that probe added to the process counters (all 0 until it
+        #: runs; ``tools/collective_stall.record_comm_probe``)
+        self.comm_probe_counts = {"quant_acc_launches": 0,
+                                  "ring_sent_bytes": 0, "exchange_s": 0.0}
         #: the divergence guard (None: unguarded)
         self._guard = GuardSpec.from_config(model_cfg.resilience)
         #: the async saves' two snapshot buffers (``_snapshot``)
@@ -1578,6 +1584,44 @@ class Trainer:
             return 0
         return model["quantized_ring" if self._comm.ring else "reference"]
 
+    def _maybe_emit_kernel_select(self) -> None:
+        """The run-start ``kernel_select`` event of the grad_allreduce
+        site: the wire implementation this run reduces gradients through
+        and its modeled bytes a step (``trace --summarize`` reports them
+        as ``grad_wire_impl`` and ``wire_bytes_per_step``)."""
+        if self.telemetry is None or self._comm is None:
+            return
+        self.telemetry.event(
+            "kernel_select",
+            step=self.start_step,
+            site="train.grad_allreduce",
+            impl=self.grad_wire_impl,
+            wire_bytes_per_step=int(self.modeled_wire_bytes_per_step()),
+            wire_dtype=self._comm.dtype if self._comm.quantized else "f32",
+        )
+
+    def _maybe_record_comm_probe(self) -> None:
+        """The one-shot cost probe of the gradient-collective machinery
+        (the recorder's ``comm`` span): with grad_comm and telemetry both
+        on, time a short chain of reductions under the ``comm`` phase
+        (``tools/collective_stall.record_comm_probe``). It runs once,
+        before the cadence loop and never on the step path; a failure is
+        logged and dropped (a probe must not sink training). Across
+        processes the probe's rounds are collectives (the gather, the
+        ring's exchanges), so that promise holds only in lockstep: a
+        process that raises after a peer entered one leaves that peer
+        blocked, as a failed step would."""
+        if (self.telemetry is None or self._comm is None
+                or self._comm_probe_done):
+            return
+        self._comm_probe_done = True
+        try:
+            from ..tools.collective_stall import record_comm_probe
+
+            record_comm_probe(self)
+        except Exception as e:  # pragma: no cover - defensive
+            self.log(f"TELEMETRY: comm probe failed: {e}")
+
     # ------------------------------------------------------------------
     # device-resident dataset
     # ------------------------------------------------------------------
@@ -1709,8 +1753,16 @@ class Trainer:
                     for name, pipe in pipes.items()
                 }
 
-            self._feeder = DeviceFeeder(
-                lambda: self._assemble_host_batch(net), positions)
+            def assemble():
+                # the feeder thread's span: assembly and the copy of the
+                # read-ahead batch, on a trace track of their own
+                rec = self.telemetry
+                if rec is None:
+                    return self._assemble_host_batch(net)
+                with rec.span("assemble_batch", track="feeder"):
+                    return self._assemble_host_batch(net)
+
+            self._feeder = DeviceFeeder(assemble, positions)
         return self._feeder
 
     def _chunk_stager(self):
@@ -1731,14 +1783,23 @@ class Trainer:
                 if arr.dtype != orig:
                     self._cache_cast[(id(net), name)] = _torch_dtype(orig)
                 sources[name] = (arr, pipe.labels, pipe.batchsize)
+
+            def put(a, name, kind):
+                # the stager thread's span: each staged block's copy to
+                # the device, on a trace track of its own
+                rec = self.telemetry
+                if rec is None:
+                    return to_device(a, self.device, self._copy_stream)
+                with rec.span("stage_block", track="stager"):
+                    return to_device(a, self.device, self._copy_stream)
+
             self._stager = ChunkStager(
                 sources, 1,
                 schedule=self._stream_schedule,
                 cursors=lambda: {
                     name: pipe.position for name, pipe in pipes.items()
                 },
-                put=lambda a, name, kind: to_device(
-                    a, self.device, self._copy_stream),
+                put=put,
             )
         return self._stager
 
@@ -2317,6 +2378,10 @@ class Trainer:
         cached dataset or streaming blocks and a graphed step it advances
         by chunks (one window per cadence interval); otherwise one step
         at a time."""
+        # the grad_allreduce kernel_select event and the one-shot comm
+        # probe (grad_comm with telemetry only; off the step path)
+        self._maybe_emit_kernel_select()
+        self._maybe_record_comm_probe()
         streaming = self.feeder_mode == "stream"
         chunking = self._can_chunk() or streaming
         ctx = self.resilience

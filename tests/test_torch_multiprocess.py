@@ -165,7 +165,10 @@ def test_two_processes_equal_one_process_and_the_jax_trainer(
     reports, _ = launch(tmp_path, text, width)
     tr, losses, params, sent = port_run(text, width)
     check_reports(reports, width, tr.digest())
-    assert sum(r["ring_sent_bytes"] for r in reports) == sent
+    # the steps' bytes: each process's count less its comm probe's
+    probe = sum(r["comm_probe"]["ring_sent_bytes"] for r in reports)
+    assert sum(r["ring_sent_bytes"] for r in reports) - probe == sent
+    assert (probe > 0) == (sent > 0)
     assert (sent > 0) == ("ring" in mode or "hier" in mode)
     for j, t in zip(jlosses, losses):
         assert abs(j - t) <= LOSS_TOL, (jlosses, losses)

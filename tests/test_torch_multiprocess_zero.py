@@ -69,7 +69,9 @@ def test_zero_across_processes_equals_one_process_and_the_jax_trainer(
     tr, losses, params, sent = port_run(text, width)
     assert tr.update_mode == "zero"
     check_reports(reports, width, tr.digest())
-    assert sum(r["ring_sent_bytes"] for r in reports) == sent
+    # the steps' bytes: each process's count less its comm probe's
+    probe = sum(r["comm_probe"]["ring_sent_bytes"] for r in reports)
+    assert sum(r["ring_sent_bytes"] for r in reports) - probe == sent
     for j, t in zip(jlosses, losses):
         assert abs(j - t) <= LOSS_TOL, (jlosses, losses)
     atol = 5e-4 if ring else 1e-4
