@@ -165,14 +165,16 @@ caught and carried on):
              CUDA graphs): the four image confs as written (float32) on
              full-size synthetic shards (60000 MNIST-shaped records, the
              real training set's size; 50000 CIFAR-shaped, CIFAR-10's)
-             and train_longctx as written (bf16, S 8192): 30 steps as
-             graphed chunks (windows of 10 through Trainer.train_chunk)
-             against 30 eager per-step steps on host batches from the
+             and train_longctx as written (bf16, S 8192):
+             DISPATCH_STEPS steps as graphed chunks (windows of 10
+             through Trainer.train_chunk) against DISPATCH_STEPS eager
+             per-step steps on host batches from the
              same params, window losses within DISPATCH_TOL; under
              graphs the flash kernels' launch counts equal layers x
              steps (each replay adds its capture's counts); step ms of
-             a 30-step graphed chunk and of 30 eager steps (synced at
-             the end), images/s or tokens/s, the graphed chunk's device
+             a DISPATCH_STEPS-step graphed chunk and of DISPATCH_STEPS
+             eager steps (synced at the end), images/s or tokens/s, the
+             graphed chunk's device
              ms by CUDA events (unprofiled) and its idle share, and its
              largest device rows; two planted faults of a replayed step
              (the step counter frozen, on LeNet; the update not copied
@@ -196,13 +198,15 @@ caught and carried on):
              data 2 at the same global batch (the same bars; cuDNN
              deterministic), no kernel launched, a planted reversed
              filter Concate 100x past NETS_TOL on the params; then at
-             full width 30 steps as graphed chunks on the cached dataset
-             against 30 eager steps from the same params (window losses
+             full width RESNET_STEPS steps as graphed chunks on the
+             cached dataset against RESNET_STEPS eager steps from the
+             same params (window losses
              and the final running stats within DISPATCH_TOL, the loss
              falling), a planted fault (the graphed step does not copy
              the running stats back) that must move the stats by 100x
-             DISPATCH_TOL, step ms and images/s of both, the graphed
-             chunk's device ms by CUDA events and idle share, its 5
+             DISPATCH_TOL, step ms and images/s of both (a chunk of
+             RESNET_TIMED steps each), the graphed chunk's device ms by
+             CUDA events and idle share, its 5
              largest kernels (profiled), BatchNorm's device ms at the
              net's shapes with the cancellation rescue and without it,
              peak memory, and one eval batch from the running stats. No
@@ -491,10 +495,10 @@ caught and carried on):
              rank order), the flash launches exact (sp 0: the ring's
              fold is plain; ep replicas x 2 ranks x 2 layers x 10). Last,
              mlp.conf (cut to
-             REPLICA_PROCS' schedule) as two processes through ``python
-             -m singa_tpu_torch.main -procsID k -hostfile hf`` (gloo, this
-             card), one replica each, Elastic and RandomSync at full
-             coverage: both processes' digests (replicas, slots, center,
+             REPLICA_PROCS' schedule) as two processes through ``main
+             -procsID k -hostfile hf`` (gloo, this card), one replica
+             each, Elastic and RandomSync at full coverage (both jobs in
+             one set of processes, JOBS_CHILD): both processes' digests (replicas, slots, center,
              snapshots) equal one process's on the same 2-rank mesh to
              the bit, and process 0's save and sidecar hold its arrays.
              Every wait on a child has a timeout; every child is stopped.
@@ -570,8 +574,8 @@ caught and carried on):
              to cold on the unsharded engine, every admission a hit; a
              planted fault (rank 1's pools are rank 0's) that must change
              the streams. replica_tp: mlp.conf as written with
-             kLayerPartition, cut to MODEL_REPLICA_STEPS steps (the
-             warmup's 60 and two rounds), through ``main`` on a cluster
+             kLayerPartition, cut to MODEL_REPLICA_STEPS steps (its
+             warmup cut to MODEL_REPLICA_WARMUP, and two rounds), through ``main`` on a cluster
              conf of its own (nworkers 8, nprocs_per_group 2, nservers 1,
              asynchronous: 4 replicas x 2 model ranks) over the replica
              phase's shards, Elastic, RandomSync at 1 (bandwidth 1e9) and
@@ -593,9 +597,10 @@ caught and carried on):
              zero run's sharded save restored on 4 x 1, 1 x 4 and 1 x 1,
              every param and slot bitwise the saved one. procs_tp: the
              same conf as two processes of one model group each through
-             ``python -m singa_tpu_torch.main -procsID k -hostfile hf``
-             (gloo, this card) against one process of 4 ranks: both
-             digests equal its. Cuts: steps, never widths.
+             ``main -procsID k -hostfile hf`` (gloo, this card; procs_span
+             after it in the same set of processes, JOBS_CHILD) against
+             one process of 4 ranks: both digests equal its. Cuts: steps,
+             never widths.
   23. tools  (runs after model) the operator tools of
              ``singa_tpu_torch/tools``, each through its ``main`` on this
              card. ``trace`` merges every job log the earlier phases left
@@ -623,6 +628,30 @@ caught and carried on):
              prefill chunks and decode ticks); every JSON line has the
              JAX tool's keys. The timing verdicts are printed, not
              asserted: the thresholds are the JAX package's.
+  24. procs_axes (runs after tools) the seq, expert and pipe axes across
+             processes, each job through ``main`` with ``-procsID k
+             -hostfile hf`` (gloo, every process on this card) at its
+             shipped conf's widths (PROCS_AXES_JOBS), PROCS_AXES_STEPS
+             steps over a PROCS_AXES_SHARD shard: tinylm_ring.conf on
+             cluster_sp.conf (data 2 x seq 4) as 2 processes of 4 ranks
+             (whole seq groups) and as 4 of 2 (each seq group over two
+             processes); tinylm_moe.conf on cluster_ep.conf (data 2 x
+             expert 4), flash forced, as 4 of 2; tinylm_pp.conf on data
+             2 x pipe 2, flash forced, as 4 of 1. First the one-process
+             run of each conf and mesh (every rank in this process),
+             then the jobs of each process count in one set of
+             processes (JOBS_CHILD): every process's digest equal to its
+             one-process run's, the flash launches summed over the
+             processes equal to its, each process's step ms and layer
+             exchange ms a step (both over the steps after the first)
+             beside the one-process step ms. A planted fault for each
+             axis, patched into every child from outside the port and
+             run there after its job: the exchange backward keeping this
+             process's consumers' gradients only (sp_span, pp_span),
+             kMoE seeing only this process's parts of each routing group
+             (ep_span); each must change every digest. The phases from
+             procs (17) on start with the live objects frozen out of the
+             cyclic collector.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -823,7 +852,10 @@ POOL_TOL = 1e-5
 #: must move it by DISPATCH_FAULT_FACTOR times more
 DISPATCH_TOL = 1e-5
 DISPATCH_FAULT_FACTOR = 100
-DISPATCH_STEPS = 30
+#: the steps of each graphed and eager run of the dispatch and moe phases
+#: (30 until the procs_axes phase's time was paid for; resnet keeps 30:
+#: RESNET_STEPS)
+DISPATCH_STEPS = 20
 DISPATCH_WINDOW = 10
 RBM_CONF = "examples/mnist/rbm.conf"
 #: the unrolling of rbm.conf's stack into autoencoder.conf
@@ -837,6 +869,13 @@ RESNET_CONF = "examples/imagenet/resnet50.conf"
 #: ImageNet-shaped synthetic records (3 x 256 x 256 uint8, 1000
 #: classes): train and test
 RESNET_RECORDS = (2560, 256)
+#: the graphed and eager runs' steps (windows of DISPATCH_WINDOW): at 20
+#: the second window's loss is above the first (7.70 -> 8.51 at batch
+#: 256), so the falling-loss check needs the third
+RESNET_STEPS = 30
+#: steps of each timed graphed chunk after the parity runs (RESNET_STEPS
+#: until the procs_axes phase's time was paid for)
+RESNET_TIMED = 10
 #: the card-vs-CPU parity run: float32, batch cut to 8, 3 steps
 RESNET_PARITY_BATCH = 8
 RESNET_PARITY_STEPS = 3
@@ -3268,12 +3307,13 @@ def rbm_tp(dev, smi, shards) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def window_losses(tr, step0=0):
-    """DISPATCH_STEPS steps from ``step0`` in windows of DISPATCH_WINDOW
-    (``train_chunk``: replays of the captured step, or eager steps) ->
-    each window's mean loss."""
+def window_losses(tr, step0=0, steps=None):
+    """``steps`` (default DISPATCH_STEPS) steps from ``step0`` in windows
+    of DISPATCH_WINDOW (``train_chunk``: replays of the captured step,
+    or eager steps) -> each window's mean loss."""
     out = []
-    for s in range(step0, step0 + DISPATCH_STEPS, DISPATCH_WINDOW):
+    steps = DISPATCH_STEPS if steps is None else steps
+    for s in range(step0, step0 + steps, DISPATCH_WINDOW):
         tr.train_chunk(s, DISPATCH_WINDOW)
         out.append(tr.perf.avg()["loss"]["loss"])
         tr.perf.reset()
@@ -3722,8 +3762,8 @@ def release():
 
 def resnet_phase(dev, smi):
     """resnet50.conf as written on ImageNet-shaped records: the parity
-    run, then at full width (bf16, batch 256) DISPATCH_STEPS steps as
-    graphed chunks on the cached dataset against DISPATCH_STEPS eager
+    run, then at full width (bf16, batch 256) RESNET_STEPS steps as
+    graphed chunks on the cached dataset against RESNET_STEPS eager
     steps from the same params (window losses and the final running
     stats within DISPATCH_TOL), the planted stats fault (must move the
     stats by DISPATCH_FAULT_FACTOR x DISPATCH_TOL), step ms and images/s
@@ -3757,19 +3797,20 @@ def resnet_phase(dev, smi):
                   and graph.feeder_mode == "cached",
                   f"resnet: not a graphed step on the cached dataset "
                   f"({graph.dispatch_mode}, {graph.feeder_mode})")
-            g_losses = window_losses(graph)
+            g_losses = window_losses(graph, steps=RESNET_STEPS)
             g_stats = running_stats(graph)
             check(graph._g.run.captured, "resnet: the step was never "
                   "captured")
-            s0 = DISPATCH_STEPS
-            rec["step_ms"] = chunk_ms(graph, s0, DISPATCH_STEPS)
-            dev_ms, enqueue_ms = chunk_device_ms(graph, 2 * s0,
-                                                 DISPATCH_STEPS)
+            s0 = RESNET_STEPS
+            rec["step_ms"] = chunk_ms(graph, s0, RESNET_TIMED)
+            s0 += RESNET_TIMED
+            dev_ms, enqueue_ms = chunk_device_ms(graph, s0, RESNET_TIMED)
+            s0 += RESNET_TIMED
             prof_ms, top = profiled_device_ms(
-                lambda: graph.train_chunk(3 * s0, 3), 3)
+                lambda: graph.train_chunk(s0, 3), 3)
             graph.perf.reset()
             test = graph.evaluate(graph.test_net, 1, "test",
-                                  3 * s0 + 3)["loss"]
+                                  s0 + 3)["loss"]
             check(all(np.isfinite(list(test.values()))),
                   "resnet: non-finite eval metric")
             flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -3792,9 +3833,9 @@ def resnet_phase(dev, smi):
             eager = Trainer(resnet_config(shards), seed=0,
                             log=lambda s: None, device=dev, graphs=False,
                             device_cache=False, prefetch=False)
-            e_losses = window_losses(eager)
+            e_losses = window_losses(eager, steps=RESNET_STEPS)
             e_stats = running_stats(eager)
-            rec["eager_step_ms"] = chunk_ms(eager, s0, 10)
+            rec["eager_step_ms"] = chunk_ms(eager, RESNET_STEPS, RESNET_TIMED)
             rec["eager_images_per_s"] = batch / rec["eager_step_ms"] * 1e3
             rec["peak_memory_gb_eager"] = (
                 torch.cuda.max_memory_allocated(dev) / 1e9)
@@ -3802,7 +3843,7 @@ def resnet_phase(dev, smi):
             release()
             rel = rel_diff(g_losses, e_losses)
             srel = stats_diff(g_stats, e_stats)
-            print(f"resnet: graphed vs eager, {DISPATCH_STEPS} bf16 steps "
+            print(f"resnet: graphed vs eager, {RESNET_STEPS} bf16 steps "
                   f"at batch {batch} in windows of {DISPATCH_WINDOW}: max "
                   f"relative loss difference {rel:.3e}, running stats "
                   f"{srel:.3e} (tol {DISPATCH_TOL:g}); graphed "
@@ -3818,7 +3859,7 @@ def resnet_phase(dev, smi):
                 faulty = Trainer(resnet_config(shards), seed=0,
                                  log=lambda s: None, device=dev,
                                  device_cache=True)
-                window_losses(faulty)
+                window_losses(faulty, steps=RESNET_STEPS)
                 moved = stats_diff(running_stats(faulty), e_stats)
             finally:
                 Trainer._store_update = STORE_UPDATE
@@ -4716,6 +4757,150 @@ def step_exchange_s(r: dict) -> float:
     return r["exchange_s"] - r["comm_probe"]["exchange_s"]
 
 
+def write_cluster(tmp, lines, tag) -> str:
+    """The cluster conf ``lines`` with the workspace ``ws_{tag}`` ->
+    its path."""
+    path = os.path.join(tmp, f"{tag}_cluster.conf")
+    with open(path, "w") as f:
+        f.write(f'{lines}\nworkspace: "{tmp}/ws_{tag}"\n')
+    return path
+
+
+def child_reports(out: str, tag: str) -> list:
+    """Every ``tag`` line's JSON in ``out``, in order."""
+    return [json.loads(x[len(tag):]) for x in out.splitlines()
+            if x.startswith(tag)]
+
+
+#: a multi-process child: ``main`` once for each job of a JSON list
+#: (argv[1] the list's file, argv[2] this process's index), each run
+#: with the job's environment and every count from 0, so the jobs of a
+#: command and their faults pay one start-up of the processes (a job
+#: of fewer processes runs on the first of them, the others going on to
+#: the next job's rendezvous). A job with a ``fault`` runs once more with that fault patched in from
+#: outside the port, on its ``fault_argv`` (its own rendezvous and
+#: workspace): "local_only", every exchange's backward keeping this
+#: process's consumers' gradients only; "alone", kMoE seeing only this
+#: process's parts of each routing group (every part of another
+#: process's lanes replaced by one of this process's: its tokens routed
+#: alone, its own experts' outputs alone). Each run is preceded by a
+#: "JOB RUN: [job, fault]" line and followed by "LAYER STEPS: s", its
+#: layer exchange seconds since the Trainer's last display line (the
+#: window of its report's ``steps_s``).
+JOBS_CHILD = """
+import functools, json, os, sys
+import torch
+from singa_tpu_torch.main import main
+from singa_tpu_torch.ops import attention as ta
+from singa_tpu_torch.parallel import axes, mesh, moe
+from singa_tpu_torch.utils import timers
+
+with open(sys.argv[1]) as f:
+    jobs = json.load(f)
+proc = sys.argv[2]
+since = [0.0]
+reset = timers.Timers.reset
+
+def display_reset(self):
+    since[0] = mesh.LAYER_EXCHANGE.seconds
+    reset(self)
+
+def local_only(ctx, *grads):
+    plan = ctx.plan
+    mine = torch.stack(grads)
+    return (None, *(functools.reduce(torch.add, (
+        mine[c, plan.first + k] for c in range(mine.shape[0])))
+        for k in range(plan.local)))
+
+share = moe.share
+
+def alone(lanes, g, parts, axes_):
+    got = share(lanes, g, parts, axes_)
+    group = lanes.mesh.group_of(lanes.ranks[g[0]], axes_)
+    mine = [i for i, r in enumerate(group) if lanes.mesh.is_local(r)]
+    return [[w[i] if i in mine else w[mine[i % len(mine)]]
+             for i in range(len(group))] for w in got]
+
+backward = axes.GroupExchange.__dict__["backward"]
+timers.Timers.reset = display_reset
+for job in jobs:
+    if int(proc) >= job["nprocs"]:
+        continue
+    os.environ.update(job["env"])
+    for fault in [""] + [job["fault"]] * bool(job["fault"]):
+        for names in ta.KERNEL_NAMES.values():
+            for n in names:
+                getattr(ta, n).launches = 0
+        mesh.EXCHANGE.seconds = mesh.LAYER_EXCHANGE.seconds = 0.0
+        if fault == "local_only":
+            axes.GroupExchange.backward = staticmethod(local_only)
+        elif fault == "alone":
+            moe.share = alone
+        print("JOB RUN: " + json.dumps([job["name"], fault]), flush=True)
+        rc = main(job["fault_argv" if fault else "argv"] + ["-procsID", proc])
+        axes.GroupExchange.backward, moe.share = backward, share
+        print("LAYER STEPS: "
+              + json.dumps(mesh.LAYER_EXCHANGE.seconds - since[0]),
+              flush=True)
+        if rc:
+            sys.exit(rc)
+"""
+
+
+def cli_job(dev, tmp, name, conf, lines, nprocs, fault="", env=None
+            ) -> dict:
+    """A JOBS_CHILD job: ``conf`` on the cluster conf ``lines`` as
+    ``nprocs`` processes through ``main`` (its own hostfile and
+    workspace; the planted ``fault``'s run on others)."""
+    def argv(tag):
+        out = ["-model_conf", conf,
+               "-cluster_conf", write_cluster(tmp, lines, tag),
+               "-hostfile", write_hostfile(os.path.join(tmp, f"{tag}_hf"),
+                                           nprocs)]
+        return out + (["-device", str(dev)] if dev.type != "cuda" else [])
+
+    return {"name": name, "nprocs": nprocs, "fault": fault,
+            "env": env or {}, "argv": argv(name),
+            "fault_argv": argv(f"{name}_fault")}
+
+
+def run_jobs(tmp, tag, jobs) -> tuple[dict, float]:
+    """``jobs`` (``cli_job``) in order, in one set of JOBS_CHILD
+    processes (as many as the largest job's) -> ({job: {"reps": each of
+    its processes' TRAIN PROCESS report, "faulty": each one's fault run's
+    ([] without one), "layer_steps_s": each one's LAYER STEPS}},
+    seconds)."""
+    spec = os.path.join(tmp, f"{tag}_jobs.json")
+    with open(spec, "w") as f:
+        json.dump(jobs, f)
+    t0 = time.perf_counter()
+    outs = run_children([[sys.executable, "-c", JOBS_CHILD, spec, str(k)]
+                         for k in range(max(j["nprocs"] for j in jobs))],
+                        tmp, tag)
+    seconds = time.perf_counter() - t0
+    got = {j["name"]: {"reps": [], "faulty": [], "layer_steps_s": []}
+           for j in jobs}
+    for k, out in enumerate(outs):
+        runs = out.split("JOB RUN: ")[1:]
+        check(len(runs) == sum(1 + bool(j["fault"]) for j in jobs
+                               if k < j["nprocs"]),
+              f"{tag}: process {k} ran {len(runs)} runs")
+        for run in runs:
+            name, fault = json.loads(run.splitlines()[0])
+            rec = got[name]
+            rec["faulty" if fault else "reps"] += child_reports(
+                run, "TRAIN PROCESS: ")
+            if not fault:
+                rec["layer_steps_s"] += child_reports(run, "LAYER STEPS: ")
+    for j in jobs:
+        rec = got[j["name"]]
+        check(len(rec["reps"]) == j["nprocs"] == len(rec["layer_steps_s"])
+              and len(rec["faulty"]) == j["nprocs"] * bool(j["fault"]),
+              f"{tag} {j['name']}: {len(rec['reps'])} reports, "
+              f"{len(rec['faulty'])} of its fault")
+    return got, seconds
+
+
 def procs_lm_conf(tmp, shard) -> str:
     """tinylm_d128.conf with the ring phase's q8wire settings (the int8
     ring, 4 buckets), float32, PROCS_LM_STEPS steps, over ``shard`` ->
@@ -5183,8 +5368,9 @@ def procs_phase(dev, smi, shard, zero_ref, tmp) -> dict:
 
 #: float32 steps of each path and its counterpart
 AXES_STEPS = 5
-#: bf16 steps timed of each path and its counterpart
-AXES_TIMED = 10
+#: bf16 steps timed of each path and its counterpart (10 until the
+#: procs_axes phase's time was paid for)
+AXES_TIMED = 5
 AXES_TOL = 1e-4
 AXES_FAULT_FACTOR = 100
 #: the sp cell's shard: ring attention's per-hop fold keeps a (b, h,
@@ -5255,12 +5441,6 @@ def _per_model_group(layers, tr):
     """A kLayerPartition kAttention attends its model group's heads at
     once: one call per group of model ranks."""
     return layers * tr.mesh.width // tr.mesh.widths["model"]
-
-
-def _per_seq_group(layers, tr):
-    """A non-ring mode on a seq axis attends the seq group's gathered
-    blocks at once: one call per group of seq ranks."""
-    return layers * tr.mesh.width // tr.mesh.widths["seq"]
 
 
 def _ring(cfg):
@@ -5348,9 +5528,11 @@ AXES_PATHS = {
                    _cluster_of(data=2, expert=2, model=2),
                    _cluster_of(data=2, expert=2), _per_model_group,
                    _REVERSED_CONCATE),
+    # a non-ring mode on a seq axis: each lane attends its seq group's
+    # gathered blocks and keeps its rows (one call a rank)
     "sp_moe": _path("examples/lm/tinylm_moe.conf", None,
                     _cluster_of(data=2, seq=4), "nworkers: 2",
-                    _per_seq_group, _REVERSED_CONCATE),
+                    _per_rank, _REVERSED_CONCATE),
 }
 
 
@@ -5669,7 +5851,9 @@ REPLICA_CONF = "examples/mnist/mlp.conf"
 REPLICA_CLUSTER = "examples/mnist/cluster_elastic.conf"
 #: the mlp run's replica ranks (worker groups), all on this card
 REPLICA_RANKS = 4
-REPLICA_STEPS = 100
+#: mlp.conf's warmup (60) and two rounds (100 until the procs_axes
+#: phase's time was paid for)
+REPLICA_STEPS = 72
 #: a protocol round against its formula in float64, max |got - formula|
 #: over the replicas, the center and the snapshots: float32 rounding of a
 #: few adds and multiplies on values of at most ~0.1 (8 ulps at 0.1)
@@ -6251,7 +6435,7 @@ def replica_procs(dev, smi, shards, tmp) -> dict:
     snapshots) equal to it, to the bit, and process 0's npz and sidecar
     holding its arrays."""
     p = REPLICA_PROCS
-    out = {}
+    out, confs, jobs = {}, {}, []
     for protocol in ("Elastic", "RandomSync"):
         edits = [("train_steps: 60000", f"train_steps: {p['steps']}"),
                  ("warmup_steps: 60", f"warmup_steps: {p['warmup']}"),
@@ -6259,20 +6443,22 @@ def replica_procs(dev, smi, shards, tmp) -> dict:
         if protocol == "RandomSync":
             edits += [('param_type: "Elastic"', 'param_type: "RandomSync"'),
                       ("moving_rate: 0.9", "moving_rate: 0")]
-        conf = os.path.join(tmp, f"replica_procs_{protocol}.conf")
+        conf = confs[protocol] = os.path.join(
+            tmp, f"replica_procs_{protocol}.conf")
         with open(conf, "w") as f:
             f.write(replica_mlp_text(shards, edits))
-        two = replica_cluster(tmp, f"procs_{protocol}", 2, "bandwidth: 1e9\n")
-        cmd = [sys.executable, "-m", "singa_tpu_torch.main", "-model_conf",
-               conf, "-cluster_conf", two, "-hostfile", write_hostfile(
-                   os.path.join(tmp, f"replica_hf_{protocol}"))]
+        argv = ["-model_conf", conf, "-cluster_conf", replica_cluster(
+            tmp, f"procs_{protocol}", 2, "bandwidth: 1e9\n"),
+                "-hostfile", write_hostfile(os.path.join(
+                    tmp, f"replica_hf_{protocol}"))]
         if dev.type != "cuda":
-            cmd += ["-device", str(dev)]
-        t0 = time.perf_counter()
-        outs = run_children([cmd + ["-procsID", str(k)] for k in range(2)],
-                            tmp, f"replica_procs_{protocol}_")
-        procs_s = time.perf_counter() - t0
-        reps = [child_report(o, "TRAIN PROCESS: ") for o in outs]
+            argv += ["-device", str(dev)]
+        jobs.append({"name": protocol, "nprocs": 2, "fault": "",
+                     "env": {}, "argv": argv, "fault_argv": []})
+    # both protocols' jobs in one set of processes
+    got, procs_s = run_jobs(tmp, "replica_procs", jobs)
+    for protocol, conf in confs.items():
+        reps = got[protocol]["reps"]
         with open(conf) as f:
             one = replica_trainer(dev, f.read(), replica_cluster(
                 tmp, f"one_{protocol}", 2, "bandwidth: 1e9\n"))
@@ -6296,7 +6482,7 @@ def replica_procs(dev, smi, shards, tmp) -> dict:
                 np.array_equal(s["p|" + n], v.cpu().numpy())
                 for n, v in one.center.items())
         check(same, f"replica procs {protocol}: process 0's save differs")
-        out[protocol] = {"digest_equal": True, "procs_s": procs_s,
+        out[protocol] = {"digest_equal": True,
                          "one_process_run_s": one_s,
                          "exchange_ms_per_step": [
                              step_exchange_s(r) * 1e3 / p["steps"]
@@ -6305,6 +6491,7 @@ def replica_procs(dev, smi, shards, tmp) -> dict:
                          "devices": [r["device"] for r in reps]}
         del one
         release()
+    out["procs_s"] = procs_s
     print("replica procs", json.dumps({**out, **p, "card": smi}))
     return out
 
@@ -7118,9 +7305,11 @@ def resilience_phase(dev, smi, tmp) -> dict:
 #: model ranks of every path of the phase, and the mlp's replicas
 MODEL_RANKS = 2
 MODEL_REPLICAS = 4
-#: mlp.conf's warmup is 60 steps and its rounds every 8: 72 steps end at
-#: the second round (after steps 63 and 71)
-MODEL_REPLICA_STEPS = 72
+#: mlp.conf's rounds come every 8 steps past its warmup, cut from 60
+#: steps to 8 (72 steps until the procs_axes phase's time was paid for):
+#: 24 steps end at the second round (after steps 15 and 23)
+MODEL_REPLICA_WARMUP = 8
+MODEL_REPLICA_STEPS = 24
 #: the JAX package's TestReplicaComposition bar, 4 x 2 against 4 x 1
 MODEL_RTOL, MODEL_ATOL = 2e-4, 1e-5
 MODEL_TIMED = 5
@@ -7134,25 +7323,6 @@ SPAN_PROCS = 4
 #: resets the timers, so the steps after the first (whose time holds
 #: the first exchanges' set-up); the layer exchange seconds cover all
 SPAN_TIMED_STEPS = MODEL_ZERO_STEPS - 1
-#: a procs_span child: ``main`` with every exchange's backward keeping
-#: this process's consumers' gradients only (the remote consumers'
-#: dropped), patched in from outside the port before ``main`` runs
-SPAN_FAULT_MAIN = """
-import functools, sys
-import torch
-from singa_tpu_torch.parallel import axes
-
-def local_only(ctx, *grads):
-    plan = ctx.plan
-    mine = torch.stack(grads)
-    return (None, *(functools.reduce(torch.add, (
-        mine[c, plan.first + k] for c in range(mine.shape[0])))
-        for k in range(plan.local)))
-
-axes.GroupExchange.backward = staticmethod(local_only)
-from singa_tpu_torch.main import main
-sys.exit(main(sys.argv[1:]))
-"""
 
 
 def model_serve(dev, smi, cfg, params) -> dict:
@@ -7306,6 +7476,7 @@ def model_replica(dev, smi, shards, tmp) -> dict:
                          ("RandomSync", REPLICA_PARTIAL)):
         text = replica_mlp_text(shards, (
             ("train_steps: 60000", f"train_steps: {MODEL_REPLICA_STEPS}"),
+            ("warmup_steps: 60", f"warmup_steps: {MODEL_REPLICA_WARMUP}"),
             ('param_type: "Elastic"', f'param_type: "{proto}"'),
             ("neuralnet {", 'neuralnet {\n  partition_type: '
              '"kLayerPartition"')))
@@ -7509,43 +7680,41 @@ def model_procs_conf(tmp) -> str:
     return conf
 
 
-def model_cli(dev, tmp, conf, nprocs, name,
-              child=("-m", "singa_tpu_torch.main")):
+def model_cli(dev, tmp, conf, nprocs, name, fault=""):
     """``conf`` on data 2 x model MODEL_RANKS as ``nprocs`` processes
-    through ``main`` (or the Python ``child`` arguments that end in it;
-    gloo, this card), flash forced -> (their reports, seconds)."""
-    cluster = os.path.join(tmp, f"{name}_cluster.conf")
-    with open(cluster, "w") as f:
-        f.write(f"nworkers: 4\nnprocs_per_group: {MODEL_RANKS}\n"
-                f'workspace: "{tmp}/ws_{name}"\n')
-    cmd = [sys.executable, *child, "-model_conf", conf, "-cluster_conf",
-           cluster, "-hostfile",
-           write_hostfile(os.path.join(tmp, f"{name}_hf"), nprocs)]
-    if dev.type != "cuda":
-        cmd += ["-device", str(dev)]
-    os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "0"
-    try:
-        t0 = time.perf_counter()
-        reps = [child_report(o, "TRAIN PROCESS: ") for o in run_children(
-            [cmd + ["-procsID", str(k)] for k in range(nprocs)], tmp, name)]
-    finally:
-        os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "512"
-    return reps, time.perf_counter() - t0
+    through ``main`` (gloo, this card), flash forced; with ``fault`` each
+    child then runs the job once more with that planted fault
+    (JOBS_CHILD) -> (their reports, the fault runs' reports, seconds)."""
+    got, seconds = run_jobs(tmp, name, [model_job(dev, tmp, conf, nprocs,
+                                                  name, fault)])
+    return got[name]["reps"], got[name]["faulty"], seconds
+
+
+def model_job(dev, tmp, conf, nprocs, name, fault=""):
+    """``model_cli``'s job (``cli_job``)."""
+    return cli_job(dev, tmp, name, conf,
+                   f"nworkers: 4\nnprocs_per_group: {MODEL_RANKS}", nprocs,
+                   fault, {"SINGA_TPU_DENSE_ATTN_MB": "0"})
 
 
 def model_procs(dev, smi, tmp) -> dict:
     """procs_tp: the zero_tp conf (``model_procs_conf``, flash forced)
     as 2 processes of one model group (2 ranks) each through ``python -m
     singa_tpu_torch.main -procsID k -hostfile hf`` (gloo, this card)
-    against one process of 4 ranks: every digest equal. -> the record,
-    with the conf, the one-process digest and its attention layers for
-    procs_span."""
+    against one process of 4 ranks: every digest equal; procs_span's
+    job runs in the same set of processes after it. -> the record (its
+    ``procs_s`` the set's seconds), with the conf, the one-process
+    digest, its attention layers and procs_span's reports."""
     import warnings
 
     from singa_tpu_torch.config import parse_cluster_config
 
     conf = model_procs_conf(tmp)
-    reps, procs_s = model_cli(dev, tmp, conf, 2, "model_procs")
+    # procs_tp, then procs_span on SPAN_PROCS processes, in one set
+    got, procs_s = run_jobs(tmp, "model_procs", [
+        model_job(dev, tmp, conf, 2, "model_procs"),
+        model_job(dev, tmp, conf, SPAN_PROCS, "model_span", "local_only")])
+    reps = got["model_procs"]["reps"]
     os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "0"
     try:
         with warnings.catch_warnings():
@@ -7577,26 +7746,26 @@ def model_procs(dev, smi, tmp) -> dict:
     print("model procs", json.dumps(out))
     del one
     release()
-    return {**out, "conf": conf, "digest": digest, "layers": layers}
+    return {**out, "conf": conf, "digest": digest, "layers": layers,
+            "span": got["model_span"]}
 
 
 def model_span(dev, smi, tmp, procs) -> dict:
-    """procs_span: procs_tp's job (``procs``: model_procs's record) as
-    SPAN_PROCS processes of one rank each through ``main`` (gloo, this
-    card), flash forced: each model group spans MODEL_RANKS processes,
-    its layers' Concate and partial sums cross them inside the step.
+    """procs_span: procs_tp's job (``procs``: model_procs's record, whose
+    processes ran it) as SPAN_PROCS processes of one rank each through
+    ``main`` (gloo, this card), flash forced: each model group spans
+    MODEL_RANKS processes, its layers' Concate and partial sums cross
+    them inside the step.
     Every process on the card with its rank and its digest procs_tp's
     one-process 4-rank digest; its flash launches exactly the
     prediction, attention layers x steps of each bf16 kernel (a process
     attends its group's gathered heads once a layer and step); its
     layer exchange ms a step. Then the planted fault, every process's
     exchange backward keeping its own consumers' gradients only
-    (SPAN_FAULT_MAIN), must change every digest. -> the record."""
-    reps, span_s = model_cli(dev, tmp, procs["conf"], SPAN_PROCS,
-                             "model_span")
-    faulty, fault_s = model_cli(dev, tmp, procs["conf"], SPAN_PROCS,
-                                "model_span_fault",
-                                child=("-c", SPAN_FAULT_MAIN))
+    (JOBS_CHILD, in the same children after the job), must change every
+    digest. -> the record."""
+    reps, faulty = procs["span"]["reps"], procs["span"]["faulty"]
+    span_s = procs["procs_s"]
     want = flash_launches(torch.bfloat16, procs["layers"] * MODEL_ZERO_STEPS)
     want = {n: want[n] for n in reps[0]["flash_launches"]}
     for k, r in enumerate(reps):
@@ -7621,7 +7790,7 @@ def model_span(dev, smi, tmp, procs) -> dict:
                                for r in reps),
            "fault_digests_differ": all(r["digest"] != procs["digest"]
                                        for r in faulty),
-           "fault_s": fault_s, "card": smi}
+           "card": smi}
     print("model span", json.dumps(out))
     for k, r in enumerate(reps):
         check(r["flash_launches"] == want,
@@ -7648,7 +7817,7 @@ def span_turns(dev, smi, tmp) -> dict:
     runs = []
     for k, (n, name) in enumerate(((2, "tp"), (SPAN_PROCS, "span"),
                                    (SPAN_PROCS, "span"), (2, "tp"))):
-        reps, secs = model_cli(dev, tmp, conf, n, f"turn{k}_{name}")
+        reps, _, secs = model_cli(dev, tmp, conf, n, f"turn{k}_{name}")
         runs.append({"path": name, "seconds": secs,
                      "step_ms": [r["steps_s"] * 1e3 / SPAN_TIMED_STEPS
                                  for r in reps],
@@ -7679,6 +7848,68 @@ def span_turns(dev, smi, tmp) -> dict:
     out = {"runs": runs, "attention_fwd_bwd_ms": ms, "layers": layers,
            "repeated_attention_ms_per_step": ms * layers, "card": smi}
     print("span turns", json.dumps(out))
+    return out
+
+
+#: an axes_turns child, run from the root of a checkout: that
+#: checkout's chip_smoke ``axes_path`` on each path of argv[1:] at
+#: AXES_TURNS_TIMED bf16 steps (its kernels built first), each path's
+#: bf16 step ms and its counterpart's on a "TURN:" line
+AXES_TURN_CHILD = """
+import json, os, sys, tempfile
+import torch
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+from singa_tpu_torch import _build
+
+_build.build_all()
+cs.AXES_TIMED = int(os.environ["AXES_TURNS_TIMED"])
+os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "0"
+with tempfile.TemporaryDirectory() as tmp:
+    shards = cs.write_axes_shards(tmp)
+    for name in sys.argv[1:]:
+        r = cs.axes_path(torch.device("cuda"), "", name,
+                         shards["ring" if name == "sp" else "lm"], tmp)
+        print("TURN: " + json.dumps({
+            "path": name, "path_ms": r["bf16_path"]["step_ms_median"],
+            "ref_ms": r["bf16_ref"]["step_ms_median"]}), flush=True)
+"""
+#: the paths axes_turns times, and its bf16 steps a path
+AXES_TURNS_PATHS = ("sp", "ep_psum", "ep_alltoall", "pp", "sp_ep", "sp_moe")
+AXES_TURNS_TIMED = 10
+
+
+def axes_turns(other: str, paths=AXES_TURNS_PATHS) -> dict:
+    """This checkout's axes paths against those of the checkout at
+    ``other`` (a directory of the repo, e.g. a ``git archive`` of the
+    parent), in turns: other, this, this, other, each a process of its
+    own (AXES_TURN_CHILD): every path's bf16 step ms and its
+    counterpart's (the same conf with one axis less), the median of
+    AXES_TURNS_TIMED steps. Not part of ``main`` (about five minutes):
+    ``python3 -c "import chip_smoke; chip_smoke.axes_turns('parent_check')"``.
+    -> the record, also printed."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    runs = []
+    for k, (tag, root) in enumerate((("other", other), ("this", REPO),
+                                     ("this", REPO), ("other", other))):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", AXES_TURN_CHILD, *paths],
+                           cwd=os.path.join(REPO, root), text=True,
+                           capture_output=True, timeout=1200, env={
+                               **os.environ,
+                               "AXES_TURNS_TIMED": str(AXES_TURNS_TIMED)})
+        check(r.returncode == 0, f"axes turn {k} ({tag}) exited "
+              f"{r.returncode}:\n{(r.stdout + r.stderr)[-3000:]}")
+        runs.append({"turn": k, "checkout": tag,
+                     "seconds": time.perf_counter() - t0,
+                     "paths": child_reports(r.stdout, "TURN: ")})
+    out = {"other": other, "timed": AXES_TURNS_TIMED, "runs": runs,
+           "card": smi}
+    print("axes turns", json.dumps(out))
     return out
 
 
@@ -7718,6 +7949,154 @@ def model_phase(dev, smi, cfg, params, tmp) -> dict:
             "quant_acc": (reps["mlp_quant_acc_launches"]
                           + reps["lm_launches"]["quant_acc"]),
             "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# procs_axes phase: the seq, expert and pipe axes across processes
+# ---------------------------------------------------------------------------
+
+PROCS_AXES_STEPS = 5
+#: sequences x tokens of the jobs' shard (the confs' batch 64 and widths
+#: as written; S 256 gives each of 4 seq shards 64 positions)
+PROCS_AXES_SHARD = (128, 256)
+#: job -> (model conf, cluster conf lines, processes, flash forced, the
+#: planted fault's child); tinylm_pp.conf's mesh is data 2 x pipe 2
+PROCS_AXES_JOBS = {
+    "sp_whole": ("examples/lm/tinylm_ring.conf",
+                 "nworkers: 8\nnprocs_per_group: 4\nnseq_per_group: 4", 2,
+                 False, None),
+    "sp_span": ("examples/lm/tinylm_ring.conf",
+                "nworkers: 8\nnprocs_per_group: 4\nnseq_per_group: 4", 4,
+                False, "local_only"),
+    "ep_span": ("examples/lm/tinylm_moe.conf",
+                "nworkers: 8\nnprocs_per_group: 4\nnexperts_per_group: 4",
+                4, True, "alone"),
+    "pp_span": ("examples/lm/tinylm_pp.conf",
+                "nworkers: 4\nnprocs_per_group: 2\nnpipes_per_group: 2", 4,
+                True, "local_only"),
+}
+def procs_axes_conf(tmp, name, conf, shard) -> str:
+    """``conf`` as written over ``shard``, PROCS_AXES_STEPS steps ->
+    its path."""
+    with open(os.path.join(REPO, conf)) as f:
+        txt = f.read()
+    check("examples/lm/train_shard" in txt and "train_steps: 2000" in txt,
+          f"procs_axes: {conf} lacks its data path or train_steps")
+    path = os.path.join(tmp, f"{name}.conf")
+    with open(path, "w") as f:
+        f.write(txt.replace("examples/lm/train_shard", shard).replace(
+            "train_steps: 2000", f"train_steps: {PROCS_AXES_STEPS}"))
+    return path
+
+
+def procs_axes_one(dev, name, path, lines, flash, tmp) -> dict:
+    """The job's one-process run (every rank in this process) ->
+    {"digest", "launches": its flash launches, "step_ms": its step
+    ms (the steps after the first, as a child's ``steps_s``), "mesh"}."""
+    import warnings
+
+    from singa_tpu_torch.config import parse_cluster_config
+    from singa_tpu_torch.parallel.mesh import mesh_from_cluster
+
+    cl = parse_cluster_config(f'{lines}\nworkspace: "{tmp}/ws_{name}_one"\n')
+    os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "0" if flash else "512"
+    try:
+        zero_launches()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            one = Trainer(load_model_config(path), cl, mesh=mesh_from_cluster(
+                cl, [dev] * cl.nworkers), seed=0, log=lambda s: None)
+        one.run()
+        sync(dev)
+    finally:
+        os.environ["SINGA_TPU_DENSE_ATTN_MB"] = "512"
+    out = {"digest": one.digest(), "launches": axes_launches(),
+           "step_ms": (one.timers.total("data") + one.timers.total("train"))
+           * 1e3 / (PROCS_AXES_STEPS - 1), "mesh": one.mesh_shape}
+    del one
+    release()
+    return out
+
+
+def procs_axes_check(dev, smi, name, got, one, seconds) -> dict:
+    """One PROCS_AXES_JOBS entry's processes (``run_jobs``' record
+    ``got``) against its one-process run ``one`` (``procs_axes_one``)
+    -> the job's record."""
+    conf, lines, nprocs, flash, fault = PROCS_AXES_JOBS[name]
+    reps, faulty = got["reps"], got["faulty"]
+    per = len(reps[0]["ranks"])
+    summed = {n: sum(r["flash_launches"][n] for r in reps)
+              for n in reps[0]["flash_launches"]}
+    for k, r in enumerate(reps):
+        check((r["proc"], r["nprocs"], r["backend"]) == (k, nprocs, "gloo")
+              and r["ranks"] == list(range(k * per, (k + 1) * per))
+              and r["device"].startswith(dev.type)
+              and r["steps"] == PROCS_AXES_STEPS,
+              f"procs_axes {name}: process {k}: {r}")
+    timed = PROCS_AXES_STEPS - 1
+    out = {"job": name, "conf": conf, "mesh": one["mesh"],
+           "processes": nprocs, "ranks_a_process": per,
+           "steps": PROCS_AXES_STEPS, "flash_forced": flash,
+           "one_step_ms": one["step_ms"],
+           "step_ms": [r["steps_s"] * 1e3 / timed for r in reps],
+           # over the same steps as step_ms: those after the first
+           "layer_exchange_ms_per_step": [
+               s * 1e3 / timed for s in got["layer_steps_s"]],
+           "exchange_ms_per_step": [
+               step_exchange_s(r) * 1e3 / PROCS_AXES_STEPS for r in reps],
+           "one_flash_launches": {n: one["launches"][n] for n in summed},
+           "flash_launches": summed,
+           "digest_equal": all(r["digest"] == one["digest"] for r in reps),
+           "fault": fault,
+           "fault_digests_differ": all(r["digest"] != one["digest"]
+                                       for r in faulty),
+           "procs_s": seconds, "card": smi}
+    print("procs_axes", json.dumps(out))
+    check(out["digest_equal"],
+          f"procs_axes {name}: a process's digest != one process's")
+    check(summed == out["one_flash_launches"],
+          f"procs_axes {name}: flash launches {summed} != one process's "
+          f"{out['one_flash_launches']}")
+    check(not flash or sum(summed.values()) > 0,
+          f"procs_axes {name}: flash forced, no launch")
+    check(not fault or out["fault_digests_differ"],
+          f"procs_axes {name}: the planted {fault} fault kept a digest")
+    return out
+
+
+def procs_axes_phase(dev, smi, tmp) -> dict:
+    """Phase 24: the one-process run of every conf and mesh of
+    PROCS_AXES_JOBS, then the jobs in one set of JOBS_CHILD processes (a
+    job, then its planted fault, then the next job; a 2-process job on
+    the first two), each job held to its one-process run ->
+    {"jobs": each job's record, "flash": the flash launches by kernel
+    summed over the jobs' processes, "seconds"}."""
+    t0 = time.perf_counter()
+    shard = os.path.join(tmp, "procs_axes_lm")
+    write_records(shard, *synthetic_token_arrays(
+        PROCS_AXES_SHARD[0], seq_len=PROCS_AXES_SHARD[1], vocab=256,
+        seed=0))
+    paths, ones, specs = {}, {}, []
+    for name, (conf, lines, nprocs, flash, fault) in PROCS_AXES_JOBS.items():
+        paths[name] = procs_axes_conf(tmp, name, conf, shard)
+        if (conf, lines) not in ones:
+            ones[conf, lines] = procs_axes_one(dev, name, paths[name], lines,
+                                               flash, tmp)
+        specs.append(cli_job(
+            dev, tmp, name, paths[name], lines, nprocs, fault or "",
+            {"SINGA_TPU_DENSE_ATTN_MB": "0" if flash else "512"}))
+    ones_s = time.perf_counter() - t0
+    got, procs_s = run_jobs(tmp, "procs_axes", specs)
+    jobs = {}
+    for name, (conf, lines, *_) in PROCS_AXES_JOBS.items():
+        jobs[name] = procs_axes_check(dev, smi, name, got[name],
+                                      ones[conf, lines], procs_s)
+    flash = {n: sum(j["flash_launches"][n] for j in jobs.values())
+             for n in FLASH}
+    seconds = time.perf_counter() - t0
+    print(f"procs_axes phase {seconds:.1f} s (one-process runs {ones_s:.1f}"
+          f", the jobs' processes {procs_s:.1f}) [{smi}]")
+    return {"jobs": jobs, "flash": flash, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -8276,39 +8655,67 @@ def main() -> int:
         check(not spills[lib],
               f"{lib}: ptxas reports spills in {spills[lib]}")
 
-    errs, rows = kernel_phase(dev, np.random.RandomState(0))
+    spent: dict[str, float] = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its seconds kept under ``name``. The phases from
+        ``procs`` on start with the objects alive frozen out of the
+        cyclic collector (as the model phase does for itself): their
+        host-bound loops otherwise pay its scans of every object the
+        earlier phases left."""
+        import gc
+
+        t = time.perf_counter()
+        if name in ("procs", "axes", "replica", "resilience", "tools",
+                    "procs_axes"):
+            gc.collect()
+            gc.freeze()
+        try:
+            return fn(*args)
+        finally:
+            spent[name] = round(time.perf_counter() - t, 1)
+
+    errs, rows = timed("kernel", kernel_phase, dev, np.random.RandomState(0))
 
     cfg = TransformerConfig(vocab=256, d_model=256, n_heads=2, n_layers=2,
                             d_ff=1024, max_len=2048)
     params = init_lm(torch.Generator().manual_seed(0), cfg, dev)
     launches = {
-        "paged_attention": serve_phase(dev, cfg, params),
-        "paged_attention_overlay": spec_phase(dev, cfg, params),
+        "paged_attention": timed("serve", serve_phase, dev, cfg, params),
+        "paged_attention_overlay": timed("spec", spec_phase, dev, cfg,
+                                         params),
     }
-    prefix_launches = prefix_phase(dev, smi, cfg, params)
-    fleet_launches = fleet_phase(dev, smi, cfg, params)
-    flash_errs, flash_rows = flash_phase(dev)
-    bf16_launches, f32_launches = train_phase(dev)
+    prefix_launches = timed("prefix", prefix_phase, dev, smi, cfg, params)
+    fleet_launches = timed("fleet", fleet_phase, dev, smi, cfg, params)
+    flash_errs, flash_rows = timed("flash", flash_phase, dev)
+    bf16_launches, f32_launches = timed("train", train_phase, dev)
     launches.update(bf16_launches)
-    ring_err, ring_row, launches["quant_acc"] = ring_phase(dev)
+    ring_err, ring_row, launches["quant_acc"] = timed("ring", ring_phase,
+                                                      dev)
     with tempfile.TemporaryDirectory() as tmp:
         shards = write_net_shards(tmp)
-        _, shards["ae_init"] = rbm_phase(dev, smi, shards, tmp)
-        nets_phase(dev, smi, shards)
-        dispatch_phase(dev, smi, cfg, params, shards["ae_init"])
-    resnet_phase(dev, smi)
-    lmdb_phase(dev, smi)
-    moe_launches = moe_phase(dev, smi)
+        _, shards["ae_init"] = timed("rbm", rbm_phase, dev, smi, shards, tmp)
+        timed("nets", nets_phase, dev, smi, shards)
+        timed("dispatch", dispatch_phase, dev, smi, cfg, params,
+              shards["ae_init"])
+    timed("resnet", resnet_phase, dev, smi)
+    timed("lmdb", lmdb_phase, dev, smi)
+    moe_launches = timed("moe", moe_phase, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
         shard = write_shard(tmp)
-        decode_launches, rolling_launches = decode_phase(dev, smi, shard)
-        zero_ring_launches, zero_ref = zero_phase(dev, smi, shard)
-        procs_launches = procs_phase(dev, smi, shard, zero_ref, tmp)
-        axes_launches_by_path = axes_phase(dev, smi, tmp)
-        replica_launches = replica_phase(dev, smi, tmp)
-        res_launches = resilience_phase(dev, smi, tmp)
-        model = model_phase(dev, smi, cfg, params, tmp)
-        tools = tools_phase(dev, smi, tmp)
+        decode_launches, rolling_launches = timed("decode", decode_phase,
+                                                  dev, smi, shard)
+        zero_ring_launches, zero_ref = timed("zero", zero_phase, dev, smi,
+                                             shard)
+        procs_launches = timed("procs", procs_phase, dev, smi, shard,
+                               zero_ref, tmp)
+        axes_launches_by_path = timed("axes", axes_phase, dev, smi, tmp)
+        replica_launches = timed("replica", replica_phase, dev, smi, tmp)
+        res_launches = timed("resilience", resilience_phase, dev, smi, tmp)
+        model = timed("model", model_phase, dev, smi, cfg, params, tmp)
+        tools = timed("tools", tools_phase, dev, smi, tmp)
+        procs_axes = timed("procs_axes", procs_axes_phase, dev, smi, tmp)
+    print("phase seconds", json.dumps(spent))
 
     kernels = []
     for name, case in (("paged_attention", "decode"),
@@ -8381,6 +8788,10 @@ def main() -> int:
                 # procs_span: each process's own (a spanning group)
                 kernels[-1]["span_launches"] = [
                     got[name] for got in model["span"]]
+                # procs_axes: each job's processes' sum (the one-process
+                # runs' equal it)
+                kernels[-1]["procs_axes_launches"] = procs_axes[
+                    "flash"][name]
     kernels.append({
         "name": "quant_acc", "route": "cuda", "source": RING_SOURCE,
         "replaces": RING_REPLACES, "launches": launches["quant_acc"],

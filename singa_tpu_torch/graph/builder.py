@@ -272,6 +272,9 @@ class Net:
                     acts[j][layer.name] = out
                 else:
                     acts[j][layer.name] = out
+        if ranks is not None and lanes and torch.is_tensor(losses[0]):
+            # every exchange of the walk on the backward's path
+            losses[0] = ranks.tie(losses[0])
         return losses, metrics, acts, new_buffers
 
     def _pipeline(self, plan, resolved: list, entry: list, lanes: Lanes,
@@ -280,9 +283,11 @@ class Net:
         share all coordinates but pipe and model, stage s runs on the
         group's lanes of pipe index s (their model ranks together), each
         lane's activation handed to the lane of the next stage with the
-        same model index; the last stage's output goes to every pipe
-        rank. -> each lane's region output."""
-        from ..parallel.pipeline import gpipe
+        same model index through the tick's hop (``gpipe_lanes``); the
+        last stage's output goes to every pipe rank. This walk runs the
+        stages it holds lanes of (all of them, or its share of a pipe
+        group that spans processes). -> each lane's region output."""
+        from ..parallel.pipeline import gpipe_lanes
 
         outs: list = [None] * len(entry)
         for group in lanes.groups("pipe", "model"):
@@ -290,32 +295,23 @@ class Net:
                             if lanes.coords(j)["pipe"] == s]
                            for s in range(plan.nstages)]
 
-            def stage_fn(s):
+            def run(s, acts_in):
                 js = stage_lanes[s]
-                sub = lanes.sub(js)
+                return self._run_stage(
+                    plan.stages[s], plan.exits[s], plan.entry_src
+                    if s == 0 else plan.exits[s - 1],
+                    [resolved[j] for j in js], acts_in, lanes.sub(js),
+                    training)
 
-                def fn(acts_in):
-                    return self._run_stage(
-                        plan.stages[s], plan.exits[s], plan.entry_src
-                        if s == 0 else plan.exits[s - 1],
-                        [resolved[j] for j in js], acts_in, sub, training)
-                return fn
-
-            first = stage_lanes[0]
-            b = entry[first[0]].shape[0]
+            b = entry[group[0]].shape[0]
             if b % plan.nmicro:
                 raise ConfigError(
                     f"pipeline: batch {b} not divisible by {plan.nmicro} "
                     "microbatches")
-            mbs = [[entry[j].narrow(0, m * (b // plan.nmicro),
-                                    b // plan.nmicro) for j in first]
-                   for m in range(plan.nmicro)]
-            ys = gpipe([stage_fn(s) for s in range(plan.nstages)], mbs)
-            last = [torch.cat([y[k] for y in ys])
-                    for k in range(len(first))]
+            mbs = {j: list(entry[j].chunk(plan.nmicro)) for j in group}
+            got = gpipe_lanes(run, stage_lanes, mbs, lanes)
             for j in group:
-                # lane j takes the output of its model index's lane
-                outs[j] = last[lanes.coords(j)["model"]]
+                outs[j] = torch.cat(got[j])
         return outs
 
     @staticmethod

@@ -34,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config.schema import ConfigError
-from ..ops.attention import attention, auto_attention
+from ..ops.attention import (attention, attention_rows, auto_attention,
+                             dense_fits)
 from ..parallel.axes import concate, rank_sum
 from .base import Layer, Shape, require_one_src
 from .data import _ArrayDataLayer
@@ -223,21 +224,37 @@ class AttentionLayer(Layer):
         return (self.mesh is not None and self.mesh.widths["seq"] > 1
                 or self.model_split())
 
-    def _attend_seq(self, heads: list) -> list:
-        """One seq group's attention: ``heads[s]`` the (q, k, v) of seq
-        shard s -> each shard's output. One shard attends alone (ring
-        mode too: the JAX package's degradation off a seq axis); ring
-        attention in ``mode: "ring"``, else the global attention the JAX
-        program computes over a seq-sharded input, the group's blocks
-        gathered."""
-        if len(heads) == 1:
-            return [self._attend(*heads[0])]
-        if self.mode == "ring":
-            from ..parallel.ring import ring_attention_ranks
+    def _attend_seq(self, heads: list, lanes, g: list) -> list:
+        """One seq group's attention: ``heads[k]`` the (q, k, v) of lane
+        ``g[k]`` (this walk's lanes of the group, each of its own seq
+        shard) -> each lane's output. Off a seq axis a shard attends
+        alone (ring mode too: the JAX package's degradation). On one,
+        the group's K/V blocks reach every lane through one exchange
+        over the seq axis (``Lanes.exchange``; it may cross processes),
+        and each lane computes its own query block's output: in ``mode:
+        "ring"`` its ring over every block (``ring_fold``), else its rows
+        of the global attention the JAX program computes over a
+        seq-sharded input (``attention_rows``, on the route that
+        attention takes: flash where its footprint calls for it)."""
+        if lanes.mesh.widths["seq"] == 1:
+            return [self._attend(*h) for h in heads]
+        from ..parallel.ring import ring_fold
 
-            return ring_attention_ranks(*zip(*heads), causal=True)
-        q, k, v = (torch.cat(t, dim=2) for t in zip(*heads))
-        return self._attend(q, k, v).chunk(len(heads), dim=2)
+        wholes = lanes.exchange(g, [torch.stack(h[1:]) for h in heads],
+                                axes=("seq",))
+        outs = []
+        for j, h, whole in zip(g, heads, wholes):
+            my = lanes.coords(j)["seq"]
+            if self.mode == "ring":
+                outs.append(ring_fold(h[0], [(b[0], b[1]) for b in whole],
+                                      my, causal=True))
+                continue
+            k, v = (torch.cat([b[i] for b in whole], dim=2) for i in (0, 1))
+            bsz, nh, s, _ = h[0].shape
+            flash = (self.mode == "flash"
+                     and not dense_fits(bsz, nh, s * len(whole)))
+            outs.append(attention_rows(h[0], k, v, my * s, flash=flash))
+        return outs
 
     def apply_ranks(self, params, inputs, lanes, *, training):
         if self.model_split():
@@ -248,22 +265,23 @@ class AttentionLayer(Layer):
             w = [params[j][self.qkv] for j in g]
             heads = [self._heads(xi.to(wi.dtype) @ wi)
                      for xi, wi in zip(x, w)]
-            os = self._attend_seq(heads)
+            os = self._attend_seq(heads, lanes, g)
             for j, xi, o in zip(g, x, os):
                 b, s, d = xi.shape
                 o = o.movedim(1, 2).reshape(b, s, d)
                 outs[j] = o.to(w[0].dtype) @ params[j][self.out]
         return outs
 
-    def _project_out(self, o, params, js, lanes):
+    def _project_out(self, os, params, js, lanes):
         """The model ranks ``js``' ``out`` shards (rows of the input dim)
-        on the attended heads o (B, S, D): each rank's partial output,
-        and every lane's sum of the group's partials in rank order (the
-        partials through ``Lanes.exchange``)."""
+        on their attended heads ``os[k]`` (B, S, D): each rank's partial
+        output, and every lane's sum of the group's partials in rank
+        order (the partials through ``Lanes.exchange``)."""
         rows = params[js[0]][self.out].shape[0]
-        o = F.pad(o, (0, rows * lanes.mesh.widths["model"] - o.shape[-1]))
         parts = []
-        for j in js:
+        for j, o in zip(js, os):
+            o = F.pad(o, (0, rows * lanes.mesh.widths["model"]
+                          - o.shape[-1]))
             m = lanes.coords(j)["model"]
             parts.append(o[..., m * rows:(m + 1) * rows].to(
                 params[j][self.out].dtype) @ params[j][self.out])
@@ -281,23 +299,35 @@ class AttentionLayer(Layer):
 
     def _model_ranks(self, params, inputs, lanes):
         """kLayerPartition: each seq shard's heads (the whole sequence
-        off a seq axis) from its model ranks' ``qkv`` shards, the seq
-        group's attention over them (``_attend_seq``; the heads of a
-        group meet on one device and attend there at once: once a
-        process when the group spans processes), each lane's output from
-        its model ranks' ``out`` shards."""
+        off a seq axis) from its model ranks' ``qkv`` shards, once a
+        process; off a seq axis a shard attends once a process (its
+        group's heads meet on one device), on one each lane runs its seq
+        group's attention (``_attend_seq``, over the lanes of its model
+        index); each lane's output from its model ranks' ``out``
+        shards."""
         outs = [None] * len(params)
         for g in lanes.groups("seq", "model"):
             by: dict[int, list] = {}
             for j in g:
                 by.setdefault(lanes.coords(j)["seq"], []).append(j)
             shards = [by[s] for s in sorted(by)]
-            os = self._attend_seq([self._heads(
-                self._fused_qkv(params, inputs, js, lanes)) for js in shards])
-            for js, o in zip(shards, os):
+            heads = [self._heads(self._fused_qkv(params, inputs, js, lanes))
+                     for js in shards]
+            o_of = {}
+            if lanes.mesh.widths["seq"] == 1:
+                for js, h in zip(shards, heads):
+                    o = self._attend(*h)
+                    o_of.update((j, o) for j in js)
+            else:
+                for k in range(len(shards[0])):
+                    seq_lanes = [js[k] for js in shards]
+                    o_of.update(zip(seq_lanes, self._attend_seq(
+                        heads, lanes, seq_lanes)))
+            for js in shards:
                 b, s, d = inputs[js[0]][0].shape
-                ys = self._project_out(o.movedim(1, 2).reshape(b, s, d),
-                                       params, js, lanes)
+                ys = self._project_out(
+                    [o_of[j].movedim(1, 2).reshape(b, s, d) for j in js],
+                    params, js, lanes)
                 for j, y in zip(js, ys):
                     outs[j] = y
         return outs
@@ -451,13 +481,20 @@ class MoELayer(Layer):
 
     def apply_ranks(self, params, inputs, lanes, *, training):
         """The JAX program's routing groups -> each lane's (out, aux):
-        without an expert axis the walk's tokens at once (GSPMD's global
-        batch: its data shards in rank order, each with its whole
+        without an expert axis the global batch's tokens at once
+        (GSPMD's: its data shards in rank order, each with its whole
         sequence); over an expert axis each data shard with its whole
-        sequence through the psum or the all-to-all form. Each token set
-        is gathered (Concate) from one lane per (data, expert, seq)
-        coordinate (the model and pipe ranks hold the same rows), seq
-        shards in position order; each lane takes back its rows."""
+        sequence through the psum or the all-to-all form. Every lane
+        computes its own (out, aux) with its own params, so each gate
+        gradient and each aux loss counts once a lane: its tokens come
+        from its routing group through one exchange (``_tokens``: its
+        data shard's seq ranks, or every data shard's without an expert
+        axis; never across the data axis in a replica engine's walk),
+        the expert ranks' partial outputs, or their experts' outputs on
+        every source's buffers, through a second over the expert axis,
+        and the all-to-all form's statistics over the data axis (each
+        through ``moe.share``). Any of them may cross processes; each
+        lane keeps its rows."""
         from ..parallel import moe
 
         widths = lanes.mesh.widths
@@ -467,35 +504,25 @@ class MoELayer(Layer):
                 f"layer {self.name!r}: num_experts {self.n_experts} "
                 f"not divisible by expert axis width {nexp}"
             )
-        rep: dict[tuple, int] = {}
-        for j in range(len(params)):
-            c = lanes.coords(j)
-            rep.setdefault((c["data"], c["expert"], c["seq"]), j)
-        datas = sorted({d for d, _, _ in rep})
-
-        def tokens(d, e):
-            return concate([inputs[rep[d, e, s]][0] for s in range(nseq)],
-                           1)
+        across = ("data",) if lanes.data and nexp == 1 else ()
+        xs = self._tokens(inputs, lanes, (*across, "seq"))
+        cf = self.capacity_factor
 
         def rows(y, j):
             # lane j's block of its data shard's output (B, S, D)
-            return y.chunk(nseq, 1)[lanes.coords(j)["seq"]]
+            c = lanes.coords(j)
+            if across:
+                y = y.chunk(widths["data"])[c["data"]]
+            return y.chunk(nseq, 1)[c["seq"]]
 
         outs = [None] * len(params)
         if nexp == 1:
-            first = rep[datas[0], 0, 0]
-            y, aux = moe.moe_ffn_dense(
-                concate([tokens(d, 0) for d in datas], 0),
-                self._p(params[first]), self.capacity_factor)
-            ys = dict(zip(datas, y.chunk(len(datas))))
-            for j in range(len(params)):
-                outs[j] = (rows(ys[lanes.coords(j)["data"]], j), aux)
+            for j, x in enumerate(xs):
+                y, aux = moe.moe_ffn_dense(x, self._p(params[j]), cf)
+                outs[j] = (rows(y, j), aux)
             return outs
-        xs = {d: [tokens(d, e) for e in range(nexp)] for d in datas}
-        ps = {d: [self._p(params[rep[d, e, 0]]) for e in range(nexp)]
-              for d in datas}
         if self.dispatch == "alltoall":
-            b = xs[datas[0]][0].shape[0]
+            b = xs[0].shape[0]
             if b % nexp:
                 raise ConfigError(
                     f"layer {self.name!r}: alltoall dispatch shards "
@@ -503,22 +530,78 @@ class MoELayer(Layer):
                     f"{b * widths['data']} must be divisible by "
                     f"{widths['data'] * nexp}"
                 )
-            fracs, mprobs, ys = [], [], {}
-            for d in datas:
-                ys[d], f, m = moe.moe_a2a_ranks(xs[d], ps[d],
-                                                self.capacity_factor)
-                fracs += f
-                mprobs += m
-            aux = moe.a2a_aux(fracs, mprobs)
-            for j in range(len(params)):
-                outs[j] = (rows(ys[lanes.coords(j)["data"]], j), aux)
-            return outs
-        for d in datas:
-            y, auxes = moe.moe_psum_ranks(xs[d], ps[d], self.capacity_factor)
-            for j in range(len(params)):
-                c = lanes.coords(j)
-                if c["data"] == d:
-                    outs[j] = (rows(y, j), auxes[c["expert"]])
+            return self._alltoall(params, xs, lanes, rows)
+        parts, auxes = zip(*(
+            moe.moe_psum_part(x, self._p(params[j]),
+                              lanes.coords(j)["expert"], nexp, cf)
+            for j, x in enumerate(xs)))
+        for g in lanes.groups("expert"):
+            for j, every in zip(g, moe.share(
+                    lanes, g, [parts[j] for j in g], ("expert",))):
+                y = rank_sum(every).reshape(xs[j].shape).to(xs[j].dtype)
+                outs[j] = (rows(y, j), auxes[j])
+        return outs
+
+    @staticmethod
+    def _tokens(inputs, lanes, axes) -> list:
+        """Each lane's token set: the inputs of its group over ``axes``
+        (``moe.share``, rank order: data shards outer, seq shards inner)
+        joined, seq shards along the sequence, data shards along the
+        batch."""
+        from ..parallel import moe
+
+        nseq = lanes.mesh.widths["seq"]
+        if all(lanes.mesh.widths[a] == 1 for a in axes):
+            return [x[0] for x in inputs]
+        out = [None] * len(inputs)
+        for g in lanes.groups(*axes):
+            for j, parts in zip(g, moe.share(
+                    lanes, g, [inputs[j][0] for j in g], axes)):
+                out[j] = concate([concate(parts[i:i + nseq], 1)
+                                  for i in range(0, len(parts), nseq)], 0)
+        return out
+
+    def _alltoall(self, params, xs, lanes, rows) -> list:
+        """The all-to-all form, each lane of expert index e: every
+        source's routing of its data shard's tokens through its own
+        gate, its own experts on every source's buffers for them, the
+        owners' outputs through an exchange over the expert axis, each
+        source's rows back; the aux loss over every data shard's and
+        source's statistics (an exchange over the data axis in the sync
+        Trainer's walk)."""
+        from ..parallel import moe
+
+        nexp = lanes.mesh.widths["expert"]
+        cf = self.capacity_factor
+        routed, owned = [], []
+        for j, x in enumerate(xs):
+            p = self._p(params[j])
+            routed.append([moe.a2a_route(x, p, src, nexp, cf)
+                           for src in range(nexp)])
+            owned.append(moe.a2a_experts([r[0] for r in routed[j]], p,
+                                         lanes.coords(j)["expert"]))
+        stats = [torch.stack([torch.stack([r[2] for r in rs]),
+                              torch.stack([r[3] for r in rs])])
+                 for rs in routed]
+        if lanes.data:
+            every = [None] * len(xs)
+            for g in lanes.groups("data"):
+                for j, got in zip(g, moe.share(
+                        lanes, g, [stats[j] for j in g], ("data",))):
+                    every[j] = got
+        else:
+            every = [[st] for st in stats]
+        outs = [None] * len(xs)
+        for g in lanes.groups("expert"):
+            for j, by_owner in zip(g, moe.share(
+                    lanes, g, [owned[j] for j in g], ("expert",))):
+                b, s, d = xs[j].shape
+                y = torch.cat([moe.a2a_back(by_owner, routed[j][src][1], src)
+                               .reshape(b // nexp, s, d)
+                               for src in range(nexp)]).to(xs[j].dtype)
+                aux = moe.a2a_aux([f for st in every[j] for f in st[0]],
+                                  [m for st in every[j] for m in st[1]])
+                outs[j] = (rows(y, j), aux)
         return outs
 
 
@@ -564,25 +647,34 @@ class LMLossLayer(Layer):
         """The global sequence's loss per seq group: shard i's last
         position predicts shard i + 1's first token, the last shard drops
         its last position, and the mean runs over the group's B·(S−1)
-        targets; every rank of the group takes it."""
+        targets; every rank of the group takes it. The first tokens and
+        each shard's sums (log-likelihood, hits) reach the group's lanes
+        through exchanges over the seq axis, so a group may span
+        processes; each lane sums the shards' in rank order."""
+        nseq = lanes.mesh.widths["seq"]
         outs = [None] * len(params)
         for g in lanes.groups("seq"):
-            lls, hits = [], []
-            for k, j in enumerate(g):
+            firsts = lanes.exchange(
+                g, [inputs[j][1]["image"][:, :1] for j in g], axes=("seq",))
+            sums = []
+            for j, first in zip(g, firsts):
                 logits, feed = inputs[j]
                 tokens = feed["image"].long()
-                if k + 1 < len(g):
-                    nxt = inputs[g[k + 1]][1]["image"].long()[:, :1]
-                    targets = torch.cat([tokens[:, 1:], nxt], 1)
+                my = lanes.coords(j)["seq"]
+                if my + 1 < nseq:
+                    targets = torch.cat([tokens[:, 1:],
+                                         first[my + 1].long()], 1)
                 else:
                     logits, targets = logits[:, :-1], tokens[:, 1:]
                 logp = F.log_softmax(logits.float(), dim=-1)
-                lls.append(torch.gather(logp, -1, targets[..., None])
-                           .reshape(-1))
-                hits.append((logp.argmax(-1) == targets).reshape(-1))
-            ll = torch.cat(lls)
-            loss = -ll.mean()
-            m = {"loss": loss, "precision": torch.cat(hits).float().mean()}
-            for j in g:
-                outs[j] = (loss, m)
+                ll = torch.gather(logp, -1, targets[..., None])
+                hits = (logp.argmax(-1) == targets).sum().float()
+                sums.append(torch.stack([ll.sum(), hits]))
+            b, s = inputs[g[0]][1]["image"].shape
+            count = b * (s * nseq - 1)
+            for j, every in zip(g, lanes.exchange(g, sums, axes=("seq",))):
+                total = rank_sum(every)
+                loss = -total[0] / count
+                outs[j] = (loss, {"loss": loss,
+                                  "precision": total[1] / count})
         return outs

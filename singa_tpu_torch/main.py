@@ -141,7 +141,11 @@ def main(argv: list[str] | None = None) -> int:
     def report(trainer) -> None:
         out = process_report(trainer)
         out["run_s"] = time.perf_counter() - built[0]
-        print("TRAIN PROCESS: " + json.dumps(out), flush=True)
+        # one write, its newline included: the processes of a gang may
+        # share one stdout, unbuffered, where print's two writes let a
+        # peer's line land between the report and its newline
+        sys.stdout.write("TRAIN PROCESS: " + json.dumps(out) + "\n")
+        sys.stdout.flush()
 
     try:
         rc = supervisor.run(model_cfg, cluster_cfg, seed=args.seed,

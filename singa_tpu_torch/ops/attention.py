@@ -40,6 +40,7 @@ import math
 import os
 
 import torch
+import torch.nn.functional as F
 
 #: masked score: finite, so ``exp(m - m)`` stays 1 on fully-masked rows
 NEG_INF = -1e30
@@ -487,13 +488,36 @@ def flash_attention(q, k, v, causal: bool = False):
     return _FlashAttention.apply(q, k, v, causal)
 
 
-def auto_attention(q, k, v, *, causal=False, n_devices=1):
-    """Pick dense vs flash by the score tensor's footprint, the JAX
-    package's rule: dense while the forward+backward float32 scores
-    (B*H*S*S*8 bytes per device) are at most SINGA_TPU_DENSE_ATTN_MB
-    (default 512, read on every call), flash above."""
-    b, h, s, _ = q.shape
+def dense_fits(b: int, h: int, s: int, n_devices: int = 1) -> bool:
+    """The JAX package's footprint rule: dense attention while the
+    forward+backward float32 scores (B*H*S*S*8 bytes per device) are at
+    most SINGA_TPU_DENSE_ATTN_MB (default 512, read on every call)."""
     scores_mb = b * h * s * s * 4 * 2 / 1e6 / max(1, n_devices)
-    if scores_mb <= float(os.environ.get("SINGA_TPU_DENSE_ATTN_MB", "512")):
+    return scores_mb <= float(os.environ.get("SINGA_TPU_DENSE_ATTN_MB",
+                                             "512"))
+
+
+def auto_attention(q, k, v, *, causal=False, n_devices=1):
+    """Pick dense vs flash by the score tensor's footprint
+    (:func:`dense_fits`), flash above it."""
+    b, h, s, _ = q.shape
+    if dense_fits(b, h, s, n_devices):
         return attention(q, k, v, causal=causal)
     return flash_attention(q, k, v, causal)
+
+
+def attention_rows(q, k, v, start: int, *, flash: bool):
+    """Rows [start, start + q.shape[2]) of the causal attention over the
+    whole (B, H, S, D) ``k`` and ``v``, ``q`` those rows' queries: the
+    keys past the rows never enter. Dense, or (``flash``, S a multiple
+    of 128) the flash kernels on the prefix rounded up to whole
+    128-blocks, ``q`` zero-padded to it (the padded rows' outputs are
+    dropped, so they take no gradient)."""
+    s, total = q.shape[2], k.shape[2]
+    end = start + s
+    if flash and total % 128 == 0:
+        n = min(total, -(-end // 128) * 128)
+        qp = F.pad(q, (0, 0, start, n - end))
+        return flash_attention(qp, k[:, :, :n], v[:, :, :n],
+                               True)[:, :, start:end]
+    return attention(q, k[:, :, :end], v[:, :, :end], causal=True)

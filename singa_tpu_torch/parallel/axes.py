@@ -11,14 +11,17 @@ ranks takes every lane's input in one call (``Layer.apply_ranks``).
 Most such layers read the other ranks' tensors directly, and autograd
 carries the gradients back along the same reads.
 
-kLayerPartition's Concate and partial sums go through one exchange
-instead, :meth:`Lanes.exchange` (``GroupExchange``), because a model
-group may span processes: its forward hands every consumer the group's
-parts in rank order (the parts of other processes through one
-collective), and its backward sums each part's gradients over the
-consumers in rank order and hands the sum back to the part's owner.
-One process runs the same exchange over its own lanes, so P processes
-and one add every gradient in the same order.
+Work that crosses ranks goes through one exchange, :meth:`Lanes.exchange`
+(``GroupExchange``), over a group of ranks on a named set of axes:
+kLayerPartition's Concate and partial sums (the model axis), ring
+attention's K/V and kLMLoss's shift (seq), kMoE's tokens, partial sums
+and aux statistics (seq, expert, data), the pipeline's stage hops
+(pipe). A group may span processes: the exchange's forward hands every
+consumer the group's parts in rank order (the parts of other processes
+through one collective), and its backward sums each part's gradients
+over the consumers in rank order and hands the sum back to the part's
+owner. One process runs the same exchange over its own lanes, so P
+processes and one add every gradient in the same order.
 
 Every cross-rank sum here runs in rank order, so two runs of the port
 give the same bits.
@@ -32,16 +35,24 @@ import time
 import torch
 from torch.autograd.function import once_differentiable
 
-from .mesh import FULL_AXES, LAYER_EXCHANGE, MODEL_AXIS, Mesh
+from .mesh import (EXCHANGE_AXES, FULL_AXES, LAYER_EXCHANGE, MODEL_AXIS,
+                   Mesh)
 
 
 @dataclasses.dataclass(frozen=True)
 class Lanes:
     """The lanes of one walk: ``ranks[j]`` is lane j's global rank on
-    ``mesh``."""
+    ``mesh``. ``data``: whether the walk's data ranks train one model
+    (the sync Trainer: kMoE routes their tokens together) or each its
+    own replica (the replica engine: no exchange crosses the data axis).
+    ``order``: the walk's exchange chain (shared with its ``sub`` walks;
+    see :meth:`exchange` and :meth:`tie`)."""
 
     mesh: Mesh
     ranks: tuple[int, ...]
+    data: bool = True
+    order: list = dataclasses.field(default_factory=list, compare=False,
+                                    repr=False)
 
     def coords(self, j: int) -> dict[str, int]:
         return self.mesh.coords(self.ranks[j])
@@ -59,32 +70,75 @@ class Lanes:
         return [[j for _, j in sorted(g)] for g in by.values()]
 
     def sub(self, idx) -> "Lanes":
-        """The lanes ``idx`` (indices into this walk's lanes)."""
-        return Lanes(self.mesh, tuple(self.ranks[j] for j in idx))
+        """The lanes ``idx`` (indices into this walk's lanes), on this
+        walk's exchange chain."""
+        return Lanes(self.mesh, tuple(self.ranks[j] for j in idx),
+                     self.data, self.order)
 
-    def exchange(self, g: list[int], parts: list, *,
+    def exchange(self, g: list[int], parts: list, *, axes=(MODEL_AXIS,),
                  per_lane: bool = True) -> list[list[torch.Tensor]]:
-        """kLayerPartition's exchange over one model group. ``g``: this
-        walk's lanes of the group (all of it, or this process's share of
-        a group that spans processes), ``parts[k]`` lane ``g[k]``'s part
-        (one shape and dtype for all). -> the group's parts in rank
-        order, once for each lane of ``g`` (``per_lane``) or once for
-        this process (one consumer: the attention a process runs once
-        for its share of a group). Each part's gradient is the sum, in
-        consumer rank order, of every consumer's gradient of it
-        (``GroupExchange``)."""
+        """The exchange over one group on ``axes`` (the ranks that differ
+        only there). ``g``: this walk's lanes of the group (all of it,
+        or this process's share of a group that spans processes),
+        ``parts[k]`` lane ``g[k]``'s part (one shape and dtype for all).
+        -> the group's parts in rank order, once for each lane of ``g``
+        (``per_lane``) or once for this process (one consumer: the
+        attention a process runs once for its share of a model group).
+        Each part's gradient is the sum, in consumer rank order, of
+        every consumer's gradient of it (``GroupExchange``).
+
+        The exchanges of a walk form a chain: each one's first part
+        carries a link from the previous one's output (``_Link``), so
+        that every process runs its exchanges' backward nodes, those
+        whose outputs it never reads too, in the reverse of their
+        forward order (the order contract of ``GroupExchange``); the
+        walk ties the last one to its loss (:meth:`tie`)."""
         mesh = self.mesh
+        if tuple(axes) not in EXCHANGE_AXES:
+            raise ValueError(f"an exchange over {axes}: not one of "
+                             f"EXCHANGE_AXES {EXCHANGE_AXES}")
         ranks = [self.ranks[j] for j in g]
-        c = mesh.coords(ranks[0])
-        group = [mesh.rank(**{**c, MODEL_AXIS: m})
-                 for m in range(mesh.widths[MODEL_AXIS])]
-        first = c[MODEL_AXIS]
-        if ranks != group[first:first + len(ranks)]:
+        group = mesh.group_of(ranks[0], axes)
+        first = group.index(ranks[0])
+        procs = mesh.procs_of(group)
+        # every process of the group holds an equal share of it
+        if (ranks != [r for r in group if mesh.is_local(r)]
+                or len(group) != len(ranks) * len(procs)):
             raise ValueError(f"lanes {ranks} are not one process's "
-                             f"share of the model group {group}")
-        plan = _Plan(mesh, mesh.procs_of(group), first, len(ranks),
+                             f"share of the {'/'.join(axes)} group "
+                             f"{list(group)}")
+        plan = _Plan(mesh, procs, first, len(ranks),
                      len(ranks) if per_lane else 1)
-        return [list(o.unbind(0)) for o in GroupExchange.apply(plan, *parts)]
+        parts = list(parts)
+        if parts[0].is_floating_point() and torch.is_grad_enabled():
+            if not self.order:
+                self.order.append(torch.zeros(
+                    (), device=parts[0].device, requires_grad=True))
+            parts[0] = _Link.apply(parts[0], self.order[-1])
+        outs = GroupExchange.apply(plan, *parts)
+        if outs[0].requires_grad:
+            self.order[-1:] = [outs[0]]
+        return [list(o.unbind(0)) for o in outs]
+
+    def tie(self, loss: torch.Tensor) -> torch.Tensor:
+        """``loss`` (unchanged) linked to the walk's last exchange, so
+        that the backward from it reaches every exchange of the walk."""
+        if self.order and self.order[-1].grad_fn is not None:
+            return _Link.apply(loss, self.order[-1])
+        return loss
+
+
+class _Link(torch.autograd.Function):
+    """``x`` unchanged, with ``dep`` as an input that takes no gradient:
+    ``dep``'s node runs its backward only after this one has."""
+
+    @staticmethod
+    def forward(ctx, x, dep):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,13 +179,16 @@ class GroupExchange(torch.autograd.Function):
 
     The backward's collective relies on every process of a group
     reaching its exchanges' backward nodes in the same order. Each
-    process builds the same graph: the same layers over the same number
-    of lanes, the walk's exchanges in the same order, each node
-    differing only in values. The autograd engine runs the nodes of one
-    graph in an order fixed by the graph and the nodes' creation order,
-    so the k-th exchange backward of a process meets the k-th of its
-    peers. A peer that never arrives ends the job at the process
-    group's timeout."""
+    process issues its exchanges in one order, the order of the walk
+    (the same layers, the pipeline's ticks, each group's exchanges in
+    group order), and every pair of processes meets its shared
+    exchanges in the same forward order. The walk's chain
+    (:meth:`Lanes.exchange`) runs each process's exchange backwards in
+    the reverse of that order, the nodes whose outputs that process
+    never reads too (a pipe stage idle at a tick, a seq shard whose
+    blocks only its peers fold), so the k-th exchange backward of a
+    process meets the k-th of its peers. A peer that never arrives ends
+    the job at the process group's timeout."""
 
     @staticmethod
     def forward(ctx, plan, *parts):

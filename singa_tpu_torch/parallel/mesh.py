@@ -18,16 +18,16 @@ order in which the JAX global mesh lists its devices: rank r lives on
 process r // (n / P), and ``devices`` holds this process's n / P ranks.
 :meth:`Mesh.gather` hands every process every rank's tensors in rank
 order; it is the one collective of the Trainer's reductions and of
-synchronised BatchNorm. The data axis spans processes, and so does the
-model axis: a process holds whole model groups (its ranks a multiple of
-the model width), or a model group spans whole processes (the model
-width a multiple of a process's ranks), the reference's partitioned
-workers one process each. A spanning group's kLayerPartition exchanges
-(``parallel/axes.py``) cross its processes through
-:meth:`Mesh.gather_rows` over a process group of those processes. A
-process that would hold parts of two model groups, and a pipe, expert
-or seq width above 1 under a process group, raise a ConfigError that
-names them.
+synchronised BatchNorm. The data axis spans processes, and so does
+every inner axis: for each of pipe, expert, seq and model a process
+holds whole groups of the axis (the ranks that differ only in its
+index), or a group spans whole processes. The layers' exchanges over a
+group that spans processes (``parallel/axes.py``: ring attention's K/V,
+kMoE's tokens and partial sums, the pipeline's stage hops,
+kLayerPartition's Concate) cross them through :meth:`Mesh.gather_rows`
+over a process group of those processes. A process that would hold
+parts of two groups of one axis raises a ConfigError that names the
+axis.
 """
 
 from __future__ import annotations
@@ -150,13 +150,35 @@ class Mesh:
         return torch.stack(parts).to(row.device).view(row.dtype).reshape(
             len(procs), *row.shape)
 
-    def spanning_groups(self) -> list[tuple[int, ...]]:
-        """The processes of each model group that spans more than one,
-        in group order, each set once."""
-        width = self.widths[MODEL_AXIS]
+    def group_of(self, r: int, axes) -> tuple[int, ...]:
+        """The ranks that differ from rank ``r`` only in their indices
+        on ``axes``, in rank order (row-major over ``axes``)."""
+        c = self.coords(r)
+        out = [c]
+        for axis in FULL_AXES:
+            if axis in axes:
+                out = [{**o, axis: i} for o in out
+                       for i in range(self.widths[axis])]
+        return tuple(sorted(self.rank(**o) for o in out))
+
+    def groups_over(self, axes) -> list[tuple[int, ...]]:
+        """Every group over ``axes`` (:meth:`group_of`), ordered by its
+        first rank."""
+        out, seen = [], set()
+        for r in range(self.width):
+            if r not in seen:
+                g = self.group_of(r, axes)
+                seen.update(g)
+                out.append(g)
+        return out
+
+    def spanning_groups(self, axes=(MODEL_AXIS,)) -> list[tuple[int, ...]]:
+        """The processes of each group over ``axes`` (default: each
+        model group) that spans more than one, in group order, each set
+        once."""
         out = []
-        for r in range(0, self.width, width):
-            ps = self.procs_of(range(r, r + width))
+        for g in self.groups_over(axes):
+            ps = self.procs_of(g)
             if len(ps) > 1 and ps not in out:
                 out.append(ps)
         return out
@@ -211,6 +233,13 @@ EXCHANGE = _Exchange()
 #: Concate and partial sums, forward and backward
 LAYER_EXCHANGE = _Exchange()
 
+#: the axis sets the layers' exchanges run over (``Lanes.exchange``):
+#: kLayerPartition's model groups, the seq groups of ring attention and
+#: kLMLoss, kMoE's expert groups, the data axis of its all-to-all
+#: statistics and its routing groups, the pipeline's hops
+EXCHANGE_AXES = (("model",), ("seq",), ("expert",), ("data",),
+                 ("data", "seq"), ("pipe",))
+
 #: (the world group's id, processes) -> their torch.distributed group
 _GROUPS: dict = {}
 
@@ -218,18 +247,22 @@ _GROUPS: dict = {}
 def _process_group(mesh: Mesh, procs: tuple[int, ...]):
     """The process group of ``procs`` (None: every process, the default
     group). ``torch.distributed.new_group`` is collective over the
-    world: at the first need every process creates the groups of every
-    model group of ``mesh`` that spans some but not all processes, in
-    group order, so their calls match."""
+    world: at a process's first collective every process creates the
+    group of every set of processes that a group over one of
+    EXCHANGE_AXES spans (some but not all processes), in one sorted
+    order, so their calls match whichever exchange comes first."""
     import torch.distributed as dist
 
+    world = id(dist.group.WORLD)
+    if (world, None) not in _GROUPS:
+        sets = {ps for axes in EXCHANGE_AXES
+                for ps in mesh.spanning_groups(axes)
+                if len(ps) < mesh.nprocs}
+        for ps in sorted(sets):
+            _GROUPS[world, ps] = dist.new_group(list(ps))
+        _GROUPS[world, None] = None
     if len(procs) == mesh.nprocs:
         return None
-    world = id(dist.group.WORLD)
-    if (world, procs) not in _GROUPS:
-        for ps in mesh.spanning_groups():
-            if len(ps) < mesh.nprocs and (world, ps) not in _GROUPS:
-                _GROUPS[world, ps] = dist.new_group(list(ps))
     return _GROUPS[world, procs]
 
 
@@ -267,27 +300,17 @@ def build_full_mesh(widths: dict[str, int], devices=None) -> Mesh:
     its ranks take the first of ``devices`` (default: the visible GPUs);
     under a process group of P processes this process takes ranks
     [k·n/P, (k+1)·n/P) on the first n/P of ``devices`` (default: this
-    process's card, once per rank). A model group may span whole
-    processes (rank r's group is the ranks that differ from it in the
-    model index only; its parts then cross processes in the layers'
-    exchanges). Raises when P does not divide the data axis, when a
-    process would hold parts of two model groups, or when a pipe,
-    expert or seq axis is wider than 1 across processes (naming it)."""
+    process's card, once per rank). A group of any inner axis (the ranks
+    that differ only in its index) may lie on one process or span whole
+    processes; its parts then cross processes in the layers' exchanges.
+    Raises when P does not divide the rank count, or when a process
+    would hold parts of two groups of one axis (naming it)."""
     shape = [max(1, int(widths.get(a, 1))) for a in FULL_AXES]
     need = 1
     for w in shape:
         need *= w
     nprocs, proc = _processes()
     if nprocs > 1:
-        for axis, w in zip(INNER_AXES[:-1], shape[1:-1]):
-            if w > 1:
-                raise ConfigError(
-                    f"{axis} axis width {w} ({CLUSTER_FIELDS[axis]}) "
-                    f"across {nprocs} processes: "
-                    "singa_tpu_torch lays only the data axis and the "
-                    "model axis over processes (the other axes run on "
-                    "one process's ranks)"
-                )
         if need % nprocs:
             what = (f"data axis width {need}" if need == shape[0]
                     else f"rank count {need}")
@@ -296,14 +319,18 @@ def build_full_mesh(widths: dict[str, int], devices=None) -> Mesh:
                 "every process holds the same number of ranks"
             )
         local = need // nprocs
-        if shape[-1] > 1 and local % shape[-1] and shape[-1] % local:
-            raise ConfigError(
-                f"model axis width {shape[-1]} ({CLUSTER_FIELDS['model']}) "
-                f"across {nprocs} processes of {local} ranks: a process "
-                "would hold parts of two model groups; singa_tpu_torch "
-                "lays whole model groups on a process or a model group "
-                "over whole processes"
-            )
+        layout = Mesh((None,) * local, nprocs, proc, tuple(shape[1:]))
+        for axis, w in zip(INNER_AXES, shape[1:]):
+            if any(len(ps) > 1 and len(g) != len(ps) * local
+                   for g in layout.groups_over((axis,))
+                   for ps in [layout.procs_of(g)]):
+                raise ConfigError(
+                    f"{axis} axis width {w} ({CLUSTER_FIELDS[axis]}) "
+                    f"across {nprocs} processes of {local} ranks: a "
+                    f"process would hold parts of two {axis} groups; "
+                    f"singa_tpu_torch lays whole {axis} groups on a "
+                    f"process or a {axis} group over whole processes"
+                )
     local = need // nprocs
     if devices is None:
         if nprocs > 1:

@@ -37,18 +37,20 @@ Expert parallelism (the JAX package's ``moe_ffn`` and ``moe_ffn_a2a``
 under ``shard_map``) runs over the mesh's expert axis on the index
 form, each expert rank holding ``e_local = E / n`` experts' weights:
 
-- the psum form (:func:`moe_psum_ranks`): the tokens are the same on
-  every expert rank of a group; each rank routes them, runs its own
-  experts [my·e_local, (my+1)·e_local) on the tokens routed there, and
-  the partial outputs are summed over the expert ranks in rank order.
-  Its aux loss is each rank's own (the same on every rank of a group).
-- the all-to-all form (:func:`moe_a2a_ranks`): expert rank j routes
-  only rows [j·b/n, (j+1)·b/n) of its group's batch, with a capacity per
-  (source rank, expert) of ``max(1, int(cf * n_local / E))``; the slot
-  buffers of every expert go to the expert's owner, which runs its
-  experts on the buffers of every source, and the outputs go back. The
-  aux loss takes ``frac`` and ``mean_prob`` averaged over every token
-  shard before their product, the global batch's value.
+- the psum form (:func:`moe_psum_ranks`, each rank's share
+  :func:`moe_psum_part`): the tokens are the same on every expert rank
+  of a group; each rank routes them, runs its own experts
+  [my·e_local, (my+1)·e_local) on the tokens routed there, and the
+  partial outputs are summed over the expert ranks in rank order. Its
+  aux loss is each rank's own (the same on every rank of a group).
+- the all-to-all form (:func:`moe_a2a_ranks`: :func:`a2a_route`,
+  :func:`a2a_experts`, :func:`a2a_back`): expert rank j routes only rows
+  [j·b/n, (j+1)·b/n) of its group's batch, with a capacity per (source
+  rank, expert) of ``max(1, int(cf * n_local / E))``; the slot buffers
+  of every expert go to the expert's owner, which runs its experts on
+  the buffers of every source, and the outputs go back. The aux loss
+  takes ``frac`` and ``mean_prob`` averaged over every token shard
+  before their product, the global batch's value.
 
 :func:`moe_ffn` and :func:`moe_ffn_a2a` are the same two forms on global
 arrays, the JAX functions' signatures with the mesh given as widths.
@@ -188,33 +190,82 @@ def _gather_back(out, slot, gate_val):
     return out_pad.index_select(0, slot) * gate_val[:, None]
 
 
+def moe_psum_part(x, p: dict, e: int, nexp: int,
+                  capacity_factor: float = 1.25):
+    """Expert rank ``e``'s share of the psum form: its routing of the
+    (B, S, D) tokens ``x`` with its params ``p`` (``gate`` whole,
+    ``up``/``down`` its e_local experts) -> (its partial output (B·S, D)
+    in float32: its experts' rows, the others' zero; its aux loss)."""
+    b, s, d = x.shape
+    n = b * s
+    e_total = p["gate"].shape[1]
+    cap = capacity_of(n, e_total, capacity_factor)
+    x2d = x.reshape(n, d)
+    probs, onehot, expert, pos = _probs_and_choice(x2d, p["gate"])
+    gate_val = (probs * onehot).sum(-1)
+    e_local = p["up"].shape[0]
+    rows = e_local * cap
+    local = _slots(expert, pos, cap, e_total) - _shard_of(e, nexp) * rows
+    local = torch.where((local >= 0) & (local < rows), local, rows)
+    expert_in = _slot_rows(x2d, local, rows).view(e_local, cap, d)
+    out = _experts(expert_in, p).reshape(rows, d)
+    return _gather_back(out, local, gate_val), _aux(probs, onehot)
+
+
 def moe_psum_ranks(xs: list, ps: list, capacity_factor: float = 1.25):
     """The psum form over one group's expert ranks: ``xs[e]`` is rank
     e's (B, S, D) tokens (the same values on every rank), ``ps[e]`` its
     params (``gate`` whole, ``up``/``down`` its e_local experts) -> (y,
-    [each rank's aux]), y the ranks' partial outputs summed in rank
-    order."""
+    [each rank's aux]), y the ranks' partial outputs
+    (:func:`moe_psum_part`) summed in rank order. A layer whose expert
+    ranks span processes sums the same partials after an exchange."""
     nexp = len(xs)
-    b, s, d = xs[0].shape
-    n = b * s
-    e_total = ps[0]["gate"].shape[1]
+    parts, auxes = zip(*(moe_psum_part(x, p, e, nexp, capacity_factor)
+                         for e, (x, p) in enumerate(zip(xs, ps))))
+    return rank_sum(parts).reshape(xs[0].shape).to(xs[0].dtype), \
+        list(auxes)
+
+
+def a2a_route(x, p: dict, j: int, nexp: int,
+              capacity_factor: float = 1.25):
+    """Source rank ``j``'s routing in the all-to-all form: rows
+    [j·b/n, (j+1)·b/n) of the (B, S, D) tokens ``x`` through the gate
+    ``p["gate"]`` -> (the slot buffers of every expert (E, cap, D), its
+    route (slot, gate value) for :func:`a2a_back`, its ``frac``, its
+    ``mean_prob``)."""
+    b, s, d = x.shape
+    e_total = p["gate"].shape[1]
+    n = (b // nexp) * s
     cap = capacity_of(n, e_total, capacity_factor)
-    parts, auxes = [], []
-    for e in range(nexp):
-        x2d = xs[e].reshape(n, d)
-        probs, onehot, expert, pos = _probs_and_choice(x2d, ps[e]["gate"])
-        auxes.append(_aux(probs, onehot))
-        gate_val = (probs * onehot).sum(-1)
-        e_local = ps[e]["up"].shape[0]
-        rows = e_local * cap
-        local = _slots(expert, pos, cap, e_total) - (
-            _shard_of(e, nexp) * rows)
-        local = torch.where((local >= 0) & (local < rows), local, rows)
-        expert_in = _slot_rows(x2d, local, rows).view(e_local, cap, d)
-        out = _experts(expert_in, ps[e]).reshape(rows, d)
-        parts.append(_gather_back(out, local, gate_val))
-    y = rank_sum(parts)
-    return y.reshape(b, s, d).to(xs[0].dtype), auxes
+    x2d = split_rows(x, nexp, j).reshape(n, d)
+    probs, onehot, expert, pos = _probs_and_choice(x2d, p["gate"])
+    slot = _slots(expert, pos, cap, e_total)
+    send = _slot_rows(x2d, slot, e_total * cap).view(e_total, cap, d)
+    return (send, (slot, (probs * onehot).sum(-1)), onehot.mean(0),
+            probs.mean(0))
+
+
+def a2a_experts(sends: list, p: dict, k: int) -> torch.Tensor:
+    """Owner ``k`` of ``len(sends)`` expert ranks runs its local experts
+    (``p``'s ``up``/``down``) on every source's buffers for them
+    (``sends[j]``: source j's (E, cap, D); source-major along each
+    expert's rows, as the JAX all_to_all concatenates them) -> (e_local,
+    sources, cap, D)."""
+    nexp = len(sends)
+    e_local = p["up"].shape[0]
+    cap, d = sends[0].shape[1:]
+    lo = _shard_of(k, nexp) * e_local
+    expert_in = torch.stack([t[lo:lo + e_local] for t in sends], 1) \
+        .reshape(e_local, nexp * cap, d)
+    return _experts(expert_in, p).view(e_local, nexp, cap, d)
+
+
+def a2a_back(outs: list, route: tuple, j: int) -> torch.Tensor:
+    """Source ``j``'s rows back from every owner's output (``outs[k]``:
+    :func:`a2a_experts`' of owner k), each scaled by its gate ->
+    (tokens, D) in float32."""
+    ret = torch.cat([o[:, j] for o in outs])
+    return _gather_back(ret.reshape(-1, ret.shape[-1]), *route)
 
 
 def moe_a2a_ranks(xs: list, ps: list, capacity_factor: float = 1.25):
@@ -224,38 +275,23 @@ def moe_a2a_ranks(xs: list, ps: list, capacity_factor: float = 1.25):
     ``frac``]; [each rank's ``mean_prob``])."""
     nexp = len(xs)
     b, s, d = xs[0].shape
-    e_total = ps[0]["gate"].shape[1]
-    e_local = e_total // nexp
-    n = (b // nexp) * s
-    cap = capacity_of(n, e_total, capacity_factor)
-    sends, routes, fracs, mprobs = [], [], [], []
-    for j in range(nexp):
-        x2d = split_rows(xs[j], nexp, j).reshape(n, d)
-        probs, onehot, expert, pos = _probs_and_choice(x2d, ps[j]["gate"])
-        fracs.append(onehot.mean(0))
-        mprobs.append(probs.mean(0))
-        slot = _slots(expert, pos, cap, e_total)
-        sends.append(_slot_rows(x2d, slot, e_total * cap)
-                     .view(e_total, cap, d))
-        routes.append((slot, (probs * onehot).sum(-1)))
-    # owner k runs its local experts on every source's buffers for them
-    # (source-major along each expert's rows, as the JAX all_to_all
-    # concatenates them), and returns source j's rows to rank j
-    back = [[None] * nexp for _ in range(nexp)]
-    for k in range(nexp):
-        lo = _shard_of(k, nexp) * e_local
-        expert_in = torch.stack(
-            [sends[j][lo:lo + e_local] for j in range(nexp)], 1
-        ).reshape(e_local, nexp * cap, d)
-        out = _experts(expert_in, ps[k]).view(e_local, nexp, cap, d)
-        for j in range(nexp):
-            back[j][k] = out[:, j]
-    ys = []
-    for j in range(nexp):
-        ret = torch.cat(back[j]).reshape(e_total * cap, d)
-        ys.append(_gather_back(ret, *routes[j])
-                  .reshape(b // nexp, s, d))
-    return torch.cat(ys).to(xs[0].dtype), fracs, mprobs
+    routed = [a2a_route(x, p, j, nexp, capacity_factor)
+              for j, (x, p) in enumerate(zip(xs, ps))]
+    sends = [r[0] for r in routed]
+    outs = [a2a_experts(sends, ps[k], k) for k in range(nexp)]
+    ys = [a2a_back(outs, routed[j][1], j).reshape(b // nexp, s, d)
+          for j in range(nexp)]
+    return (torch.cat(ys).to(xs[0].dtype), [r[2] for r in routed],
+            [r[3] for r in routed])
+
+
+def share(lanes, g: list, parts: list, axes) -> list:
+    """kMoE's exchanges (its routing group's tokens, the expert ranks'
+    partial outputs, the all-to-all form's expert outputs and
+    statistics): ``parts[k]`` lane ``g[k]``'s -> for each lane of ``g``
+    every part of its group over ``axes`` in rank order
+    (``Lanes.exchange``, across processes when the group spans them)."""
+    return lanes.exchange(g, parts, axes=axes)
 
 
 def a2a_aux(fracs: list, mprobs: list) -> torch.Tensor:

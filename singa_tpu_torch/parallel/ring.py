@@ -11,7 +11,12 @@ the sequence contributes nothing. The statistics run in float32 and K/V
 stay in the input dtype, as in the JAX package.
 
 On the port's one controller a hop is a read of the other rank's block,
-and autograd runs the backward over the same visits. The fold is plain
+and autograd runs the backward over the same visits. A Trainer's walk
+hands each of its seq lanes every rank's K/V block through one exchange
+over the seq group (``Lanes.exchange``, which may cross processes) and
+folds each lane's query block on its own (:func:`ring_fold`); each
+block's gradient is then summed over the lanes that folded it, in rank
+order, whatever processes hold them. The fold is plain
 PyTorch here, as it is plain JAX there (``block_attn_update`` is not a
 Pallas kernel); the ring's hops through the flash kernels are later
 kernel work (ROADMAP §2).
@@ -38,34 +43,32 @@ def _visitor(my: int, i: int, n: int) -> int:
     return (my - i) % n
 
 
-def _rotate(held: list) -> list:
-    """One hop: rank j's block moves to rank j + 1 (the JAX ring's
-    ppermute)."""
-    return held[-1:] + held[:-1]
+def ring_fold(q, blocks: list, my: int, *, causal: bool):
+    """Seq rank ``my``'s ring: its (batch, heads, s_local, head_dim)
+    query block, ``blocks[i]`` rank i's (k, v) -> its output block, in
+    the input dtype. At hop i it holds the block that started i ranks
+    back, one hop a step round the ring, and masks it by the global
+    offset of the rank it came from (``_visitor``)."""
+    n = len(blocks)
+    s_local = q.shape[2]
+    q32 = q.float()
+    stats = block_attn_init(q32)
+    for i in range(n):
+        k, v = blocks[(my - i) % n]
+        stats = block_attn_update(
+            q32, k.float(), v.float(), *stats, q_offset=my * s_local,
+            k_offset=_visitor(my, i, n) * s_local, causal=causal)
+    return block_attn_finish(*stats).to(q.dtype)
 
 
 def ring_attention_ranks(qs: list, ks: list, vs: list, *,
                          causal: bool) -> list:
     """One seq group's ring: ``qs[i]``, ``ks[i]``, ``vs[i]`` are seq
     rank i's (batch, heads, s_local, head_dim) blocks -> each rank's
-    output block, in the input dtype. Each hop every rank folds the
-    block it holds, masked by the global offset of the rank it came
-    from (``_visitor``), then the blocks rotate."""
-    n = len(qs)
-    s_local = qs[0].shape[2]
-    q32 = [q.float() for q in qs]
-    stats = [block_attn_init(q) for q in q32]
-    held = list(zip(ks, vs))
-    for i in range(n):
-        for my in range(n):
-            k, v = held[my]
-            stats[my] = block_attn_update(
-                q32[my], k.float(), v.float(), *stats[my],
-                q_offset=my * s_local,
-                k_offset=_visitor(my, i, n) * s_local, causal=causal)
-        held = _rotate(held)
-    return [block_attn_finish(*st).to(q.dtype)
-            for st, q in zip(stats, qs)]
+    output block (:func:`ring_fold`)."""
+    blocks = list(zip(ks, vs))
+    return [ring_fold(q, blocks, my, causal=causal)
+            for my, q in enumerate(qs)]
 
 
 def ring_attention(q, k, v, *, ndata: int = 1, nseq: int = 1,

@@ -193,6 +193,23 @@ class ReplicaTrainer(Trainer):
         # each step consumes one batch per replica
         self._batch_size = self.train_net.batchsize * self.nreplicas
 
+    def _setup_axes(self) -> None:
+        """The base refusals and layout, and one of the replica engine's
+        own: a seq, expert or pipe axis across processes (each replica's
+        walk runs those axes on one process's ranks)."""
+        mesh = self.mesh
+        named = [f"{a} {w}" for a, w in mesh.widths.items()
+                 if a in ("pipe", "expert", "seq") and w > 1]
+        if mesh.nprocs > 1 and named:
+            raise ConfigError(
+                f"{type(self).__name__} on the {', '.join(named)} mesh "
+                f"axes across {mesh.nprocs} processes is not ported to "
+                "singa_tpu_torch: the replica engine runs a seq, expert "
+                "or pipe axis on one process's ranks (the sync Trainer "
+                "runs them across processes)"
+            )
+        super()._setup_axes()
+
     # ------------------------------------------------------------------
     # the replicas
     # ------------------------------------------------------------------
@@ -460,7 +477,7 @@ class ReplicaTrainer(Trainer):
                 [self._cast_compute(self._lane_feed(batches[i], r))
                  for r in here],
                 generators=[gen] * len(here), buffers=reps[0]["buffers"],
-                lanes=Lanes(mesh, tuple(here)))
+                lanes=Lanes(mesh, tuple(here), data=False))
             torch.autograd.backward([loss / len(lane) for loss in losses])
             keys = [(layer, k) for layer, m0 in ms[0].items() for k in m0]
             rows = [{**{("g", n): _grad_of(lv[n]) for n in lv},

@@ -165,20 +165,21 @@ the JAX layout), and a sharded save writes each piece as its box, the
 padded tail cut off, zero's data chunks inside it, from the ranks at
 index 0 on every axis that does not cut the box; ``_restore_sharded``
 places any saved layout onto any mesh.
-Model groups may sit in separate processes, whole or one spanning
-several (``parallel/mesh.py``; the reference's partitioned workers one
-process each): the gradient sums of each piece, the zero shards and the
-saves then cross processes through ``Mesh.gather``, summed in rank
-order, and a spanning group's layer exchanges cross them inside the
-step, forward and backward.
+The groups of every inner axis may sit in separate processes, whole or
+one spanning several (``parallel/mesh.py``; the reference's partitioned
+workers one process each, or one process a card): the gradient sums of
+each piece, the zero shards and the saves then cross processes through
+``Mesh.gather``, summed in rank order, and a spanning group's layer
+exchanges (ring attention's K/V, kMoE's tokens and partial sums, the
+pipeline's hops, kLayerPartition's Concate) cross them inside the step,
+forward and backward.
 
 What the port leaves out, and refuses with a ConfigError that names
 it rather than ignoring: ``fleet`` (``main`` dispatches it to the
 serving host); the int8 ring with a net with buffers; across
-processes a seq, expert or pipe axis, a process holding parts of two
-model groups, kMoE on a data axis or a model group that spans
-processes, a net with buffers on an axes mesh over processes and
-q8_hier's named axes; pipe beside seq or expert (the
+processes a process holding parts of two groups of one axis, a net
+with buffers on an axes mesh and q8_hier's named axes; pipe beside seq
+or expert (the
 JAX package cannot run either: ``JAX_REFUSES``), or pipe with more than
 the model axis. ``kernels {
 paged_attention }`` is the serving engine's knob and trains unchanged,
@@ -470,19 +471,6 @@ class Trainer:
                 "contiguous slice of it"
             )
 
-        spans = mesh.nprocs > 1 and bool(mesh.spanning_groups())
-        if (mesh.nprocs > 1 and (self._splits_batch or spans)
-                and self._ring_chunk_dims is None):
-            for layer in self.train_net.layers:
-                if layer.crosses() and layer.TYPE == "kMoE":
-                    raise ConfigError(
-                        f"layer {layer.name!r} (kMoE) on a "
-                        f"{'model group' if spans else 'data axis'} that "
-                        f"spans {mesh.nprocs} processes: the JAX program "
-                        "routes the global batch's tokens together, and "
-                        "singa_tpu_torch gathers them on one process only"
-                    )
-
         #: the graph state of the train step and of each eval net
         #: (built at first use; see _graph)
         self._g = None
@@ -720,8 +708,9 @@ class Trainer:
     def _step_axes(self, step: int, batch: dict) -> dict:
         """The lockstep step of a mesh with more axes than data: every
         rank's leaves (its pieces of the params), one walk of the net
-        over this process's ranks (a spanning model group's exchanges
-        crossing processes inside it), one backward over the ranks' losses
+        over this process's ranks (the layers' exchanges over groups
+        that span processes crossing them inside it), one backward over
+        the ranks' losses
         each divided by the rank count, each piece's gradient summed over
         the ranks that hold it in rank order (every process's, gathered
         with the metrics and losses in one ``Mesh.gather``), the update

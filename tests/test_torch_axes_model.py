@@ -1,6 +1,6 @@
 """The port's model axis (kLayerPartition's Slice/Concate over the model
 ranks, padded storage of uneven splits) and q8_hier's named axes,
-against the JAX package; and the refusal of every axis but data across
+against the JAX package; and the layout of every axis across
 processes.
 
 kLayerPartition on data 2 x model 2 is held to the JAX Trainer on the
@@ -222,7 +222,7 @@ def test_named_hier_refusals_match_jax(shard_ring, intra, inter, zero):
 
 
 # ---------------------------------------------------------------------------
-# the data and model axes span processes, nothing else
+# every axis spans processes
 # ---------------------------------------------------------------------------
 
 
@@ -237,6 +237,11 @@ def test_named_hier_refusals_match_jax(shard_ring, intra, inter, zero):
 ])
 def test_an_axis_across_processes_is_refused_by_name(monkeypatch, axis,
                                                      text, nprocs):
+    """(Named for the refusal it held until the seq, expert and pipe axes
+    crossed processes.) Every inner axis lays over processes: on 2
+    processes of 2 ranks each holds one whole group of the axis, on 4 of
+    one rank each group spans two (the layers' exchanges cross them,
+    tests/test_torch_axes_span_*.py)."""
     cl = cluster(text)
     assert mesh_from_cluster(cl, ["cpu"] * 4).widths[axis] == 2
     monkeypatch.setattr(t_mesh, "_processes", lambda: (nprocs, 3))
@@ -248,7 +253,13 @@ def test_an_axis_across_processes_is_refused_by_name(monkeypatch, axis,
         assert m.procs_of([2, 3]) == (2, 3)
         assert m.spanning_groups() == [(0, 1), (2, 3)]
         return
-    with pytest.raises(ConfigError, match=f"^{axis} axis width 2 .* across "
-                       f"{nprocs} processes: singa_tpu_torch lays only the "
-                       "data axis and the model axis"):
-        mesh_from_cluster(cl, ["cpu"] * (4 // nprocs))
+    monkeypatch.setattr(t_mesh, "_processes", lambda: (nprocs, 1))
+    m = mesh_from_cluster(cl, ["cpu"] * (4 // nprocs))
+    assert (m.nprocs, m.proc, list(m.local_ranks)) == (2, 1, [2, 3])
+    assert m.coords(3)[axis] == 1
+    assert m.group_of(3, (axis,)) == (2, 3)
+    assert m.spanning_groups((axis,)) == []
+    monkeypatch.setattr(t_mesh, "_processes", lambda: (4, 3))
+    m = mesh_from_cluster(cl, ["cpu"])
+    assert list(m.local_ranks) == [3]
+    assert m.spanning_groups((axis,)) == [(0, 1), (2, 3)]

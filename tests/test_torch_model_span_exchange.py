@@ -1,7 +1,6 @@
 """kLayerPartition's group exchange (``parallel/axes.py``'s
 ``Lanes.exchange``) at function level on one process, and the
-compositions that stay refused beside a model group that spans
-processes.
+compositions beside a model group that spans processes.
 
 - The forward hands every consumer the group's parts in rank order:
   their Concate is ``torch.cat`` of the parts. The backward gives each
@@ -10,13 +9,13 @@ processes.
   process runs once for its share of a group) that consumer's gradient.
 - A walk whose lanes are not one process's share of a model group
   raises.
-- Refused by name: kMoE beside a model group that spans processes, a
-  net with buffers (kBatchNorm) on an axes mesh over processes, and the
-  named q8_hier (``ring { intra_axis/inter_axis }``) over processes,
-  spanning groups or whole ones (it raised an IndexError before: its
-  ring view indexed one process's devices by global rank) (the
-  seq, expert and pipe axes: tests/test_torch_axes_model.py; kMoE on a
-  data axis over processes: tests/test_torch_moe_routing.py;
+- kMoE beside a model group that spans processes runs, bitwise one
+  process.
+- Refused by name: a net with buffers (kBatchNorm) on an axes mesh over
+  processes, and the named q8_hier (``ring { intra_axis/inter_axis }``)
+  over processes, spanning groups or whole ones (it raised an
+  IndexError before: its ring view indexed one process's devices by
+  global rank) (the other axes: tests/test_torch_axes_span_pipe.py;
   ``Engine(mesh=...)`` over processes: tests/test_torch_serve_tp.py).
 """
 
@@ -72,11 +71,19 @@ def test_lanes_that_are_not_a_share_of_one_group_raise():
         lanes.exchange([0, 1], [torch.zeros(2), torch.zeros(2)])
 
 
-def test_moe_beside_a_spanning_model_group_is_refused(shard):
-    with pytest.raises(ConfigError, match="kMoE\\) on a model group that "
-                       "spans 2 processes"):
-        Trainer(t_parse(lm_text(shard, moe="psum", part=True)),
-                mesh=SPANNING, log=lambda s: None)
+def test_moe_beside_a_spanning_model_group_is_refused(shard, tmp_path):
+    """(Named for the refusal it held until kMoE's routing crossed
+    processes.) kMoE beside kLayerPartition on data 1 x model 2 as 2
+    processes of one rank: each model rank routes its own copy of the
+    tokens, and every process ends with the one-process digest."""
+    from test_torch_axes_span_seq import check_axes, one_run
+    from test_torch_model_span_trainer import span_launch
+
+    lines = "nworkers: 2\nnprocs_per_group: 2"
+    text = lm_text(shard, moe="psum", part=True)
+    reports = span_launch(tmp_path, text, 2, lines)
+    check_axes(reports, 2, one_run(text, lines, 2, tmp_path).digest(),
+               exchanged=True)
 
 
 def test_buffers_on_an_axes_mesh_over_processes_are_refused(shards):

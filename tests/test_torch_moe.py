@@ -33,7 +33,6 @@ from singa_tpu.parallel import build_mesh
 from singa_tpu.parallel import moe as jm
 from singa_tpu.trainer import Trainer as JTrainer
 from singa_tpu_torch.config import ConfigError
-from singa_tpu_torch.config import parse_cluster_config as t_cluster
 from singa_tpu_torch.config import parse_model_config as t_parse
 from singa_tpu_torch.data import loader as t_loader
 from singa_tpu_torch.graph.builder import build_net as t_build_net
@@ -279,20 +278,20 @@ def test_trainer_matches_jax_trainer_over_five_steps(shard, dtype):
     assert losses[-1][1] < losses[0][1]
 
 
-def test_an_expert_axis_is_refused_by_name(shard, tmp_path, monkeypatch):
-    """An expert axis runs on one process's ranks (its expert weights
-    split over them); across processes it is refused, naming the axis
-    and its cluster field."""
-    from singa_tpu_torch.parallel import mesh as t_mesh
+def test_an_expert_axis_is_refused_by_name(shard, tmp_path):
+    """(Named for the refusal it held until the expert axis crossed
+    processes.) The expert axis splits the expert weights over its
+    ranks, and across processes each expert rank's partial outputs reach
+    the other through kMoE's exchange: data 1 x expert 2 as 2 processes
+    of one rank each, through ``main``, ends with the digest of one
+    process holding both ranks, bitwise."""
+    from test_torch_axes_span_seq import check_axes, one_run
+    from test_torch_model_span_trainer import span_launch
 
-    cl = t_cluster(f'workspace: "{tmp_path}" nworkers: 2 '
-                   "nprocs_per_group: 2 nexperts_per_group: 2")
-    tr = Trainer(t_parse(narrow_conf(shard)), cl, seed=0,
-                 log=lambda s: None, device="cpu")
-    assert tr.mesh.widths["expert"] == 2
-    assert tr._layout["b0_moe/up"] == (0, "expert")
-    monkeypatch.setattr(t_mesh, "_processes", lambda: (2, 0))
-    with pytest.raises(ConfigError, match="expert axis width 2 "
-                       r"\(nexperts_per_group\) across 2 processes"):
-        Trainer(t_parse(narrow_conf(shard)), cl, seed=0,
-                log=lambda s: None, device="cpu")
+    lines = "nworkers: 2\nnprocs_per_group: 2\nnexperts_per_group: 2"
+    text = narrow_conf(shard).replace("train_steps: 2000", "train_steps: 3")
+    reports = span_launch(tmp_path, text, 2, lines)
+    one = one_run(text, lines, 2, tmp_path)
+    assert one.mesh.widths["expert"] == 2
+    assert one._layout["b0_moe/up"] == (0, "expert")
+    check_axes(reports, 2, one.digest(), exchanged=True, steps=3)

@@ -10,7 +10,7 @@ where queues overflow, 4 steps are held to the JAX Trainer on the same
 mesh within 1e-4: data 2 at cf 1.0 and 0.5, and data 2 x model 2. A
 planted fault (each rank routing its own tokens, the port's routing
 before this repair) must exceed the bar 100 times. kMoE on a data axis
-that spans processes is refused by name.
+that spans processes routes the same global batch.
 
 This file also holds the helpers the other new axes files use to build
 a mesh of any widths in both packages.
@@ -21,11 +21,7 @@ import numpy as np
 import pytest
 
 from singa_tpu.parallel import build_full_mesh as j_full_mesh
-from singa_tpu_torch.config import ConfigError
-from singa_tpu_torch.config import parse_model_config as t_parse
 from singa_tpu_torch.layers import sequence as t_seq
-from singa_tpu_torch.parallel.mesh import Mesh
-from singa_tpu_torch.trainer import Trainer
 from test_torch_axes_seq import (
     LOSS_TOL,
     close,
@@ -110,11 +106,23 @@ def test_per_rank_routing_exceeds_the_bar(shard, monkeypatch):
     assert diff > 100 * LOSS_TOL, diff
 
 
-def test_moe_on_a_data_axis_across_processes_is_refused(shard):
-    """Two processes of one rank each: the global batch's tokens would
-    have to cross processes, which the port does not gather."""
-    mesh = Mesh(("cpu",), nprocs=2, proc=0)
-    with pytest.raises(ConfigError, match="kMoE\\) on a data axis that "
-                       "spans 2 processes"):
-        Trainer(t_parse(lm_text(shard, moe="psum")), mesh=mesh,
-                log=lambda s: None)
+def test_moe_on_a_data_axis_across_processes_is_refused(shard, tmp_path):
+    """(Named for the refusal it held until kMoE's tokens crossed
+    processes.) Two processes of one rank, through ``main`` from the JAX
+    Trainer's initial params: the global batch's tokens cross processes
+    through kMoE's exchange, both processes end with the digest of one
+    process holding both ranks, bitwise, and that run's losses are the
+    JAX Trainer's global routing on data 2 within the bar."""
+    from singa_tpu.trainer.checkpoint import save_checkpoint as j_save
+    from test_torch_axes_span_seq import check_axes
+    from test_torch_model_span_trainer import span_launch
+
+    text = lm_text(shard, moe="psum", cf=1.0)
+    jl, params = jax_on(text, {"data": 2})
+    init = str(tmp_path / "init.npz")
+    j_save(init, 0, params)
+    text += f'checkpoint: "{init}"\n'
+    reports = span_launch(tmp_path, text, 2, "nworkers: 2")
+    tr = port_on(text, {"data": 2}, params)
+    close(losses_of(tr, 4), jl, LOSS_TOL)
+    check_axes(reports, 2, tr.digest(), exchanged=True)
