@@ -627,7 +627,23 @@ caught and carried on):
              identical, paged launches = 2 layers x the fused engines'
              prefill chunks and decode ticks); every JSON line has the
              JAX tool's keys. The timing verdicts are printed, not
-             asserted: the thresholds are the JAX package's.
+             asserted: the thresholds are the JAX package's. Last, the
+             netlint block (its seconds on the ``phase seconds`` line as
+             ``tools.netlint``): ``python -m singa_tpu_torch.tools.lint
+             examples/ --self --format json`` as a child beside the
+             others exits 0 with no error, and a ``-c`` run of its main
+             imports neither jax nor singa_tpu; the cost model of
+             tinylm_d128.conf with the serve phase's serving block
+             equals the card's own bytes (kv_bytes the Engine's K/V
+             pools, opt_bytes and param_bytes a one-rank Trainer's, the
+             ring row the bytes one step of the ring phase's 4-rank q8wire
+             conf sends a rank), hbm_bytes printed beside the card's peak
+             over two steps (act_bytes is a proxy: not asserted); KRN001
+             flags head_dim 96 with ``paged_attention: fused`` and the
+             Engine refuses it with the same reason, while the head_dim
+             128 conf lints clean and its Engine launches the paged
+             kernel; planted: an Engine of one block more than the conf
+             must miss kv_bytes.
   24. procs_axes (runs after tools) the seq, expert and pipe axes across
              processes, each job through ``main`` with ``-procsID k
              -hostfile hf`` (gloo, every process on this card) at its
@@ -8343,6 +8359,174 @@ def ring_launches(self, grads, buffers) -> tuple | None:
     return ("q8_hier" if self._comm.hier else "q8_ring", n * buckets * hops)
 
 
+#: netlint's CLI run as a user would: the shipped confs and --self
+NETLINT_CLI = ["-m", "singa_tpu_torch.tools.lint", "examples/", "--self",
+               "--format", "json"]
+#: the CLI's main in a fresh interpreter, then the packages it imported
+NETLINT_IMPORTS = """
+import sys
+from singa_tpu_torch.tools import lint
+rc = lint.main(["examples/", "--self", "--format", "json"])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "singa_tpu"))
+print("NETLINT_IMPORTS", rc, bad)
+"""
+
+
+def netlint_conf(shard: str, dim: int = 256, kernels: str = "") -> str:
+    """tinylm_d128.conf on ``shard`` with the serve phase's serving block
+    (8 slots, kv_block_len 16, prefill chunk 64, max_len 2048): its
+    kEmbedding declares the window, ``dim`` sets embedding_dim (head_dim
+    dim / 2), ``kernels`` is appended."""
+    with open(RING_CONF) as f:
+        txt = f.read()
+    for old, new in (("examples/lm/train_shard", shard),
+                     ("embedding_dim: 256", f"embedding_dim: {dim} "
+                      "max_len: 2048")):
+        check(old in txt, f"netlint: {old!r} not in {RING_CONF}")
+        txt = txt.replace(old, new)
+    return (txt + "\nserving { slots: 8 kv_block_len: 16 "
+            "max_prefill_chunk: 64 }\n" + kernels + "\n")
+
+
+def netlint_engine(dev, cfg, **serving):
+    """An Engine built from the conf's serving and kernels blocks (the
+    fleet's way, ``lm_config_from_conf``), seeded params, on ``dev``;
+    ``serving`` overrides EngineConfig fields -> (engine, its K/V pool
+    bytes)."""
+    import dataclasses
+
+    from singa_tpu_torch.serve.fleet.host import lm_config_from_conf
+
+    lm = lm_config_from_conf(cfg)
+    ec = dataclasses.replace(EngineConfig.from_conf(cfg.serving,
+                                                    cfg.kernels), **serving)
+    eng = Engine(init_lm(torch.Generator().manual_seed(0), lm, dev), lm, ec,
+                 device=dev)
+    pool = sum(t.numel() * t.element_size() for rank in eng._pools
+               for kv in rank.values() for t in kv)
+    return eng, pool
+
+
+def netlint_block(dev, smi, tmp, kids) -> dict:
+    """netlint (singa_tpu_torch/lint, tools/lint.py) held to this card:
+    (a) the CLI's children (``kids``: exit 0, no error over examples/ and
+    --self, neither jax nor singa_tpu imported); (b) the cost model's
+    kv_bytes against the Engine's K/V pools on the card, opt_bytes and
+    param_bytes against a one-rank Trainer's, its ring row against the
+    bytes one step of the ring phase's 4-rank conf sends, hbm_bytes
+    printed beside the card's peak over two steps; (c) KRN001 against the
+    Engine: head_dim 96 fused flagged and refused with the same reason,
+    head_dim 128 clean and launching the paged kernel; (d) the planted
+    fault: an Engine of one block more than the conf misses kv_bytes.
+    -> {"seconds": the block's, "paged_attention": its launches}."""
+    from singa_tpu_torch.lint import Collector, lint_model_text
+    from singa_tpu_torch.lint.cost_model import build_cost_model
+
+    t0 = time.perf_counter()
+    rc, out = kids["netlint"]
+    doc = json.loads(out[out.index("{"):out.rindex("}") + 1])
+    check(rc == 0 and doc["counts"]["ERROR"] == 0,
+          f"netlint CLI exited {rc}: {doc['counts']}")
+    rc, out = kids["netlint_imports"]
+    check(rc == 0 and "NETLINT_IMPORTS 0 []" in out,
+          f"netlint main imported jax or singa_tpu:\n{out[-2000:]}")
+    print(f"tools netlint: examples/ --self exit 0, counts "
+          f"{json.dumps(doc['counts'])}; main imports neither jax nor "
+          "singa_tpu")
+
+    # (b) the cost model against the card's own bytes
+    shard = write_ring_shard(tmp)
+    text = netlint_conf(shard)
+    cfg = parse_model_config(text)
+    report = build_cost_model(cfg, {}, "netlint.conf")
+    check(report is not None, "netlint: the LM conf's cost model did not "
+          "build")
+    eng, pool = netlint_engine(dev, cfg)
+    check(report.kv_bytes == pool > 0, f"netlint: kv_bytes "
+          f"{report.kv_bytes} != the Engine's K/V pools {pool}")
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = Trainer(parse_model_config(text), seed=0, log=lambda s: None,
+                 device=dev)
+    params = sum(v.numel() * v.element_size() for v in tr.params.values())
+    check((report.opt_bytes, report.param_bytes)
+          == (tr.opt_state_bytes_per_device(), params),
+          f"netlint: opt/param bytes {report.opt_bytes}/"
+          f"{report.param_bytes} != the Trainer's "
+          f"{tr.opt_state_bytes_per_device()}/{params}")
+    for step in range(2):
+        tr.train_one_batch(step)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    tr.close()
+    del tr
+    ring = ring_trainer(dev, shard, "q8wire")
+    wire = dict(build_cost_model(ring.cfg, {"data": RING_RANKS},
+                                 "ring.conf").collectives)
+    (row,) = [b for k, b in wire.items() if k.startswith("grad ring")]
+    qc.ppermute.sent_bytes.clear()
+    ring.train_one_batch(0)
+    torch.cuda.synchronize(dev)
+    sent = dict(qc.ppermute.sent_bytes)
+    check(sent == {("data", r): row for r in range(RING_RANKS)}
+          and row == ring.modeled_wire_bytes_per_step() > 0,
+          f"netlint: ring row {row} != one step's sent bytes {sent}")
+    ring.close()
+    del ring
+    print(f"tools netlint cost: kv_bytes {report.kv_bytes} = Engine pools; "
+          f"opt_bytes {report.opt_bytes}, param_bytes "
+          f"{report.param_bytes} = the Trainer's; ring row {row} = sent "
+          f"bytes a rank of one 4-rank step; hbm_bytes {report.hbm_bytes} "
+          f"(act_bytes {report.act_bytes}, a proxy) beside the card's peak "
+          f"over build + 2 steps {peak} above {base} live [{smi}]")
+
+    # (c) KRN001 against the Engine
+    fused = "kernels { paged_attention: fused }"
+    bad = parse_model_config(netlint_conf(shard, dim=192, kernels=fused))
+    col = Collector()
+    lint_model_text(netlint_conf(shard, dim=192, kernels=fused), "hd96",
+                    col)
+    krn = [d for d in col.sorted() if d.code == "KRN001"]
+    reason = pa.fusable(16, 96)
+    try:
+        netlint_engine(dev, bad)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check(len(krn) == 1 and reason is not None and reason in krn[0].msg
+          and reason in refused, f"netlint KRN001: lint {krn}, Engine "
+          f"{refused!r}, reason {reason!r}")
+    col = Collector()
+    lint_model_text(netlint_conf(shard, kernels=fused), "hd128", col)
+    check(not [d for d in col.sorted() if d.severity == "ERROR"],
+          f"netlint: the head_dim 128 fused conf {col.sorted()}")
+    sched = Scheduler(eng)
+    p0 = pa.paged_attention.launches
+    sched.submit(Request(rid=0, prompt=serve_prompts(eng.cfg)[0][:48],
+                         max_new_tokens=4))
+    sched.serve()
+    torch.cuda.synchronize(dev)
+    launches = pa.paged_attention.launches - p0
+    check(len(sched.finished) == 1 and launches > 0,
+          f"netlint: the head_dim 128 engine launched {launches}")
+    print(f"tools netlint KRN001: head_dim 96 flagged and refused "
+          f"({reason}); head_dim 128 clean, paged launches {launches}")
+
+    # (d) the planted fault: one block more than the conf's pool
+    blocks = eng.pool.n_blocks
+    del eng, sched
+    _, planted = netlint_engine(dev, cfg, kv_blocks=blocks + 1)
+    check(planted != report.kv_bytes, "netlint: an Engine of one block "
+          "more than the conf matched kv_bytes")
+    seconds = time.perf_counter() - t0
+    print(f"tools netlint planted: an Engine of one more block, pools "
+          f"{planted} != kv_bytes {report.kv_bytes}: caught; block "
+          f"{seconds:.1f} s [{smi}]")
+    return {"seconds": seconds, "paged_attention": launches}
+
+
 def tools_phase(dev, smi, tmp) -> dict:
     """Phase 23: the operator tools (singa_tpu_torch/tools) through their
     main on this card -> {"paged_attention": attend_stall's fused
@@ -8394,6 +8578,10 @@ def tools_phase(dev, smi, tmp) -> dict:
                      "-hostfile", hf] + cpu, tmp, f"procs{k}",
                     env={"SINGA_TPU_DEVICE_CACHE_MB": "0"})
         for k in (0, 1)]
+    # netlint's CLI: CPU only, beside the other children
+    started.append(tools_start([py] + NETLINT_CLI, tmp, "netlint"))
+    started.append(tools_start([py, "-c", NETLINT_IMPORTS], tmp,
+                               "netlint_imports"))
     started.append(tools_start(
         [py, "-m", "singa_tpu_torch.tools.sweep", "--model_conf",
          sweep_conf, "--workers", "1", "2", "--steps", "10", "--json",
@@ -8580,10 +8768,13 @@ def tools_phase(dev, smi, tmp) -> dict:
         verdict = {k: got[k] for k in got
                    if k.endswith(("pass", "pass_mode", "ratio", "speedup"))}
         print(f"tools gate {name}: {json.dumps(verdict)} [{smi}]")
+    lint = netlint_block(dev, smi, tmp, kids)
     seconds = time.perf_counter() - t0
     print(f"tools phase {seconds:.1f} s (children and checks "
-          f"{t_children:.1f} s, gates {seconds - t_children:.1f} s) [{smi}]")
-    return {"paged_attention": p_launches, "quant_acc": q_launches}
+          f"{t_children:.1f} s, gates {seconds - t_children:.1f} s, "
+          f"netlint {lint['seconds']:.1f} s) [{smi}]")
+    return {"paged_attention": p_launches, "quant_acc": q_launches,
+            "netlint_s": round(lint["seconds"], 1)}
 
 
 def short_kernel_name(mangled: str) -> str:
@@ -8714,6 +8905,8 @@ def main() -> int:
         res_launches = timed("resilience", resilience_phase, dev, smi, tmp)
         model = timed("model", model_phase, dev, smi, cfg, params, tmp)
         tools = timed("tools", tools_phase, dev, smi, tmp)
+        # the netlint block, inside the tools phase's seconds
+        spent["tools.netlint"] = tools.pop("netlint_s")
         procs_axes = timed("procs_axes", procs_axes_phase, dev, smi, tmp)
     print("phase seconds", json.dumps(spent))
 

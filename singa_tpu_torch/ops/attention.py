@@ -355,6 +355,12 @@ def flash_fwd(q, k, v, causal: bool):
     _check("flash_fwd", (q, k, v), ())
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal)
+    if q.device.type == "meta":
+        # the lint shape pass (lint/shape_rules.py): the outputs' shapes
+        # and dtypes, nothing launched or counted
+        return (torch.empty_like(q),
+                torch.empty(q.shape[:2], dtype=torch.float32,
+                            device=q.device))
     if q.device.type != "cuda":
         raise _no_path("flash_fwd", q.device)
     out = torch.empty_like(q)

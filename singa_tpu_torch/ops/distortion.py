@@ -59,10 +59,11 @@ def elastic_offsets(
     """Per-pixel (dy, dx) displacement fields: uniform noise in [-1,1]
     blurred by a (kernel, sigma) Gaussian and scaled by alpha."""
     taps = gaussian_kernel1d(kernel, sigma)
-    dgen = on_device(gen, device or gen.device)
+    device = device or gen.device
+    dgen = on_device(gen, device)
 
     def field():
-        u = torch.rand(shape, generator=dgen, device=dgen.device)
+        u = torch.rand(shape, generator=dgen, device=device)
         return _smooth(u * 2.0 - 1.0, taps)
 
     dy = field()

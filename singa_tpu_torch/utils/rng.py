@@ -38,7 +38,10 @@ def fold_in(gen: torch.Generator, data: int) -> torch.Generator:
 
 def on_device(gen: torch.Generator, device: torch.device) -> torch.Generator:
     """``gen`` itself if it lives on ``device``, else a generator there
-    seeded with ``gen``'s seed."""
-    if torch.device(device) == gen.device:
+    seeded with ``gen``'s seed. A meta tensor's draw has no values, so
+    ``gen`` serves it as it is (the lint shape pass, which runs the
+    forward on the meta device: ``lint/shape_rules.py``)."""
+    if torch.device(device) == gen.device or torch.device(
+            device).type == "meta":
         return gen
     return torch.Generator(device=device).manual_seed(gen.initial_seed())

@@ -218,8 +218,14 @@ def test_wrappers_dispatch_by_device_and_count_only_launches():
         assert torch.equal(a, b)
     assert [fn.launches for fn in wrappers] == before
     meta = [t.to("meta") for t in (q, k, v, g)]
-    with pytest.raises(ValueError, match="no path"):
-        ta.flash_fwd(*meta[:3], True)
+    # meta rows (the lint shape pass) get their outputs' shapes, and
+    # nothing is launched or counted
+    m_out, m_lse = ta.flash_fwd(*meta[:3], True)
+    assert (m_out.device.type, m_out.shape, m_out.dtype) == (
+        "meta", q.shape, q.dtype)
+    assert (m_lse.device.type, m_lse.shape, m_lse.dtype) == (
+        "meta", lse.shape, torch.float32)
+    assert [fn.launches for fn in wrappers] == before
     with pytest.raises(ValueError, match="no path"):
         ta.flash_bwd(*meta, lse.to("meta"), delta.to("meta"), True)
     with pytest.raises(ValueError, match="do not match"):
